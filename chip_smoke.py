@@ -4,21 +4,36 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the four CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the seven CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
-     main path's shapes (L = 4096 lanes, T = 6144 waves: a 50 MB block of
-     100 bp reads), for the order-10 seq table and two qual tables (the
+     main paths' shapes, bit-equal, with times (CUDA events, warmed):
+     frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
+     100 bp reads) for the order-10 seq table and two qual tables (the
      fqz formula, 2^16 rows x 48; a hashed rank chain k=4, 2^16 hash
-     rows, 3 pos bits); bit-equal, with times (CUDA events, warmed);
-  4. end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads sampled
-     from a random 100 Mbp genome) through the CLI's compress and
-     decompress, compared byte for byte; every kernel must have launched
-     and the native host coder must not have run;
+     rows, 3 pos bits); adaptive K5 -> K7 -> K3 -> K6 at L = 2048,
+     T = 3072 (50,000 x 100 bp reads) for order-10 seq and fqz qualities
+     (A = 40) at qlevel 2 and 3, and at L = 1024, T = 3072 for an
+     order-1 byte stream of 3,000,000 bytes (one block's Illumina IDs);
+  4. frozen end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads
+     sampled from a random 100 Mbp genome) through the CLI's compress
+     and decompress, compared byte for byte; K1-K4 must have launched and
+     the native host coder must not have run;
   5. oracle: the same input compressed with FASTQUEEZE_FROZEN_EXEC=host
      (the native coder, bit-identical to the JAX package's device path)
-     must give the same archive, and it decodes on the card.
-The last line is {"ok": true, "device": {...}}; the line before it holds
-the kernel table as JSON.
+     must give the same archive, and it decodes on the card;
+  6. adaptive end to end: 50,000 reads of the same kind (~12.0 MB, under
+     the usemodel gate) through the CLI, at defaults and with
+     --qlevel 3: byte-exact round trip, K5/K7/K3/K6 launched, no native
+     coder call, and the archive equals the one written with
+     FASTQUEEZE_ADAPT_EXEC=host (the native adaptive coder), which
+     decodes on the card;
+  7. marker-1 streams on the frozen path: 250,000 reads with Illumina
+     IDs (two blocks; the first block's ID payload is ~3 MB, over
+     host_stream_max) through the CLI, byte-exact; the first block's ID
+     stream must carry marker 1 and K5/K6 must have launched.
+In each end-to-end run the launch counts are set to 0 just before it and
+read just after.  The last line is {"ok": true, "device": {...}}; the
+line before it holds the kernel table as JSON.
 """
 
 import json
@@ -33,6 +48,8 @@ import numpy as np
 
 SEED = 20261016
 L_MAIN, T_MAIN, READ_LEN = 4096, 6144, 100
+R_ADAPT, L_ADAPT, T_ADAPT = 50_000, 2048, 3072
+N_IDVAR, L_IDVAR = 3_000_000, 1024
 
 
 def card() -> str:
@@ -160,12 +177,95 @@ def check_kernels():
     return rows
 
 
-def _genome_fastq(path: str) -> int:
-    """300,000 x 100 bp reads from a seeded random 100 Mbp genome, ~1%
+def check_adaptive_kernels():
+    """K5 -> K7 -> K3 -> K6 vs the plain versions, same inputs on the
+    card; the decode must invert the encode."""
+    import torch
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.models.base import (QualModel, SeqModel,
+                                                  byte_model)
+    from fastqueeze_tpu_torch.ops import engine, kernels
+    from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
+    from fastqueeze_tpu_torch.pipeline.blockcodec import _chunk_counts
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 2)
+    reads = np.full(R_ADAPT, READ_LEN, np.int64)
+    p = CodecParams()
+    streams = {
+        "adapt_seq_order10": (SeqModel(alphabet=4, init=3, inc=1, cap=253,
+                                       order=10), reads),
+        "qual_fqz_A40_q2": (QualModel(alphabet=40, init=1, inc=8, cap=8192,
+                                      qlevel=2), reads),
+        "qual_fqz_A40_q3": (QualModel(alphabet=40, init=1, inc=8, cap=8192,
+                                      qlevel=3), reads),
+        "idvar_order1_byte": (byte_model(p), _chunk_counts(N_IDVAR)),
+    }
+    rows = {}
+    for tag, (m, counts) in streams.items():
+        n = int(counts.sum())
+        L = p.n_lanes(n)
+        lay = make_layout(counts, L)
+        want_shape = (T_ADAPT, L_IDVAR if tag.startswith("idvar")
+                      else L_ADAPT)
+        assert (lay.T, lay.L) == want_shape, (tag, lay.T, lay.L)
+        if m.alphabet == 40:     # drifting ranks: realistic fqz contexts
+            syms = np.clip(np.cumsum(rng.integers(-2, 3, n)) % 60, 0, 39)
+        else:
+            syms = rng.integers(0, m.alphabet, n)
+        g = torch.from_numpy(to_grid(lay, syms.astype(np.uint8))).to(dev)
+        cg = torch.from_numpy(engine._counts_grid(counts, L)).to(dev)
+        nh = engine._n_halve(m, L)
+        r = {}
+        sf = kernels.adapt_encode_walk(g, cg, m, nh)
+        sf_p = kernels.adapt_encode_walk_plain(g, cg, m, nh)
+        r["adapt_encode_walk"] = (
+            _max_err(sf, sf_p),
+            _time_ms(lambda: kernels.adapt_encode_walk(g, cg, m, nh), 2),
+            _time_ms(lambda: kernels.adapt_encode_walk_plain(g, cg, m, nh),
+                     1))
+        k7 = kernels.rans_encode_sf(sf, cg)
+        p7 = kernels.rans_encode_sf_plain(sf, cg)
+        r["rans_encode_sf"] = (
+            max(_max_err(a, b) for a, b in zip(k7, p7)),
+            _time_ms(lambda: kernels.rans_encode_sf(sf, cg), 3),
+            _time_ms(lambda: kernels.rans_encode_sf_plain(sf, cg), 1))
+        words, emit, states = k7
+        out, cnt = kernels.compact_words(words, emit)
+        k = int(cnt.item())
+        W = 1024
+        while W < k + 8:
+            W <<= 1
+        wpad = torch.zeros(W, dtype=torch.int16, device=dev)
+        wpad[:k] = out[:k]
+        k6 = kernels.adapt_decode(states, wpad, cg, lay.T, m, nh)
+        p6 = kernels.adapt_decode_plain(states, wpad, cg, lay.T, m, nh)
+        r["adapt_decode"] = (
+            _max_err(k6, p6),
+            _time_ms(lambda: kernels.adapt_decode(states, wpad, cg, lay.T,
+                                                  m, nh), 2),
+            _time_ms(lambda: kernels.adapt_decode_plain(states, wpad, cg,
+                                                        lay.T, m, nh), 1))
+        if not torch.equal(k6, g):
+            raise AssertionError(f"{tag}: adaptive decode does not invert "
+                                 f"encode")
+        print(f"  {tag} (L = {L}, T = {lay.T}, {n} symbols, {k} words)")
+        for name, (err, ms, pms) in r.items():
+            print(f"  {tag:22s} {name:20s} max_abs_err {err}  kernel "
+                  f"{ms:10.3f} ms  plain {pms:10.3f} ms")
+            if err:
+                raise AssertionError(f"{tag} {name}: kernel differs from "
+                                     f"its plain version ({err})")
+        rows[tag] = r
+    return rows
+
+
+def _genome_fastq(path: str, R: int = 300_000, ids: str = "sra") -> int:
+    """R x 100 bp reads from a seeded random 100 Mbp genome, ~1%
     substitutions, ~0.1% N, qualities from a seeded first-order Markov
-    chain over 40 Phred values; SRA-style IDs.  Returns the read count."""
+    chain over 40 Phred values; SRA-style IDs, or Illumina-style ones
+    (tile, x, y from a second seeded stream).  Returns the read count."""
     rng = np.random.default_rng(SEED)
-    R, G = 300_000, 100_000_000
+    G = 100_000_000
     genome = rng.integers(0, 4, G, dtype=np.uint8)
     starts = rng.integers(0, G - READ_LEN, R)
     codes = genome[starts[:, None] + np.arange(READ_LEN)]
@@ -190,11 +290,18 @@ def _genome_fastq(path: str) -> int:
         st = np.minimum(np.searchsorted(flat, st + u, side="right") - st * S,
                         S - 1)
     qual = (q + 2 + 33).astype(np.uint8)
+    if ids == "illumina":
+        irng = np.random.default_rng(SEED + 1)
+        xy = irng.integers(1000, 32000, (R, 2))
+        heads = [b"@A00123:45:HXXXXDSXX:1:%d:%d:%d 1:N:0:ACGTACGT\n"
+                 % (1101 + r // 4000, xy[r, 0], xy[r, 1]) for r in range(R)]
+    else:
+        heads = [b"@SRR0000001.%d %d length=100\n" % (r + 1, r + 1)
+                 for r in range(R)]
     with open(path, "wb") as fh:
         for r in range(R):
-            fh.write(b"@SRR0000001.%d %d length=100\n" % (r + 1, r + 1)
-                     + seq[r].tobytes() + b"\n+\n" + qual[r].tobytes()
-                     + b"\n")
+            fh.write(heads[r] + seq[r].tobytes() + b"\n+\n"
+                     + qual[r].tobytes() + b"\n")
     return R
 
 
@@ -208,23 +315,34 @@ def _same_file(a: str, b: str) -> bool:
                 return True
 
 
-def end_to_end(tmp: str):
-    from fastqueeze_tpu_torch import cli
-    from fastqueeze_tpu_torch.ops import host_frozen, kernels
-    fq = os.path.join(tmp, "in.fq")
-    t0 = time.time()
-    n_reads = _genome_fastq(fq)
-    size = os.path.getsize(fq)
-    print(f"input: {n_reads} reads, {size} bytes ({time.time() - t0:.1f} s "
-          f"to generate)")
-    arc = os.path.join(tmp, "out.fqz")
-    back = os.path.join(tmp, "back")
+_FROZEN_PATH = ("quant_pack", "frozen_encode_lanes", "compact_words",
+                "frozen_decode")
+_ADAPT_PATH = ("adapt_encode_walk", "rans_encode_sf", "compact_words",
+               "adapt_decode")
 
-    kernels.reset_launch_counts()
-    for k in host_frozen.NATIVE_CALLS:
-        host_frozen.NATIVE_CALLS[k] = 0
+
+def _input(tmp: str, name: str, R: int, ids: str = "sra") -> str:
+    fq = os.path.join(tmp, name)
     t0 = time.time()
-    if cli.main(["-c", "-1", fq, "-o", arc, "-f"]) != 0:
+    _genome_fastq(fq, R, ids)
+    print(f"input {name}: {R} reads, {os.path.getsize(fq)} bytes "
+          f"({time.time() - t0:.1f} s to generate)")
+    return fq
+
+
+def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals):
+    """One main-path run through the CLI: counts set to 0 just before,
+    read just after; byte-exact round trip; every kernel of the path
+    launched; no native coder call.  Adds the launches to ``totals``."""
+    from fastqueeze_tpu_torch import cli
+    from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, kernels
+    kernels.reset_launch_counts()
+    for calls in (host_frozen.NATIVE_CALLS, host_adapt.NATIVE_CALLS):
+        for k in calls:
+            calls[k] = 0
+    back = arc + ".back"
+    t0 = time.time()
+    if cli.main(["-c", "-1", fq, "-o", arc, "-f"] + flags) != 0:
         raise RuntimeError("compress failed")
     t_enc = time.time() - t0
     t0 = time.time()
@@ -232,39 +350,92 @@ def end_to_end(tmp: str):
         raise RuntimeError("decompress failed")
     t_dec = time.time() - t0
     launches = dict(kernels.LAUNCHES)
-    native_calls = dict(host_frozen.NATIVE_CALLS)
+    native = {"frozen": dict(host_frozen.NATIVE_CALLS),
+              "adaptive": dict(host_adapt.NATIVE_CALLS)}
     if not _same_file(fq, back + ".fastq"):
         raise AssertionError("round trip differs from the input")
-    arc_size = os.path.getsize(arc)
-    print(f"end to end: encode {t_enc:.3f} s = {n_reads / t_enc:.0f} reads/s,"
-          f" decode {t_dec:.3f} s = {n_reads / t_dec:.0f} reads/s, "
-          f"ratio {size / arc_size:.4f} ({arc_size} bytes); byte-exact")
-    print(f"kernel launches in the main path: {launches}; native frozen "
-          f"coder calls: {native_calls}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel never launched: {launches}")
-    if sum(native_calls.values()):
-        raise AssertionError(f"native coder ran on the card path: "
-                             f"{native_calls}")
+    size, arc_size = os.path.getsize(fq), os.path.getsize(arc)
+    print(f"end to end {' '.join(flags) or '(defaults)'}: encode "
+          f"{t_enc:.3f} s = {n_reads / t_enc:.0f} reads/s, decode "
+          f"{t_dec:.3f} s = {n_reads / t_dec:.0f} reads/s, ratio "
+          f"{size / arc_size:.4f} ({arc_size} bytes); byte-exact")
+    print(f"kernel launches in the main path: {launches}; native coder "
+          f"calls: {native}")
+    missing = [k for k in path_kernels if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the path never launched: "
+                             f"{missing}")
+    if any(sum(c.values()) for c in native.values()):
+        raise AssertionError(f"native coder ran on the card path: {native}")
+    for k, v in launches.items():
+        totals[k] += v
+    return launches
 
-    # oracle: the native host coder (FASTQUEEZE_FROZEN_EXEC is execution
-    # routing only; frozen_exec would change PARAM)
-    arc_h = os.path.join(tmp, "host.fqz")
-    os.environ["FASTQUEEZE_FROZEN_EXEC"] = "host"
+
+def _oracle(fq: str, arc: str, flags, env: str):
+    """The same input compressed with ``env``=host (the native coder,
+    bit-identical to the JAX package's device path; execution routing
+    only) must give the same archive, which must decode on the card."""
+    from fastqueeze_tpu_torch import cli
+    arc_h = arc + ".host.fqz"
+    os.environ[env] = "host"
     try:
-        if cli.main(["-c", "-1", fq, "-o", arc_h, "-f"]) != 0:
+        if cli.main(["-c", "-1", fq, "-o", arc_h, "-f"] + flags) != 0:
             raise RuntimeError("host-routed compress failed")
     finally:
-        del os.environ["FASTQUEEZE_FROZEN_EXEC"]
+        del os.environ[env]
     if not _same_file(arc, arc_h):
-        raise AssertionError("card archive != native-host archive")
-    if cli.main(["-d", arc_h, "-o", back + "_h", "-f"]) != 0:
+        raise AssertionError(f"card archive != native-host archive ({env})")
+    if cli.main(["-d", arc_h, "-o", arc_h + ".back", "-f"]) != 0:
         raise RuntimeError("decode of the host archive failed")
-    if not _same_file(fq, back + "_h.fastq"):
+    if not _same_file(fq, arc_h + ".back.fastq"):
         raise AssertionError("host archive decoded on the card differs")
-    print("oracle: archive equals the native-host archive byte for byte; "
-          "decodes on the card")
-    return launches
+    print(f"oracle ({env}=host): archive equals the native-host archive "
+          f"byte for byte; decodes on the card")
+
+
+def end_to_end(tmp: str):
+    """Phases 4-7; returns the launches summed over the main-path runs."""
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    from fastqueeze_tpu_torch.container.encap import iter_tlv
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.pipeline.blockcodec import TAG_IDVAR
+    totals = {k: 0 for k in kernels.LAUNCHES}
+
+    print("phase 4-5: frozen path")
+    fq = _input(tmp, "in.fq", 300_000)      # the archive names its input
+    arc = os.path.join(tmp, "frozen.fqz")
+    _drive(fq, 300_000, arc, [], _FROZEN_PATH, totals)
+    _oracle(fq, arc, [], "FASTQUEEZE_FROZEN_EXEC")
+    os.remove(fq)
+
+    print("phase 6: adaptive path (under the usemodel gate)")
+    fq = _input(tmp, "adaptive.fq", R_ADAPT)
+    for flags in ([], ["--qlevel", "3"]):
+        arc = os.path.join(tmp, f"adaptive{len(flags)}.fqz")
+        _drive(fq, R_ADAPT, arc, flags, _ADAPT_PATH, totals)
+        with ArcReader(arc) as r:
+            if r.model_blob is not None:
+                raise AssertionError("adaptive input wrote a frozen model")
+        _oracle(fq, arc, flags, "FASTQUEEZE_ADAPT_EXEC")
+    os.remove(fq)
+
+    print("phase 7: marker-1 ID stream on the frozen path")
+    fq = _input(tmp, "illumina.fq", 250_000, ids="illumina")
+    arc = os.path.join(tmp, "illumina.fqz")
+    launches = _drive(fq, 250_000, arc, [], _FROZEN_PATH + _ADAPT_PATH,
+                      totals)
+    with ArcReader(arc) as r:
+        n_blocks = len(r.blocks)
+        idvar = dict(iter_tlv(r.read_block(0)))[TAG_IDVAR]
+    if n_blocks < 2 or idvar[:1] != b"\x01":
+        raise AssertionError(f"expected >= 2 blocks and a marker-1 ID "
+                             f"stream, got {n_blocks} blocks, marker "
+                             f"{idvar[:1]!r}")
+    print(f"block 0 ID stream: marker 1, {len(idvar)} bytes coded by K5/K7 "
+          f"({launches['adapt_encode_walk']} walks), decoded by K6 "
+          f"({launches['adapt_decode']} decodes)")
+    return totals
 
 
 _REPLACES = {
@@ -276,6 +447,12 @@ _REPLACES = {
                       "fastqueeze_tpu/ops/engine.py:509"),
     "frozen_decode": ("fastqueeze_tpu_torch/csrc/frozen_decode.cu",
                       "fastqueeze_tpu/ops/engine.py:683"),
+    "adapt_encode_walk": ("fastqueeze_tpu_torch/csrc/adapt_encode.cu",
+                          "fastqueeze_tpu/ops/engine.py:170"),
+    "rans_encode_sf": ("fastqueeze_tpu_torch/csrc/rans_encode.cu",
+                       "fastqueeze_tpu/ops/engine.py:832"),
+    "adapt_decode": ("fastqueeze_tpu_torch/csrc/adapt_decode.cu",
+                     "fastqueeze_tpu/ops/engine.py:861"),
 }
 
 
@@ -285,15 +462,16 @@ def main() -> int:
     import torch
     build()
     rows = check_kernels()
+    rows.update(check_adaptive_kernels())
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = end_to_end(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    seq = rows["seq_order10"]
+    seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"])
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[k],
-              "max_abs_err": max(r[k][0] for r in rows.values()),
+              "max_abs_err": max(r[k][0] for r in rows.values() if k in r),
               "ms": seq[k][1], "plain_ms": seq[k][2]}
              for k, (src, rep) in _REPLACES.items()]
     print(json.dumps({"kernels": table}))

@@ -1,6 +1,7 @@
 """Command-line interface of the port (single-end, no reference):
 
     python -m fastqueeze_tpu_torch.cli -c -1 in.fq -o out.fqz [-f] [-t N]
+        [--qlevel N]
     python -m fastqueeze_tpu_torch.cli -d out.fqz -o prefix [-f] [-t N]
 
 The flags and archives are those of fastqueeze_tpu's CLI.  The coder runs
@@ -59,6 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="block data-parallelism over N devices (not "
                     "ported)")
+    ap.add_argument("--qlevel", type=int, default=None,
+                    help="quality context level (default 2; 3 codes "
+                    "adaptively with position contexts)")
     ap.add_argument("--stats", action="store_true", help="print debug tables")
     return ap
 
@@ -98,8 +102,10 @@ def main(argv=None) -> int:
                 return 2
             p = CodecParams()
             p.apply_config_file()      # developer config (seqarc.config)
-            if args.threads is not None:
-                p.threads = args.threads
+            for attr, val in (("qlevel", args.qlevel),
+                              ("threads", args.threads)):
+                if val is not None:    # explicit CLI flag beats config file
+                    setattr(p, attr, val)
             stats = compress_se(p, in1, out, dbg=dbg, device=device)
             info(f"compressed {stats['raw']:,} -> {stats['compressed']:,} B "
                  f"(ratio {stats['ratio']:.2f}x) in {stats['blocks']} blocks")

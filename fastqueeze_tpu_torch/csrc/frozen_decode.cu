@@ -33,7 +33,6 @@ using fqk::ModelState;
 using fqk::ReadCursor;
 
 constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 
 struct Lane {
     ModelState s;
@@ -44,37 +43,7 @@ struct Lane {
     int32_t sym;      // this wave's symbol
 };
 
-// Exclusive block-wide scan of one int per thread; *total gets the sum.
-__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
-                                                        int32_t* total) {
-    __shared__ int32_t warp_sums[kWarps];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    int32_t inc = v;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int32_t y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-        if (lane >= d) inc += y;
-    }
-    if (lane == 31) warp_sums[warp] = inc;
-    __syncthreads();
-    if (warp == 0) {
-        int32_t w = lane < kWarps ? warp_sums[lane] : 0;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int32_t y = __shfl_up_sync(0xFFFFFFFFu, w, d);
-            if (lane >= d) w += y;
-        }
-        if (lane < kWarps) warp_sums[lane] = w;
-    }
-    __syncthreads();
-    const int32_t before = warp > 0 ? warp_sums[warp - 1] : 0;
-    *total = warp_sums[kWarps - 1];
-    __syncthreads();
-    return before + inc - v;
-}
-
-template <bool QUAL>
+template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 frozen_decode(const uint32_t* __restrict__ states0,
               const uint16_t* __restrict__ words, int64_t W,
@@ -87,7 +56,7 @@ frozen_decode(const uint32_t* __restrict__ states0,
     const int32_t l1 = min(l0 + per, L);
     for (int32_t l = l0; l < l1; ++l) {
         Lane& ln = lanes[l];
-        fqk::model_reset<QUAL>(m, ln.s);
+        fqk::model_reset<KIND>(m, ln.s);
         ln.cur = ReadCursor{-1, 0, 0};
         ln.x = states0[l];
         ln.n = fqk::lane_length(cgrid, J, L, l);
@@ -99,8 +68,8 @@ frozen_decode(const uint32_t* __restrict__ states0,
             Lane& ln = lanes[l];
             if (t >= ln.n) continue;
             if (fqk::cursor_next(ln.cur, cgrid, J, L, l))
-                fqk::model_reset<QUAL>(m, ln.s);
-            const int64_t ctx = fqk::model_ctx<QUAL>(m, ln.s, ln.cur.pos);
+                fqk::model_reset<KIND>(m, ln.s);
+            const int64_t ctx = fqk::model_ctx<KIND>(m, ln.s, ln.cur.pos);
             const uint16_t* row = cum + ctx * (A + 1);
             const uint32_t low = ln.x & fqk::kMaskM;
             int32_t lo = 0, hi = A - 1;
@@ -116,7 +85,7 @@ frozen_decode(const uint32_t* __restrict__ states0,
             need += ln.xn < fqk::kRansL;
         }
         int32_t total;
-        int64_t w = off + block_exclusive_scan(need, &total);
+        int64_t w = off + fqk::block_exclusive_scan<kThreads>(need, &total);
         for (int32_t l = l0; l < l1; ++l) {
             Lane& ln = lanes[l];
             const int64_t idx = int64_t(t) * L + l;
@@ -131,7 +100,7 @@ frozen_decode(const uint32_t* __restrict__ states0,
             }
             ln.x = xn;
             out[idx] = static_cast<uint8_t>(ln.sym);
-            fqk::model_update<QUAL>(m, ln.s, ln.sym);
+            fqk::model_update<KIND>(m, ln.s, ln.sym);
             --ln.cur.rem;
             ++ln.cur.pos;
         }
@@ -154,10 +123,10 @@ extern "C" int fq_frozen_decode(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     Lane* ls = static_cast<Lane*>(lanes);
     if (kind == 0)
-        frozen_decode<false><<<1, kThreads, 0, st>>>(
+        frozen_decode<0><<<1, kThreads, 0, st>>>(
             states0, words, W, cgrid, J, T, L, cum, A, m, ls, out);
     else if (kind == 1)
-        frozen_decode<true><<<1, kThreads, 0, st>>>(
+        frozen_decode<1><<<1, kThreads, 0, st>>>(
             states0, words, W, cgrid, J, T, L, cum, A, m, ls, out);
     else
         return static_cast<int>(cudaErrorInvalidValue);

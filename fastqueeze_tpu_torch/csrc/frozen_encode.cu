@@ -9,7 +9,8 @@
 //      gather of the packed (F[s] | F[s+1] << 16) table word, stored as
 //      sf[t, l];
 //   2. reverse over all T waves: the rANS emit loop, writing words[t, l]
-//      and emit[t, l] (padding waves write 0 and 0), then the final state.
+//      and emit[t, l] (padding waves write 0 and 0), then the final state
+//      (fqk::rans_encode_lane, which K7 runs after the adaptive walk).
 // Grids are (T, L) row-major, so a warp's 32 lanes touch 32 neighbouring
 // slots of one wave: every grid access is coalesced.  The table gather
 // is random (2^20 rows x 4 symbols for order-10 seq), which bounds the
@@ -28,7 +29,7 @@ using fqk::ModelSpec;
 using fqk::ModelState;
 using fqk::ReadCursor;
 
-template <bool QUAL>
+template <int KIND>
 __global__ void frozen_encode_lanes(const uint8_t* __restrict__ syms,
                                     const int32_t* __restrict__ cgrid,
                                     int32_t J, int32_t T, int32_t L,
@@ -43,40 +44,20 @@ __global__ void frozen_encode_lanes(const uint8_t* __restrict__ syms,
     const int32_t n = fqk::lane_length(cgrid, J, L, l);
 
     ModelState s;
-    fqk::model_reset<QUAL>(m, s);
+    fqk::model_reset<KIND>(m, s);
     ReadCursor cur{-1, 0, 0};
     for (int32_t t = 0; t < n; ++t) {
         if (fqk::cursor_next(cur, cgrid, J, L, l))
-            fqk::model_reset<QUAL>(m, s);
+            fqk::model_reset<KIND>(m, s);
         const int64_t idx = int64_t(t) * L + l;
         const int32_t sym = syms[idx];
-        const int64_t ctx = fqk::model_ctx<QUAL>(m, s, cur.pos);
+        const int64_t ctx = fqk::model_ctx<KIND>(m, s, cur.pos);
         sf[idx] = packed[ctx * A + sym];
-        fqk::model_update<QUAL>(m, s, sym);
+        fqk::model_update<KIND>(m, s, sym);
         --cur.rem;
         ++cur.pos;
     }
-
-    uint32_t x = fqk::kRansL;
-    for (int32_t t = T - 1; t >= 0; --t) {
-        const int64_t idx = int64_t(t) * L + l;
-        if (t >= n) {
-            words[idx] = 0;
-            emit[idx] = 0;
-            continue;
-        }
-        const uint32_t v = sf[idx];
-        const uint32_t start = v & 0xFFFFu;
-        const uint32_t f = (v >> 16) - start;
-        const bool e = (x >> 18) >= f;
-        words[idx] = static_cast<uint16_t>(x & 0xFFFFu);
-        emit[idx] = e;
-        if (e) x >>= 16;
-        const uint32_t fs = f ? f : 1u;
-        const uint32_t q = x / fs;
-        x = (q << fqk::kProbBits) + (x - q * fs) + start;
-    }
-    states[l] = x;
+    fqk::rans_encode_lane(sf, T, L, l, n, words, emit, states);
 }
 
 }  // namespace
@@ -92,10 +73,10 @@ extern "C" int fq_frozen_encode_lanes(
     const int blocks = (L + threads - 1) / threads;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (kind == 0)
-        frozen_encode_lanes<false><<<blocks, threads, 0, st>>>(
+        frozen_encode_lanes<0><<<blocks, threads, 0, st>>>(
             syms, cgrid, J, T, L, packed, A, m, sf, words, emit, states);
     else if (kind == 1)
-        frozen_encode_lanes<true><<<blocks, threads, 0, st>>>(
+        frozen_encode_lanes<1><<<blocks, threads, 0, st>>>(
             syms, cgrid, J, T, L, packed, A, m, sf, words, emit, states);
     else
         return static_cast<int>(cudaErrorInvalidValue);

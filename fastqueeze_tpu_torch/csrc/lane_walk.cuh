@@ -1,12 +1,12 @@
-// Per-lane walk shared by the frozen encode (K2) and decode (K4) kernels.
+// Per-lane pieces shared by the wave-rANS kernels (K2, K4-K7).
 //
 // A lane codes reads l, l+L, l+2L, ... back to back (round-robin layout,
 // ops/lanes.py).  The walk derives each wave's read start and exact
 // in-read position from the (J, L) per-slot read-length grid, skipping
 // zero-length slots (replaces fastqueeze_tpu/ops/engine.py _device_aux,
 // whose scatter-max drops them), and runs the context model of
-// fastqueeze_tpu/models/base.py (SeqModel / QualModel lane walk; the same
-// formulas as native/wavemodels.h SeqM / QualM).
+// fastqueeze_tpu/models/base.py lane by lane (the same formulas as
+// native/wavemodels.h SeqM / QualM for kinds 0 and 1).
 #pragma once
 
 #include <cstdint>
@@ -21,34 +21,41 @@ constexpr uint32_t kMaskM = (1u << kProbBits) - 1;
 // kind 0 = seq: a = mask, b = magic.
 // kind 1 = qual: a = k, b = base, c = hash_bits, d = drop_bits,
 //                e = pos_bits, f = qlevel, g = drop_init.
+// kind 2 = order-0 (CtxModel): one context.
+// kind 3 = order-1 byte (Order1ByteModel): ctx = previous symbol, 0 at a
+//          read start.
+// kind 4 = flat (FlatModel): ctx read from a (T, L) int32 grid.
 struct ModelSpec {
     int32_t kind;
     int64_t a, b, c, d, e, f, g;
 };
 
 struct ModelState {
-    uint32_t h;       // seq: 2-bit history
+    uint32_t h;       // seq: 2-bit history; order-1 byte: previous symbol
     int32_t q[8];     // qual: last ranks, q[0] most recent
     int32_t drops;    // qual: summed drops in this read
 };
 
-template <bool QUAL>
+template <int KIND>
 __device__ __forceinline__ void model_reset(const ModelSpec& m,
                                             ModelState& s) {
-    if (!QUAL) {
+    if (KIND == 0) {
         s.h = static_cast<uint32_t>(m.b & m.a);
-    } else {
+    } else if (KIND == 1) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) s.q[j] = 0;
         s.drops = static_cast<int32_t>(m.g);
+    } else if (KIND == 3) {
+        s.h = 0;
     }
 }
 
-template <bool QUAL>
+template <int KIND>
 __device__ __forceinline__ int64_t model_ctx(const ModelSpec& m,
                                              const ModelState& s,
                                              int64_t pos) {
-    if (!QUAL) return static_cast<int64_t>(s.h);
+    if (KIND == 0 || KIND == 3) return static_cast<int64_t>(s.h);
+    if (KIND != 1) return 0;
     const int32_t k = static_cast<int32_t>(m.a);
     if (k >= 2) {
         const int32_t base = static_cast<int32_t>(m.b);
@@ -87,17 +94,31 @@ __device__ __forceinline__ int64_t model_ctx(const ModelSpec& m,
     return c;
 }
 
-template <bool QUAL>
+// Context of a lane's current symbol; kind 4 reads it from the grid at
+// idx = t * L + l.
+template <int KIND>
+__device__ __forceinline__ int64_t lane_ctx(const ModelSpec& m,
+                                            const ModelState& s,
+                                            int64_t pos,
+                                            const int32_t* ctxg,
+                                            int64_t idx) {
+    if (KIND == 4) return ctxg[idx];
+    return model_ctx<KIND>(m, s, pos);
+}
+
+template <int KIND>
 __device__ __forceinline__ void model_update(const ModelSpec& m,
                                              ModelState& s, int32_t sym) {
-    if (!QUAL) {
+    if (KIND == 0) {
         s.h = ((s.h << 2) | static_cast<uint32_t>(sym))
               & static_cast<uint32_t>(m.a);
-    } else {
+    } else if (KIND == 1) {
         s.drops += max(s.q[0] - sym, 0);
 #pragma unroll
         for (int j = 7; j > 0; --j) s.q[j] = s.q[j - 1];
         s.q[0] = sym;
+    } else if (KIND == 3) {
+        s.h = static_cast<uint32_t>(sym);
     }
 }
 
@@ -129,6 +150,119 @@ __device__ __forceinline__ bool cursor_next(ReadCursor& c,
     } while (c.rem == 0);
     c.pos = 0;
     return true;
+}
+
+// Reverse rANS of one lane (fastqueeze_tpu/ops/engine.py _pass2) over its
+// column of the packed sf grid (sf[t, l] = start | end << 16): writes
+// words[t, l] and emit[t, l] for all T waves (padding waves t >= n write
+// 0 and 0) and the lane's final state.
+__device__ __forceinline__ void rans_encode_lane(
+        const uint32_t* __restrict__ sf, int32_t T, int32_t L, int32_t l,
+        int32_t n, uint16_t* __restrict__ words, uint8_t* __restrict__ emit,
+        uint32_t* __restrict__ states) {
+    uint32_t x = kRansL;
+    for (int32_t t = T - 1; t >= 0; --t) {
+        const int64_t idx = int64_t(t) * L + l;
+        if (t >= n) {
+            words[idx] = 0;
+            emit[idx] = 0;
+            continue;
+        }
+        const uint32_t v = sf[idx];
+        const uint32_t start = v & 0xFFFFu;
+        const uint32_t f = (v >> 16) - start;
+        const bool e = (x >> 18) >= f;
+        words[idx] = static_cast<uint16_t>(x & 0xFFFFu);
+        emit[idx] = e;
+        if (e) x >>= 16;
+        const uint32_t fs = f ? f : 1u;
+        const uint32_t q = x / fs;
+        x = (q << kProbBits) + (x - q * fs) + start;
+    }
+    states[l] = x;
+}
+
+// Exclusive block-wide scan of one int per thread; *total gets the sum.
+// Three barriers; THREADS is the block size (a multiple of 32, <= 1024).
+template <int THREADS>
+__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
+                                                        int32_t* total) {
+    constexpr int kWarps = THREADS / 32;
+    __shared__ int32_t warp_sums[kWarps];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    int32_t inc = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int32_t y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+        if (lane >= d) inc += y;
+    }
+    if (lane == 31) warp_sums[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+        int32_t w = lane < kWarps ? warp_sums[lane] : 0;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int32_t y = __shfl_up_sync(0xFFFFFFFFu, w, d);
+            if (lane >= d) w += y;
+        }
+        if (lane < kWarps) warp_sums[lane] = w;
+    }
+    __syncthreads();
+    const int32_t before = warp > 0 ? warp_sums[warp - 1] : 0;
+    *total = warp_sums[kWarps - 1];
+    __syncthreads();
+    return before + inc - v;
+}
+
+// --- adaptive count table (K5, K6) ------------------------------------
+//
+// counts (n_ctx, A) int32, tot (n_ctx,) int32 row totals, stamp (n_ctx,)
+// int32 last wave that touched each row.  Both kernels run one CTA per
+// stream; the table lives in global memory and is read through L2
+// (__ldcg) because the same wave's other lanes update it with atomics.
+
+// start | end << 16 of `sym` from the pre-update row (engine._quant:
+// F_s = floor(cum_s * 2^14 / C), C = the row total).
+__device__ __forceinline__ uint32_t quant_sf(const int32_t* row, int32_t C,
+                                             int32_t sym) {
+    int64_t cum = 0;
+    for (int32_t a = 0; a < sym; ++a) cum += __ldcg(row + a);
+    const int64_t nxt = cum + __ldcg(row + sym);
+    const uint32_t start = static_cast<uint32_t>((cum << kProbBits) / C);
+    const uint32_t end = static_cast<uint32_t>((nxt << kProbBits) / C);
+    return start | (end << 16);
+}
+
+// Add inc at (ctx, sym); returns true for exactly one lane per row
+// touched in wave t (the lane that rescales the row after the barrier).
+__device__ __forceinline__ bool table_add(int32_t* counts, int32_t* tot,
+                                          int32_t* stamp, int64_t ctx,
+                                          int32_t A, int32_t sym,
+                                          int32_t inc, int32_t t) {
+    atomicAdd(counts + ctx * A + sym, inc);
+    atomicAdd(tot + ctx, inc);
+    return atomicExch(stamp + ctx, t) != t;
+}
+
+// engine._wave_update_tot's rescale of one touched row: halve
+// ((c + 1) >> 1) while the total is over cap, at most n_halve times.
+__device__ __forceinline__ void table_rescale(int32_t* counts, int32_t* tot,
+                                              int64_t ctx, int32_t A,
+                                              int32_t cap,
+                                              int32_t n_halve) {
+    int32_t* row = counts + ctx * A;
+    int32_t total = __ldcg(tot + ctx);
+    if (total <= cap) return;
+    for (int32_t k = 0; k < n_halve && total > cap; ++k) {
+        total = 0;
+        for (int32_t a = 0; a < A; ++a) {
+            const int32_t c = (__ldcg(row + a) + 1) >> 1;
+            __stcg(row + a, c);
+            total += c;
+        }
+    }
+    __stcg(tot + ctx, total);
 }
 
 }  // namespace fqk

@@ -143,6 +143,16 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.fq_frozen_decode.argtypes = [_u16p, _i32, _u32p2, _u16p,
                                      ctypes.c_int64, _I64P, ctypes.c_int64,
                                      ctypes.c_int64, _i32, _I64P, _U8P]
+    lib.fq_adapt_encode.restype = ctypes.c_int64
+    lib.fq_adapt_encode.argtypes = [_i32, ctypes.c_int64, _i32, _i32, _i32,
+                                    _U8P, _I64P, ctypes.c_int64,
+                                    ctypes.c_int64, _i32, _I64P,
+                                    _u16p, ctypes.c_int64, _u32p2]
+    lib.fq_adapt_decode.restype = ctypes.c_int64
+    lib.fq_adapt_decode.argtypes = [_i32, ctypes.c_int64, _i32, _i32, _i32,
+                                    _u32p2, _u16p, ctypes.c_int64, _I64P,
+                                    ctypes.c_int64, ctypes.c_int64, _i32,
+                                    _I64P, _U8P]
     lib.fq_selfref_align.restype = ctypes.c_int64
     lib.fq_selfref_align.argtypes = [
         _U64P, ctypes.c_int64, _i32p,             # keys (u64), nk, offsets
@@ -626,6 +636,53 @@ def frozen_decode(cum: np.ndarray, A: int, states: np.ndarray,
                              words.ctypes.data_as(_U16P), len(words),
                              _i64p(counts), len(counts), L, kind,
                              _i64p(spec), _u8p(out))
+    if r < 0:
+        return None
+    return out[:nsym]
+
+
+def adapt_encode(A: int, n_ctx: int, init: int, inc: int, cap: int,
+                 syms: np.ndarray, counts: np.ndarray, L: int, kind: int,
+                 spec: np.ndarray):
+    """Host-native ADAPTIVE wave-rANS encode (bit-identical to the device
+    engine's per-wave adaptive path).  Returns (words u16, states u32) or
+    None (unavailable)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    syms = np.ascontiguousarray(syms, np.uint8)
+    counts = np.ascontiguousarray(counts, np.int64)
+    spec = np.ascontiguousarray(spec, np.int64)
+    wcap = len(syms) + 8
+    words = np.empty(wcap, np.uint16)
+    states = np.empty(L, np.uint32)
+    n = lib.fq_adapt_encode(A, n_ctx, init, inc, cap, _u8p(syms),
+                            _i64p(counts), len(counts), L, kind,
+                            _i64p(spec), words.ctypes.data_as(_U16P), wcap,
+                            states.ctypes.data_as(_U32P))
+    if n < 0:
+        return None
+    return words[:n], states
+
+
+def adapt_decode(A: int, n_ctx: int, init: int, inc: int, cap: int,
+                 states: np.ndarray, words: np.ndarray, counts: np.ndarray,
+                 L: int, kind: int, spec: np.ndarray,
+                 nsym: int) -> Optional[np.ndarray]:
+    """Inverse of adapt_encode -> read-major flat symbols, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    states = np.ascontiguousarray(states, np.uint32)
+    words = np.ascontiguousarray(words, np.uint16)
+    counts = np.ascontiguousarray(counts, np.int64)
+    spec = np.ascontiguousarray(spec, np.int64)
+    out = np.empty(max(nsym, 1), np.uint8)
+    r = lib.fq_adapt_decode(A, n_ctx, init, inc, cap,
+                            states.ctypes.data_as(_U32P),
+                            words.ctypes.data_as(_U16P), len(words),
+                            _i64p(counts), len(counts), L, kind,
+                            _i64p(spec), _u8p(out))
     if r < 0:
         return None
     return out[:nsym]

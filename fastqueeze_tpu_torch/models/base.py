@@ -1,6 +1,8 @@
-"""Frozen-table context models for the wave-rANS coder, in PyTorch.
+"""Context models for the wave-rANS coder, in PyTorch.
 
-Counterpart of fastqueeze_tpu/models/base.py (SeqModel, QualModel).  Each
+Counterpart of fastqueeze_tpu/models/base.py: the order-0 ``CtxModel``,
+``FlatModel`` (contexts supplied per symbol), ``Order1ByteModel``,
+``SeqModel`` and ``QualModel``, and the byte/flag constructors.  Each
 model is a frozen dataclass of integers: it holds no tensors, so one
 instance serves every device and every stream.  Two interfaces, which
 must agree bit for bit:
@@ -41,11 +43,70 @@ def _mul_u32(a: torch.Tensor, k: int) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class CtxModel:
+    """Order-0 (single context) adaptive model."""
+
     alphabet: int
     init: int = 1
     inc: int = 16
     cap: int = 8192
     n_ctx: int = 1
+
+    def spec(self) -> Tuple[int, Tuple[int, ...]]:
+        """(kind, ints) for the kernels: 0 seq, 1 qual, 2 order-0,
+        3 order-1 byte, 4 flat (ctx from a (T, L) grid)."""
+        return 2, ()
+
+    def lane_init(self, L: int, device) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def context(self, state, aux) -> torch.Tensor:
+        return torch.zeros_like(aux["pos"], dtype=torch.int64)
+
+    def update(self, state, sym, aux):
+        return state
+
+    def context_grids(self, syms: torch.Tensor, aux) -> torch.Tensor:
+        return torch.zeros(syms.shape, dtype=torch.int64, device=syms.device)
+
+
+@dataclass(frozen=True)
+class FlatModel(CtxModel):
+    """Context supplied per symbol in ``aux["ctx"]`` (length bytes,
+    precomputed stream metadata)."""
+
+    def spec(self) -> Tuple[int, Tuple[int, ...]]:
+        return 4, ()
+
+    def context(self, state, aux) -> torch.Tensor:
+        return aux["ctx"].long()
+
+    def context_grids(self, syms: torch.Tensor, aux) -> torch.Tensor:
+        return aux["ctx"].long()
+
+
+@dataclass(frozen=True)
+class Order1ByteModel(CtxModel):
+    """Context = previous symbol; 0 at each read start."""
+
+    def __post_init__(self):
+        object.__setattr__(self, "n_ctx", self.alphabet)
+
+    def spec(self) -> Tuple[int, Tuple[int, ...]]:
+        return 3, ()
+
+    def lane_init(self, L: int, device) -> Dict[str, torch.Tensor]:
+        return {"prev": torch.zeros((L,), dtype=torch.int64, device=device)}
+
+    def context(self, state, aux) -> torch.Tensor:
+        return torch.where(aux["start"], 0, state["prev"])
+
+    def update(self, state, sym, aux):
+        return {"prev": sym.long()}
+
+    def context_grids(self, syms: torch.Tensor, aux) -> torch.Tensor:
+        prev = torch.roll(syms.long(), 1, dims=0)
+        prev[0] = 0
+        return torch.where(aux["start"], 0, prev)
 
 
 @dataclass(frozen=True)
@@ -212,3 +273,17 @@ def qual_model_for(p: CodecParams, alphabet: int) -> QualModel:
                      drop_init=p.q_drop_init, k=p.qctx_k,
                      ctx_base=p.qctx_base, drop_bits=p.qctx_drop_bits,
                      pos_bits=p.qctx_pos_bits, hash_bits=p.qctx_hash_bits)
+
+
+def byte_model(p: CodecParams, order1: bool = True) -> CtxModel:
+    cls = Order1ByteModel if order1 else CtxModel
+    return cls(alphabet=256, init=p.byte_init, inc=p.byte_inc,
+               cap=p.byte_cap, n_ctx=256 if order1 else 1)
+
+
+def flag_model(p: CodecParams, n_ctx: int = 1) -> CtxModel:
+    if n_ctx == 1:
+        return CtxModel(alphabet=2, init=p.byte_init, inc=p.byte_inc,
+                        cap=p.byte_cap)
+    return FlatModel(alphabet=2, init=p.byte_init, inc=p.byte_inc,
+                     cap=p.byte_cap, n_ctx=n_ctx)

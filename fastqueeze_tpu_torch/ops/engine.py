@@ -1,28 +1,34 @@
-"""Frozen-table wave-rANS engine (the usemodel coder), in PyTorch + CUDA.
+"""Wave-rANS engine (frozen and adaptive coders), in PyTorch + CUDA.
 
-Counterpart of the frozen half of fastqueeze_tpu/ops/engine.py; the wire
-format is the same:
+Counterpart of fastqueeze_tpu/ops/engine.py; the wire format is the same:
 
     header(T, L, n_words, n_symbols) | L x u32 final states | words u16[]
 
 ``L`` lanes (32-bit rANS state, 16-bit renormalization words, 14-bit
 frequencies) code symbol waves in lockstep; lane l codes reads l, l+L,
-l+2L, ... (ops/lanes.py).  Frequencies come from a frozen count table,
-quantized once per table and device (K1).  Encode is K2 (per-lane walk,
-gather, reverse rANS) then K3 (compaction of the emitted words into
-canonical (wave, lane) order); decode is K4.  See ops/kernels.py.
+l+2L, ... (ops/lanes.py).  Frozen coder (usemodel): frequencies come
+from a frozen count table, quantized once per table and device (K1);
+encode is K2 (per-lane walk, gather, reverse rANS) then K3 (compaction
+of the emitted words into canonical (wave, lane) order); decode is K4.
+Adaptive coder
+(``adapt=True``): every stream starts from a fresh table (``init`` in
+every cell) that all lanes update after every wave; encode is K5 (the
+forward walk) then K7 (reverse rANS) then K3, decode is K6.  See
+ops/kernels.py.
 
 Each job is split into a dispatch (kernels queued on the current CUDA
 stream) and ``finalize()``, which synchronizes and serializes, so a
-caller can do host work for other streams in between.  The adaptive
-coder is not ported yet (ROADMAP Queue A item 5).
+caller can do host work for other streams in between.  Not ported: the
+semi-adaptive walk (``adapt_chunk``, B9) and adapting from a frozen table
+(``frozen_adapt``); both raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -33,7 +39,10 @@ from fastqueeze_tpu_torch.ops.lanes import from_grid, make_layout, to_grid
 
 _HDR = struct.Struct("<IIII")  # T, L, n_words, n_symbols
 
-_ADAPT_MSG = "adaptive device coder: ROADMAP Queue A item 5"
+_SEMI_MSG = ("semi-adaptive walk (adapt_chunk > 0, kernel B9): ROADMAP "
+             "Queue A item 5")
+_FROZEN_ADAPT_MSG = ("adapting from a frozen table (frozen_adapt): ROADMAP "
+                     "Queue A item 5")
 
 
 @dataclass
@@ -81,6 +90,38 @@ def _counts_grid(counts_per_read: np.ndarray, L: int) -> np.ndarray:
     return pad.reshape(J, L)
 
 
+def _n_halve(model, L: int) -> int:
+    """Halvings that bring any post-wave row total (<= cap + inc * L + A)
+    back under cap (fastqueeze_tpu/ops/engine.py _n_halve)."""
+    worst = model.cap + model.inc * L + model.alphabet
+    return max(1, math.ceil(math.log2(worst / model.cap)) + 1)
+
+
+def _chunk_of(params: CodecParams, T: int) -> int:
+    """Semi-adaptive chunk: params.adapt_chunk when it divides the wave
+    count, else 0 (per-wave adaptation); a function of serialized params
+    and layout, so encode and decode agree (fastqueeze_tpu/ops/engine.py
+    _chunk_of)."""
+    c = params.adapt_chunk
+    return c if (c and T % c == 0) else 0
+
+
+def _adapt_checks(params: CodecParams, counts0, T: int) -> None:
+    if counts0 is not None:
+        raise NotImplementedError(_FROZEN_ADAPT_MSG)
+    if _chunk_of(params, T):
+        raise NotImplementedError(_SEMI_MSG)
+
+
+def _ctx_grid(layout, extra_aux: Optional[Dict[str, np.ndarray]], device):
+    """FlatModel's per-symbol contexts as a (T, L) int32 grid (0 at
+    padding), or None."""
+    if not extra_aux:
+        return None
+    ctx = np.asarray(extra_aux["ctx"]).astype(np.int32)
+    return torch.from_numpy(to_grid(layout, ctx)).to(device)
+
+
 class EncodeJob:
     """Dispatched encode; :meth:`finalize` syncs and serializes."""
 
@@ -114,20 +155,30 @@ def encode_stream_job(model, params: CodecParams, flat_syms: np.ndarray,
                       counts_per_read: np.ndarray,
                       counts0: Union[FrozenTable, np.ndarray, None] = None,
                       n_lanes: Optional[int] = None, adapt: bool = False,
-                      device="cpu") -> EncodeJob:
-    """Dispatch one stream's frozen encode to ``device``."""
-    if adapt:
-        raise NotImplementedError(_ADAPT_MSG)
-    table = _as_table(counts0, device)
+                      device="cpu",
+                      extra_aux: Optional[Dict[str, np.ndarray]] = None
+                      ) -> EncodeJob:
+    """Dispatch one stream's encode to ``device``: frozen against
+    ``counts0``, or adaptive (``adapt=True``, fresh table; FlatModel takes
+    its per-symbol contexts in ``extra_aux["ctx"]``)."""
     counts_per_read = np.asarray(counts_per_read, np.int64)
     nsym = int(counts_per_read.sum())
     L = n_lanes or params.n_lanes(nsym)
     layout = make_layout(counts_per_read, L)
+    if adapt:
+        _adapt_checks(params, counts0, layout.T)
+    else:
+        table = _as_table(counts0, device)
     syms = torch.from_numpy(
         to_grid(layout, np.asarray(flat_syms, np.uint8))).to(device)
     cg = torch.from_numpy(_counts_grid(counts_per_read, L)).to(device)
-    words, emit, x_final = kernels.frozen_encode_lanes(syms, cg,
-                                                       table.packed, model)
+    if adapt:
+        sf = kernels.adapt_encode_walk(syms, cg, model, _n_halve(model, L),
+                                       _ctx_grid(layout, extra_aux, device))
+        words, emit, x_final = kernels.rans_encode_sf(sf, cg)
+    else:
+        words, emit, x_final = kernels.frozen_encode_lanes(
+            syms, cg, table.packed, model)
     wpacked, n_words = kernels.compact_words(words, emit)
     return EncodeJob(layout.T, L, nsym, wpacked, n_words, x_final)
 
@@ -135,21 +186,21 @@ def encode_stream_job(model, params: CodecParams, flat_syms: np.ndarray,
 def encode_stream(model, params: CodecParams, flat_syms: np.ndarray,
                   counts_per_read: np.ndarray, counts0=None,
                   n_lanes: Optional[int] = None, adapt: bool = False,
-                  device="cpu") -> bytes:
+                  device="cpu", extra_aux=None) -> bytes:
     """Encode one logical stream (read-major flat symbols + per-read
-    counts) against a frozen table; returns the serialized payload."""
+    counts); returns the serialized payload."""
     return encode_stream_job(model, params, flat_syms, counts_per_read,
-                             counts0, n_lanes, adapt, device).finalize()
+                             counts0, n_lanes, adapt, device,
+                             extra_aux).finalize()
 
 
 def decode_stream_job(model, params: CodecParams, payload: bytes,
                       counts_per_read: np.ndarray,
                       counts0: Union[FrozenTable, np.ndarray, None] = None,
-                      adapt: bool = False, device="cpu") -> DecodeJob:
-    """Dispatch one stream's frozen decode to ``device``."""
-    if adapt:
-        raise NotImplementedError(_ADAPT_MSG)
-    table = _as_table(counts0, device)
+                      adapt: bool = False, device="cpu",
+                      extra_aux: Optional[Dict[str, np.ndarray]] = None
+                      ) -> DecodeJob:
+    """Dispatch one stream's decode (frozen, or adaptive) to ``device``."""
     T, L, n_words, nsym = _HDR.unpack_from(payload, 0)
     off = _HDR.size
     states = np.frombuffer(payload, "<u4", L, off).copy()
@@ -164,7 +215,11 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
     if layout.T != T:
         raise ValueError(
             f"corrupt stream: layout T={layout.T} vs payload T={T}")
-    # K4 reads words[min(off + rank, W - 1)] of this zero-padded buffer
+    if adapt:
+        _adapt_checks(params, counts0, T)
+    else:
+        table = _as_table(counts0, device)
+    # K4/K6 read words[min(off + rank, W - 1)] of this zero-padded buffer
     # (power of two, >= 1024 — the reference's bucket), so renorm reads
     # past the real words on a corrupt payload decode zeros
     bucket = 1024
@@ -175,14 +230,20 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
     states_dev = torch.from_numpy(states.view(np.int32)).to(device)
     words_dev = torch.from_numpy(words_pad.view(np.int16)).to(device)
     cg = torch.from_numpy(_counts_grid(counts_per_read, L)).to(device)
-    syms = kernels.frozen_decode(states_dev, words_dev, cg, T, table.cum,
-                                 model)
+    if adapt:
+        syms = kernels.adapt_decode(states_dev, words_dev, cg, T, model,
+                                    _n_halve(model, L),
+                                    _ctx_grid(layout, extra_aux, device))
+    else:
+        syms = kernels.frozen_decode(states_dev, words_dev, cg, T,
+                                     table.cum, model)
     return DecodeJob(layout, syms)
 
 
 def decode_stream(model, params: CodecParams, payload: bytes,
                   counts_per_read: np.ndarray, counts0=None,
-                  adapt: bool = False, device="cpu") -> np.ndarray:
+                  adapt: bool = False, device="cpu",
+                  extra_aux=None) -> np.ndarray:
     """Inverse of :func:`encode_stream` -> read-major flat symbols."""
     return decode_stream_job(model, params, payload, counts_per_read,
-                             counts0, adapt, device).finalize()
+                             counts0, adapt, device, extra_aux).finalize()

@@ -1,5 +1,6 @@
-"""The frozen coder's four CUDA kernels, their wrappers and plain versions.
+"""The wave-rANS coder's CUDA kernels, their wrappers and plain versions.
 
+Frozen coder:
 K1 quant_pack          count table -> u16 cumulative table + u32 packed
                        (start, end) words              (engine._quant_full)
 K2 frozen_encode_lanes per-lane walk + gather + reverse rANS
@@ -9,12 +10,21 @@ K3 compact_words       emitted words -> dense prefix + count
                        (engine._compact_words)
 K4 frozen_decode       one CTA per stream, per-wave lane walk, search,
                        rANS decode and renorm scan (engine._decode_frozen)
+Adaptive coder:
+K5 adapt_encode_walk   one CTA per stream, per-wave lane walk, row quant
+                       from the shared count table, scatter-add, halving
+                       (engine._device_aux, context_grids, _pass1,
+                       _wave_update_tot)
+K7 rans_encode_sf      reverse rANS over K5's (start, end) grid
+                       (engine._pass2); then K3
+K6 adapt_decode        one CTA per stream: K4's walk and renorm scan with
+                       K5's table update (engine._decode)
 
 The sources are csrc/*.cu with a plain C interface, compiled by nvcc for
-sm_90a into one shared library at first use and loaded with ctypes.  A
-wrapper takes its plain PyTorch version only for tensors on the CPU; for
-a CUDA tensor it launches the kernel or raises.  Every launch adds one to
-``LAUNCHES[name]``.
+sm_90a (one nvcc per source, in parallel) and linked into one shared
+library at first use, loaded with ctypes.  A wrapper takes its plain
+PyTorch version only for tensors on the CPU; for a CUDA tensor it launches
+the kernel or raises.  Every launch adds one to ``LAUNCHES[name]``.
 
 Unsigned types: u16 values travel in int16 tensors and u32 values in
 int32 tensors (same bits); the plain versions widen to int64 and mask.
@@ -36,13 +46,15 @@ import torch
 from fastqueeze_tpu_torch.config import PROB_BITS, RANS_L, RANS_M
 
 LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
-                            "compact_words": 0, "frozen_decode": 0}
+                            "compact_words": 0, "frozen_decode": 0,
+                            "adapt_encode_walk": 0, "rans_encode_sf": 0,
+                            "adapt_decode": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -71,8 +83,9 @@ def _sources():
 
 def _build() -> str:
     """Compile csrc/ into _build/libfqkernels-<content hash>.so (once per
-    source content); returns its path.  ptxas register/spill lines land
-    in BUILD_INFO["ptxas"]."""
+    source content): one nvcc per .cu, all started together, then one
+    link.  Returns the library's path; ptxas register/spill lines land in
+    BUILD_INFO["ptxas"]."""
     h = hashlib.sha256()
     for path in _sources():
         with open(path, "rb") as fh:
@@ -84,12 +97,25 @@ def _build() -> str:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"    # concurrent builders: last wins
         cus = [p for p in _sources() if p.endswith(".cu")]
-        r = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cus,
+        objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cus]
+        procs = [subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-c", "-o", o, c],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c, o in zip(cus, objs)]
+        outs = [(c, p.communicate()[1], p.returncode)
+                for c, p in zip(cus, procs)]
+        bad = [f"{c} ({rc}):\n{err}" for c, err, rc in outs if rc != 0]
+        if bad:
+            raise RuntimeError("nvcc failed: " + "\n".join(bad))
+        r = subprocess.run([_nvcc(), "-shared", "-o", tmp] + objs,
                            capture_output=True, text=True)
+        for o in objs:
+            os.remove(o)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
         with open(log, "w") as fh:
-            fh.write(r.stderr)
+            fh.write("".join(err for _, err, _ in outs))
         os.replace(tmp, so)
     ptxas = ""
     if os.path.exists(log):
@@ -112,10 +138,21 @@ def _lib() -> ctypes.CDLL:
             lib.fq_compact_words.argtypes = [vp, vp, i64, vp, vp, vp, vp]
             lib.fq_frozen_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i32] + spec + [vp] * 3)
-            lib.fq_decode_lane_bytes.argtypes = []
-            lib.fq_decode_lane_bytes.restype = i64
+            adapt = spec + [i32] * 3 + [vp] * 6
+            lib.fq_adapt_encode_walk.argtypes = (
+                [vp, vp, i32, i32, i32, vp, i32] + adapt)
+            lib.fq_rans_encode_sf.argtypes = [vp, vp, i32, i32, i32] + [vp] * 4
+            lib.fq_adapt_decode.argtypes = (
+                [vp, vp, i64, vp, i32, i32, i32, vp, i32] + adapt)
+            for fn in (lib.fq_decode_lane_bytes,
+                       lib.fq_adapt_encode_lane_bytes,
+                       lib.fq_adapt_decode_lane_bytes):
+                fn.argtypes = []
+                fn.restype = i64
             for fn in (lib.fq_quant_pack, lib.fq_frozen_encode_lanes,
-                       lib.fq_compact_words, lib.fq_frozen_decode):
+                       lib.fq_compact_words, lib.fq_frozen_decode,
+                       lib.fq_adapt_encode_walk, lib.fq_rans_encode_sf,
+                       lib.fq_adapt_decode):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -394,4 +431,216 @@ def frozen_decode(states0: torch.Tensor, words: torch.Tensor,
     _launch(lib.fq_frozen_decode, "frozen_decode", _ptr(states0),
             _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
             _ptr(cum), A, *_spec_args(model), _ptr(lanes), _ptr(out))
+    return out
+
+
+# --- adaptive coder: K5, K7, K6 ---------------------------------------------
+
+def check_adapt_model(model) -> None:
+    """The adaptive kernels skip padding lanes, which is exact only while
+    every count row starts at or under cap (the reference halves the rows
+    of padding lanes' contexts too)."""
+    if model.init * model.alphabet > model.cap:
+        raise ValueError(
+            f"adaptive coder: init * alphabet = {model.init} * "
+            f"{model.alphabet} > cap = {model.cap}; the adaptive kernels "
+            f"need every count row to start at or under cap")
+
+
+def _adapt_table(model, dev):
+    """Fresh (counts, row totals, stamps) for the K5/K6 walk."""
+    n, A = model.n_ctx, model.alphabet
+    return (torch.full((n, A), model.init, dtype=torch.int32, device=dev),
+            torch.full((n,), model.init * A, dtype=torch.int32, device=dev),
+            torch.full((n,), -1, dtype=torch.int32, device=dev))
+
+
+def _quant_rows(rows: torch.Tensor) -> torch.Tensor:
+    """(n, A) counts -> (n, A+1) int64 F with F_s = floor(cum_s * M / C)
+    (engine._quant, whose two 7-bit digits compute the same floor)."""
+    cs = torch.cumsum(rows.long(), dim=1)
+    F = (cs * RANS_M) // cs[:, -1:]
+    return torch.cat([torch.zeros_like(F[:, :1]), F], dim=1)
+
+
+def _wave_update(counts: torch.Tensor, ctx, sym, inc, model,
+                 n_halve: int) -> None:
+    """engine._wave_update_tot in place: scatter-add inc at (ctx, sym),
+    then halve the rows of every lane's context (padding lanes included,
+    as the reference does) n_halve times while over cap."""
+    counts.index_put_((ctx, sym), inc, accumulate=True)
+    rows = counts[ctx]
+    for _ in range(n_halve):
+        tot = rows.sum(dim=1, keepdim=True)
+        rows = torch.where(tot > model.cap, (rows + 1) >> 1, rows)
+    counts[ctx] = rows
+
+
+def _walk_aux(T: int, cgrid: torch.Tensor, ctxg):
+    valid, aux = device_aux_plain(T, cgrid)
+    if ctxg is not None:
+        aux["ctx"] = ctxg
+    return valid, aux
+
+
+def adapt_encode_walk_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
+                            n_halve: int, ctxg=None) -> torch.Tensor:
+    """Wave loop of engine._pass1 over model.context_grids: (start, end)
+    of each symbol from the pre-update row, packed as start | end << 16
+    (0 at padding)."""
+    T, L = syms.shape
+    valid, aux = _walk_aux(T, cgrid, ctxg)
+    ctx = model.context_grids(syms, aux)
+    s = syms.long()
+    inc = torch.where(valid, model.inc, 0).to(torch.int32)
+    counts = _adapt_table(model, syms.device)[0]
+    sf = torch.zeros((T, L), dtype=torch.int64, device=syms.device)
+    for t in range(T):
+        F = _quant_rows(counts[ctx[t]])
+        st = F.gather(1, s[t, :, None])[:, 0]
+        en = F.gather(1, s[t, :, None] + 1)[:, 0]
+        sf[t] = torch.where(valid[t], st | (en << 16), 0)
+        _wave_update(counts, ctx[t], s[t], inc[t], model, n_halve)
+    return _to_i32(sf)
+
+
+def adapt_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
+                      n_halve: int, ctxg=None) -> torch.Tensor:
+    """(T, L) uint8 symbols, (J, L) int32 read lengths [, (T, L) int32
+    contexts for FlatModel] -> (T, L) int32 packed start | end << 16 from
+    a fresh adaptive table (init everywhere)."""
+    check_adapt_model(model)
+    kind = model.spec()[0]
+    if (kind == 4) != (ctxg is not None):
+        raise ValueError("adapt_encode_walk: a ctx grid goes with FlatModel "
+                         "(kind 4) only")
+    grids = (syms, cgrid) + (() if ctxg is None else (ctxg,))
+    if not _on_card(*grids):
+        return adapt_encode_walk_plain(syms, cgrid, model, n_halve, ctxg)
+    _check(syms, "syms", torch.uint8, 2)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    T, L = syms.shape
+    if cgrid.shape[1] != L:
+        raise ValueError("adapt_encode_walk: shape mismatch")
+    if ctxg is not None:
+        _check(ctxg, "ctxg", torch.int32, 2)
+        if ctxg.shape != syms.shape:
+            raise ValueError("adapt_encode_walk: ctx grid shape mismatch")
+    lib = _lib()
+    dev = syms.device
+    counts, tot, stamp = _adapt_table(model, dev)
+    lanes = torch.empty((L * lib.fq_adapt_encode_lane_bytes(),),
+                        dtype=torch.uint8, device=dev)
+    sf = torch.empty((T, L), dtype=torch.int32, device=dev)
+    _launch(lib.fq_adapt_encode_walk, "adapt_encode_walk", _ptr(syms),
+            _ptr(cgrid), cgrid.shape[0], T, L,
+            None if ctxg is None else _ptr(ctxg), model.alphabet,
+            *_spec_args(model), model.inc, model.cap, n_halve,
+            _ptr(counts), _ptr(tot), _ptr(stamp), _ptr(lanes), _ptr(sf))
+    return sf
+
+
+def rans_encode_sf_plain(sf: torch.Tensor, cgrid: torch.Tensor):
+    valid, _ = device_aux_plain(sf.shape[0], cgrid)
+    v = _u32(sf)
+    start = v & 0xFFFF
+    return pass2_plain(start, (v >> 16) - start, valid)
+
+
+def rans_encode_sf(sf: torch.Tensor, cgrid: torch.Tensor):
+    """(T, L) int32 packed start | end << 16, (J, L) int32 read lengths
+    -> ((T, L) int16 words, (T, L) uint8 emit, (L,) int32 final states),
+    as frozen_encode_lanes returns them."""
+    if not _on_card(sf, cgrid):
+        return rans_encode_sf_plain(sf, cgrid)
+    _check(sf, "sf", torch.int32, 2)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    T, L = sf.shape
+    if cgrid.shape[1] != L:
+        raise ValueError("rans_encode_sf: shape mismatch")
+    dev = sf.device
+    words = torch.empty((T, L), dtype=torch.int16, device=dev)
+    emit = torch.empty((T, L), dtype=torch.uint8, device=dev)
+    states = torch.empty((L,), dtype=torch.int32, device=dev)
+    _launch(_lib().fq_rans_encode_sf, "rans_encode_sf", _ptr(sf),
+            _ptr(cgrid), cgrid.shape[0], T, L, _ptr(words), _ptr(emit),
+            _ptr(states))
+    return words, emit, states
+
+
+def adapt_decode_plain(states0: torch.Tensor, words: torch.Tensor,
+                       cgrid: torch.Tensor, T: int, model, n_halve: int,
+                       ctxg=None) -> torch.Tensor:
+    """Wave loop of engine._decode: sym = #{s >= 1: F[s] <= low} from the
+    pre-update row, the rANS decode and renorm scan, the table update."""
+    L = states0.shape[0]
+    dev = states0.device
+    valid, aux = _walk_aux(T, cgrid, ctxg)
+    inc = torch.where(valid, model.inc, 0).to(torch.int32)
+    counts = _adapt_table(model, dev)[0]
+    W = words.shape[0]
+    w16 = _u16(words)
+    st = model.lane_init(L, dev)
+    x = _u32(states0)
+    off = 0
+    out = torch.zeros((T, L), dtype=torch.uint8, device=dev)
+    for t in range(T):
+        vld = valid[t]
+        aux_t = {k: v[t] for k, v in aux.items()}
+        ctx = model.context(st, aux_t)
+        F = _quant_rows(counts[ctx])
+        low = x & (RANS_M - 1)
+        sym = (F[:, 1:] <= low[:, None]).sum(dim=1)
+        start = F.gather(1, sym[:, None])[:, 0]
+        f = F.gather(1, sym[:, None] + 1)[:, 0] - start
+        xn = (f * (x >> PROB_BITS) + low - start) & 0xFFFFFFFF
+        need = (xn < RANS_L) & vld
+        rank = torch.cumsum(need.long(), dim=0) - need.long()
+        wv = w16[torch.clamp(off + rank, max=W - 1)]
+        xn = torch.where(need, ((xn << 16) | wv) & 0xFFFFFFFF, xn)
+        x = torch.where(vld, xn, x)
+        off += int(need.sum())
+        out[t] = torch.where(vld, sym, 0).to(torch.uint8)
+        _wave_update(counts, ctx, sym, inc[t], model, n_halve)
+        new = model.update(st, sym, aux_t)
+        st = {k: torch.where(vld, new[k], st[k]) for k in st}
+    return out
+
+
+def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
+                 cgrid: torch.Tensor, T: int, model, n_halve: int,
+                 ctxg=None) -> torch.Tensor:
+    """(L,) int32 initial states, (W,) int16 padded words, (J, L) int32
+    read lengths [, (T, L) int32 contexts for FlatModel] -> (T, L) uint8
+    symbols (0 at padding), from a fresh adaptive table."""
+    check_adapt_model(model)
+    kind = model.spec()[0]
+    if (kind == 4) != (ctxg is not None):
+        raise ValueError("adapt_decode: a ctx grid goes with FlatModel "
+                         "(kind 4) only")
+    grids = (states0, words, cgrid) + (() if ctxg is None else (ctxg,))
+    if not _on_card(*grids):
+        return adapt_decode_plain(states0, words, cgrid, T, model, n_halve,
+                                  ctxg)
+    _check(states0, "states0", torch.int32, 1)
+    _check(words, "words", torch.int16, 1)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    L = states0.shape[0]
+    if cgrid.shape[1] != L or words.numel() < 1:
+        raise ValueError("adapt_decode: shape mismatch")
+    if ctxg is not None:
+        _check(ctxg, "ctxg", torch.int32, 2)
+        if tuple(ctxg.shape) != (T, L):
+            raise ValueError("adapt_decode: ctx grid shape mismatch")
+    lib = _lib()
+    dev = states0.device
+    counts, tot, stamp = _adapt_table(model, dev)
+    lanes = torch.empty((L * lib.fq_adapt_decode_lane_bytes(),),
+                        dtype=torch.uint8, device=dev)
+    out = torch.empty((T, L), dtype=torch.uint8, device=dev)
+    _launch(lib.fq_adapt_decode, "adapt_decode", _ptr(states0), _ptr(words),
+            words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
+            None if ctxg is None else _ptr(ctxg), model.alphabet,
+            *_spec_args(model), model.inc, model.cap, n_halve,
+            _ptr(counts), _ptr(tot), _ptr(stamp), _ptr(lanes), _ptr(out))
     return out

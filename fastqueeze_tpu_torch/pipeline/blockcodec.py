@@ -5,12 +5,13 @@ decode_block): a block of parsed records is split into independently
 coded streams — lengths, read IDs (binned), plus lines, duplicate-read
 back-references, degenerate (non-ACGT) bases, 2-bit sequence, quality —
 each wrapped in a TLV section.  The two big streams (seq, qual) go to the
-frozen wave-rANS coder on the engine's device; every other stream of at
-most ``host_stream_max`` symbols goes to the native host range coder.
+wave-rANS coder on the engine's device: frozen when the archive has
+trained tables, adaptive otherwise.  Every other stream of at most
+``host_stream_max`` symbols goes to the native host range coder (marker
+2); longer ones go to the adaptive wave-rANS coder (marker 1).
 
-Not ported yet: the adaptive device coder (streams over host_stream_max,
-inputs below the usemodel gate, frozen_adapt; ROADMAP Queue A item 5) and
-the alignment / long-read / self-ref block streams (Queue A items 4, 8).
+Not ported yet: frozen_adapt (ROADMAP Queue A item 5) and the alignment /
+long-read / self-ref block streams (Queue A items 4, 8).
 """
 
 from __future__ import annotations
@@ -25,10 +26,10 @@ from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.encap import iter_tlv, write_tlv
 from fastqueeze_tpu_torch.io.fastq import FastqBlock
 from fastqueeze_tpu_torch.models.base import (
-    qual_model_for, seq_model_from_params)
-from fastqueeze_tpu_torch.ops import host_frozen, host_rans
+    FlatModel, byte_model, flag_model, qual_model_for, seq_model_from_params)
+from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, host_rans
 from fastqueeze_tpu_torch.ops.engine import (
-    decode_stream_job, encode_stream_job)
+    decode_stream, decode_stream_job, encode_stream, encode_stream_job)
 from fastqueeze_tpu_torch.pipeline.frozen import (
     device_tables, frozen_host_cums, qual_lut, qual_vocab)
 from fastqueeze_tpu_torch.pipeline.idproc import (
@@ -57,7 +58,9 @@ TAG_QDUPD = 28    # qual-dup reads: back-distance to the first identical
 TAG_AMAP = 14
 TAG_LRF = 32
 
-_ADAPT_MSG = "adaptive device coder: ROADMAP Queue A item 5"
+_FROZEN_ADAPT_MSG = ("adapting from a frozen table (frozen_adapt): ROADMAP "
+                     "Queue A item 5")
+_VAR_CHUNK = 256  # var byte streams are cut into pseudo-reads for lanes
 _ALIGN_MSG = ("alignment / self-ref / long-read block streams: ROADMAP "
               "Queue A item 4")
 
@@ -241,50 +244,66 @@ def _copy_read_ranges(arr: np.ndarray, src_off: np.ndarray,
         arr[np.repeat(src_off, lens) + intra]
 
 
-def _code_bytes(p: CodecParams, raw: bytes, order1: bool = True) -> bytes:
+def _chunk_counts(n: int, chunk: int = _VAR_CHUNK) -> np.ndarray:
+    if n == 0:
+        return np.zeros(0, np.int64)
+    full, rem = divmod(n, chunk)
+    counts = [chunk] * full + ([rem] if rem else [])
+    return np.asarray(counts, np.int64)
+
+
+def _code_bytes(p: CodecParams, raw: bytes, device,
+                order1: bool = True) -> bytes:
     """Entropy-code a host byte string.  Marker dispatch: 0 = stored raw,
-    1 = device wave-rANS (adaptive, not ported), 2 = host range coder."""
+    1 = adaptive wave-rANS on ``device``, 2 = host range coder."""
     if not raw:
         return b"\x00"
     flat = np.frombuffer(raw, np.uint8)
-    if len(flat) > p.host_stream_max:
-        raise NotImplementedError(_ADAPT_MSG)
-    if order1:
-        blob = host_rans.encode_o1(flat, 256, p.byte_init, p.byte_inc,
-                                   p.byte_cap)
+    if len(flat) <= p.host_stream_max:
+        if order1:
+            blob = host_rans.encode_o1(flat, 256, p.byte_init, p.byte_inc,
+                                       p.byte_cap)
+        else:
+            blob = host_rans.encode_ctx(flat, None, 1, 256, p.byte_init,
+                                        p.byte_inc, p.byte_cap)
+        payload = b"\x02" + len(raw).to_bytes(4, "little") + blob
     else:
-        blob = host_rans.encode_ctx(flat, None, 1, 256, p.byte_init,
-                                    p.byte_inc, p.byte_cap)
-    payload = b"\x02" + len(raw).to_bytes(4, "little") + blob
+        payload = (b"\x01" + len(raw).to_bytes(4, "little")
+                   + encode_stream(byte_model(p, order1), p, flat,
+                                   _chunk_counts(len(raw)), adapt=True,
+                                   device=device))
     if len(payload) >= len(raw) + 1:
         return b"\x00" + raw
     return payload
 
 
-def _host_coded(blob: bytes) -> None:
-    """Stream marker check: 2 = host range coder (ported), 1 = adaptive
-    device coder (not ported), anything else is corruption."""
-    if blob[:1] == b"\x01":
-        raise NotImplementedError(_ADAPT_MSG)
-    if blob[:1] != b"\x02":
+def _marker(blob: bytes) -> bytes:
+    """Stream marker: 1 = adaptive wave-rANS, 2 = host range coder;
+    anything else is corruption."""
+    if blob[:1] not in (b"\x01", b"\x02"):
         raise ValueError("corrupt block payload: unknown stream marker")
+    return blob[:1]
 
 
-def _decode_bytes(p: CodecParams, blob: bytes, order1: bool = True) -> bytes:
+def _decode_bytes(p: CodecParams, blob: bytes, device,
+                  order1: bool = True) -> bytes:
     if blob[:1] == b"\x00":
         return blob[1:]
-    _host_coded(blob)
+    marker = _marker(blob)
     n = int.from_bytes(blob[1:5], "little")
-    if order1:
+    if marker == b"\x01":
+        flat = decode_stream(byte_model(p, order1), p, blob[5:],
+                             _chunk_counts(n), adapt=True, device=device)
+    elif order1:
         flat = host_rans.decode_o1(blob[5:], n, 256, p.byte_init,
                                    p.byte_inc, p.byte_cap)
     else:
         flat = host_rans.decode_ctx(blob[5:], n, None, 1, 256,
                                     p.byte_init, p.byte_inc, p.byte_cap)
-    return flat.tobytes()
+    return flat.astype(np.uint8).tobytes()
 
 
-def _code_lines(p: CodecParams, lines, R: int) -> bytes:
+def _code_lines(p: CodecParams, lines, R: int, device) -> bytes:
     """Fallback line coder for IDs/plus lines when binning fails
     (reference: encode_name @0x421070, SURVEY.md §2.1 path 2).  Codes the
     lines through the tokenized previous-name diff coder (marker 3) and
@@ -293,7 +312,7 @@ def _code_lines(p: CodecParams, lines, R: int) -> bytes:
     while degenerate inputs keep the raw/order-1 floor."""
     from fastqueeze_tpu_torch.io.fastq import LazyLines
     if R == 0:
-        return _code_bytes(p, b"")
+        return _code_bytes(p, b"", device)
     if isinstance(lines, LazyLines):
         cat = np.frombuffer(lines.cat, np.uint8)
         lens = np.diff(lines.offs).astype(np.int32)
@@ -303,11 +322,12 @@ def _code_lines(p: CodecParams, lines, R: int) -> bytes:
     blob = host_rans.encode_names(cat, lens, p.byte_init, p.byte_inc,
                                   p.byte_cap)
     cand = b"\x03" + len(cat).to_bytes(4, "little") + blob
-    alt = _code_bytes(p, b"\n".join(lines) + b"\n")
+    alt = _code_bytes(p, b"\n".join(lines) + b"\n", device)
     return cand if len(cand) < len(alt) else alt
 
 
-def _decode_lines(p: CodecParams, blob: bytes, R: int) -> List[bytes]:
+def _decode_lines(p: CodecParams, blob: bytes, R: int,
+                  device) -> List[bytes]:
     if blob[:1] == b"\x03":
         total = int.from_bytes(blob[1:5], "little")
         cat, lens = host_rans.decode_names(blob[5:], R, total, p.byte_init,
@@ -315,7 +335,7 @@ def _decode_lines(p: CodecParams, blob: bytes, R: int) -> List[bytes]:
         offs = np.concatenate(([0], np.cumsum(lens, dtype=np.int64)))
         c = cat.tobytes()
         return [c[offs[i]:offs[i + 1]] for i in range(R)]
-    raw = _decode_bytes(p, blob)
+    raw = _decode_bytes(p, blob, device)
     return raw.split(b"\n")[:-1] if raw else []
 
 
@@ -333,20 +353,25 @@ def _width_of(max_val: int) -> int:
     return 4
 
 
-def _code_flags(p: CodecParams, bits: np.ndarray) -> bytes:
-    """Entropy-code a boolean vector through the host order-1 binary
-    model (marker 2; marker 1 = adaptive device coder, not ported)."""
-    if len(bits) > p.host_stream_max:
-        raise NotImplementedError(_ADAPT_MSG)
-    return b"\x02" + host_rans.encode_o1(bits.astype(np.uint8), 2,
-                                         p.byte_init, p.byte_inc,
-                                         p.byte_cap)
+def _code_flags(p: CodecParams, bits: np.ndarray, device) -> bytes:
+    """Entropy-code a boolean vector through an adaptive binary model
+    (marker 1 = wave-rANS on ``device``, 2 = host order-1)."""
+    b8 = bits.astype(np.uint8)
+    if len(bits) <= p.host_stream_max:
+        return b"\x02" + host_rans.encode_o1(b8, 2, p.byte_init, p.byte_inc,
+                                             p.byte_cap)
+    return b"\x01" + encode_stream(flag_model(p), p, b8,
+                                   _chunk_counts(len(bits)), adapt=True,
+                                   device=device)
 
 
-def _decode_flags(p: CodecParams, blob: bytes, n: int) -> np.ndarray:
-    _host_coded(blob)
-    return host_rans.decode_o1(blob[1:], n, 2, p.byte_init, p.byte_inc,
-                               p.byte_cap).astype(bool)
+def _decode_flags(p: CodecParams, blob: bytes, n: int,
+                  device) -> np.ndarray:
+    if _marker(blob) == b"\x02":
+        return host_rans.decode_o1(blob[1:], n, 2, p.byte_init, p.byte_inc,
+                                   p.byte_cap).astype(bool)
+    return decode_stream(flag_model(p), p, blob[1:], _chunk_counts(n),
+                         adapt=True, device=device).astype(bool)
 
 
 def _le_byte_stream(values: np.ndarray, nbytes: int):
@@ -366,37 +391,108 @@ def _from_le_bytes(syms: np.ndarray, n: int, nbytes: int) -> np.ndarray:
     return vals
 
 
-def _code_le(p: CodecParams, values: np.ndarray, nbytes: int) -> bytes:
+def _flat_model(p: CodecParams, n_ctx: int, alphabet: int) -> FlatModel:
+    return FlatModel(alphabet=alphabet, init=p.byte_init, inc=p.byte_inc,
+                     cap=p.byte_cap, n_ctx=n_ctx)
+
+
+def _code_syms_ctx(p: CodecParams, syms: np.ndarray, ctx: np.ndarray,
+                   n_ctx: int, alphabet: int, device,
+                   counts: Optional[np.ndarray] = None) -> bytes:
+    """Symbol stream with precomputed per-symbol contexts (marker 2: host
+    range coder; marker 1: adaptive wave-rANS over ``counts`` pseudo-reads,
+    _VAR_CHUNK-symbol chunks by default)."""
+    if len(syms) <= p.host_stream_max:
+        return b"\x02" + host_rans.encode_ctx(
+            syms, ctx.astype(np.uint32), n_ctx, alphabet, p.byte_init,
+            p.byte_inc, p.byte_cap)
+    if counts is None:
+        counts = _chunk_counts(len(syms))
+    return b"\x01" + encode_stream(_flat_model(p, n_ctx, alphabet), p, syms,
+                                   counts, adapt=True, device=device,
+                                   extra_aux={"ctx": ctx})
+
+
+def _decode_syms_ctx(p: CodecParams, blob: bytes, n: int, ctx: np.ndarray,
+                     n_ctx: int, alphabet: int, device,
+                     counts: Optional[np.ndarray] = None) -> np.ndarray:
+    if _marker(blob) == b"\x02":
+        return host_rans.decode_ctx(blob[1:], n, ctx.astype(np.uint32),
+                                    n_ctx, alphabet, p.byte_init,
+                                    p.byte_inc, p.byte_cap)
+    if counts is None:
+        counts = _chunk_counts(n)
+    return decode_stream(_flat_model(p, n_ctx, alphabet), p, blob[1:],
+                         counts, adapt=True, device=device,
+                         extra_aux={"ctx": ctx})
+
+
+def _code_le(p: CodecParams, values: np.ndarray, nbytes: int,
+             device) -> bytes:
     syms, ctx = _le_byte_stream(values.astype(np.int64), nbytes)
-    if len(syms) > p.host_stream_max:
-        raise NotImplementedError(_ADAPT_MSG)
-    return b"\x02" + host_rans.encode_ctx(
-        syms, ctx.astype(np.uint32), nbytes, 256, p.byte_init,
-        p.byte_inc, p.byte_cap)
+    return _code_syms_ctx(p, syms, ctx, nbytes, 256, device,
+                          counts=np.full(len(values), nbytes, np.int64))
 
 
-def _decode_le(p: CodecParams, blob: bytes, n: int, nbytes: int) -> np.ndarray:
-    _host_coded(blob)
+def _decode_le(p: CodecParams, blob: bytes, n: int, nbytes: int,
+               device) -> np.ndarray:
     ctx = np.tile(np.arange(nbytes, dtype=np.uint8), n)
-    syms = host_rans.decode_ctx(blob[1:], n * nbytes,
-                                ctx.astype(np.uint32), nbytes, 256,
-                                p.byte_init, p.byte_inc, p.byte_cap)
+    syms = _decode_syms_ctx(p, blob, n * nbytes, ctx, nbytes, 256, device,
+                            counts=np.full(n, nbytes, np.int64))
     return _from_le_bytes(syms, n, nbytes)
 
 
-def encode_block(p: CodecParams, block: FastqBlock, frozen: Dict,
-                 device, dbg=None) -> bytes:
+def _stream_jobs(p: CodecParams, frozen: Optional[Dict], device, seq, qual,
+                 decode: bool = False):
+    """Dispatch the seq and qual streams, each (model, symbols or payload,
+    per-read counts): frozen against ``frozen``'s tables or adaptive when
+    it is None, on the native host coder where host_frozen.route /
+    host_adapt.route say so and on ``device`` otherwise (bit-identical
+    either way).  Returns the two jobs."""
+    jobs = [None, None]
+    if frozen is not None:
+        routed = [host_frozen.route(p, m, device) for m, _, _ in (seq, qual)]
+        if any(routed):
+            cums = frozen_host_cums(frozen, qual[0].alphabet,
+                                    p.qctx_eff_init())
+            for i, (m, data, counts) in enumerate((seq, qual)):
+                if routed[i]:
+                    job = (host_frozen.decode_job if decode
+                           else host_frozen.encode_job)
+                    jobs[i] = job(m, p, data, counts, cums[i])
+        if None in jobs:
+            tables = device_tables(frozen, qual[0].alphabet,
+                                   p.qctx_eff_init(), device)
+    else:
+        for i, (m, data, counts) in enumerate((seq, qual)):
+            if host_adapt.route(p, m, device):
+                job = (host_adapt.decode_job if decode
+                       else host_adapt.encode_job)
+                jobs[i] = job(m, p, data, counts)
+    for i, (m, data, counts) in enumerate((seq, qual)):
+        if jobs[i] is None:
+            kw = (dict(adapt=True) if frozen is None
+                  else dict(counts0=tables[i]))
+            job = decode_stream_job if decode else encode_stream_job
+            jobs[i] = job(m, p, data, counts, device=device, **kw)
+    return jobs
+
+
+def encode_block(p: CodecParams, block: FastqBlock,
+                 frozen: Optional[Dict], device, dbg=None) -> bytes:
     return encode_block_job(p, block, frozen, device, dbg)()
 
 
-def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
-                     device, dbg=None):
+def encode_block_job(p: CodecParams, block: FastqBlock,
+                     frozen: Optional[Dict], device, dbg=None):
     """Dispatch phase of encode_block: the seq and qual streams are queued
-    on the device and the host streams coded; the returned thunk syncs
-    the device and assembles the block TLV, so a driver keeps the next
-    block's host work running while the device codes this one."""
-    if frozen is None or p.frozen_adapt:
-        raise NotImplementedError(_ADAPT_MSG)
+    on the device (frozen against ``frozen``'s trained tables, or
+    adaptive when ``frozen`` is None) and the host streams coded; the
+    returned thunk syncs the device and assembles the block TLV, so a
+    driver keeps the next block's host work running while the device
+    codes this one."""
+    if frozen is not None and p.frozen_adapt:
+        raise NotImplementedError(_FROZEN_ADAPT_MSG)
     R = block.n_reads
     lengths = block.lengths
     out = io.BytesIO()
@@ -432,13 +528,17 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
         dege_pos = dege_idx - read_starts[dege_read]
         dege_cnt = np.bincount(dege_read, minlength=R).astype(np.int64)
 
-    # --- quality vocabulary: rank space fixed by the trained tables;
-    #     values unseen in training get fresh ranks appended
-    #     (fit_qual_alphabet pads the frozen table with init rows) ---
+    # --- quality vocabulary (dense rank coding): with trained tables the
+    #     rank space is theirs and values unseen in training get fresh
+    #     ranks appended (fit_qual_alphabet pads the frozen table with
+    #     init rows); otherwise the block's own values ---
     block_qvals, _ = qual_vocab(block.qual_flat)   # validates char range
-    base = np.asarray(frozen["qvals"], np.uint8)
-    extra = np.setdiff1d(block_qvals, base)
-    qvals = np.concatenate([base, extra]) if len(extra) else base
+    if frozen is not None:
+        base = np.asarray(frozen["qvals"], np.uint8)
+        extra = np.setdiff1d(block_qvals, base)
+        qvals = np.concatenate([base, extra]) if len(extra) else base
+    else:
+        qvals = block_qvals
     qsyms = qual_lut(qvals)[block.qual_flat]
     qmax = max(len(qvals) - 1, 0)
 
@@ -468,28 +568,9 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
         qlens = lengths
     seq_model = seq_model_from_params(p)
     qmodel = qual_model_for(p, _qual_alphabet(qmax))
-    seq_job = qual_job = None
-    route_s = host_frozen.route(p, seq_model, device)
-    route_q = host_frozen.route(p, qmodel, device)
-    if route_s or route_q:
-        # native host coder (bit-identical bitstream; the oracle)
-        sc_cum, qc_cum = frozen_host_cums(frozen, qmodel.alphabet,
-                                          p.qctx_eff_init())
-        if route_s:
-            seq_job = host_frozen.encode_job(seq_model, p, seq_syms,
-                                             seq_counts, sc_cum)
-        if route_q:
-            qual_job = host_frozen.encode_job(qmodel, p, qsyms, qlens,
-                                              qc_cum)
-    if seq_job is None or qual_job is None:
-        sc0, qc0 = device_tables(frozen, qmodel.alphabet, p.qctx_eff_init(),
-                                 device)
-        if seq_job is None:
-            seq_job = encode_stream_job(seq_model, p, seq_syms, seq_counts,
-                                        counts0=sc0, device=device)
-        if qual_job is None:
-            qual_job = encode_stream_job(qmodel, p, qsyms, qlens,
-                                         counts0=qc0, device=device)
+    seq_job, qual_job = _stream_jobs(
+        p, frozen, device, (seq_model, seq_syms, seq_counts),
+        (qmodel, qsyms, qlens))
 
     # --- lengths (reference: encode_len_short/encode_len_long, SURVEY.md
     #     §2.1 — variable-width tiers; long reads (ONT/PacBio) take the
@@ -499,7 +580,7 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
         lenb = _width_of(int(lengths.max()))
         if lenb != 2:
             meta["lenb"] = lenb
-        len_payload = _code_le(p, lengths, lenb)
+        len_payload = _code_le(p, lengths, lenb, device)
 
     # --- IDs (host binning) ---
     schema, var_payload = analyze_ids(block.ids)
@@ -507,9 +588,10 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
     if schema is not None:
         id_sections.append((TAG_IDSCHEMA, schema.to_json()))
         if var_payload:
-            id_sections.append((TAG_IDVAR, _code_bytes(p, var_payload)))
+            id_sections.append((TAG_IDVAR,
+                                _code_bytes(p, var_payload, device)))
     else:
-        id_sections.append((TAG_IDRAW, _code_lines(p, block.ids, R)))
+        id_sections.append((TAG_IDRAW, _code_lines(p, block.ids, R, device)))
 
     # --- plus lines ---
     from fastqueeze_tpu_torch.io.fastq import any_content
@@ -519,10 +601,11 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
         if pschema is not None:
             plus_sections.append((TAG_PLUSSCHEMA, pschema.to_json()))
             if pvar:
-                plus_sections.append((TAG_PLUSVAR, _code_bytes(p, pvar)))
+                plus_sections.append((TAG_PLUSVAR,
+                                      _code_bytes(p, pvar, device)))
         else:
             plus_sections.append((TAG_PLUSRAW,
-                                  _code_lines(p, block.plus, R)))
+                                  _code_lines(p, block.plus, R, device)))
 
     # --- duplicate-tier streams ---
     def _dup_dist(d):
@@ -530,11 +613,11 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
         whichever codes smaller — replicated inputs give near-constant
         distances whose deltas are ~all zero."""
         w_abs = _width_of(int(d.max()))
-        pay_abs = _code_le(p, d, w_abs)
+        pay_abs = _code_le(p, d, w_abs, device)
         dd = np.diff(d, prepend=0)
         zz = np.where(dd >= 0, 2 * dd, -2 * dd - 1)
         w_dl = _width_of(int(zz.max()))
-        pay_dl = _code_le(p, zz, w_dl)
+        pay_dl = _code_le(p, zz, w_dl, device)
         if len(pay_dl) < len(pay_abs):
             return pay_dl, w_dl, 1
         return pay_abs, w_abs, 0
@@ -546,7 +629,7 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
         meta["sdb"] = w
         if dl:
             meta["sdd"] = 1
-        dup_sections += [(TAG_SDUPF, _code_flags(p, sdup)),
+        dup_sections += [(TAG_SDUPF, _code_flags(p, sdup, device)),
                          (TAG_SDUPD, pay)]
     if n_qd:
         pay, w, dl = _dup_dist((np.arange(R, dtype=np.int64) - q_src)[qdup])
@@ -554,7 +637,7 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
         meta["qdb"] = w
         if dl:
             meta["qdd"] = 1
-        dup_sections += [(TAG_QDUPF, _code_flags(p, qdup)),
+        dup_sections += [(TAG_QDUPF, _code_flags(p, qdup, device)),
                          (TAG_QDUPD, pay)]
 
     # --- degenerate streams ---
@@ -562,17 +645,17 @@ def encode_block_job(p: CodecParams, block: FastqBlock, frozen: Dict,
     if n_dege:
         if int(dege_cnt.max()) > 0xFF:
             meta["degcb"] = _width_of(int(dege_cnt.max()))
-            cnt_payload = _code_le(p, dege_cnt, meta["degcb"])
+            cnt_payload = _code_le(p, dege_cnt, meta["degcb"], device)
         else:
             cnt_payload = _code_bytes(
-                p, dege_cnt.astype(np.uint8).tobytes(), order1=False)
+                p, dege_cnt.astype(np.uint8).tobytes(), device, order1=False)
         degpb = _width_of(int(dege_pos.max()) if len(dege_pos) else 0)
         degpb = max(degpb, 2)       # 2 is the historical default width
         if degpb != 2:
             meta["degpb"] = degpb
-        pos_payload = _code_le(p, dege_pos, degpb)
+        pos_payload = _code_le(p, dege_pos, degpb, device)
         chr_payload = _code_bytes(
-            p, block.seq_flat[dege_mask].tobytes(), order1=False)
+            p, block.seq_flat[dege_mask].tobytes(), device, order1=False)
         dege_sections = [(TAG_DEGCNT, cnt_payload), (TAG_DEGPOS, pos_payload),
                          (TAG_DEGCHR, chr_payload)]
     def finalize() -> bytes:
@@ -632,14 +715,15 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
     if (meta.get("nm", 0) or meta.get("sref", 0) or meta.get("lrm", 0)
             or TAG_AMAP in sections or TAG_LRF in sections):
         raise NotImplementedError(_ALIGN_MSG)
-    if frozen is None or p.frozen_adapt:
-        raise NotImplementedError(_ADAPT_MSG)
+    if frozen is not None and p.frozen_adapt:
+        raise NotImplementedError(_FROZEN_ADAPT_MSG)
 
     # --- lengths ---
     if meta["clen"] is not None:
         lengths = np.full(R, meta["clen"], np.int64)
     elif R:
-        lengths = _decode_le(p, sections[TAG_LEN], R, meta.get("lenb", 2))
+        lengths = _decode_le(p, sections[TAG_LEN], R, meta.get("lenb", 2),
+                             device)
     else:
         lengths = np.zeros(0, np.int64)
     if R and (lengths.min() < 0 or int(lengths.sum()) > (1 << 33)):
@@ -649,22 +733,25 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
     dege_cnt = np.zeros(R, np.int64)
     if n_dege:
         if "degcb" in meta:
-            dege_cnt = _decode_le(p, sections[TAG_DEGCNT], R, meta["degcb"])
+            dege_cnt = _decode_le(p, sections[TAG_DEGCNT], R, meta["degcb"],
+                                  device)
         else:
-            cnt_raw = _decode_bytes(p, sections[TAG_DEGCNT], order1=False)
+            cnt_raw = _decode_bytes(p, sections[TAG_DEGCNT], device,
+                                    order1=False)
             dege_cnt = np.frombuffer(cnt_raw, np.uint8).astype(np.int64)
         dpos = _decode_le(p, sections[TAG_DEGPOS], n_dege,
-                          meta.get("degpb", 2))
+                          meta.get("degpb", 2), device)
         dchr = np.frombuffer(
-            _decode_bytes(p, sections[TAG_DEGCHR], order1=False), np.uint8)
+            _decode_bytes(p, sections[TAG_DEGCHR], device,
+                          order1=False), np.uint8)
 
     # --- duplicate-tier back-references ---
     def _dup_refs(tag_f, tag_d, n_dup, width, delta):
-        flags = _decode_flags(p, sections[tag_f], R)
+        flags = _decode_flags(p, sections[tag_f], R, device)
         rows = np.flatnonzero(flags)
         if len(rows) != n_dup:
             raise ValueError("corrupt block payload: dup flag count")
-        d = _decode_le(p, sections[tag_d], n_dup, width)
+        d = _decode_le(p, sections[tag_d], n_dup, width, device)
         if delta:
             dd = np.where(d % 2 == 0, d // 2, -((d + 1) // 2))
             d = np.cumsum(dd)
@@ -690,28 +777,9 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
     qlens = lengths[~qdup] if n_qd else lengths
     seq_model = seq_model_from_params(p)
     qmodel = qual_model_for(p, _qual_alphabet(qmax))
-    seq_job = qual_job = None
-    route_s = host_frozen.route(p, seq_model, device)
-    route_q = host_frozen.route(p, qmodel, device)
-    if route_s or route_q:
-        sc_cum, qc_cum = frozen_host_cums(frozen, qmodel.alphabet,
-                                          p.qctx_eff_init())
-        if route_s:
-            seq_job = host_frozen.decode_job(
-                seq_model, p, sections[TAG_SEQ], seq_counts, sc_cum)
-        if route_q:
-            qual_job = host_frozen.decode_job(
-                qmodel, p, sections[TAG_QUAL], qlens, qc_cum)
-    if seq_job is None or qual_job is None:
-        sc0, qc0 = device_tables(frozen, qmodel.alphabet, p.qctx_eff_init(),
-                                 device)
-        if seq_job is None:
-            seq_job = decode_stream_job(seq_model, p, sections[TAG_SEQ],
-                                        seq_counts, counts0=sc0,
-                                        device=device)
-        if qual_job is None:
-            qual_job = decode_stream_job(qmodel, p, sections[TAG_QUAL],
-                                         qlens, counts0=qc0, device=device)
+    seq_job, qual_job = _stream_jobs(
+        p, frozen, device, (seq_model, sections[TAG_SEQ], seq_counts),
+        (qmodel, sections[TAG_QUAL], qlens), decode=True)
 
     # --- sequence assembly (host) ---
     seq_flat = np.empty(int(lengths.sum()), np.uint8)
@@ -755,20 +823,20 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
     # --- IDs ---
     if TAG_IDSCHEMA in sections:
         schema = IdBinSchema.from_json(sections[TAG_IDSCHEMA])
-        var = (_decode_bytes(p, sections[TAG_IDVAR])
+        var = (_decode_bytes(p, sections[TAG_IDVAR], device)
                if TAG_IDVAR in sections else b"")
         ids = reconstruct_ids(schema, R, var)
     else:
-        ids = _decode_lines(p, sections[TAG_IDRAW], R)
+        ids = _decode_lines(p, sections[TAG_IDRAW], R, device)
 
     # --- plus lines ---
     if TAG_PLUSSCHEMA in sections:
         pschema = IdBinSchema.from_json(sections[TAG_PLUSSCHEMA])
-        pvar = (_decode_bytes(p, sections[TAG_PLUSVAR])
+        pvar = (_decode_bytes(p, sections[TAG_PLUSVAR], device)
                 if TAG_PLUSVAR in sections else b"")
         plus = reconstruct_ids(pschema, R, pvar)
     elif TAG_PLUSRAW in sections:
-        plus = _decode_lines(p, sections[TAG_PLUSRAW], R)
+        plus = _decode_lines(p, sections[TAG_PLUSRAW], R, device)
     else:
         plus = [b""] * R
 

@@ -1,13 +1,14 @@
 """File-level compress/decompress orchestration (single-end, no reference).
 
 Copied from fastqueeze_tpu/pipeline/driver.py (compress_se, decompress):
-cut the input into blocks, train the frozen tables on a prefix, encode
-each block, record per-block MD5 + whole-input MD5, write the container;
-on decode, verify both and reassemble the plaintext.  Every stage takes
-the engine's ``device`` explicitly.
+cut the input into blocks, train the frozen tables on a prefix when the
+usemodel gate says so (else every block codes adaptively and the archive
+has no model), encode each block, record per-block MD5 + whole-input
+MD5, write the container; on decode, verify both and reassemble the
+plaintext.  Every stage takes the engine's ``device`` explicitly.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-inputs below the usemodel gate and frozen_adapt (Queue A item 5),
+frozen_adapt and adapt_chunk's semi-adaptive walk (Queue A item 5),
 self-referential blocks (item 4), --mesh (item 9), --part, -X, -m
 (item 4), paired-end (item 6) and references (item 8).
 """
@@ -49,30 +50,22 @@ def _unported(params: CodecParams, in_bytes: int) -> Optional[str]:
         return "lossy quality transform: ROADMAP Queue A item 4"
     if params.self_align == 1:
         return "self-referential alignment (-S): ROADMAP Queue A item 4"
-    if params.frozen_adapt or not decide_use_model(params, in_bytes):
-        return ("adaptive coder (inputs below the usemodel gate, "
-                "frozen_adapt, qlevel 3): ROADMAP Queue A item 5")
+    if params.frozen_adapt and decide_use_model(params, in_bytes):
+        return ("adapting from a frozen table (frozen_adapt): ROADMAP "
+                "Queue A item 5")
     return None
 
 
-def compress_se(params: CodecParams, in_path: str, out_path: str,
-                dbg: Optional[DebugInfo] = None, device="cuda") -> Dict:
-    why = _unported(params, _gate_bytes(in_path))
-    if why:
-        raise NotImplementedError(why)
+def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
+           device, dbg: DebugInfo) -> Dict:
+    """usemodel preprocess (reference doPreProcess): pull blocks from
+    ``gen`` until the training prefix is covered, parse them once into
+    ``prefix_items`` (the encode loop reuses them), train the frozen
+    tables from the parsed arrays and upload them to ``device``."""
     from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
     from fastqueeze_tpu_torch.pipeline.frozen import (
-        _qual_alphabet, device_tables, serialize_frozen, train_frozen_blocks)
-    dbg = dbg or DebugInfo()
-    block_size = params.block_bytes or params.block_size_mb * (1 << 20)
-    whole_md5 = hashlib.md5()
-    gen = read_blocks(in_path, block_size)
-
-    # usemodel preprocess (reference doPreProcess): pull blocks until the
-    # training prefix is covered, parse them once, train from the parsed
-    # arrays, then feed the same parsed blocks into the encode pipeline
+        _qual_alphabet, device_tables, train_frozen_blocks)
     t0 = time.time()
-    prefix_items = []   # (raw, final_nl, FastqBlock)
     need = params.model_train_mb << 20
     got = 0
     for raw, final_nl in gen:
@@ -93,20 +86,44 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
     device_tables(frozen, _qual_alphabet(frozen["qmax"]),
                   params.qctx_eff_init(), device)
     dbg.add("train_s", time.time() - t0)
+    return frozen
+
+
+def compress_se(params: CodecParams, in_path: str, out_path: str,
+                dbg: Optional[DebugInfo] = None, device="cuda") -> Dict:
+    why = _unported(params, _gate_bytes(in_path))
+    if why:
+        raise NotImplementedError(why)
+    from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
+    dbg = dbg or DebugInfo()
+    block_size = params.block_bytes or params.block_size_mb * (1 << 20)
+    whole_md5 = hashlib.md5()
+    gen = read_blocks(in_path, block_size)
+    frozen = None
+    prefix_items = []   # (raw, final_nl, FastqBlock): parsed once, reused
+    if decide_use_model(params, _gate_bytes(in_path)):
+        frozen = _train(params, in_path, gen, prefix_items, device, dbg)
 
     if params.self_align == -1:
         # auto (-S default): decided once per file from the first block;
         # the answer is written into PARAM
         from fastqueeze_tpu_torch.pipeline.selfref import auto_self_align
-        on = bool(prefix_items) and auto_self_align(
-            params, prefix_items[0][2], dbg)
-        if on:
+        if not prefix_items:
+            first = next(gen, None)
+            if first is not None:
+                prefix_items.append((*first, parse_block(*first)))
+        if prefix_items and auto_self_align(params, prefix_items[0][2],
+                                            dbg):
             raise NotImplementedError(
                 "self-referential blocks (the auto probe found coverage "
                 "data): ROADMAP Queue A item 4")
         params.self_align = 0
+    model_blob = None
+    if frozen is not None:
+        from fastqueeze_tpu_torch.pipeline.frozen import serialize_frozen
+        model_blob = serialize_frozen(frozen)
     writer = ArcWriter(out_path, params, [os.path.basename(in_path)], [],
-                       model_blob=serialize_frozen(frozen))
+                       model_blob=model_blob)
 
     def items():
         yield from prefix_items

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from fastqueeze_tpu_torch.config import CodecParams
-from fastqueeze_tpu_torch.models.base import QualModel, SeqModel
+from fastqueeze_tpu_torch.models.base import (
+    CtxModel, FlatModel, Order1ByteModel, QualModel, SeqModel)
 from fastqueeze_tpu_torch.ops import engine, kernels
 from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
 
@@ -193,3 +194,148 @@ def test_pipeline_on_card_matches_host_route(cuda, tmp_path, monkeypatch):
                             force=True, device=cuda)
     assert kernels.LAUNCHES["frozen_decode"] > 0
     assert open(out[0], "rb").read() == fq.read_bytes()
+
+
+# --- adaptive coder: K5 adapt_encode_walk, K7 rans_encode_sf, K6 ---------
+
+_ADAPT = {
+    "seq_o10": SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10),
+    "fqz_q2": QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=2),
+    "fqz_q3": QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=3),
+    "chain_k4": QualModel(alphabet=8, init=1, inc=16, cap=8192, k=4,
+                          ctx_base=7, hash_bits=12, pos_bits=3),
+    "order1_byte": Order1ByteModel(alphabet=256, init=1, inc=16, cap=8192),
+    "order0_flag": CtxModel(alphabet=2, init=1, inc=16, cap=8192),
+    "flat_4": FlatModel(alphabet=256, init=1, inc=16, cap=8192, n_ctx=4),
+}
+
+
+def _adapt_roundtrip(cuda, model, counts, syms, L, ctx=None):
+    """K5 -> K7 -> K3 -> K6 on the card against the plain versions on the
+    same inputs; returns the card's decoded grid and the input grid."""
+    lay = make_layout(counts, L)
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    cx = (None if ctx is None
+          else torch.from_numpy(to_grid(lay, ctx.astype(np.int32))))
+    on = (lambda t: None if t is None else t.to(cuda))
+    nh = engine._n_halve(model, L)
+    sf_p = kernels.adapt_encode_walk(g, cg, model, nh, cx)
+    sf = kernels.adapt_encode_walk(on(g), on(cg), model, nh, on(cx))
+    assert torch.equal(sf.cpu(), sf_p)
+    enc_p = kernels.rans_encode_sf(sf_p, cg)
+    enc = kernels.rans_encode_sf(sf, on(cg))
+    for a, b in zip(enc, enc_p):
+        assert torch.equal(a.cpu(), b)
+    out, n = kernels.compact_words(*enc[:2])
+    k = int(n.item())
+    W = 1024
+    while W < k + 8:
+        W <<= 1
+    words = torch.zeros(W, dtype=torch.int16)
+    words[:k] = out[:k].cpu()
+    dec_p = kernels.adapt_decode(enc_p[2], words, cg, lay.T, model, nh, cx)
+    dec = kernels.adapt_decode(enc[2], on(words), on(cg), lay.T, model, nh,
+                               on(cx))
+    torch.cuda.synchronize()
+    assert torch.equal(dec.cpu(), dec_p)
+    return dec.cpu(), g
+
+
+@pytest.mark.parametrize("name", sorted(_ADAPT))
+def test_adaptive_kernels_match_plain(cuda, name):
+    model = _ADAPT[name]
+    rng = np.random.default_rng(len(name))
+    counts = rng.integers(0, 120, 1500).astype(np.int64)
+    counts[::11] = 0
+    syms = rng.integers(0, model.alphabet, int(counts.sum())).astype(np.uint8)
+    ctx = (rng.integers(0, model.n_ctx, len(syms))
+           if isinstance(model, FlatModel) else None)
+    kernels.reset_launch_counts()
+    dec, g = _adapt_roundtrip(cuda, model, counts, syms, 256, ctx)
+    assert torch.equal(dec, g)
+    for k in ("adapt_encode_walk", "rans_encode_sf", "adapt_decode"):
+        assert kernels.LAUNCHES[k] == 1, k
+
+
+@pytest.mark.parametrize("L", [64, 1024, 4096])
+def test_adaptive_duplicate_heavy_waves(cuda, L):
+    """Every lane on one context in every wave: equal-length reads of one
+    repeated base start together on the seq magic context, so each wave
+    adds L increments to a single row and halves it n_halve times."""
+    model = SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10)
+    counts = np.full(3 * L, 100, np.int64)
+    syms = np.zeros(int(counts.sum()), np.uint8)
+    syms[::7] = 2
+    dec, g = _adapt_roundtrip(cuda, model, counts, syms, L)
+    assert torch.equal(dec, g)
+
+
+@pytest.mark.parametrize("shape", ["ragged", "empty_stream"])
+def test_adaptive_engine_on_card_matches_cpu(cuda, shape):
+    """The adaptive engine's payload on the card equals the plain
+    versions' on the CPU and the native coder's; it decodes on the card."""
+    from fastqueeze_tpu_torch.ops import host_adapt
+    rng = np.random.default_rng(12)
+    model = QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=2)
+    counts = rng.integers(0, 150, 900).astype(np.int64)
+    counts[::9] = 0
+    if shape == "empty_stream":
+        counts[:] = 0
+    syms = rng.integers(0, 40, int(counts.sum())).astype(np.uint8)
+    p = CodecParams()
+    want = engine.encode_stream(model, p, syms, counts, adapt=True)
+    got = engine.encode_stream(model, p, syms, counts, adapt=True,
+                               device=cuda)
+    assert got == want
+    job = host_adapt.encode_job(model, p, syms, counts)
+    if job is not None:
+        assert job.finalize() == want
+    back = engine.decode_stream(model, p, want, counts, adapt=True,
+                                device=cuda)
+    assert np.array_equal(back, syms)
+
+
+def test_adaptive_pipeline_on_card_matches_host_route(cuda, tmp_path,
+                                                      monkeypatch):
+    """compress_se below the usemodel gate on the card == the archive
+    with FASTQUEEZE_ADAPT_EXEC=host (native seq/qual coder); with
+    host_stream_max=0 every length, flag and ID stream takes marker 1 on
+    the card too; both decode on the card."""
+    from fastqueeze_tpu_torch.ops import host_adapt
+    from fastqueeze_tpu_torch.pipeline import driver
+    rng = np.random.default_rng(31)
+    recs = []
+    for r in range(2000):
+        n = int(rng.integers(30, 151))
+        seq = bytearray(rng.choice(list(b"ACGT"), n).astype(np.uint8))
+        if r % 17 == 0:
+            seq[n // 3] = ord("N")
+        qual = (np.clip(np.cumsum(rng.integers(-2, 3, n)) + 30, 2, 41)
+                + 33).astype(np.uint8)
+        recs.append(b"@A00123:45:HXXXXDSXX:1:%d:%d:%d 1:N:0:ACGTACGT\n"
+                    b"%s\n+\n%s\n" % (1101 + r // 500,
+                                       int(rng.integers(1000, 32000)),
+                                       int(rng.integers(1000, 32000)),
+                                       bytes(seq), bytes(qual)))
+    recs[90] = recs[30]
+    fq = tmp_path / "in.fq"
+    fq.write_bytes(b"".join(recs))
+    for kw in (dict(), dict(qlevel=3), dict(host_stream_max=0)):
+        arcs = {}
+        for mode in ("device", "host"):
+            monkeypatch.setenv("FASTQUEEZE_ADAPT_EXEC", mode)
+            arcs[mode] = str(tmp_path / f"{mode}.fqz")
+            host_adapt.NATIVE_CALLS["encode"] = 0
+            kernels.reset_launch_counts()
+            driver.compress_se(CodecParams(**kw), str(fq), arcs[mode],
+                               device=cuda)
+            if mode == "device":
+                assert host_adapt.NATIVE_CALLS["encode"] == 0
+                assert kernels.LAUNCHES["adapt_encode_walk"] >= 2
+        with open(arcs["device"], "rb") as a, open(arcs["host"], "rb") as b:
+            assert a.read() == b.read(), kw
+        monkeypatch.setenv("FASTQUEEZE_ADAPT_EXEC", "device")
+        out = driver.decompress(arcs["host"], str(tmp_path / "back"),
+                                force=True, device=cuda)
+        assert open(out[0], "rb").read() == fq.read_bytes(), kw

@@ -120,9 +120,15 @@ def test_wrappers_take_plain_path_on_cpu_only():
 
 
 def test_adaptive_not_ported():
+    """What of the adaptive coder stays unported raises: adapting from a
+    frozen table (frozen_adapt) and the semi-adaptive walk (B9)."""
     _, tm, counts, syms, table = _case("seq_o6", 5)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        te.encode_stream(tm, CodecParams(**_P), syms, counts, table,
+    p = CodecParams(**_P)
+    with pytest.raises(NotImplementedError, match="frozen_adapt"):
+        te.encode_stream(tm, p, syms, counts, table, adapt=True)
+    T = te.make_layout(counts, p.n_lanes(int(counts.sum()))).T
+    with pytest.raises(NotImplementedError, match="B9"):
+        te.encode_stream(tm, CodecParams(adapt_chunk=T, **_P), syms, counts,
                          adapt=True)
 
 

@@ -4,9 +4,14 @@ compress_se of one seeded FASTQ through both packages (the JAX one with
 FASTQUEEZE_FROZEN_EXEC=device, the port on the CPU with its plain kernel
 versions) must give the same archive bytes with the quality-context
 selection on, off (the fqz formula), and forced to a hashed rank chain
-with pos bits; each package must decode the other's archive.  Also: the
-port's errors for what it does not do yet, and that it imports without
-JAX.
+with pos bits; each package must decode the other's archive.  The same
+holds for the adaptive coder: the input below the usemodel gate at
+defaults and at qlevel 3 (the port's seq/qual through its engine,
+FASTQUEEZE_ADAPT_EXEC=device; the JAX package at its defaults), and a
+frozen-path input with Illumina IDs and host_stream_max=0, whose length,
+flag, distance, degenerate-base and ID streams all take marker 1.  Also:
+the port's errors for what it does not do yet, and that it imports
+without JAX.
 """
 
 import os
@@ -25,6 +30,7 @@ from fastqueeze_tpu_torch.container.encap import iter_tlv, write_tlv
 from fastqueeze_tpu_torch.pipeline import blockcodec
 from fastqueeze_tpu_torch.pipeline import driver as td
 from fastqueeze_tpu_torch.pipeline.frozen import deserialize_frozen
+from fastqueeze_tpu_torch.ops import kernels
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,6 +88,90 @@ def archives(tmp_path_factory):
         mp.undo()
 
 
+def _illumina_fastq(path, n=300, seed=5):
+    """Seeded reads of 30-150 bp with Illumina-style IDs (tile, x, y
+    vary), a few N bases and one exact duplicate."""
+    rng = np.random.default_rng(seed)
+    recs = []
+    for r in range(n):
+        L = int(rng.integers(30, 151))
+        seq = bytearray(rng.choice(list(b"ACGT"), L).astype(np.uint8))
+        if r % 23 == 0:
+            seq[int(rng.integers(0, L))] = ord("N")
+        qual = (np.clip(np.cumsum(rng.integers(-2, 3, L)) + 30, 2, 41)
+                + 33).astype(np.uint8)
+        recs.append(b"@A00123:45:HXXXXDSXX:1:%d:%d:%d 1:N:0:ACGTACGT\n"
+                    b"%s\n+\n%s\n" % (1101 + r // 100,
+                                       int(rng.integers(1000, 32000)),
+                                       int(rng.integers(1000, 32000)),
+                                       bytes(seq), bytes(qual)))
+    recs[40] = recs[7]
+    with open(path, "wb") as fh:
+        fh.write(b"".join(recs))
+
+
+_ADAPTIVE = {
+    "subgate_defaults": dict(),
+    "subgate_qlevel3": dict(qlevel=3),
+    "marker1_streams": dict(use_model=1, host_stream_max=0),
+}
+
+
+@pytest.fixture(scope="module")
+def adaptive_archives(tmp_path_factory):
+    """{config: (input, jax archive, port archive)}."""
+    d = tmp_path_factory.mktemp("torch_adaptive")
+    fq_sub, fq_ill = str(d / "in.fq"), str(d / "illumina.fq")
+    _fastq(fq_sub)
+    _illumina_fastq(fq_ill)
+    mp = pytest.MonkeyPatch()
+    out = {}
+    try:
+        for name, kw in _ADAPTIVE.items():
+            fq = fq_ill if name.startswith("marker1") else fq_sub
+            ja, ta = str(d / f"j_{name}.fqz"), str(d / f"t_{name}.fqz")
+            jd.compress_se(JParams(**kw), fq, ja)
+            mp.setenv("FASTQUEEZE_ADAPT_EXEC", "device")
+            td.compress_se(CodecParams(**kw), fq, ta, device="cpu")
+            mp.delenv("FASTQUEEZE_ADAPT_EXEC")
+            out[name] = (fq, ja, ta)
+        yield out
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("name", sorted(_ADAPTIVE))
+def test_adaptive_archive_bytes_equal(adaptive_archives, name):
+    fq, ja, ta = adaptive_archives[name]
+    with open(ja, "rb") as a, open(ta, "rb") as b:
+        assert a.read() == b.read()
+    with ArcReader(ta) as r:
+        assert (r.model_blob is not None) == name.startswith("marker1")
+        secs = dict(iter_tlv(r.read_block(0)))
+    if name.startswith("marker1"):
+        for tag in (blockcodec.TAG_LEN, blockcodec.TAG_SDUPF,
+                    blockcodec.TAG_SDUPD, blockcodec.TAG_QDUPF,
+                    blockcodec.TAG_QDUPD, blockcodec.TAG_DEGCNT,
+                    blockcodec.TAG_DEGPOS, blockcodec.TAG_IDVAR):
+            assert secs[tag][:1] == b"\x01", tag
+
+
+@pytest.mark.parametrize("name", sorted(_ADAPTIVE))
+def test_adaptive_cross_decode(adaptive_archives, name, tmp_path,
+                               monkeypatch):
+    fq, ja, ta = adaptive_archives[name]
+    with open(fq, "rb") as fh:
+        raw = fh.read()
+    monkeypatch.setenv("FASTQUEEZE_ADAPT_EXEC", "device")
+    kernels.reset_launch_counts()
+    td.decompress(ja, str(tmp_path / "t"), force=True, device="cpu")
+    monkeypatch.delenv("FASTQUEEZE_ADAPT_EXEC")
+    jd.decompress(ta, str(tmp_path / "j"), force=True)
+    for out in ("t", "j"):
+        with open(tmp_path / f"{out}.fastq", "rb") as fh:
+            assert fh.read() == raw
+
+
 @pytest.mark.parametrize("name", sorted(_CONFIGS))
 def test_archive_bytes_equal(archives, name):
     fq, ja, ta, jp = archives[name]
@@ -120,9 +210,12 @@ def test_corrupt_seq_payload_raises_value_error(archives):
 
 def test_unported_paths_raise(tmp_path, archives):
     fq = archives["qctx_off"][0]
-    small = CodecParams()                   # below the usemodel gate
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        td.compress_se(small, fq, str(tmp_path / "a.fqz"), device="cpu")
+    with pytest.raises(NotImplementedError, match="frozen_adapt"):
+        td.compress_se(CodecParams(use_model=1, frozen_adapt=1), fq,
+                       str(tmp_path / "a.fqz"), device="cpu")
+    with pytest.raises(NotImplementedError, match="B9"):
+        td.compress_se(CodecParams(adapt_chunk=128), fq,
+                       str(tmp_path / "s.fqz"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
         td.compress_se(CodecParams(use_model=1, self_align=1), fq,
                        str(tmp_path / "b.fqz"), device="cpu")
