@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the seven CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the nine CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
      main paths' shapes, bit-equal, with times (CUDA events, warmed):
      frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
@@ -14,6 +14,11 @@ Phases (any failure raises and exits non-zero):
      T = 3072 (50,000 x 100 bp reads) for order-10 seq and fqz qualities
      (A = 40) at qlevel 2 and 3, and at L = 1024, T = 3072 for an
      order-1 byte stream of 3,000,000 bytes (one block's Illumina IDs);
+     the aligner's K8 over the seeded 100 Mbp genome's k = 14 index at
+     B = 4096 (tier 1: forward, RC) and B = 512 (the rescue tier), and
+     K9 over its k = 22 index at B = 512, G = 3, two ops, Lp = 128 (K8:
+     equal on mapped and the mapped reads' outputs; K9: on found and the
+     found reads' outputs);
   4. frozen end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads
      sampled from a random 100 Mbp genome) through the CLI's compress
      and decompress, compared byte for byte; K1-K4 must have launched and
@@ -30,7 +35,19 @@ Phases (any failure raises and exits non-zero):
   7. marker-1 streams on the frozen path: 250,000 reads with Illumina
      IDs (two blocks; the first block's ID payload is ~3 MB, over
      host_stream_max) through the CLI, byte-exact; the first block's ID
-     stream must carry marker 1 and K5/K6 must have launched.
+     stream must carry marker 1 and K5/K6 must have launched;
+  8. reference-aligned SE: the genome written as ref.fa, `-i ref.fa`,
+     then 300,000 reads (30% reverse strand, 5% with a deletion) through
+     the CLI with ref.fa at defaults (frozen path, 2 blocks; K8) and
+     50,000 such reads with -q (adaptive path; K8 and K9): byte-exact,
+     no native aligner or coder call, and each archive equals the one
+     written with FASTQUEEZE_ALIGN_EXEC=host (the native aligner), which
+     decodes on the card; decode without the reference and with a wrong
+     one must fail;
+  9. self-referential blocks: 300,000 reads over a 500 kbp genome (60x,
+     a bacterial resequencing run) through the CLI at defaults: the auto
+     probe must turn self-ref on (PARAM self_align = 1, AMAP in a block),
+     byte-exact.
 In each end-to-end run the launch counts are set to 0 just before it and
 read just after.  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
@@ -47,9 +64,14 @@ import time
 import numpy as np
 
 SEED = 20261016
+GENOME_LEN = 100_000_000
 L_MAIN, T_MAIN, READ_LEN = 4096, 6144, 100
 R_ADAPT, L_ADAPT, T_ADAPT = 50_000, 2048, 3072
 N_IDVAR, L_IDVAR = 3_000_000, 1024
+ALIGN_LP = 128
+# a small bacterial genome at 60x; at 1 Mbp (30x) the auto probe's
+# 1,536-read prefix maps fewer than the 10 reads it needs and says no
+SELFREF_GENOME = 500_000
 
 
 def card() -> str:
@@ -259,16 +281,140 @@ def check_adaptive_kernels():
     return rows
 
 
-def _genome_fastq(path: str, R: int = 300_000, ids: str = "sra") -> int:
-    """R x 100 bp reads from a seeded random 100 Mbp genome, ~1%
-    substitutions, ~0.1% N, qualities from a seeded first-order Markov
+def _genome(G: int = GENOME_LEN) -> np.ndarray:
+    """The seeded random genome every generated input samples."""
+    return np.random.default_rng(SEED).integers(0, 4, G, dtype=np.uint8)
+
+
+def _align_reads(rng, genome, n, kind):
+    """n x 100 bp reads from ``genome`` as each aligner tier meets them
+    (zero-padded (n, 128) code grid, degenerate flags, lengths):
+    tier1 = ~1% substitutions, 30% reverse strand, 10% random reads;
+    rescue = 4-9 substitutions a read (tier 1 misses most) and 10% random;
+    indel = one or two 1-3 bp indels, some with substitutions."""
+    G = len(genome)
+    s = rng.integers(0, G - 200, n)
+    i = np.arange(READ_LEN)[None, :]
+    off = np.zeros((n, READ_LEN), np.int64)
+    if kind == "indel":
+        for _ in range(2):
+            at = rng.integers(15, READ_LEN - 15, n)
+            g = rng.integers(-3, 4, n) * (rng.random(n) < 0.8)
+            off += np.where(i >= at[:, None], g[:, None], 0)
+    codes = genome[np.clip(s[:, None] + i + off, 0, G - 1)]
+    n_sub = {"tier1": 0, "rescue": 9, "indel": 2}[kind]
+    if kind == "tier1":
+        e = rng.random(codes.shape) < 0.01
+        codes[e] = (codes[e] + 1) % 4
+    else:
+        r = np.repeat(np.arange(n), n_sub)
+        c = rng.integers(0, READ_LEN, n * n_sub)
+        codes[r, c] = (codes[r, c] + rng.integers(1, 4, len(r))) % 4
+    junk = rng.random(n) < 0.1
+    codes[junk] = rng.integers(0, 4, (int(junk.sum()), READ_LEN))
+    rc = rng.random(n) < 0.3
+    codes[rc] = 3 - codes[rc, ::-1]
+    grid = np.zeros((n, ALIGN_LP), np.uint8)
+    grid[:, :READ_LEN] = codes
+    return grid, np.zeros((n, ALIGN_LP), bool), np.full(n, READ_LEN, np.int32)
+
+
+def check_align_kernels(genome):
+    """K8 and K9 vs their plain versions on the card, at the main path's
+    shapes: the seeded 100 Mbp genome's index (k = 14 for K8, k = 22 for
+    K9), B = 4096 tier-1 reads and B = 512 rescue / indel reads at Lp =
+    128.  K8 must equal on mapped and on the mapped reads' pos, strand
+    and mask; K9 on found and on every output of the found reads."""
+    import torch
+    from fastqueeze_tpu_torch.align.hash import AlignConfig, Aligner
+    from fastqueeze_tpu_torch.align.index import build_from_ref
+    from fastqueeze_tpu_torch.align.ref import RefSeq
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.ops import kernels
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ref = RefSeq(genome, np.zeros(len(genome), bool), ["g"],
+                 np.array([0, len(genome)]), "")
+    rng = np.random.default_rng(SEED + 4)
+    grids = {kind: tuple(torch.from_numpy(a).to(dev) for a in
+                         _align_reads(rng, genome, n, kind))
+             for kind, n in (("tier1", 4096), ("rescue", 512),
+                             ("indel", 512))}
+    rows = {}
+    for k in (14, 22):
+        t0 = time.time()
+        p = CodecParams(seed_len=k)
+        al = Aligner(build_from_ref(ref, p), p)
+        ix = al.dev_index(dev)
+        torch.cuda.synchronize()
+        mb = sum(t.numel() * t.element_size() for t in ix[:5]) / 1e6
+        print(f"  index k = {k}: {mb:.0f} MB on the card, built and "
+              f"uploaded in {time.time() - t0:.1f} s")
+        base = dict(k=k, stride=2, n_cand=64, max_mis=7, both_strands=0,
+                    lp=ALIGN_LP)
+        deep = dict(base, n_cand=1024, n_seeds=6, excl_bp=7)
+        cases = ([("fwd", "tier1", dict(base, strand="fwd", probe_k=16)),
+                  ("rc", "tier1", dict(base, strand="rc", probe_k=16)),
+                  ("rescue", "rescue", deep)] if k == 14
+                 else [("indel_G3_ops2", "indel", deep)])
+        for tag, kind, kw in cases:
+            cfg = AlignConfig(**kw)
+            c, d, ln = grids[kind]
+            if tag.startswith("indel"):
+                run = lambda: kernels.indel_batch(c, d, ln, ix, cfg, 3, 2)
+                plain = lambda: kernels.indel_batch_plain(c, d, ln, ix, cfg,
+                                                          3, 2)
+                name = "indel_batch"
+            else:
+                run = lambda: kernels.align_batch(c, d, ln, ix, cfg)
+                plain = lambda: kernels.align_batch_plain(c, d, ln, ix, cfg)
+                name = "align_batch"
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            m = want[0]
+            err = int((got[0] != m).sum())
+            for a, b in zip(got[1:], want[1:]):
+                if a[m].numel():
+                    err = max(err, int((a[m].long() - b[m].long()).abs()
+                                       .max()))
+            ms = _time_ms(run, 5 if kind == "tier1" else 3)
+            pms = _time_ms(plain, 1)
+            print(f"  k{k:<2} {tag:14s} {name:12s} B = {len(ln)}: "
+                  f"{int(m.sum())} mapped, max_abs_err {err}  kernel "
+                  f"{ms:10.3f} ms  plain {pms:10.3f} ms")
+            if err:
+                raise AssertionError(f"{name} {tag}: kernel differs from "
+                                     f"its plain version ({err})")
+            rows[f"k{k}_{tag}"] = {name: (err, ms, pms)}
+        del al, ix
+    return rows
+
+
+def _genome_fastq(path: str, R: int = 300_000, ids: str = "sra",
+                  rc_frac: float = 0.0, indel_frac: float = 0.0,
+                  genome_len: int = GENOME_LEN) -> int:
+    """R x 100 bp reads from a seeded random genome (100 Mbp by default),
+    ~1% substitutions, ~0.1% N, qualities from a seeded first-order Markov
     chain over 40 Phred values; SRA-style IDs, or Illumina-style ones
-    (tile, x, y from a second seeded stream).  Returns the read count."""
+    (tile, x, y from a second seeded stream).  rc_frac of the reads are
+    reverse-complemented and indel_frac carry a 1-3 bp deletion, both
+    drawn from a third seeded stream (at 0 the input is unchanged).
+    Returns the read count."""
     rng = np.random.default_rng(SEED)
-    G = 100_000_000
+    G = genome_len
     genome = rng.integers(0, 4, G, dtype=np.uint8)
     starts = rng.integers(0, G - READ_LEN, R)
     codes = genome[starts[:, None] + np.arange(READ_LEN)]
+    if rc_frac or indel_frac:
+        xrng = np.random.default_rng(SEED + 3)
+        sel = np.flatnonzero(xrng.random(R) < indel_frac)
+        at = xrng.integers(20, READ_LEN - 20, len(sel))
+        gap = xrng.integers(1, 4, len(sel))
+        i = np.arange(READ_LEN)[None, :]
+        src = starts[sel, None] + i + np.where(i >= at[:, None],
+                                               gap[:, None], 0)
+        codes[sel] = genome[np.minimum(src, G - 1)]
+        rc = xrng.random(R) < rc_frac
+        codes[rc] = 3 - codes[rc, ::-1]
     sub = rng.random(codes.shape) < 0.01
     codes[sub] = (codes[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
     seq = np.frombuffer(b"ACGT", np.uint8)[codes]
@@ -330,63 +476,81 @@ def _input(tmp: str, name: str, R: int, ids: str = "sra") -> str:
     return fq
 
 
-def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals):
-    """One main-path run through the CLI: counts set to 0 just before,
-    read just after; byte-exact round trip; every kernel of the path
-    launched; no native coder call.  Adds the launches to ``totals``."""
+def _label(flags) -> str:
+    """The CLI flags of a run, less ``--stats`` (which only prints the
+    stage times to stderr)."""
+    return " ".join(f for f in flags if f != "--stats") or "(defaults)"
+
+
+def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
+           ref=None):
+    """One main-path run through the CLI (against ``ref`` when given):
+    counts set to 0 just before, read just after; byte-exact round trip;
+    every kernel of the path launched; no native coder or aligner call.
+    Adds the launches to ``totals``."""
     from fastqueeze_tpu_torch import cli
+    from fastqueeze_tpu_torch.io import native as nat
     from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, kernels
     kernels.reset_launch_counts()
-    for calls in (host_frozen.NATIVE_CALLS, host_adapt.NATIVE_CALLS):
+    for calls in (host_frozen.NATIVE_CALLS, host_adapt.NATIVE_CALLS,
+                  nat.ALIGN_CALLS):
         for k in calls:
             calls[k] = 0
     back = arc + ".back"
+    refs = [ref] if ref else []
     t0 = time.time()
-    if cli.main(["-c", "-1", fq, "-o", arc, "-f"] + flags) != 0:
+    if cli.main(["-c"] + refs + ["-1", fq, "-o", arc, "-f"] + flags) != 0:
         raise RuntimeError("compress failed")
     t_enc = time.time() - t0
     t0 = time.time()
-    if cli.main(["-d", arc, "-o", back, "-f"]) != 0:
+    if cli.main(["-d"] + refs + [arc, "-o", back, "-f"]) != 0:
         raise RuntimeError("decompress failed")
     t_dec = time.time() - t0
     launches = dict(kernels.LAUNCHES)
     native = {"frozen": dict(host_frozen.NATIVE_CALLS),
-              "adaptive": dict(host_adapt.NATIVE_CALLS)}
+              "adaptive": dict(host_adapt.NATIVE_CALLS),
+              "aligner": dict(nat.ALIGN_CALLS)}
     if not _same_file(fq, back + ".fastq"):
         raise AssertionError("round trip differs from the input")
     size, arc_size = os.path.getsize(fq), os.path.getsize(arc)
-    print(f"end to end {' '.join(flags) or '(defaults)'}: encode "
+    print(f"end to end {_label(flags)}: encode "
           f"{t_enc:.3f} s = {n_reads / t_enc:.0f} reads/s, decode "
           f"{t_dec:.3f} s = {n_reads / t_dec:.0f} reads/s, ratio "
           f"{size / arc_size:.4f} ({arc_size} bytes); byte-exact")
-    print(f"kernel launches in the main path: {launches}; native coder "
-          f"calls: {native}")
+    print(f"kernel launches in the main path: {launches}; native coder / "
+          f"aligner calls: {native}")
     missing = [k for k in path_kernels if launches[k] < 1]
     if missing:
         raise AssertionError(f"kernels of the path never launched: "
                              f"{missing}")
     if any(sum(c.values()) for c in native.values()):
-        raise AssertionError(f"native coder ran on the card path: {native}")
+        raise AssertionError(f"native coder or aligner ran on the card "
+                             f"path: {native}")
     for k, v in launches.items():
         totals[k] += v
     return launches
 
 
-def _oracle(fq: str, arc: str, flags, env: str):
-    """The same input compressed with ``env``=host (the native coder,
-    bit-identical to the JAX package's device path; execution routing
-    only) must give the same archive, which must decode on the card."""
+def _oracle(fq: str, arc: str, flags, env: str, ref=None):
+    """The same input compressed with ``env``=host (the native coder or
+    aligner, bit-identical to the JAX package's host path; execution
+    routing only) must give the same archive, which must decode on the
+    card."""
     from fastqueeze_tpu_torch import cli
     arc_h = arc + ".host.fqz"
+    refs = [ref] if ref else []
     os.environ[env] = "host"
+    t0 = time.time()
     try:
-        if cli.main(["-c", "-1", fq, "-o", arc_h, "-f"] + flags) != 0:
+        if cli.main(["-c"] + refs + ["-1", fq, "-o", arc_h, "-f"]
+                    + flags) != 0:
             raise RuntimeError("host-routed compress failed")
     finally:
         del os.environ[env]
+    print(f"host-routed encode ({env}=host): {time.time() - t0:.3f} s")
     if not _same_file(arc, arc_h):
         raise AssertionError(f"card archive != native-host archive ({env})")
-    if cli.main(["-d", arc_h, "-o", arc_h + ".back", "-f"]) != 0:
+    if cli.main(["-d"] + refs + [arc_h, "-o", arc_h + ".back", "-f"]) != 0:
         raise RuntimeError("decode of the host archive failed")
     if not _same_file(fq, arc_h + ".back.fastq"):
         raise AssertionError("host archive decoded on the card differs")
@@ -438,7 +602,96 @@ def end_to_end(tmp: str):
     return totals
 
 
+def _mapped(arc: str):
+    """(mapped reads, reads, blocks carrying the AMAP stream)."""
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    from fastqueeze_tpu_torch.container.encap import iter_tlv
+    from fastqueeze_tpu_torch.pipeline.blockcodec import TAG_AMAP, TAG_META
+    nm = n = amap = 0
+    with ArcReader(arc) as r:
+        for i in range(len(r.blocks)):
+            secs = dict(iter_tlv(r.read_block(i)))
+            meta = json.loads(secs[TAG_META])
+            nm += meta["nm"]
+            n += meta["R"]
+            amap += TAG_AMAP in secs
+    return nm, n, amap
+
+
+def _refuses(argv, what: str) -> None:
+    from fastqueeze_tpu_torch import cli
+    if cli.main(argv) == 0:
+        raise AssertionError(f"decode {what} did not fail")
+    print(f"decode {what}: refused with a message (see above)")
+
+
+def aligned_end_to_end(tmp: str, genome, totals) -> None:
+    """Phases 8-9, adding their launches to ``totals``."""
+    from fastqueeze_tpu_torch import cli
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    print("phase 8: reference-aligned SE")
+    ref = os.path.join(tmp, "ref.fa")
+    t0 = time.time()
+    lines = np.frombuffer(b"ACGT", np.uint8)[genome].reshape(-1, 100)
+    with open(ref, "wb") as fh:
+        fh.write(b">genome seeded\n")
+        fh.write(np.concatenate([lines, np.full((len(lines), 1), 10,
+                                                np.uint8)], 1).tobytes())
+    print(f"ref.fa: {os.path.getsize(ref)} bytes ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    if cli.main(["-i", ref]) != 0:
+        raise RuntimeError("index build failed")
+    print(f"-i ref.fa: {time.time() - t0:.1f} s")
+    for name, R, flags, path in (
+            ("aligned.fq", 300_000, ["--stats"],
+             _FROZEN_PATH + ("align_batch",)),
+            ("aligned_q.fq", R_ADAPT, ["-q", "--stats"],
+             _ADAPT_PATH + ("align_batch", "indel_batch"))):
+        fq = os.path.join(tmp, name)
+        t0 = time.time()
+        _genome_fastq(fq, R, rc_frac=0.3, indel_frac=0.05)
+        print(f"input {name}: {R} reads, {os.path.getsize(fq)} bytes, 30% "
+              f"reverse strand, 5% with a deletion ({time.time() - t0:.1f} "
+              f"s to generate)")
+        arc = fq[:-3] + ".fqz"
+        _drive(fq, R, arc, flags, path, totals, ref=ref)
+        nm, n, _ = _mapped(arc)
+        print(f"mapped fraction {_label(flags)}: "
+              f"{nm / n:.4f} ({nm} of {n} reads)")
+        _oracle(fq, arc, flags, "FASTQUEEZE_ALIGN_EXEC", ref=ref)
+        if "-q" not in flags:
+            _refuses(["-d", arc, "-o", arc + ".x", "-f"],
+                     "without the reference")
+            wrong = os.path.join(tmp, "wrong.fa")
+            with open(wrong, "wb") as fh:
+                fh.write(b">w\nACGTACGTAC\n")
+            _refuses(["-d", wrong, arc, "-o", arc + ".x", "-f"],
+                     "with a wrong reference")
+        os.remove(fq)
+
+    print("phase 9: self-referential blocks (coverage input, CLI defaults)")
+    fq = os.path.join(tmp, "coverage.fq")
+    t0 = time.time()
+    _genome_fastq(fq, 300_000, rc_frac=0.5, genome_len=SELFREF_GENOME)
+    print(f"input coverage.fq: 300000 reads over a {SELFREF_GENOME} bp "
+          f"genome (60x), {os.path.getsize(fq)} bytes "
+          f"({time.time() - t0:.1f} s)")
+    arc = os.path.join(tmp, "coverage.fqz")
+    _drive(fq, 300_000, arc, ["--stats"], _FROZEN_PATH, totals)
+    nm, n, amap = _mapped(arc)
+    with ArcReader(arc) as r:
+        sa = r.params.self_align
+    print(f"self-ref: PARAM self_align = {sa}, {amap} block(s) with AMAP, "
+          f"mapped fraction {nm / n:.4f} ({nm} of {n} reads)")
+    if sa != 1 or amap < 1:
+        raise AssertionError("the auto probe did not turn self-ref on")
+
+
 _REPLACES = {
+    "align_batch": ("fastqueeze_tpu_torch/csrc/align_batch.cu",
+                    "fastqueeze_tpu/align/hash.py:414"),
+    "indel_batch": ("fastqueeze_tpu_torch/csrc/indel_batch.cu",
+                    "fastqueeze_tpu/align/hash.py:515"),
     "quant_pack": ("fastqueeze_tpu_torch/csrc/quant_pack.cu",
                    "fastqueeze_tpu/ops/engine.py:544"),
     "frozen_encode_lanes": ("fastqueeze_tpu_torch/csrc/frozen_encode.cu",
@@ -463,12 +716,16 @@ def main() -> int:
     build()
     rows = check_kernels()
     rows.update(check_adaptive_kernels())
+    genome = _genome()
+    rows.update(check_align_kernels(genome))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = end_to_end(tmp)
+        aligned_end_to_end(tmp, genome, launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"])
+    seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"],
+               **rows["k14_fwd"], **rows["k22_indel_G3_ops2"])
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[k],
               "max_abs_err": max(r[k][0] for r in rows.values() if k in r),

@@ -1,19 +1,52 @@
-"""Host side of the seed aligner: the result type and the index arrays.
+"""Batched seed-and-extend aligner: the tier chain over a block's reads.
 
-Copied from fastqueeze_tpu/align/hash.py (AlignResult and the host arrays
-the Aligner constructor builds).  The self-align probe feeds these arrays
-to the native one-pass aligner (native/alignhost.cpp fq_selfref_align);
-the device aligner kernels are not ported yet (ROADMAP Queue B, B11-B14).
+Copied from fastqueeze_tpu/align/hash.py (AlignConfig, AlignResult,
+Aligner.align and its tiers): tier 1 forward over every read, RC only on
+the reads forward failed (or both strands with both_strands), tier 2 a
+deeper multi-seed rescue of the still-unmapped reads, tier 3 the indel
+tier when max_indel > 0.  Each tier's batches go through K8
+(ops.kernels.align_batch) and K9 (ops.kernels.indel_batch).
+
+Routing is an execution choice (the outputs that reach the archive are
+identical): on a CUDA device the kernels run, unless
+FASTQUEEZE_ALIGN_EXEC=host sends the batches to the native host mirror
+(native/alignhost.cpp), the oracle; on the CPU the native mirror is the
+default and FASTQUEEZE_ALIGN_EXEC=device runs the kernels' plain PyTorch
+versions.  Reads longer than align_max_len (the long-read chunk tier)
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import os
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from fastqueeze_tpu_torch.align.index import RefIndex
 from fastqueeze_tpu_torch.config import CodecParams
+
+LONG_READ_MSG = ("aligned reads longer than align_max_len (the long-read "
+                 "chunk tier and its LR streams): ROADMAP Queue A item 8")
+
+
+@dataclass(frozen=True)
+class AlignConfig:
+    k: int
+    stride: int
+    n_cand: int          # candidate positions verified per read (per seed)
+    max_mis: int
+    both_strands: int
+    lp: int              # padded read length (multiple of 16)
+    n_seeds: int = 1     # least-frequent seeds that contribute candidates
+    excl_bp: int = 0     # mask +-excl_bp around a picked seed before the
+                         # next pick (an error spoils ~k/stride seeds)
+    strand: str = "both"     # "fwd" / "rc": one strand only
+    probe_k: int = 1024      # two-probe-word prefilter keeps the top-K
+                             # candidates when the list is > 2K deep
 
 
 class AlignResult(NamedTuple):
@@ -21,10 +54,53 @@ class AlignResult(NamedTuple):
     pos: np.ndarray       # (R,) int64 window start in ref coords
     is_rev: np.ndarray    # (R,) bool
     mis_mask: np.ndarray  # (R, Lp) bool, True at mismatch (window coords)
+    # indel tier: split s and signed gap g (g > 0: the read skips g ref
+    # bases at s; g < 0: |g| inserted read bases at s), and an optional
+    # second op (s2, g2).  None = every read gapless.
+    gap_pos: Optional[np.ndarray] = None
+    gap_len: Optional[np.ndarray] = None
+    gap_pos2: Optional[np.ndarray] = None
+    gap_len2: Optional[np.ndarray] = None
+
+
+def _gridify(codes_flat, dege_flat, lengths, lp):
+    """Flat per-block arrays -> zero-padded (R, lp) grids."""
+    R = len(lengths)
+    offs = np.cumsum(lengths) - lengths
+    gi = (np.arange(int(lengths.sum()), dtype=np.int64)
+          - np.repeat(offs, lengths))
+    rows = np.repeat(np.arange(R), lengths)
+    codes = np.zeros((R, lp), np.uint8)
+    dege = np.zeros((R, lp), bool)
+    codes[rows, gi] = codes_flat
+    dege[rows, gi] = dege_flat
+    return codes, dege
+
+
+def lp_bucket(max_len: int) -> int:
+    """Bucketed padded read length ({1, 1.5} x powers of two, >= 32, x16
+    aligned), as the JAX package pads."""
+    b = 32
+    while b < max_len:
+        b = b + (b >> 1) if (b & (b - 1)) == 0 else (b // 3) * 4
+    return b
+
+
+def route_host(device) -> bool:
+    """True: the native host mirror aligns; False: K8/K9 (their plain
+    versions for a CPU device)."""
+    mode = os.environ.get("FASTQUEEZE_ALIGN_EXEC", "")
+    if torch.device(device).type == "cuda":
+        return mode == "host"
+    return mode != "device"
 
 
 class Aligner:
-    """CSR index arrays in the layout the native aligner walks."""
+    """Holds the index arrays (host copies for the native mirror; device
+    copies built once per device) and runs the tier chain."""
+
+    BATCH = 4096
+    RESCUE_BATCH = 512
 
     def __init__(self, idx: RefIndex, params: CodecParams):
         if idx.n_positions >= (1 << 31) or idx.ref_len >= (1 << 31):
@@ -34,6 +110,7 @@ class Aligner:
         self.params = params
         self.ref_len = idx.ref_len
         self.k = idx.k
+        self.wide = idx.k > 15
         keys = np.asarray(idx.keys, np.uint64)
         if not len(keys):
             keys = np.zeros(1, np.uint64)
@@ -56,7 +133,165 @@ class Aligner:
         self._h_offsets = offs
         self._h_positions = pos
         # padded so the native inner loops can fetch up to lp/16 + 1 words
-        # past the true end without clamping (masked-out slots only)
+        # past the true end without clamping (masked-out slots only); the
+        # device copy has no pad and the kernels clamp instead
+        self._h_pad_words = 1026
         self._h_packed = np.concatenate([idx.packed.astype(np.uint32),
-                                         np.zeros(1026, np.uint32)])
+                                         np.zeros(self._h_pad_words,
+                                                  np.uint32)])
         self._h_l1 = l1
+        self._dev = {}
+
+    def dev_index(self, device):
+        """The index on ``device`` (ops.kernels.AlignIndex), uploaded once."""
+        from fastqueeze_tpu_torch.ops.kernels import AlignIndex
+        device = torch.device(device)
+        ix = self._dev.get(device)
+        if ix is None:
+            keys = (self._h_keys.view(np.int64) if self.wide
+                    else self._h_keys.astype(np.int32))
+            packed = self._h_packed[:len(self._h_packed) - self._h_pad_words]
+            put = lambda a: torch.from_numpy(  # noqa: E731
+                np.ascontiguousarray(a)).to(device)
+            ix = AlignIndex(put(keys), put(self._h_offsets),
+                            put(self._h_positions), put(packed.view(np.int32)),
+                            put(self._h_l1), self._l1_shift,
+                            self._search_steps, self.ref_len)
+            self._dev[device] = ix
+        return ix
+
+    def align(self, codes_flat: np.ndarray, dege_flat: np.ndarray,
+              lengths: np.ndarray, device="cpu") -> AlignResult:
+        """codes_flat: concatenated 2-bit read codes (degenerate bases as
+        0); dege_flat: degenerate-base mask; lengths: per read."""
+        R = len(lengths)
+        if R == 0 or self.ref_len < self.k:
+            return AlignResult(np.zeros(R, bool), np.zeros(R, np.int64),
+                               np.zeros(R, bool), np.zeros((R, 32), bool))
+        max_len = int(lengths.max())
+        if max_len > self.params.align_max_len:
+            raise NotImplementedError(LONG_READ_MSG)
+        lp = lp_bucket(max_len)
+        p = self.params
+        cfg = AlignConfig(k=self.k, stride=p.seed_stride,
+                          n_cand=p.seed_max_occ, max_mis=p.max_mis,
+                          both_strands=p.both_strands, lp=lp,
+                          probe_k=p.seed_probe_k)
+        run = _Tiers(self, codes_flat, dege_flat, lengths, lp, device)
+        out = (np.zeros(R, bool), np.zeros(R, np.int64), np.zeros(R, bool),
+               np.zeros((R, lp), bool))
+
+        # tier 1: forward over every read, RC only over the reads forward
+        # failed (RC is a fallback in the reference), or both strands
+        if p.both_strands:
+            run.tier(cfg, np.arange(R), out, self.BATCH)
+        else:
+            run.tier(dataclasses.replace(cfg, strand="fwd"), np.arange(R),
+                     out, self.BATCH)
+            todo = np.flatnonzero(~out[0] & (lengths >= self.k))
+            if len(todo):
+                run.tier(dataclasses.replace(cfg, strand="rc"), todo, out,
+                         self.BATCH)
+        # tier 2: unmapped reads with candidates from several spatially
+        # diverse least-frequent seeds and a deeper list per seed
+        deep = dataclasses.replace(cfg, n_cand=p.seed_big_occ,
+                                   n_seeds=p.rescue_seeds,
+                                   excl_bp=p.seed_excl_bp, probe_k=1024)
+        if p.seed_big_occ > cfg.n_cand and p.rescue_seeds > 0:
+            todo = np.flatnonzero(~out[0] & (lengths >= self.k))
+            if len(todo):
+                run.tier(deep, todo, out, self.RESCUE_BATCH)
+        if p.max_indel <= 0:
+            return AlignResult(*out)
+        # tier 3: indel rescue of the still-unmapped reads (-q)
+        gaps = tuple(np.zeros(R, np.int32) for _ in range(4))
+        todo = np.flatnonzero(~out[0] & (lengths >= self.k))
+        if len(todo):
+            run.indel(deep, min(p.max_indel, lp - 1), p.indel_ops, todo,
+                      out, gaps)
+        return AlignResult(*out, *gaps)
+
+
+class _Tiers:
+    """One align() call's batches: flat arrays for the native mirror, or
+    the (R, lp) grids on the device for K8/K9, built on first use."""
+
+    def __init__(self, al: Aligner, codes_flat, dege_flat, lengths, lp,
+                 device):
+        self.al = al
+        self.codes_flat, self.dege_flat = codes_flat, dege_flat
+        self.lengths = lengths
+        self.roffs = (np.cumsum(lengths) - lengths).astype(np.int64)
+        self.lp = lp
+        self.device = torch.device(device)
+        self.host = route_host(self.device)
+        self._grids = None
+
+    def _native_args(self, cfg: AlignConfig, rows):
+        al = self.al
+        return (al._h_keys, al._h_offsets, al._h_positions, al._h_packed,
+                al._h_l1, al._l1_shift, al._search_steps, al.ref_len,
+                self.codes_flat, self.dege_flat, self.roffs[rows],
+                self.lengths[rows], cfg.lp, cfg.k, cfg.stride, cfg.n_cand,
+                cfg.max_mis, cfg.n_seeds, cfg.excl_bp, cfg.probe_k)
+
+    def _batches(self, rows, batch):
+        if self._grids is None:
+            c, d = _gridify(self.codes_flat, self.dege_flat, self.lengths,
+                            self.lp)
+            dev = self.device
+            self._grids = (torch.from_numpy(c).to(dev),
+                           torch.from_numpy(d).to(dev),
+                           torch.from_numpy(self.lengths.astype(np.int32))
+                           .to(dev))
+        codes, dege, lens = self._grids
+        for s in range(0, len(rows), batch):
+            sel = rows[s:s + batch]
+            r = torch.from_numpy(sel).to(self.device)
+            yield sel, codes[r], dege[r], lens[r]
+
+    def tier(self, cfg: AlignConfig, rows, out, batch: int) -> None:
+        from fastqueeze_tpu_torch.io import native
+        from fastqueeze_tpu_torch.ops import kernels
+        mapped, pos, is_rev, mis_mask = out
+        if self.host:
+            sm = {"fwd": 0, "rc": 1, "both": 2}[cfg.strand]
+            res = native.align_batch(*self._native_args(cfg, rows), sm,
+                                     int(cfg.both_strands))
+            parts = [(rows, res)]
+        else:
+            ix = self.al.dev_index(self.device)
+            parts = [(sel, kernels.align_batch(c, d, ln, ix, cfg))
+                     for sel, c, d, ln in self._batches(rows, batch)]
+        for sel, (m, p_, r, mm) in parts:
+            mapped[sel] = _np(m)
+            pos[sel] = _np(p_)
+            is_rev[sel] = _np(r)
+            mis_mask[sel] = _np(mm)
+
+    def indel(self, cfg: AlignConfig, G: int, ops: int, rows, out,
+              gaps) -> None:
+        from fastqueeze_tpu_torch.io import native
+        from fastqueeze_tpu_torch.ops import kernels
+        if self.host:
+            parts = [(rows, native.indel_batch(*self._native_args(cfg, rows),
+                                               G, ops))]
+        else:
+            ix = self.al.dev_index(self.device)
+            parts = [(sel, kernels.indel_batch(c, d, ln, ix, cfg, G, ops))
+                     for sel, c, d, ln in self._batches(
+                         rows, Aligner.RESCUE_BATCH)]
+        mapped, pos, is_rev, mis_mask = out
+        for sel, res in parts:
+            f, p_, s1, g1, s2, g2, r, mm = (_np(x) for x in res)
+            upd = sel[f]
+            mapped[upd] = True
+            pos[upd] = p_[f]
+            for dst, src in zip(gaps, (s1, g1, s2, g2)):
+                dst[upd] = src[f]
+            is_rev[upd] = r[f]
+            mis_mask[upd] = mm[f]
+
+
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x

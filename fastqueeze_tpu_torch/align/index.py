@@ -1,21 +1,34 @@
-"""k-mer hash index build (host only).
+"""k-mer hash index: build / save / load (host only).
 
-Copied from fastqueeze_tpu/align/index.py (RefIndex, build_from_ref): a
-counted CSR over the present k-mers — sorted unique keys + prefix offsets
-+ positions.  The self-align probe builds one over a block's own reads.
-Saving and loading index files (reference-aligned mode) are not ported
-yet (ROADMAP Queue A item 8).
+Copied from fastqueeze_tpu/align/index.py: a counted CSR over the present
+k-mers (sorted unique keys + prefix offsets + positions) instead of the
+reference binary's dense 4^k table.  The ``.fqzidx`` file (``-i ref.fa``)
+is byte-identical to the JAX package's, and each package loads the
+other's.  The aligner (align/hash.py) uploads the arrays to the card once
+per reference; lookups there are K8's bucketed binary search.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-from fastqueeze_tpu_torch.align.ref import RefSeq
+from fastqueeze_tpu_torch.align.ref import RefSeq, load_fasta
 from fastqueeze_tpu_torch.config import CodecParams
+from fastqueeze_tpu_torch.container.encap import iter_tlv, write_tlv
+
+IDX_MAGIC = b"FQZIDX01"
+IDX_SUFFIX = ".fqzidx"
+
+_TAG_META = 1
+_TAG_KEYS = 2
+_TAG_OFFS = 3
+_TAG_POS = 4
+_TAG_PACK = 5
 
 
 @dataclass
@@ -104,3 +117,85 @@ def build_from_ref(ref: RefSeq, params: CodecParams) -> RefIndex:
                     keys=keys, offsets=offsets,
                     positions=pos_sorted.astype(pos_dtype),
                     packed=ref.packed(), names=ref.names, bounds=ref.bounds)
+
+
+def index_path(fasta_path: str) -> str:
+    return fasta_path + IDX_SUFFIX
+
+
+def save_index(idx: RefIndex, path: str) -> None:
+    meta = {
+        "k": idx.k, "ref_len": idx.ref_len, "ref_md5": idx.ref_md5,
+        "n_keys": idx.n_keys, "n_pos": idx.n_positions,
+        "key_dtype": idx.keys.dtype.str, "pos_dtype": idx.positions.dtype.str,
+        "names": idx.names, "bounds": idx.bounds.tolist(),
+    }
+    with open(path, "wb") as fh:
+        fh.write(IDX_MAGIC)
+        fh.write(write_tlv(_TAG_META, json.dumps(meta).encode()))
+        fh.write(write_tlv(_TAG_KEYS, idx.keys.tobytes()))
+        fh.write(write_tlv(_TAG_OFFS, idx.offsets.astype("<u8").tobytes()))
+        fh.write(write_tlv(_TAG_POS, idx.positions.tobytes()))
+        fh.write(write_tlv(_TAG_PACK, idx.packed.astype("<u4").tobytes()))
+
+
+def load_index_file(path: str, shared: bool = False) -> RefIndex:
+    """shared=True maps the file instead of copying (reference parity:
+    `-s` stages the index in POSIX shm so concurrent processes share one
+    copy, SURVEY.md §2.2 — here the page cache plays that role: every
+    process holding the mmap shares the same physical pages)."""
+    if shared:
+        import mmap
+        with open(path, "rb") as fh:
+            mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+        if mm[:len(IDX_MAGIC)] != IDX_MAGIC:
+            raise ValueError(f"{path}: not a fastqueeze index")
+        from fastqueeze_tpu_torch.container.encap import iter_tlv_view
+        raw = memoryview(mm)[len(IDX_MAGIC):]
+        sections = dict(iter_tlv_view(raw))
+        copy = lambda a: a          # noqa: E731  (views into the mapping)
+    else:
+        with open(path, "rb") as fh:
+            if fh.read(len(IDX_MAGIC)) != IDX_MAGIC:
+                raise ValueError(f"{path}: not a fastqueeze index")
+            raw = fh.read()
+        sections = dict(iter_tlv(raw))
+        copy = np.copy
+    meta = json.loads(bytes(sections[_TAG_META]).decode())
+    keys = copy(np.frombuffer(sections[_TAG_KEYS], meta["key_dtype"]))
+    offsets = copy(np.frombuffer(sections[_TAG_OFFS], "<u8"))
+    positions = copy(np.frombuffer(sections[_TAG_POS], meta["pos_dtype"]))
+    packed = copy(np.frombuffer(sections[_TAG_PACK], "<u4"))
+    return RefIndex(k=meta["k"], ref_len=meta["ref_len"],
+                    ref_md5=meta["ref_md5"], keys=keys, offsets=offsets,
+                    positions=positions, packed=packed, names=meta["names"],
+                    bounds=np.asarray(meta["bounds"], np.int64))
+
+
+def build_index(fasta_path: str, params: CodecParams,
+                out_path: Optional[str] = None) -> str:
+    """CLI `-i ref.fa`: build and persist the index (+ md5 fingerprint)."""
+    ref = load_fasta(fasta_path)
+    idx = build_from_ref(ref, params)
+    out = out_path or index_path(fasta_path)
+    save_index(idx, out)
+    return out
+
+
+def load_index(fasta_path: str, params: CodecParams,
+               expect_md5: Optional[str] = None) -> Tuple[RefIndex, RefSeq]:
+    """Load the on-disk index if present & matching, else rebuild in memory
+    (reference behavior: decode without ref.fa.hash rebuilds, SURVEY.md §8).
+    A reference whose MD5 disagrees with ``expect_md5`` (from the archive)
+    is rejected (reference: "CError: Wrong Ref File")."""
+    ref = load_fasta(fasta_path)
+    if expect_md5 is not None and ref.md5 != expect_md5:
+        raise ValueError(
+            f"wrong reference: {fasta_path} md5 {ref.md5} != archive's "
+            f"{expect_md5}")
+    ipath = index_path(fasta_path)
+    if os.path.exists(ipath):
+        idx = load_index_file(ipath, shared=bool(params.shm_index))
+        if idx.ref_md5 == ref.md5 and idx.k == params.seed_len:
+            return idx, ref
+    return build_from_ref(ref, params), ref

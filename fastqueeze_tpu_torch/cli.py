@@ -1,13 +1,16 @@
-"""Command-line interface of the port (single-end, no reference):
+"""Command-line interface of the port (single-end):
 
-    python -m fastqueeze_tpu_torch.cli -c -1 in.fq -o out.fqz [-f] [-t N]
-        [--qlevel N]
-    python -m fastqueeze_tpu_torch.cli -d out.fqz -o prefix [-f] [-t N]
+    python -m fastqueeze_tpu_torch.cli -i ref.fa [-q]
+    python -m fastqueeze_tpu_torch.cli -c [ref.fa] -1 in.fq -o out.fqz [-f]
+        [-t N] [--qlevel N] [-q] [-s] [-S]
+    python -m fastqueeze_tpu_torch.cli -d [ref.fa] out.fqz -o prefix [-f]
+        [-t N]
 
-The flags and archives are those of fastqueeze_tpu's CLI.  The coder runs
-on the CUDA card; with no card the CLI stops with an error and never
-continues on the CPU.  Flags of modes the port lacks (-2, -m, -X, -S,
---part, --mesh, a reference) exit with the ROADMAP item that ports them.
+The flags and archives are those of fastqueeze_tpu's CLI.  The coder and
+the aligner run on the CUDA card; with no card the CLI stops with an
+error and never continues on the CPU (``-i`` builds the index on the
+host and needs no card).  Flags of modes the port lacks (-2, -m, -X,
+--part, --mesh) exit with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -25,11 +28,8 @@ _UNPORTED = (
     ("in2", "paired-end (-2): ROADMAP Queue A item 6"),
     ("multi", "multi-file archives (-m): ROADMAP Queue A item 4"),
     ("extract", "random-access decode (-X): ROADMAP Queue A item 4"),
-    ("self_align", "self-referential alignment (-S): ROADMAP Queue A "
-                   "item 4"),
     ("part", "multi-host parts (--part): ROADMAP Queue A item 4"),
     ("mesh", "--mesh block data-parallelism: ROADMAP Queue A item 9"),
-    ("pos", "reference FASTA (aligned mode): ROADMAP Queue A item 8"),
 )
 
 
@@ -38,10 +38,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="fastqueeze",
         description="FASTQ compressor on PyTorch + CUDA (port of "
                     "fastqueeze_tpu; same archives)")
+    ap.add_argument("-i", "--index", metavar="REF",
+                    help="build the index file of REF (REF.fqzidx)")
     ap.add_argument("-c", "--compress", action="store_true")
     ap.add_argument("-d", "--decompress", action="store_true")
     ap.add_argument("pos", nargs="*", default=[],
-                    help="archive for -d ([ref.fa] is not ported yet)")
+                    help="[ref.fa] for -c; [ref.fa] archive for -d")
     ap.add_argument("-1", dest="in1", action="append", help="input FASTQ")
     ap.add_argument("-2", dest="in2", help="input FASTQ (PE2; not ported)")
     ap.add_argument("-m", dest="multi", action="store_true",
@@ -51,8 +53,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="force overwrite")
     ap.add_argument("-t", dest="threads", type=int, default=None,
                     help="host worker threads (blocks in flight)")
+    ap.add_argument("-s", dest="shm", action="store_true",
+                    help="share the index file across processes (mmap)")
+    ap.add_argument("-q", dest="bwa", action="store_true",
+                    help="long-seed aligner (22-mers) with the indel tier")
     ap.add_argument("-S", dest="self_align", action="store_true",
-                    help="self-referential alignment (not ported)")
+                    help="self-referential alignment: code each block's "
+                    "reads against its own unmapped reads")
     ap.add_argument("-X", dest="extract", metavar="START:COUNT",
                     help="random-access decode (not ported)")
     ap.add_argument("--part", metavar="K:N",
@@ -71,22 +78,36 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     t_start = time.time()
     dbg = DebugInfo()
+    if args.index:
+        from fastqueeze_tpu_torch.align.index import build_index
+        p = CodecParams()
+        p.apply_config_file()
+        if args.bwa and p.seed_len <= 15:
+            p.seed_len = 22
+        try:
+            out = build_index(args.index, p)
+        except (ValueError, FileNotFoundError) as e:
+            error(str(e))
+            return 1
+        info(f"index written: {out}")
+        return 0
     if not (args.compress or args.decompress):
         build_parser().print_help()
         return 1
     for attr, why in _UNPORTED:
-        val = getattr(args, attr)
-        if attr == "pos":
-            val = len(val) > (0 if args.compress else 1)
-        if val:
+        if getattr(args, attr):
             error(f"not ported yet: {why}")
             return 2
+    if len(args.pos) > (1 if args.compress else 2):
+        error("too many positional arguments")
+        return 2
     import torch
     if not torch.cuda.is_available():
         error("no CUDA device: this CLI runs its coder on the card and "
               "never falls back to the CPU")
         return 2
     device = torch.device("cuda", torch.cuda.current_device())
+    from fastqueeze_tpu_torch.pipeline.aligned import compress_se_aligned
     from fastqueeze_tpu_torch.pipeline.driver import compress_se, decompress
     try:
         if args.compress:
@@ -106,16 +127,36 @@ def main(argv=None) -> int:
                               ("threads", args.threads)):
                 if val is not None:    # explicit CLI flag beats config file
                     setattr(p, attr, val)
-            stats = compress_se(p, in1, out, dbg=dbg, device=device)
+            if args.bwa:
+                if p.seed_len <= 15:
+                    p.seed_len = 22    # -q: long-seed aligner
+                if p.max_indel == 0:
+                    p.max_indel = 3    # -q: with the indel tier
+            if args.shm:
+                p.shm_index = 1
+            ref = args.pos[0] if args.pos else None
+            if args.self_align:
+                if ref:
+                    error("-S is reference-free (no ref.fa)")
+                    return 2
+                p.self_align = 1
+            if ref:
+                stats = compress_se_aligned(p, ref, in1, out, dbg=dbg,
+                                            device=device)
+                info(f"mapped {stats['mapped']:,} of {stats['reads']:,} "
+                     f"reads")
+            else:
+                stats = compress_se(p, in1, out, dbg=dbg, device=device)
             info(f"compressed {stats['raw']:,} -> {stats['compressed']:,} B "
                  f"(ratio {stats['ratio']:.2f}x) in {stats['blocks']} blocks")
         else:
-            if len(args.pos) != 1:
+            if not args.pos:
                 error("decompress needs an archive path")
                 return 2
-            outs = decompress(args.pos[0], args.out, dbg=dbg,
+            ref = args.pos[0] if len(args.pos) == 2 else None
+            outs = decompress(args.pos[-1], args.out, dbg=dbg,
                               force=args.force, threads=args.threads or 0,
-                              device=device)
+                              device=device, ref=ref)
             info("wrote: " + ", ".join(outs))
     except NotImplementedError as e:
         error(f"not ported yet: {e}")

@@ -63,3 +63,29 @@ def iter_tlv(raw: bytes):
     end = len(raw)
     while buf.tell() < end:
         yield read_tlv(buf)
+
+
+def _read_varint_at(mv, off: int) -> Tuple[int, int]:
+    b0 = mv[off]
+    if b0 == 0:
+        raise ValueError("varint: invalid leading zero byte")
+    nbytes = 1
+    probe = 0x80
+    while not (b0 & probe):
+        probe >>= 1
+        nbytes += 1
+    raw = int.from_bytes(bytes(mv[off:off + nbytes]), "big")
+    return raw & ~(1 << (7 * nbytes)), off + nbytes
+
+
+def iter_tlv_view(mv: memoryview):
+    """Zero-copy TLV iteration over a memoryview (e.g. an mmap'd index):
+    yields (tag, payload-view) without materializing payload bytes."""
+    off, end = 0, len(mv)
+    while off < end:
+        tag, off = _read_varint_at(mv, off)
+        size, off = _read_varint_at(mv, off)
+        if off + size > end:
+            raise EOFError(f"TLV tag {tag}: truncated payload")
+        yield tag, mv[off:off + size]
+        off += size

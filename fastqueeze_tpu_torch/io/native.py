@@ -166,6 +166,25 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _i32, _i32, _i32, _i32,                   # k, stride, c1, c2
         _i32, _i32, _i32, _i32,                   # n_seeds, excl, mis, both
         _U8P, _i32p, _U8P, _U8P]                  # mapped, pos, rev, mm
+    _index = [
+        _U64P, ctypes.c_int64, _i32p,             # keys (u64), nk, offsets
+        _i32p, ctypes.c_int64,                    # positions, npos
+        _u32p2, ctypes.c_int64,                   # packed, nw
+        _i32p, _i32, _i32,                        # l1, l1_shift, steps
+        _i32,                                     # ref_len
+        _U8P, _U8P, _I64P, _i32p,                 # codes, dege, roffs, lens
+        ctypes.c_int64, _i32,                     # R, lp
+        _i32, _i32, _i32, _i32,                   # k, stride, n_cand, max_mis
+        _i32, _i32, _i32]                         # n_seeds, excl_bp, probe_k
+    lib.fq_align_batch.restype = None
+    lib.fq_align_batch.argtypes = _index + [
+        _i32, _i32,                               # strand_mode, both_strands
+        _U8P, _i32p, _U8P, _U8P]                  # mapped, pos, rev, mis_mask
+    lib.fq_indel_batch.restype = None
+    lib.fq_indel_batch.argtypes = _index + [
+        _i32, _i32,                               # G, ops
+        _U8P, _i32p, _i32p, _i32p, _i32p, _i32p,  # found,pos,s1,g1,s2,g2
+        _U8P, _U8P]                               # rev, mis_mask
     lib.rc_encode_names.restype = ctypes.c_int64
     lib.rc_encode_names.argtypes = [_U8P, _i32p, ctypes.c_int64, _i32, _i32,
                                     _i32, _U8P, ctypes.c_int64]
@@ -753,3 +772,102 @@ def selfref_align(keys: np.ndarray, offsets: np.ndarray,
         k, stride, c1, c2, n_seeds, excl_bp, max_mis, both_strands,
         _u8p(mapped), pos.ctypes.data_as(_I32P), _u8p(rev), _u8p(mm))
     return mapped.astype(bool), pos, rev.astype(bool), mm.astype(bool)
+
+
+# Calls of the native host aligner (fq_align_batch / fq_indel_batch), so a
+# run can show that nothing on the card's path aligned on the host.
+ALIGN_CALLS = {"align_batch": 0, "indel_batch": 0}
+
+
+def _index_args(keys, offsets, positions, packed, l1, l1_shift,
+                search_steps, ref_len, codes_flat, dege_flat, roffs,
+                lengths, lp, k, stride, n_cand, max_mis, n_seeds, excl_bp,
+                probe_k):
+    """The argument prefix fq_align_batch and fq_indel_batch share, with
+    every array made contiguous in the type the C side reads (the arrays
+    are returned too, so they outlive the call)."""
+    arrs = (np.ascontiguousarray(keys, np.uint64),
+            np.ascontiguousarray(offsets, np.int32),
+            np.ascontiguousarray(positions, np.int32),
+            np.ascontiguousarray(packed, np.uint32),
+            np.ascontiguousarray(l1, np.int32),
+            np.ascontiguousarray(codes_flat, np.uint8),
+            np.ascontiguousarray(dege_flat.astype(np.uint8)),
+            np.ascontiguousarray(roffs, np.int64),
+            np.ascontiguousarray(lengths, np.int32))
+    keys, offsets, positions, packed, l1, codes, dege, roffs, lens = arrs
+    args = [keys.ctypes.data_as(_U64P), len(keys),
+            offsets.ctypes.data_as(_I32P),
+            positions.ctypes.data_as(_I32P), len(positions),
+            packed.ctypes.data_as(_U32P), len(packed),
+            l1.ctypes.data_as(_I32P), l1_shift, search_steps, ref_len,
+            _u8p(codes), _u8p(dege), _i64p(roffs),
+            lens.ctypes.data_as(_I32P), len(roffs), lp,
+            k, stride, n_cand, max_mis, n_seeds, excl_bp, probe_k]
+    return args, arrs
+
+
+def align_batch(keys: np.ndarray, offsets: np.ndarray,
+                positions: np.ndarray, packed: np.ndarray, l1: np.ndarray,
+                l1_shift: int, search_steps: int, ref_len: int,
+                codes_flat: np.ndarray, dege_flat: np.ndarray,
+                roffs: np.ndarray, lengths: np.ndarray, lp: int,
+                k: int, stride: int, n_cand: int, max_mis: int,
+                n_seeds: int, excl_bp: int, probe_k: int,
+                strand_mode: int, both_strands: int):
+    """Host-native gapless aligner (native/alignhost.cpp fq_align_batch),
+    a decision mirror of fastqueeze_tpu/align/hash.py _align_batch.
+    codes_flat/dege_flat are the block's flat arrays; roffs/lengths pick
+    the tier's reads; ``packed`` must carry lp/16 + 2 zero words past the
+    reference.  Returns (mapped bool, pos int32, is_rev bool, mis_mask
+    (R, lp) bool); raises when the library is missing."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the host aligner needs the native library "
+                           "(make -C native)")
+    args, _keep = _index_args(keys, offsets, positions, packed, l1, l1_shift,
+                              search_steps, ref_len, codes_flat, dege_flat,
+                              roffs, lengths, lp, k, stride, n_cand, max_mis,
+                              n_seeds, excl_bp, probe_k)
+    R = len(roffs)
+    mapped = np.empty(R, np.uint8)
+    pos = np.empty(R, np.int32)
+    rev = np.empty(R, np.uint8)
+    mm = np.empty((R, lp), np.uint8)
+    lib.fq_align_batch(*args, strand_mode, both_strands, _u8p(mapped),
+                       pos.ctypes.data_as(_I32P), _u8p(rev), _u8p(mm))
+    ALIGN_CALLS["align_batch"] += 1
+    return mapped.astype(bool), pos, rev.astype(bool), mm.astype(bool)
+
+
+def indel_batch(keys: np.ndarray, offsets: np.ndarray,
+                positions: np.ndarray, packed: np.ndarray, l1: np.ndarray,
+                l1_shift: int, search_steps: int, ref_len: int,
+                codes_flat: np.ndarray, dege_flat: np.ndarray,
+                roffs: np.ndarray, lengths: np.ndarray, lp: int,
+                k: int, stride: int, n_cand: int, max_mis: int,
+                n_seeds: int, excl_bp: int, probe_k: int, G: int,
+                ops: int = 2):
+    """Host-native indel tier, up to ``ops`` gap operations a read
+    (native/alignhost.cpp fq_indel_batch), a decision mirror of
+    fastqueeze_tpu/align/hash.py _indel_batch.  Returns (found bool, pos,
+    split, gap, split2, gap2 int32, is_rev bool, mis_mask (R, lp) bool);
+    raises when the library is missing."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the host aligner needs the native library "
+                           "(make -C native)")
+    args, _keep = _index_args(keys, offsets, positions, packed, l1, l1_shift,
+                              search_steps, ref_len, codes_flat, dege_flat,
+                              roffs, lengths, lp, k, stride, n_cand, max_mis,
+                              n_seeds, excl_bp, probe_k)
+    R = len(roffs)
+    found = np.empty(R, np.uint8)
+    out = [np.empty(R, np.int32) for _ in range(5)]
+    rev = np.empty(R, np.uint8)
+    mm = np.empty((R, lp), np.uint8)
+    lib.fq_indel_batch(*args, G, ops, _u8p(found),
+                       *(o.ctypes.data_as(_I32P) for o in out), _u8p(rev),
+                       _u8p(mm))
+    ALIGN_CALLS["indel_batch"] += 1
+    return (found.astype(bool), *out, rev.astype(bool), mm.astype(bool))

@@ -1,4 +1,4 @@
-"""The wave-rANS coder's CUDA kernels, their wrappers and plain versions.
+"""The CUDA kernels, their wrappers and plain versions.
 
 Frozen coder:
 K1 quant_pack          count table -> u16 cumulative table + u32 packed
@@ -19,6 +19,13 @@ K7 rans_encode_sf      reverse rANS over K5's (start, end) grid
                        (engine._pass2); then K3
 K6 adapt_decode        one CTA per stream: K4's walk and renorm scan with
                        K5's table update (engine._decode)
+Seed aligner:
+K8 align_batch         one thread per read: sampled-seed bucketed search,
+                       candidates, probe prefilter, gapless verify, RC
+                       (align/hash.py _one_strand, _align_batch)
+K9 indel_batch         one thread per read: K8's seed search for the
+                       anchor, then the <= 2-op split x gap scoring
+                       (align/hash.py _indel_batch)
 
 The sources are csrc/*.cu with a plain C interface, compiled by nvcc for
 sm_90a (one nvcc per source, in parallel) and linked into one shared
@@ -39,7 +46,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -48,7 +55,8 @@ from fastqueeze_tpu_torch.config import PROB_BITS, RANS_L, RANS_M
 LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "compact_words": 0, "frozen_decode": 0,
                             "adapt_encode_walk": 0, "rans_encode_sf": 0,
-                            "adapt_decode": 0}
+                            "adapt_decode": 0, "align_batch": 0,
+                            "indel_batch": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -149,10 +157,23 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_adapt_decode_lane_bytes):
                 fn.argtypes = []
                 fn.restype = i64
+            index = [vp, i32, i64, vp, vp, i64, vp, i64, vp, i32, i32, i32]
+            acfg = [i32] * 8
+            lib.fq_align_scratch_bytes.argtypes = acfg
+            lib.fq_indel_scratch_bytes.argtypes = acfg + [i32]
+            for fn in (lib.fq_align_scratch_bytes, lib.fq_indel_scratch_bytes):
+                fn.restype = i64
+            lib.fq_align_batch_cuda.argtypes = (
+                index + acfg + [vp, vp, vp, i32, i32, i32, vp, i64]
+                + [vp] * 5)
+            lib.fq_indel_batch_cuda.argtypes = (
+                index + acfg + [vp, vp, vp, i32, i32, i32, vp, i64]
+                + [vp] * 9)
             for fn in (lib.fq_quant_pack, lib.fq_frozen_encode_lanes,
                        lib.fq_compact_words, lib.fq_frozen_decode,
                        lib.fq_adapt_encode_walk, lib.fq_rans_encode_sf,
-                       lib.fq_adapt_decode):
+                       lib.fq_adapt_decode, lib.fq_align_batch_cuda,
+                       lib.fq_indel_batch_cuda):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -644,3 +665,477 @@ def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
             *_spec_args(model), model.inc, model.cap, n_halve,
             _ptr(counts), _ptr(tot), _ptr(stamp), _ptr(lanes), _ptr(out))
     return out
+
+
+# --- the seed aligner: K8 align_batch, K9 indel_batch ------------------------
+#
+# Both plain versions follow fastqueeze_tpu/align/hash.py (_one_strand,
+# _align_batch, _indel_batch) over (B, Lp) code grids, with one change
+# that only the fallback anchor of an unmapped read can see: the probe
+# count a candidate is ranked by is the native host mirror's
+# (native/alignhost.cpp one_strand), which stops at the first probe word
+# once that alone exceeds max_mis and ranks the candidate as that count
+# + 8.  Every surviving candidate (probe count <= max_mis) has the exact
+# count either way, so mapped reads agree with the JAX kernels; the
+# indel tier anchors on unmapped reads' fallbacks, and there the kernels,
+# the plain versions and the native mirror agree with each other.
+
+class AlignIndex(NamedTuple):
+    """The reference index on one device: keys (int32 for k <= 15, int64
+    for the wide k <= 31 keys), CSR offsets and positions (int32), the
+    2-bit packed reference (int32 holding u32 words, no host padding),
+    the first-level bucket table l1 (int32), and its scalars."""
+    keys: torch.Tensor
+    offsets: torch.Tensor
+    positions: torch.Tensor
+    packed: torch.Tensor
+    l1: torch.Tensor
+    l1_shift: int
+    search_steps: int
+    ref_len: int
+
+
+ALIGN_BIG = 1 << 28
+_M32 = 0xFFFFFFFF
+
+
+def _popcount32(y: torch.Tensor) -> torch.Tensor:
+    y = y - ((y >> 1) & 0x55555555)
+    y = (y & 0x33333333) + ((y >> 2) & 0x33333333)
+    y = (y + (y >> 4)) & 0x0F0F0F0F
+    return ((y * 0x01010101) & _M32) >> 24
+
+
+def _mis2bit(x: torch.Tensor) -> torch.Tensor:
+    """Differing 2-bit slots of u32 XOR words (int64 holding u32)."""
+    return _popcount32((x | (x >> 1)) & 0x55555555)
+
+
+def _pack_words(codes: torch.Tensor, valid: torch.Tensor):
+    """(B, Lp) codes + validity -> (B, W) int64 MSB-first u32 words and
+    their 2-bit-slot masks."""
+    B, Lp = codes.shape
+    shifts = 2 * (15 - torch.arange(16, device=codes.device))
+    c = torch.where(valid, codes.long(), 0).reshape(B, Lp // 16, 16)
+    m = torch.where(valid, 3, 0).reshape(B, Lp // 16, 16)
+    return (c << shifts).sum(2), (m << shifts).sum(2)
+
+
+def _frame(arr: torch.Tensor, j: int, sh: torch.Tensor) -> torch.Tensor:
+    """Word j of the read funnel-shifted into a candidate's ref frame
+    (hash._read_in_ref_frame); arr (B, W), sh (B, C) = 2 * (cand & 15)."""
+    W = arr.shape[1]
+    b = arr[:, j, None] if j < W else torch.zeros_like(sh)
+    out = b >> sh
+    if j >= 1:
+        a = arr[:, j - 1, None] if j <= W else torch.zeros_like(sh)
+        shl = 32 - torch.clamp(sh, min=1)
+        out = out | torch.where(sh > 0, (a << shl) & _M32, 0)
+    return out
+
+
+def _mis_aligned(packed: torch.Tensor, cand: torch.Tensor, rw, mw, js):
+    """Mismatch counts of the read against the ref window at each u32
+    candidate, over frame words js (hash._mis_aligned)."""
+    nw = packed.numel()
+    w0 = cand >> 4
+    sh = 2 * (cand & 15)
+    mis = torch.zeros_like(cand)
+    for j in js:
+        refw = packed[torch.clamp(w0 + j, 0, nw - 1)]
+        mis += _mis2bit((_frame(rw, j, sh) ^ refw) & _frame(mw, j, sh))
+    return mis
+
+
+def _ref_base_at(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    w = packed[torch.clamp(idx >> 4, 0, packed.numel() - 1)]
+    return (w >> (2 * (15 - (idx & 15)))) & 3
+
+
+def _rc_grid(codes: torch.Tensor, dege: torch.Tensor, lens: torch.Tensor):
+    """Per read: base i <- 3 - codes[len-1-i], zero past the length."""
+    Lp = codes.shape[1]
+    pos_i = torch.arange(Lp, device=codes.device)[None, :]
+    valid = pos_i < lens[:, None]
+    ridx = torch.clamp(lens[:, None] - 1 - pos_i, 0, Lp - 1)
+    rc = torch.where(valid, 3 - codes.long().gather(1, ridx), 0)
+    rdege = valid & dege.gather(1, ridx)
+    return rc, rdege
+
+
+def _one_strand_plain(cfg, ix: AlignIndex, codes: torch.Tensor,
+                      dege: torch.Tensor, lens: torch.Tensor):
+    """(B, Lp) effective-strand codes -> (best mismatch count, best
+    window start as int64 holding the int32 value) over the candidates
+    of the n_seeds least-frequent sampled seeds (hash._one_strand)."""
+    B, Lp = codes.shape
+    dev = codes.device
+    k, C = cfg.k, cfg.n_cand
+    BIG = ALIGN_BIG
+    c64 = codes.long()
+    ps = torch.arange(0, Lp - k + 1, cfg.stride, device=dev)
+    kv = torch.zeros((B, ps.numel()), dtype=torch.int64, device=dev)
+    for j in range(k):
+        kv = (kv << 2) | c64[:, ps + j]
+    cs = torch.nn.functional.pad(torch.cumsum(dege.long(), 1), (1, 0))
+    ok_s = ((ps[None, :] <= lens[:, None] - k)
+            & (cs[:, ps + k] - cs[:, ps] == 0))
+    keys, l1 = ix.keys.long(), ix.l1.long()
+    offs, posv = ix.offsets.long(), ix.positions.long()
+    nk = keys.numel()
+    q = kv >> ix.l1_shift
+    lo, hi = l1[q], l1[q + 1]
+    hi0 = hi
+    for _ in range(ix.search_steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        less = keys[torch.clamp(mid, max=nk - 1)] < kv
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    ii = torch.clamp(lo, max=nk - 1)
+    found = (keys[ii] == kv) & (lo < hi0) & ok_s
+    occ = torch.where(found, offs[ii + 1] - offs[ii], BIG)
+
+    cj = torch.arange(C, device=dev)[None, :]
+    cands, oks = [], []
+    for _ in range(cfg.n_seeds):
+        jb = torch.argmin(occ, dim=1)
+        occ_best = occ.gather(1, jb[:, None])[:, 0]
+        pb = ps[jb]
+        if cfg.excl_bp > 0:
+            occ = torch.where((ps[None, :] - pb[:, None]).abs()
+                              <= cfg.excl_bp, BIG, occ)
+        else:
+            occ = occ.scatter(1, jb[:, None], BIG)
+        base = offs[ii.gather(1, jb[:, None])[:, 0]]
+        in_range = cj < torch.clamp(occ_best, max=C)[:, None]
+        ptr = torch.clamp(base[:, None] + cj, 0, posv.numel() - 1)
+        cand = posv[ptr] - pb[:, None]
+        cands.append(cand)
+        oks.append(in_range & (cand >= 0)
+                   & (cand + lens[:, None] <= ix.ref_len))
+    cand = torch.cat(cands, 1) & _M32          # u32 frame arithmetic
+    cand_ok = torch.cat(oks, 1)
+
+    pos_i = torch.arange(Lp, device=dev)[None, :]
+    rw, mw = _pack_words(codes, pos_i < lens[:, None])
+    packed = ix.packed.long() & _M32
+    W = Lp // 16
+    K = cfg.probe_k
+    if K > 0 and cand.shape[1] > 2 * K and W > 3:
+        p1 = _mis_aligned(packed, cand, rw, mw, (1,))
+        p2 = _mis_aligned(packed, cand, rw, mw, (W // 2,))
+        pm = torch.where(p1 > cfg.max_mis, p1 + 8, p1 + p2)
+        pmis = torch.where(cand_ok, pm, BIG)
+        # lax.top_k's order: stable, smaller count first, ties by index
+        sel = torch.sort(pmis, dim=1, stable=True).indices[:, :K]
+        cand = cand.gather(1, sel)
+        cand_ok = cand_ok.gather(1, sel) & (pmis.gather(1, sel)
+                                            <= cfg.max_mis)
+    mis = torch.where(cand_ok,
+                      _mis_aligned(packed, cand, rw, mw, range(W + 1)), BIG)
+    cb = torch.argmin(mis, dim=1)[:, None]
+    pos = cand.gather(1, cb)[:, 0]
+    return mis.gather(1, cb)[:, 0], pos - ((pos >> 31) << 32)
+
+
+def align_batch_plain(codes: torch.Tensor, dege: torch.Tensor,
+                      lengths: torch.Tensor, ix: AlignIndex, cfg):
+    """hash._align_batch: (mapped, pos int32, is_rev, mis_mask)."""
+    B, Lp = codes.shape
+    lens = lengths.long()
+    pos_i = torch.arange(Lp, device=codes.device)[None, :]
+    valid = pos_i < lens[:, None]
+    has_dege = (dege & valid).any(1)
+    if cfg.strand != "rc":
+        mis_f, pos_f = _one_strand_plain(cfg, ix, codes, dege, lens)
+    if cfg.strand != "fwd":
+        rc, rdege = _rc_grid(codes, dege, lens)
+        mis_r, pos_r = _one_strand_plain(cfg, ix, rc, rdege, lens)
+    if cfg.strand == "fwd":
+        use_rev = torch.zeros(B, dtype=torch.bool, device=codes.device)
+        mis, pos, eff = mis_f, pos_f, codes.long()
+    elif cfg.strand == "rc":
+        use_rev = mis_r <= cfg.max_mis
+        mis, pos, eff = mis_r, pos_r, rc
+    else:
+        use_rev = (mis_r < mis_f) if cfg.both_strands else (mis_f
+                                                            > cfg.max_mis)
+        mis = torch.where(use_rev, mis_r, mis_f)
+        pos = torch.where(use_rev, pos_r, pos_f)
+        eff = torch.where(use_rev[:, None], rc, codes.long())
+    mapped = (mis <= cfg.max_mis) & ~has_dege & (lens >= cfg.k)
+    refc = _ref_base_at(ix.packed.long() & _M32,
+                        torch.clamp(pos, min=0)[:, None] + pos_i)
+    mis_mask = (eff != refc) & valid & mapped[:, None]
+    return mapped, pos.to(torch.int32), use_rev & mapped, mis_mask
+
+
+def _exc(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive cumsum along the read: column s = count over i < s."""
+    return torch.nn.functional.pad(torch.cumsum(x.long(), 1), (1, 0))
+
+
+def _argmin_pick(tot, ok, best):
+    """First-occurrence argmin of tot over the ok columns; returns
+    (value, column, strictly better than ``best``)."""
+    tot = torch.where(ok, tot, ALIGN_BIG)
+    sb = torch.argmin(tot, dim=1)
+    tb = tot.gather(1, sb[:, None])[:, 0]
+    return tb, sb, tb < best
+
+
+def _indel_strand_plain(cfg, G: int, ops: int, ix: AlignIndex, c, d, lens):
+    """hash._indel_batch's strand_eval: (tot, sA, gA, sB, gB, pos, mask)."""
+    B, Lp = c.shape
+    dev = c.device
+    BIG = ALIGN_BIG
+    _, posi = _one_strand_plain(cfg, ix, c, d, lens)
+    pos_i = torch.arange(Lp, device=dev)[None, :]
+    s_grid = torch.arange(Lp + 1, device=dev)[None, :]
+    valid = pos_i < lens[:, None]
+    c = c.long()
+    ok_b = (posi >= 2 * G) & (posi + lens + 2 * G <= ix.ref_len)
+    packed = ix.packed.long() & _M32
+    cmp = [(c != _ref_base_at(packed, torch.clamp(
+        posi[:, None] + g + pos_i, 0, ix.ref_len - 1))) & valid
+        for g in range(-G, G + 1)]
+    E = [_exc(x) for x in cmp]
+    F = _exc((c != 0) & valid)
+    E0 = E[G]
+    T = [e[:, -1:] for e in E]
+    len1 = lens[:, None]
+    z = torch.zeros(B, dtype=torch.int64, device=dev)
+    tot_b = torch.full((B,), BIG, dtype=torch.int64, device=dev)
+    s_b, g_b, pg_b, sg_b, po_b = z, z, z, z, posi
+
+    def pad(t, h):
+        return torch.nn.functional.pad(t, (0, h), value=BIG)
+
+    def consider(tot, ok, g_out, d_pos, pg, sg):
+        nonlocal tot_b, s_b, g_b, po_b, pg_b, sg_b
+        tb, sb, better = _argmin_pick(tot, ok, tot_b)
+        tot_b = torch.where(better, tb, tot_b)
+        s_b = torch.where(better, sb, s_b)
+        g_b = torch.where(better, g_out, g_b)
+        po_b = torch.where(better, posi + d_pos, po_b)
+        pg_b = torch.where(better, pg + G, pg_b)
+        sg_b = torch.where(better, sg + G, sg_b)
+
+    for g in range(-G, G + 1):
+        if g == 0:
+            continue
+        Eg, Tg, h = E[g + G], T[g + G], abs(g)
+        lit = F[:, h:] - F[:, :Lp + 1 - h]
+        if g > 0:
+            consider(E0 + (Tg - Eg), s_grid <= len1, g, 0, 0, g)
+            consider(pad(Eg[:, :Lp + 1 - h] + lit + (T[G] - E0[:, h:]), h),
+                     s_grid <= len1 - h, -g, g, g, 0)
+        else:
+            consider(pad(E0[:, :Lp + 1 - h] + lit + (Tg - Eg[:, h:]), h),
+                     s_grid <= len1 - h, g, 0, 0, g)
+            consider(Eg + (T[G] - E0), s_grid <= len1, -g, g, g, 0)
+    tot_b = torch.where(ok_b, tot_b, BIG)
+
+    sA_b, gA_b, sB_b, gB_b = s_b, g_b, z, z
+    jb_b, poo_b = pg_b, po_b
+    E_st = torch.stack(E, 1)                          # (B, 2G+1, Lp+1)
+
+    def row_of(j):
+        return E_st.gather(1, torch.clamp(j, 0, 2 * G)[:, None, None]
+                           .expand(B, 1, Lp + 1))[:, 0]
+
+    def at(X, i):
+        return X.gather(1, i[:, None])[:, 0]
+
+    if ops >= 2:
+        Epg, Esg = row_of(pg_b), row_of(sg_b)
+        s1h = s_b + torch.clamp(-g_b, min=0)
+        op1_lit = at(F, s1h) - at(F, s_b)
+        elig = ((tot_b > cfg.max_mis) & (tot_b < BIG))[:, None]
+        base_c = (at(Epg, s_b) + op1_lit - at(Esg, s1h))[:, None]
+        t2_b, s2_b, g2_b = torch.full_like(tot_b, BIG), z, z
+        for g2 in range(-G, G + 1):
+            if g2 == 0:
+                continue
+            j2 = sg_b + g2
+            okj = ((j2 >= 0) & (j2 <= 2 * G))[:, None]
+            E2 = row_of(j2)
+            e2len = at(E2, lens)[:, None]
+            h2 = -g2 if g2 < 0 else 0
+            if h2:
+                tot = pad(Esg[:, :Lp + 1 - h2]
+                          + (F[:, h2:] - F[:, :Lp + 1 - h2])
+                          + (e2len - E2[:, h2:]), h2)
+            else:
+                tot = Esg + (e2len - E2)
+            ok = ((s_grid >= s1h[:, None]) & (s_grid <= len1 - h2)
+                  & okj & elig)
+            tb, sb, better = _argmin_pick(base_c + tot, ok, t2_b)
+            t2_b = torch.where(better, tb, t2_b)
+            s2_b = torch.where(better, sb, s2_b)
+            g2_b = torch.where(better, g2, g2_b)
+        tail_c = (op1_lit + at(Esg, lens) - at(Esg, s1h)
+                  + at(Epg, s_b))[:, None]
+        th_b, s0_b, gh_b = torch.full_like(tot_b, BIG), z, z
+        for gh in range(-G, G + 1):
+            if gh == 0:
+                continue
+            j0 = pg_b + gh
+            okj = ((j0 >= 0) & (j0 <= 2 * G))[:, None]
+            Ej0 = row_of(j0)
+            hh = gh if gh > 0 else 0
+            if hh:
+                tot = pad(Ej0[:, :Lp + 1 - hh]
+                          + (F[:, hh:] - F[:, :Lp + 1 - hh])
+                          - Epg[:, hh:], hh)
+            else:
+                tot = Ej0 - Epg
+            ok = (s_grid <= s_b[:, None] - hh) & okj & elig
+            tb, sb, better = _argmin_pick(tail_c + tot, ok, th_b)
+            th_b = torch.where(better, tb, th_b)
+            s0_b = torch.where(better, sb, s0_b)
+            gh_b = torch.where(better, gh, gh_b)
+        use_head = th_b < t2_b
+        better2 = torch.minimum(t2_b, th_b) < tot_b
+        tot_b = torch.where(better2, torch.minimum(t2_b, th_b), tot_b)
+        uh, ut = better2 & use_head, better2 & ~use_head
+        sA_b = torch.where(uh, s0_b, s_b)
+        gA_b = torch.where(uh, -gh_b, g_b)
+        sB_b = torch.where(uh, s_b, torch.where(ut, s2_b, 0))
+        gB_b = torch.where(uh, g_b, torch.where(ut, g2_b, 0))
+        jb_b = torch.where(uh, pg_b + gh_b, pg_b)
+        poo_b = torch.where(uh, po_b + gh_b, po_b)
+
+    cmp_st = torch.stack(cmp, 1)                      # (B, 2G+1, Lp)
+
+    def seg_row(j):
+        return cmp_st.gather(1, torch.clamp(j, 0, 2 * G)[:, None, None]
+                             .expand(B, 1, Lp))[:, 0]
+
+    r0, r1 = seg_row(jb_b), seg_row(jb_b + gA_b)
+    r2 = seg_row(jb_b + gA_b + gB_b)
+    lit = (c != 0) & valid
+    hA = torch.clamp(-gA_b, min=0)[:, None]
+    hB = torch.clamp(-gB_b, min=0)[:, None]
+    sAm, sBm = sA_b[:, None], sB_b[:, None]
+    mask = torch.where(
+        pos_i < sAm, r0,
+        torch.where(pos_i < sAm + hA, torch.where(hA > 0, lit, r1),
+                    torch.where(pos_i < sBm, r1,
+                                torch.where(pos_i < sBm + hB,
+                                            torch.where(hB > 0, lit, r2),
+                                            r2))))
+    return tot_b, sA_b, gA_b, sB_b, gB_b, poo_b, mask & valid
+
+
+def indel_batch_plain(codes: torch.Tensor, dege: torch.Tensor,
+                      lengths: torch.Tensor, ix: AlignIndex, cfg, G: int,
+                      ops: int):
+    """hash._indel_batch: (found, pos, s1, g1, s2, g2 int32, is_rev,
+    mis_mask in spliced-window coordinates)."""
+    lens = lengths.long()
+    Lp = codes.shape[1]
+    valid = torch.arange(Lp, device=codes.device)[None, :] < lens[:, None]
+    has_dege = (dege & valid).any(1)
+    f = _indel_strand_plain(cfg, G, ops, ix, codes, dege, lens)
+    rc, rdege = _rc_grid(codes, dege, lens)
+    r = _indel_strand_plain(cfg, G, ops, ix, rc, rdege, lens)
+    use_rev = r[0] < f[0]
+    tot = torch.where(use_rev, r[0], f[0])
+    found = (tot <= cfg.max_mis) & ~has_dege & (lens >= cfg.k)
+    outs = [torch.where(use_rev, b, a).to(torch.int32)
+            for a, b in zip(f[5:6] + f[1:5], r[5:6] + r[1:5])]
+    return (found, *outs, use_rev & found,
+            torch.where(use_rev[:, None], r[6], f[6]))
+
+
+def _align_cfg_args(cfg) -> list:
+    return [cfg.k, cfg.stride, cfg.n_cand, cfg.max_mis, cfg.n_seeds,
+            cfg.excl_bp, cfg.probe_k, cfg.lp]
+
+
+def _check_align(codes, dege, lengths, ix: AlignIndex, cfg, name: str):
+    _check(codes, "codes", torch.uint8, 2)
+    _check(dege, "dege", torch.bool, 2)
+    _check(lengths, "lengths", torch.int32, 1)
+    B, Lp = codes.shape
+    if (tuple(dege.shape) != (B, Lp) or lengths.numel() != B
+            or Lp != cfg.lp or Lp % 16):
+        raise ValueError(f"{name}: shape mismatch")
+    wide = ix.keys.dtype == torch.int64
+    if wide != (cfg.k > 15) or (not wide and ix.keys.dtype != torch.int32):
+        raise ValueError(f"{name}: keys must be int64 for k > 15, int32 "
+                         f"otherwise")
+    for t, n in ((ix.offsets, "offsets"), (ix.positions, "positions"),
+                 (ix.packed, "packed"), (ix.l1, "l1")):
+        _check(t, n, torch.int32, 1)
+    return B, wide
+
+
+def _index_ptrs(ix: AlignIndex, wide: bool) -> list:
+    return [_ptr(ix.keys), int(wide), ix.keys.numel(), _ptr(ix.offsets),
+            _ptr(ix.positions), ix.positions.numel(), _ptr(ix.packed),
+            ix.packed.numel(), _ptr(ix.l1), ix.l1_shift, ix.search_steps,
+            ix.ref_len]
+
+
+def align_batch(codes: torch.Tensor, dege: torch.Tensor,
+                lengths: torch.Tensor, ix: AlignIndex, cfg):
+    """K8: (B, Lp) uint8 codes (degenerate bases as 0, zero past each
+    length), (B, Lp) bool degenerate flags, (B,) int32 lengths <= Lp and
+    the index -> ((B,) bool mapped, (B,) int32 window start, (B,) bool
+    reverse strand, (B, Lp) bool mismatch mask).  Only ``mapped`` and the
+    mapped reads' other outputs carry meaning."""
+    tensors = (codes, dege, lengths) + tuple(ix[:5])
+    if not _on_card(*tensors):
+        return align_batch_plain(codes, dege, lengths, ix, cfg)
+    B, wide = _check_align(codes, dege, lengths, ix, cfg, "align_batch")
+    dev = codes.device
+    mapped = torch.zeros((B,), dtype=torch.bool, device=dev)
+    pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rev = torch.zeros((B,), dtype=torch.bool, device=dev)
+    mm = torch.zeros((B, cfg.lp), dtype=torch.bool, device=dev)
+    if B == 0:
+        return mapped, pos, rev, mm
+    lib = _lib()
+    per = lib.fq_align_scratch_bytes(*_align_cfg_args(cfg))
+    scratch = torch.empty((B * per,), dtype=torch.uint8, device=dev)
+    mode = {"fwd": 0, "rc": 1, "both": 2}[cfg.strand]
+    _launch(lib.fq_align_batch_cuda, "align_batch", *_index_ptrs(ix, wide),
+            *_align_cfg_args(cfg), _ptr(codes), _ptr(dege), _ptr(lengths),
+            B, mode, int(cfg.both_strands), _ptr(scratch), per,
+            _ptr(mapped), _ptr(pos), _ptr(rev), _ptr(mm))
+    return mapped, pos, rev, mm
+
+
+def indel_batch(codes: torch.Tensor, dege: torch.Tensor,
+                lengths: torch.Tensor, ix: AlignIndex, cfg, G: int,
+                ops: int):
+    """K9: the indel tier over the inputs of align_batch, gap size up to
+    G and up to ``ops`` (1 or 2) gap operations a read -> ((B,) bool
+    found, (B,) int32 pos, split s1, gap g1, split s2, gap g2, (B,) bool
+    reverse strand, (B, Lp) bool mask in spliced-window coordinates).
+    Only ``found`` and the found reads' other outputs carry meaning."""
+    tensors = (codes, dege, lengths) + tuple(ix[:5])
+    if not _on_card(*tensors):
+        return indel_batch_plain(codes, dege, lengths, ix, cfg, G, ops)
+    B, wide = _check_align(codes, dege, lengths, ix, cfg, "indel_batch")
+    if not (1 <= G < cfg.lp) or ops not in (1, 2):
+        raise ValueError("indel_batch: need 1 <= G < Lp and ops in (1, 2)")
+    dev = codes.device
+    found = torch.zeros((B,), dtype=torch.bool, device=dev)
+    ints = [torch.zeros((B,), dtype=torch.int32, device=dev)
+            for _ in range(5)]
+    rev = torch.zeros((B,), dtype=torch.bool, device=dev)
+    mm = torch.zeros((B, cfg.lp), dtype=torch.bool, device=dev)
+    if B == 0:
+        return (found, *ints, rev, mm)
+    lib = _lib()
+    per = lib.fq_indel_scratch_bytes(*_align_cfg_args(cfg), G)
+    scratch = torch.empty((B * per,), dtype=torch.uint8, device=dev)
+    _launch(lib.fq_indel_batch_cuda, "indel_batch", *_index_ptrs(ix, wide),
+            *_align_cfg_args(cfg), _ptr(codes), _ptr(dege), _ptr(lengths),
+            B, G, ops, _ptr(scratch), per, _ptr(found),
+            *(_ptr(t) for t in ints), _ptr(rev), _ptr(mm))
+    return (found, *ints, rev, mm)

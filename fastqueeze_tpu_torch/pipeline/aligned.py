@@ -1,0 +1,193 @@
+"""Reference-aligned single-end compression.
+
+Copied from fastqueeze_tpu/pipeline/aligned.py (SE): per block, align the
+reads (align/hash.py; K8 and K9 on the card), then encode with the
+alignment streams, or entropy-only when the block's mapped fraction is
+under ``min_map_ratio`` (the reference's per-block Align/Fqz decision).
+Not ported yet: paired-end (ROADMAP Queue A item 6), --part and the
+lossy transform (item 4), and reads over align_max_len (item 8).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from fastqueeze_tpu_torch.align.hash import Aligner, AlignResult
+from fastqueeze_tpu_torch.align.index import load_index
+from fastqueeze_tpu_torch.config import CodecParams
+from fastqueeze_tpu_torch.container.arcfile import (
+    FLAG_ALIGNED, ArcWriter, BlockInfo)
+from fastqueeze_tpu_torch.io.fastq import FastqBlock, parse_block, read_blocks
+from fastqueeze_tpu_torch.pipeline.blockcodec import (
+    _BASE_MAP, dup_masks, encode_block)
+from fastqueeze_tpu_torch.pipeline.parallel_host import ordered_parallel
+from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+
+
+def _read_codes(block: FastqBlock) -> Tuple[np.ndarray, np.ndarray]:
+    codes = _BASE_MAP[block.seq_flat]
+    dege = codes == 255
+    return np.where(dege, 0, codes).astype(np.uint8), dege
+
+
+def align_block(aligner: Aligner, block: FastqBlock, device,
+                dup_src: Optional[np.ndarray] = None) -> AlignResult:
+    """Align a block's reads.  With dup_src (the duplicate tier's
+    first-occurrence back-references), only unique reads run the aligner
+    and each duplicate inherits its source's result: the aligner is
+    deterministic per read, so the archive is the same."""
+    codes, dege = _read_codes(block)
+    if dup_src is None:
+        return aligner.align(codes, dege, block.lengths, device)
+    keep = dup_src < 0
+    sym_keep = np.repeat(keep, block.lengths)
+    sub = aligner.align(codes[sym_keep], dege[sym_keep],
+                        block.lengths[keep], device)
+    R = block.n_reads
+    rows = np.flatnonzero(keep)
+    src = dup_src[~keep]             # first occurrences: always in `rows`
+
+    def spread(a):
+        if a is None:
+            return None
+        out = np.zeros((R,) + a.shape[1:], a.dtype)
+        out[rows] = a
+        out[~keep] = out[src]
+        return out
+
+    return AlignResult(*(spread(a) for a in sub))
+
+
+def _maybe_align(p: CodecParams, aligner: Aligner, block: FastqBlock,
+                 device, dbg: DebugInfo):
+    """Align the block; (None, 0) when its mapped fraction is under
+    min_map_ratio (coded entropy-only), else (AlignResult, n_mapped)."""
+    t0 = time.time()
+    dup_src = None
+    if p.dedup and block.n_reads > 1:
+        dup_src, _ = dup_masks(block)
+    res = align_block(aligner, block, device, dup_src)
+    dbg.add("align_s", time.time() - t0)
+    n_mapped = int(res.mapped.sum())
+    frac = n_mapped / block.n_reads if block.n_reads else 0.0
+    if block.n_reads and frac < p.min_map_ratio:
+        dbg.add("fqz_blocks", 1)
+        return None, 0
+    dbg.add("align_blocks", 1)
+    dbg.add("mapped_reads", n_mapped)
+    return res, n_mapped
+
+
+# (path, mtime, size, seed_len, shm) -> (Aligner, RefSeq): repeated
+# compress/decompress calls in one process skip the FASTA parse, the index
+# load and the upload to the card.  Aligner.params is re-stamped per call.
+_REF_CACHE: Dict = {}
+_REF_CACHE_MAX = 4
+
+
+def prepare_ref(p: CodecParams, ref_path: str):
+    """Load (or build) the index and stamp the reference's identity
+    (aligned, ref_md5, ref_len, seed_len) into the params."""
+    try:
+        st = os.stat(ref_path)
+        key = (os.path.abspath(ref_path), st.st_mtime_ns, st.st_size,
+               p.seed_len, p.shm_index)
+    except OSError:
+        key = None
+    hit = _REF_CACHE.get(key) if key is not None else None
+    if hit is None:
+        idx, ref = load_index(ref_path, p)
+        aligner = Aligner(idx, p)
+        if key is not None:
+            if len(_REF_CACHE) >= _REF_CACHE_MAX:
+                _REF_CACHE.pop(next(iter(_REF_CACHE)))
+            _REF_CACHE[key] = (aligner, ref)
+    else:
+        aligner, ref = hit
+        aligner.params = p
+    p.aligned = 1
+    p.ref_md5 = ref.md5
+    p.ref_len = ref.length
+    p.seed_len = aligner.k
+    return aligner, ref
+
+
+def train_frozen_prefix(p: CodecParams, in_path: str, device,
+                        dbg: DebugInfo):
+    """usemodel preprocess of the aligned path (the JAX package's
+    driver.train_frozen_prefix): frozen tables trained on the input's
+    first model_train_mb MB as one block."""
+    from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
+    from fastqueeze_tpu_torch.pipeline.driver import _gate_bytes
+    from fastqueeze_tpu_torch.pipeline.frozen import (
+        _qual_alphabet, device_tables, serialize_frozen, train_frozen)
+    t0 = time.time()
+    block = parse_block(*next(iter(read_blocks(in_path,
+                                               p.model_train_mb << 20))))
+    est = int(_gate_bytes(in_path) * int(block.lengths.sum())
+              / max(block.raw_len, 1))
+    if p.dedup:
+        block, frac = dedup_training_block(block, p)
+        est = int(est * frac)
+    frozen = train_frozen(p, block, est_total_syms=est)
+    device_tables(frozen, _qual_alphabet(frozen["qmax"]), p.qctx_eff_init(),
+                  device)
+    dbg.add("train_s", time.time() - t0)
+    return frozen, serialize_frozen(frozen)
+
+
+def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
+                        out_path: str, dbg: Optional[DebugInfo] = None,
+                        device="cuda") -> Dict:
+    if p.lossy_factor > 1.0:
+        raise NotImplementedError(
+            "lossy quality transform: ROADMAP Queue A item 4")
+    from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
+    dbg = dbg or DebugInfo()
+    t0 = time.time()
+    aligner, ref = prepare_ref(p, ref_path)
+    dbg.add("ref_s", time.time() - t0)
+    block_size = p.block_bytes or p.block_size_mb * (1 << 20)
+    whole_md5 = hashlib.md5()
+    writer = ArcWriter(out_path, p, [os.path.basename(in_path)], [])
+    frozen = None
+    if decide_use_model(p, os.path.getsize(in_path)):
+        frozen, blob = train_frozen_prefix(p, in_path, device, dbg)
+        writer.set_model(blob)
+
+    def work(_i, item):
+        raw, final_nl = item
+        block = parse_block(raw, final_nl)
+        align, n_mapped = _maybe_align(p, aligner, block, device, dbg)
+        t0 = time.time()
+        payload = encode_block(p, block, frozen, device, dbg, align,
+                               ref.codes)
+        dbg.add("encode_s", time.time() - t0)
+        return raw, payload, block.n_reads, n_mapped, align is not None
+
+    n_blocks = total_raw = total_mapped = total_reads = 0
+    for i, (raw, payload, n_reads, n_mapped, was_aligned) in \
+            ordered_parallel(read_blocks(in_path, block_size), work,
+                             p.threads):
+        whole_md5.update(raw)
+        writer.add_block(i, payload, BlockInfo(
+            payload_len=len(payload), n_reads=n_reads, raw_len1=len(raw),
+            flags=FLAG_ALIGNED if was_aligned else 0,
+            md5=hashlib.md5(raw).digest()))
+        total_mapped += n_mapped
+        total_reads += n_reads
+        total_raw += len(raw)
+        n_blocks += 1
+    writer.input_md5s = [whole_md5.digest()]
+    writer.finalize()
+    out_size = os.path.getsize(out_path)
+    dbg.add("raw_bytes", total_raw)
+    dbg.add("out_bytes", out_size)
+    return {"blocks": n_blocks, "raw": total_raw, "compressed": out_size,
+            "ratio": total_raw / out_size if out_size else 0.0,
+            "mapped": total_mapped, "reads": total_reads}

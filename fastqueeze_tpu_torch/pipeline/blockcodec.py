@@ -1,4 +1,4 @@
-"""Per-block stream split + entropy coding (single-end, no reference).
+"""Per-block stream split + entropy coding (single-end).
 
 Copied from fastqueeze_tpu/pipeline/blockcodec.py (SE encode_block_job /
 decode_block): a block of parsed records is split into independently
@@ -10,8 +10,12 @@ trained tables, adaptive otherwise.  Every other stream of at most
 ``host_stream_max`` symbols goes to the native host range coder (marker
 2); longer ones go to the adaptive wave-rANS coder (marker 1).
 
-Not ported yet: frozen_adapt (ROADMAP Queue A item 5) and the alignment /
-long-read / self-ref block streams (Queue A items 4, 8).
+Reference-aligned and self-referential blocks add the alignment streams:
+per-read mapped flags, and for the mapped reads window start, strand,
+mismatch counts, positions and substituted bases (context = the reference
+base), plus the indel CIGAR streams.  Not ported yet: frozen_adapt
+(ROADMAP Queue A item 5), the long-read chunk streams (item 8) and the PE
+``-I`` insert deltas (item 6).
 """
 
 from __future__ import annotations
@@ -53,16 +57,27 @@ TAG_SDUPD = 26    # seq-dup reads: back-distance (in reads) to the first
                   #   identical earlier read
 TAG_QDUPF = 27    # duplicate tier: per-read qual-duplicate flag
 TAG_QDUPD = 28    # qual-dup reads: back-distance to the first identical
-# first tags of the alignment (14-24, 29-31) and long-read (32-45) stream
-# families, whose blocks the port does not decode yet
-TAG_AMAP = 14
-TAG_LRF = 32
+TAG_AMAP = 14     # per-read mapped flag
+TAG_APOS = 15     # mapped: window start position bytes
+TAG_AREV = 16     # mapped: reverse-complement flag
+TAG_AMISC = 17    # mapped: mismatch count per read
+TAG_AMISP = 18    # mapped: mismatch positions (window coords, delta)
+TAG_AMISB = 19    # mapped: substituted bases (2-bit), ctx = ref base
+TAG_APDF = 20     # PE -I: delta-coded flag per eligible mate-2
+TAG_ACIGF = 22    # mapped: has-indel flag
+TAG_ACIGS = 23    # indel reads: split position s in the read
+TAG_ACIGL = 24    # indel reads: zigzag signed gap size g
+TAG_ACG2F = 29    # indel reads: has-second-op flag
+TAG_ACG2S = 30    # 2-op reads: second split position s2 (>= s1 + |g1<0|)
+TAG_ACG2L = 31    # 2-op reads: zigzag signed second gap g2
+TAG_LRF = 32      # first tag of the long-read chunk streams (32-45)
 
 _FROZEN_ADAPT_MSG = ("adapting from a frozen table (frozen_adapt): ROADMAP "
                      "Queue A item 5")
 _VAR_CHUNK = 256  # var byte streams are cut into pseudo-reads for lanes
-_ALIGN_MSG = ("alignment / self-ref / long-read block streams: ROADMAP "
-              "Queue A item 4")
+_LR_MSG = ("long-read chunk streams (reads over align_max_len): ROADMAP "
+           "Queue A item 8")
+_PE_INSERT_MSG = "PE -I insert-delta streams: ROADMAP Queue A item 6"
 
 _BASE_MAP = np.full(256, 255, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
@@ -479,18 +494,26 @@ def _stream_jobs(p: CodecParams, frozen: Optional[Dict], device, seq, qual,
 
 
 def encode_block(p: CodecParams, block: FastqBlock,
-                 frozen: Optional[Dict], device, dbg=None) -> bytes:
-    return encode_block_job(p, block, frozen, device, dbg)()
+                 frozen: Optional[Dict], device, dbg=None, align=None,
+                 ref_codes: Optional[np.ndarray] = None,
+                 self_ref: bool = False) -> bytes:
+    return encode_block_job(p, block, frozen, device, dbg, align, ref_codes,
+                            self_ref)()
 
 
 def encode_block_job(p: CodecParams, block: FastqBlock,
-                     frozen: Optional[Dict], device, dbg=None):
+                     frozen: Optional[Dict], device, dbg=None, align=None,
+                     ref_codes: Optional[np.ndarray] = None,
+                     self_ref: bool = False):
     """Dispatch phase of encode_block: the seq and qual streams are queued
     on the device (frozen against ``frozen``'s trained tables, or
     adaptive when ``frozen`` is None) and the host streams coded; the
     returned thunk syncs the device and assembles the block TLV, so a
     driver keeps the next block's host work running while the device
-    codes this one."""
+    codes this one.  align: AlignResult over the block's reads (None =
+    entropy-only); ref_codes: the reference's 2-bit codes (required with
+    align); self_ref: ref_codes is the block's own unmapped reads
+    (pipeline/selfref.py), which decode rebuilds."""
     if frozen is not None and p.frozen_adapt:
         raise NotImplementedError(_FROZEN_ADAPT_MSG)
     R = block.n_reads
@@ -542,6 +565,13 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
     qsyms = qual_lut(qvals)[block.qual_flat]
     qmax = max(len(qvals) - 1, 0)
 
+    mapped = align.mapped if align is not None else np.zeros(R, bool)
+    if n_sd:
+        # dedup beats the aligned streams on cost (a back-distance vs
+        # pos+rev+mis streams); a read that is both stays a duplicate
+        mapped = mapped & ~sdup
+    n_mapped = int(mapped.sum())
+
     const_len = int(lengths[0]) if R and (lengths == lengths[0]).all() else None
     meta = {
         "R": R,
@@ -550,14 +580,18 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
         "qmax": qmax,
         "qv": qvals.tolist(),
         "nd": n_dege,
-        "nm": 0,
+        "nm": n_mapped,
     }
+    if self_ref and n_mapped:
+        meta["sref"] = 1
 
     # --- dispatch the big device streams first (seq + qual); host streams
     #     are coded while the device crunches, then the jobs are finalized
-    seq_keep = ~sdup if n_sd else np.ones(R, bool)
+    seq_keep = ~mapped & ~sdup if n_sd else ~mapped
     seq_counts = (lengths - dege_cnt)[seq_keep]
     seq_sel = ~dege_mask
+    if n_mapped:
+        seq_sel &= ~np.repeat(mapped, lengths)
     if n_sd:
         seq_sel &= ~sdup_sym
     seq_syms = codes[seq_sel]
@@ -614,8 +648,7 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
         distances whose deltas are ~all zero."""
         w_abs = _width_of(int(d.max()))
         pay_abs = _code_le(p, d, w_abs, device)
-        dd = np.diff(d, prepend=0)
-        zz = np.where(dd >= 0, 2 * dd, -2 * dd - 1)
+        zz = _zigzag(np.diff(d, prepend=0))
         w_dl = _width_of(int(zz.max()))
         pay_dl = _code_le(p, zz, w_dl, device)
         if len(pay_dl) < len(pay_abs):
@@ -658,6 +691,17 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
             p, block.seq_flat[dege_mask].tobytes(), device, order1=False)
         dege_sections = [(TAG_DEGCNT, cnt_payload), (TAG_DEGPOS, pos_payload),
                          (TAG_DEGCHR, chr_payload)]
+
+    # --- alignment streams ---
+    align_sections = []
+    if n_mapped:
+        if ref_codes is None:
+            raise ValueError("aligned encode needs the reference codes")
+        align_sections = _encode_align_streams(p, block, align, ref_codes,
+                                               mapped, meta, device)
+    if align is not None:
+        align_sections.insert(0, (TAG_AMAP, _code_flags(p, mapped, device)))
+
     def finalize() -> bytes:
         # --- collect the device streams, assemble TLV ---
         seq_payload = seq_job.finalize()
@@ -666,7 +710,7 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
         if len_payload is not None:
             out.write(write_tlv(TAG_LEN, len_payload))
         for tag, payload in (dup_sections + dege_sections + id_sections
-                             + plus_sections):
+                             + plus_sections + align_sections):
             out.write(write_tlv(tag, payload))
         out.write(write_tlv(TAG_SEQ, seq_payload))
         out.write(write_tlv(TAG_QUAL, qual_payload))
@@ -679,6 +723,7 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
             dbg.add("sz_id", sum(len(x) for _, x in id_sections))
             dbg.add("sz_plus", sum(len(x) for _, x in plus_sections))
             dbg.add("sz_dege", sum(len(x) for _, x in dege_sections))
+            dbg.add("sz_align", sum(len(x) for _, x in align_sections))
             dbg.add("sz_dup", sum(len(x) for _, x in dup_sections))
             dbg.add("dup_seq_reads", n_sd)
             dbg.add("dup_qual_reads", n_qd)
@@ -689,15 +734,123 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
     return finalize
 
 
+def _zigzag(v: np.ndarray) -> np.ndarray:
+    return np.where(v >= 0, 2 * v, -2 * v - 1)
+
+
+def _unzigzag(z: np.ndarray) -> np.ndarray:
+    return np.where(z % 2 == 0, z // 2, -((z + 1) // 2))
+
+
+def _encode_align_streams(p: CodecParams, block: FastqBlock, align,
+                          ref_codes: np.ndarray, mapped: np.ndarray,
+                          meta: Dict, device) -> list:
+    """Mapped reads -> pos / rev / mis-count / mis-pos / mis-char streams
+    and the indel CIGAR streams."""
+    if p.is_pe and p.max_insr > 0:
+        raise NotImplementedError(_PE_INSERT_MSG)
+    lengths = block.lengths
+    mlens = lengths[mapped]
+    posb = max(1, (int(ref_codes.size).bit_length() + 7) // 8)
+    mposb = _width_of(int(mlens.max()) if len(mlens) else 0)
+    meta["posb"] = posb
+    meta["mposb"] = mposb
+
+    pos = align.pos[mapped]
+    rev = align.is_rev[mapped]
+    mm = align.mis_mask[mapped]                      # (M, lp) window coords
+    mis_cnt = mm.sum(axis=1).astype(np.int64)
+    meta["nabs"] = len(pos)
+    if mis_cnt.max(initial=0) > 255:
+        raise ValueError(">255 mismatches in one read")
+
+    # mismatch (read, window-col) pairs, row-major = per-read ascending;
+    # delta within read (first mismatch absolute)
+    rows, cols = np.nonzero(mm)
+    prev = np.empty_like(cols)
+    prev[0:1] = 0
+    prev[1:] = cols[:-1]
+    first = np.empty(len(rows), bool)
+    first[0:1] = True
+    first[1:] = rows[1:] != rows[:-1]
+    deltas = np.where(first, cols, cols - prev)
+
+    # indel ops: split s + signed gap g per flagged read, plus an optional
+    # second op (s2, g2); mismatches stay in spliced-window coords
+    g_m = s_m = g2_m = s2_m = None
+    if align.gap_len is not None:
+        g_all = align.gap_len[mapped].astype(np.int64)
+        if (g_all != 0).any():
+            g_m = g_all
+            s_m = align.gap_pos[mapped].astype(np.int64)
+            if align.gap_len2 is not None and (align.gap_len2 != 0).any():
+                g2_m = align.gap_len2[mapped].astype(np.int64)
+                s2_m = align.gap_pos2[mapped].astype(np.int64)
+
+    # substituted base = effective-strand read base at the window col;
+    # context = the spliced reference base it replaced (filler 0 under
+    # insertions), exactly as decode builds the window
+    moffs = (np.cumsum(lengths) - lengths)[mapped]
+    eff_col = np.where(rev[rows], mlens[rows] - 1 - cols, cols)
+    read_base = _BASE_MAP[block.seq_flat[moffs[rows] + eff_col]]
+    sub_base = np.where(rev[rows], 3 - read_base, read_base).astype(np.uint8)
+    if g_m is None:
+        # self-ref windows may overhang the reference end by up to max_mis
+        # force-masked bases: clip like the decode-side window build
+        ref_base = ref_codes[np.clip(pos[rows] + cols, 0,
+                                     max(ref_codes.size - 1, 0))]
+    else:
+        shift = np.where(cols >= s_m[rows], g_m[rows], 0)
+        ins = ((g_m[rows] < 0) & (cols >= s_m[rows])
+               & (cols < s_m[rows] - g_m[rows]))
+        if g2_m is not None:
+            shift = shift + np.where(cols >= s2_m[rows], g2_m[rows], 0)
+            ins |= ((g2_m[rows] < 0) & (cols >= s2_m[rows])
+                    & (cols < s2_m[rows] - g2_m[rows]))
+        ridx = np.clip(pos[rows] + cols + shift, 0, ref_codes.size - 1)
+        ref_base = np.where(ins, 0, ref_codes[ridx])
+
+    sections = [
+        (TAG_APOS, _code_le(p, pos, posb, device)),
+        (TAG_AREV, _code_flags(p, rev, device)),
+        (TAG_AMISC, _code_bytes(p, mis_cnt.astype(np.uint8).tobytes(),
+                                device, order1=False)),
+    ]
+    if len(rows):
+        sections.append((TAG_AMISP, _code_le(p, deltas, mposb, device)))
+        sections.append((TAG_AMISB, _code_syms_ctx(
+            p, sub_base, ref_base.astype(np.uint8), 4, 4, device)))
+    if g_m is not None:
+        has = g_m != 0
+        meta["nidl"] = int(has.sum())
+        gb = 1 if p.max_indel <= 127 else 2   # zigzag range is 2*max_indel
+        sections.append((TAG_ACIGF, _code_flags(p, has, device)))
+        sections.append((TAG_ACIGS, _code_le(p, s_m[has], mposb, device)))
+        sections.append((TAG_ACIGL, _code_le(p, _zigzag(g_m[has]), gb,
+                                             device)))
+        if g2_m is not None and (g2_m[has] != 0).any():
+            # second op streams, nested under the indel reads (the second
+            # pass only extends a first-pass indel: g2 != 0 => g1 != 0)
+            has2 = g2_m[has] != 0
+            meta["nidl2"] = int(has2.sum())
+            sections.append((TAG_ACG2F, _code_flags(p, has2, device)))
+            sections.append((TAG_ACG2S, _code_le(p, s2_m[has][has2], mposb,
+                                                 device)))
+            sections.append((TAG_ACG2L, _code_le(
+                p, _zigzag(g2_m[has][has2]), gb, device)))
+    return sections
+
+
 def decode_block(p: CodecParams, payload: bytes, frozen: Optional[Dict],
-                 device) -> FastqBlock:
-    """Decode one block payload on ``device``.  Any structural damage a
+                 device, ref_codes: Optional[np.ndarray] = None) -> FastqBlock:
+    """Decode one block payload on ``device`` (ref_codes: the reference's
+    2-bit codes, for reference-aligned archives).  Any structural damage a
     corrupt payload can cause downstream (bad lengths -> out-of-range
     indexing, mangled meta JSON, impossible stream sizes) is converted to
     ValueError — the whole-block MD5 then reports it like every other
     corruption path."""
     try:
-        return _decode_block_impl(p, payload, frozen, device)
+        return _decode_block_impl(p, payload, frozen, device, ref_codes)
     except ValueError:
         raise
     except (IndexError, KeyError, OverflowError, TypeError,
@@ -706,15 +859,20 @@ def decode_block(p: CodecParams, payload: bytes, frozen: Optional[Dict],
 
 
 def _decode_block_impl(p: CodecParams, payload: bytes,
-                       frozen: Optional[Dict], device) -> FastqBlock:
+                       frozen: Optional[Dict], device,
+                       ref_codes: Optional[np.ndarray]) -> FastqBlock:
     sections = dict(iter_tlv(payload))
     meta = json.loads(sections[TAG_META].decode())
     R = meta["R"]
     n_dege = meta["nd"]
     qmax = meta["qmax"]
-    if (meta.get("nm", 0) or meta.get("sref", 0) or meta.get("lrm", 0)
-            or TAG_AMAP in sections or TAG_LRF in sections):
-        raise NotImplementedError(_ALIGN_MSG)
+    n_mapped = meta.get("nm", 0)
+    self_ref = bool(meta.get("sref", 0))
+    if meta.get("lrm", 0) or TAG_LRF in sections:
+        raise NotImplementedError(_LR_MSG)
+    if n_mapped and ref_codes is None and not self_ref:
+        raise ValueError("archive was reference-aligned: decode needs the "
+                         "reference FASTA")
     if frozen is not None and p.frozen_adapt:
         raise NotImplementedError(_FROZEN_ADAPT_MSG)
 
@@ -745,6 +903,13 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
             _decode_bytes(p, sections[TAG_DEGCHR], device,
                           order1=False), np.uint8)
 
+    # --- map flags ---
+    mapped = np.zeros(R, bool)
+    if TAG_AMAP in sections:
+        mapped = _decode_flags(p, sections[TAG_AMAP], R, device)
+    if int(mapped.sum()) != n_mapped:
+        raise ValueError("corrupt block payload: mapped count")
+
     # --- duplicate-tier back-references ---
     def _dup_refs(tag_f, tag_d, n_dup, width, delta):
         flags = _decode_flags(p, sections[tag_f], R, device)
@@ -753,8 +918,7 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
             raise ValueError("corrupt block payload: dup flag count")
         d = _decode_le(p, sections[tag_d], n_dup, width, device)
         if delta:
-            dd = np.where(d % 2 == 0, d // 2, -((d + 1) // 2))
-            d = np.cumsum(dd)
+            d = np.cumsum(_unzigzag(d))
         src = rows - d
         if ((d <= 0).any() or (src < 0).any() or flags[src].any()
                 or (lengths[src] != lengths[rows]).any()):
@@ -773,7 +937,7 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
                                           meta["qdb"], meta.get("qdd", 0))
 
     # --- dispatch device streams (seq + qual), then do host work ---
-    seq_counts = (lengths - dege_cnt)[~sdup]
+    seq_counts = (lengths - dege_cnt)[~mapped & ~sdup]
     qlens = lengths[~qdup] if n_qd else lengths
     seq_model = seq_model_from_params(p)
     qmodel = qual_model_for(p, _qual_alphabet(qmax))
@@ -789,10 +953,26 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
         dege_abs = np.repeat(read_off, dege_cnt) + dpos
         seq_flat[dege_abs] = dchr
         fill[dege_abs] = True
+    if n_mapped:
+        fill |= np.repeat(mapped, lengths)
     if n_sd:
         fill |= np.repeat(sdup, lengths)
     acgt = seq_job.finalize()
     seq_flat[~fill] = _BASE_INV[acgt]
+    if n_mapped:
+        if self_ref:
+            # rebuild the block's self-reference from the (now filled)
+            # unmapped reads, exactly as the encoder built it
+            from fastqueeze_tpu_torch.pipeline.selfref import ref_eligible
+            rows = np.flatnonzero(ref_eligible(mapped, sdup, dege_cnt,
+                                               lengths, p.seed_len))
+            lr = lengths[rows]
+            sel = np.repeat(read_off[rows], lr) + _intra_of(lr)
+            # clip: eligible reads are ACGT in valid archives; corrupt
+            # payloads must not drive out-of-range model contexts
+            ref_codes = np.minimum(_BASE_MAP[seq_flat[sel]], 3)
+        _decode_align_streams(p, sections, meta, mapped, lengths, read_off,
+                              ref_codes, seq_flat, device)
     if n_sd:
         # duplicate reads: one range copy from their (non-duplicate,
         # already filled) first occurrences
@@ -850,3 +1030,86 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
                       qual_flat=qual_flat, lengths=lengths, raw_len=raw_len,
                       final_newline=meta["fnl"])
 
+
+def _decode_align_streams(p: CodecParams, sections: Dict, meta: Dict,
+                          mapped: np.ndarray, lengths: np.ndarray,
+                          read_off: np.ndarray, ref_codes: np.ndarray,
+                          seq_flat: np.ndarray, device) -> None:
+    """Reconstruct the mapped reads from the reference (window fetch,
+    indel splice, mismatch patches, reverse complement), writing ACGT
+    bytes into seq_flat in place."""
+    if TAG_APDF in sections:
+        raise NotImplementedError(_PE_INSERT_MSG)
+    M = int(mapped.sum())
+    posb, mposb = meta["posb"], meta["mposb"]
+    mlens = lengths[mapped]
+    moffs = read_off[mapped]
+    pos = _decode_le(p, sections[TAG_APOS], meta.get("nabs", M), posb, device)
+    rev = _decode_flags(p, sections[TAG_AREV], M, device)
+    cnt_raw = _decode_bytes(p, sections[TAG_AMISC], device, order1=False)
+    mis_cnt = np.frombuffer(cnt_raw, np.uint8).astype(np.int64)
+    n_mis = int(mis_cnt.sum())
+
+    total = int(mlens.sum())
+    win_off = np.cumsum(mlens) - mlens
+    sym_read = np.repeat(np.arange(M), mlens)
+    intra = np.arange(total, dtype=np.int64) - np.repeat(win_off, mlens)
+    if TAG_ACIGF in sections:
+        # indel reads: spliced window -- ref[pos+i] for i < s, then
+        # ref[pos+g+i]; filler 0 over inserted read bases (their values
+        # arrive through the mismatch patches); a second op (s2, g2)
+        # applies the cumulative shift g+g2 past s2
+        g_r, s_r, g2_r, s2_r = (np.zeros(M, np.int64) for _ in range(4))
+        has = _decode_flags(p, sections[TAG_ACIGF], M, device)
+        nidl = int(has.sum())
+        gb = 1 if p.max_indel <= 127 else 2
+        if nidl:
+            s_r[has] = _decode_le(p, sections[TAG_ACIGS], nidl, mposb,
+                                  device)
+            g_r[has] = _unzigzag(_decode_le(p, sections[TAG_ACIGL], nidl,
+                                            gb, device))
+            if TAG_ACG2F in sections:
+                has2_i = _decode_flags(p, sections[TAG_ACG2F], nidl, device)
+                nidl2 = int(has2_i.sum())
+                has2 = np.zeros(M, bool)
+                has2[np.flatnonzero(has)[has2_i]] = True
+                s2_r[has2] = _decode_le(p, sections[TAG_ACG2S], nidl2,
+                                        mposb, device)
+                g2_r[has2] = _unzigzag(_decode_le(p, sections[TAG_ACG2L],
+                                                  nidl2, gb, device))
+        g_sym, s_sym = g_r[sym_read], s_r[sym_read]
+        g2_sym, s2_sym = g2_r[sym_read], s2_r[sym_read]
+        shift = (np.where(intra >= s_sym, g_sym, 0)
+                 + np.where(intra >= s2_sym, g2_sym, 0))
+        widx = np.clip(np.repeat(pos, mlens) + intra + shift, 0,
+                       ref_codes.size - 1)
+        win = ref_codes[widx].copy()
+        win[((g_sym < 0) & (intra >= s_sym) & (intra < s_sym - g_sym))
+            | ((g2_sym < 0) & (intra >= s2_sym)
+               & (intra < s2_sym - g2_sym))] = 0
+    else:
+        # clip: self-ref windows may overhang the reference edges by up to
+        # max_mis bases (every clipped base is patched)
+        win = ref_codes[np.clip(np.repeat(pos, mlens) + intra, 0,
+                                max(ref_codes.size - 1, 0))].copy()
+
+    if n_mis:
+        deltas = _decode_le(p, sections[TAG_AMISP], n_mis, mposb, device)
+        rows = np.repeat(np.arange(M), mis_cnt)
+        # undo the within-read delta coding: segmented cumsum
+        first_of_read = (np.cumsum(mis_cnt) - mis_cnt)[rows]
+        cs = np.cumsum(deltas)
+        seg_start = np.zeros(n_mis, np.int64)
+        nz = first_of_read > 0
+        seg_start[nz] = cs[first_of_read[nz] - 1]
+        cols = cs - seg_start
+        ref_base = win[win_off[rows] + cols].copy()
+        sub = _decode_syms_ctx(p, sections[TAG_AMISB], n_mis,
+                               ref_base.astype(np.uint8), 4, 4, device)
+        win[win_off[rows] + cols] = sub
+
+    # orient: reverse-complement where rev, then place into seq_flat
+    src_intra = np.where(rev[sym_read], mlens[sym_read] - 1 - intra, intra)
+    val = win[win_off[sym_read] + src_intra]
+    val = np.where(rev[sym_read], 3 - val, val)
+    seq_flat[moffs[sym_read] + intra] = _BASE_INV[val]

@@ -1,4 +1,4 @@
-"""File-level compress/decompress orchestration (single-end, no reference).
+"""File-level compress/decompress orchestration (single-end).
 
 Copied from fastqueeze_tpu/pipeline/driver.py (compress_se, decompress):
 cut the input into blocks, train the frozen tables on a prefix when the
@@ -7,10 +7,12 @@ has no model), encode each block, record per-block MD5 + whole-input
 MD5, write the container; on decode, verify both and reassemble the
 plaintext.  Every stage takes the engine's ``device`` explicitly.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-frozen_adapt and adapt_chunk's semi-adaptive walk (Queue A item 5),
-self-referential blocks (item 4), --mesh (item 9), --part, -X, -m
-(item 4), paired-end (item 6) and references (item 8).
+Self-referential blocks (auto probe or -S) are coded here; compressing
+against a reference FASTA is pipeline/aligned.py, and decompress takes
+that FASTA (``ref``).  Not ported yet, each raising NotImplementedError
+with its ROADMAP item: frozen_adapt and adapt_chunk's semi-adaptive walk
+(Queue A item 5), --mesh (item 9), --part, -X, -m and the lossy
+transform (item 4), paired-end (item 6).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from fastqueeze_tpu_torch.container.arcfile import (
     ArcReader, ArcWriter, BlockInfo)
 from fastqueeze_tpu_torch.io.fastq import assemble_block, parse_block, read_blocks
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
-    decode_block, encode_block, encode_block_job)
+    decode_block, encode_block_job)
 from fastqueeze_tpu_torch.pipeline.parallel_host import ordered_parallel
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
@@ -44,12 +46,8 @@ def _unported(params: CodecParams, in_bytes: int) -> Optional[str]:
         return "--mesh block data-parallelism: ROADMAP Queue A item 9"
     if params.is_pe:
         return "paired-end: ROADMAP Queue A item 6"
-    if params.aligned:
-        return "reference-aligned mode: ROADMAP Queue A item 8"
     if params.lossy_factor > 1.0:
         return "lossy quality transform: ROADMAP Queue A item 4"
-    if params.self_align == 1:
-        return "self-referential alignment (-S): ROADMAP Queue A item 4"
     if params.frozen_adapt and decide_use_model(params, in_bytes):
         return ("adapting from a frozen table (frozen_adapt): ROADMAP "
                 "Queue A item 5")
@@ -112,12 +110,9 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
             first = next(gen, None)
             if first is not None:
                 prefix_items.append((*first, parse_block(*first)))
-        if prefix_items and auto_self_align(params, prefix_items[0][2],
-                                            dbg):
-            raise NotImplementedError(
-                "self-referential blocks (the auto probe found coverage "
-                "data): ROADMAP Queue A item 4")
-        params.self_align = 0
+        params.self_align = 1 if (
+            prefix_items
+            and auto_self_align(params, prefix_items[0][2], dbg)) else 0
     model_blob = None
     if frozen is not None:
         from fastqueeze_tpu_torch.pipeline.frozen import serialize_frozen
@@ -130,14 +125,21 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
         for raw, final_nl in gen:
             yield raw, final_nl, None
 
+    def encode_job(block):
+        align = ref_codes = None
+        if params.self_align:
+            from fastqueeze_tpu_torch.pipeline.selfref import maybe_align_self
+            align, ref_codes = maybe_align_self(params, block, dbg)
+        return encode_block_job(params, block, frozen, device, dbg, align,
+                                ref_codes, self_ref=align is not None)
+
     n_blocks = total_raw = 0
     if params.threads > 1:
         def work(_i, item):
             raw, final_nl, block = item
             if block is None:
                 block = parse_block(raw, final_nl)
-            return raw, encode_block(params, block, frozen, device, dbg), \
-                block.n_reads
+            return raw, encode_job(block)(), block.n_reads
 
         t_all = time.time()
         for i, (raw, payload, n_reads) in ordered_parallel(
@@ -166,7 +168,7 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
             whole_md5.update(raw)
             dbg.add("parse_s", time.time() - t0)
             t0 = time.time()
-            fin = encode_block_job(params, block, frozen, device, dbg)
+            fin = encode_job(block)
             dbg.add("dispatch_s", time.time() - t0)
             info = BlockInfo(payload_len=0, n_reads=block.n_reads,
                              raw_len1=len(raw),
@@ -190,7 +192,9 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
 
 def decompress(arc_path: str, out_prefix: Optional[str],
                dbg: Optional[DebugInfo] = None, force: bool = False,
-               threads: int = 0, device="cuda") -> List[str]:
+               threads: int = 0, device="cuda",
+               ref: Optional[str] = None) -> List[str]:
+    """ref: the reference FASTA of a reference-aligned archive."""
     dbg = dbg or DebugInfo()
     with ArcReader(arc_path) as reader:
         if reader.part is not None:
@@ -204,9 +208,7 @@ def decompress(arc_path: str, out_prefix: Optional[str],
         if getattr(params, "multi", 0):
             raise NotImplementedError(
                 "multi-file archives (-m): ROADMAP Queue A item 4")
-        if getattr(params, "aligned", 0):
-            raise NotImplementedError(
-                "reference-aligned mode: ROADMAP Queue A item 8")
+        ref_codes = _load_ref_for_decode(params, ref)
         out_name = _se_out_name(arc_path, out_prefix, reader.file_list)
         if os.path.exists(out_name) and not force:
             raise ValueError(f"{out_name} exists (use -f to overwrite)")
@@ -217,7 +219,7 @@ def decompress(arc_path: str, out_prefix: Optional[str],
         whole_md5 = hashlib.md5()
 
         def decode_one(i, payload):
-            block = decode_block(params, payload, frozen, device)
+            block = decode_block(params, payload, frozen, device, ref_codes)
             raw = assemble_block(block)
             if hashlib.md5(raw).digest() != reader.blocks[i].md5:
                 raise ValueError(
@@ -236,6 +238,22 @@ def decompress(arc_path: str, out_prefix: Optional[str],
         if reader.input_md5s and whole_md5.digest() != reader.input_md5s[0]:
             raise ValueError("whole-input MD5 mismatch")
         return [out_name]
+
+
+def _load_ref_for_decode(params: CodecParams, ref: Optional[str]):
+    """Aligned archives need the reference FASTA at decode (never the
+    index); a missing or wrong reference is refused up front."""
+    if not getattr(params, "aligned", 0):
+        return None
+    if not ref:
+        raise ValueError("archive was compressed with a reference; decode "
+                         "needs the same FASTA (fastqueeze -d ref.fa arc)")
+    from fastqueeze_tpu_torch.align.ref import load_fasta
+    r = load_fasta(ref)
+    if params.ref_md5 and r.md5 != params.ref_md5:
+        raise ValueError(f"wrong reference file: md5 {r.md5} != archive's "
+                         f"{params.ref_md5}")
+    return r.codes
 
 
 def _se_out_name(arc_path: str, out_prefix: Optional[str],

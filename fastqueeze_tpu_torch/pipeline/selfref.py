@@ -2,10 +2,10 @@
 reference assembled from its OWN reads.
 
 Copied from fastqueeze_tpu/pipeline/selfref.py.  Every compress runs the
-auto probe (auto_self_align), whose answer is written into PARAM; the
-port codes only blocks where the answer is no.  Self-ref block streams
-are not ported yet (ROADMAP Queue A item 4), so the driver stops when
-the probe (or -S) turns self-alignment on.
+auto probe (auto_self_align), whose answer is written into PARAM; with
+-S or a yes, the driver codes each block through maybe_align_self and
+the ordinary alignment streams (pipeline/blockcodec.py).  The encoder is
+the native host aligner (fq_selfref_align); no device kernel runs here.
 
 No reference equivalent in SeqArc (its aligned mode needs an external
 FASTA; SURVEY.md C13).  The construction that makes this decodable with
@@ -180,6 +180,16 @@ def auto_self_align(p: CodecParams, block: FastqBlock, dbg=None) -> bool:
     return aligned < _AUTO_MARGIN * model_only
 
 
+def ref_eligible(mapped: np.ndarray, sdup: np.ndarray,
+                 dege_cnt: np.ndarray, lengths: np.ndarray,
+                 k: int) -> np.ndarray:
+    """Reads whose bases form the self-reference.  MUST be computed
+    identically on encode and decode (both only need per-read facts that
+    the archive carries): unmapped, not a seq-duplicate, degenerate-free,
+    and at least one seed long."""
+    return ~mapped & ~sdup & (dege_cnt == 0) & (lengths >= k)
+
+
 def _mk_aligner(p: CodecParams, codes: np.ndarray):
     """Aligner over an in-memory code prefix (no FASTA, no MD5)."""
     from fastqueeze_tpu_torch.align.hash import Aligner
@@ -206,7 +216,7 @@ def maybe_align_self(p: CodecParams, block: FastqBlock, dbg=None
     earlier kept read (the wave loop was blind within a wave and paid
     geometric index rebuilds).  Encoder policy only — decode rebuilds
     the identical reference from the mapped flags (ref_eligible)."""
-    from fastqueeze_tpu_torch.align.hash import AlignResult
+    from fastqueeze_tpu_torch.align.hash import AlignResult, lp_bucket
     from fastqueeze_tpu_torch.pipeline.blockcodec import _BASE_MAP, dup_masks
     t0 = time.time()
     R = block.n_reads
@@ -234,7 +244,7 @@ def maybe_align_self(p: CodecParams, block: FastqBlock, dbg=None
         if dbg is not None:
             dbg.add("fqz_blocks", 1)
         return None, None
-    lp = _lp_of(int(lengths[alignable].max()))
+    lp = lp_bucket(int(lengths[alignable].max()))
 
     # all-candidates reference (block order; final ref = kept subset)
     sel = np.repeat(read_off[is_cand], lengths[is_cand]) \
@@ -269,13 +279,6 @@ def maybe_align_self(p: CodecParams, block: FastqBlock, dbg=None
         dbg.add("selfref_bases", len(ref_codes))
     return AlignResult(mapped, pos32.astype(np.int64), is_rev,
                        mis_mask), ref_codes
-
-
-def _lp_of(max_len: int) -> int:
-    b = 32
-    while b < max_len:
-        b = b + (b >> 1) if (b & (b - 1)) == 0 else (b // 3) * 4
-    return b
 
 
 def _intra(lens: np.ndarray) -> np.ndarray:

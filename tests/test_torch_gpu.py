@@ -339,3 +339,177 @@ def test_adaptive_pipeline_on_card_matches_host_route(cuda, tmp_path,
         out = driver.decompress(arcs["host"], str(tmp_path / "back"),
                                 force=True, device=cuda)
         assert open(out[0], "rb").read() == fq.read_bytes(), kw
+
+
+# --- the seed aligner: K8 align_batch, K9 indel_batch ------------------------
+
+def _align_fixture(k: int, n_reads: int = 400, seed: int = 41):
+    """A seeded 40 kbp reference with a repeat family (deep candidate
+    lists), an Aligner over it, and reads of every kind the tiers meet:
+    clean, point errors, indels, reverse strand, random (unmappable),
+    shorter than k, with an N, from inside the repeats."""
+    from fastqueeze_tpu_torch.align.hash import Aligner
+    from fastqueeze_tpu_torch.align.index import build_from_ref
+    from fastqueeze_tpu_torch.align.ref import RefSeq
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, 40_000).astype(np.uint8)
+    for j in range(40):
+        ref[9000 + j * 70:9000 + j * 70 + 60] = ref[:60]
+    p = CodecParams(seed_len=k)
+    idx = build_from_ref(RefSeq(ref, np.zeros(len(ref), bool), ["r"],
+                                np.array([0, len(ref)]), ""), p)
+    reads = []
+    for i in range(n_reads):
+        kind = i % 8
+        L = int(rng.integers(60, 120))
+        s = (9000 + int(rng.integers(0, 35)) * 70 if kind == 6
+             else int(rng.integers(0, len(ref) - L - 4)))
+        r = ref[s:s + L + 3].copy()
+        if kind == 1:
+            e = rng.random(len(r)) < 0.06
+            r[e] = (r[e] + rng.integers(1, 4, int(e.sum()))) % 4
+        elif kind == 2:
+            g, at = int(rng.integers(1, 4)), int(rng.integers(15, L - 15))
+            r = np.concatenate([r[:at], r[at + g:]])
+        elif kind == 3:
+            g, at = int(rng.integers(1, 4)), int(rng.integers(15, L - 15))
+            r = np.concatenate([r[:at], rng.integers(0, 4, g)
+                                .astype(np.uint8), r[at:]])
+        elif kind == 4:
+            r = rng.integers(0, 4, L).astype(np.uint8)
+        elif kind == 5:
+            L = int(rng.integers(1, k))
+        r = r[:L]
+        if rng.random() < 0.4:
+            r = (3 - r)[::-1].copy()
+        reads.append(r)
+    lengths = np.array([len(r) for r in reads], np.int64)
+    codes = np.concatenate(reads)
+    dege = np.zeros(len(codes), bool)
+    dege[int(lengths[:7].sum()) + 5] = True          # read 7 carries an N
+    return Aligner(idx, p), codes, dege, lengths
+
+
+def _grids(al, codes, dege, lengths, lp, dev):
+    from fastqueeze_tpu_torch.align.hash import _gridify
+    c, d = _gridify(codes, dege, lengths, lp)
+    return (torch.from_numpy(c).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+_K8_CFGS = {
+    "fwd": dict(strand="fwd", probe_k=16),
+    "rc": dict(strand="rc", probe_k=16),
+    "both": dict(both_strands=1, probe_k=16),
+    "fallback": dict(probe_k=16),
+    "rescue_small_K": dict(n_cand=1024, n_seeds=6, excl_bp=7, probe_k=8),
+    "rescue": dict(n_cand=1024, n_seeds=6, excl_bp=7),
+}
+
+
+@pytest.mark.parametrize("k", [14, 22])
+@pytest.mark.parametrize("name", sorted(_K8_CFGS))
+@pytest.mark.parametrize("n", [0, 1, 333])
+def test_align_batch_matches_plain_and_native(cuda, k, name, n):
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    from fastqueeze_tpu_torch.io import native
+    al, codes, dege, lengths = _align_fixture(k)
+    lengths, codes = lengths[:n], codes[:int(lengths[:n].sum())]
+    dege = dege[:len(codes)]
+    lp = 128
+    kw = {"n_cand": 64, "both_strands": 0, **_K8_CFGS[name]}
+    cfg = AlignConfig(k=k, stride=2, max_mis=7, lp=lp, **kw)
+    want = kernels.align_batch(*_grids(al, codes, dege, lengths, lp, "cpu"),
+                               al.dev_index("cpu"), cfg)
+    got = [t.cpu() for t in kernels.align_batch(
+        *_grids(al, codes, dege, lengths, lp, cuda), al.dev_index(cuda),
+        cfg)]
+    m = want[0]
+    assert torch.equal(got[0], m)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a[m], b[m])
+    # the native mirror gives every read's position, fallbacks included
+    sm = {"fwd": 0, "rc": 1, "both": 2}[cfg.strand]
+    nat = native.align_batch(
+        al._h_keys, al._h_offsets, al._h_positions, al._h_packed, al._h_l1,
+        al._l1_shift, al._search_steps, al.ref_len, codes, dege,
+        np.cumsum(lengths) - lengths, lengths, lp, k, 2, cfg.n_cand, 7,
+        cfg.n_seeds, cfg.excl_bp, cfg.probe_k, sm, cfg.both_strands)
+    assert np.array_equal(got[1].numpy(), nat[1])
+    assert np.array_equal(got[3].numpy(), nat[3])
+
+
+@pytest.mark.parametrize("k", [14, 22])
+@pytest.mark.parametrize("G,ops", [(3, 1), (3, 2), (1, 2)])
+def test_indel_batch_matches_plain_and_native(cuda, k, G, ops):
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    from fastqueeze_tpu_torch.io import native
+    al, codes, dege, lengths = _align_fixture(k)
+    lp = 128
+    cfg = AlignConfig(k=k, stride=2, n_cand=1024, max_mis=7, both_strands=0,
+                      lp=lp, n_seeds=6, excl_bp=7)
+    want = kernels.indel_batch(*_grids(al, codes, dege, lengths, lp, "cpu"),
+                               al.dev_index("cpu"), cfg, G, ops)
+    got = [t.cpu() for t in kernels.indel_batch(
+        *_grids(al, codes, dege, lengths, lp, cuda), al.dev_index(cuda), cfg,
+        G, ops)]
+    f = want[0]
+    assert int(f.sum()) > 100 and torch.equal(got[0], f)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a[f], b[f])
+    nat = native.indel_batch(
+        al._h_keys, al._h_offsets, al._h_positions, al._h_packed, al._h_l1,
+        al._l1_shift, al._search_steps, al.ref_len, codes, dege,
+        np.cumsum(lengths) - lengths, lengths, lp, k, 2, 1024, 7, 6, 7, 1024,
+        G, ops)
+    for a, b in zip(got, nat):
+        assert np.array_equal(a.numpy(), b)
+
+
+def test_aligned_pipeline_on_card_matches_host_route(cuda, tmp_path,
+                                                     monkeypatch):
+    """compress_se_aligned on the card (K8, and K9 with -q) writes the
+    same archive as with the native host aligner, and it decodes."""
+    from fastqueeze_tpu_torch.io import native
+    from fastqueeze_tpu_torch.pipeline import aligned, driver
+    rng = np.random.default_rng(12)
+    ref = rng.integers(0, 4, 60_000).astype(np.uint8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    fa = tmp_path / "ref.fa"
+    fa.write_bytes(b">c\n" + bases[ref].tobytes() + b"\n")
+    recs = []
+    for r in range(3000):
+        L = int(rng.integers(70, 130))
+        s = int(rng.integers(0, len(ref) - L - 3))
+        c = ref[s:s + L].copy()
+        if r % 5 == 0:
+            at = int(rng.integers(20, L - 20))
+            c = np.concatenate([c[:at], ref[s + L:s + L + 2], c[at + 2:]])
+        e = rng.random(L) < 0.02
+        c[e] = (c[e] + 1) % 4
+        if r % 3 == 0:
+            c = (3 - c)[::-1]
+        q = (np.clip(np.cumsum(rng.integers(-1, 2, L)) + 30, 2, 40)
+             + 33).astype(np.uint8)
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (r, bases[c].tobytes(),
+                                            q.tobytes()))
+    fq = tmp_path / "in.fq"
+    fq.write_bytes(b"".join(recs))
+    for kw in (dict(), dict(seed_len=22, max_indel=3)):
+        arcs = {}
+        for mode in ("", "host"):
+            monkeypatch.setenv("FASTQUEEZE_ALIGN_EXEC", mode)
+            arcs[mode] = str(tmp_path / f"a{mode}.fqz")
+            kernels.reset_launch_counts()
+            native.ALIGN_CALLS["align_batch"] = 0
+            aligned.compress_se_aligned(CodecParams(**kw), str(fa), str(fq),
+                                        arcs[mode], device=cuda)
+            if not mode:
+                assert native.ALIGN_CALLS["align_batch"] == 0
+                assert kernels.LAUNCHES["align_batch"] >= 2
+                assert (kernels.LAUNCHES["indel_batch"] >= 1) == bool(kw)
+        with open(arcs[""], "rb") as a, open(arcs["host"], "rb") as b:
+            assert a.read() == b.read(), kw
+        out = driver.decompress(arcs["host"], str(tmp_path / "back"),
+                                force=True, device=cuda, ref=str(fa))
+        assert open(out[0], "rb").read() == fq.read_bytes(), kw

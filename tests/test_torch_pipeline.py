@@ -11,7 +11,8 @@ FASTQUEEZE_ADAPT_EXEC=device; the JAX package at its defaults), and a
 frozen-path input with Illumina IDs and host_stream_max=0, whose length,
 flag, distance, degenerate-base and ID streams all take marker 1.  Also:
 the port's errors for what it does not do yet, and that it imports
-without JAX.
+without JAX.  The aligned and self-referential paths are in
+tests/test_torch_align.py.
 """
 
 import os
@@ -217,15 +218,15 @@ def test_unported_paths_raise(tmp_path, archives):
         td.compress_se(CodecParams(adapt_chunk=128), fq,
                        str(tmp_path / "s.fqz"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        td.compress_se(CodecParams(use_model=1, self_align=1), fq,
+        td.compress_se(CodecParams(use_model=1, lossy_factor=2.0), fq,
                        str(tmp_path / "b.fqz"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         td.compress_se(CodecParams(use_model=1, mesh_n=2), fq,
                        str(tmp_path / "c.fqz"), device="cpu")
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2"], ["-S"], ["-2", "b.fq"],
-                                  ["--part", "0:2"], ["ref.fa"]])
+@pytest.mark.parametrize("argv", [["--mesh", "2"], ["-m"], ["-2", "b.fq"],
+                                  ["--part", "0:2"], ["-X", "0:1"]])
 def test_cli_names_roadmap_item_for_unported_flags(argv, capsys):
     assert cli.main(["-c", "-1", "a.fq", "-o", "x.fqz"] + argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
@@ -241,6 +242,8 @@ def test_cli_refuses_to_run_without_a_card(tmp_path, capsys, monkeypatch):
 def test_package_imports_without_jax():
     code = ("import sys, fastqueeze_tpu_torch, fastqueeze_tpu_torch.cli, "
             "fastqueeze_tpu_torch.pipeline.driver, "
+            "fastqueeze_tpu_torch.pipeline.aligned, "
+            "fastqueeze_tpu_torch.pipeline.selfref, "
             "fastqueeze_tpu_torch.ops.kernels; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'fastqueeze_tpu' "
