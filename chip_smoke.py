@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the nine CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the ten CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
      main paths' shapes, bit-equal, with times (CUDA events, warmed):
      frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
@@ -16,9 +16,13 @@ Phases (any failure raises and exits non-zero):
      order-1 byte stream of 3,000,000 bytes (one block's Illumina IDs);
      the aligner's K8 over the seeded 100 Mbp genome's k = 14 index at
      B = 4096 (tier 1: forward, RC) and B = 512 (the rescue tier), and
-     K9 over its k = 22 index at B = 512, G = 3, two ops, Lp = 128 (K8:
-     equal on mapped and the mapped reads' outputs; K9: on found and the
-     found reads' outputs);
+     K9 over its k = 22 index at B = 512, G = 3, two ops, and K10 over
+     the k = 14 packed reference at B = 4096 mates, C = 1128 (-I 500),
+     Lp = 128 (K8, K10: equal on mapped and the mapped reads' outputs;
+     K9: on found and the found reads' outputs); each kernel's bound
+     (bytes over 3.35 TB/s or integer operations over 67 T/s) and, for
+     K3, the time of torch.masked_select, the one PyTorch call that
+     computes the same function;
   4. frozen end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads
      sampled from a random 100 Mbp genome) through the CLI's compress
      and decompress, compared byte for byte; K1-K4 must have launched and
@@ -47,7 +51,19 @@ Phases (any failure raises and exits non-zero):
   9. self-referential blocks: 300,000 reads over a 500 kbp genome (60x,
      a bacterial resequencing run) through the CLI at defaults: the auto
      probe must turn self-ref on (PARAM self_align = 1, AMAP in a block),
-     byte-exact.
+     byte-exact;
+ 10. paired-end, no reference, CLI defaults: 150,000 pairs of 100 bp
+     (~72 MB, frozen path, 2 blocks; mate 2 the reverse complement ending
+     200-500 bp after mate 1's start; identical SRA IDs) through
+     -c -1 r1 -2 r2 and -d: _1/_2 byte-exact, K1-K4 launched, no native
+     coder call, and the archive equals the FASTQUEEZE_FROZEN_EXEC=host
+     one, which decodes on the card;
+ 11. paired-end against phase 8's ref.fa with -I 500: 150,000 such pairs,
+     5% of the mate 2s seedless (exactly 7 substitutions, at 7, 21, ...,
+     91, and no N): byte-exact, K8 and K10 launched, no native aligner
+     call, pe_rescued >= 0.9 x the seedless mates, TAG_APDF in every
+     aligned block, and the archive equals the FASTQUEEZE_ALIGN_EXEC=host
+     one, which decodes on the card; the pair relations are printed.
 In each end-to-end run the launch counts are set to 0 just before it and
 read just after.  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
@@ -69,6 +85,12 @@ L_MAIN, T_MAIN, READ_LEN = 4096, 6144, 100
 R_ADAPT, L_ADAPT, T_ADAPT = 50_000, 2048, 3072
 N_IDVAR, L_IDVAR = 3_000_000, 1024
 ALIGN_LP = 128
+WINDOW_C = 1128                  # min(4096, 2 * 500 + 128): -I 500
+R_PAIRS = 150_000
+SEEDLESS_AT = np.arange(7, READ_LEN, 14)     # 7 substitutions, no 14-mer
+HBM_BPS = 3.35e12                # H100 SXM device memory rate
+INT_OPS = 67e12                  # the card's non-tensor 32-bit rate (its
+                                 # float32 peak; integer ALU ops run no faster)
 # a small bacterial genome at 60x; at 1 Mbp (30x) the auto probe's
 # 1,536-read prefix maps fewer than the 10 reads it needs and says no
 SELFREF_GENOME = 500_000
@@ -122,6 +144,92 @@ def _time_ms(fn, reps: int) -> float:
 
 def _max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+# The bound of each kernel (the least time the card could take for the
+# same work) at the shapes its table row reports: the bytes it must move,
+# each input read once and each output written once, over HBM_BPS, or its
+# integer operations over INT_OPS, whichever is larger.  Filled by phase
+# 3: kernel -> (bytes, operations, library call ms or None).
+BOUNDS = {}
+# integer operations a symbol (a table entry for K1, a grid slot for K3)
+# on each coder kernel's work, counted from its inner loop: context
+# update, table gather, rANS step and renormalisation; the adaptive walk
+# adds the row quantization and the count update
+_OPS = {"quant_pack": 4, "frozen_encode_lanes": 30, "compact_words": 2,
+        "frozen_decode": 25, "adapt_encode_walk": 30, "rans_encode_sf": 20,
+        "adapt_decode": 40}
+_VERIFY_OPS = 12     # a frame word: two funnel shifts, XOR, AND, the 2-bit
+                     # fold, popcount, add
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound_row(name: str) -> dict:
+    b, ops, lib = BOUNDS[name]
+    tb, to = b / HBM_BPS * 1e3, ops / INT_OPS * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_peak": ("3.35 TB/s HBM" if tb >= to
+                           else "67 T int32 op/s (non-tensor)"),
+            "library_ms": lib}
+
+
+def _seed_work(ix, cfg, codes, dege, lens):
+    """What one strand's seed search needs on these reads: (sampled valid
+    seeds, listed candidates, candidates verified over all W+1 words) per
+    read, from the index: the n_seeds least frequent valid seeds' lists,
+    each cut at n_cand; with the probe prefilter (lists over 2K), two
+    probe words for every candidate and a full verify of the top K."""
+    import torch
+    B, Lp = codes.shape
+    k = cfg.k
+    ps = torch.arange(0, Lp - k + 1, cfg.stride, device=codes.device)
+    kv = torch.zeros((B, len(ps)), dtype=torch.int64, device=codes.device)
+    for j in range(k):
+        kv = (kv << 2) | codes.long()[:, ps + j]
+    cs = torch.nn.functional.pad(torch.cumsum(dege.long(), 1), (1, 0))
+    ok = (ps[None, :] <= lens.long()[:, None] - k) & (cs[:, ps + k]
+                                                      == cs[:, ps])
+    keys, offs = ix.keys.long(), ix.offsets.long()
+    ii = torch.clamp(torch.searchsorted(keys, kv), max=keys.numel() - 1)
+    found = ok & (keys[ii] == kv)
+    occ = torch.where(found, offs[ii + 1] - offs[ii], 1 << 40)
+    occ = torch.sort(occ, 1).values[:, :cfg.n_seeds]
+    cands = torch.where(occ < (1 << 40), torch.clamp(occ, max=cfg.n_cand),
+                        0).sum(1)
+    W = Lp // 16
+    pre = (cands > 2 * cfg.probe_k) & (W > 3)
+    verified = torch.where(pre, torch.clamp(cands, max=cfg.probe_k), cands)
+    return ok.sum(1), cands, verified, pre
+
+
+def _align_bound(ix, cfg, codes, dege, lens, outs, strands=1,
+                 extra_ops=0, extra_bytes=0):
+    """(bytes, operations) of a seed-search kernel: per strand and read,
+    the key build and bucket search of every valid sampled seed, the
+    positions of the listed candidates, the probe words, the W+1 words of
+    every full verify, plus ``extra_*`` a strand-read."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    W = codes.shape[1] // 16
+    grids = [(codes, dege)]
+    if strands == 2:
+        grids.append(kernels._rc_grid(codes, dege, lens.long()))
+    ops = byts = 0
+    for c, d in grids:
+        n_seed, cands, verified, pre = _seed_work(ix, cfg, c, d, lens)
+        ops += int((n_seed * (2 * cfg.k + 6 * ix.search_steps)).sum())
+        ops += int((torch.where(pre, cands * 2, 0)
+                    + verified * (W + 1)).sum()) * _VERIFY_OPS
+        byts += int((n_seed * (8 + 8 + ix.keys.element_size())).sum())
+        byts += int((cands * 4 + torch.where(pre, cands * 8, 0)
+                     + verified * (W + 1) * 4).sum())
+        ops += extra_ops * codes.shape[0]
+        byts += extra_bytes * codes.shape[0]
+    return byts + _nbytes(codes, dege, lens, *outs), ops
 
 
 def check_kernels():
@@ -189,6 +297,29 @@ def check_kernels():
                                                          T_MAIN, cum, m), 1))
         if not torch.equal(k4.cpu(), torch.from_numpy(to_grid(lay, syms))):
             raise AssertionError(f"{tag}: decode does not invert encode")
+        if tag == "seq_order10":
+            nsym = R * READ_LEN
+
+            def select():
+                return torch.masked_select(words, emit.bool()), emit.sum()
+
+            sel = select()[0]
+            if not torch.equal(sel, k3[0][:n]):
+                raise AssertionError("masked_select order != K3's (wave, "
+                                     "lane) order")
+            print("  torch.masked_select(words, emit) == K3's dense prefix "
+                  "((wave, lane) order)")
+            BOUNDS.update({
+                "quant_pack": (_nbytes(c, *k1),
+                               _OPS["quant_pack"] * c.numel(), None),
+                "frozen_encode_lanes": (_nbytes(g, cg, packed, *k2),
+                                        _OPS["frozen_encode_lanes"] * nsym,
+                                        None),
+                "compact_words": (_nbytes(words, emit) + 2 * n + 4,
+                                  _OPS["compact_words"] * words.numel(),
+                                  _time_ms(select, 5)),
+                "frozen_decode": (_nbytes(states, cg, cum, k4) + 2 * n,
+                                  _OPS["frozen_decode"] * nsym, None)})
         for name, (err, ms, pms) in r.items():
             print(f"  {tag:22s} {name:20s} max_abs_err {err}  kernel "
                   f"{ms:10.3f} ms  plain {pms:10.3f} ms")
@@ -270,6 +401,14 @@ def check_adaptive_kernels():
         if not torch.equal(k6, g):
             raise AssertionError(f"{tag}: adaptive decode does not invert "
                                  f"encode")
+        if tag == "adapt_seq_order10":
+            BOUNDS.update({
+                "adapt_encode_walk": (_nbytes(g, cg, sf),
+                                      _OPS["adapt_encode_walk"] * n, None),
+                "rans_encode_sf": (_nbytes(sf, cg, *k7),
+                                   _OPS["rans_encode_sf"] * n, None),
+                "adapt_decode": (_nbytes(states, cg, k6) + 2 * k,
+                                 _OPS["adapt_decode"] * n, None)})
         print(f"  {tag} (L = {L}, T = {lay.T}, {n} symbols, {k} words)")
         for name, (err, ms, pms) in r.items():
             print(f"  {tag:22s} {name:20s} max_abs_err {err}  kernel "
@@ -319,12 +458,89 @@ def _align_reads(rng, genome, n, kind):
     return grid, np.zeros((n, ALIGN_LP), bool), np.full(n, READ_LEN, np.int32)
 
 
+def _window_reads(rng, genome, n, C):
+    """n mates for the PE rescue window, each with its window center (the
+    mapped mate's position, within C/2 of the read): 25% seedless (the 7
+    substitutions at SEEDLESS_AT), 60% with ~1% substitutions, 10%
+    random, 5% whose true position lies outside the window; 30% reverse
+    strand; zero-padded (n, 128) grid."""
+    G = len(genome)
+    s = rng.integers(C, G - C - 200, n)
+    codes = genome[s[:, None] + np.arange(READ_LEN)]
+    kind = rng.random(n)
+    seedless = kind < 0.25
+    codes[np.ix_(np.flatnonzero(seedless), SEEDLESS_AT)] = (
+        codes[np.ix_(np.flatnonzero(seedless), SEEDLESS_AT)] + 1) % 4
+    e = (rng.random(codes.shape) < 0.01) & ((kind >= 0.25)
+                                            & (kind < 0.85))[:, None]
+    codes[e] = (codes[e] + 1) % 4
+    junk = (kind >= 0.85) & (kind < 0.95)
+    codes[junk] = rng.integers(0, 4, (int(junk.sum()), READ_LEN))
+    rc = rng.random(n) < 0.3
+    codes[rc] = 3 - codes[rc, ::-1]
+    centers = s + rng.integers(-(C // 2) + 2, C // 2 - READ_LEN, n)
+    centers[kind >= 0.95] += C
+    grid = np.zeros((n, ALIGN_LP), np.uint8)
+    grid[:, :READ_LEN] = codes
+    return (grid, np.zeros((n, ALIGN_LP), bool),
+            np.full(n, READ_LEN, np.int32), centers.astype(np.int32))
+
+
+def _check_window_kernel(al, ix, genome, rows) -> None:
+    """K10 vs its plain version on the card: B = 4096 mates over the
+    k = 14 index's packed reference, C = 1128 (-I 500), Lp = 128."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    dev = ix.packed.device
+    c, d, ln, ctr = (torch.from_numpy(a).to(dev) for a in _window_reads(
+        np.random.default_rng(SEED + 6), genome, 4096, WINDOW_C))
+
+    def run():
+        return kernels.window_batch(ix.packed, al.ref_len, c, d, ln, ctr,
+                                    WINDOW_C, 7)
+
+    def plain():
+        return kernels.window_batch_plain(ix.packed, al.ref_len, c, d, ln,
+                                          ctr, WINDOW_C, 7)
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    m = want[0]
+    err = int((got[0] != m).sum())
+    for a, b in zip(got[1:], want[1:]):
+        if a[m].numel():
+            err = max(err, int((a[m].long() - b[m].long()).abs().max()))
+    ms, pms = _time_ms(run, 5), _time_ms(plain, 1)
+    print(f"  k14 window C={WINDOW_C} window_batch B = {len(ln)}: "
+          f"{int(m.sum())} mapped ({int(got[2][m].sum())} reverse), "
+          f"max_abs_err {err}  kernel {ms:10.3f} ms  plain {pms:10.3f} ms")
+    if err:
+        raise AssertionError(f"window_batch: kernel differs from its plain "
+                             f"version ({err})")
+    rows["k14_window"] = {"window_batch": (err, ms, pms)}
+    # what the scan needs: every valid candidate over all W + 1 frame
+    # words on the forward strand, and on the reverse strand unless the
+    # forward best is 0 (a mapped forward read with an empty mask); the
+    # window's reference words once a read
+    W = ALIGN_LP // 16
+    cand = (ctr.long()[:, None] - WINDOW_C // 2
+            + torch.arange(WINDOW_C, device=dev)[None, :])
+    valid = ((cand >= 0) & (cand + ln.long()[:, None] <= al.ref_len)).sum(1)
+    zero_f = m & ~got[2] & ~got[3].any(1)
+    scans = valid * torch.where(zero_f, 1, 2)
+    ops = int(scans.sum()) * (W + 1) * _VERIFY_OPS
+    win = min(len(ln) * ((WINDOW_C + ALIGN_LP) // 16 + 2) * 4,
+              _nbytes(ix.packed))
+    BOUNDS["window_batch"] = (_nbytes(c, d, ln, ctr, *got) + win, ops, None)
+
+
 def check_align_kernels(genome):
-    """K8 and K9 vs their plain versions on the card, at the main path's
-    shapes: the seeded 100 Mbp genome's index (k = 14 for K8, k = 22 for
-    K9), B = 4096 tier-1 reads and B = 512 rescue / indel reads at Lp =
-    128.  K8 must equal on mapped and on the mapped reads' pos, strand
-    and mask; K9 on found and on every output of the found reads."""
+    """K8, K9 and K10 vs their plain versions on the card, at the main
+    path's shapes: the seeded 100 Mbp genome's index (k = 14 for K8 and
+    K10, k = 22 for K9), B = 4096 tier-1 reads and B = 512 rescue / indel
+    reads at Lp = 128, B = 4096 mates at C = 1128 for K10.  K8 and K10
+    must equal on mapped and on the mapped reads' pos, strand and mask;
+    K9 on found and on every output of the found reads."""
     import torch
     from fastqueeze_tpu_torch.align.hash import AlignConfig, Aligner
     from fastqueeze_tpu_torch.align.index import build_from_ref
@@ -385,6 +601,21 @@ def check_align_kernels(genome):
                 raise AssertionError(f"{name} {tag}: kernel differs from "
                                      f"its plain version ({err})")
             rows[f"k{k}_{tag}"] = {name: (err, ms, pms)}
+            if tag == "fwd":
+                BOUNDS["align_batch"] = _align_bound(ix, cfg, c, d, ln,
+                                                     got) + (None,)
+            elif name == "indel_batch":
+                # per strand and read, on top of the anchor search: the
+                # 2G+1 shifted compares and their prefix sums, the
+                # one-op split scan and the two-op scans
+                G, Lp = 3, ALIGN_LP
+                score = ((2 * G + 1) * Lp * 6 + 4 * G * (Lp + 1) * 4
+                         + 4 * G * (Lp + 1) * 6)
+                BOUNDS["indel_batch"] = _align_bound(
+                    ix, cfg, c, d, ln, got, strands=2, extra_ops=score,
+                    extra_bytes=((Lp + 2 * G) // 16 + 2) * 4) + (None,)
+        if k == 14:
+            _check_window_kernel(al, ix, genome, rows)
         del al, ix
     return rows
 
@@ -419,8 +650,34 @@ def _genome_fastq(path: str, R: int = 300_000, ids: str = "sra",
     codes[sub] = (codes[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
     seq = np.frombuffer(b"ACGT", np.uint8)[codes]
     seq[rng.random(seq.shape) < 0.001] = ord("N")
-    # first-order Markov qualities: states 0..39 = Phred 2..41, a band
-    # around the current value, drifting down along the read
+    qual = _markov_quals(rng, R)
+    if ids == "illumina":
+        irng = np.random.default_rng(SEED + 1)
+        xy = irng.integers(1000, 32000, (R, 2))
+        heads = [b"@A00123:45:HXXXXDSXX:1:%d:%d:%d 1:N:0:ACGTACGT\n"
+                 % (1101 + r // 4000, xy[r, 0], xy[r, 1]) for r in range(R)]
+    else:
+        heads = _sra_heads(R)
+    _write_fastq(path, heads, seq, qual)
+    return R
+
+
+def _sra_heads(R: int):
+    return [b"@SRR0000001.%d %d length=100\n" % (r + 1, r + 1)
+            for r in range(R)]
+
+
+def _write_fastq(path: str, heads, seq, qual) -> None:
+    with open(path, "wb") as fh:
+        for r in range(len(heads)):
+            fh.write(heads[r] + seq[r].tobytes() + b"\n+\n"
+                     + qual[r].tobytes() + b"\n")
+
+
+def _markov_quals(rng, R: int) -> np.ndarray:
+    """(R, 100) Phred+33 qualities from a seeded first-order Markov chain:
+    states 0..39 = Phred 2..41, a band around the current value, drifting
+    down along the read."""
     S = 40
     P = np.exp(-np.abs(np.arange(S)[None, :] - np.arange(S)[:, None]
                        + 0.6) / 1.5)
@@ -435,20 +692,50 @@ def _genome_fastq(path: str, R: int = 300_000, ids: str = "sra",
         u = rng.random(R)
         st = np.minimum(np.searchsorted(flat, st + u, side="right") - st * S,
                         S - 1)
-    qual = (q + 2 + 33).astype(np.uint8)
-    if ids == "illumina":
-        irng = np.random.default_rng(SEED + 1)
-        xy = irng.integers(1000, 32000, (R, 2))
-        heads = [b"@A00123:45:HXXXXDSXX:1:%d:%d:%d 1:N:0:ACGTACGT\n"
-                 % (1101 + r // 4000, xy[r, 0], xy[r, 1]) for r in range(R)]
-    else:
-        heads = [b"@SRR0000001.%d %d length=100\n" % (r + 1, r + 1)
-                 for r in range(R)]
-    with open(path, "wb") as fh:
-        for r in range(R):
-            fh.write(heads[r] + seq[r].tobytes() + b"\n+\n"
-                     + qual[r].tobytes() + b"\n")
-    return R
+    return (q + 2 + 33).astype(np.uint8)
+
+
+def _pe_fastq(path1: str, path2: str, genome, R: int = R_PAIRS,
+              seedless_frac: float = 0.0) -> int:
+    """R pairs of 100 bp from ``genome``: mate 1 forward at s, mate 2 the
+    reverse complement ending at s + insert (insert uniform in 200-500),
+    ~1% substitutions and ~0.1% N on both, identical SRA IDs in both
+    files, qualities as _genome_fastq's.  A seedless_frac share of the
+    pairs carry instead a mate 2 with exactly the 7 substitutions at
+    SEEDLESS_AT and no other, and no N in either mate.  The one at 91
+    writes a smaller base code than the genome's: on the aligned strand
+    the first seed's key then sorts above the true 14-mer, so the
+    aligner's no-hit fallback (the candidates listed from that key's
+    insertion point on, hash.py _one_strand) cannot reach the true
+    locus, and the mate maps only through the insert window.  Returns
+    the seedless count."""
+    rng = np.random.default_rng(SEED + 5)
+    G = len(genome)
+    s = rng.integers(0, G - 600, R)
+    ins = rng.integers(200, 501, R)
+    i = np.arange(READ_LEN)[None, :]
+    m1 = genome[s[:, None] + i]
+    m2 = genome[(s + ins - READ_LEN)[:, None] + i][:, ::-1]
+    m2 = 3 - m2
+    for m in (m1, m2):
+        sub = rng.random(m.shape) < 0.01
+        m[sub] = (m[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    true2 = 3 - genome[(s + ins - READ_LEN)[:, None] + i][:, ::-1]
+    seedless = ((rng.random(R) < seedless_frac * 4 / 3)
+                & (true2[:, SEEDLESS_AT[-1]] > 0))
+    clean = true2[seedless]
+    clean[:, SEEDLESS_AT] = (clean[:, SEEDLESS_AT] + rng.integers(
+        1, 4, (len(clean), len(SEEDLESS_AT)))) % 4
+    clean[:, SEEDLESS_AT[-1]] = rng.integers(
+        0, true2[seedless, SEEDLESS_AT[-1]])
+    m2[seedless] = clean
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    heads = _sra_heads(R)
+    for path, m in ((path1, m1), (path2, m2)):
+        seq = bases[m]
+        seq[(rng.random(seq.shape) < 0.001) & ~seedless[:, None]] = ord("N")
+        _write_fastq(path, heads, seq, _markov_quals(rng, R))
+    return int(seedless.sum())
 
 
 def _same_file(a: str, b: str) -> bool:
@@ -482,15 +769,36 @@ def _label(flags) -> str:
     return " ".join(f for f in flags if f != "--stats") or "(defaults)"
 
 
+def _inputs_argv(fq, fq2):
+    return ["-1", fq] + (["-2", fq2] if fq2 else [])
+
+
+def _round_trip_ok(back: str, fq: str, fq2) -> bool:
+    """The decoded output(s) of prefix ``back`` equal the input(s)."""
+    if fq2:
+        return (_same_file(fq, back + "_1.fastq")
+                and _same_file(fq2, back + "_2.fastq"))
+    return _same_file(fq, back + ".fastq")
+
+
 def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
-           ref=None):
-    """One main-path run through the CLI (against ``ref`` when given):
-    counts set to 0 just before, read just after; byte-exact round trip;
-    every kernel of the path launched; no native coder or aligner call.
-    Adds the launches to ``totals``."""
+           ref=None, fq2=None):
+    """One main-path run through the CLI (against ``ref`` when given;
+    paired with ``fq2`` when given): counts set to 0 just before, read
+    just after; byte-exact round trip; every kernel of the path launched;
+    no native coder or aligner call.  Adds the launches to ``totals``;
+    returns (launches, the compress call's stage metrics)."""
     from fastqueeze_tpu_torch import cli
     from fastqueeze_tpu_torch.io import native as nat
     from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, kernels
+    from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+    runs = []
+
+    class Recorded(DebugInfo):     # the CLI's metrics of each call
+        def __init__(self):
+            super().__init__()
+            runs.append(self)
+
     kernels.reset_launch_counts()
     for calls in (host_frozen.NATIVE_CALLS, host_adapt.NATIVE_CALLS,
                   nat.ALIGN_CALLS):
@@ -498,8 +806,14 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
             calls[k] = 0
     back = arc + ".back"
     refs = [ref] if ref else []
+    cli.DebugInfo = Recorded
     t0 = time.time()
-    if cli.main(["-c"] + refs + ["-1", fq, "-o", arc, "-f"] + flags) != 0:
+    try:
+        rc = cli.main(["-c"] + refs + _inputs_argv(fq, fq2)
+                      + ["-o", arc, "-f"] + flags)
+    finally:
+        cli.DebugInfo = DebugInfo
+    if rc != 0:
         raise RuntimeError("compress failed")
     t_enc = time.time() - t0
     t0 = time.time()
@@ -510,9 +824,10 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
     native = {"frozen": dict(host_frozen.NATIVE_CALLS),
               "adaptive": dict(host_adapt.NATIVE_CALLS),
               "aligner": dict(nat.ALIGN_CALLS)}
-    if not _same_file(fq, back + ".fastq"):
+    if not _round_trip_ok(back, fq, fq2):
         raise AssertionError("round trip differs from the input")
-    size, arc_size = os.path.getsize(fq), os.path.getsize(arc)
+    size = sum(os.path.getsize(f) for f in (fq, fq2) if f)
+    arc_size = os.path.getsize(arc)
     print(f"end to end {_label(flags)}: encode "
           f"{t_enc:.3f} s = {n_reads / t_enc:.0f} reads/s, decode "
           f"{t_dec:.3f} s = {n_reads / t_dec:.0f} reads/s, ratio "
@@ -528,10 +843,10 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
                              f"path: {native}")
     for k, v in launches.items():
         totals[k] += v
-    return launches
+    return launches, runs[0].vals
 
 
-def _oracle(fq: str, arc: str, flags, env: str, ref=None):
+def _oracle(fq: str, arc: str, flags, env: str, ref=None, fq2=None):
     """The same input compressed with ``env``=host (the native coder or
     aligner, bit-identical to the JAX package's host path; execution
     routing only) must give the same archive, which must decode on the
@@ -542,8 +857,8 @@ def _oracle(fq: str, arc: str, flags, env: str, ref=None):
     os.environ[env] = "host"
     t0 = time.time()
     try:
-        if cli.main(["-c"] + refs + ["-1", fq, "-o", arc_h, "-f"]
-                    + flags) != 0:
+        if cli.main(["-c"] + refs + _inputs_argv(fq, fq2)
+                    + ["-o", arc_h, "-f"] + flags) != 0:
             raise RuntimeError("host-routed compress failed")
     finally:
         del os.environ[env]
@@ -552,7 +867,7 @@ def _oracle(fq: str, arc: str, flags, env: str, ref=None):
         raise AssertionError(f"card archive != native-host archive ({env})")
     if cli.main(["-d"] + refs + [arc_h, "-o", arc_h + ".back", "-f"]) != 0:
         raise RuntimeError("decode of the host archive failed")
-    if not _same_file(fq, arc_h + ".back.fastq"):
+    if not _round_trip_ok(arc_h + ".back", fq, fq2):
         raise AssertionError("host archive decoded on the card differs")
     print(f"oracle ({env}=host): archive equals the native-host archive "
           f"byte for byte; decodes on the card")
@@ -587,8 +902,8 @@ def end_to_end(tmp: str):
     print("phase 7: marker-1 ID stream on the frozen path")
     fq = _input(tmp, "illumina.fq", 250_000, ids="illumina")
     arc = os.path.join(tmp, "illumina.fqz")
-    launches = _drive(fq, 250_000, arc, [], _FROZEN_PATH + _ADAPT_PATH,
-                      totals)
+    launches, _ = _drive(fq, 250_000, arc, [], _FROZEN_PATH + _ADAPT_PATH,
+                         totals)
     with ArcReader(arc) as r:
         n_blocks = len(r.blocks)
         idvar = dict(iter_tlv(r.read_block(0)))[TAG_IDVAR]
@@ -625,8 +940,9 @@ def _refuses(argv, what: str) -> None:
     print(f"decode {what}: refused with a message (see above)")
 
 
-def aligned_end_to_end(tmp: str, genome, totals) -> None:
-    """Phases 8-9, adding their launches to ``totals``."""
+def aligned_end_to_end(tmp: str, genome, totals) -> str:
+    """Phases 8-9, adding their launches to ``totals``; returns the path
+    of ref.fa (its index file beside it)."""
     from fastqueeze_tpu_torch import cli
     from fastqueeze_tpu_torch.container.arcfile import ArcReader
     print("phase 8: reference-aligned SE")
@@ -685,6 +1001,59 @@ def aligned_end_to_end(tmp: str, genome, totals) -> None:
           f"mapped fraction {nm / n:.4f} ({nm} of {n} reads)")
     if sa != 1 or amap < 1:
         raise AssertionError("the auto probe did not turn self-ref on")
+    os.remove(fq)
+    return ref
+
+
+def pe_end_to_end(tmp: str, genome, ref: str, totals) -> None:
+    """Phases 10-11, adding their launches to ``totals``."""
+    from fastqueeze_tpu_torch.container.arcfile import FLAG_ALIGNED, ArcReader
+    from fastqueeze_tpu_torch.container.encap import iter_tlv
+    from fastqueeze_tpu_torch.pipeline.blockcodec import TAG_APDF
+    from fastqueeze_tpu_torch.pipeline.pe import TAG_PE_BODY
+    print("phase 10: paired-end, no reference (CLI defaults)")
+    fq1, fq2 = (os.path.join(tmp, f"pairs_{k}.fq") for k in (1, 2))
+    t0 = time.time()
+    _pe_fastq(fq1, fq2, genome)
+    size = os.path.getsize(fq1) + os.path.getsize(fq2)
+    print(f"input pairs_1.fq / pairs_2.fq: {R_PAIRS} pairs, {size} bytes "
+          f"({time.time() - t0:.1f} s to generate)")
+    arc = os.path.join(tmp, "pairs.fqz")
+    _drive(fq1, 2 * R_PAIRS, arc, [], _FROZEN_PATH, totals, fq2=fq2)
+    with ArcReader(arc) as r:
+        if len(r.blocks) < 2 or r.model_blob is None:
+            raise AssertionError("expected a frozen PE archive of >= 2 "
+                                 "blocks")
+    _oracle(fq1, arc, [], "FASTQUEEZE_FROZEN_EXEC", fq2=fq2)
+
+    print("phase 11: paired-end against ref.fa with -I 500")
+    t0 = time.time()
+    n_seedless = _pe_fastq(fq1, fq2, genome, seedless_frac=0.05)
+    print(f"input: {R_PAIRS} pairs, {n_seedless} seedless mate 2s "
+          f"({time.time() - t0:.1f} s to generate)")
+    arc = os.path.join(tmp, "pairs_ref.fqz")
+    flags = ["-I", "500", "--stats"]
+    _, stats = _drive(fq1, 2 * R_PAIRS, arc, flags,
+                      _FROZEN_PATH + ("align_batch", "window_batch"), totals,
+                      ref=ref, fq2=fq2)
+    rel = {k: stats.get(k, 0) for k in (
+        "pe_rescued", "pe_both_map", "pe_1Y2N", "pe_1N2Y", "pe_none",
+        "pe_insert_median", "mapped_reads")}
+    print(f"pair relations: {json.dumps(rel)}")
+    if rel["pe_rescued"] < 0.9 * n_seedless:
+        raise AssertionError(f"pe_rescued {rel['pe_rescued']} < 0.9 x "
+                             f"{n_seedless} seedless mates")
+    with ArcReader(arc) as r:
+        aligned = [i for i, b in enumerate(r.blocks)
+                   if b.flags & FLAG_ALIGNED]
+        apdf = [TAG_APDF in dict(iter_tlv(dict(iter_tlv(r.read_block(i)))[
+            TAG_PE_BODY])) for i in aligned]
+    print(f"{len(aligned)} aligned block(s), TAG_APDF in {sum(apdf)}")
+    if not aligned or not all(apdf):
+        raise AssertionError("an aligned PE block lacks TAG_APDF")
+    _oracle(fq1, arc, flags, "FASTQUEEZE_ALIGN_EXEC", ref=ref, fq2=fq2)
+    for f in (fq1, fq2):
+        os.remove(f)
 
 
 _REPLACES = {
@@ -706,6 +1075,8 @@ _REPLACES = {
                        "fastqueeze_tpu/ops/engine.py:832"),
     "adapt_decode": ("fastqueeze_tpu_torch/csrc/adapt_decode.cu",
                      "fastqueeze_tpu/ops/engine.py:861"),
+    "window_batch": ("fastqueeze_tpu_torch/csrc/window_batch.cu",
+                     "fastqueeze_tpu/align/hash.py:797"),
 }
 
 
@@ -721,15 +1092,17 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = end_to_end(tmp)
-        aligned_end_to_end(tmp, genome, launches)
+        ref = aligned_end_to_end(tmp, genome, launches)
+        pe_end_to_end(tmp, genome, ref, launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"],
-               **rows["k14_fwd"], **rows["k22_indel_G3_ops2"])
+               **rows["k14_fwd"], **rows["k22_indel_G3_ops2"],
+               **rows["k14_window"])
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[k],
               "max_abs_err": max(r[k][0] for r in rows.values() if k in r),
-              "ms": seq[k][1], "plain_ms": seq[k][2]}
+              "ms": seq[k][1], "plain_ms": seq[k][2], **_bound_row(k)}
              for k, (src, rep) in _REPLACES.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ Aligner.align and its tiers): tier 1 forward over every read, RC only on
 the reads forward failed (or both strands with both_strands), tier 2 a
 deeper multi-seed rescue of the still-unmapped reads, tier 3 the indel
 tier when max_indel > 0.  Each tier's batches go through K8
-(ops.kernels.align_batch) and K9 (ops.kernels.indel_batch).
+(ops.kernels.align_batch) and K9 (ops.kernels.indel_batch); the PE
+mate rescue (Aligner.rescue_mates, -I) through K10
+(ops.kernels.window_batch).
 
 Routing is an execution choice (the outputs that reach the archive are
 identical): on a CUDA device the kernels run, unless
@@ -161,7 +163,7 @@ class Aligner:
         return ix
 
     def align(self, codes_flat: np.ndarray, dege_flat: np.ndarray,
-              lengths: np.ndarray, device="cpu") -> AlignResult:
+              lengths: np.ndarray, device="cuda") -> AlignResult:
         """codes_flat: concatenated 2-bit read codes (degenerate bases as
         0); dege_flat: degenerate-base mask; lengths: per read."""
         R = len(lengths)
@@ -210,6 +212,57 @@ class Aligner:
             run.indel(deep, min(p.max_indel, lp - 1), p.indel_ops, todo,
                       out, gaps)
         return AlignResult(*out, *gaps)
+
+    def rescue_mates(self, codes_flat: np.ndarray, dege_flat: np.ndarray,
+                     lengths: np.ndarray, res: AlignResult, max_insr: int,
+                     device="cuda") -> AlignResult:
+        """PE consistent-pairing rescue: an unmapped read whose interleaved
+        mate (read i ^ 1) mapped is re-verified at every offset of a
+        C = min(4096, 2 * max_insr + 128) window centred on the mate's
+        position, both strands (K10, or the native mirror).  Rescued reads
+        are gapless; the gap fields carry over unchanged."""
+        from fastqueeze_tpu_torch.io import native
+        from fastqueeze_tpu_torch.ops import kernels
+        R = len(lengths)
+        if R < 2 or max_insr <= 0:
+            return res
+        mate = np.arange(R) ^ 1
+        lp = res.mis_mask.shape[1]
+        todo = np.flatnonzero(~res.mapped & res.mapped[mate]
+                              & (lengths > 0) & (lengths <= lp))
+        if not len(todo):
+            return res
+        C = min(4096, 2 * max_insr + 128)
+        centers = res.pos[mate[todo]].astype(np.int32)
+        if route_host(device):
+            roffs = (np.cumsum(lengths) - lengths).astype(np.int64)
+            m, p_, r, mm = native.window_batch(
+                self._h_packed, self.ref_len, codes_flat, dege_flat,
+                roffs[todo], lengths[todo], centers, lp, C,
+                self.params.max_mis)
+        else:
+            # grid only the rescue candidates, all in one launch
+            off = np.cumsum(lengths) - lengths
+            n = lengths[todo]
+            idx = np.repeat(off[todo], n) + (
+                np.arange(int(n.sum()), dtype=np.int64)
+                - np.repeat(np.cumsum(n) - n, n))
+            c, d = _gridify(codes_flat[idx], dege_flat[idx], n, lp)
+            put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            out = kernels.window_batch(
+                self.dev_index(device).packed, self.ref_len, put(c), put(d),
+                put(n.astype(np.int32)), put(centers), C,
+                self.params.max_mis)
+            m, p_, r, mm = (_np(x) for x in out)
+        mapped, pos = res.mapped.copy(), res.pos.copy()
+        is_rev, mis_mask = res.is_rev.copy(), res.mis_mask.copy()
+        upd = todo[m]
+        mapped[upd] = True
+        pos[upd] = p_[m]
+        is_rev[upd] = r[m]
+        mis_mask[upd] = mm[m]
+        return AlignResult(mapped, pos, is_rev, mis_mask, res.gap_pos,
+                           res.gap_len, res.gap_pos2, res.gap_len2)
 
 
 class _Tiers:

@@ -1,16 +1,16 @@
-"""Command-line interface of the port (single-end):
+"""Command-line interface of the port:
 
     python -m fastqueeze_tpu_torch.cli -i ref.fa [-q]
-    python -m fastqueeze_tpu_torch.cli -c [ref.fa] -1 in.fq -o out.fqz [-f]
-        [-t N] [--qlevel N] [-q] [-s] [-S]
+    python -m fastqueeze_tpu_torch.cli -c [ref.fa] -1 in.fq [-2 in_2.fq]
+        -o out.fqz [-f] [-t N] [--qlevel N] [-q] [-s] [-S] [-I N]
     python -m fastqueeze_tpu_torch.cli -d [ref.fa] out.fqz -o prefix [-f]
-        [-t N]
+        [-t N] [-P 1|2|3]
 
 The flags and archives are those of fastqueeze_tpu's CLI.  The coder and
 the aligner run on the CUDA card; with no card the CLI stops with an
 error and never continues on the CPU (``-i`` builds the index on the
-host and needs no card).  Flags of modes the port lacks (-2, -m, -X,
---part, --mesh) exit with the ROADMAP item that ports them.
+host and needs no card).  Flags of modes the port lacks (-m, -X, --part,
+--mesh) exit with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from fastqueeze_tpu_torch.utils.log import error, info
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 _UNPORTED = (
-    ("in2", "paired-end (-2): ROADMAP Queue A item 6"),
     ("multi", "multi-file archives (-m): ROADMAP Queue A item 4"),
     ("extract", "random-access decode (-X): ROADMAP Queue A item 4"),
     ("part", "multi-host parts (--part): ROADMAP Queue A item 4"),
@@ -45,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("pos", nargs="*", default=[],
                     help="[ref.fa] for -c; [ref.fa] archive for -d")
     ap.add_argument("-1", dest="in1", action="append", help="input FASTQ")
-    ap.add_argument("-2", dest="in2", help="input FASTQ (PE2; not ported)")
+    ap.add_argument("-2", dest="in2", help="input FASTQ (PE2)")
     ap.add_argument("-m", dest="multi", action="store_true",
                     help="multi-file archive (not ported)")
     ap.add_argument("-o", dest="out", help="output archive / prefix")
@@ -53,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="force overwrite")
     ap.add_argument("-t", dest="threads", type=int, default=None,
                     help="host worker threads (blocks in flight)")
+    ap.add_argument("-I", dest="max_insr", type=int, default=None,
+                    help="max insert size for PE alignment")
     ap.add_argument("-s", dest="shm", action="store_true",
                     help="share the index file across processes (mmap)")
     ap.add_argument("-q", dest="bwa", action="store_true",
@@ -62,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "reads against its own unmapped reads")
     ap.add_argument("-X", dest="extract", metavar="START:COUNT",
                     help="random-access decode (not ported)")
+    ap.add_argument("-P", dest="pipeout", type=int, default=0,
+                    choices=[0, 1, 2, 3], help="pipe decompressed reads to "
+                    "stdout: 1=SE/PE1 2=PE2 3=interleaved")
     ap.add_argument("--part", metavar="K:N",
                     help="multi-host compress (not ported)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
@@ -109,6 +113,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", torch.cuda.current_device())
     from fastqueeze_tpu_torch.pipeline.aligned import compress_se_aligned
     from fastqueeze_tpu_torch.pipeline.driver import compress_se, decompress
+    from fastqueeze_tpu_torch.pipeline.pe import compress_pe
     try:
         if args.compress:
             if not args.in1:
@@ -121,9 +126,10 @@ def main(argv=None) -> int:
             if os.path.exists(out) and not args.force:
                 error(f"{out} exists (use -f to overwrite)")
                 return 2
-            p = CodecParams()
+            p = CodecParams(is_pe=1 if args.in2 else 0)
             p.apply_config_file()      # developer config (seqarc.config)
             for attr, val in (("qlevel", args.qlevel),
+                              ("max_insr", args.max_insr),
                               ("threads", args.threads)):
                 if val is not None:    # explicit CLI flag beats config file
                     setattr(p, attr, val)
@@ -140,13 +146,17 @@ def main(argv=None) -> int:
                     error("-S is reference-free (no ref.fa)")
                     return 2
                 p.self_align = 1
-            if ref:
+            if args.in2:
+                stats = compress_pe(p, in1, args.in2, out, ref=ref, dbg=dbg,
+                                    device=device)
+            elif ref:
                 stats = compress_se_aligned(p, ref, in1, out, dbg=dbg,
                                             device=device)
-                info(f"mapped {stats['mapped']:,} of {stats['reads']:,} "
-                     f"reads")
             else:
                 stats = compress_se(p, in1, out, dbg=dbg, device=device)
+            if ref:
+                info(f"mapped {stats['mapped']:,} of {stats['reads']:,} "
+                     f"reads")
             info(f"compressed {stats['raw']:,} -> {stats['compressed']:,} B "
                  f"(ratio {stats['ratio']:.2f}x) in {stats['blocks']} blocks")
         else:
@@ -156,8 +166,9 @@ def main(argv=None) -> int:
             ref = args.pos[0] if len(args.pos) == 2 else None
             outs = decompress(args.pos[-1], args.out, dbg=dbg,
                               force=args.force, threads=args.threads or 0,
-                              device=device, ref=ref)
-            info("wrote: " + ", ".join(outs))
+                              device=device, ref=ref, pipeout=args.pipeout)
+            if outs:
+                info("wrote: " + ", ".join(outs))
     except NotImplementedError as e:
         error(f"not ported yet: {e}")
         return 2

@@ -185,6 +185,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _i32, _i32,                               # G, ops
         _U8P, _i32p, _i32p, _i32p, _i32p, _i32p,  # found,pos,s1,g1,s2,g2
         _U8P, _U8P]                               # rev, mis_mask
+    lib.fq_window_batch.restype = None
+    lib.fq_window_batch.argtypes = [
+        _u32p2, ctypes.c_int64, _i32,             # packed, nw, ref_len
+        _U8P, _U8P, _I64P, _i32p, _i32p,          # codes, dege, roffs, lens,
+        ctypes.c_int64, _i32,                     # centers; R, lp
+        _i32, _i32,                               # n_cand, max_mis
+        _U8P, _i32p, _U8P, _U8P]                  # mapped, pos, rev, mis_mask
     lib.rc_encode_names.restype = ctypes.c_int64
     lib.rc_encode_names.argtypes = [_U8P, _i32p, ctypes.c_int64, _i32, _i32,
                                     _i32, _U8P, ctypes.c_int64]
@@ -774,9 +781,10 @@ def selfref_align(keys: np.ndarray, offsets: np.ndarray,
     return mapped.astype(bool), pos, rev.astype(bool), mm.astype(bool)
 
 
-# Calls of the native host aligner (fq_align_batch / fq_indel_batch), so a
-# run can show that nothing on the card's path aligned on the host.
-ALIGN_CALLS = {"align_batch": 0, "indel_batch": 0}
+# Calls of the native host aligner (fq_align_batch / fq_indel_batch /
+# fq_window_batch), so a run can show that nothing on the card's path
+# aligned on the host.
+ALIGN_CALLS = {"align_batch": 0, "indel_batch": 0, "window_batch": 0}
 
 
 def _index_args(keys, offsets, positions, packed, l1, l1_shift,
@@ -871,3 +879,38 @@ def indel_batch(keys: np.ndarray, offsets: np.ndarray,
                        _u8p(mm))
     ALIGN_CALLS["indel_batch"] += 1
     return (found.astype(bool), *out, rev.astype(bool), mm.astype(bool))
+
+
+def window_batch(packed: np.ndarray, ref_len: int, codes_flat: np.ndarray,
+                 dege_flat: np.ndarray, roffs: np.ndarray,
+                 lengths: np.ndarray, centers: np.ndarray, lp: int,
+                 n_cand: int, max_mis: int):
+    """Host-native anchored window verification (native/alignhost.cpp
+    fq_window_batch), a decision mirror of fastqueeze_tpu/align/hash.py
+    _window_batch (PE mate rescue): each read is verified at every offset
+    in [center - n_cand/2, center + n_cand/2), both strands.  ``packed``
+    must be the padded host copy.  Returns (mapped bool, pos int32, is_rev
+    bool, mis_mask (R, lp) bool); raises when the library is missing."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the host aligner needs the native library "
+                           "(make -C native)")
+    R = len(roffs)
+    packed = np.ascontiguousarray(packed, np.uint32)
+    codes_flat = np.ascontiguousarray(codes_flat, np.uint8)
+    dege_flat = np.ascontiguousarray(dege_flat.astype(np.uint8))
+    roffs = np.ascontiguousarray(roffs, np.int64)
+    lengths = np.ascontiguousarray(lengths, np.int32)
+    centers = np.ascontiguousarray(centers, np.int32)
+    mapped = np.empty(R, np.uint8)
+    pos = np.empty(R, np.int32)
+    rev = np.empty(R, np.uint8)
+    mm = np.empty((R, lp), np.uint8)
+    lib.fq_window_batch(
+        packed.ctypes.data_as(_U32P), len(packed), ref_len,
+        _u8p(codes_flat), _u8p(dege_flat), _i64p(roffs),
+        lengths.ctypes.data_as(_I32P), centers.ctypes.data_as(_I32P),
+        R, lp, n_cand, max_mis,
+        _u8p(mapped), pos.ctypes.data_as(_I32P), _u8p(rev), _u8p(mm))
+    ALIGN_CALLS["window_batch"] += 1
+    return mapped.astype(bool), pos, rev.astype(bool), mm.astype(bool)

@@ -155,7 +155,7 @@ def encode_stream_job(model, params: CodecParams, flat_syms: np.ndarray,
                       counts_per_read: np.ndarray,
                       counts0: Union[FrozenTable, np.ndarray, None] = None,
                       n_lanes: Optional[int] = None, adapt: bool = False,
-                      device="cpu",
+                      device="cuda",
                       extra_aux: Optional[Dict[str, np.ndarray]] = None
                       ) -> EncodeJob:
     """Dispatch one stream's encode to ``device``: frozen against
@@ -186,7 +186,7 @@ def encode_stream_job(model, params: CodecParams, flat_syms: np.ndarray,
 def encode_stream(model, params: CodecParams, flat_syms: np.ndarray,
                   counts_per_read: np.ndarray, counts0=None,
                   n_lanes: Optional[int] = None, adapt: bool = False,
-                  device="cpu", extra_aux=None) -> bytes:
+                  device="cuda", extra_aux=None) -> bytes:
     """Encode one logical stream (read-major flat symbols + per-read
     counts); returns the serialized payload."""
     return encode_stream_job(model, params, flat_syms, counts_per_read,
@@ -197,7 +197,7 @@ def encode_stream(model, params: CodecParams, flat_syms: np.ndarray,
 def decode_stream_job(model, params: CodecParams, payload: bytes,
                       counts_per_read: np.ndarray,
                       counts0: Union[FrozenTable, np.ndarray, None] = None,
-                      adapt: bool = False, device="cpu",
+                      adapt: bool = False, device="cuda",
                       extra_aux: Optional[Dict[str, np.ndarray]] = None
                       ) -> DecodeJob:
     """Dispatch one stream's decode (frozen, or adaptive) to ``device``."""
@@ -242,7 +242,7 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
 
 def decode_stream(model, params: CodecParams, payload: bytes,
                   counts_per_read: np.ndarray, counts0=None,
-                  adapt: bool = False, device="cpu",
+                  adapt: bool = False, device="cuda",
                   extra_aux=None) -> np.ndarray:
     """Inverse of :func:`encode_stream` -> read-major flat symbols."""
     return decode_stream_job(model, params, payload, counts_per_read,

@@ -26,6 +26,9 @@ K8 align_batch         one thread per read: sampled-seed bucketed search,
 K9 indel_batch         one thread per read: K8's seed search for the
                        anchor, then the <= 2-op split x gap scoring
                        (align/hash.py _indel_batch)
+K10 window_batch       one warp per read: every offset of the mate's
+                       insert window on both strands, first-occurrence
+                       argmin (align/hash.py _window_batch)
 
 The sources are csrc/*.cu with a plain C interface, compiled by nvcc for
 sm_90a (one nvcc per source, in parallel) and linked into one shared
@@ -56,7 +59,7 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "compact_words": 0, "frozen_decode": 0,
                             "adapt_encode_walk": 0, "rans_encode_sf": 0,
                             "adapt_decode": 0, "align_batch": 0,
-                            "indel_batch": 0}
+                            "indel_batch": 0, "window_batch": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -169,11 +172,14 @@ def _lib() -> ctypes.CDLL:
             lib.fq_indel_batch_cuda.argtypes = (
                 index + acfg + [vp, vp, vp, i32, i32, i32, vp, i64]
                 + [vp] * 9)
+            lib.fq_window_batch_cuda.argtypes = (
+                [vp, i64, i32, vp, vp, vp, vp, i32, i32, i32, i32]
+                + [vp] * 4)
             for fn in (lib.fq_quant_pack, lib.fq_frozen_encode_lanes,
                        lib.fq_compact_words, lib.fq_frozen_decode,
                        lib.fq_adapt_encode_walk, lib.fq_rans_encode_sf,
                        lib.fq_adapt_decode, lib.fq_align_batch_cuda,
-                       lib.fq_indel_batch_cuda):
+                       lib.fq_indel_batch_cuda, lib.fq_window_batch_cuda):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -1139,3 +1145,83 @@ def indel_batch(codes: torch.Tensor, dege: torch.Tensor,
             B, G, ops, _ptr(scratch), per, _ptr(found),
             *(_ptr(t) for t in ints), _ptr(rev), _ptr(mm))
     return (found, *ints, rev, mm)
+
+
+# --- K10 window_batch: the PE mate-rescue window ----------------------------
+
+def window_batch_plain(packed: torch.Tensor, ref_len: int,
+                       codes: torch.Tensor, dege: torch.Tensor,
+                       lengths: torch.Tensor, centers: torch.Tensor, C: int,
+                       max_mis: int):
+    """hash._window_batch: every candidate of [center - C/2, center + C/2)
+    verified on both strands over all W+1 frame words, first-occurrence
+    argmin per strand, RC only when strictly better -> (mapped, pos int32,
+    is_rev, mis_mask)."""
+    B, Lp = codes.shape
+    dev = codes.device
+    lens = lengths.long()
+    pos_i = torch.arange(Lp, device=dev)[None, :]
+    valid = pos_i < lens[:, None]
+    has_dege = (dege & valid).any(1)
+    cand = (centers.long()[:, None] - C // 2
+            + torch.arange(C, device=dev)[None, :])
+    cand_ok = (cand >= 0) & (cand + lens[:, None] <= ref_len)
+    pk = packed.long() & _M32
+    W = Lp // 16
+
+    def strand(c):
+        rw, mw = _pack_words(c, valid)
+        mis = _mis_aligned(pk, cand & _M32, rw, mw, range(W + 1))
+        mis = torch.where(cand_ok, mis, ALIGN_BIG)
+        cb = torch.argmin(mis, dim=1)[:, None]
+        return mis.gather(1, cb)[:, 0], cand.gather(1, cb)[:, 0]
+
+    mis_f, pos_f = strand(codes)
+    rc, _ = _rc_grid(codes, dege, lens)
+    mis_r, pos_r = strand(rc)
+    use_rev = mis_r < mis_f
+    mis = torch.where(use_rev, mis_r, mis_f)
+    pos = torch.where(use_rev, pos_r, pos_f)
+    mapped = (mis <= max_mis) & ~has_dege
+    eff = torch.where(use_rev[:, None], rc, codes.long())
+    refc = _ref_base_at(pk, torch.clamp(pos, min=0)[:, None] + pos_i)
+    mis_mask = (eff != refc) & valid & mapped[:, None]
+    return mapped, pos.to(torch.int32), use_rev & mapped, mis_mask
+
+
+def window_batch(packed: torch.Tensor, ref_len: int, codes: torch.Tensor,
+                 dege: torch.Tensor, lengths: torch.Tensor,
+                 centers: torch.Tensor, C: int, max_mis: int):
+    """K10: (nw,) int32 packed reference (u32 words), (B, Lp) uint8 codes
+    (zero past each length), (B, Lp) bool degenerate flags, (B,) int32
+    lengths <= Lp and (B,) int32 window centers, window size C ->
+    ((B,) bool mapped, (B,) int32 window start, (B,) bool reverse strand,
+    (B, Lp) bool mismatch mask).  Only ``mapped`` and the mapped reads'
+    other outputs carry meaning."""
+    if not _on_card(packed, codes, dege, lengths, centers):
+        return window_batch_plain(packed, ref_len, codes, dege, lengths,
+                                  centers, C, max_mis)
+    _check(packed, "packed", torch.int32, 1)
+    _check(codes, "codes", torch.uint8, 2)
+    _check(dege, "dege", torch.bool, 2)
+    _check(lengths, "lengths", torch.int32, 1)
+    _check(centers, "centers", torch.int32, 1)
+    B, Lp = codes.shape
+    if (tuple(dege.shape) != (B, Lp) or lengths.numel() != B
+            or centers.numel() != B):
+        raise ValueError("window_batch: shape mismatch")
+    if Lp % 16 or Lp == 0 or C <= 0 or packed.numel() == 0:
+        raise ValueError("window_batch: need Lp a positive multiple of 16, "
+                         "C > 0 and a non-empty reference")
+    dev = codes.device
+    mapped = torch.zeros((B,), dtype=torch.bool, device=dev)
+    pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rev = torch.zeros((B,), dtype=torch.bool, device=dev)
+    mm = torch.zeros((B, Lp), dtype=torch.bool, device=dev)
+    if B == 0:
+        return mapped, pos, rev, mm
+    _launch(_lib().fq_window_batch_cuda, "window_batch", _ptr(packed),
+            packed.numel(), ref_len, _ptr(codes), _ptr(dege), _ptr(lengths),
+            _ptr(centers), B, Lp, C, max_mis, _ptr(mapped), _ptr(pos),
+            _ptr(rev), _ptr(mm))
+    return mapped, pos, rev, mm

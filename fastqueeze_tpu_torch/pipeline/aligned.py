@@ -1,11 +1,13 @@
-"""Reference-aligned single-end compression.
+"""Reference-aligned compression, single-end and paired-end.
 
-Copied from fastqueeze_tpu/pipeline/aligned.py (SE): per block, align the
+Copied from fastqueeze_tpu/pipeline/aligned.py: per block, align the
 reads (align/hash.py; K8 and K9 on the card), then encode with the
 alignment streams, or entropy-only when the block's mapped fraction is
 under ``min_map_ratio`` (the reference's per-block Align/Fqz decision).
-Not ported yet: paired-end (ROADMAP Queue A item 6), --part and the
-lossy transform (item 4), and reads over align_max_len (item 8).
+PE blocks align their mates interleaved and, with -I (max_insr), rescue
+an unmapped mate inside its mapped mate's insert window (K10).  Not
+ported yet: --part and the lossy transform (ROADMAP Queue A item 4), and
+reads over align_max_len (item 8).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from fastqueeze_tpu_torch.align.hash import Aligner, AlignResult
 from fastqueeze_tpu_torch.align.index import load_index
 from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.arcfile import (
-    FLAG_ALIGNED, ArcWriter, BlockInfo)
+    FLAG_ALIGNED, FLAG_PE, ArcWriter, BlockInfo)
 from fastqueeze_tpu_torch.io.fastq import FastqBlock, parse_block, read_blocks
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
     _BASE_MAP, dup_masks, encode_block)
@@ -191,3 +193,93 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
     return {"blocks": n_blocks, "raw": total_raw, "compressed": out_size,
             "ratio": total_raw / out_size if out_size else 0.0,
             "mapped": total_mapped, "reads": total_reads}
+
+
+def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
+                        out_path: str, dbg: Optional[DebugInfo] = None,
+                        device="cuda") -> Dict:
+    """PE against a reference: mates interleaved into one block and every
+    read aligned; with max_insr > 0 an unmapped mate of a mapped one is
+    re-verified inside the insert window (Aligner.rescue_mates); the pair
+    relations and the modal insert go to ``dbg``."""
+    from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
+    from fastqueeze_tpu_torch.pipeline.pe import (
+        _RecordReader, check_ported, interleave_blocks, pe_block_items,
+        pe_payload, train_frozen_pe_prefix)
+    check_ported(p, in1, in2)
+    dbg = dbg or DebugInfo()
+    t0 = time.time()
+    aligner, ref = prepare_ref(p, ref_path)
+    dbg.add("ref_s", time.time() - t0)
+    p.is_pe = 1
+    md5_1, md5_2 = hashlib.md5(), hashlib.md5()
+    writer = ArcWriter(out_path, p,
+                       [os.path.basename(in1), os.path.basename(in2)], [])
+    frozen = None
+    if decide_use_model(p, os.path.getsize(in1) + os.path.getsize(in2)):
+        frozen, blob = train_frozen_pe_prefix(p, in1, in2, device, dbg)
+        writer.set_model(blob)
+    rr2 = _RecordReader(in2)
+
+    def work(_i, item):
+        raw1, fnl1, raw2, fnl2 = item
+        b1 = parse_block(raw1, fnl1)
+        b2 = parse_block(raw2, fnl2)
+        merged = interleave_blocks(b1, b2)
+        align, n_mapped = _maybe_align(p, aligner, merged, device, dbg)
+        if align is not None and p.max_insr > 0:
+            t0 = time.time()
+            codes, dege = _read_codes(merged)
+            before = n_mapped
+            align = aligner.rescue_mates(codes, dege, merged.lengths, align,
+                                         p.max_insr, device)
+            n_mapped = int(align.mapped.sum())
+            dbg.add("pe_rescued", n_mapped - before)
+            dbg.add("align_s", time.time() - t0)
+        if align is not None:
+            _tally_pe_relations(align, dbg)
+        t0 = time.time()
+        body = encode_block(p, merged, frozen, device, dbg, align, ref.codes)
+        dbg.add("encode_s", time.time() - t0)
+        return (raw1, raw2, pe_payload(b1, b2, body), b1.n_reads,
+                merged.n_reads, n_mapped, align is not None)
+
+    n_blocks = total_raw = total_mapped = total_reads = 0
+    for i, (raw1, raw2, payload, n_pairs, n_merged, n_mapped,
+            was_aligned) in ordered_parallel(pe_block_items(p, in1, rr2),
+                                             work, p.threads):
+        md5_1.update(raw1)
+        md5_2.update(raw2)
+        writer.add_block(i, payload, BlockInfo(
+            payload_len=len(payload), n_reads=n_pairs, raw_len1=len(raw1),
+            raw_len2=len(raw2),
+            flags=FLAG_PE | (FLAG_ALIGNED if was_aligned else 0),
+            md5=hashlib.md5(raw1 + raw2).digest()))
+        total_mapped += n_mapped
+        total_reads += n_merged
+        total_raw += len(raw1) + len(raw2)
+        n_blocks += 1
+    if rr2.take_rest():
+        raise ValueError("PE inputs have different read counts")
+    writer.input_md5s = [md5_1.digest(), md5_2.digest()]
+    writer.finalize()
+    out_size = os.path.getsize(out_path)
+    dbg.add("raw_bytes", total_raw)
+    dbg.add("out_bytes", out_size)
+    return {"blocks": n_blocks, "raw": total_raw, "compressed": out_size,
+            "ratio": total_raw / out_size if out_size else 0.0,
+            "mapped": total_mapped, "reads": total_reads}
+
+
+def _tally_pe_relations(align: AlignResult, dbg: DebugInfo) -> None:
+    """Pair relations (both mapped, 1Y2N, 1N2Y, none) and the median
+    insert over both-mapped pairs."""
+    m1, m2 = align.mapped[0::2], align.mapped[1::2]
+    dbg.add("pe_both_map", int((m1 & m2).sum()))
+    dbg.add("pe_1Y2N", int((m1 & ~m2).sum()))
+    dbg.add("pe_1N2Y", int((~m1 & m2).sum()))
+    dbg.add("pe_none", int((~m1 & ~m2).sum()))
+    both = m1 & m2
+    if both.any():
+        ins = np.abs(align.pos[0::2][both] - align.pos[1::2][both])
+        dbg.add("pe_insert_median", float(np.median(ins)))

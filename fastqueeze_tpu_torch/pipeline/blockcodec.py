@@ -64,6 +64,7 @@ TAG_AMISC = 17    # mapped: mismatch count per read
 TAG_AMISP = 18    # mapped: mismatch positions (window coords, delta)
 TAG_AMISB = 19    # mapped: substituted bases (2-bit), ctx = ref base
 TAG_APDF = 20     # PE -I: delta-coded flag per eligible mate-2
+TAG_APD = 21      # PE -I: zigzag insert deltas for flagged mate-2s
 TAG_ACIGF = 22    # mapped: has-indel flag
 TAG_ACIGS = 23    # indel reads: split position s in the read
 TAG_ACIGL = 24    # indel reads: zigzag signed gap size g
@@ -77,7 +78,6 @@ _FROZEN_ADAPT_MSG = ("adapting from a frozen table (frozen_adapt): ROADMAP "
 _VAR_CHUNK = 256  # var byte streams are cut into pseudo-reads for lanes
 _LR_MSG = ("long-read chunk streams (reads over align_max_len): ROADMAP "
            "Queue A item 8")
-_PE_INSERT_MSG = "PE -I insert-delta streams: ROADMAP Queue A item 6"
 
 _BASE_MAP = np.full(256, 255, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
@@ -745,10 +745,8 @@ def _unzigzag(z: np.ndarray) -> np.ndarray:
 def _encode_align_streams(p: CodecParams, block: FastqBlock, align,
                           ref_codes: np.ndarray, mapped: np.ndarray,
                           meta: Dict, device) -> list:
-    """Mapped reads -> pos / rev / mis-count / mis-pos / mis-char streams
-    and the indel CIGAR streams."""
-    if p.is_pe and p.max_insr > 0:
-        raise NotImplementedError(_PE_INSERT_MSG)
+    """Mapped reads -> pos / rev / mis-count / mis-pos / mis-char streams,
+    the PE -I insert-delta streams and the indel CIGAR streams."""
     lengths = block.lengths
     mlens = lengths[mapped]
     posb = max(1, (int(ref_codes.size).bit_length() + 7) // 8)
@@ -760,7 +758,34 @@ def _encode_align_streams(p: CodecParams, block: FastqBlock, align,
     rev = align.is_rev[mapped]
     mm = align.mis_mask[mapped]                      # (M, lp) window coords
     mis_cnt = mm.sum(axis=1).astype(np.int64)
-    meta["nabs"] = len(pos)
+
+    # PE -I: a mapped mate-2 whose mate-1 mapped within max_insr is coded
+    # as a zigzag delta off mate-1's position
+    pe_sections = []
+    abs_mask_m = np.ones(len(pos), bool)     # mapped reads coded absolutely
+    R = block.n_reads
+    if p.is_pe and p.max_insr > 0 and R:
+        idx = np.arange(R)
+        m1_mapped = np.zeros(R, bool)
+        m1_mapped[1::2] = mapped[0::2]
+        cand = mapped & (idx % 2 == 1) & m1_mapped
+        pos1_of = np.zeros(R, np.int64)
+        pos1_of[1::2] = align.pos[0::2]
+        delta = align.pos - pos1_of
+        ok = cand & (np.abs(delta) <= p.max_insr)
+        if cand.any():
+            cand_m = cand[mapped]
+            ok_m = ok[mapped]
+            pe_sections.append((TAG_APDF, _code_flags(p, ok_m[cand_m],
+                                                      device)))
+            if ok.any():
+                insb = max(1, (int(2 * p.max_insr + 1).bit_length() + 7)
+                           // 8)
+                meta["insb"] = insb
+                pe_sections.append((TAG_APD, _code_le(p, _zigzag(delta[ok]),
+                                                      insb, device)))
+            abs_mask_m = ~ok_m
+    meta["nabs"] = int(abs_mask_m.sum())
     if mis_cnt.max(initial=0) > 255:
         raise ValueError(">255 mismatches in one read")
 
@@ -810,8 +835,8 @@ def _encode_align_streams(p: CodecParams, block: FastqBlock, align,
         ridx = np.clip(pos[rows] + cols + shift, 0, ref_codes.size - 1)
         ref_base = np.where(ins, 0, ref_codes[ridx])
 
-    sections = [
-        (TAG_APOS, _code_le(p, pos, posb, device)),
+    sections = pe_sections + [
+        (TAG_APOS, _code_le(p, pos[abs_mask_m], posb, device)),
         (TAG_AREV, _code_flags(p, rev, device)),
         (TAG_AMISC, _code_bytes(p, mis_cnt.astype(np.uint8).tobytes(),
                                 device, order1=False)),
@@ -1038,13 +1063,35 @@ def _decode_align_streams(p: CodecParams, sections: Dict, meta: Dict,
     """Reconstruct the mapped reads from the reference (window fetch,
     indel splice, mismatch patches, reverse complement), writing ACGT
     bytes into seq_flat in place."""
-    if TAG_APDF in sections:
-        raise NotImplementedError(_PE_INSERT_MSG)
     M = int(mapped.sum())
     posb, mposb = meta["posb"], meta["mposb"]
     mlens = lengths[mapped]
     moffs = read_off[mapped]
-    pos = _decode_le(p, sections[TAG_APOS], meta.get("nabs", M), posb, device)
+    pos_abs = _decode_le(p, sections[TAG_APOS], meta.get("nabs", M), posb,
+                         device)
+    if TAG_APDF in sections:
+        # PE -I: delta-coded mate-2 positions off mate-1's
+        R = len(mapped)
+        idx = np.arange(R)
+        m1_mapped = np.zeros(R, bool)
+        m1_mapped[1::2] = mapped[0::2]
+        cand = mapped & (idx % 2 == 1) & m1_mapped
+        cand_m = cand[mapped]
+        ok_m = np.zeros(M, bool)
+        ok_m[cand_m] = _decode_flags(p, sections[TAG_APDF],
+                                     int(cand_m.sum()), device)
+        m_idx = np.flatnonzero(mapped)
+        pos_r = np.zeros(R, np.int64)
+        pos_r[m_idx[~ok_m]] = pos_abs
+        n_delta = int(ok_m.sum())
+        if n_delta:
+            zz = _decode_le(p, sections[TAG_APD], n_delta, meta["insb"],
+                            device)
+            ok_reads = m_idx[ok_m]
+            pos_r[ok_reads] = pos_r[ok_reads - 1] + _unzigzag(zz)
+        pos = pos_r[mapped]
+    else:
+        pos = pos_abs
     rev = _decode_flags(p, sections[TAG_AREV], M, device)
     cnt_raw = _decode_bytes(p, sections[TAG_AMISC], device, order1=False)
     mis_cnt = np.frombuffer(cnt_raw, np.uint8).astype(np.int64)

@@ -1,4 +1,4 @@
-"""File-level compress/decompress orchestration (single-end).
+"""File-level compress/decompress orchestration.
 
 Copied from fastqueeze_tpu/pipeline/driver.py (compress_se, decompress):
 cut the input into blocks, train the frozen tables on a prefix when the
@@ -8,17 +8,20 @@ MD5, write the container; on decode, verify both and reassemble the
 plaintext.  Every stage takes the engine's ``device`` explicitly.
 
 Self-referential blocks (auto probe or -S) are coded here; compressing
-against a reference FASTA is pipeline/aligned.py, and decompress takes
-that FASTA (``ref``).  Not ported yet, each raising NotImplementedError
-with its ROADMAP item: frozen_adapt and adapt_chunk's semi-adaptive walk
-(Queue A item 5), --mesh (item 9), --part, -X, -m and the lossy
-transform (item 4), paired-end (item 6).
+against a reference FASTA is pipeline/aligned.py, paired-end input is
+pipeline/pe.py, and decompress takes the FASTA (``ref``) and sends PE
+archives to pe.decompress_pe_blocks.  Not ported yet, each raising
+NotImplementedError with its ROADMAP item: frozen_adapt and adapt_chunk's
+semi-adaptive walk (Queue A item 5), --mesh (item 9), --part, -X, -m and
+the lossy transform (item 4).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -44,8 +47,6 @@ def _unported(params: CodecParams, in_bytes: int) -> Optional[str]:
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     if params.mesh_n:
         return "--mesh block data-parallelism: ROADMAP Queue A item 9"
-    if params.is_pe:
-        return "paired-end: ROADMAP Queue A item 6"
     if params.lossy_factor > 1.0:
         return "lossy quality transform: ROADMAP Queue A item 4"
     if params.frozen_adapt and decide_use_model(params, in_bytes):
@@ -192,9 +193,11 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
 
 def decompress(arc_path: str, out_prefix: Optional[str],
                dbg: Optional[DebugInfo] = None, force: bool = False,
-               threads: int = 0, device="cuda",
-               ref: Optional[str] = None) -> List[str]:
-    """ref: the reference FASTA of a reference-aligned archive."""
+               threads: int = 0, device="cuda", ref: Optional[str] = None,
+               pipeout: int = 0) -> List[str]:
+    """ref: the reference FASTA of a reference-aligned archive.  pipeout
+    (-P): write the reads to stdout instead of files; PE archives take 1
+    (file 1), 2 (file 2) or 3 (pairs interleaved)."""
     dbg = dbg or DebugInfo()
     with ArcReader(arc_path) as reader:
         if reader.part is not None:
@@ -203,14 +206,19 @@ def decompress(arc_path: str, out_prefix: Optional[str],
         params = reader.params
         if threads:            # decode-side -t overrides the encoder's
             params.threads = threads
-        if params.is_pe:
-            raise NotImplementedError("paired-end: ROADMAP Queue A item 6")
         if getattr(params, "multi", 0):
             raise NotImplementedError(
                 "multi-file archives (-m): ROADMAP Queue A item 4")
         ref_codes = _load_ref_for_decode(params, ref)
+        if params.is_pe:
+            from fastqueeze_tpu_torch.pipeline.pe import decompress_pe_blocks
+            return decompress_pe_blocks(reader, out_prefix, dbg, device,
+                                        pipeout=pipeout, force=force,
+                                        ref_codes=ref_codes)
         out_name = _se_out_name(arc_path, out_prefix, reader.file_list)
-        if os.path.exists(out_name) and not force:
+        if pipeout:
+            out_name = None
+        elif os.path.exists(out_name) and not force:
             raise ValueError(f"{out_name} exists (use -f to overwrite)")
         frozen = None
         if reader.model_blob is not None:
@@ -226,7 +234,8 @@ def decompress(arc_path: str, out_prefix: Optional[str],
                     f"block {i}: MD5 mismatch (corrupt archive)")
             return raw
 
-        with open(out_name, "wb") as out:
+        with (open(out_name, "wb") if out_name
+              else contextlib.nullcontext(sys.stdout.buffer)) as out:
             payloads = (reader.read_block(i)
                         for i in range(len(reader.blocks)))
             t0 = time.time()
@@ -237,7 +246,7 @@ def decompress(arc_path: str, out_prefix: Optional[str],
             dbg.add("decode_s", time.time() - t0)
         if reader.input_md5s and whole_md5.digest() != reader.input_md5s[0]:
             raise ValueError("whole-input MD5 mismatch")
-        return [out_name]
+        return [out_name] if out_name else []
 
 
 def _load_ref_for_decode(params: CodecParams, ref: Optional[str]):

@@ -71,7 +71,7 @@ def test_encode_payload_matches_jax(name):
     jm, tm, counts, syms, aux = _case(name, 1)
     want = je.encode_stream(jm, JParams(**_P), syms, counts, extra_aux=aux)
     got = te.encode_stream(tm, CodecParams(**_P), syms, counts, adapt=True,
-                           extra_aux=aux)
+                           extra_aux=aux, device="cpu")
     assert got == want
 
 
@@ -83,7 +83,7 @@ def test_decode_symbols_match_jax(name):
     want = np.asarray(je.decode_stream(jm, JParams(**_P), payload, counts,
                                        extra_aux=aux))
     got = te.decode_stream(tm, CodecParams(**_P), payload, counts,
-                           adapt=True, extra_aux=aux)
+                           adapt=True, extra_aux=aux, device="cpu")
     assert np.array_equal(got, want)
     assert np.array_equal(got, syms)
 
@@ -106,7 +106,8 @@ def test_pinned_payload_md5(name, model):
         syms = rng.integers(0, amax, int(lengths.sum())).astype(np.uint8)
         if prev == name:
             break
-    payload = te.encode_stream(model, p, syms, lengths, adapt=True)
+    payload = te.encode_stream(model, p, syms, lengths, adapt=True,
+                               device="cpu")
     assert hashlib.md5(payload).hexdigest() == golden[name]
 
 
@@ -151,8 +152,9 @@ def test_degenerate_streams_match_jax(counts):
     tm = tb.QualModel(alphabet=8, init=1, inc=8, cap=8192, qlevel=2)
     want = je.encode_stream(jm, JParams(), syms, counts)
     assert te.encode_stream(tm, CodecParams(), syms, counts,
-                            adapt=True) == want
-    back = te.decode_stream(tm, CodecParams(), want, counts, adapt=True)
+                            adapt=True, device="cpu") == want
+    back = te.decode_stream(tm, CodecParams(), want, counts, adapt=True,
+                            device="cpu")
     assert np.array_equal(back, syms)
 
 
@@ -162,7 +164,8 @@ def test_overcap_initial_rows_raise():
     counts = np.array([50, 0, 70], np.int64)
     syms = np.zeros(120, np.uint8)
     with pytest.raises(ValueError, match="cap"):
-        te.encode_stream(model, CodecParams(**_P), syms, counts, adapt=True)
+        te.encode_stream(model, CodecParams(**_P), syms, counts, adapt=True,
+                         device="cpu")
     assert not host_adapt.route(CodecParams(), model, "cpu")
 
 
@@ -188,15 +191,15 @@ def test_semi_adaptive_walk_raises():
     _, tm, counts, syms, _ = _case("seq_o6", 5)
     p = CodecParams(adapt_chunk=128, **_P)
     with pytest.raises(NotImplementedError, match="B9"):
-        te.encode_stream(tm, p, syms, counts, adapt=True)
+        te.encode_stream(tm, p, syms, counts, adapt=True, device="cpu")
     payload = te.encode_stream(tm, CodecParams(**_P), syms, counts,
-                               adapt=True)
+                               adapt=True, device="cpu")
     with pytest.raises(NotImplementedError, match="B9"):
-        te.decode_stream(tm, p, payload, counts, adapt=True)
+        te.decode_stream(tm, p, payload, counts, adapt=True, device="cpu")
     with pytest.raises(NotImplementedError, match="frozen_adapt"):
         te.encode_stream(tm, CodecParams(**_P), syms, counts,
                          counts0=np.ones((tm.n_ctx, 4), np.int32),
-                         adapt=True)
+                         adapt=True, device="cpu")
 
 
 def test_native_route_and_payload(monkeypatch):
@@ -220,7 +223,8 @@ def test_native_route_and_payload(monkeypatch):
     assert not host_adapt.route(p, tm, "cpu")
     calls = dict(host_adapt.NATIVE_CALLS)
     payload = host_adapt.encode_job(tm, p, syms, counts).finalize()
-    assert payload == te.encode_stream(tm, p, syms, counts, adapt=True)
+    assert payload == te.encode_stream(tm, p, syms, counts, adapt=True,
+                                       device="cpu")
     back = host_adapt.decode_job(tm, p, payload, counts).finalize()
     assert np.array_equal(back, syms)
     assert host_adapt.NATIVE_CALLS["encode"] == calls["encode"] + 1

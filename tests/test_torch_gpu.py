@@ -105,11 +105,13 @@ def test_corrupt_words_stay_in_bounds(cuda):
     counts, lay, syms, table = _stream(rng, model, R=500, L=64, maxlen=60)
     p = CodecParams()
     pay = bytearray(engine.encode_stream(model, p, syms, counts,
-                                         counts0=table, n_lanes=64))
+                                         counts0=table, n_lanes=64,
+                                         device="cpu"))
     n_words = int.from_bytes(pay[8:12], "little")
     pay[8:12] = (n_words // 3).to_bytes(4, "little")
     pay = bytes(pay[:16 + 4 * 64 + 2 * (n_words // 3)])
-    want = engine.decode_stream(model, p, pay, counts, counts0=table)
+    want = engine.decode_stream(model, p, pay, counts, counts0=table,
+                                device="cpu")
     got = engine.decode_stream(model, p, pay, counts, counts0=table,
                                device=cuda)
     torch.cuda.synchronize()
@@ -284,7 +286,8 @@ def test_adaptive_engine_on_card_matches_cpu(cuda, shape):
         counts[:] = 0
     syms = rng.integers(0, 40, int(counts.sum())).astype(np.uint8)
     p = CodecParams()
-    want = engine.encode_stream(model, p, syms, counts, adapt=True)
+    want = engine.encode_stream(model, p, syms, counts, adapt=True,
+                                device="cpu")
     got = engine.encode_stream(model, p, syms, counts, adapt=True,
                                device=cuda)
     assert got == want
@@ -513,3 +516,155 @@ def test_aligned_pipeline_on_card_matches_host_route(cuda, tmp_path,
         out = driver.decompress(arcs["host"], str(tmp_path / "back"),
                                 force=True, device=cuda, ref=str(fa))
         assert open(out[0], "rb").read() == fq.read_bytes(), kw
+
+
+# --- K10 window_batch: the PE mate-rescue window -----------------------------
+
+def _window_fixture(B: int = 1024, C: int = 1128, seed: int = 43):
+    """A seeded 4 Mbp reference, its Aligner, and B reads with window
+    centers: seedless mates (substitutions every 14 bases) on both
+    strands, reads with an N, windows at both ends of the reference,
+    random reads and reads outside their window."""
+    from fastqueeze_tpu_torch.align.hash import Aligner
+    from fastqueeze_tpu_torch.align.index import build_from_ref
+    from fastqueeze_tpu_torch.align.ref import RefSeq
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, 4_000_000).astype(np.uint8)
+    p = CodecParams()
+    al = Aligner(build_from_ref(RefSeq(ref, np.zeros(len(ref), bool), ["r"],
+                                       np.array([0, len(ref)]), ""), p), p)
+    G = len(ref)
+    reads, centers = [], []
+    for i in range(B):
+        kind = i % 8
+        L = int(rng.integers(60, 129))
+        s = {3: int(rng.integers(0, 30)),
+             4: G - L - int(rng.integers(0, 30))}.get(
+                 kind, int(rng.integers(C, G - C - L)))
+        r = ref[s:s + L].copy()
+        if kind in (0, 1, 3, 4):
+            at = np.arange(7, L, 14)[:7]
+            r[at] = (r[at] + rng.integers(1, 4, len(at))) % 4
+        elif kind == 5:
+            r = rng.integers(0, 4, L).astype(np.uint8)
+        if kind in (1, 4) or rng.random() < 0.3:
+            r = (3 - r)[::-1].copy()
+        d = C if kind == 6 else int(rng.integers(-(C // 2) + 2, C // 2 - 2))
+        reads.append(r)
+        centers.append(s + d)
+    lengths = np.array([len(r) for r in reads], np.int64)
+    codes = np.concatenate(reads)
+    dege = np.zeros(len(codes), bool)
+    dege[(np.cumsum(lengths) - lengths)[2::16] + 5] = True
+    return al, codes, dege, lengths, np.array(centers, np.int32)
+
+
+def test_window_batch_matches_plain_and_native(cuda):
+    from fastqueeze_tpu_torch.io import native
+    C, lp = 1128, 128
+    al, codes, dege, lengths, centers = _window_fixture(C=C)
+    c, d, ln = _grids(al, codes, dege, lengths, lp, cuda)
+    ctr = torch.from_numpy(centers).to(cuda)
+    packed = al.dev_index(cuda).packed
+    before = kernels.LAUNCHES["window_batch"]
+    got = [t.cpu() for t in kernels.window_batch(packed, al.ref_len, c, d,
+                                                 ln, ctr, C, 7)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["window_batch"] == before + 1
+    want = kernels.window_batch_plain(packed, al.ref_len, c, d, ln, ctr, C,
+                                      7)
+    nat = native.window_batch(al._h_packed, al.ref_len, codes, dege,
+                              np.cumsum(lengths) - lengths, lengths, centers,
+                              lp, C, 7)
+    m = got[0].numpy()
+    assert 400 < m.sum() < 1000 and got[2].numpy()[m].any()
+    assert np.array_equal(m, want[0].cpu().numpy())
+    assert np.array_equal(m, nat[0])
+    for a, b, n in zip(got[1:], want[1:], nat[1:]):
+        assert np.array_equal(a.numpy()[m], b.cpu().numpy()[m])
+        assert np.array_equal(a.numpy()[m], n[m])
+
+
+def test_window_batch_refusals(cuda):
+    B, lp = 8, 64
+    packed = torch.zeros(100, dtype=torch.int32, device=cuda)
+    c = torch.zeros((B, lp), dtype=torch.uint8, device=cuda)
+    d = torch.zeros((B, lp), dtype=torch.bool, device=cuda)
+    ln = torch.full((B,), 40, dtype=torch.int32, device=cuda)
+    ctr = torch.full((B,), 500, dtype=torch.int32, device=cuda)
+    bad = [
+        (packed, c.long(), d, ln, ctr, 188),           # codes dtype
+        (packed, c, d, ln.long(), ctr, 188),           # lengths dtype
+        (packed, c, d[:, :48].contiguous(), ln, ctr, 188),  # dege shape
+        (packed, c, d, ln[:4], ctr, 188),              # lengths count
+        (packed, c[:, :40].contiguous(), d[:, :40].contiguous(), ln, ctr,
+         188),                                         # lp % 16
+        (packed, c, d, ln, ctr, 0),                    # C <= 0
+        (packed, c, d, ln, ctr.cpu(), 188),            # two devices
+        (packed[:0], c, d, ln, ctr, 188),              # empty reference
+    ]
+    before = kernels.LAUNCHES["window_batch"]
+    for pk, cc, dd, ll, ce, C in bad:
+        with pytest.raises(ValueError):
+            kernels.window_batch(pk, 1600, cc, dd, ll, ce, C, 7)
+    assert kernels.LAUNCHES["window_batch"] == before
+
+
+def test_pe_insert_pipeline_on_card_matches_host_route(cuda, tmp_path,
+                                                       monkeypatch):
+    """compress_pe against a reference with max_insr = 500 on the card
+    (K8 and K10) writes the archive of the native host aligner, and it
+    decodes on the card."""
+    from fastqueeze_tpu_torch.io import native
+    from fastqueeze_tpu_torch.pipeline import driver, pe
+    from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+    rng = np.random.default_rng(14)
+    ref = rng.integers(0, 4, 60_000).astype(np.uint8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    fa = tmp_path / "ref.fa"
+    fa.write_bytes(b">c\n" + bases[ref].tobytes() + b"\n")
+    recs = [[], []]
+    n_seedless = 0
+    for r in range(1500):
+        s, ins = int(rng.integers(0, len(ref) - 600)), int(
+            rng.integers(200, 501))
+        m1, m2 = ref[s:s + 100].copy(), ref[s + ins - 100:s + ins].copy()
+        e = rng.random(100) < 0.01
+        m1[e] = (m1[e] + 1) % 4
+        if r % 4 == 0 and m2[7] < 3:
+            # seedless mate 2 (substitutions every 14 bases); the first
+            # one raises the base, so the aligner's no-hit fallback (the
+            # index entries from the first seed's insertion point on)
+            # cannot list the true locus: only the window maps it
+            m2[21::14] = (m2[21::14] + 1) % 4
+            m2[7] = rng.integers(m2[7] + 1, 4)
+            n_seedless += 1
+        for k, cc in enumerate((m1, (3 - m2)[::-1])):
+            q = (np.clip(np.cumsum(rng.integers(-1, 2, 100)) + 30, 2, 40)
+                 + 33).astype(np.uint8)
+            recs[k].append(b"@p%d\n%s\n+\n%s\n" % (r, bases[cc].tobytes(),
+                                                  q.tobytes()))
+    ins = [tmp_path / "in_1.fq", tmp_path / "in_2.fq"]
+    for f, rr in zip(ins, recs):
+        f.write_bytes(b"".join(rr))
+    arcs = {}
+    for mode in ("", "host"):
+        monkeypatch.setenv("FASTQUEEZE_ALIGN_EXEC", mode)
+        arcs[mode] = str(tmp_path / f"a{mode}.fqz")
+        kernels.reset_launch_counts()
+        for k in native.ALIGN_CALLS:
+            native.ALIGN_CALLS[k] = 0
+        dbg = DebugInfo()
+        pe.compress_pe(CodecParams(max_insr=500), str(ins[0]), str(ins[1]),
+                       arcs[mode], ref=str(fa), dbg=dbg, device=cuda)
+        assert dbg.vals["pe_rescued"] >= 0.9 * n_seedless > 200
+        if not mode:
+            assert sum(native.ALIGN_CALLS.values()) == 0
+            assert kernels.LAUNCHES["window_batch"] >= 1
+            assert kernels.LAUNCHES["align_batch"] >= 2
+    with open(arcs[""], "rb") as a, open(arcs["host"], "rb") as b:
+        assert a.read() == b.read()
+    outs = driver.decompress(arcs["host"], str(tmp_path / "back"),
+                             force=True, device=cuda, ref=str(fa))
+    for out, f in zip(outs, ins):
+        assert open(out, "rb").read() == f.read_bytes()

@@ -63,7 +63,7 @@ def test_encode_payload_matches_jax(name):
     want = je.encode_stream(jm, JParams(**_P), syms, counts,
                             counts0=jnp.asarray(table), adapt=False)
     got = te.encode_stream(tm, CodecParams(**_P), syms, counts,
-                           counts0=table)
+                           counts0=table, device="cpu")
     assert got == want
 
 
@@ -75,7 +75,7 @@ def test_decode_symbols_match_jax(name):
     want = je.decode_stream(jm, JParams(**_P), payload, counts,
                             counts0=jnp.asarray(table), adapt=False)
     got = te.decode_stream(tm, CodecParams(**_P), payload, counts,
-                           counts0=te.frozen_table(table, "cpu"))
+                           counts0=te.frozen_table(table, "cpu"), device="cpu")
     assert np.array_equal(got, np.asarray(want))
     assert np.array_equal(got, syms)
 
@@ -125,19 +125,21 @@ def test_adaptive_not_ported():
     _, tm, counts, syms, table = _case("seq_o6", 5)
     p = CodecParams(**_P)
     with pytest.raises(NotImplementedError, match="frozen_adapt"):
-        te.encode_stream(tm, p, syms, counts, table, adapt=True)
+        te.encode_stream(tm, p, syms, counts, table, adapt=True, device="cpu")
     T = te.make_layout(counts, p.n_lanes(int(counts.sum()))).T
     with pytest.raises(NotImplementedError, match="B9"):
         te.encode_stream(tm, CodecParams(adapt_chunk=T, **_P), syms, counts,
-                         adapt=True)
+                         adapt=True, device="cpu")
 
 
 def test_truncated_payload_raises_value_error():
     _, tm, counts, syms, table = _case("seq_o6", 6)
     p = CodecParams(**_P)
-    payload = te.encode_stream(tm, p, syms, counts, counts0=table)
+    payload = te.encode_stream(tm, p, syms, counts, counts0=table,
+                               device="cpu")
     with pytest.raises(ValueError):
         te.decode_stream(tm, p, payload[:len(payload) // 2], counts,
-                         counts0=table)
+                         counts0=table, device="cpu")
     with pytest.raises(ValueError):            # header symbol count
-        te.decode_stream(tm, p, payload, counts[:-3], counts0=table)
+        te.decode_stream(tm, p, payload, counts[:-3], counts0=table,
+                         device="cpu")

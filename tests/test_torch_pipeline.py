@@ -225,8 +225,9 @@ def test_unported_paths_raise(tmp_path, archives):
                        str(tmp_path / "c.fqz"), device="cpu")
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2"], ["-m"], ["-2", "b.fq"],
-                                  ["--part", "0:2"], ["-X", "0:1"]])
+@pytest.mark.parametrize("argv", [["--mesh", "2"], ["-m"],
+                                  ["-2", "b.fq", "-m"], ["--part", "0:2"],
+                                  ["-X", "0:1"]])
 def test_cli_names_roadmap_item_for_unported_flags(argv, capsys):
     assert cli.main(["-c", "-1", "a.fq", "-o", "x.fqz"] + argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
