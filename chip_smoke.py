@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the ten CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the thirteen CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
      main paths' shapes, bit-equal, with times (CUDA events, warmed):
      frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
@@ -14,6 +14,11 @@ Phases (any failure raises and exits non-zero):
      T = 3072 (50,000 x 100 bp reads) for order-10 seq and fqz qualities
      (A = 40) at qlevel 2 and 3, and at L = 1024, T = 3072 for an
      order-1 byte stream of 3,000,000 bytes (one block's Illumina IDs);
+     the trainer K13 at the frozen shape for the order-10 seq table (with
+     torch.bincount over ctx * A + sym timed as the histogram's library
+     call) and the semi-adaptive K11 -> K7 -> K3 -> K12 at the adaptive
+     shape with chunk 64 for order-10 seq and fqz qualities (A = 40),
+     from a fresh table and from the table K13 trains on the stream;
      the aligner's K8 over the seeded 100 Mbp genome's k = 14 index at
      B = 4096 (tier 1: forward, RC) and B = 512 (the rescue tier), and
      K9 over its k = 22 index at B = 512, G = 3, two ops, and K10 over
@@ -63,7 +68,20 @@ Phases (any failure raises and exits non-zero):
      91, and no N): byte-exact, K8 and K10 launched, no native aligner
      call, pe_rescued >= 0.9 x the seedless mates, TAG_APDF in every
      aligned block, and the archive equals the FASTQUEEZE_ALIGN_EXEC=host
-     one, which decodes on the card; the pair relations are printed.
+     one, which decodes on the card; the pair relations are printed;
+ 12. semi-adaptive walk through the CLI: in a fresh working directory
+     `-D` writes ./fastqueeze.config, AdaptChunk set to 64 in it, then
+     phase 6's 50,000-read input: byte-exact, K11/K12 launched for seq
+     and qual, no native coder call, PARAM adapt_chunk = 64;
+ 13. adapting from frozen tables through the library API: api.compress
+     with CodecParams(frozen_adapt=1) on 60,000 reads (~14.4 MB, over the
+     usemodel gate), then api.decompress: byte-exact, a model in the
+     archive, K5/K6 launched and no native coder call; again with
+     adapt_chunk=64 (K11/K12); on a cut of 5,000 reads with use_model=1
+     the card's archive equals api.compress(..., device="cpu") (the plain
+     versions); and the engine's train_counts (K13) on a quality stream
+     of 50,000 reads, equal to the host trainer's table, as counts0 of
+     encode_stream / decode_stream (K5/K7/K3/K6): byte-exact.
 In each end-to-end run the launch counts are set to 0 just before it and
 read just after.  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
@@ -158,7 +176,9 @@ BOUNDS = {}
 # adds the row quantization and the count update
 _OPS = {"quant_pack": 4, "frozen_encode_lanes": 30, "compact_words": 2,
         "frozen_decode": 25, "adapt_encode_walk": 30, "rans_encode_sf": 20,
-        "adapt_decode": 40}
+        "adapt_decode": 40, "semi_encode_walk": 16, "semi_decode": 35,
+        "train_counts": 12}
+SEMI_CHUNK = 64
 _VERIFY_OPS = 12     # a frame word: two funnel shifts, XOR, AND, the 2-bit
                      # fold, popcount, add
 
@@ -232,6 +252,18 @@ def _align_bound(ix, cfg, codes, dege, lens, outs, strands=1,
     return byts + _nbytes(codes, dege, lens, *outs), ops
 
 
+def _wpad(out, k: int):
+    """The first k compacted words in a zero-padded power-of-two buffer
+    (at least 1024), as the engine hands them to the decoders."""
+    import torch
+    W = 1024
+    while W < k + 8:
+        W <<= 1
+    wpad = torch.zeros(W, dtype=torch.int16, device=out.device)
+    wpad[:k] = out[:k]
+    return wpad
+
+
 def check_kernels():
     """Each kernel vs its plain version, same inputs on the card."""
     import torch
@@ -282,11 +314,7 @@ def check_kernels():
             max(_max_err(k3[1], p3[1]), _max_err(k3[0][:n], p3[0][:n])),
             _time_ms(lambda: kernels.compact_words(words, emit), 5),
             _time_ms(lambda: kernels.compact_words_plain(words, emit), 1))
-        W = 1024
-        while W < n + 8:
-            W <<= 1
-        wpad = torch.zeros(W, dtype=torch.int16, device=dev)
-        wpad[:n] = k3[0][:n]
+        wpad = _wpad(k3[0], n)
         k4 = kernels.frozen_decode(states, wpad, cg, T_MAIN, cum, m)
         p4 = kernels.frozen_decode_plain(states, wpad, cg, T_MAIN, cum, m)
         r["frozen_decode"] = (
@@ -385,11 +413,7 @@ def check_adaptive_kernels():
         words, emit, states = k7
         out, cnt = kernels.compact_words(words, emit)
         k = int(cnt.item())
-        W = 1024
-        while W < k + 8:
-            W <<= 1
-        wpad = torch.zeros(W, dtype=torch.int16, device=dev)
-        wpad[:k] = out[:k]
+        wpad = _wpad(out, k)
         k6 = kernels.adapt_decode(states, wpad, cg, lay.T, m, nh)
         p6 = kernels.adapt_decode_plain(states, wpad, cg, lay.T, m, nh)
         r["adapt_decode"] = (
@@ -417,6 +441,124 @@ def check_adaptive_kernels():
                 raise AssertionError(f"{tag} {name}: kernel differs from "
                                      f"its plain version ({err})")
         rows[tag] = r
+    return rows
+
+
+def check_semi_kernels():
+    """K13 at the frozen shape, then K11 -> K7 -> K3 -> K12 at the
+    adaptive shape with chunk 64, from a fresh table and from the table
+    K13 trains on the same stream; each against its plain version on the
+    same inputs on the card."""
+    import torch
+    from fastqueeze_tpu_torch.models.base import QualModel, SeqModel
+    from fastqueeze_tpu_torch.ops import engine, kernels
+    from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 7)
+    rows = {}
+    seq = SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10)
+
+    R = (T_MAIN * 7 // 8 // READ_LEN) * L_MAIN
+    counts = np.full(R, READ_LEN, np.int64)
+    lay = make_layout(counts, L_MAIN)
+    g = torch.from_numpy(to_grid(lay, rng.integers(
+        0, 4, R * READ_LEN).astype(np.uint8))).to(dev)
+    cg = torch.from_numpy(engine._counts_grid(counts, L_MAIN)).to(dev)
+    k13 = kernels.train_counts(g, cg, seq)
+    p13 = kernels.train_counts_plain(g, cg, seq)
+    valid, aux = kernels.device_aux_plain(T_MAIN, cg)
+    flat = (seq.context_grids(g, aux).long() * 4 + g.long())[valid]
+
+    def hist():
+        return torch.bincount(flat, minlength=seq.n_ctx * 4)
+
+    raw = hist().reshape(-1, 4) * seq.inc + seq.init
+    under = raw.sum(dim=1) <= seq.cap        # rows the rescale leaves alone
+    if not torch.equal(raw[under], k13[under].long()):
+        raise AssertionError("torch.bincount's histogram != K13's")
+    rows["train_seq_order10"] = {"train_counts": (
+        _max_err(k13, p13), _time_ms(lambda: kernels.train_counts(g, cg, seq),
+                                     5),
+        _time_ms(lambda: kernels.train_counts_plain(g, cg, seq), 1))}
+    BOUNDS["train_counts"] = (_nbytes(g, cg, k13),
+                              _OPS["train_counts"] * R * READ_LEN
+                              + 3 * k13.numel(), _time_ms(hist, 5))
+    print(f"  train_seq_order10 (L = {L_MAIN}, T = {T_MAIN}, "
+          f"{R * READ_LEN} symbols): bincount {BOUNDS['train_counts'][2]:.3f}"
+          f" ms")
+    del g, cg, flat, valid, aux
+
+    reads = np.full(R_ADAPT, READ_LEN, np.int64)
+    lay = make_layout(reads, L_ADAPT)
+    assert (lay.T, lay.L) == (T_ADAPT, L_ADAPT), (lay.T, lay.L)
+    n = R_ADAPT * READ_LEN
+    cg = torch.from_numpy(engine._counts_grid(reads, L_ADAPT)).to(dev)
+    for tag, m in (("semi_seq_order10", seq),
+                   ("semi_qual_fqz_A40_q2", QualModel(
+                       alphabet=40, init=1, inc=8, cap=8192, qlevel=2))):
+        if m.alphabet == 40:     # drifting ranks: realistic fqz contexts
+            syms = np.clip(np.cumsum(rng.integers(-2, 3, n)) % 60, 0, 39)
+        else:
+            syms = rng.integers(0, 4, n)
+        g = torch.from_numpy(to_grid(lay, syms.astype(np.uint8))).to(dev)
+        nh = engine._n_halve_chunk(m, L_ADAPT, SEMI_CHUNK)
+        trained = kernels.train_counts(g, cg, m)
+        for start, c0 in (("fresh", None), ("trained", trained)):
+            r = {}
+
+            def enc():
+                return kernels.semi_encode_walk(g, cg, m, nh, SEMI_CHUNK, c0)
+
+            def enc_plain():
+                return kernels.semi_encode_walk_plain(g, cg, m, nh,
+                                                      SEMI_CHUNK, c0)
+
+            k11, p11 = enc(), enc_plain()
+            r["semi_encode_walk"] = (
+                max(_max_err(a, b) for a, b in zip(k11, p11)),
+                _time_ms(enc, 3), _time_ms(enc_plain, 1))
+            sf, cnt = k11
+            k7 = kernels.rans_encode_sf(sf, cg)
+            out, nw = kernels.compact_words(*k7[:2])
+            k = int(nw.item())
+            wpad = _wpad(out, k)
+
+            def dec():
+                return kernels.semi_decode(k7[2], wpad, cg, T_ADAPT, m, nh,
+                                           SEMI_CHUNK, c0)
+
+            def dec_plain():
+                return kernels.semi_decode_plain(k7[2], wpad, cg, T_ADAPT, m,
+                                                 nh, SEMI_CHUNK, c0)
+
+            k12, p12 = dec(), dec_plain()
+            r["semi_decode"] = (
+                max(_max_err(a, b) for a, b in zip(k12, p12)),
+                _time_ms(dec, 2), _time_ms(dec_plain, 1))
+            if not torch.equal(k12[0], g) or not torch.equal(k12[1], cnt):
+                raise AssertionError(f"{tag} {start}: semi decode does not "
+                                     f"invert encode")
+            if tag == "semi_seq_order10" and start == "fresh":
+                BOUNDS.update({
+                    "semi_encode_walk": (_nbytes(g, cg, *k11),
+                                         _OPS["semi_encode_walk"] * n, None),
+                    "semi_decode": (_nbytes(k7[2], cg, *k12) + 2 * k,
+                                    _OPS["semi_decode"] * n, None)})
+            print(f"  {tag} from {start} (chunk {SEMI_CHUNK}, {k} words)")
+            for name, (err, ms, pms) in r.items():
+                print(f"  {tag + '_' + start:30s} {name:17s} max_abs_err "
+                      f"{err}  kernel {ms:10.3f} ms  plain {pms:10.3f} ms")
+                if err:
+                    raise AssertionError(f"{tag} {start} {name}: kernel "
+                                         f"differs from its plain version "
+                                         f"({err})")
+            rows[f"{tag}_{start}"] = r
+    for name, (err, ms, pms) in rows["train_seq_order10"].items():
+        print(f"  {'train_seq_order10':30s} {name:17s} max_abs_err {err}  "
+              f"kernel {ms:10.3f} ms  plain {pms:10.3f} ms")
+        if err:
+            raise AssertionError(f"train_counts: kernel differs from its "
+                                 f"plain version ({err})")
     return rows
 
 
@@ -752,6 +894,8 @@ _FROZEN_PATH = ("quant_pack", "frozen_encode_lanes", "compact_words",
                 "frozen_decode")
 _ADAPT_PATH = ("adapt_encode_walk", "rans_encode_sf", "compact_words",
                "adapt_decode")
+_SEMI_PATH = ("semi_encode_walk", "rans_encode_sf", "compact_words",
+              "semi_decode")
 
 
 def _input(tmp: str, name: str, R: int, ids: str = "sra") -> str:
@@ -789,8 +933,6 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
     no native coder or aligner call.  Adds the launches to ``totals``;
     returns (launches, the compress call's stage metrics)."""
     from fastqueeze_tpu_torch import cli
-    from fastqueeze_tpu_torch.io import native as nat
-    from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, kernels
     from fastqueeze_tpu_torch.utils.metrics import DebugInfo
     runs = []
 
@@ -799,11 +941,7 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
             super().__init__()
             runs.append(self)
 
-    kernels.reset_launch_counts()
-    for calls in (host_frozen.NATIVE_CALLS, host_adapt.NATIVE_CALLS,
-                  nat.ALIGN_CALLS):
-        for k in calls:
-            calls[k] = 0
+    _reset_counts()
     back = arc + ".back"
     refs = [ref] if ref else []
     cli.DebugInfo = Recorded
@@ -820,10 +958,6 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
     if cli.main(["-d"] + refs + [arc, "-o", back, "-f"]) != 0:
         raise RuntimeError("decompress failed")
     t_dec = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
-    native = {"frozen": dict(host_frozen.NATIVE_CALLS),
-              "adaptive": dict(host_adapt.NATIVE_CALLS),
-              "aligner": dict(nat.ALIGN_CALLS)}
     if not _round_trip_ok(back, fq, fq2):
         raise AssertionError("round trip differs from the input")
     size = sum(os.path.getsize(f) for f in (fq, fq2) if f)
@@ -832,6 +966,29 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
           f"{t_enc:.3f} s = {n_reads / t_enc:.0f} reads/s, decode "
           f"{t_dec:.3f} s = {n_reads / t_dec:.0f} reads/s, ratio "
           f"{size / arc_size:.4f} ({arc_size} bytes); byte-exact")
+    return _read_counts(path_kernels, totals), runs[0].vals
+
+
+def _reset_counts() -> None:
+    """Kernel launches and native coder / aligner calls set to 0."""
+    from fastqueeze_tpu_torch.io import native as nat
+    from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, kernels
+    kernels.reset_launch_counts()
+    for calls in (host_frozen.NATIVE_CALLS, host_adapt.NATIVE_CALLS,
+                  nat.ALIGN_CALLS):
+        for k in calls:
+            calls[k] = 0
+
+
+def _read_counts(path_kernels, totals):
+    """The launches since _reset_counts: every kernel of the path launched
+    and no native coder or aligner ran; adds them to ``totals``."""
+    from fastqueeze_tpu_torch.io import native as nat
+    from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, kernels
+    launches = dict(kernels.LAUNCHES)
+    native = {"frozen": dict(host_frozen.NATIVE_CALLS),
+              "adaptive": dict(host_adapt.NATIVE_CALLS),
+              "aligner": dict(nat.ALIGN_CALLS)}
     print(f"kernel launches in the main path: {launches}; native coder / "
           f"aligner calls: {native}")
     missing = [k for k in path_kernels if launches[k] < 1]
@@ -843,7 +1000,7 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
                              f"path: {native}")
     for k, v in launches.items():
         totals[k] += v
-    return launches, runs[0].vals
+    return launches
 
 
 def _oracle(fq: str, arc: str, flags, env: str, ref=None, fq2=None):
@@ -1056,6 +1213,131 @@ def pe_end_to_end(tmp: str, genome, ref: str, totals) -> None:
         os.remove(f)
 
 
+def semi_end_to_end(tmp: str, totals) -> None:
+    """Phase 12: the CLI with AdaptChunk:64 in the config file -D wrote."""
+    from fastqueeze_tpu_torch import cli
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    print("phase 12: semi-adaptive walk through the CLI (-D, AdaptChunk:64)")
+    fq = _input(tmp, "adaptive.fq", R_ADAPT)
+    work = os.path.join(tmp, "semi")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)             # the CLI reads ./fastqueeze.config
+    try:
+        if cli.main(["-D"]) != 0:
+            raise RuntimeError("-D failed")
+        with open("fastqueeze.config") as fh:
+            conf = fh.read()
+        if "AdaptChunk:0\n" not in conf:
+            raise AssertionError("-D wrote no AdaptChunk:0 line")
+        with open("fastqueeze.config", "w") as fh:
+            fh.write(conf.replace("AdaptChunk:0\n",
+                                  f"AdaptChunk:{SEMI_CHUNK}\n"))
+        arc = os.path.join(tmp, "semi.fqz")
+        launches, _ = _drive(fq, R_ADAPT, arc, [], _SEMI_PATH, totals)
+    finally:
+        os.chdir(cwd)
+    with ArcReader(arc) as r:
+        chunk, model = r.params.adapt_chunk, r.model_blob
+    print(f"PARAM adapt_chunk = {chunk}; K11 {launches['semi_encode_walk']} "
+          f"and K12 {launches['semi_decode']} launches")
+    if (chunk != SEMI_CHUNK or model is not None
+            or launches["semi_encode_walk"] < 2
+            or launches["semi_decode"] < 2):
+        raise AssertionError("phase 12: expected adapt_chunk 64, no model "
+                             "and K11/K12 on seq and qual")
+    os.remove(fq)
+
+
+def _api_round_trip(fq: str, n_reads: int, arc: str, params, path,
+                    totals) -> None:
+    """api.compress then api.decompress on the card, counts set to 0 just
+    before and read just after: byte-exact, a model in the archive, every
+    kernel of ``path`` launched, no native coder call."""
+    from fastqueeze_tpu_torch import api
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    _reset_counts()
+    t0 = time.time()
+    api.compress(fq, arc, params=params)
+    t_enc = time.time() - t0
+    t0 = time.time()
+    out = api.decompress(arc, arc + ".back")
+    t_dec = time.time() - t0
+    if not _same_file(fq, out[0]):
+        raise AssertionError("api round trip differs from the input")
+    with ArcReader(arc) as r:
+        if r.model_blob is None or not r.params.frozen_adapt:
+            raise AssertionError("expected a frozen_adapt archive with a "
+                                 "model")
+    size, arc_size = os.path.getsize(fq), os.path.getsize(arc)
+    print(f"api frozen_adapt=1 adapt_chunk={params.adapt_chunk}: encode "
+          f"{t_enc:.3f} s = {n_reads / t_enc:.0f} reads/s, decode "
+          f"{t_dec:.3f} s = {n_reads / t_dec:.0f} reads/s, ratio "
+          f"{size / arc_size:.4f} ({arc_size} bytes); byte-exact")
+    _read_counts(path, totals)
+
+
+def frozen_adapt_end_to_end(tmp: str, totals) -> None:
+    """Phase 13: frozen_adapt through the library API, and the engine's
+    device trainer as a library user calls it."""
+    import torch
+    from fastqueeze_tpu_torch import api
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.models.base import QualModel
+    from fastqueeze_tpu_torch.ops import engine
+    from fastqueeze_tpu_torch.pipeline.frozen import (
+        _cap_rescale, qual_ctx_flat)
+    print("phase 13: adapting from frozen tables (api, frozen_adapt=1)")
+    R = 60_000
+    fq = _input(tmp, "frozen_adapt.fq", R)
+    _api_round_trip(fq, R, os.path.join(tmp, "fa.fqz"),
+                    CodecParams(frozen_adapt=1), _ADAPT_PATH, totals)
+    _api_round_trip(fq, R, os.path.join(tmp, "fa_semi.fqz"),
+                    CodecParams(frozen_adapt=1, adapt_chunk=SEMI_CHUNK),
+                    _SEMI_PATH, totals)
+    cut = os.path.join(tmp, "cut.fq")
+    with open(fq, "rb") as src, open(cut, "wb") as dst:
+        dst.write(b"".join(src.readline() for _ in range(4 * 5_000)))
+    arcs = {}
+    for dev in ("cuda", "cpu"):
+        arcs[dev] = os.path.join(tmp, f"cut_{dev}.fqz")
+        t0 = time.time()
+        api.compress(cut, arcs[dev], params=CodecParams(
+            use_model=1, frozen_adapt=1), device=dev)
+        print(f"cut of 5,000 reads, use_model=1 frozen_adapt=1 on {dev}: "
+              f"{time.time() - t0:.3f} s")
+    if not _same_file(arcs["cuda"], arcs["cpu"]):
+        raise AssertionError("card archive != the plain versions' archive")
+    print("cut: the card's archive equals the plain versions' (CPU) archive")
+    os.remove(fq)
+
+    m = QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=2)
+    p = CodecParams()
+    lengths = np.full(R_ADAPT, READ_LEN, np.int64)
+    q = (_markov_quals(np.random.default_rng(SEED + 8), R_ADAPT)
+         - 35).reshape(-1)
+    want = _cap_rescale(m, np.bincount(
+        qual_ctx_flat(m, q, lengths) * 40 + q,
+        minlength=m.n_ctx * 40).reshape(m.n_ctx, 40))
+    _reset_counts()
+    t0 = time.time()
+    counts0 = engine.train_counts(m, p, q, lengths)
+    payload = engine.encode_stream(m, p, q, lengths, counts0=counts0,
+                                   adapt=True)
+    back = engine.decode_stream(m, p, payload, lengths, counts0=counts0,
+                                adapt=True)
+    dt = time.time() - t0
+    if not np.array_equal(counts0.cpu().numpy(), want):
+        raise AssertionError("engine.train_counts != the host trainer")
+    if not np.array_equal(back, q):
+        raise AssertionError("counts0 stream round trip differs")
+    fresh = engine.encode_stream(m, p, q, lengths, adapt=True)
+    print(f"library: train_counts (== the host trainer's table) + "
+          f"encode/decode from it: {len(payload)} bytes (fresh table "
+          f"{len(fresh)}), {dt:.3f} s; byte-exact")
+    _read_counts(("train_counts",) + _ADAPT_PATH, totals)
+
+
 _REPLACES = {
     "align_batch": ("fastqueeze_tpu_torch/csrc/align_batch.cu",
                     "fastqueeze_tpu/align/hash.py:414"),
@@ -1077,6 +1359,12 @@ _REPLACES = {
                      "fastqueeze_tpu/ops/engine.py:861"),
     "window_batch": ("fastqueeze_tpu_torch/csrc/window_batch.cu",
                      "fastqueeze_tpu/align/hash.py:797"),
+    "semi_encode_walk": ("fastqueeze_tpu_torch/csrc/semi_encode.cu",
+                         "fastqueeze_tpu/ops/engine.py:578"),
+    "semi_decode": ("fastqueeze_tpu_torch/csrc/semi_decode.cu",
+                    "fastqueeze_tpu/ops/engine.py:608"),
+    "train_counts": ("fastqueeze_tpu_torch/csrc/train_counts.cu",
+                     "fastqueeze_tpu/ops/engine.py:523"),
 }
 
 
@@ -1087,6 +1375,7 @@ def main() -> int:
     build()
     rows = check_kernels()
     rows.update(check_adaptive_kernels())
+    rows.update(check_semi_kernels())
     genome = _genome()
     rows.update(check_align_kernels(genome))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1094,11 +1383,14 @@ def main() -> int:
         launches = end_to_end(tmp)
         ref = aligned_end_to_end(tmp, genome, launches)
         pe_end_to_end(tmp, genome, ref, launches)
+        semi_end_to_end(tmp, launches)
+        frozen_adapt_end_to_end(tmp, launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"],
                **rows["k14_fwd"], **rows["k22_indel_G3_ops2"],
-               **rows["k14_window"])
+               **rows["k14_window"], **rows["semi_seq_order10_fresh"],
+               **rows["train_seq_order10"])
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[k],
               "max_abs_err": max(r[k][0] for r in rows.values() if k in r),

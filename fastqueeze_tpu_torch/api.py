@@ -1,0 +1,143 @@
+"""One-call library API of the port.
+
+The CLI (`python -m fastqueeze_tpu_torch.cli`) mirrors the reference
+binary; this module is the entry point for programmatic use, with the
+calls and archives of fastqueeze_tpu's api:
+
+    from fastqueeze_tpu_torch import api
+
+    stats = api.compress("reads.fq", "out.fqz")                 # SE
+    stats = api.compress(("r1.fq", "r2.fq"), "out.fqz")         # PE
+    stats = api.compress("reads.fq", "out.fqz", reference="ref.fa")
+    paths = api.decompress("out.fqz", "restored")               # bit-exact
+    info  = api.describe("out.fqz")
+
+Parameters are the `CodecParams` the CLI builds from its flags; only here
+can a caller set the ones no flag sets, such as ``frozen_adapt`` (keep
+adapting from the trained tables).  The coder and the aligner run on
+``device``, the CUDA card by default; ``device="cpu"`` runs the kernels'
+plain PyTorch versions and the native host coders.  Not ported yet, each
+raising NotImplementedError with its ROADMAP item: merge, extract,
+``part``, ``lossy`` and 3+ inputs (Queue A item 4), ``mesh`` (item 9).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence, Union
+
+from fastqueeze_tpu_torch.config import CodecParams
+
+Inputs = Union[str, Sequence[str]]
+
+_ITEM4 = "ROADMAP Queue A item 4"
+
+
+def _params(params: Optional[CodecParams], **overrides) -> CodecParams:
+    p = params if params is not None else CodecParams()
+    for k, v in overrides.items():
+        if v is not None:
+            setattr(p, k, v)
+    return p
+
+
+def compress(inputs: Inputs, out_path: str, *,
+             reference: Optional[str] = None,
+             params: Optional[CodecParams] = None,
+             threads: Optional[int] = None,
+             lossy: Optional[float] = None,
+             mesh: Optional[int] = None,
+             self_ref: Optional[bool] = None,
+             part: Optional[tuple] = None,
+             device="cuda") -> Dict:
+    """Compress FASTQ file(s) into a .fqz archive.
+
+    inputs: one path (SE) or a (r1, r2) pair (PE).  reference: FASTA path
+    to align against (the index file is loaded or built).  self_ref:
+    self-referential alignment (the CLI's `-S`; not with `reference`).
+    Returns the driver's stats dict (raw/compressed bytes, ratio, blocks,
+    ...)."""
+    if part is not None and tuple(part)[1:] != (1,):
+        raise NotImplementedError(f"multi-host parts (part): {_ITEM4}")
+    if lossy is not None and lossy > 1.0:
+        raise NotImplementedError(f"lossy quality transform: {_ITEM4}")
+    if mesh:
+        raise NotImplementedError("--mesh block data-parallelism: ROADMAP "
+                                  "Queue A item 9")
+    p = _params(params, threads=threads)
+    if self_ref:
+        if reference is not None:
+            raise ValueError("self_ref and reference are mutually "
+                             "exclusive")
+        p.self_align = 1
+    paths = [inputs] if isinstance(inputs, str) else list(inputs)
+    if len(paths) not in (1, 2):
+        raise NotImplementedError(f"multi-file archives ({len(paths)} "
+                                  f"inputs): {_ITEM4}")
+    if reference is not None:
+        from fastqueeze_tpu_torch.pipeline.aligned import (
+            compress_pe_aligned, compress_se_aligned)
+        if len(paths) == 1:
+            return compress_se_aligned(p, reference, paths[0], out_path,
+                                       device=device)
+        return compress_pe_aligned(p, reference, paths[0], paths[1],
+                                   out_path, device=device)
+    if len(paths) == 1:
+        from fastqueeze_tpu_torch.pipeline.driver import compress_se
+        return compress_se(p, paths[0], out_path, device=device)
+    from fastqueeze_tpu_torch.pipeline.pe import compress_pe
+    return compress_pe(p, paths[0], paths[1], out_path, device=device)
+
+
+def merge(out_path: str, parts: Sequence[str], *,
+          force: bool = True) -> Dict:
+    """Assemble partial archives into one (the CLI's `--merge`)."""
+    raise NotImplementedError(f"merging partial archives: {_ITEM4}")
+
+
+def decompress(archive: str, out_prefix: str, *,
+               reference: Optional[str] = None,
+               force: bool = True,
+               threads: Optional[int] = None,
+               device="cuda") -> List[str]:
+    """Restore the original FASTQ file(s) from an archive (bit-exact;
+    verified against the stored MD5s).  Returns the written paths.
+    Aligned archives need the same reference FASTA (checked by MD5)."""
+    from fastqueeze_tpu_torch.pipeline.driver import decompress as _d
+    return _d(archive, out_prefix, force=force, threads=threads or 0,
+              device=device, ref=reference)
+
+
+def extract(archive: str, start: int, count: int, out_prefix: str, *,
+            reference: Optional[str] = None, force: bool = True
+            ) -> List[str]:
+    """Random-access extraction of reads [start, start+count) (the CLI's
+    `-X`)."""
+    raise NotImplementedError(f"random-access decode (extract): {_ITEM4}")
+
+
+def describe(archive: str) -> Dict:
+    """Archive metadata: files, params, blocks, sizes (the CLI's -L)."""
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    with ArcReader(archive) as r:
+        p = r.params
+        return {
+            "kind": ("PE" if p.is_pe else
+                     ("multi" if getattr(p, "multi", 0) else "SE")),
+            "files": list(r.file_list),
+            "blocks": len(r.blocks),
+            "aligned": bool(p.aligned),
+            "params": p,
+            "model_bytes": len(r.model_blob) if r.model_blob else 0,
+            "raw_bytes": sum(b.raw_len1 + b.raw_len2 for b in r.blocks),
+            "payload_bytes": sum(b.payload_len for b in r.blocks),
+            "archive_bytes": os.path.getsize(archive),
+        }
+
+
+def build_index(reference: str,
+                params: Optional[CodecParams] = None) -> str:
+    """Build (or refresh) the seed index file of a reference FASTA;
+    returns its path.  compress(reference=...) loads or builds it."""
+    from fastqueeze_tpu_torch.align.index import build_index as _b
+    return _b(reference, _params(params))

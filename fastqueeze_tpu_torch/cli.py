@@ -1,6 +1,7 @@
 """Command-line interface of the port:
 
     python -m fastqueeze_tpu_torch.cli -i ref.fa [-q]
+    python -m fastqueeze_tpu_torch.cli -D
     python -m fastqueeze_tpu_torch.cli -c [ref.fa] -1 in.fq [-2 in_2.fq]
         -o out.fqz [-f] [-t N] [--qlevel N] [-q] [-s] [-S] [-I N]
     python -m fastqueeze_tpu_torch.cli -d [ref.fa] out.fqz -o prefix [-f]
@@ -9,8 +10,10 @@
 The flags and archives are those of fastqueeze_tpu's CLI.  The coder and
 the aligner run on the CUDA card; with no card the CLI stops with an
 error and never continues on the CPU (``-i`` builds the index on the
-host and needs no card).  Flags of modes the port lacks (-m, -X, --part,
---mesh) exit with the ROADMAP item that ports them.
+host and needs no card; ``-D`` writes the developer config file
+./fastqueeze.config with the defaults, which every compress reads, e.g.
+``AdaptChunk:64`` for the semi-adaptive walk).  Flags of modes the port
+lacks (-m, -X, --part, --mesh) exit with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -66,6 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-P", dest="pipeout", type=int, default=0,
                     choices=[0, 1, 2, 3], help="pipe decompressed reads to "
                     "stdout: 1=SE/PE1 2=PE2 3=interleaved")
+    ap.add_argument("-D", dest="dump_config", action="store_true",
+                    help="write ./fastqueeze.config with current defaults")
     ap.add_argument("--part", metavar="K:N",
                     help="multi-host compress (not ported)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
@@ -82,6 +87,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     t_start = time.time()
     dbg = DebugInfo()
+    if args.dump_config:
+        info(f"wrote {CodecParams().dump_config_file()}")
+        return 0
     if args.index:
         from fastqueeze_tpu_torch.align.index import build_index
         p = CodecParams()

@@ -12,15 +12,18 @@ encode is K2 (per-lane walk, gather, reverse rANS) then K3 (compaction
 of the emitted words into canonical (wave, lane) order); decode is K4.
 Adaptive coder
 (``adapt=True``): every stream starts from a fresh table (``init`` in
-every cell) that all lanes update after every wave; encode is K5 (the
-forward walk) then K7 (reverse rANS) then K3, decode is K6.  See
+every cell) or from ``counts0`` (a frozen table that keeps adapting,
+``frozen_adapt``), which all lanes update after every wave; encode is K5
+(the forward walk) then K7 (reverse rANS) then K3, decode is K6.  With
+``params.adapt_chunk`` dividing the wave count (and no caller-supplied
+contexts) the table is instead requantized every adapt_chunk waves, the
+semi-adaptive walk: encode is K11 then K7 then K3, decode is K12.
+:func:`train_counts` trains a frozen table on the device (K13).  See
 ops/kernels.py.
 
 Each job is split into a dispatch (kernels queued on the current CUDA
 stream) and ``finalize()``, which synchronizes and serializes, so a
-caller can do host work for other streams in between.  Not ported: the
-semi-adaptive walk (``adapt_chunk``, B9) and adapting from a frozen table
-(``frozen_adapt``); both raise NotImplementedError.
+caller can do host work for other streams in between.
 """
 
 from __future__ import annotations
@@ -38,11 +41,6 @@ from fastqueeze_tpu_torch.ops import kernels
 from fastqueeze_tpu_torch.ops.lanes import from_grid, make_layout, to_grid
 
 _HDR = struct.Struct("<IIII")  # T, L, n_words, n_symbols
-
-_SEMI_MSG = ("semi-adaptive walk (adapt_chunk > 0, kernel B9): ROADMAP "
-             "Queue A item 5")
-_FROZEN_ADAPT_MSG = ("adapting from a frozen table (frozen_adapt): ROADMAP "
-                     "Queue A item 5")
 
 
 @dataclass
@@ -106,11 +104,27 @@ def _chunk_of(params: CodecParams, T: int) -> int:
     return c if (c and T % c == 0) else 0
 
 
-def _adapt_checks(params: CodecParams, counts0, T: int) -> None:
-    if counts0 is not None:
-        raise NotImplementedError(_FROZEN_ADAPT_MSG)
-    if _chunk_of(params, T):
-        raise NotImplementedError(_SEMI_MSG)
+def _n_halve_chunk(model, L: int, chunk: int) -> int:
+    """Halvings that bring any row total after a chunk of ``chunk`` waves
+    back under cap (fastqueeze_tpu/ops/engine.py _n_halve_chunk)."""
+    worst = model.cap + model.inc * L * chunk + model.alphabet
+    return max(1, math.ceil(math.log2(worst / model.cap)) + 1)
+
+
+def _adapt_counts0(counts0, device) -> Optional[torch.Tensor]:
+    """The adaptive walk's starting table on ``device``: None (fresh), a
+    numpy table, or an int32 tensor already there (the walks copy it)."""
+    if counts0 is None:
+        return None
+    if isinstance(counts0, FrozenTable):
+        raise ValueError("adaptive coding starts from raw counts, not a "
+                         "quantized FrozenTable")
+    if not isinstance(counts0, torch.Tensor):
+        counts0 = torch.tensor(np.asarray(counts0), dtype=torch.int32)
+    elif counts0.device.type != "cpu" and counts0.device != resolve_device(
+            device):
+        raise ValueError(f"table on {counts0.device}, engine on {device}")
+    return counts0.to(device=device, dtype=torch.int32)
 
 
 def _ctx_grid(layout, extra_aux: Optional[Dict[str, np.ndarray]], device):
@@ -159,22 +173,29 @@ def encode_stream_job(model, params: CodecParams, flat_syms: np.ndarray,
                       extra_aux: Optional[Dict[str, np.ndarray]] = None
                       ) -> EncodeJob:
     """Dispatch one stream's encode to ``device``: frozen against
-    ``counts0``, or adaptive (``adapt=True``, fresh table; FlatModel takes
-    its per-symbol contexts in ``extra_aux["ctx"]``)."""
+    ``counts0``, or adaptive (``adapt=True``) from a fresh table or from
+    ``counts0`` (raw counts); FlatModel takes its per-symbol contexts in
+    ``extra_aux["ctx"]``."""
     counts_per_read = np.asarray(counts_per_read, np.int64)
     nsym = int(counts_per_read.sum())
     L = n_lanes or params.n_lanes(nsym)
     layout = make_layout(counts_per_read, L)
     if adapt:
-        _adapt_checks(params, counts0, layout.T)
+        c0 = _adapt_counts0(counts0, device)
     else:
         table = _as_table(counts0, device)
     syms = torch.from_numpy(
         to_grid(layout, np.asarray(flat_syms, np.uint8))).to(device)
     cg = torch.from_numpy(_counts_grid(counts_per_read, L)).to(device)
     if adapt:
-        sf = kernels.adapt_encode_walk(syms, cg, model, _n_halve(model, L),
-                                       _ctx_grid(layout, extra_aux, device))
+        ctxg = _ctx_grid(layout, extra_aux, device)
+        chunk = 0 if ctxg is not None else _chunk_of(params, layout.T)
+        if chunk:
+            sf, _ = kernels.semi_encode_walk(
+                syms, cg, model, _n_halve_chunk(model, L, chunk), chunk, c0)
+        else:
+            sf = kernels.adapt_encode_walk(syms, cg, model,
+                                           _n_halve(model, L), ctxg, c0)
         words, emit, x_final = kernels.rans_encode_sf(sf, cg)
     else:
         words, emit, x_final = kernels.frozen_encode_lanes(
@@ -200,7 +221,8 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
                       adapt: bool = False, device="cuda",
                       extra_aux: Optional[Dict[str, np.ndarray]] = None
                       ) -> DecodeJob:
-    """Dispatch one stream's decode (frozen, or adaptive) to ``device``."""
+    """Dispatch one stream's decode (frozen, or adaptive from a fresh
+    table or ``counts0``) to ``device``."""
     T, L, n_words, nsym = _HDR.unpack_from(payload, 0)
     off = _HDR.size
     states = np.frombuffer(payload, "<u4", L, off).copy()
@@ -216,10 +238,10 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
         raise ValueError(
             f"corrupt stream: layout T={layout.T} vs payload T={T}")
     if adapt:
-        _adapt_checks(params, counts0, T)
+        c0 = _adapt_counts0(counts0, device)
     else:
         table = _as_table(counts0, device)
-    # K4/K6 read words[min(off + rank, W - 1)] of this zero-padded buffer
+    # K4/K6/K12 read words[min(off + rank, W - 1)] of this zero-padded buffer
     # (power of two, >= 1024 — the reference's bucket), so renorm reads
     # past the real words on a corrupt payload decode zeros
     bucket = 1024
@@ -231,9 +253,15 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
     words_dev = torch.from_numpy(words_pad.view(np.int16)).to(device)
     cg = torch.from_numpy(_counts_grid(counts_per_read, L)).to(device)
     if adapt:
-        syms = kernels.adapt_decode(states_dev, words_dev, cg, T, model,
-                                    _n_halve(model, L),
-                                    _ctx_grid(layout, extra_aux, device))
+        ctxg = _ctx_grid(layout, extra_aux, device)
+        chunk = 0 if ctxg is not None else _chunk_of(params, T)
+        if chunk:
+            syms, _ = kernels.semi_decode(
+                states_dev, words_dev, cg, T, model,
+                _n_halve_chunk(model, L, chunk), chunk, c0)
+        else:
+            syms = kernels.adapt_decode(states_dev, words_dev, cg, T, model,
+                                        _n_halve(model, L), ctxg, c0)
     else:
         syms = kernels.frozen_decode(states_dev, words_dev, cg, T,
                                      table.cum, model)
@@ -247,3 +275,22 @@ def decode_stream(model, params: CodecParams, payload: bytes,
     """Inverse of :func:`encode_stream` -> read-major flat symbols."""
     return decode_stream_job(model, params, payload, counts_per_read,
                              counts0, adapt, device, extra_aux).finalize()
+
+
+def train_counts(model, params: CodecParams, flat_syms: np.ndarray,
+                 counts_per_read: np.ndarray,
+                 extra_aux: Optional[Dict[str, np.ndarray]] = None,
+                 n_lanes: Optional[int] = None,
+                 device="cuda") -> torch.Tensor:
+    """Train a frozen (n_ctx, A) int32 count table on ``device`` (K13):
+    the (context, symbol) histogram of one stream (read-major flat
+    symbols + per-read counts) times inc, plus init, rows halved to cap;
+    usable as ``counts0`` (fastqueeze_tpu/ops/engine.py train_counts)."""
+    counts_per_read = np.asarray(counts_per_read, np.int64)
+    L = n_lanes or params.n_lanes(int(counts_per_read.sum()))
+    layout = make_layout(counts_per_read, L)
+    syms = torch.from_numpy(
+        to_grid(layout, np.asarray(flat_syms, np.uint8))).to(device)
+    cg = torch.from_numpy(_counts_grid(counts_per_read, L)).to(device)
+    return kernels.train_counts(syms, cg, model,
+                                _ctx_grid(layout, extra_aux, device))

@@ -19,6 +19,20 @@ K7 rans_encode_sf      reverse rANS over K5's (start, end) grid
                        (engine._pass2); then K3
 K6 adapt_decode        one CTA per stream: K4's walk and renorm scan with
                        K5's table update (engine._decode)
+K5 and K6 start from a fresh table (init everywhere) or from a caller's
+count table (counts0: a frozen table that keeps adapting).
+Semi-adaptive walk (adapt_chunk; the table is snapshotted every chunk
+waves):
+K11 semi_encode_walk   lane contexts, then per chunk a row pass (halve,
+                       snapshot) and a slot pass (gather, atomicAdd)
+                       (engine._pass1_semi, _snapshot_sf, _rescale_full);
+                       then K7 and K3
+K12 semi_decode        per chunk the same row pass, then one CTA decodes
+                       the chunk's waves against the snapshot
+                       (engine._decode_semi)
+Trainer:
+K13 train_counts       lane walk + atomicAdd histogram, then the row
+                       init and cap rescale (engine._train_counts)
 Seed aligner:
 K8 align_batch         one thread per read: sampled-seed bucketed search,
                        candidates, probe prefilter, gapless verify, RC
@@ -59,7 +73,9 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "compact_words": 0, "frozen_decode": 0,
                             "adapt_encode_walk": 0, "rans_encode_sf": 0,
                             "adapt_decode": 0, "align_batch": 0,
-                            "indel_batch": 0, "window_batch": 0}
+                            "indel_batch": 0, "window_batch": 0,
+                            "semi_encode_walk": 0, "semi_decode": 0,
+                            "train_counts": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -155,9 +171,19 @@ def _lib() -> ctypes.CDLL:
             lib.fq_rans_encode_sf.argtypes = [vp, vp, i32, i32, i32] + [vp] * 4
             lib.fq_adapt_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i32] + adapt)
+            semi = spec + [i64] + [i32] * 4 + [vp] * 2
+            lib.fq_semi_encode_walk.argtypes = (
+                [vp, vp, i32, i32, i32, i32] + semi + [vp] * 3)
+            lib.fq_semi_decode.argtypes = (
+                [vp, vp, i64, vp, i32, i32, i32, i32, i32] + semi
+                + [vp] * 4)
+            lib.fq_train_counts.argtypes = (
+                [vp, vp, i32, i32, vp, i32] + spec + [i64] + [i32] * 3
+                + [vp] * 2)
             for fn in (lib.fq_decode_lane_bytes,
                        lib.fq_adapt_encode_lane_bytes,
-                       lib.fq_adapt_decode_lane_bytes):
+                       lib.fq_adapt_decode_lane_bytes,
+                       lib.fq_semi_decode_lane_bytes):
                 fn.argtypes = []
                 fn.restype = i64
             index = [vp, i32, i64, vp, vp, i64, vp, i64, vp, i32, i32, i32]
@@ -179,7 +205,9 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_compact_words, lib.fq_frozen_decode,
                        lib.fq_adapt_encode_walk, lib.fq_rans_encode_sf,
                        lib.fq_adapt_decode, lib.fq_align_batch_cuda,
-                       lib.fq_indel_batch_cuda, lib.fq_window_batch_cuda):
+                       lib.fq_indel_batch_cuda, lib.fq_window_batch_cuda,
+                       lib.fq_semi_encode_walk, lib.fq_semi_decode,
+                       lib.fq_train_counts):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -463,23 +491,51 @@ def frozen_decode(states0: torch.Tensor, words: torch.Tensor,
 
 # --- adaptive coder: K5, K7, K6 ---------------------------------------------
 
-def check_adapt_model(model) -> None:
+def check_adapt_model(model, counts0=None) -> None:
     """The adaptive kernels skip padding lanes, which is exact only while
     every count row starts at or under cap (the reference halves the rows
-    of padding lanes' contexts too)."""
-    if model.init * model.alphabet > model.cap:
+    of padding lanes' contexts too): a fresh table needs init * A <= cap,
+    a caller's table (counts0) every row total <= cap."""
+    if counts0 is None:
+        if model.init * model.alphabet > model.cap:
+            raise ValueError(
+                f"adaptive coder: init * alphabet = {model.init} * "
+                f"{model.alphabet} > cap = {model.cap}; the adaptive kernels "
+                f"need every count row to start at or under cap")
+        return
+    _check_table(counts0, model)
+    top = int(counts0.long().sum(dim=1).max()) if counts0.numel() else 0
+    if top > model.cap:
         raise ValueError(
-            f"adaptive coder: init * alphabet = {model.init} * "
-            f"{model.alphabet} > cap = {model.cap}; the adaptive kernels "
-            f"need every count row to start at or under cap")
+            f"adaptive coder: a counts0 row totals {top} > cap = "
+            f"{model.cap}; the adaptive kernels need every count row to "
+            f"start at or under cap")
 
 
-def _adapt_table(model, dev):
-    """Fresh (counts, row totals, stamps) for the K5/K6 walk."""
-    n, A = model.n_ctx, model.alphabet
-    return (torch.full((n, A), model.init, dtype=torch.int32, device=dev),
-            torch.full((n,), model.init * A, dtype=torch.int32, device=dev),
-            torch.full((n,), -1, dtype=torch.int32, device=dev))
+def _check_table(counts0: torch.Tensor, model) -> None:
+    if (counts0.dtype != torch.int32 or counts0.dim() != 2
+            or tuple(counts0.shape) != (model.n_ctx, model.alphabet)):
+        raise ValueError(f"counts0: want int32 ({model.n_ctx}, "
+                         f"{model.alphabet}), got {counts0.dtype} "
+                         f"{tuple(counts0.shape)}")
+
+
+def _start_counts(model, dev, counts0=None) -> torch.Tensor:
+    """The walk's starting (n_ctx, A) int32 counts: init everywhere, or a
+    copy of counts0 (the kernels update it in place)."""
+    if counts0 is None:
+        return torch.full((model.n_ctx, model.alphabet), model.init,
+                          dtype=torch.int32, device=dev)
+    return counts0.to(device=dev, dtype=torch.int32,
+                      memory_format=torch.contiguous_format).clone()
+
+
+def _adapt_table(model, dev, counts0=None):
+    """(counts, row totals, stamps) for the K5/K6 walk, from a fresh table
+    or from counts0."""
+    counts = _start_counts(model, dev, counts0)
+    return (counts, counts.sum(dim=1, dtype=torch.int32),
+            torch.full((model.n_ctx,), -1, dtype=torch.int32, device=dev))
 
 
 def _quant_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -511,7 +567,8 @@ def _walk_aux(T: int, cgrid: torch.Tensor, ctxg):
 
 
 def adapt_encode_walk_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
-                            n_halve: int, ctxg=None) -> torch.Tensor:
+                            n_halve: int, ctxg=None,
+                            counts0=None) -> torch.Tensor:
     """Wave loop of engine._pass1 over model.context_grids: (start, end)
     of each symbol from the pre-update row, packed as start | end << 16
     (0 at padding)."""
@@ -520,7 +577,7 @@ def adapt_encode_walk_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
     ctx = model.context_grids(syms, aux)
     s = syms.long()
     inc = torch.where(valid, model.inc, 0).to(torch.int32)
-    counts = _adapt_table(model, syms.device)[0]
+    counts = _start_counts(model, syms.device, counts0)
     sf = torch.zeros((T, L), dtype=torch.int64, device=syms.device)
     for t in range(T):
         F = _quant_rows(counts[ctx[t]])
@@ -532,18 +589,21 @@ def adapt_encode_walk_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
 
 
 def adapt_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
-                      n_halve: int, ctxg=None) -> torch.Tensor:
+                      n_halve: int, ctxg=None, counts0=None) -> torch.Tensor:
     """(T, L) uint8 symbols, (J, L) int32 read lengths [, (T, L) int32
     contexts for FlatModel] -> (T, L) int32 packed start | end << 16 from
-    a fresh adaptive table (init everywhere)."""
-    check_adapt_model(model)
+    a fresh adaptive table (init everywhere) or from a copy of counts0,
+    (n_ctx, A) int32 with every row at or under cap."""
+    check_adapt_model(model, counts0)
     kind = model.spec()[0]
     if (kind == 4) != (ctxg is not None):
         raise ValueError("adapt_encode_walk: a ctx grid goes with FlatModel "
                          "(kind 4) only")
-    grids = (syms, cgrid) + (() if ctxg is None else (ctxg,))
+    grids = ((syms, cgrid) + (() if ctxg is None else (ctxg,))
+             + (() if counts0 is None else (counts0,)))
     if not _on_card(*grids):
-        return adapt_encode_walk_plain(syms, cgrid, model, n_halve, ctxg)
+        return adapt_encode_walk_plain(syms, cgrid, model, n_halve, ctxg,
+                                       counts0)
     _check(syms, "syms", torch.uint8, 2)
     _check(cgrid, "cgrid", torch.int32, 2)
     T, L = syms.shape
@@ -555,7 +615,7 @@ def adapt_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
             raise ValueError("adapt_encode_walk: ctx grid shape mismatch")
     lib = _lib()
     dev = syms.device
-    counts, tot, stamp = _adapt_table(model, dev)
+    counts, tot, stamp = _adapt_table(model, dev, counts0)
     lanes = torch.empty((L * lib.fq_adapt_encode_lane_bytes(),),
                         dtype=torch.uint8, device=dev)
     sf = torch.empty((T, L), dtype=torch.int32, device=dev)
@@ -597,14 +657,14 @@ def rans_encode_sf(sf: torch.Tensor, cgrid: torch.Tensor):
 
 def adapt_decode_plain(states0: torch.Tensor, words: torch.Tensor,
                        cgrid: torch.Tensor, T: int, model, n_halve: int,
-                       ctxg=None) -> torch.Tensor:
+                       ctxg=None, counts0=None) -> torch.Tensor:
     """Wave loop of engine._decode: sym = #{s >= 1: F[s] <= low} from the
     pre-update row, the rANS decode and renorm scan, the table update."""
     L = states0.shape[0]
     dev = states0.device
     valid, aux = _walk_aux(T, cgrid, ctxg)
     inc = torch.where(valid, model.inc, 0).to(torch.int32)
-    counts = _adapt_table(model, dev)[0]
+    counts = _start_counts(model, dev, counts0)
     W = words.shape[0]
     w16 = _u16(words)
     st = model.lane_init(L, dev)
@@ -636,19 +696,21 @@ def adapt_decode_plain(states0: torch.Tensor, words: torch.Tensor,
 
 def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
                  cgrid: torch.Tensor, T: int, model, n_halve: int,
-                 ctxg=None) -> torch.Tensor:
+                 ctxg=None, counts0=None) -> torch.Tensor:
     """(L,) int32 initial states, (W,) int16 padded words, (J, L) int32
     read lengths [, (T, L) int32 contexts for FlatModel] -> (T, L) uint8
-    symbols (0 at padding), from a fresh adaptive table."""
-    check_adapt_model(model)
+    symbols (0 at padding), from a fresh adaptive table or from a copy of
+    counts0 (as adapt_encode_walk)."""
+    check_adapt_model(model, counts0)
     kind = model.spec()[0]
     if (kind == 4) != (ctxg is not None):
         raise ValueError("adapt_decode: a ctx grid goes with FlatModel "
                          "(kind 4) only")
-    grids = (states0, words, cgrid) + (() if ctxg is None else (ctxg,))
+    grids = ((states0, words, cgrid) + (() if ctxg is None else (ctxg,))
+             + (() if counts0 is None else (counts0,)))
     if not _on_card(*grids):
         return adapt_decode_plain(states0, words, cgrid, T, model, n_halve,
-                                  ctxg)
+                                  ctxg, counts0)
     _check(states0, "states0", torch.int32, 1)
     _check(words, "words", torch.int16, 1)
     _check(cgrid, "cgrid", torch.int32, 2)
@@ -661,7 +723,7 @@ def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
             raise ValueError("adapt_decode: ctx grid shape mismatch")
     lib = _lib()
     dev = states0.device
-    counts, tot, stamp = _adapt_table(model, dev)
+    counts, tot, stamp = _adapt_table(model, dev, counts0)
     lanes = torch.empty((L * lib.fq_adapt_decode_lane_bytes(),),
                         dtype=torch.uint8, device=dev)
     out = torch.empty((T, L), dtype=torch.uint8, device=dev)
@@ -671,6 +733,257 @@ def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
             *_spec_args(model), model.inc, model.cap, n_halve,
             _ptr(counts), _ptr(tot), _ptr(stamp), _ptr(lanes), _ptr(out))
     return out
+
+
+# --- semi-adaptive walk: K11, K12; trainer: K13 -----------------------------
+
+def _halve_rows(rows: torch.Tensor, cap: int, n: int) -> torch.Tensor:
+    """engine._rescale_full on some rows: halve ((c + 1) >> 1) wherever the
+    row total is over cap, n times."""
+    for _ in range(n):
+        tot = rows.sum(dim=1, keepdim=True)
+        rows = torch.where(tot > cap, (rows + 1) >> 1, rows)
+    return rows
+
+
+def _snapshot(counts: torch.Tensor) -> torch.Tensor:
+    """(n, A) counts -> (n, A) int64 snapshot F[s] | F[s+1] << 16 (the
+    words K1 packs; engine._snapshot_sf packs start | freq << 16 over the
+    same F)."""
+    return _u32(quant_pack_plain(counts)[1]).reshape(counts.shape)
+
+
+class _SemiTable:
+    """The semi-adaptive walk's count table and snapshot.  A chunk
+    boundary halves and re-snapshots only the rows the chunk touched and
+    the rows still over cap: every other row is at or under cap and
+    unchanged, where the reference's whole-table pass is a no-op."""
+
+    def __init__(self, model, dev, counts0):
+        self.cap, self.inc = model.cap, model.inc
+        self.counts = _start_counts(model, dev, counts0)
+        self.snap = _snapshot(self.counts)
+        self.over = self.counts.long().sum(dim=1) > self.cap
+        self.touched = []
+
+    def add(self, ctx: torch.Tensor, sym: torch.Tensor) -> None:
+        """inc at each (ctx, sym) of the chunk's valid slots."""
+        self.counts.index_put_(
+            (ctx, sym), torch.full_like(ctx, self.inc, dtype=torch.int32),
+            accumulate=True)
+        self.touched.append(ctx)
+
+    def boundary(self, n_halve: int, snapshot: bool = True) -> None:
+        rows = torch.unique(torch.cat(self.touched + [
+            self.over.nonzero()[:, 0]]))
+        self.touched = []
+        r = _halve_rows(self.counts[rows], self.cap, n_halve)
+        self.counts[rows] = r
+        self.over[rows] = r.long().sum(dim=1) > self.cap
+        if snapshot:
+            self.snap[rows] = _snapshot(r)
+
+
+def semi_encode_walk_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
+                           n_halve: int, chunk: int, counts0=None):
+    """engine._pass1_semi, a chunk at a time: (T, L) int32 start | end
+    << 16 (0 at padding) and the final (n_ctx, A) int32 counts."""
+    T, L = syms.shape
+    valid, aux = device_aux_plain(T, cgrid)
+    ctx = model.context_grids(syms, aux).long()
+    s = syms.long()
+    tab = _SemiTable(model, syms.device, counts0)
+    sf = torch.zeros((T, L), dtype=torch.int64, device=syms.device)
+    for t0 in range(0, T, chunk):
+        if t0:
+            tab.boundary(n_halve)
+        v = valid[t0:t0 + chunk]
+        cx, sx = ctx[t0:t0 + chunk][v], s[t0:t0 + chunk][v]
+        part = torch.zeros_like(sf[t0:t0 + chunk])
+        part[v] = tab.snap[cx, sx]
+        sf[t0:t0 + chunk] = part
+        tab.add(cx, sx)
+    tab.boundary(n_halve, snapshot=False)
+    return _to_i32(sf), tab.counts
+
+
+def _semi_checks(name: str, model, T: int, chunk: int, counts0) -> None:
+    if model.spec()[0] == 4:
+        raise ValueError(f"{name}: the semi-adaptive walk takes models "
+                         f"that compute their contexts (kinds 0-3)")
+    if chunk <= 0 or T % chunk:
+        raise ValueError(f"{name}: chunk {chunk} must divide T = {T}")
+    if counts0 is not None:
+        _check_table(counts0, model)
+
+
+def semi_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
+                     n_halve: int, chunk: int, counts0=None):
+    """K11: (T, L) uint8 symbols, (J, L) int32 read lengths -> ((T, L)
+    int32 packed start | end << 16, 0 at padding, as K7 reads it; the
+    final (n_ctx, A) int32 counts), the table starting as init everywhere
+    or as a copy of counts0 and snapshotted every ``chunk`` waves (chunk
+    divides T), halved up to n_halve times at each chunk boundary."""
+    T, L = syms.shape
+    _semi_checks("semi_encode_walk", model, T, chunk, counts0)
+    grids = (syms, cgrid) + (() if counts0 is None else (counts0,))
+    if not _on_card(*grids):
+        return semi_encode_walk_plain(syms, cgrid, model, n_halve, chunk,
+                                      counts0)
+    _check(syms, "syms", torch.uint8, 2)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    if cgrid.shape[1] != L:
+        raise ValueError("semi_encode_walk: shape mismatch")
+    dev = syms.device
+    counts = _start_counts(model, dev, counts0)
+    snap = torch.empty((counts.numel(),), dtype=torch.int32, device=dev)
+    ctxg = torch.empty((T, L), dtype=torch.int32, device=dev)
+    sf = torch.empty((T, L), dtype=torch.int32, device=dev)
+    _launch(_lib().fq_semi_encode_walk, "semi_encode_walk", _ptr(syms),
+            _ptr(cgrid), cgrid.shape[0], T, L, model.alphabet,
+            *_spec_args(model), model.n_ctx, model.inc, model.cap, n_halve,
+            chunk, _ptr(counts), _ptr(snap), _ptr(ctxg), _ptr(sf))
+    return sf, counts
+
+
+def _search_steps(A: int) -> int:
+    """engine._decode_semi's binary-search step count, ceil(log2 A) but
+    at least 1."""
+    return max(1, (A - 1).bit_length())
+
+
+def semi_decode_plain(states0: torch.Tensor, words: torch.Tensor,
+                      cgrid: torch.Tensor, T: int, model, n_halve: int,
+                      chunk: int, counts0=None):
+    """Wave loop of engine._decode_semi: the binary search over the
+    snapshot's low halves, the rANS decode and renorm scan, the count
+    update; the table pass at each chunk boundary.  Returns ((T, L) uint8
+    symbols, final counts)."""
+    L = states0.shape[0]
+    A = model.alphabet
+    dev = states0.device
+    valid, aux = device_aux_plain(T, cgrid)
+    tab = _SemiTable(model, dev, counts0)
+    W = words.shape[0]
+    w16 = _u16(words)
+    st = model.lane_init(L, dev)
+    x = _u32(states0)
+    off = 0
+    steps = _search_steps(A)
+    out = torch.zeros((T, L), dtype=torch.uint8, device=dev)
+    for t in range(T):
+        if t and t % chunk == 0:
+            tab.boundary(n_halve)
+        vld = valid[t]
+        aux_t = {k: v[t] for k, v in aux.items()}
+        base = model.context(st, aux_t).long() * A
+        sv = tab.snap.reshape(-1)
+        low = x & (RANS_M - 1)
+        lo = torch.zeros_like(low)
+        hi = torch.full_like(low, A - 1)
+        for _ in range(steps):
+            mid = (lo + hi + 1) >> 1
+            le = (sv[base + mid] & 0xFFFF) <= low
+            lo = torch.where(le, mid, lo)
+            hi = torch.where(le, hi, mid - 1)
+        v = sv[base + lo]
+        start = v & 0xFFFF
+        f = (v >> 16) - start
+        xn = (f * (x >> PROB_BITS) + low - start) & 0xFFFFFFFF
+        need = (xn < RANS_L) & vld
+        rank = torch.cumsum(need.long(), dim=0) - need.long()
+        wv = w16[torch.clamp(off + rank, max=W - 1)]
+        xn = torch.where(need, ((xn << 16) | wv) & 0xFFFFFFFF, xn)
+        x = torch.where(vld, xn, x)
+        off += int(need.sum())
+        out[t] = torch.where(vld, lo, 0).to(torch.uint8)
+        tab.add((base // A)[vld], lo[vld])
+        new = model.update(st, lo, aux_t)
+        st = {k: torch.where(vld, new[k], st[k]) for k in st}
+    tab.boundary(n_halve, snapshot=False)
+    return out, tab.counts
+
+
+def semi_decode(states0: torch.Tensor, words: torch.Tensor,
+                cgrid: torch.Tensor, T: int, model, n_halve: int, chunk: int,
+                counts0=None):
+    """K12: (L,) int32 initial states, (W,) int16 padded words, (J, L)
+    int32 read lengths -> ((T, L) uint8 symbols, 0 at padding; the final
+    (n_ctx, A) int32 counts), the inverse of semi_encode_walk + K7."""
+    _semi_checks("semi_decode", model, T, chunk, counts0)
+    grids = (states0, words, cgrid) + (() if counts0 is None
+                                       else (counts0,))
+    if not _on_card(*grids):
+        return semi_decode_plain(states0, words, cgrid, T, model, n_halve,
+                                 chunk, counts0)
+    _check(states0, "states0", torch.int32, 1)
+    _check(words, "words", torch.int16, 1)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    L = states0.shape[0]
+    if cgrid.shape[1] != L or words.numel() < 1:
+        raise ValueError("semi_decode: shape mismatch")
+    lib = _lib()
+    dev = states0.device
+    A = model.alphabet
+    counts = _start_counts(model, dev, counts0)
+    snap = torch.empty((counts.numel(),), dtype=torch.int32, device=dev)
+    lanes = torch.empty((L * lib.fq_semi_decode_lane_bytes(),),
+                        dtype=torch.uint8, device=dev)
+    off = torch.zeros((1,), dtype=torch.int64, device=dev)
+    out = torch.empty((T, L), dtype=torch.uint8, device=dev)
+    _launch(lib.fq_semi_decode, "semi_decode", _ptr(states0), _ptr(words),
+            words.numel(), _ptr(cgrid), cgrid.shape[0], T, L, A,
+            _search_steps(A), *_spec_args(model), model.n_ctx, model.inc,
+            model.cap, n_halve, chunk, _ptr(counts), _ptr(snap),
+            _ptr(lanes), _ptr(off), _ptr(out))
+    return out, counts
+
+
+def train_counts_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
+                       ctxg=None) -> torch.Tensor:
+    """engine._train_counts: the (ctx, sym) histogram of the valid slots
+    times inc, plus init, then up to 24 halvings of every row over cap."""
+    valid, aux = _walk_aux(syms.shape[0], cgrid, ctxg)
+    ctx = model.context_grids(syms, aux).long()
+    n, A = model.n_ctx, model.alphabet
+    flat = (ctx * A + syms.long())[valid]
+    counts = (torch.bincount(flat, minlength=n * A).reshape(n, A)
+              * model.inc + model.init)
+    for _ in range(24):
+        over = counts.sum(dim=1, keepdim=True) > model.cap
+        if not bool(over.any()):
+            break
+        counts = torch.where(over, (counts + 1) >> 1, counts)
+    return counts.to(torch.int32)
+
+
+def train_counts(syms: torch.Tensor, cgrid: torch.Tensor, model,
+                 ctxg=None) -> torch.Tensor:
+    """K13: (T, L) uint8 symbols, (J, L) int32 read lengths [, (T, L)
+    int32 contexts for FlatModel] -> the trained (n_ctx, A) int32 table."""
+    kind = model.spec()[0]
+    if (kind == 4) != (ctxg is not None):
+        raise ValueError("train_counts: a ctx grid goes with FlatModel "
+                         "(kind 4) only")
+    grids = (syms, cgrid) + (() if ctxg is None else (ctxg,))
+    if not _on_card(*grids):
+        return train_counts_plain(syms, cgrid, model, ctxg)
+    _check(syms, "syms", torch.uint8, 2)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    T, L = syms.shape
+    if cgrid.shape[1] != L:
+        raise ValueError("train_counts: shape mismatch")
+    if ctxg is not None:
+        _check(ctxg, "ctxg", torch.int32, 2)
+        if ctxg.shape != syms.shape:
+            raise ValueError("train_counts: ctx grid shape mismatch")
+    counts = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32,
+                         device=syms.device)
+    _launch(_lib().fq_train_counts, "train_counts", _ptr(syms), _ptr(cgrid),
+            cgrid.shape[0], L, None if ctxg is None else _ptr(ctxg),
+            model.alphabet, *_spec_args(model), model.n_ctx, model.inc,
+            model.init, model.cap, _ptr(counts))
+    return counts
 
 
 # --- the seed aligner: K8 align_batch, K9 indel_batch ------------------------

@@ -127,7 +127,7 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
     from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
     from fastqueeze_tpu_torch.pipeline.driver import _gate_bytes
     from fastqueeze_tpu_torch.pipeline.frozen import (
-        _qual_alphabet, device_tables, serialize_frozen, train_frozen)
+        serialize_frozen, stage_tables, train_frozen)
     t0 = time.time()
     block = parse_block(*next(iter(read_blocks(in_path,
                                                p.model_train_mb << 20))))
@@ -137,8 +137,7 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
         block, frac = dedup_training_block(block, p)
         est = int(est * frac)
     frozen = train_frozen(p, block, est_total_syms=est)
-    device_tables(frozen, _qual_alphabet(frozen["qmax"]), p.qctx_eff_init(),
-                  device)
+    stage_tables(frozen, p, device)
     dbg.add("train_s", time.time() - t0)
     return frozen, serialize_frozen(frozen)
 
@@ -206,7 +205,7 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
     from fastqueeze_tpu_torch.pipeline.pe import (
         _RecordReader, check_ported, interleave_blocks, pe_block_items,
         pe_payload, train_frozen_pe_prefix)
-    check_ported(p, in1, in2)
+    check_ported(p)
     dbg = dbg or DebugInfo()
     t0 = time.time()
     aligner, ref = prepare_ref(p, ref_path)

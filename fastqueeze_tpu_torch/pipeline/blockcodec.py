@@ -6,16 +6,16 @@ coded streams — lengths, read IDs (binned), plus lines, duplicate-read
 back-references, degenerate (non-ACGT) bases, 2-bit sequence, quality —
 each wrapped in a TLV section.  The two big streams (seq, qual) go to the
 wave-rANS coder on the engine's device: frozen when the archive has
-trained tables, adaptive otherwise.  Every other stream of at most
+trained tables (adapting from them with frozen_adapt), adaptive
+otherwise.  Every other stream of at most
 ``host_stream_max`` symbols goes to the native host range coder (marker
 2); longer ones go to the adaptive wave-rANS coder (marker 1).
 
 Reference-aligned and self-referential blocks add the alignment streams:
 per-read mapped flags, and for the mapped reads window start, strand,
 mismatch counts, positions and substituted bases (context = the reference
-base), plus the indel CIGAR streams.  Not ported yet: frozen_adapt
-(ROADMAP Queue A item 5), the long-read chunk streams (item 8) and the PE
-``-I`` insert deltas (item 6).
+base), plus the indel CIGAR streams and the PE ``-I`` insert deltas.  Not
+ported yet: the long-read chunk streams (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, host_rans
 from fastqueeze_tpu_torch.ops.engine import (
     decode_stream, decode_stream_job, encode_stream, encode_stream_job)
 from fastqueeze_tpu_torch.pipeline.frozen import (
-    device_tables, frozen_host_cums, qual_lut, qual_vocab)
+    device_raw_tables, device_tables, frozen_host_cums, qual_lut, qual_vocab)
 from fastqueeze_tpu_torch.pipeline.idproc import (
     IdBinSchema, analyze_ids, reconstruct_ids)
 
@@ -73,8 +73,6 @@ TAG_ACG2S = 30    # 2-op reads: second split position s2 (>= s1 + |g1<0|)
 TAG_ACG2L = 31    # 2-op reads: zigzag signed second gap g2
 TAG_LRF = 32      # first tag of the long-read chunk streams (32-45)
 
-_FROZEN_ADAPT_MSG = ("adapting from a frozen table (frozen_adapt): ROADMAP "
-                     "Queue A item 5")
 _VAR_CHUNK = 256  # var byte streams are cut into pseudo-reads for lanes
 _LR_MSG = ("long-read chunk streams (reads over align_max_len): ROADMAP "
            "Queue A item 8")
@@ -460,12 +458,17 @@ def _decode_le(p: CodecParams, blob: bytes, n: int, nbytes: int,
 def _stream_jobs(p: CodecParams, frozen: Optional[Dict], device, seq, qual,
                  decode: bool = False):
     """Dispatch the seq and qual streams, each (model, symbols or payload,
-    per-read counts): frozen against ``frozen``'s tables or adaptive when
-    it is None, on the native host coder where host_frozen.route /
-    host_adapt.route say so and on ``device`` otherwise (bit-identical
-    either way).  Returns the two jobs."""
+    per-read counts): frozen against ``frozen``'s tables, adaptive from a
+    fresh table when it is None, or adaptive from its raw counts with
+    frozen_adapt.  Frozen streams go to the native host coder where
+    host_frozen.route says so and fresh adaptive ones where host_adapt.route
+    does (bit-identical either way); frozen_adapt streams have no native
+    coder (as in the reference) and always take ``device``.  Returns the
+    two jobs."""
     jobs = [None, None]
-    if frozen is not None:
+    adapt = frozen is None or bool(p.frozen_adapt)
+    tables = (None, None)
+    if not adapt:
         routed = [host_frozen.route(p, m, device) for m, _, _ in (seq, qual)]
         if any(routed):
             cums = frozen_host_cums(frozen, qual[0].alphabet,
@@ -478,18 +481,20 @@ def _stream_jobs(p: CodecParams, frozen: Optional[Dict], device, seq, qual,
         if None in jobs:
             tables = device_tables(frozen, qual[0].alphabet,
                                    p.qctx_eff_init(), device)
-    else:
+    elif frozen is None:
         for i, (m, data, counts) in enumerate((seq, qual)):
             if host_adapt.route(p, m, device):
                 job = (host_adapt.decode_job if decode
                        else host_adapt.encode_job)
                 jobs[i] = job(m, p, data, counts)
+    else:
+        tables = device_raw_tables(frozen, qual[0].alphabet,
+                                   p.qctx_eff_init(), device)
     for i, (m, data, counts) in enumerate((seq, qual)):
         if jobs[i] is None:
-            kw = (dict(adapt=True) if frozen is None
-                  else dict(counts0=tables[i]))
             job = decode_stream_job if decode else encode_stream_job
-            jobs[i] = job(m, p, data, counts, device=device, **kw)
+            jobs[i] = job(m, p, data, counts, counts0=tables[i],
+                          adapt=adapt, device=device)
     return jobs
 
 
@@ -514,8 +519,6 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
     entropy-only); ref_codes: the reference's 2-bit codes (required with
     align); self_ref: ref_codes is the block's own unmapped reads
     (pipeline/selfref.py), which decode rebuilds."""
-    if frozen is not None and p.frozen_adapt:
-        raise NotImplementedError(_FROZEN_ADAPT_MSG)
     R = block.n_reads
     lengths = block.lengths
     out = io.BytesIO()
@@ -898,8 +901,6 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
     if n_mapped and ref_codes is None and not self_ref:
         raise ValueError("archive was reference-aligned: decode needs the "
                          "reference FASTA")
-    if frozen is not None and p.frozen_adapt:
-        raise NotImplementedError(_FROZEN_ADAPT_MSG)
 
     # --- lengths ---
     if meta["clen"] is not None:

@@ -11,9 +11,8 @@ Self-referential blocks (auto probe or -S) are coded here; compressing
 against a reference FASTA is pipeline/aligned.py, paired-end input is
 pipeline/pe.py, and decompress takes the FASTA (``ref``) and sends PE
 archives to pe.decompress_pe_blocks.  Not ported yet, each raising
-NotImplementedError with its ROADMAP item: frozen_adapt and adapt_chunk's
-semi-adaptive walk (Queue A item 5), --mesh (item 9), --part, -X, -m and
-the lossy transform (item 4).
+NotImplementedError with its ROADMAP item: --mesh (Queue A item 9),
+--part, -X, -m and the lossy transform (item 4).
 """
 
 from __future__ import annotations
@@ -42,16 +41,12 @@ def _gate_bytes(in_path: str) -> int:
     return sz * 5 if in_path.endswith(".gz") else sz
 
 
-def _unported(params: CodecParams, in_bytes: int) -> Optional[str]:
+def _unported(params: CodecParams) -> Optional[str]:
     """The ROADMAP item of a requested feature the port lacks, or None."""
-    from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     if params.mesh_n:
         return "--mesh block data-parallelism: ROADMAP Queue A item 9"
     if params.lossy_factor > 1.0:
         return "lossy quality transform: ROADMAP Queue A item 4"
-    if params.frozen_adapt and decide_use_model(params, in_bytes):
-        return ("adapting from a frozen table (frozen_adapt): ROADMAP "
-                "Queue A item 5")
     return None
 
 
@@ -63,7 +58,7 @@ def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
     tables from the parsed arrays and upload them to ``device``."""
     from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
     from fastqueeze_tpu_torch.pipeline.frozen import (
-        _qual_alphabet, device_tables, train_frozen_blocks)
+        stage_tables, train_frozen_blocks)
     t0 = time.time()
     need = params.model_train_mb << 20
     got = 0
@@ -82,15 +77,14 @@ def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
         uq = sum(int(tb.lengths.sum()) for tb in tblocks)
         est = int(est * uq / max(syms, 1))
     frozen = train_frozen_blocks(params, tblocks, est_total_syms=est)
-    device_tables(frozen, _qual_alphabet(frozen["qmax"]),
-                  params.qctx_eff_init(), device)
+    stage_tables(frozen, params, device)
     dbg.add("train_s", time.time() - t0)
     return frozen
 
 
 def compress_se(params: CodecParams, in_path: str, out_path: str,
                 dbg: Optional[DebugInfo] = None, device="cuda") -> Dict:
-    why = _unported(params, _gate_bytes(in_path))
+    why = _unported(params)
     if why:
         raise NotImplementedError(why)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model

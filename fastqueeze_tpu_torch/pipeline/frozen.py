@@ -871,6 +871,37 @@ def device_tables(frozen: Dict, qual_alphabet: int, init: int, device):
     return cache[skey], cache[qkey]
 
 
+def device_raw_tables(frozen: Dict, qual_alphabet: int, init: int, device):
+    """(seq, qual) raw (n_ctx, A) int32 count tables on ``device``, the
+    qual table padded as device_tables pads it: the starting tables of the
+    adaptive walk when frozen_adapt keeps adapting from the snapshot (the
+    walks copy them).  Counterpart of fastqueeze_tpu/pipeline/frozen.py
+    frozen_dev_tables; cached in the frozen dict like device_tables."""
+    import torch
+    from fastqueeze_tpu_torch.ops.engine import resolve_device
+    dev = str(resolve_device(device))
+    cache = frozen.setdefault("_dev", {})
+    skey = ("seq_raw", dev)
+    if skey not in cache:
+        cache[skey] = torch.tensor(np.asarray(frozen["seq_counts"]),
+                                   dtype=torch.int32, device=dev)
+    qkey = ("qual_raw", qual_alphabet, init, dev)
+    if qkey not in cache:
+        cache[qkey] = torch.tensor(
+            fit_qual_alphabet(np.asarray(frozen["qual_counts"]),
+                              qual_alphabet, init),
+            dtype=torch.int32, device=dev)
+    return cache[skey], cache[qkey]
+
+
+def stage_tables(frozen: Dict, p: CodecParams, device) -> None:
+    """Put a freshly trained archive's tables on ``device`` before the
+    first block: quantized (device_tables) for coding against the
+    snapshot, raw counts (device_raw_tables) with frozen_adapt."""
+    tables = device_raw_tables if p.frozen_adapt else device_tables
+    tables(frozen, _qual_alphabet(frozen["qmax"]), p.qctx_eff_init(), device)
+
+
 def frozen_host_cums(frozen: Dict, qual_alphabet: int, init: int):
     """Host-resident quantized cumfreq tables for the native frozen coder
     (ops/host_frozen.py) — the host twin of device_tables.  Quantized

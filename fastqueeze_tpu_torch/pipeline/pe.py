@@ -13,7 +13,7 @@ holds one whole-input MD5 per file.  Decode writes <prefix>_1.fastq and
 Compressing against a reference is pipeline/aligned.py
 (compress_pe_aligned).  Not ported yet, each raising NotImplementedError
 with its ROADMAP item: --part and the lossy transform (Queue A item 4),
---mesh (item 9), frozen_adapt above the usemodel gate (item 5).
+--mesh (item 9).
 """
 
 from __future__ import annotations
@@ -128,11 +128,10 @@ def _gather(flat, starts, lens):
     return flat[_idx(starts, lens)]
 
 
-def check_ported(p: CodecParams, in1: str, in2: str) -> None:
-    """Refuse what the PE path does not port yet, naming its item (the
-    usemodel gate counts both files)."""
+def check_ported(p: CodecParams) -> None:
+    """Refuse what the PE path does not port yet, naming its item."""
     from fastqueeze_tpu_torch.pipeline.driver import _unported
-    why = _unported(p, os.path.getsize(in1) + os.path.getsize(in2))
+    why = _unported(p)
     if why:
         raise NotImplementedError(why)
 
@@ -163,7 +162,7 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         from fastqueeze_tpu_torch.pipeline.aligned import compress_pe_aligned
         return compress_pe_aligned(p, ref, in1, in2, out_path, dbg=dbg,
                                    device=device)
-    check_ported(p, in1, in2)
+    check_ported(p)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     p.is_pe = 1
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
@@ -281,7 +280,7 @@ def train_frozen_pe_prefix(p: CodecParams, in1: str, in2: str, device,
     ``device``.  Returns (frozen, serialized blob)."""
     from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
     from fastqueeze_tpu_torch.pipeline.frozen import (
-        _qual_alphabet, device_tables, serialize_frozen, train_frozen_blocks)
+        serialize_frozen, stage_tables, train_frozen_blocks)
     t0 = time.time()
     half = (p.model_train_mb << 20) // 2
     b1 = parse_block(*next(iter(read_blocks(in1, half))))
@@ -297,8 +296,7 @@ def train_frozen_pe_prefix(p: CodecParams, in1: str, in2: str, device,
         merged, frac = dedup_training_block(merged, p)
         est = int(est * frac)
     frozen = train_frozen_blocks(p, [merged], est_total_syms=est)
-    device_tables(frozen, _qual_alphabet(frozen["qmax"]), p.qctx_eff_init(),
-                  device)
+    stage_tables(frozen, p, device)
     dbg.add("train_s", time.time() - t0)
     return frozen, serialize_frozen(frozen)
 

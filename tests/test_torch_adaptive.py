@@ -7,8 +7,9 @@ encode_stream(adapt=True) and the symbols of decode_stream, for every
 model kind (seq, fqz quality at qlevel 2 and 3, a hashed rank chain,
 order-1 byte, flat with a ctx grid, order-0 binary), with zero-length
 reads; the pinned payload MD5s of tests/test_engine.py; the context
-models' vectorized grids against their lane walk; the refusals (over-cap
-initial rows, the semi-adaptive walk) and the native-coder routing.
+models' vectorized grids against their lane walk; the semi-adaptive walk
+and a counts0 start through the engine; the refusals (over-cap initial
+rows) and the native-coder routing.
 """
 
 import hashlib
@@ -186,20 +187,30 @@ def test_jax_overcap_initial_rows_do_not_round_trip():
 
 
 def test_semi_adaptive_walk_raises():
-    """adapt_chunk > 0 dividing T selects B9 (not ported): raise rather
-    than write the per-wave walk's different bytes."""
-    _, tm, counts, syms, _ = _case("seq_o6", 5)
-    p = CodecParams(adapt_chunk=128, **_P)
-    with pytest.raises(NotImplementedError, match="B9"):
-        te.encode_stream(tm, p, syms, counts, adapt=True, device="cpu")
+    """adapt_chunk > 0 dividing T selects B9 (K11/K12) and a counts0 with
+    adapt=True adapts from that table: both write the JAX engine's
+    payloads and decode them; what still raises is a counts0 row over cap
+    on the per-wave walk (K5/K6 skip padding lanes)."""
+    jm, tm, counts, syms, _ = _case("seq_o6", 5)
+    p, jp = CodecParams(adapt_chunk=128, **_P), JParams(adapt_chunk=128, **_P)
+    assert te.make_layout(counts, p.n_lanes(int(counts.sum()))).T % 128 == 0
+    payload = te.encode_stream(tm, p, syms, counts, adapt=True, device="cpu")
+    assert payload == je.encode_stream(jm, jp, syms, counts)
+    assert payload != te.encode_stream(tm, CodecParams(**_P), syms, counts,
+                                       adapt=True, device="cpu")
+    assert np.array_equal(te.decode_stream(tm, p, payload, counts,
+                                           adapt=True, device="cpu"), syms)
+    ones = np.ones((tm.n_ctx, 4), np.int32)
     payload = te.encode_stream(tm, CodecParams(**_P), syms, counts,
-                               adapt=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="B9"):
-        te.decode_stream(tm, p, payload, counts, adapt=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="frozen_adapt"):
+                               counts0=ones, adapt=True, device="cpu")
+    assert payload == je.encode_stream(jm, JParams(**_P), syms, counts,
+                                       counts0=jnp.asarray(ones))
+    assert np.array_equal(te.decode_stream(tm, CodecParams(**_P), payload,
+                                           counts, counts0=ones, adapt=True,
+                                           device="cpu"), syms)
+    with pytest.raises(ValueError, match="cap"):
         te.encode_stream(tm, CodecParams(**_P), syms, counts,
-                         counts0=np.ones((tm.n_ctx, 4), np.int32),
-                         adapt=True, device="cpu")
+                         counts0=ones * 100, adapt=True, device="cpu")
 
 
 def test_native_route_and_payload(monkeypatch):

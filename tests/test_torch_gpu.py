@@ -344,6 +344,149 @@ def test_adaptive_pipeline_on_card_matches_host_route(cuda, tmp_path,
         assert open(out[0], "rb").read() == fq.read_bytes(), kw
 
 
+# --- semi-adaptive walk: K11, K12; trainer: K13 -----------------------------
+
+_SEMI = {
+    "seq_o10": SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10),
+    "fqz_q3": QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=3),
+    "order1_byte": Order1ByteModel(alphabet=256, init=1, inc=16, cap=8192),
+}
+
+
+def _semi_stream(rng, model, shape):
+    """(counts, L, chunk): "ragged" = variable reads, zero-length ones and
+    a long last read, chunk 64; "chunk_is_T" = one chunk of every wave."""
+    if shape == "ragged":
+        counts = rng.integers(0, 120, 1500).astype(np.int64)
+        counts[::11] = 0
+        counts[-1] = 900
+        return counts, 256, 64
+    counts = np.full(700, 100, np.int64)
+    return counts, 64, make_layout(counts, 64).T
+
+
+@pytest.mark.parametrize("shape", ["ragged", "chunk_is_T"])
+@pytest.mark.parametrize("name", sorted(_SEMI))
+def test_semi_kernels_match_plain(cuda, name, shape):
+    """K11 -> K7 -> K3 -> K12 on the card against the plain versions on
+    the same inputs, from init and from a table trained by K13; the
+    decode inverts the encode and the final counts agree."""
+    model = _SEMI[name]
+    rng = np.random.default_rng(len(name) + len(shape))
+    counts, L, chunk = _semi_stream(rng, model, shape)
+    lay = make_layout(counts, L)
+    assert lay.T % chunk == 0
+    syms = rng.integers(0, model.alphabet, int(counts.sum())).astype(np.uint8)
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    trained = kernels.train_counts(g.flip(0).contiguous().to(cuda),
+                                   cg.to(cuda), model)
+    nh = engine._n_halve_chunk(model, L, chunk)
+    kernels.reset_launch_counts()
+    for c0 in (None, trained):
+        c0_p = None if c0 is None else c0.cpu()
+        sf_p, cnt_p = kernels.semi_encode_walk(g, cg, model, nh, chunk, c0_p)
+        sf, cnt = kernels.semi_encode_walk(g.to(cuda), cg.to(cuda), model,
+                                           nh, chunk, c0)
+        assert torch.equal(sf.cpu(), sf_p) and torch.equal(cnt.cpu(), cnt_p)
+        enc = kernels.rans_encode_sf(sf, cg.to(cuda))
+        out, n = kernels.compact_words(*enc[:2])
+        k = int(n.item())
+        W = 1024
+        while W < k + 8:
+            W <<= 1
+        words = torch.zeros(W, dtype=torch.int16)
+        words[:k] = out[:k].cpu()
+        dec_p, dc_p = kernels.semi_decode(enc[2].cpu(), words, cg, lay.T,
+                                          model, nh, chunk, c0_p)
+        dec, dc = kernels.semi_decode(enc[2], words.to(cuda), cg.to(cuda),
+                                      lay.T, model, nh, chunk, c0)
+        torch.cuda.synchronize()
+        assert torch.equal(dec.cpu(), dec_p) and torch.equal(dc.cpu(), dc_p)
+        assert torch.equal(dec.cpu(), g)
+        assert torch.equal(dc_p, cnt_p)
+    assert kernels.LAUNCHES["semi_encode_walk"] == 2
+    assert kernels.LAUNCHES["semi_decode"] == 2
+
+
+_TRAIN = {
+    "seq_o10": SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10),
+    "fqz_q2": QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=2),
+    "chain_k4_hash": QualModel(alphabet=8, init=1, inc=16, cap=8192, k=4,
+                               ctx_base=7, hash_bits=16, pos_bits=3,
+                               drop_bits=2),
+    "flat_4": FlatModel(alphabet=256, init=1, inc=16, cap=8192, n_ctx=4),
+}
+
+
+@pytest.mark.parametrize("L", [256, 4096])
+@pytest.mark.parametrize("name", sorted(_TRAIN))
+def test_train_counts_matches_plain(cuda, name, L):
+    """K13 == its plain version: ragged reads with a long last read at two
+    lane counts; every row at or under cap."""
+    model = _TRAIN[name]
+    rng = np.random.default_rng(L)
+    counts = rng.integers(0, 150, 3 * L).astype(np.int64)
+    counts[::7] = 0
+    counts[-1] = 2000
+    lay = make_layout(counts, L)
+    syms = rng.integers(0, model.alphabet, int(counts.sum())).astype(np.uint8)
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    cx = None
+    if isinstance(model, FlatModel):
+        cx = torch.from_numpy(to_grid(lay, rng.integers(
+            0, 4, len(syms)).astype(np.int32)))
+    want = kernels.train_counts(g, cg, model, cx)
+    kernels.reset_launch_counts()
+    got = kernels.train_counts(g.to(cuda), cg.to(cuda), model,
+                               None if cx is None else cx.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert int(want.long().sum(dim=1).max()) <= model.cap
+    assert kernels.LAUNCHES["train_counts"] == 1
+
+
+def test_semi_and_frozen_adapt_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """compress_se with adapt_chunk=64, with use_model=1 and frozen_adapt=1,
+    and with both: the card's archive equals the CPU's (plain versions);
+    K11/K12 or K5/K6 launch, no native coder runs; it decodes on the card
+    byte for byte."""
+    from fastqueeze_tpu_torch.ops import host_adapt, host_frozen
+    from fastqueeze_tpu_torch.pipeline import driver
+    rng = np.random.default_rng(33)
+    recs = []
+    for r in range(1500):
+        n = int(rng.integers(60, 140))
+        seq = bytearray(rng.choice(list(b"ACGT"), n).astype(np.uint8))
+        qual = (np.clip(np.cumsum(rng.integers(-2, 3, n)) + 30, 2, 41)
+                + 33).astype(np.uint8)
+        recs.append(b"@read.%d\n%s\n+\n%s\n" % (r, bytes(seq), bytes(qual)))
+    fq = tmp_path / "in.fq"
+    fq.write_bytes(b"".join(recs))
+    for kw, path in ((dict(adapt_chunk=64), ("semi_encode_walk",
+                                             "semi_decode")),
+                     (dict(use_model=1, frozen_adapt=1),
+                      ("adapt_encode_walk", "adapt_decode")),
+                     (dict(use_model=1, frozen_adapt=1, adapt_chunk=64),
+                      ("semi_encode_walk", "semi_decode"))):
+        cpu, card = str(tmp_path / "cpu.fqz"), str(tmp_path / "card.fqz")
+        driver.compress_se(CodecParams(**kw), str(fq), cpu, device="cpu")
+        kernels.reset_launch_counts()
+        for calls in (host_adapt.NATIVE_CALLS, host_frozen.NATIVE_CALLS):
+            for k in calls:
+                calls[k] = 0
+        driver.compress_se(CodecParams(**kw), str(fq), card, device=cuda)
+        out = driver.decompress(card, str(tmp_path / "back"), force=True,
+                                device=cuda)
+        assert open(out[0], "rb").read() == fq.read_bytes(), kw
+        with open(cpu, "rb") as a, open(card, "rb") as b:
+            assert a.read() == b.read(), kw
+        for k in path:
+            assert kernels.LAUNCHES[k] >= 2, (kw, k)
+        assert not any(host_adapt.NATIVE_CALLS.values())
+        assert not any(host_frozen.NATIVE_CALLS.values())
+
+
 # --- the seed aligner: K8 align_batch, K9 indel_batch ------------------------
 
 def _align_fixture(k: int, n_reads: int = 400, seed: int = 41):

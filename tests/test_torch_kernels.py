@@ -120,16 +120,28 @@ def test_wrappers_take_plain_path_on_cpu_only():
 
 
 def test_adaptive_not_ported():
-    """What of the adaptive coder stays unported raises: adapting from a
-    frozen table (frozen_adapt) and the semi-adaptive walk (B9)."""
-    _, tm, counts, syms, table = _case("seq_o6", 5)
+    """What PR 1 left unported of the adaptive coder now matches the JAX
+    engine: adapting from a frozen table (counts0 with adapt=True; the
+    semi-adaptive walk takes this table's over-cap rows, the per-wave walk
+    refuses them) and the semi-adaptive walk (B9) with a chunk of T."""
+    jm, tm, counts, syms, table = _case("seq_o6", 5)
     p = CodecParams(**_P)
-    with pytest.raises(NotImplementedError, match="frozen_adapt"):
-        te.encode_stream(tm, p, syms, counts, table, adapt=True, device="cpu")
     T = te.make_layout(counts, p.n_lanes(int(counts.sum()))).T
-    with pytest.raises(NotImplementedError, match="B9"):
-        te.encode_stream(tm, CodecParams(adapt_chunk=T, **_P), syms, counts,
-                         adapt=True, device="cpu")
+    with pytest.raises(ValueError, match="cap"):
+        te.encode_stream(tm, p, syms, counts, table, adapt=True, device="cpu")
+    capped = ((table >> 2) | 1).astype(np.int32)
+    assert capped.sum(axis=1).max() <= tm.cap
+    for kw, c0 in ((dict(), capped), (dict(adapt_chunk=T), table),
+                   (dict(adapt_chunk=T), None)):
+        want = je.encode_stream(jm, JParams(**kw, **_P), syms, counts,
+                                counts0=None if c0 is None
+                                else jnp.asarray(c0))
+        got = te.encode_stream(tm, CodecParams(**kw, **_P), syms, counts, c0,
+                               adapt=True, device="cpu")
+        assert got == want
+        assert np.array_equal(te.decode_stream(
+            tm, CodecParams(**kw, **_P), got, counts, c0, adapt=True,
+            device="cpu"), syms)
 
 
 def test_truncated_payload_raises_value_error():

@@ -10,8 +10,8 @@ defaults and at qlevel 3 (the port's seq/qual through its engine,
 FASTQUEEZE_ADAPT_EXEC=device; the JAX package at its defaults), and a
 frozen-path input with Illumina IDs and host_stream_max=0, whose length,
 flag, distance, degenerate-base and ID streams all take marker 1.  Also:
-the port's errors for what it does not do yet, and that it imports
-without JAX.  The aligned and self-referential paths are in
+frozen_adapt and adapt_chunk archives, the port's errors for what it does
+not do yet, and that it imports without JAX.  The aligned and self-referential paths are in
 tests/test_torch_align.py.
 """
 
@@ -210,13 +210,20 @@ def test_corrupt_seq_payload_raises_value_error(archives):
 
 
 def test_unported_paths_raise(tmp_path, archives):
+    """frozen_adapt and adapt_chunk, once refused, now write the JAX
+    package's archive (a cut of 200 reads); lossy and --mesh still raise
+    with their ROADMAP items."""
     fq = archives["qctx_off"][0]
-    with pytest.raises(NotImplementedError, match="frozen_adapt"):
-        td.compress_se(CodecParams(use_model=1, frozen_adapt=1), fq,
-                       str(tmp_path / "a.fqz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="B9"):
-        td.compress_se(CodecParams(adapt_chunk=128), fq,
-                       str(tmp_path / "s.fqz"), device="cpu")
+    with open(fq, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    small = tmp_path / "small.fq"
+    small.write_bytes(b"\n".join(lines[:800]) + b"\n")
+    for kw in (dict(use_model=1, frozen_adapt=1), dict(adapt_chunk=128)):
+        ja, ta = str(tmp_path / "j.fqz"), str(tmp_path / "t.fqz")
+        jd.compress_se(JParams(**kw), str(small), ja)
+        td.compress_se(CodecParams(**kw), str(small), ta, device="cpu")
+        with open(ja, "rb") as a, open(ta, "rb") as b:
+            assert a.read() == b.read(), kw
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
         td.compress_se(CodecParams(use_model=1, lossy_factor=2.0), fq,
                        str(tmp_path / "b.fqz"), device="cpu")
@@ -245,7 +252,7 @@ def test_package_imports_without_jax():
             "fastqueeze_tpu_torch.pipeline.driver, "
             "fastqueeze_tpu_torch.pipeline.aligned, "
             "fastqueeze_tpu_torch.pipeline.selfref, "
-            "fastqueeze_tpu_torch.ops.kernels; "
+            "fastqueeze_tpu_torch.ops.kernels, fastqueeze_tpu_torch.api; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'fastqueeze_tpu' "
             "for m in sys.modules), 'reference package imported'")
