@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the thirteen CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the fourteen CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
      main paths' shapes, bit-equal, with times (CUDA events, warmed):
      frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
@@ -23,8 +23,17 @@ Phases (any failure raises and exits non-zero):
      B = 4096 (tier 1: forward, RC) and B = 512 (the rescue tier), and
      K9 over its k = 22 index at B = 512, G = 3, two ops, and K10 over
      the k = 14 packed reference at B = 4096 mates, C = 1128 (-I 500),
-     Lp = 128 (K8, K10: equal on mapped and the mapped reads' outputs;
-     K9: on found and the found reads' outputs); each kernel's bound
+     Lp = 128, and K14 over the tier-1 failures of one 4096-read batch
+     (padded to a power of two): rescue only over the k = 14 index (the
+     CLI defaults), both halves (G = 3, two ops) over the k = 22 index,
+     each beside K8's rescue and K9 launched separately on the same rows;
+     and at the long-read chunk tier's shape, 4096 chunks of phase 14's
+     long reads at Lp = 1024 over the k = 14 index: K8's tier 1 (both
+     strands), K14 with both halves (G = 3, two ops) over its failures,
+     and K8's rescue and K9 on K14's rows, each against its plain version
+     (K8, K10: equal on mapped and the mapped reads' outputs; K9: on
+     found and the found reads' outputs; K14: on m2 and f and the outputs
+     of the slots they select); each kernel's bound
      (bytes over 3.35 TB/s or integer operations over 67 T/s) and, for
      K3, the time of torch.masked_select, the one PyTorch call that
      computes the same function;
@@ -81,10 +90,28 @@ Phases (any failure raises and exits non-zero):
      the card's archive equals api.compress(..., device="cpu") (the plain
      versions); and the engine's train_counts (K13) on a quality stream
      of 50,000 reads, equal to the host trainer's table, as counts0 of
-     encode_stream / decode_stream (K5/K7/K3/K6): byte-exact.
+     encode_stream / decode_stream (K5/K7/K3/K6): byte-exact;
+ 14. long reads against phase 8's ref.fa: 600 reads of 3,000-20,000 bp
+     (0.3% substitutions, 10% with a 1-3 bp indel, 30% reverse strand, 5
+     exact duplicates) among 60,000 reads of 100 bp (~26 MB, frozen path)
+     through the CLI at defaults (K8, K9: the chunk tier's gap budget)
+     and with FASTQUEEZE_FUSED_ALIGN=1 (K8, K14), each with the frozen
+     trainer's caches emptied first (K1-K4 in both): byte-exact, no native
+     aligner call, both archives equal to the FASTQUEEZE_ALIGN_EXEC=host
+     one, which decodes on the card; lr_chunks_mapped printed;
+ 15. phase 6's input through the CLI with -l 1.15 and with --mesh 1: each
+     archive equals the FASTQUEEZE_ADAPT_EXEC=host one, the -l decode
+     equals the port's R-Block transform of the input, PARAM holds
+     lossy_factor 1.15 and mesh_n 1, and --mesh 2 is refused with the
+     device count.
 In each end-to-end run the launch counts are set to 0 just before it and
 read just after.  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
+
+    python3 chip_smoke.py --coder-loop PROCS ROUNDS
+
+runs phase 3's K1 -> K2 launches ROUNDS times in each of PROCS fresh
+processes under CUDA_LAUNCH_BLOCKING=1 and reports which, if any, fault.
 """
 
 import json
@@ -170,6 +197,9 @@ def _max_err(got, want) -> int:
 # integer operations over INT_OPS, whichever is larger.  Filled by phase
 # 3: kernel -> (bytes, operations, library call ms or None).
 BOUNDS = {}
+# K14's comparison, by shape: K8's rescue and K9 launched separately on
+# the same rows (ms); no single PyTorch call computes this function
+PAIR_MS = {}
 # integer operations a symbol (a table entry for K1, a grid slot for K3)
 # on each coder kernel's work, counted from its inner loop: context
 # update, table gather, rANS step and renormalisation; the adaptive walk
@@ -264,16 +294,20 @@ def _wpad(out, k: int):
     return wpad
 
 
-def check_kernels():
-    """Each kernel vs its plain version, same inputs on the card."""
+R_MAIN = (T_MAIN * 7 // 8 // READ_LEN) * L_MAIN  # 217,088 reads -> T 6144
+
+
+def _coder_cases(dev):
+    """Phase 3's frozen-coder inputs, in order, from SEED: per model (the
+    order-10 seq table and two qual tables) its tag, the model, the lane
+    layout of R_MAIN x 100 bp reads, the flat symbols, and on ``dev`` the
+    (T, L) symbol grid, a random count table and the counts grid."""
     import torch
     from fastqueeze_tpu_torch.models.base import QualModel, SeqModel
-    from fastqueeze_tpu_torch.ops import engine, kernels
+    from fastqueeze_tpu_torch.ops import engine
     from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
-    dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(SEED)
-    R = (T_MAIN * 7 // 8 // READ_LEN) * L_MAIN   # 217,088 reads -> T 6144
-    counts = np.full(R, READ_LEN, np.int64)
+    counts = np.full(R_MAIN, READ_LEN, np.int64)
     cg = torch.from_numpy(engine._counts_grid(counts, L_MAIN)).to(dev)
     models = {
         "seq_order10": SeqModel(alphabet=4, init=3, inc=1, cap=253,
@@ -282,16 +316,24 @@ def check_kernels():
         "qual_k4_hash16_pos3": QualModel(alphabet=48, k=4, ctx_base=40,
                                          hash_bits=16, pos_bits=3),
     }
-    rows = {}
     for tag, m in models.items():
         table = rng.integers(1, 254 if m.alphabet == 4 else 400,
                              (m.n_ctx, m.alphabet)).astype(np.int32)
-        syms = rng.integers(0, m.alphabet, R * READ_LEN).astype(np.uint8)
+        syms = rng.integers(0, m.alphabet, R_MAIN * READ_LEN).astype(np.uint8)
         lay = make_layout(counts, L_MAIN)
         assert (lay.T, lay.L) == (T_MAIN, L_MAIN), (lay.T, lay.L)
-        g = torch.from_numpy(to_grid(lay, syms)).to(dev)
-        c = torch.from_numpy(table).to(dev)
+        yield (tag, m, lay, syms, torch.from_numpy(to_grid(lay, syms)).to(dev),
+               torch.from_numpy(table).to(dev), cg)
 
+
+def check_kernels():
+    """Each kernel vs its plain version, same inputs on the card."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.ops.lanes import to_grid
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = {}
+    for tag, m, lay, syms, g, c, cg in _coder_cases(dev):
         r = {}
         k1 = kernels.quant_pack(c)
         p1 = kernels.quant_pack_plain(c)
@@ -326,7 +368,7 @@ def check_kernels():
         if not torch.equal(k4.cpu(), torch.from_numpy(to_grid(lay, syms))):
             raise AssertionError(f"{tag}: decode does not invert encode")
         if tag == "seq_order10":
-            nsym = R * READ_LEN
+            nsym = R_MAIN * READ_LEN
 
             def select():
                 return torch.masked_select(words, emit.bool()), emit.sum()
@@ -676,13 +718,214 @@ def _check_window_kernel(al, ix, genome, rows) -> None:
     BOUNDS["window_batch"] = (_nbytes(c, d, ln, ctr, *got) + win, ops, None)
 
 
+def _indel_extra(G: int, Lp: int):
+    """(operations, bytes) K9's scoring adds to a strand-read on top of
+    the anchor search: the 2G+1 shifted compares and their prefix sums,
+    the one-op split scan and the two-op scans; the window's words."""
+    return ((2 * G + 1) * Lp * 6 + 4 * G * (Lp + 1) * 4
+            + 4 * G * (Lp + 1) * 6, ((Lp + 2 * G) // 16 + 2) * 4)
+
+
+def _fallback_bound(ix, cfg, c, d, ln, outs):
+    """_align_bound of K8 with RC as the fallback: forward on every row
+    of length > 0, RC on the rows forward leaves unmapped."""
+    import dataclasses
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    fwd = kernels.align_batch(c, d, ln, ix,
+                              dataclasses.replace(cfg, strand="fwd"))[0]
+    rr = ((ln > 0) & ~fwd).nonzero()[:, 0]
+    rc, rd = kernels._rc_grid(c, d, ln.long())
+    rcr = rc[rr].to(torch.uint8)
+    b_f = _align_bound(ix, cfg, c, d, ln, outs)
+    b_r = _align_bound(ix, cfg, rcr, rd[rr], ln[rr], [])
+    return b_f[0] + b_r[0] - _nbytes(rcr, rd[rr], ln[rr]), b_f[1] + b_r[1]
+
+
+def _vs_plain(tag: str, name: str, run, plain, rows, reps: int, note=""):
+    """An aligner kernel (K8, K9) against its plain version on the same
+    inputs: equal on the first output (mapped / found) and on every other
+    output of the rows it selects.  Returns the kernel's outputs."""
+    import torch
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    m = want[0]
+    err = int((got[0] != m).sum())
+    for a, b in zip(got[1:], want[1:]):
+        if a[m].numel():
+            err = max(err, int((a[m].long() - b[m].long()).abs().max()))
+    ms, pms = _time_ms(run, reps), _time_ms(plain, 1)
+    print(f"  {tag:18s} {name:12s} B = {len(m)}{note}: {int(m.sum())} "
+          f"mapped, max_abs_err {err}  kernel {ms:10.3f} ms  plain "
+          f"{pms:10.3f} ms")
+    if err:
+        raise AssertionError(f"{name} {tag}: kernel differs from its plain "
+                             f"version ({err})")
+    rows[tag] = {name: (err, ms, pms)}
+    return got
+
+
+def _check_fused(ix, c, d, ln, k: int, G: int, ops: int, tag: str, rows,
+                 tiers: bool = False) -> None:
+    """K14 vs its plain version on one batch's (B, Lp) grids.  The todo
+    list is the batch's tier-1 failures (K8, both strands, RC as the
+    fallback), padded to a power of two >= 128.  Beside it, K8's rescue
+    over the todo rows and K9 over the rows it left unmapped, launched
+    separately (the classic chain's two tiers, less its host round trip).
+    With ``tiers``, K8's tier 1, that rescue and that K9 are each held
+    against their plain versions too, with their bounds."""
+    import dataclasses
+    import torch
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    from fastqueeze_tpu_torch.ops import kernels
+    dev = ix.packed.device
+    Lp = c.shape[1]
+    tier1 = AlignConfig(k=k, stride=2, n_cand=64, max_mis=7, both_strands=0,
+                        lp=Lp, probe_k=16)
+    deep = dataclasses.replace(tier1, n_cand=1024, n_seeds=6, excl_bp=7,
+                               probe_k=1024)
+    if tiers:
+        g1 = _vs_plain(f"{tag}_tier1", "align_batch",
+                       lambda: kernels.align_batch(c, d, ln, ix, tier1),
+                       lambda: kernels.align_batch_plain(c, d, ln, ix, tier1),
+                       rows, 5, f" Lp {Lp}")
+        BOUNDS[f"{tag}_tier1"] = _fallback_bound(ix, tier1, c, d, ln,
+                                                 g1) + (None,)
+        m1 = g1[0].cpu().numpy()
+    else:
+        m1 = kernels.align_batch(c, d, ln, ix, tier1)[0].cpu().numpy()
+    todo = np.flatnonzero(~m1 & (ln.cpu().numpy() >= k))
+    cap = 128
+    while cap < len(todo):
+        cap <<= 1
+    idx = np.zeros(cap, np.int32)
+    idx[:len(todo)] = todo
+    do = torch.from_numpy(np.arange(cap) < len(todo)).to(dev)
+    idx = torch.from_numpy(idx).to(dev)
+    args = (c, d, ln, idx, do, ix, deep, deep, G, ops)
+
+    def run():
+        return kernels.rescue_indel_fused(*args)
+
+    def plain():
+        return kernels.rescue_indel_fused_plain(*args)
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    m2, f = want[0], want[4]
+    err = int((got[0] != m2).sum()) + int((got[4] != f).sum())
+    for sel, lo, hi in ((m2, 1, 4), (f, 5, 12)):
+        for a, b in zip(got[lo:hi], want[lo:hi]):
+            if a[sel].numel():
+                err = max(err, int((a[sel].long() - b[sel].long()).abs()
+                                   .max()))
+    # the same rows through K8's rescue, then K9 over the rows it missed
+    sel = idx.long()
+    ct, dt, lt = c[sel], d[sel], torch.where(do, ln[sel], 0)
+    bad = (do & ~got[0]).nonzero()[:, 0]
+    cb, db, lb = ct[bad], dt[bad], lt[bad]
+
+    def pair():
+        kernels.align_batch(ct, dt, lt, ix, deep)
+        if ops:
+            kernels.indel_batch(cb, db, lb, ix, deep, G, ops)
+
+    ms, pms, pair_ms = _time_ms(run, 3), _time_ms(plain, 1), _time_ms(pair, 3)
+    print(f"  {tag:18s} {'rescue' if not ops else 'rescue+indel':12s} "
+          f"rescue_indel_fused Lp {Lp} cap = {cap} ({len(todo)} tier-1 "
+          f"failures of {len(ln)}): {int(m2.sum())} rescued, {int(f.sum())} "
+          f"by indels, max_abs_err {err}  kernel {ms:10.3f} ms  plain "
+          f"{pms:10.3f} ms;  K8 rescue + K9 separately {pair_ms:10.3f} ms")
+    if err:
+        raise AssertionError(f"rescue_indel_fused {tag}: kernel differs "
+                             f"from its plain version ({err})")
+    rows[tag] = {"rescue_indel_fused": (err, ms, pms)}
+    PAIR_MS[tag] = pair_ms
+    # bound: K8's rescue over the todo rows plus K9 over the rows the
+    # rescue left (both strands, the scoring on top)
+    b_r = _fallback_bound(ix, deep, ct, dt, lt, got[:4])
+    b_i = (0, 0)
+    if ops:
+        xo, xb = _indel_extra(G, Lp)
+        b_i = _align_bound(ix, deep, cb, db, lb, got[4:], strands=2,
+                           extra_ops=xo, extra_bytes=xb)
+    BOUNDS[tag] = (b_r[0] + b_i[0], b_r[1] + b_i[1], None)
+    if tiers:
+        if not len(bad) or not ops:
+            raise AssertionError(f"{tag}: no row left for K9")
+        _vs_plain(f"{tag}_rescue", "align_batch",
+                  lambda: kernels.align_batch(ct, dt, lt, ix, deep),
+                  lambda: kernels.align_batch_plain(ct, dt, lt, ix, deep),
+                  rows, 3, f" Lp {Lp}")
+        _vs_plain(f"{tag}_indel", "indel_batch",
+                  lambda: kernels.indel_batch(cb, db, lb, ix, deep, G, ops),
+                  lambda: kernels.indel_batch_plain(cb, db, lb, ix, deep, G,
+                                                    ops),
+                  rows, 3, f" Lp {Lp} G {G} ops {ops}")
+        BOUNDS[f"{tag}_rescue"] = b_r + (None,)
+        BOUNDS[f"{tag}_indel"] = b_i + (None,)
+
+
+def _check_fused_kernel(ix, genome, k, rows) -> None:
+    """K14 at Lp = 128 over the tier-1 failures of 4096 reads: tier-1
+    reads (~1% substitutions; a seed with an error can list only a wrong
+    locus) and the rescue only over the k = 14 index (the CLI defaults),
+    indel reads and both halves (G = 3, two ops: -q) over the k = 22
+    index."""
+    import torch
+    c, d, ln = (torch.from_numpy(a).to(ix.packed.device) for a in
+                _align_reads(np.random.default_rng(SEED + 7 + k), genome,
+                             4096, "tier1" if k == 14 else "indel"))
+    G, ops = (0, 0) if k == 14 else (3, 2)
+    _check_fused(ix, c, d, ln, k, G, ops, f"k{k}_fused", rows)
+
+
+def _lr_chunks(genome, n: int = 4096):
+    """The first n chunks of phase 14's long reads as the chunk tier grids
+    them at the CLI defaults (align_max_len 2048, longread_chunk 1024,
+    longread_tail_min 64): (n, 1024) codes, degenerate flags, lengths."""
+    from fastqueeze_tpu_torch.align.hash import _gridify, lp_bucket
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.pipeline.blockcodec import _intra_of, _lr_grid
+    p = CodecParams()
+    reads = [r for r, _ in _long_reads(np.random.default_rng(SEED + 9),
+                                       genome, 595)]
+    lengths = np.array([len(r) for r in reads], np.int64)
+    rd, offs, clens = _lr_grid(lengths, p.align_max_len,
+                               min(p.longread_chunk, p.align_max_len),
+                               p.longread_tail_min)
+    if len(rd) < n:
+        raise AssertionError(f"only {len(rd)} long-read chunks")
+    rd, offs, clens = rd[:n], offs[:n], clens[:n]
+    starts = np.cumsum(lengths) - lengths
+    sym = np.repeat(starts[rd] + offs, clens) + _intra_of(clens)
+    codes, dege = _gridify(np.concatenate(reads)[sym],
+                           np.zeros(len(sym), bool), clens,
+                           lp_bucket(int(clens.max())))
+    return codes, dege, clens.astype(np.int32)
+
+
+def _check_longread_kernels(ix, genome, rows) -> None:
+    """K8, K14 and K9 at the chunk tier's shape: 4096 chunks of phase 14's
+    long reads (one Aligner.BATCH), Lp = 1024, over the k = 14 index with
+    the chunk tier's gap budget (G = 3, two ops): K8's tier 1 (both
+    strands), K14 over its failures, and K8's rescue and K9 on K14's
+    rows, each against its plain version."""
+    import torch
+    c, d, ln = (torch.from_numpy(a).to(ix.packed.device)
+                for a in _lr_chunks(genome))
+    _check_fused(ix, c, d, ln, 14, 3, 2, "lr1024", rows, tiers=True)
+
+
 def check_align_kernels(genome):
-    """K8, K9 and K10 vs their plain versions on the card, at the main
-    path's shapes: the seeded 100 Mbp genome's index (k = 14 for K8 and
-    K10, k = 22 for K9), B = 4096 tier-1 reads and B = 512 rescue / indel
-    reads at Lp = 128, B = 4096 mates at C = 1128 for K10.  K8 and K10
+    """K8, K9, K10 and K14 vs their plain versions on the card, at the
+    main path's shapes: the seeded 100 Mbp genome's index (k = 14 for K8
+    and K10, k = 22 for K9, both for K14), B = 4096 tier-1 reads and
+    B = 512 rescue / indel reads at Lp = 128, B = 4096 mates at C = 1128
+    for K10, the tier-1 failures of a 4096-read batch for K14.  K8 and K10
     must equal on mapped and on the mapped reads' pos, strand and mask;
-    K9 on found and on every output of the found reads."""
+    K9 on found and on every output of the found reads; K14 on m2 and f
+    and the outputs of the slots they select."""
     import torch
     from fastqueeze_tpu_torch.align.hash import AlignConfig, Aligner
     from fastqueeze_tpu_torch.align.index import build_from_ref
@@ -718,46 +961,28 @@ def check_align_kernels(genome):
             cfg = AlignConfig(**kw)
             c, d, ln = grids[kind]
             if tag.startswith("indel"):
+                name = "indel_batch"
                 run = lambda: kernels.indel_batch(c, d, ln, ix, cfg, 3, 2)
                 plain = lambda: kernels.indel_batch_plain(c, d, ln, ix, cfg,
                                                           3, 2)
-                name = "indel_batch"
             else:
+                name = "align_batch"
                 run = lambda: kernels.align_batch(c, d, ln, ix, cfg)
                 plain = lambda: kernels.align_batch_plain(c, d, ln, ix, cfg)
-                name = "align_batch"
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            m = want[0]
-            err = int((got[0] != m).sum())
-            for a, b in zip(got[1:], want[1:]):
-                if a[m].numel():
-                    err = max(err, int((a[m].long() - b[m].long()).abs()
-                                       .max()))
-            ms = _time_ms(run, 5 if kind == "tier1" else 3)
-            pms = _time_ms(plain, 1)
-            print(f"  k{k:<2} {tag:14s} {name:12s} B = {len(ln)}: "
-                  f"{int(m.sum())} mapped, max_abs_err {err}  kernel "
-                  f"{ms:10.3f} ms  plain {pms:10.3f} ms")
-            if err:
-                raise AssertionError(f"{name} {tag}: kernel differs from "
-                                     f"its plain version ({err})")
-            rows[f"k{k}_{tag}"] = {name: (err, ms, pms)}
+            got = _vs_plain(f"k{k}_{tag}", name, run, plain, rows,
+                            5 if kind == "tier1" else 3)
             if tag == "fwd":
                 BOUNDS["align_batch"] = _align_bound(ix, cfg, c, d, ln,
                                                      got) + (None,)
             elif name == "indel_batch":
-                # per strand and read, on top of the anchor search: the
-                # 2G+1 shifted compares and their prefix sums, the
-                # one-op split scan and the two-op scans
-                G, Lp = 3, ALIGN_LP
-                score = ((2 * G + 1) * Lp * 6 + 4 * G * (Lp + 1) * 4
-                         + 4 * G * (Lp + 1) * 6)
+                xo, xb = _indel_extra(3, ALIGN_LP)
                 BOUNDS["indel_batch"] = _align_bound(
-                    ix, cfg, c, d, ln, got, strands=2, extra_ops=score,
-                    extra_bytes=((Lp + 2 * G) // 16 + 2) * 4) + (None,)
+                    ix, cfg, c, d, ln, got, strands=2, extra_ops=xo,
+                    extra_bytes=xb) + (None,)
         if k == 14:
             _check_window_kernel(al, ix, genome, rows)
+            _check_longread_kernels(ix, genome, rows)
+        _check_fused_kernel(ix, genome, k, rows)
         del al, ix
     return rows
 
@@ -918,7 +1143,8 @@ def _inputs_argv(fq, fq2):
 
 
 def _round_trip_ok(back: str, fq: str, fq2) -> bool:
-    """The decoded output(s) of prefix ``back`` equal the input(s)."""
+    """The decoded output(s) of prefix ``back`` equal ``fq`` (and
+    ``fq2``)."""
     if fq2:
         return (_same_file(fq, back + "_1.fastq")
                 and _same_file(fq2, back + "_2.fastq"))
@@ -926,12 +1152,13 @@ def _round_trip_ok(back: str, fq: str, fq2) -> bool:
 
 
 def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
-           ref=None, fq2=None):
+           ref=None, fq2=None, want=None):
     """One main-path run through the CLI (against ``ref`` when given;
     paired with ``fq2`` when given): counts set to 0 just before, read
-    just after; byte-exact round trip; every kernel of the path launched;
-    no native coder or aligner call.  Adds the launches to ``totals``;
-    returns (launches, the compress call's stage metrics)."""
+    just after; the decode equals the input (or ``want``, for -l) byte
+    for byte; every kernel of the path launched; no native coder or
+    aligner call.  Adds the launches to ``totals``; returns (launches,
+    the compress call's stage metrics)."""
     from fastqueeze_tpu_torch import cli
     from fastqueeze_tpu_torch.utils.metrics import DebugInfo
     runs = []
@@ -958,7 +1185,7 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
     if cli.main(["-d"] + refs + [arc, "-o", back, "-f"]) != 0:
         raise RuntimeError("decompress failed")
     t_dec = time.time() - t0
-    if not _round_trip_ok(back, fq, fq2):
+    if not _round_trip_ok(back, want or fq, fq2):
         raise AssertionError("round trip differs from the input")
     size = sum(os.path.getsize(f) for f in (fq, fq2) if f)
     arc_size = os.path.getsize(arc)
@@ -1003,7 +1230,8 @@ def _read_counts(path_kernels, totals):
     return launches
 
 
-def _oracle(fq: str, arc: str, flags, env: str, ref=None, fq2=None):
+def _oracle(fq: str, arc: str, flags, env: str, ref=None, fq2=None,
+            want=None):
     """The same input compressed with ``env``=host (the native coder or
     aligner, bit-identical to the JAX package's host path; execution
     routing only) must give the same archive, which must decode on the
@@ -1024,7 +1252,7 @@ def _oracle(fq: str, arc: str, flags, env: str, ref=None, fq2=None):
         raise AssertionError(f"card archive != native-host archive ({env})")
     if cli.main(["-d"] + refs + [arc_h, "-o", arc_h + ".back", "-f"]) != 0:
         raise RuntimeError("decode of the host archive failed")
-    if not _round_trip_ok(arc_h + ".back", fq, fq2):
+    if not _round_trip_ok(arc_h + ".back", want or fq, fq2):
         raise AssertionError("host archive decoded on the card differs")
     print(f"oracle ({env}=host): archive equals the native-host archive "
           f"byte for byte; decodes on the card")
@@ -1338,6 +1566,141 @@ def frozen_adapt_end_to_end(tmp: str, totals) -> None:
     _read_counts(("train_counts",) + _ADAPT_PATH, totals)
 
 
+def _long_reads(rng, genome, n: int):
+    """n reads of 3,000-20,000 bp from ``genome`` as 2-bit codes (0.3%
+    substitutions, 10% with a 1-3 bp deletion or insertion, 30% reverse
+    strand), each with its qualities: a seeded random walk over Phred
+    2-41."""
+    G = len(genome)
+    out = []
+    for _ in range(n):
+        L = int(rng.integers(3000, 20001))
+        st = int(rng.integers(0, G - L - 8))
+        r = genome[st:st + L + 4].copy()
+        if rng.random() < 0.1:
+            at, g = int(rng.integers(100, L - 100)), int(rng.integers(1, 4))
+            r = (np.concatenate([r[:at], r[at + g:]]) if rng.random() < 0.5
+                 else np.concatenate([r[:at], rng.integers(0, 4, g).astype(
+                     np.uint8), r[at:]]))
+        r = r[:L]
+        sub = rng.random(L) < 0.003
+        r[sub] = (r[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        if rng.random() < 0.3:
+            r = 3 - r[::-1]
+        q = (np.clip(np.cumsum(rng.integers(-1, 2, L)) + 30, 2, 41)
+             + 33).astype(np.uint8)
+        out.append((r, q))
+    return out
+
+
+def _long_fastq(path: str, genome, n_long: int = 600,
+                n_short: int = 60_000) -> None:
+    """n_long reads of _long_reads (the last 5 exact duplicates of earlier
+    ones) shuffled among n_short reads of 100 bp (~1% substitutions,
+    ~0.1% N; qualities from _markov_quals)."""
+    rng = np.random.default_rng(SEED + 9)
+    G = len(genome)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    recs = [b"@LR%d length=%d\n%s\n+\n%s\n" % (
+        i, len(r), bases[r].tobytes(), q.tobytes())
+        for i, (r, q) in enumerate(_long_reads(rng, genome, n_long - 5))]
+    for j in rng.integers(0, len(recs), 5):
+        recs.append(recs[j])
+    starts = rng.integers(0, G - READ_LEN, n_short)
+    codes = genome[starts[:, None] + np.arange(READ_LEN)]
+    sub = rng.random(codes.shape) < 0.01
+    codes[sub] = (codes[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    seq = bases[codes]
+    seq[rng.random(seq.shape) < 0.001] = ord("N")
+    qual = _markov_quals(rng, n_short)
+    for r in range(n_short):
+        recs.append(b"@SR%d\n%s\n+\n%s\n" % (r, seq[r].tobytes(),
+                                              qual[r].tobytes()))
+    with open(path, "wb") as fh:
+        fh.write(b"".join(recs[j] for j in rng.permutation(len(recs))))
+
+
+def longread_end_to_end(tmp: str, genome, ref: str, totals) -> None:
+    """Phase 14: long reads against ref.fa, classic tiers and fused."""
+    print("phase 14: long reads against ref.fa (chunk tier; defaults, "
+          "then FASTQUEEZE_FUSED_ALIGN=1)")
+    fq = os.path.join(tmp, "long.fq")
+    t0 = time.time()
+    _long_fastq(fq, genome)
+    n = 600 + 60_000
+    print(f"input long.fq: 600 reads of 3,000-20,000 bp among 60,000 of "
+          f"100 bp, {os.path.getsize(fq)} bytes ({time.time() - t0:.1f} s "
+          f"to generate)")
+    from fastqueeze_tpu_torch.pipeline import frozen
+    flags = ["--stats"]
+    arcs = {}
+    for tag, path in (("classic", _FROZEN_PATH + ("align_batch",
+                                                  "indel_batch")),
+                      ("fused", _FROZEN_PATH + ("align_batch",
+                                                "rescue_indel_fused"))):
+        arcs[tag] = os.path.join(tmp, f"long_{tag}.fqz")
+        # both runs train and upload their tables cold, so their encode
+        # times compare
+        frozen._TRAIN_CACHE.clear()
+        frozen._DESER_CACHE.clear()
+        if tag == "fused":
+            os.environ["FASTQUEEZE_FUSED_ALIGN"] = "1"
+        try:
+            _, stats = _drive(fq, n, arcs[tag], flags, path, totals,
+                              ref=ref)
+        finally:
+            os.environ.pop("FASTQUEEZE_FUSED_ALIGN", None)
+        nm, nr, _ = _mapped(arcs[tag])
+        print(f"{tag}: lr_chunks_mapped {int(stats.get('lr_chunks_mapped', 0))}"
+              f", mapped reads {nm} of {nr}, align_s "
+              f"{stats.get('align_s', 0):.3f}")
+        if not stats.get("lr_chunks_mapped", 0):
+            raise AssertionError("no long-read chunk mapped")
+    _oracle(fq, arcs["classic"], flags, "FASTQUEEZE_ALIGN_EXEC", ref=ref)
+    if not _same_file(arcs["fused"], arcs["classic"] + ".host.fqz"):
+        raise AssertionError("fused archive != native-host archive")
+    print("fused: archive equals the native-host archive byte for byte")
+    os.remove(fq)
+
+
+def lossy_mesh_end_to_end(tmp: str, totals) -> None:
+    """Phase 15: -l 1.15 and --mesh 1 through the CLI, --mesh 2 refused."""
+    import contextlib
+    import io
+    from fastqueeze_tpu_torch import cli
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    from fastqueeze_tpu_torch.pipeline.lossy import parse_lossy
+    print("phase 15: -l 1.15 and --mesh 1 (phase 6's input)")
+    fq = _input(tmp, "adaptive.fq", R_ADAPT)
+    lossy = fq + ".lossy.fq"          # the port's transform of the input
+    with open(fq, "rb") as fh:
+        raw, _ = parse_lossy(CodecParams(lossy_factor=1.15), fh.read(), True)
+    with open(lossy, "wb") as fh:
+        fh.write(raw)
+    for flags, want, field, value in (
+            (["-l", "1.15"], lossy, "lossy_factor", 1.15),
+            (["--mesh", "1"], None, "mesh_n", 1)):
+        arc = os.path.join(tmp, f"p15_{field}.fqz")
+        _drive(fq, R_ADAPT, arc, flags, _ADAPT_PATH, totals, want=want)
+        _oracle(fq, arc, flags, "FASTQUEEZE_ADAPT_EXEC", want=want)
+        with ArcReader(arc) as r:
+            got = getattr(r.params, field)
+        print(f"PARAM {field} = {got}")
+        if got != value:
+            raise AssertionError(f"PARAM {field} {got} != {value}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["-c", "-1", fq, "-o", os.path.join(tmp, "m2.fqz"),
+                       "-f", "--mesh", "2"])
+    msg = err.getvalue().strip()
+    print(f"--mesh 2: exit {rc}, {msg!r}")
+    if rc == 0 or "--mesh 2: only 1 device(s) visible" not in msg:
+        raise AssertionError("--mesh 2 was not refused with the device "
+                             "count")
+    os.remove(fq)
+
+
 _REPLACES = {
     "align_batch": ("fastqueeze_tpu_torch/csrc/align_batch.cu",
                     "fastqueeze_tpu/align/hash.py:414"),
@@ -1365,6 +1728,8 @@ _REPLACES = {
                     "fastqueeze_tpu/ops/engine.py:608"),
     "train_counts": ("fastqueeze_tpu_torch/csrc/train_counts.cu",
                      "fastqueeze_tpu/ops/engine.py:523"),
+    "rescue_indel_fused": ("fastqueeze_tpu_torch/csrc/rescue_indel_fused.cu",
+                           "fastqueeze_tpu/align/hash.py:472"),
 }
 
 
@@ -1385,17 +1750,38 @@ def main() -> int:
         pe_end_to_end(tmp, genome, ref, launches)
         semi_end_to_end(tmp, launches)
         frozen_adapt_end_to_end(tmp, launches)
+        longread_end_to_end(tmp, genome, ref, launches)
+        lossy_mesh_end_to_end(tmp, launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"],
                **rows["k14_fwd"], **rows["k22_indel_G3_ops2"],
                **rows["k14_window"], **rows["semi_seq_order10_fresh"],
-               **rows["train_seq_order10"])
+               **rows["train_seq_order10"], **rows["k22_fused"])
+    BOUNDS["rescue_indel_fused"] = BOUNDS["k22_fused"]
+    for tag in ("k14_fused", "k22_fused", "lr1024"):
+        print(f"rescue_indel_fused {tag}: {_bound_row(tag)}; K8 rescue + "
+              f"K9 separately {PAIR_MS[tag]:.3f} ms")
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[k],
               "max_abs_err": max(r[k][0] for r in rows.values() if k in r),
               "ms": seq[k][1], "plain_ms": seq[k][2], **_bound_row(k)}
              for k, (src, rep) in _REPLACES.items()]
+    table[-1]["k8_rescue_plus_k9_ms"] = PAIR_MS["k22_fused"]
+    # the long-read chunk tier's shape (Lp 1024) beside the Lp 128 rows
+    by_name = {t["name"]: t for t in table}
+    for key, name, tag in (("lp1024", "align_batch", "lr1024_tier1"),
+                           ("lp1024_rescue", "align_batch", "lr1024_rescue"),
+                           ("lp1024", "indel_batch", "lr1024_indel"),
+                           ("lp1024", "rescue_indel_fused", "lr1024")):
+        err, ms, pms = rows[tag][name]
+        b = _bound_row(tag)
+        by_name[name][key] = {"ms": ms, "plain_ms": pms, "max_abs_err": err,
+                              "bound_ms": b["bound_ms"],
+                              "bound_by": b["bound_by"]}
+        print(f"{name} {tag}: {by_name[name][key]}")
+    by_name["rescue_indel_fused"]["lp1024"]["k8_rescue_plus_k9_ms"] = (
+        PAIR_MS["lr1024"])
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1403,5 +1789,65 @@ def main() -> int:
     return 0
 
 
+def coder_loop(reps: int) -> None:
+    """Phase 3's K1 -> K2 launches on its inputs, ``reps`` rounds, each
+    launch synchronized and announced before it starts, so that under
+    CUDA_LAUNCH_BLOCKING=1 the last line names a launch that faults.  The
+    first round is held against the plain versions, every later one
+    against the first."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = list(_coder_cases(dev))
+    want = {}
+    for rep in range(reps):
+        for tag, m, _, _, g, c, cg in cases:
+            print(f"launch quant_pack round {rep} {tag}", flush=True)
+            k1 = kernels.quant_pack(c)
+            torch.cuda.synchronize()
+            print(f"launch frozen_encode_lanes round {rep} {tag}", flush=True)
+            k2 = kernels.frozen_encode_lanes(g, cg, k1[1], m)
+            torch.cuda.synchronize()
+            if tag not in want:
+                want[tag] = (*kernels.quant_pack_plain(c),
+                             *kernels.frozen_encode_lanes_plain(g, cg, k1[1],
+                                                                m))
+            if not all(torch.equal(a, b) for a, b in zip(k1 + k2, want[tag])):
+                raise AssertionError(f"round {rep} {tag}: K1/K2 differ")
+
+
+def coder_loop_procs(procs: int, reps: int) -> int:
+    """``--coder-loop PROCS REPS``: PROCS fresh processes, one after
+    another, each running coder_loop(REPS) with CUDA_LAUNCH_BLOCKING=1
+    (phase 3 once died on an illegal memory access right after K1/K2's
+    first launch).  Prints each process's exit code and last launch, then
+    the failure count; exits 1 if any process failed."""
+    card()
+    build()
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING="1")
+    failed = []
+    for i in range(procs):
+        t0 = time.time()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--coder-child", str(reps)], env=env,
+                           capture_output=True, text=True, timeout=900)
+        launches = [ln for ln in r.stdout.splitlines()
+                    if ln.startswith("launch ")]
+        print(f"process {i}: exit {r.returncode} in {time.time() - t0:.1f} s"
+              f", {len(launches)} launches, last {launches[-1:]}")
+        if r.returncode:
+            failed.append(i)
+            print(r.stderr[-3000:])
+    print(json.dumps({"coder_loop": {
+        "processes": procs, "rounds": reps, "launches_per_process": 6 * reps,
+        "failed_processes": failed}}))
+    return 1 if failed else 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--coder-loop"]:
+        sys.exit(coder_loop_procs(int(sys.argv[2]), int(sys.argv[3])))
+    if sys.argv[1:2] == ["--coder-child"]:
+        coder_loop(int(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

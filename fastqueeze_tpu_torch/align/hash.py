@@ -7,15 +7,20 @@ deeper multi-seed rescue of the still-unmapped reads, tier 3 the indel
 tier when max_indel > 0.  Each tier's batches go through K8
 (ops.kernels.align_batch) and K9 (ops.kernels.indel_batch); the PE
 mate rescue (Aligner.rescue_mates, -I) through K10
-(ops.kernels.window_batch).
+(ops.kernels.window_batch).  With FASTQUEEZE_FUSED_ALIGN=1 the kernel
+route runs the JAX package's fused flow instead: tier 1 both strands
+over every batch (K8), then one K14 (ops.kernels.rescue_indel_fused) a
+batch for the rescue and indel tiers over the batch's grids, which stay
+on the device; the decisions are the same.  Reads longer than
+align_max_len skip the read-level tiers (the long-read chunk tier of
+pipeline/aligned.py maps them in pieces through this same call).
 
 Routing is an execution choice (the outputs that reach the archive are
 identical): on a CUDA device the kernels run, unless
 FASTQUEEZE_ALIGN_EXEC=host sends the batches to the native host mirror
 (native/alignhost.cpp), the oracle; on the CPU the native mirror is the
 default and FASTQUEEZE_ALIGN_EXEC=device runs the kernels' plain PyTorch
-versions.  Reads longer than align_max_len (the long-read chunk tier)
-are not ported yet.
+versions.
 """
 
 from __future__ import annotations
@@ -30,10 +35,6 @@ import torch
 
 from fastqueeze_tpu_torch.align.index import RefIndex
 from fastqueeze_tpu_torch.config import CodecParams
-
-LONG_READ_MSG = ("aligned reads longer than align_max_len (the long-read "
-                 "chunk tier and its LR streams): ROADMAP Queue A item 8")
-
 
 @dataclass(frozen=True)
 class AlignConfig:
@@ -63,6 +64,9 @@ class AlignResult(NamedTuple):
     gap_len: Optional[np.ndarray] = None
     gap_pos2: Optional[np.ndarray] = None
     gap_len2: Optional[np.ndarray] = None
+    # the long-read chunk tier: (reads, offs, clens, AlignResult of the
+    # chunks) in pipeline.blockcodec._lr_grid order, or None
+    chunks: Optional[tuple] = None
 
 
 def _gridify(codes_flat, dege_flat, lengths, lp):
@@ -163,25 +167,45 @@ class Aligner:
         return ix
 
     def align(self, codes_flat: np.ndarray, dege_flat: np.ndarray,
-              lengths: np.ndarray, device="cuda") -> AlignResult:
+              lengths: np.ndarray, device="cuda", allow_indel: bool = True,
+              max_indel: Optional[int] = None) -> AlignResult:
         """codes_flat: concatenated 2-bit read codes (degenerate bases as
-        0); dege_flat: degenerate-base mask; lengths: per read."""
+        0); dege_flat: degenerate-base mask; lengths: per read.  max_indel
+        overrides p.max_indel for this call (the long-read chunk tier runs
+        its own gap budget, longread_indel); allow_indel=False turns the
+        indel tier off."""
         R = len(lengths)
         if R == 0 or self.ref_len < self.k:
             return AlignResult(np.zeros(R, bool), np.zeros(R, np.int64),
                                np.zeros(R, bool), np.zeros((R, 32), bool))
-        max_len = int(lengths.max())
-        if max_len > self.params.align_max_len:
-            raise NotImplementedError(LONG_READ_MSG)
-        lp = lp_bucket(max_len)
         p = self.params
+        eff_indel = p.max_indel if max_indel is None else max_indel
+        if int(lengths.max()) > p.align_max_len:
+            return self._align_short(codes_flat, dege_flat, lengths, device,
+                                     allow_indel, max_indel, eff_indel)
+        lp = lp_bucket(int(lengths.max()))
         cfg = AlignConfig(k=self.k, stride=p.seed_stride,
                           n_cand=p.seed_max_occ, max_mis=p.max_mis,
                           both_strands=p.both_strands, lp=lp,
                           probe_k=p.seed_probe_k)
+        # tiers 2 and 3: candidates from several spatially diverse
+        # least-frequent seeds and a deeper list per seed
+        deep = dataclasses.replace(cfg, n_cand=p.seed_big_occ,
+                                   n_seeds=p.rescue_seeds,
+                                   excl_bp=p.seed_excl_bp, probe_k=1024)
+        rescue_on = p.seed_big_occ > cfg.n_cand and p.rescue_seeds > 0
+        indel_on = eff_indel > 0 and allow_indel
+        G = min(eff_indel, lp - 1)
         run = _Tiers(self, codes_flat, dege_flat, lengths, lp, device)
         out = (np.zeros(R, bool), np.zeros(R, np.int64), np.zeros(R, bool),
                np.zeros((R, lp), bool))
+        gaps = (tuple(np.zeros(R, np.int32) for _ in range(4)) if indel_on
+                else ())
+        if not run.host and os.environ.get("FASTQUEEZE_FUSED_ALIGN") == "1":
+            run.fused(cfg, deep if rescue_on else None, deep,
+                      G if indel_on else 0, p.indel_ops if indel_on else 0,
+                      out, gaps)
+            return AlignResult(*out, *gaps)
 
         # tier 1: forward over every read, RC only over the reads forward
         # failed (RC is a fallback in the reference), or both strands
@@ -194,24 +218,44 @@ class Aligner:
             if len(todo):
                 run.tier(dataclasses.replace(cfg, strand="rc"), todo, out,
                          self.BATCH)
-        # tier 2: unmapped reads with candidates from several spatially
-        # diverse least-frequent seeds and a deeper list per seed
-        deep = dataclasses.replace(cfg, n_cand=p.seed_big_occ,
-                                   n_seeds=p.rescue_seeds,
-                                   excl_bp=p.seed_excl_bp, probe_k=1024)
-        if p.seed_big_occ > cfg.n_cand and p.rescue_seeds > 0:
+        # tier 2: the rescue of the unmapped reads
+        if rescue_on:
             todo = np.flatnonzero(~out[0] & (lengths >= self.k))
             if len(todo):
                 run.tier(deep, todo, out, self.RESCUE_BATCH)
-        if p.max_indel <= 0:
-            return AlignResult(*out)
         # tier 3: indel rescue of the still-unmapped reads (-q)
-        gaps = tuple(np.zeros(R, np.int32) for _ in range(4))
-        todo = np.flatnonzero(~out[0] & (lengths >= self.k))
-        if len(todo):
-            run.indel(deep, min(p.max_indel, lp - 1), p.indel_ops, todo,
-                      out, gaps)
+        if indel_on:
+            todo = np.flatnonzero(~out[0] & (lengths >= self.k))
+            if len(todo):
+                run.indel(deep, G, p.indel_ops, todo, out, gaps)
         return AlignResult(*out, *gaps)
+
+    def _align_short(self, codes_flat, dege_flat, lengths, device,
+                     allow_indel, max_indel, eff_indel) -> AlignResult:
+        """A batch with reads longer than align_max_len: the others are
+        aligned on their own and the long ones stay unmapped at read level
+        (the chunk tier maps them; gridding them would blow up the (R, lp)
+        batch)."""
+        R = len(lengths)
+        short = lengths <= self.params.align_max_len
+        sel = np.flatnonzero(short)
+        lp = lp_bucket(int(lengths[sel].max()) if len(sel) else 32)
+        gaps = ((None,) * 4 if eff_indel <= 0
+                else tuple(np.zeros(R, np.int32) for _ in range(4)))
+        res = AlignResult(np.zeros(R, bool), np.zeros(R, np.int64),
+                          np.zeros(R, bool), np.zeros((R, lp), bool), *gaps)
+        if len(sel):
+            keep = np.repeat(short, lengths)
+            sub = self.align(codes_flat[keep], dege_flat[keep],
+                             lengths[sel], device, allow_indel, max_indel)
+            for dst, src in zip(res[:4], sub[:4]):
+                dst[sel] = src
+            if gaps[0] is not None and sub.gap_pos is not None:
+                # indel reads' masks are in spliced-window coordinates:
+                # without their gap fields they would decode as gapless
+                for dst, src in zip(res[4:8], sub[4:8]):
+                    dst[sel] = src
+        return res
 
     def rescue_mates(self, codes_flat: np.ndarray, dege_flat: np.ndarray,
                      lengths: np.ndarray, res: AlignResult, max_insr: int,
@@ -220,7 +264,8 @@ class Aligner:
         mate (read i ^ 1) mapped is re-verified at every offset of a
         C = min(4096, 2 * max_insr + 128) window centred on the mate's
         position, both strands (K10, or the native mirror).  Rescued reads
-        are gapless; the gap fields carry over unchanged."""
+        are gapless; the gap fields and the chunks carry over unchanged
+        (reads longer than the grid, the long reads, are skipped)."""
         from fastqueeze_tpu_torch.io import native
         from fastqueeze_tpu_torch.ops import kernels
         R = len(lengths)
@@ -262,7 +307,8 @@ class Aligner:
         is_rev[upd] = r[m]
         mis_mask[upd] = mm[m]
         return AlignResult(mapped, pos, is_rev, mis_mask, res.gap_pos,
-                           res.gap_len, res.gap_pos2, res.gap_len2)
+                           res.gap_len, res.gap_pos2, res.gap_len2,
+                           res.chunks)
 
 
 class _Tiers:
@@ -344,6 +390,58 @@ class _Tiers:
                 dst[upd] = src[f]
             is_rev[upd] = r[f]
             mis_mask[upd] = mm[f]
+
+
+    def fused(self, cfg: AlignConfig, cfg2, cfg3, G: int, ops: int, out,
+              gaps) -> None:
+        """hash._align_device_fused: tier 1 on both strands over every
+        batch (K8), one copy of the mapped bits, then one K14 a batch over
+        its grids (still on the device) with the unmapped reads of length
+        >= k as the todo list, padded to a power of two >= 128; then every
+        result is copied back."""
+        from fastqueeze_tpu_torch.ops import kernels
+        ix = self.al.dev_index(self.device)
+        jobs = [(sel, c, d, ln, kernels.align_batch(c, d, ln, ix, cfg))
+                for sel, c, d, ln in self._batches(
+                    np.arange(len(self.lengths)), Aligner.BATCH)]
+        m1 = [_np(j[4][0]) for j in jobs]          # round trip 1
+        phase_b = []
+        for (sel, c, d, ln, _), m in zip(jobs, m1):
+            todo = np.flatnonzero(~m & (self.lengths[sel] >= self.al.k))
+            if (cfg2 is None and not ops) or not len(todo):
+                continue
+            cap = 128
+            while cap < len(todo):
+                cap <<= 1
+            idxv = np.zeros(cap, np.int32)
+            dov = np.zeros(cap, bool)
+            idxv[:len(todo)] = todo
+            dov[:len(todo)] = True
+            put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+            phase_b.append((sel[todo], kernels.rescue_indel_fused(
+                c, d, ln, put(idxv), put(dov), ix, cfg2, cfg3, G, ops)))
+        mapped, pos, is_rev, mis_mask = out
+        for (sel, *_, res), m in zip(jobs, m1):      # round trip 2
+            mapped[sel] = m
+            pos[sel] = _np(res[1])
+            is_rev[sel] = _np(res[2])
+            mis_mask[sel] = _np(res[3])
+        for rows, res in phase_b:
+            k = len(rows)
+            m2, p2, r2, mm2, f, pi, s1, g1, s2, g2, ri, mmi = (
+                _np(x)[:k] for x in res)
+            upd = rows[m2]
+            mapped[upd] = True
+            pos[upd] = p2[m2]
+            is_rev[upd] = r2[m2]
+            mis_mask[upd] = mm2[m2]
+            upd = rows[f]
+            mapped[upd] = True
+            pos[upd] = pi[f]
+            for dst, src in zip(gaps, (s1, g1, s2, g2)):
+                dst[upd] = src[f]
+            is_rev[upd] = ri[f]
+            mis_mask[upd] = mmi[f]
 
 
 def _np(x) -> np.ndarray:

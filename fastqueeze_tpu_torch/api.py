@@ -16,9 +16,11 @@ Parameters are the `CodecParams` the CLI builds from its flags; only here
 can a caller set the ones no flag sets, such as ``frozen_adapt`` (keep
 adapting from the trained tables).  The coder and the aligner run on
 ``device``, the CUDA card by default; ``device="cpu"`` runs the kernels'
-plain PyTorch versions and the native host coders.  Not ported yet, each
-raising NotImplementedError with its ROADMAP item: merge, extract,
-``part``, ``lossy`` and 3+ inputs (Queue A item 4), ``mesh`` (item 9).
+plain PyTorch versions and the native host coders.  ``lossy`` (-l) sets
+lossy_factor; ``mesh`` resolves against the visible devices.  Not ported
+yet, each raising NotImplementedError with its ROADMAP item: merge,
+extract, a ``part`` of 2 or more and 3+ inputs (Queue A item 4), ``mesh``
+over 2 or more devices (item 9).
 """
 
 from __future__ import annotations
@@ -55,16 +57,19 @@ def compress(inputs: Inputs, out_path: str, *,
     inputs: one path (SE) or a (r1, r2) pair (PE).  reference: FASTA path
     to align against (the index file is loaded or built).  self_ref:
     self-referential alignment (the CLI's `-S`; not with `reference`).
-    Returns the driver's stats dict (raw/compressed bytes, ratio, blocks,
-    ...)."""
-    if part is not None and tuple(part)[1:] != (1,):
-        raise NotImplementedError(f"multi-host parts (part): {_ITEM4}")
-    if lossy is not None and lossy > 1.0:
-        raise NotImplementedError(f"lossy quality transform: {_ITEM4}")
-    if mesh:
-        raise NotImplementedError("--mesh block data-parallelism: ROADMAP "
-                                  "Queue A item 9")
-    p = _params(params, threads=threads)
+    lossy: the R-Block quality factor (the CLI's `-l`; above 1.0 the
+    qualities are transformed).  mesh: block data-parallelism over N
+    devices, -1 = all (the CLI's `--mesh`).  Returns the driver's stats
+    dict (raw/compressed bytes, ratio, blocks, ...)."""
+    if part is not None:
+        if not (0 <= part[0] < part[1] <= 0xFFFFFFFF):
+            raise ValueError(
+                f"part wants (k, n) with 0 <= k < n, got {part}")
+        if part[1] != 1:           # 1 part == a plain single-run archive
+            raise NotImplementedError(f"multi-host parts (part): {_ITEM4}")
+    p = _params(params, threads=threads, mesh_n=mesh)
+    if lossy is not None:
+        p.lossy_factor = lossy
     if self_ref:
         if reference is not None:
             raise ValueError("self_ref and reference are mutually "

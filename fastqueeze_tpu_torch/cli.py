@@ -3,17 +3,21 @@
     python -m fastqueeze_tpu_torch.cli -i ref.fa [-q]
     python -m fastqueeze_tpu_torch.cli -D
     python -m fastqueeze_tpu_torch.cli -c [ref.fa] -1 in.fq [-2 in_2.fq]
-        -o out.fqz [-f] [-t N] [--qlevel N] [-q] [-s] [-S] [-I N]
+        -o out.fqz [-f] [-t N] [--qlevel N] [-q] [-s] [-S] [-I N] [-l F]
+        [--mesh N]
     python -m fastqueeze_tpu_torch.cli -d [ref.fa] out.fqz -o prefix [-f]
-        [-t N] [-P 1|2|3]
+        [-t N] [-P 1|2|3] [--mesh N]
 
 The flags and archives are those of fastqueeze_tpu's CLI.  The coder and
 the aligner run on the CUDA card; with no card the CLI stops with an
 error and never continues on the CPU (``-i`` builds the index on the
 host and needs no card; ``-D`` writes the developer config file
 ./fastqueeze.config with the defaults, which every compress reads, e.g.
-``AdaptChunk:64`` for the semi-adaptive walk).  Flags of modes the port
-lacks (-m, -X, --part, --mesh) exit with the ROADMAP item that ports them.
+``AdaptChunk:64`` for the semi-adaptive walk).  ``--mesh N`` resolves
+against the visible cards (-1 = all; more than are visible is refused);
+on one card it is a no-op written into PARAM.  Flags of modes the port
+lacks (-m, -X, --part, --mesh over 2 or more cards) exit with the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -31,7 +35,6 @@ _UNPORTED = (
     ("multi", "multi-file archives (-m): ROADMAP Queue A item 4"),
     ("extract", "random-access decode (-X): ROADMAP Queue A item 4"),
     ("part", "multi-host parts (--part): ROADMAP Queue A item 4"),
-    ("mesh", "--mesh block data-parallelism: ROADMAP Queue A item 9"),
 )
 
 
@@ -55,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="force overwrite")
     ap.add_argument("-t", dest="threads", type=int, default=None,
                     help="host worker threads (blocks in flight)")
+    ap.add_argument("-l", dest="lossy", type=float, default=None,
+                    help="lossy quality factor (e.g. 1.15)")
     ap.add_argument("-I", dest="max_insr", type=int, default=None,
                     help="max insert size for PE alignment")
     ap.add_argument("-s", dest="shm", action="store_true",
@@ -74,8 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--part", metavar="K:N",
                     help="multi-host compress (not ported)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="block data-parallelism over N devices (not "
-                    "ported)")
+                    help="block data-parallelism over N cards (-1 = all; "
+                    "one card: a no-op; 2 or more: not ported)")
     ap.add_argument("--qlevel", type=int, default=None,
                     help="quality context level (default 2; 3 codes "
                     "adaptively with position contexts)")
@@ -137,8 +142,10 @@ def main(argv=None) -> int:
             p = CodecParams(is_pe=1 if args.in2 else 0)
             p.apply_config_file()      # developer config (seqarc.config)
             for attr, val in (("qlevel", args.qlevel),
+                              ("lossy_factor", args.lossy),
                               ("max_insr", args.max_insr),
-                              ("threads", args.threads)):
+                              ("threads", args.threads),
+                              ("mesh_n", args.mesh)):
                 if val is not None:    # explicit CLI flag beats config file
                     setattr(p, attr, val)
             if args.bwa:
@@ -174,7 +181,8 @@ def main(argv=None) -> int:
             ref = args.pos[0] if len(args.pos) == 2 else None
             outs = decompress(args.pos[-1], args.out, dbg=dbg,
                               force=args.force, threads=args.threads or 0,
-                              device=device, ref=ref, pipeout=args.pipeout)
+                              device=device, ref=ref, pipeout=args.pipeout,
+                              mesh=args.mesh or 0)
             if outs:
                 info("wrote: " + ", ".join(outs))
     except NotImplementedError as e:

@@ -43,6 +43,9 @@ K9 indel_batch         one thread per read: K8's seed search for the
 K10 window_batch       one warp per read: every offset of the mate's
                        insert window on both strands, first-occurrence
                        argmin (align/hash.py _window_batch)
+K14 rescue_indel_fused one thread per todo slot of a tier-1 batch: K8's
+                       rescue, then K9 on the slots it did not map
+                       (align/hash.py _rescue_indel_fused)
 
 The sources are csrc/*.cu with a plain C interface, compiled by nvcc for
 sm_90a (one nvcc per source, in parallel) and linked into one shared
@@ -75,7 +78,7 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "adapt_decode": 0, "align_batch": 0,
                             "indel_batch": 0, "window_batch": 0,
                             "semi_encode_walk": 0, "semi_decode": 0,
-                            "train_counts": 0}
+                            "train_counts": 0, "rescue_indel_fused": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -198,6 +201,9 @@ def _lib() -> ctypes.CDLL:
             lib.fq_indel_batch_cuda.argtypes = (
                 index + acfg + [vp, vp, vp, i32, i32, i32, vp, i64]
                 + [vp] * 9)
+            lib.fq_rescue_indel_fused_cuda.argtypes = (
+                index + acfg + [i32] + acfg + [i32] * 2 + [vp] * 3 + [i32]
+                + [vp] * 2 + [i32] * 2 + [vp, i64] + [vp] * 13)
             lib.fq_window_batch_cuda.argtypes = (
                 [vp, i64, i32, vp, vp, vp, vp, i32, i32, i32, i32]
                 + [vp] * 4)
@@ -207,7 +213,7 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_adapt_decode, lib.fq_align_batch_cuda,
                        lib.fq_indel_batch_cuda, lib.fq_window_batch_cuda,
                        lib.fq_semi_encode_walk, lib.fq_semi_decode,
-                       lib.fq_train_counts):
+                       lib.fq_train_counts, lib.fq_rescue_indel_fused_cuda):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -1538,3 +1544,90 @@ def window_batch(packed: torch.Tensor, ref_len: int, codes: torch.Tensor,
             _ptr(centers), B, Lp, C, max_mis, _ptr(mapped), _ptr(pos),
             _ptr(rev), _ptr(mm))
     return mapped, pos, rev, mm
+
+
+# --- K14 rescue_indel_fused: the rescue and indel tiers in one launch -------
+
+def _fused_zeros(cap: int, Lp: int, dev):
+    """K14's twelve outputs, zero: (m2, p2, r2, mm2) then (f, pi, s1, g1,
+    s2, g2, ri, mmi)."""
+    def z(dtype, *shape):
+        return torch.zeros((cap,) + shape, dtype=dtype, device=dev)
+    b, i = torch.bool, torch.int32
+    return (z(b), z(i), z(b), z(b, Lp), z(b), z(i), z(i), z(i), z(i), z(i),
+            z(b), z(b, Lp))
+
+
+def rescue_indel_fused_plain(codes: torch.Tensor, dege: torch.Tensor,
+                             lengths: torch.Tensor, idx: torch.Tensor,
+                             do: torch.Tensor, ix: AlignIndex, cfg2, cfg3,
+                             G: int, ops: int):
+    """hash._rescue_indel_fused: gather the todo rows (length 0 where
+    ``do`` is false), the rescue tier over them (cfg2; None disables it),
+    then the indel tier (cfg3, G, ops; ops 0 disables it) over the slots
+    the rescue did not map."""
+    sel = idx.long()
+    c, d = codes[sel], dege[sel]
+    ln = torch.where(do, lengths[sel], 0)
+    cap, Lp = c.shape
+    if cfg2 is not None:
+        m2, p2, r2, mm2 = align_batch_plain(c, d, ln, ix, cfg2)
+        m2 = m2 & do
+    else:
+        m2, p2, r2, mm2 = _fused_zeros(cap, Lp, c.device)[:4]
+    if ops > 0:
+        bad = do & ~m2
+        f, *rest = indel_batch_plain(c, d, torch.where(bad, ln, 0), ix,
+                                     cfg3, G, ops)
+        return (m2, p2, r2, mm2, f & bad, *rest)
+    return (m2, p2, r2, mm2, *_fused_zeros(cap, Lp, c.device)[4:])
+
+
+def rescue_indel_fused(codes: torch.Tensor, dege: torch.Tensor,
+                       lengths: torch.Tensor, idx: torch.Tensor,
+                       do: torch.Tensor, ix: AlignIndex, cfg2, cfg3, G: int,
+                       ops: int):
+    """K14: over one batch's (B, Lp) grids (as align_batch takes them) and
+    a todo list of (cap,) int32 row indices with their (cap,) bool flags,
+    the rescue tier (cfg2, both strands; None: off) and the indel tier
+    (cfg3, gap size up to G, ``ops`` gap operations; 0: off) on the slots
+    the rescue left unmapped -> (m2, p2, r2, mm2) as align_batch returns
+    them and (f, pi, s1, g1, s2, g2, ri, mmi) as indel_batch does, m2
+    masked to do and f to do & ~m2.  Only m2, f and the outputs of the
+    slots they select carry meaning."""
+    tensors = (codes, dege, lengths, idx, do) + tuple(ix[:5])
+    if not _on_card(*tensors):
+        return rescue_indel_fused_plain(codes, dege, lengths, idx, do, ix,
+                                        cfg2, cfg3, G, ops)
+    B, wide = _check_align(codes, dege, lengths, ix, cfg3,
+                           "rescue_indel_fused")
+    _check(idx, "idx", torch.int32, 1)
+    _check(do, "do", torch.bool, 1)
+    cap, Lp = idx.numel(), cfg3.lp
+    if do.numel() != cap:
+        raise ValueError("rescue_indel_fused: idx and do differ in length")
+    if cfg2 is not None and (cfg2.strand != "both" or cfg2.k != cfg3.k
+                             or cfg2.lp != Lp):
+        raise ValueError("rescue_indel_fused: cfg2 must search both strands "
+                         "with cfg3's k and lp")
+    if ops not in (0, 1, 2) or (ops and not 1 <= G < Lp):
+        raise ValueError("rescue_indel_fused: need ops in (0, 1, 2) and "
+                         "1 <= G < Lp when ops > 0")
+    dev = codes.device
+    outs = _fused_zeros(cap, Lp, dev)
+    if cap == 0 or B == 0 or (cfg2 is None and ops == 0):
+        return outs
+    lib = _lib()
+    per = max(lib.fq_align_scratch_bytes(*_align_cfg_args(cfg2))
+              if cfg2 is not None else 0,
+              lib.fq_indel_scratch_bytes(*_align_cfg_args(cfg3), G)
+              if ops else 0)
+    scratch = torch.empty((cap * per,), dtype=torch.uint8, device=dev)
+    _launch(lib.fq_rescue_indel_fused_cuda, "rescue_indel_fused",
+            *_index_ptrs(ix, wide),
+            *_align_cfg_args(cfg2 if cfg2 is not None else cfg3),
+            int(cfg2 is not None), *_align_cfg_args(cfg3), G, ops,
+            _ptr(codes), _ptr(dege), _ptr(lengths), B, _ptr(idx), _ptr(do),
+            cap, int(cfg3.both_strands), _ptr(scratch), per,
+            *(_ptr(t) for t in outs))
+    return outs

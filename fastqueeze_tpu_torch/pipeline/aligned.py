@@ -1,13 +1,16 @@
 """Reference-aligned compression, single-end and paired-end.
 
 Copied from fastqueeze_tpu/pipeline/aligned.py: per block, align the
-reads (align/hash.py; K8 and K9 on the card), then encode with the
-alignment streams, or entropy-only when the block's mapped fraction is
-under ``min_map_ratio`` (the reference's per-block Align/Fqz decision).
-PE blocks align their mates interleaved and, with -I (max_insr), rescue
-an unmapped mate inside its mapped mate's insert window (K10).  Not
-ported yet: --part and the lossy transform (ROADMAP Queue A item 4), and
-reads over align_max_len (item 8).
+reads (align/hash.py; K8 and K9 on the card, or K8 and K14 with
+FASTQUEEZE_FUSED_ALIGN=1), and the chunks of the reads longer than
+align_max_len (the long-read tier), then encode with the alignment
+streams, or entropy-only when the block's mapped fraction is under
+``min_map_ratio`` (the reference's per-block Align/Fqz decision).  PE
+blocks align their mates interleaved and, with -I (max_insr), rescue an
+unmapped mate inside its mapped mate's insert window (K10).  -l
+transforms each block's qualities before its MD5.  Not ported yet:
+--part (ROADMAP Queue A item 4) and --mesh over 2 or more devices (item
+9).
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from fastqueeze_tpu_torch.container.arcfile import (
     FLAG_ALIGNED, FLAG_PE, ArcWriter, BlockInfo)
 from fastqueeze_tpu_torch.io.fastq import FastqBlock, parse_block, read_blocks
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
-    _BASE_MAP, dup_masks, encode_block)
-from fastqueeze_tpu_torch.pipeline.parallel_host import ordered_parallel
+    _BASE_MAP, _intra_of, _lr_grid, dup_masks, encode_block)
+from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair, parse_lossy
+from fastqueeze_tpu_torch.pipeline.parallel_host import (
+    block_devices, ordered_parallel)
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 
@@ -39,13 +44,16 @@ def _read_codes(block: FastqBlock) -> Tuple[np.ndarray, np.ndarray]:
 
 def align_block(aligner: Aligner, block: FastqBlock, device,
                 dup_src: Optional[np.ndarray] = None) -> AlignResult:
-    """Align a block's reads.  With dup_src (the duplicate tier's
+    """Align a block's reads, and the chunks of its reads longer than
+    align_max_len (_chunk_align).  With dup_src (the duplicate tier's
     first-occurrence back-references), only unique reads run the aligner
     and each duplicate inherits its source's result: the aligner is
     deterministic per read, so the archive is the same."""
     codes, dege = _read_codes(block)
     if dup_src is None:
-        return aligner.align(codes, dege, block.lengths, device)
+        res = aligner.align(codes, dege, block.lengths, device)
+        return res._replace(chunks=_chunk_align(aligner, block, codes, dege,
+                                                device))
     keep = dup_src < 0
     sym_keep = np.repeat(keep, block.lengths)
     sub = aligner.align(codes[sym_keep], dege[sym_keep],
@@ -62,13 +70,64 @@ def align_block(aligner: Aligner, block: FastqBlock, device,
         out[~keep] = out[src]
         return out
 
-    return AlignResult(*(spread(a) for a in sub))
+    return AlignResult(*(spread(a) for a in sub[:8]),
+                       _chunk_align(aligner, block, codes, dege, device,
+                                    keep_read=keep))
+
+
+def _chunk_align(aligner: Aligner, block: FastqBlock, codes: np.ndarray,
+                 dege: np.ndarray, device, keep_read=None):
+    """The long-read tier: reads longer than align_max_len are mapped in
+    longread_chunk pieces through the ordinary tiers, with the gap budget
+    longread_indel.  The grid is blockcodec._lr_grid, derived from the
+    lengths and the params on both sides (no structure bytes).  Duplicate
+    long reads restore by copy, so their chunks are not aligned.  Returns
+    (reads, offs, clens, AlignResult of the chunks), or None."""
+    p = aligner.params
+    cap = p.align_max_len
+    C = min(p.longread_chunk, cap)
+    if not C or not len(block.lengths) or int(block.lengths.max()) <= cap:
+        return None
+    reads, offs, clens = _lr_grid(block.lengths, cap, C, p.longread_tail_min)
+    if not len(reads):
+        return None
+    sel = (np.ones(len(reads), bool) if keep_read is None
+           else keep_read[reads])
+    starts = np.cumsum(block.lengths) - block.lengths
+
+    def run(ks):
+        idx = (np.repeat(starts[reads[ks]] + offs[ks], clens[ks])
+               + _intra_of(clens[ks]))
+        return aligner.align(codes[idx], dege[idx], clens[ks], device,
+                             allow_indel=p.longread_indel > 0,
+                             max_indel=p.longread_indel)
+
+    if sel.all():
+        return reads, offs, clens, run(np.arange(len(reads)))
+    ks = np.flatnonzero(sel)
+    n = len(reads)
+    s = run(ks) if len(ks) else None
+    lp = s.mis_mask.shape[1] if s is not None else 0
+    mm = np.zeros((n, max(lp, 16)), bool)
+    out = [np.zeros(n, bool), np.zeros(n, np.int64), np.zeros(n, bool), mm]
+    gaps = [None] * 4
+    if s is not None:
+        for dst, src in zip(out[:3], s[:3]):
+            dst[ks] = src
+        mm[ks, :lp] = s.mis_mask
+        if s.gap_pos is not None:
+            gaps = [np.zeros(n, np.int32) for _ in range(4)]
+            for dst, src in zip(gaps, s[4:8]):
+                dst[ks] = src
+    return reads, offs, clens, AlignResult(*out, *gaps)
 
 
 def _maybe_align(p: CodecParams, aligner: Aligner, block: FastqBlock,
                  device, dbg: DebugInfo):
     """Align the block; (None, 0) when its mapped fraction is under
-    min_map_ratio (coded entropy-only), else (AlignResult, n_mapped)."""
+    min_map_ratio (coded entropy-only), else (AlignResult, n_mapped).  A
+    block with mapped long-read chunks gates on the mapped share of its
+    bases instead, when that is larger."""
     t0 = time.time()
     dup_src = None
     if p.dedup and block.n_reads > 1:
@@ -77,6 +136,12 @@ def _maybe_align(p: CodecParams, aligner: Aligner, block: FastqBlock,
     dbg.add("align_s", time.time() - t0)
     n_mapped = int(res.mapped.sum())
     frac = n_mapped / block.n_reads if block.n_reads else 0.0
+    if res.chunks is not None and res.chunks[3].mapped.any():
+        ch = res.chunks
+        mapped_b = (int(block.lengths[res.mapped].sum())
+                    + int(ch[2][ch[3].mapped].sum()))
+        frac = max(frac, mapped_b / max(int(block.lengths.sum()), 1))
+        dbg.add("lr_chunks_mapped", int(ch[3].mapped.sum()))
     if block.n_reads and frac < p.min_map_ratio:
         dbg.add("fqz_blocks", 1)
         return None, 0
@@ -129,8 +194,8 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
     from fastqueeze_tpu_torch.pipeline.frozen import (
         serialize_frozen, stage_tables, train_frozen)
     t0 = time.time()
-    block = parse_block(*next(iter(read_blocks(in_path,
-                                               p.model_train_mb << 20))))
+    _, block = parse_lossy(p, *next(iter(read_blocks(
+        in_path, p.model_train_mb << 20))))
     est = int(_gate_bytes(in_path) * int(block.lengths.sum())
               / max(block.raw_len, 1))
     if p.dedup:
@@ -145,9 +210,7 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
 def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
                         out_path: str, dbg: Optional[DebugInfo] = None,
                         device="cuda") -> Dict:
-    if p.lossy_factor > 1.0:
-        raise NotImplementedError(
-            "lossy quality transform: ROADMAP Queue A item 4")
+    block_devices(p.mesh_n, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     dbg = dbg or DebugInfo()
     t0 = time.time()
@@ -162,8 +225,7 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
         writer.set_model(blob)
 
     def work(_i, item):
-        raw, final_nl = item
-        block = parse_block(raw, final_nl)
+        raw, block = parse_lossy(p, *item)
         align, n_mapped = _maybe_align(p, aligner, block, device, dbg)
         t0 = time.time()
         payload = encode_block(p, block, frozen, device, dbg, align,
@@ -203,9 +265,9 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
     relations and the modal insert go to ``dbg``."""
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     from fastqueeze_tpu_torch.pipeline.pe import (
-        _RecordReader, check_ported, interleave_blocks, pe_block_items,
-        pe_payload, train_frozen_pe_prefix)
-    check_ported(p)
+        _RecordReader, interleave_blocks, pe_block_items, pe_payload,
+        train_frozen_pe_prefix)
+    block_devices(p.mesh_n, device)
     dbg = dbg or DebugInfo()
     t0 = time.time()
     aligner, ref = prepare_ref(p, ref_path)
@@ -222,8 +284,8 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
 
     def work(_i, item):
         raw1, fnl1, raw2, fnl2 = item
-        b1 = parse_block(raw1, fnl1)
-        b2 = parse_block(raw2, fnl2)
+        raw1, b1, raw2, b2 = lossy_pair(p, raw1, parse_block(raw1, fnl1),
+                                        raw2, parse_block(raw2, fnl2))
         merged = interleave_blocks(b1, b2)
         align, n_mapped = _maybe_align(p, aligner, merged, device, dbg)
         if align is not None and p.max_insr > 0:

@@ -14,8 +14,12 @@ otherwise.  Every other stream of at most
 Reference-aligned and self-referential blocks add the alignment streams:
 per-read mapped flags, and for the mapped reads window start, strand,
 mismatch counts, positions and substituted bases (context = the reference
-base), plus the indel CIGAR streams and the PE ``-I`` insert deltas.  Not
-ported yet: the long-read chunk streams (ROADMAP Queue A item 8).
+base), plus the indel CIGAR streams and the PE ``-I`` insert deltas.
+Reads longer than align_max_len add the long-read chunk streams: the
+mapped chunks of the _lr_grid (a pure function of the lengths and the
+params) with their flags, positions (anchors absolute, the rest a
+residual off the previous chunk), strands, mismatches and chunk indels;
+their bases leave the residual seq stream.
 """
 
 from __future__ import annotations
@@ -71,16 +75,57 @@ TAG_ACIGL = 24    # indel reads: zigzag signed gap size g
 TAG_ACG2F = 29    # indel reads: has-second-op flag
 TAG_ACG2S = 30    # 2-op reads: second split position s2 (>= s1 + |g1<0|)
 TAG_ACG2L = 31    # 2-op reads: zigzag signed second gap g2
-TAG_LRF = 32      # first tag of the long-read chunk streams (32-45)
+# long-read tier (reads > align_max_len, chunked anchor mapping):
+TAG_LRF = 32      # per-chunk mapped flag (chunks of non-seq-dup long reads)
+TAG_LRPOS = 33    # mapped chunks: absolute window start (posb bytes)
+TAG_LRREV = 34    # mapped chunks: reverse-complement flag
+TAG_LRMISC = 35   # mapped chunks: mismatch count per chunk
+TAG_LRMISP = 36   # mapped chunks: mismatch positions (delta, lrpb bytes)
+TAG_LRMISB = 37   # mapped chunks: substituted bases, ctx = ref base
+TAG_LRPA = 38     # mapped chunks: position-anchor flag (first of read /
+                  #   strand change / discontiguous); non-anchors code a
+                  #   2-byte zigzag residual off the previous chunk
+TAG_LRPD = 39     # non-anchor chunks: zigzag pos residual (u16)
+# chunk-level indels (longread_indel budget), the read path's CIGAR
+# shapes at chunk granularity (these numbers coexist with pe.py's outer
+# envelope tags 40/41: block payloads nest inside the PE envelope)
+TAG_LRCIGF = 40   # mapped chunks: has-indel flag
+TAG_LRCIGS = 41   # indel chunks: split position s
+TAG_LRCIGL = 42   # indel chunks: zigzag signed gap g
+TAG_LRCG2F = 43   # indel chunks: has-second-op flag
+TAG_LRCG2S = 44   # 2-op chunks: second split s2
+TAG_LRCG2L = 45   # 2-op chunks: zigzag signed g2
 
 _VAR_CHUNK = 256  # var byte streams are cut into pseudo-reads for lanes
-_LR_MSG = ("long-read chunk streams (reads over align_max_len): ROADMAP "
-           "Queue A item 8")
 
 _BASE_MAP = np.full(256, 255, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
     _BASE_MAP[_c] = _i
 _BASE_INV = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _lr_grid(lengths: np.ndarray, cap: int, chunk: int,
+             tail_min: int = 64):
+    """The long-read tier's chunk grid: (reads, offs, clens) covering
+    every read longer than ``cap`` in ``chunk``-sized pieces, the final
+    remainder its own chunk when >= tail_min (p.longread_tail_min,
+    serialized: it shapes the decode-side grid).  Encode and decode derive
+    the same grid from the lengths and the params."""
+    rows = np.flatnonzero(lengths > cap)
+    reads, offs, clens = [], [], []
+    for r in rows:
+        L = int(lengths[r])
+        n = L // chunk
+        reads += [r] * n
+        offs += [j * chunk for j in range(n)]
+        clens += [chunk] * n
+        rem = L - n * chunk
+        if rem >= tail_min:
+            reads.append(r)
+            offs.append(n * chunk)
+            clens.append(rem)
+    return (np.asarray(reads, np.int64), np.asarray(offs, np.int64),
+            np.asarray(clens, np.int64))
 
 
 # --- duplicate-read tier (CodecParams.dedup) ---------------------------
@@ -575,6 +620,26 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
         mapped = mapped & ~sdup
     n_mapped = int(mapped.sum())
 
+    # --- long-read tier: mapped chunks of reads > align_max_len are
+    #     rebuilt from the reference, so their bases leave the residual
+    #     seq stream ---
+    lr = align.chunks if align is not None and not self_ref else None
+    lr_sub = np.zeros(R, np.int64)        # mapped-chunk bases per read
+    lr_excl = None
+    if lr is not None and len(lr[0]):
+        lr_reads, lr_offs, lr_clens, lr_res = lr
+        lr_keep = ~sdup[lr_reads] if n_sd else np.ones(len(lr_reads), bool)
+        lr_cm = lr_res.mapped & lr_keep
+        if lr_cm.any():
+            np.add.at(lr_sub, lr_reads[lr_cm], lr_clens[lr_cm])
+            cl = lr_clens[lr_cm]
+            lr_excl = (np.repeat((np.cumsum(lengths) - lengths)[
+                lr_reads[lr_cm]] + lr_offs[lr_cm], cl) + _intra_of(cl))
+        else:
+            lr = None
+    else:
+        lr = None
+
     const_len = int(lengths[0]) if R and (lengths == lengths[0]).all() else None
     meta = {
         "R": R,
@@ -591,12 +656,14 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
     # --- dispatch the big device streams first (seq + qual); host streams
     #     are coded while the device crunches, then the jobs are finalized
     seq_keep = ~mapped & ~sdup if n_sd else ~mapped
-    seq_counts = (lengths - dege_cnt)[seq_keep]
+    seq_counts = (lengths - dege_cnt - lr_sub)[seq_keep]
     seq_sel = ~dege_mask
     if n_mapped:
         seq_sel &= ~np.repeat(mapped, lengths)
     if n_sd:
         seq_sel &= ~sdup_sym
+    if lr_excl is not None:
+        seq_sel[lr_excl] = False       # mapped chunks ride the reference
     seq_syms = codes[seq_sel]
     if n_qd:
         qsyms = qsyms[np.repeat(~qdup, lengths)]
@@ -704,6 +771,12 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
                                                mapped, meta, device)
     if align is not None:
         align_sections.insert(0, (TAG_AMAP, _code_flags(p, mapped, device)))
+    if lr is not None:
+        if ref_codes is None:
+            raise ValueError("the long-read tier needs the reference codes")
+        align_sections += _encode_lr_streams(
+            p, block, lr_reads, lr_offs, lr_clens, lr_res, lr_keep, lr_cm,
+            ref_codes, meta, device)
 
     def finalize() -> bytes:
         # --- collect the device streams, assemble TLV ---
@@ -792,28 +865,10 @@ def _encode_align_streams(p: CodecParams, block: FastqBlock, align,
     if mis_cnt.max(initial=0) > 255:
         raise ValueError(">255 mismatches in one read")
 
-    # mismatch (read, window-col) pairs, row-major = per-read ascending;
-    # delta within read (first mismatch absolute)
-    rows, cols = np.nonzero(mm)
-    prev = np.empty_like(cols)
-    prev[0:1] = 0
-    prev[1:] = cols[:-1]
-    first = np.empty(len(rows), bool)
-    first[0:1] = True
-    first[1:] = rows[1:] != rows[:-1]
-    deltas = np.where(first, cols, cols - prev)
-
+    rows, cols, deltas = _mis_deltas(mm)
     # indel ops: split s + signed gap g per flagged read, plus an optional
     # second op (s2, g2); mismatches stay in spliced-window coords
-    g_m = s_m = g2_m = s2_m = None
-    if align.gap_len is not None:
-        g_all = align.gap_len[mapped].astype(np.int64)
-        if (g_all != 0).any():
-            g_m = g_all
-            s_m = align.gap_pos[mapped].astype(np.int64)
-            if align.gap_len2 is not None and (align.gap_len2 != 0).any():
-                g2_m = align.gap_len2[mapped].astype(np.int64)
-                s2_m = align.gap_pos2[mapped].astype(np.int64)
+    ops = _gap_ops(align, mapped)
 
     # substituted base = effective-strand read base at the window col;
     # context = the spliced reference base it replaced (filler 0 under
@@ -822,21 +877,7 @@ def _encode_align_streams(p: CodecParams, block: FastqBlock, align,
     eff_col = np.where(rev[rows], mlens[rows] - 1 - cols, cols)
     read_base = _BASE_MAP[block.seq_flat[moffs[rows] + eff_col]]
     sub_base = np.where(rev[rows], 3 - read_base, read_base).astype(np.uint8)
-    if g_m is None:
-        # self-ref windows may overhang the reference end by up to max_mis
-        # force-masked bases: clip like the decode-side window build
-        ref_base = ref_codes[np.clip(pos[rows] + cols, 0,
-                                     max(ref_codes.size - 1, 0))]
-    else:
-        shift = np.where(cols >= s_m[rows], g_m[rows], 0)
-        ins = ((g_m[rows] < 0) & (cols >= s_m[rows])
-               & (cols < s_m[rows] - g_m[rows]))
-        if g2_m is not None:
-            shift = shift + np.where(cols >= s2_m[rows], g2_m[rows], 0)
-            ins |= ((g2_m[rows] < 0) & (cols >= s2_m[rows])
-                    & (cols < s2_m[rows] - g2_m[rows]))
-        ridx = np.clip(pos[rows] + cols + shift, 0, ref_codes.size - 1)
-        ref_base = np.where(ins, 0, ref_codes[ridx])
+    ref_base = _ref_ctx(ref_codes, pos, rows, cols, ops)
 
     sections = pe_sections + [
         (TAG_APOS, _code_le(p, pos[abs_mask_m], posb, device)),
@@ -848,24 +889,157 @@ def _encode_align_streams(p: CodecParams, block: FastqBlock, align,
         sections.append((TAG_AMISP, _code_le(p, deltas, mposb, device)))
         sections.append((TAG_AMISB, _code_syms_ctx(
             p, sub_base, ref_base.astype(np.uint8), 4, 4, device)))
-    if g_m is not None:
-        has = g_m != 0
-        meta["nidl"] = int(has.sum())
-        gb = 1 if p.max_indel <= 127 else 2   # zigzag range is 2*max_indel
-        sections.append((TAG_ACIGF, _code_flags(p, has, device)))
-        sections.append((TAG_ACIGS, _code_le(p, s_m[has], mposb, device)))
-        sections.append((TAG_ACIGL, _code_le(p, _zigzag(g_m[has]), gb,
-                                             device)))
-        if g2_m is not None and (g2_m[has] != 0).any():
-            # second op streams, nested under the indel reads (the second
-            # pass only extends a first-pass indel: g2 != 0 => g1 != 0)
-            has2 = g2_m[has] != 0
-            meta["nidl2"] = int(has2.sum())
-            sections.append((TAG_ACG2F, _code_flags(p, has2, device)))
-            sections.append((TAG_ACG2S, _code_le(p, s2_m[has][has2], mposb,
-                                                 device)))
-            sections.append((TAG_ACG2L, _code_le(
-                p, _zigzag(g2_m[has][has2]), gb, device)))
+    if ops[0] is not None:
+        sections += _cigar_sections(p, ops, mposb, p.max_indel, _READ_CIGAR,
+                                    meta, ("nidl", "nidl2"), device)
+    return sections
+
+
+# indel streams of the read path and of the long-read chunks: has-op
+# flag, split, zigzag gap; second-op flag, split, gap
+_READ_CIGAR = (TAG_ACIGF, TAG_ACIGS, TAG_ACIGL, TAG_ACG2F, TAG_ACG2S,
+               TAG_ACG2L)
+_LR_CIGAR = (TAG_LRCIGF, TAG_LRCIGS, TAG_LRCIGL, TAG_LRCG2F, TAG_LRCG2S,
+             TAG_LRCG2L)
+
+
+def _mis_deltas(mm: np.ndarray):
+    """Mismatch (row, col) pairs of a mask, row-major (per row ascending),
+    and each col's delta within its row (the first absolute)."""
+    rows, cols = np.nonzero(mm)
+    prev = np.empty_like(cols)
+    prev[0:1] = 0
+    prev[1:] = cols[:-1]
+    first = np.empty(len(rows), bool)
+    first[0:1] = True
+    first[1:] = rows[1:] != rows[:-1]
+    return rows, cols, np.where(first, cols, cols - prev)
+
+
+def _gap_ops(res, sel: np.ndarray):
+    """(g, s, g2, s2) of the selected rows' indel ops as int64: all None
+    when no selected row has an op, g2 and s2 None when none has a second
+    op."""
+    g_m = s_m = g2_m = s2_m = None
+    if res.gap_len is not None:
+        g_all = res.gap_len[sel].astype(np.int64)
+        if (g_all != 0).any():
+            g_m = g_all
+            s_m = res.gap_pos[sel].astype(np.int64)
+            if res.gap_len2 is not None and (res.gap_len2[sel] != 0).any():
+                g2_m = res.gap_len2[sel].astype(np.int64)
+                s2_m = res.gap_pos2[sel].astype(np.int64)
+    return g_m, s_m, g2_m, s2_m
+
+
+def _ref_ctx(ref_codes: np.ndarray, pos, rows, cols, ops) -> np.ndarray:
+    """The spliced-window reference base under each mismatch (filler 0
+    under inserted bases); windows are clipped to the reference as decode
+    clips them (self-ref windows may overhang its end by up to max_mis
+    force-masked bases)."""
+    g_m, s_m, g2_m, s2_m = ops
+    hi = max(ref_codes.size - 1, 0)
+    if g_m is None:
+        return ref_codes[np.clip(pos[rows] + cols, 0, hi)]
+    shift = np.where(cols >= s_m[rows], g_m[rows], 0)
+    ins = ((g_m[rows] < 0) & (cols >= s_m[rows])
+           & (cols < s_m[rows] - g_m[rows]))
+    if g2_m is not None:
+        shift = shift + np.where(cols >= s2_m[rows], g2_m[rows], 0)
+        ins |= ((g2_m[rows] < 0) & (cols >= s2_m[rows])
+                & (cols < s2_m[rows] - g2_m[rows]))
+    return np.where(ins, 0, ref_codes[np.clip(pos[rows] + cols + shift, 0,
+                                              hi)])
+
+
+def _cigar_sections(p: CodecParams, ops, mposb: int, max_gap: int, tags,
+                    meta: Dict, keys, device) -> list:
+    """The indel streams of the rows with an op (second-op streams nested
+    under them: the second pass only extends a first-pass indel, so
+    g2 != 0 => g != 0)."""
+    g_m, s_m, g2_m, s2_m = ops
+    has = g_m != 0
+    meta[keys[0]] = int(has.sum())
+    gb = 1 if max_gap <= 127 else 2      # zigzag range is 2 * max_gap
+    sections = [(tags[0], _code_flags(p, has, device)),
+                (tags[1], _code_le(p, s_m[has], mposb, device)),
+                (tags[2], _code_le(p, _zigzag(g_m[has]), gb, device))]
+    if g2_m is not None and (g2_m[has] != 0).any():
+        has2 = g2_m[has] != 0
+        meta[keys[1]] = int(has2.sum())
+        sections += [
+            (tags[3], _code_flags(p, has2, device)),
+            (tags[4], _code_le(p, s2_m[has][has2], mposb, device)),
+            (tags[5], _code_le(p, _zigzag(g2_m[has][has2]), gb, device))]
+    return sections
+
+
+def _encode_lr_streams(p: CodecParams, block: FastqBlock, reads, offs,
+                       clens, res, keep, cm, ref_codes: np.ndarray,
+                       meta: Dict, device) -> list:
+    """Long-read tier streams: the mapped chunks' flags, positions,
+    strands, mismatches and indels (the read path's stream shapes at
+    chunk granularity)."""
+    posb = max(1, (int(ref_codes.size).bit_length() + 7) // 8)
+    pos = res.pos[cm]
+    rev = res.is_rev[cm]
+    mm = res.mis_mask[cm]
+    cl = clens[cm]
+    mis_cnt = mm.sum(axis=1).astype(np.int64)
+    if mis_cnt.max(initial=0) > 255:
+        raise ValueError(">255 mismatches in one chunk")
+    mposb = _width_of(int(cl.max()) if len(cl) else 0)
+    meta["lrm"] = int(cm.sum())
+    meta["lrn"] = int(keep.sum())
+    meta["lrposb"] = posb
+    meta["lrpb"] = mposb
+    rows, cols, deltas = _mis_deltas(mm)
+    ops = _gap_ops(res, cm)
+    coffs = ((np.cumsum(block.lengths) - block.lengths)[reads] + offs)[cm]
+    eff_col = np.where(rev[rows], cl[rows] - 1 - cols, cols)
+    read_base = _BASE_MAP[block.seq_flat[coffs[rows] + eff_col]]
+    sub_base = np.where(rev[rows], 3 - read_base,
+                        read_base).astype(np.uint8)
+    ref_base = _ref_ctx(ref_codes, pos, rows, cols, ops)
+    # positions: consecutive mapped chunks of one read are nearly
+    # contiguous in the reference (pos_j ~ pos_{j-1} +- (off_j -
+    # off_{j-1}), sign by strand), so a non-anchor chunk codes a 2-byte
+    # zigzag residual instead of a posb-byte absolute
+    M = len(pos)
+    r_m = reads[cm]
+    off_m = offs[cm]
+    sgn = np.where(rev, -1, 1).astype(np.int64)
+    prev_pos = np.zeros(M, np.int64)
+    prev_off = np.zeros(M, np.int64)
+    prev_rev = np.zeros(M, bool)
+    same = np.zeros(M, bool)
+    if M > 1:
+        prev_pos[1:] = pos[:-1]
+        prev_off[1:] = off_m[:-1]
+        prev_rev[1:] = rev[:-1]
+        same[1:] = r_m[1:] == r_m[:-1]
+    delta = pos - (prev_pos + sgn * (off_m - prev_off))
+    anchor = ~(same & (rev == prev_rev) & (np.abs(delta) < (1 << 15)))
+    meta["lrna"] = int(anchor.sum())
+    sections = [
+        (TAG_LRF, _code_flags(p, cm[keep], device)),
+        (TAG_LRPA, _code_flags(p, anchor, device)),
+        (TAG_LRPOS, _code_le(p, pos[anchor], posb, device)),
+        (TAG_LRREV, _code_flags(p, rev, device)),
+        (TAG_LRMISC, _code_bytes(p, mis_cnt.astype(np.uint8).tobytes(),
+                                 device, order1=False)),
+    ]
+    if (~anchor).any():
+        sections.append((TAG_LRPD, _code_le(p, _zigzag(delta[~anchor]), 2,
+                                            device)))
+    if len(rows):
+        sections.append((TAG_LRMISP, _code_le(p, deltas, mposb, device)))
+        sections.append((TAG_LRMISB, _code_syms_ctx(
+            p, sub_base, ref_base.astype(np.uint8), 4, 4, device)))
+    if ops[0] is not None:
+        sections += _cigar_sections(p, ops, mposb, p.longread_indel,
+                                    _LR_CIGAR, meta, ("lrnidl", "lrnidl2"),
+                                    device)
     return sections
 
 
@@ -896,11 +1070,12 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
     qmax = meta["qmax"]
     n_mapped = meta.get("nm", 0)
     self_ref = bool(meta.get("sref", 0))
-    if meta.get("lrm", 0) or TAG_LRF in sections:
-        raise NotImplementedError(_LR_MSG)
     if n_mapped and ref_codes is None and not self_ref:
         raise ValueError("archive was reference-aligned: decode needs the "
                          "reference FASTA")
+    if meta.get("lrm", 0) and ref_codes is None:
+        raise ValueError("archive has reference-mapped long-read chunks: "
+                         "decode needs the reference FASTA")
 
     # --- lengths ---
     if meta["clen"] is not None:
@@ -962,8 +1137,26 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
         qdup, qd_rows, qd_src = _dup_refs(TAG_QDUPF, TAG_QDUPD, n_qd,
                                           meta["qdb"], meta.get("qdd", 0))
 
+    # --- long-read tier: chunk grid + mapped-chunk flags (needed before
+    #     the seq dispatch: mapped chunks' bases are not in the stream) ---
+    lr_reads = lr_offs = lr_clens = lr_cm = None
+    lr_sub = np.zeros(R, np.int64)
+    if TAG_LRF in sections and p.longread_chunk and R:
+        C = min(p.longread_chunk, p.align_max_len)
+        lr_reads, lr_offs, lr_clens = _lr_grid(lengths, p.align_max_len, C,
+                                               p.longread_tail_min)
+        gkeep = ~sdup[lr_reads] if n_sd else np.ones(len(lr_reads), bool)
+        nk = int(gkeep.sum())
+        if nk != meta.get("lrn", nk):
+            raise ValueError("corrupt block payload: LR chunk grid")
+        lr_cm = np.zeros(len(lr_reads), bool)
+        lr_cm[gkeep] = _decode_flags(p, sections[TAG_LRF], nk, device)
+        if int(lr_cm.sum()) != meta.get("lrm", -1):
+            raise ValueError("corrupt block payload: LR mapped count")
+        np.add.at(lr_sub, lr_reads[lr_cm], lr_clens[lr_cm])
+
     # --- dispatch device streams (seq + qual), then do host work ---
-    seq_counts = (lengths - dege_cnt)[~mapped & ~sdup]
+    seq_counts = (lengths - dege_cnt - lr_sub)[~mapped & ~sdup]
     qlens = lengths[~qdup] if n_qd else lengths
     seq_model = seq_model_from_params(p)
     qmodel = qual_model_for(p, _qual_alphabet(qmax))
@@ -983,6 +1176,10 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
         fill |= np.repeat(mapped, lengths)
     if n_sd:
         fill |= np.repeat(sdup, lengths)
+    if lr_cm is not None and lr_cm.any():
+        cl = lr_clens[lr_cm]
+        spans = read_off[lr_reads[lr_cm]] + lr_offs[lr_cm]
+        fill[np.repeat(spans, cl) + _intra_of(cl)] = True
     acgt = seq_job.finalize()
     seq_flat[~fill] = _BASE_INV[acgt]
     if n_mapped:
@@ -999,6 +1196,9 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
             ref_codes = np.minimum(_BASE_MAP[seq_flat[sel]], 3)
         _decode_align_streams(p, sections, meta, mapped, lengths, read_off,
                               ref_codes, seq_flat, device)
+    if lr_cm is not None and lr_cm.any():
+        _decode_lr_streams(p, sections, meta, lr_reads, lr_offs, lr_clens,
+                           lr_cm, read_off, ref_codes, seq_flat, device)
     if n_sd:
         # duplicate reads: one range copy from their (non-duplicate,
         # already filled) first occurrences
@@ -1094,70 +1294,115 @@ def _decode_align_streams(p: CodecParams, sections: Dict, meta: Dict,
     else:
         pos = pos_abs
     rev = _decode_flags(p, sections[TAG_AREV], M, device)
-    cnt_raw = _decode_bytes(p, sections[TAG_AMISC], device, order1=False)
+    _rebuild(p, sections, (TAG_AMISC, TAG_AMISP, TAG_AMISB), _READ_CIGAR,
+             p.max_indel, pos, rev, mlens, moffs, mposb, ref_codes,
+             seq_flat, device)
+
+
+def _decode_gap_ops(p: CodecParams, sections: Dict, tags, M: int,
+                    mposb: int, max_gap: int, device):
+    """Inverse of _cigar_sections: (g, s, g2, s2) per row, 0 where none."""
+    g_r, s_r, g2_r, s2_r = (np.zeros(M, np.int64) for _ in range(4))
+    has = _decode_flags(p, sections[tags[0]], M, device)
+    nidl = int(has.sum())
+    gb = 1 if max_gap <= 127 else 2
+    if nidl:
+        s_r[has] = _decode_le(p, sections[tags[1]], nidl, mposb, device)
+        g_r[has] = _unzigzag(_decode_le(p, sections[tags[2]], nidl, gb,
+                                        device))
+        if tags[3] in sections:
+            has2_i = _decode_flags(p, sections[tags[3]], nidl, device)
+            nidl2 = int(has2_i.sum())
+            has2 = np.zeros(M, bool)
+            has2[np.flatnonzero(has)[has2_i]] = True
+            s2_r[has2] = _decode_le(p, sections[tags[4]], nidl2, mposb,
+                                    device)
+            g2_r[has2] = _unzigzag(_decode_le(p, sections[tags[5]], nidl2,
+                                              gb, device))
+    return g_r, s_r, g2_r, s2_r
+
+
+def _rebuild(p: CodecParams, sections: Dict, mis_tags, cig_tags,
+             max_gap: int, pos, rev, lens, offs, mposb: int,
+             ref_codes: np.ndarray, seq_flat: np.ndarray, device) -> None:
+    """M mapped reads (or chunks) of ``lens`` bases at window starts
+    ``pos``, written as ACGT into seq_flat at ``offs``: the reference
+    window (spliced by the indel ops: ref[pos+i] for i < s, then
+    ref[pos+g+i], filler 0 over inserted bases, whose values arrive
+    through the mismatch patches; a second op applies the shift g+g2 past
+    s2), the mismatch patches (context = the window base they replace),
+    then the reverse complement where rev.  Windows are clipped to the
+    reference: self-ref windows may overhang its edges by up to max_mis
+    bases, every one of them patched."""
+    M = len(pos)
+    cnt_raw = _decode_bytes(p, sections[mis_tags[0]], device, order1=False)
     mis_cnt = np.frombuffer(cnt_raw, np.uint8).astype(np.int64)
+    if len(mis_cnt) != M:
+        raise ValueError("corrupt block payload: mismatch counts")
     n_mis = int(mis_cnt.sum())
-
-    total = int(mlens.sum())
-    win_off = np.cumsum(mlens) - mlens
-    sym_read = np.repeat(np.arange(M), mlens)
-    intra = np.arange(total, dtype=np.int64) - np.repeat(win_off, mlens)
-    if TAG_ACIGF in sections:
-        # indel reads: spliced window -- ref[pos+i] for i < s, then
-        # ref[pos+g+i]; filler 0 over inserted read bases (their values
-        # arrive through the mismatch patches); a second op (s2, g2)
-        # applies the cumulative shift g+g2 past s2
-        g_r, s_r, g2_r, s2_r = (np.zeros(M, np.int64) for _ in range(4))
-        has = _decode_flags(p, sections[TAG_ACIGF], M, device)
-        nidl = int(has.sum())
-        gb = 1 if p.max_indel <= 127 else 2
-        if nidl:
-            s_r[has] = _decode_le(p, sections[TAG_ACIGS], nidl, mposb,
-                                  device)
-            g_r[has] = _unzigzag(_decode_le(p, sections[TAG_ACIGL], nidl,
-                                            gb, device))
-            if TAG_ACG2F in sections:
-                has2_i = _decode_flags(p, sections[TAG_ACG2F], nidl, device)
-                nidl2 = int(has2_i.sum())
-                has2 = np.zeros(M, bool)
-                has2[np.flatnonzero(has)[has2_i]] = True
-                s2_r[has2] = _decode_le(p, sections[TAG_ACG2S], nidl2,
-                                        mposb, device)
-                g2_r[has2] = _unzigzag(_decode_le(p, sections[TAG_ACG2L],
-                                                  nidl2, gb, device))
-        g_sym, s_sym = g_r[sym_read], s_r[sym_read]
-        g2_sym, s2_sym = g2_r[sym_read], s2_r[sym_read]
-        shift = (np.where(intra >= s_sym, g_sym, 0)
-                 + np.where(intra >= s2_sym, g2_sym, 0))
-        widx = np.clip(np.repeat(pos, mlens) + intra + shift, 0,
-                       ref_codes.size - 1)
-        win = ref_codes[widx].copy()
-        win[((g_sym < 0) & (intra >= s_sym) & (intra < s_sym - g_sym))
-            | ((g2_sym < 0) & (intra >= s2_sym)
-               & (intra < s2_sym - g2_sym))] = 0
+    total = int(lens.sum())
+    win_off = np.cumsum(lens) - lens
+    sym = np.repeat(np.arange(M), lens)
+    intra = np.arange(total, dtype=np.int64) - np.repeat(win_off, lens)
+    widx = np.repeat(pos, lens) + intra
+    if cig_tags[0] in sections:
+        g_r, s_r, g2_r, s2_r = _decode_gap_ops(p, sections, cig_tags, M,
+                                               mposb, max_gap, device)
+        g, s, g2, s2 = g_r[sym], s_r[sym], g2_r[sym], s2_r[sym]
+        widx = widx + np.where(intra >= s, g, 0) + np.where(intra >= s2,
+                                                            g2, 0)
+        win = ref_codes[np.clip(widx, 0, max(ref_codes.size - 1, 0))]
+        win[((g < 0) & (intra >= s) & (intra < s - g))
+            | ((g2 < 0) & (intra >= s2) & (intra < s2 - g2))] = 0
     else:
-        # clip: self-ref windows may overhang the reference edges by up to
-        # max_mis bases (every clipped base is patched)
-        win = ref_codes[np.clip(np.repeat(pos, mlens) + intra, 0,
-                                max(ref_codes.size - 1, 0))].copy()
-
+        win = ref_codes[np.clip(widx, 0, max(ref_codes.size - 1, 0))]
     if n_mis:
-        deltas = _decode_le(p, sections[TAG_AMISP], n_mis, mposb, device)
+        deltas = _decode_le(p, sections[mis_tags[1]], n_mis, mposb, device)
         rows = np.repeat(np.arange(M), mis_cnt)
-        # undo the within-read delta coding: segmented cumsum
-        first_of_read = (np.cumsum(mis_cnt) - mis_cnt)[rows]
+        # undo the within-row delta coding: segmented cumsum
+        first_of = (np.cumsum(mis_cnt) - mis_cnt)[rows]
         cs = np.cumsum(deltas)
         seg_start = np.zeros(n_mis, np.int64)
-        nz = first_of_read > 0
-        seg_start[nz] = cs[first_of_read[nz] - 1]
+        nz = first_of > 0
+        seg_start[nz] = cs[first_of[nz] - 1]
         cols = cs - seg_start
-        ref_base = win[win_off[rows] + cols].copy()
-        sub = _decode_syms_ctx(p, sections[TAG_AMISB], n_mis,
-                               ref_base.astype(np.uint8), 4, 4, device)
-        win[win_off[rows] + cols] = sub
+        if (cols >= lens[rows]).any():
+            raise ValueError("corrupt block payload: mismatch columns")
+        at = win_off[rows] + cols
+        win[at] = _decode_syms_ctx(p, sections[mis_tags[2]], n_mis,
+                                   win[at].astype(np.uint8), 4, 4, device)
+    src = np.where(rev[sym], lens[sym] - 1 - intra, intra)
+    val = win[win_off[sym] + src]
+    val = np.where(rev[sym], 3 - val, val)
+    seq_flat[offs[sym] + intra] = _BASE_INV[val]
 
-    # orient: reverse-complement where rev, then place into seq_flat
-    src_intra = np.where(rev[sym_read], mlens[sym_read] - 1 - intra, intra)
-    val = win[win_off[sym_read] + src_intra]
-    val = np.where(rev[sym_read], 3 - val, val)
-    seq_flat[moffs[sym_read] + intra] = _BASE_INV[val]
+
+def _decode_lr_streams(p: CodecParams, sections: Dict, meta: Dict, reads,
+                       offs, clens, cm, read_off, ref_codes: np.ndarray,
+                       seq_flat: np.ndarray, device) -> None:
+    """Rebuild the mapped long-read chunks from the reference into
+    seq_flat: positions first (anchors absolute, the rest the residual
+    cumsum within each anchored segment), then _rebuild."""
+    M = int(cm.sum())
+    cl = clens[cm]
+    rev = _decode_flags(p, sections[TAG_LRREV], M, device)
+    anchor = _decode_flags(p, sections[TAG_LRPA], M, device)
+    n_anchor = int(anchor.sum())
+    if n_anchor != meta.get("lrna", n_anchor) or (M and not anchor[0]):
+        raise ValueError("corrupt block payload: LR pos anchors")
+    pa = _decode_le(p, sections[TAG_LRPOS], n_anchor, meta["lrposb"],
+                    device)
+    delta = np.zeros(M, np.int64)
+    if n_anchor < M:
+        delta[~anchor] = _unzigzag(_decode_le(p, sections[TAG_LRPD],
+                                              M - n_anchor, 2, device))
+    off_m = offs[cm]
+    step = np.zeros(M, np.int64)
+    if M > 1:
+        step[1:] = np.where(rev[1:], -1, 1) * (off_m[1:] - off_m[:-1])
+    cs = np.cumsum(np.where(anchor, 0, step + delta))
+    seg = np.cumsum(anchor) - 1                  # segment of each chunk
+    pos = pa[seg] + cs - cs[np.flatnonzero(anchor)[seg]]
+    _rebuild(p, sections, (TAG_LRMISC, TAG_LRMISP, TAG_LRMISB), _LR_CIGAR,
+             p.longread_indel, pos, rev, cl, (read_off[reads] + offs)[cm],
+             meta["lrpb"], ref_codes, seq_flat, device)

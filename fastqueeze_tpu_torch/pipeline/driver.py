@@ -10,9 +10,12 @@ plaintext.  Every stage takes the engine's ``device`` explicitly.
 Self-referential blocks (auto probe or -S) are coded here; compressing
 against a reference FASTA is pipeline/aligned.py, paired-end input is
 pipeline/pe.py, and decompress takes the FASTA (``ref``) and sends PE
-archives to pe.decompress_pe_blocks.  Not ported yet, each raising
-NotImplementedError with its ROADMAP item: --mesh (Queue A item 9),
---part, -X, -m and the lossy transform (item 4).
+archives to pe.decompress_pe_blocks.  With lossy_factor > 1 (-l) every
+block's qualities take the R-Block transform before its MD5 (and the
+training prefix before training).  --mesh resolves against the visible
+devices; block data-parallelism over 2 or more is not ported (ROADMAP
+Queue A item 9), nor are --part, -X and -m (item 4), each raising
+NotImplementedError with its item.
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ from typing import Dict, List, Optional
 from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.arcfile import (
     ArcReader, ArcWriter, BlockInfo)
-from fastqueeze_tpu_torch.io.fastq import assemble_block, parse_block, read_blocks
+from fastqueeze_tpu_torch.io.fastq import assemble_block, read_blocks
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
     decode_block, encode_block_job)
-from fastqueeze_tpu_torch.pipeline.parallel_host import ordered_parallel
+from fastqueeze_tpu_torch.pipeline.lossy import parse_lossy
+from fastqueeze_tpu_torch.pipeline.parallel_host import (
+    block_devices, ordered_parallel)
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 
@@ -39,15 +44,6 @@ def _gate_bytes(in_path: str) -> int:
     reference's heuristic, doCheckSetEncodeOpt @0x408298)."""
     sz = os.path.getsize(in_path)
     return sz * 5 if in_path.endswith(".gz") else sz
-
-
-def _unported(params: CodecParams) -> Optional[str]:
-    """The ROADMAP item of a requested feature the port lacks, or None."""
-    if params.mesh_n:
-        return "--mesh block data-parallelism: ROADMAP Queue A item 9"
-    if params.lossy_factor > 1.0:
-        return "lossy quality transform: ROADMAP Queue A item 4"
-    return None
 
 
 def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
@@ -63,7 +59,8 @@ def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
     need = params.model_train_mb << 20
     got = 0
     for raw, final_nl in gen:
-        prefix_items.append((raw, final_nl, parse_block(raw, final_nl)))
+        raw, block = parse_lossy(params, raw, final_nl)
+        prefix_items.append((raw, final_nl, block))
         got += len(raw)
         if got >= need:
             break
@@ -84,9 +81,7 @@ def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
 
 def compress_se(params: CodecParams, in_path: str, out_path: str,
                 dbg: Optional[DebugInfo] = None, device="cuda") -> Dict:
-    why = _unported(params)
-    if why:
-        raise NotImplementedError(why)
+    block_devices(params.mesh_n, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     dbg = dbg or DebugInfo()
     block_size = params.block_bytes or params.block_size_mb * (1 << 20)
@@ -104,7 +99,8 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
         if not prefix_items:
             first = next(gen, None)
             if first is not None:
-                prefix_items.append((*first, parse_block(*first)))
+                raw0, blk0 = parse_lossy(params, *first)
+                prefix_items.append((raw0, first[1], blk0))
         params.self_align = 1 if (
             prefix_items
             and auto_self_align(params, prefix_items[0][2], dbg)) else 0
@@ -133,7 +129,7 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
         def work(_i, item):
             raw, final_nl, block = item
             if block is None:
-                block = parse_block(raw, final_nl)
+                raw, block = parse_lossy(params, raw, final_nl)
             return raw, encode_job(block)(), block.n_reads
 
         t_all = time.time()
@@ -159,7 +155,7 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
         for i, (raw, final_nl, block) in enumerate(items()):
             t0 = time.time()
             if block is None:
-                block = parse_block(raw, final_nl)
+                raw, block = parse_lossy(params, raw, final_nl)
             whole_md5.update(raw)
             dbg.add("parse_s", time.time() - t0)
             t0 = time.time()
@@ -188,10 +184,12 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
 def decompress(arc_path: str, out_prefix: Optional[str],
                dbg: Optional[DebugInfo] = None, force: bool = False,
                threads: int = 0, device="cuda", ref: Optional[str] = None,
-               pipeout: int = 0) -> List[str]:
+               pipeout: int = 0, mesh: int = 0) -> List[str]:
     """ref: the reference FASTA of a reference-aligned archive.  pipeout
     (-P): write the reads to stdout instead of files; PE archives take 1
-    (file 1), 2 (file 2) or 3 (pairs interleaved)."""
+    (file 1), 2 (file 2) or 3 (pairs interleaved).  mesh (--mesh)
+    overrides the encoder's mesh_n; either is clamped to the visible
+    devices."""
     dbg = dbg or DebugInfo()
     with ArcReader(arc_path) as reader:
         if reader.part is not None:
@@ -200,6 +198,9 @@ def decompress(arc_path: str, out_prefix: Optional[str],
         params = reader.params
         if threads:            # decode-side -t overrides the encoder's
             params.threads = threads
+        if mesh:
+            params.mesh_n = mesh
+        block_devices(params.mesh_n, device, clamp=True)
         if getattr(params, "multi", 0):
             raise NotImplementedError(
                 "multi-file archives (-m): ROADMAP Queue A item 4")

@@ -13,8 +13,35 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Tuple, TypeVar
 
+import torch
+
 T = TypeVar("T")
 R = TypeVar("R")
+
+MESH_MSG = ("--mesh block data-parallelism over 2 or more devices: ROADMAP "
+            "Queue A item 9")
+
+
+def block_devices(mesh_n: int, device, clamp: bool = False) -> None:
+    """Resolve CodecParams.mesh_n as fastqueeze_tpu's
+    parallel/mesh.block_devices does (0 = off, -1 = every visible device,
+    N = the first N) against the devices of ``device``'s kind
+    (torch.cuda.device_count(), 1 for the CPU).  N over the visible count
+    raises its ValueError, or with ``clamp`` (decode) takes them all.  One
+    resolved device makes block data-parallelism a no-op (nothing to
+    return, ``threads`` untouched, mesh_n still in PARAM); two or more
+    are not ported."""
+    if not mesh_n:
+        return
+    have = (torch.cuda.device_count()
+            if torch.device(device).type == "cuda" else 1)
+    n = have if mesh_n < 0 else mesh_n
+    if n > have:
+        if not clamp:
+            raise ValueError(f"--mesh {n}: only {have} device(s) visible")
+        n = have
+    if n > 1:
+        raise NotImplementedError(MESH_MSG)
 
 
 def ordered_parallel(items: Iterable[T], fn: Callable[[int, T], R],

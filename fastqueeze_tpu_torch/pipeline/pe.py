@@ -11,9 +11,10 @@ holds one whole-input MD5 per file.  Decode writes <prefix>_1.fastq and
 <prefix>_2.fastq, or pipes per -P 1/2/3.
 
 Compressing against a reference is pipeline/aligned.py
-(compress_pe_aligned).  Not ported yet, each raising NotImplementedError
-with its ROADMAP item: --part and the lossy transform (Queue A item 4),
---mesh (item 9).
+(compress_pe_aligned).  With -l both mates' qualities take the R-Block
+transform before the block MD5.  Not ported yet, each raising
+NotImplementedError with its ROADMAP item: --part (Queue A item 4) and
+--mesh over 2 or more devices (item 9).
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ from fastqueeze_tpu_torch.io.fastq import (
     read_blocks)
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
     decode_block, encode_block)
-from fastqueeze_tpu_torch.pipeline.parallel_host import ordered_parallel
+from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair
+from fastqueeze_tpu_torch.pipeline.parallel_host import (
+    block_devices, ordered_parallel)
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 TAG_PE_META = 40
@@ -128,14 +131,6 @@ def _gather(flat, starts, lens):
     return flat[_idx(starts, lens)]
 
 
-def check_ported(p: CodecParams) -> None:
-    """Refuse what the PE path does not port yet, naming its item."""
-    from fastqueeze_tpu_torch.pipeline.driver import _unported
-    why = _unported(p)
-    if why:
-        raise NotImplementedError(why)
-
-
 def pe_block_items(p: CodecParams, in1: str, rr2: "_RecordReader"):
     """(raw1, fnl1, raw2, fnl2) per block: file 1 cut at half the block
     size, file 2 taken by file 1's record count."""
@@ -162,7 +157,7 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         from fastqueeze_tpu_torch.pipeline.aligned import compress_pe_aligned
         return compress_pe_aligned(p, ref, in1, in2, out_path, dbg=dbg,
                                    device=device)
-    check_ported(p)
+    block_devices(p.mesh_n, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     p.is_pe = 1
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
@@ -200,6 +195,8 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         if b1 is None:
             b1 = parse_block(raw1, fnl1)
             b2 = parse_block(raw2, fnl2)
+        # -l after the auto probe, which saw the first pair as read
+        raw1, b1, raw2, b2 = lossy_pair(p, raw1, b1, raw2, b2)
         merged = interleave_blocks(b1, b2)
         align = rc = None
         if p.self_align:
@@ -287,6 +284,7 @@ def train_frozen_pe_prefix(p: CodecParams, in1: str, in2: str, device,
     rr2 = _RecordReader(in2)
     b2 = parse_block(*rr2.take(b1.n_reads))
     rr2.take_rest()
+    _, b1, _, b2 = lossy_pair(p, b"", b1, b"", b2)
     merged = interleave_blocks(b1, b2)
     prefix_syms = int(merged.lengths.sum())
     total = os.path.getsize(in1) + os.path.getsize(in2)

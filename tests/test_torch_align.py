@@ -226,12 +226,133 @@ def test_indel_batch_plain_matches_jax_and_native(kernel_fixture, k, G, ops):
         assert np.array_equal(np.asarray(a)[fk], np.asarray(b)[fk])
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The plain versions run many small ops: one intra-op thread keeps
+    them from stalling on busy cores when test files run side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def fused_fixture():
+    """{gapless, indel}: (JAX aligner, port aligner, params, flat reads) of
+    tests/test_fused_align.py's _mk reads over a 20 kbp reference, with
+    its tier-2 settings."""
+    from test_fused_align import _mk
+    out = {}
+    for name, seed, kw in (("gapless", 31, {}),
+                           ("indel", 32, dict(max_indel=3, indel_ops=2))):
+        ref, cf, df, ln = _mk(np.random.default_rng(seed),
+                              indel=name == "indel")
+        kw = dict(seed_max_occ=16, seed_big_occ=128, rescue_seeds=4, **kw)
+        jal = jh.Aligner(jidx.build_from_ref(ref, JParams(**kw)),
+                         JParams(**kw))
+        tal = th.Aligner(tidx.build_from_ref(ref, CodecParams(**kw)),
+                         CodecParams(**kw))
+        out[name] = (jal, tal, cf, df, ln)
+    return out
+
+
+@pytest.mark.parametrize("variant", ["rescue", "indel", "both"])
+def test_rescue_indel_fused_plain_matches_jax(fused_fixture, variant,
+                                              one_torch_thread):
+    """K14's plain version against the JAX _rescue_indel_fused: every read
+    of the indel set in a shuffled todo list of 512 slots, a tenth of the
+    listed slots and the 112 padding slots with do false (pointing at
+    real rows)."""
+    jal, tal, cf, df, ln = fused_fixture["indel"]
+    lp = th.lp_bucket(int(ln.max()))
+    cg, dg = jh._gridify(cf, df, ln, lp)
+    rng = np.random.default_rng(5)
+    cap = 512
+    idx = rng.integers(0, len(ln), cap).astype(np.int32)
+    idx[:len(ln)] = rng.permutation(len(ln))
+    do = np.zeros(cap, bool)
+    do[:len(ln)] = rng.random(len(ln)) >= 0.1
+    G, ops = (0, 0) if variant == "rescue" else (3, 2)
+    base = dict(k=14, stride=2, n_cand=128, max_mis=7, both_strands=0,
+                lp=lp, n_seeds=4, excl_bp=7)
+    jcfg = jh.AlignConfig(l1_shift=jal._l1_shift,
+                          search_steps=jal._search_steps, wide=False, **base)
+    cfg = th.AlignConfig(**base)
+    rescue = variant != "indel"
+    want = [np.asarray(x) for x in jh._rescue_indel_fused(
+        jcfg if rescue else None, jcfg, G, ops, *jal._dev_arrays(),
+        jnp.int32(jal.ref_len), jnp.asarray(cg), jnp.asarray(dg),
+        jnp.asarray(ln.astype(np.int32)), jnp.asarray(idx),
+        jnp.asarray(do))]
+    got = [x.numpy() for x in kernels.rescue_indel_fused(
+        torch.from_numpy(cg), torch.from_numpy(dg),
+        torch.from_numpy(ln.astype(np.int32)), torch.from_numpy(idx),
+        torch.from_numpy(do), tal.dev_index("cpu"), cfg if rescue else None,
+        cfg, G, ops)]
+    m2, f = got[0], got[4]
+    assert np.array_equal(m2, want[0]) and np.array_equal(f, want[4])
+    assert not (m2 | f)[~do].any()
+    if rescue:
+        assert m2.sum() > 300
+    if ops:
+        assert f.sum() > 10 and (got[7][f] != 0).any()
+    for sel, lo, hi in ((m2, 1, 4), (f, 5, 12)):
+        for a, b in zip(got[lo:hi], want[lo:hi]):
+            assert np.array_equal(a[sel], b[sel].astype(a.dtype))
+
+
+@pytest.mark.parametrize("name", ["gapless", "indel"])
+def test_fused_align_matches_jax_classic_and_native(fused_fixture, name,
+                                                    monkeypatch,
+                                                    one_torch_thread):
+    """Aligner.align with FASTQUEEZE_FUSED_ALIGN=1 on the kernel route (the
+    plain versions here) decides every read as the port's classic tier
+    chain, the JAX package's fused flow and the native host mirror."""
+    jal, tal, cf, df, ln = fused_fixture[name]
+    calls = []
+    fused = kernels.rescue_indel_fused
+    monkeypatch.setattr(kernels, "rescue_indel_fused",
+                        lambda *a: calls.append(1) or fused(*a))
+    runs = {}
+    for key, route, on in (("fused", "device", "1"),
+                           ("classic", "device", "0"),
+                           ("native", "host", "1")):
+        monkeypatch.setenv("FASTQUEEZE_ALIGN_EXEC", route)
+        monkeypatch.setenv("FASTQUEEZE_FUSED_ALIGN", on)
+        runs[key] = tal.align(cf, df, ln, "cpu")
+        if key == "fused":
+            assert calls, "the fused flow never ran K14"
+            monkeypatch.setenv("FASTQUEEZE_ALIGN_EXEC", "device")
+            runs["jax"] = jal.align(cf, df, ln)
+    got = runs.pop("fused")
+    m = got.mapped
+    assert m.sum() > 300
+    if name == "indel":
+        assert (got.gap_len[m] != 0).any()
+    for key, want in runs.items():
+        assert np.array_equal(want.mapped, m), key
+        fields = range(8) if name == "indel" else range(4)
+        for i in fields:
+            assert np.array_equal(np.asarray(got[i])[m],
+                                  np.asarray(want[i])[m]), (key, i)
+
+
 def test_long_reads_name_their_roadmap_item(kernel_fixture):
-    _, tal, *_ = kernel_fixture[14]
+    """A read longer than align_max_len stays unmapped at read level (the
+    long-read chunk tier maps it) and the batch's other reads align as the
+    JAX package aligns them."""
+    jal, tal, cg, dg, lengths, codes, dege = kernel_fixture[14]
     n = tal.params.align_max_len + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        tal.align(np.zeros(n, np.uint8), np.zeros(n, bool),
-                  np.array([n]), "cpu")
+    c = np.concatenate([codes, np.random.default_rng(1).integers(
+        0, 4, n).astype(np.uint8)])
+    d = np.concatenate([dege, np.zeros(n, bool)])
+    ln = np.append(lengths, n)
+    want = jal.align(c, d, ln)
+    got = tal.align(c, d, ln, "cpu")
+    assert not got.mapped[-1] and got.mapped.sum() > 40
+    assert got.mis_mask.shape == want.mis_mask.shape == (len(ln), _LP)
+    for a, b in zip(got[:4], want[:4]):
+        assert np.array_equal(a, b)
 
 
 # --- pipeline level ---------------------------------------------------------

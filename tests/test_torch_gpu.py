@@ -489,7 +489,8 @@ def test_semi_and_frozen_adapt_pipeline_on_card_matches_cpu(cuda, tmp_path):
 
 # --- the seed aligner: K8 align_batch, K9 indel_batch ------------------------
 
-def _align_fixture(k: int, n_reads: int = 400, seed: int = 41):
+def _align_fixture(k: int, n_reads: int = 400, seed: int = 41,
+                   lens=(60, 120)):
     """A seeded 40 kbp reference with a repeat family (deep candidate
     lists), an Aligner over it, and reads of every kind the tiers meet:
     clean, point errors, indels, reverse strand, random (unmappable),
@@ -507,7 +508,7 @@ def _align_fixture(k: int, n_reads: int = 400, seed: int = 41):
     reads = []
     for i in range(n_reads):
         kind = i % 8
-        L = int(rng.integers(60, 120))
+        L = int(rng.integers(*lens))
         s = (9000 + int(rng.integers(0, 35)) * 70 if kind == 6
              else int(rng.integers(0, len(ref) - L - 4)))
         r = ref[s:s + L + 3].copy()
@@ -610,6 +611,42 @@ def test_indel_batch_matches_plain_and_native(cuda, k, G, ops):
         G, ops)
     for a, b in zip(got, nat):
         assert np.array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("lp", [128, 1024])
+@pytest.mark.parametrize("variant", ["rescue", "indel", "both"])
+def test_rescue_indel_fused_matches_plain(cuda, lp, variant):
+    """K14 against its plain version: a todo list of random rows with a
+    fifth of the slots off, over reads of up to 120 bp (Lp 128) or of
+    700-1,023 bp (Lp 1024, a long-read chunk's grid)."""
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    al, codes, dege, lengths = _align_fixture(
+        14, *((300, 41, (60, 120)) if lp == 128 else (96, 44, (700, 1024))))
+    cfg = AlignConfig(k=14, stride=2, n_cand=1024, max_mis=7, both_strands=0,
+                      lp=lp, n_seeds=6, excl_bp=7)
+    rng = np.random.default_rng(3)
+    cap = 512 if lp == 128 else 128
+    idx = rng.integers(0, len(lengths), cap).astype(np.int32)
+    do = rng.random(cap) < 0.8
+    G, ops = (0, 0) if variant == "rescue" else (3, 2)
+    cfg2 = None if variant == "indel" else cfg
+
+    def run(dev):
+        return kernels.rescue_indel_fused(
+            *_grids(al, codes, dege, lengths, lp, dev),
+            torch.from_numpy(idx).to(dev), torch.from_numpy(do).to(dev),
+            al.dev_index(dev), cfg2, cfg, G, ops)
+
+    want = run("cpu")
+    kernels.reset_launch_counts()
+    got = [t.cpu() for t in run(cuda)]
+    assert kernels.LAUNCHES["rescue_indel_fused"] == 1
+    m2, f = want[0], want[4]
+    assert torch.equal(got[0], m2) and torch.equal(got[4], f)
+    assert int(m2.sum() if cfg2 else f.sum()) > 10
+    for sel, lo, hi in ((m2, 1, 4), (f, 5, 12)):
+        for a, b in zip(got[lo:hi], want[lo:hi]):
+            assert torch.equal(a[sel], b[sel])
 
 
 def test_aligned_pipeline_on_card_matches_host_route(cuda, tmp_path,

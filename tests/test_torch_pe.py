@@ -453,12 +453,18 @@ def test_pe_refusals(pe_archives, tmp_path):
         with pytest.raises(ValueError):
             tpe.compress_pe(CodecParams(), in1, str(f2),
                             str(tmp_path / "x.fqz"), device="cpu")
-    for kw, part, item in ((dict(), (0, 2), "Queue A item 4"),
-                           (dict(lossy_factor=1.2), None, "Queue A item 4"),
-                           (dict(mesh_n=2), None, "Queue A item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpe.compress_pe(CodecParams(**kw), in1, in2,
-                            str(tmp_path / "y.fqz"), part=part, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        tpe.compress_pe(CodecParams(), in1, in2, str(tmp_path / "y.fqz"),
+                        part=(0, 2), device="cpu")
+    with pytest.raises(ValueError, match=r"--mesh 2: only 1 device\(s\)"):
+        tpe.compress_pe(CodecParams(mesh_n=2), in1, in2,
+                        str(tmp_path / "y.fqz"), device="cpu")
+    # the lossy transform, once refused here, writes the JAX archive
+    jarc, tarc = str(tmp_path / "j.fqz"), str(tmp_path / "t.fqz")
+    jpe.compress_pe(JParams(lossy_factor=1.2), in1, in2, jarc)
+    tpe.compress_pe(CodecParams(lossy_factor=1.2), in1, in2, tarc,
+                    device="cpu")
+    assert open(jarc, "rb").read() == open(tarc, "rb").read()
 
 
 def test_cli_takes_pe_flags(capsys, monkeypatch):

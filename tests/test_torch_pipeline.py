@@ -210,34 +210,39 @@ def test_corrupt_seq_payload_raises_value_error(archives):
 
 
 def test_unported_paths_raise(tmp_path, archives):
-    """frozen_adapt and adapt_chunk, once refused, now write the JAX
-    package's archive (a cut of 200 reads); lossy and --mesh still raise
-    with their ROADMAP items."""
+    """frozen_adapt, adapt_chunk and the lossy transform, once refused, now
+    write the JAX package's archive (a cut of 200 reads); --mesh over more
+    devices than are visible raises the JAX package's ValueError."""
     fq = archives["qctx_off"][0]
     with open(fq, "rb") as fh:
         lines = fh.read().split(b"\n")
     small = tmp_path / "small.fq"
     small.write_bytes(b"\n".join(lines[:800]) + b"\n")
-    for kw in (dict(use_model=1, frozen_adapt=1), dict(adapt_chunk=128)):
+    for kw in (dict(use_model=1, frozen_adapt=1), dict(adapt_chunk=128),
+               dict(use_model=1, lossy_factor=2.0)):
         ja, ta = str(tmp_path / "j.fqz"), str(tmp_path / "t.fqz")
         jd.compress_se(JParams(**kw), str(small), ja)
         td.compress_se(CodecParams(**kw), str(small), ta, device="cpu")
         with open(ja, "rb") as a, open(ta, "rb") as b:
             assert a.read() == b.read(), kw
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        td.compress_se(CodecParams(use_model=1, lossy_factor=2.0), fq,
-                       str(tmp_path / "b.fqz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(ValueError, match=r"--mesh 2: only 1 device\(s\)"):
         td.compress_se(CodecParams(use_model=1, mesh_n=2), fq,
                        str(tmp_path / "c.fqz"), device="cpu")
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2"], ["-m"],
-                                  ["-2", "b.fq", "-m"], ["--part", "0:2"],
-                                  ["-X", "0:1"]])
-def test_cli_names_roadmap_item_for_unported_flags(argv, capsys):
-    assert cli.main(["-c", "-1", "a.fq", "-o", "x.fqz"] + argv) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,rc,says", [
+    (["--mesh", "2"], 1, "--mesh 2: only 1 device(s) visible"),
+    (["-m"], 2, "ROADMAP"), (["-2", "b.fq", "-m"], 2, "ROADMAP"),
+    (["--part", "0:2"], 2, "ROADMAP"), (["-X", "0:1"], 2, "ROADMAP")])
+def test_cli_names_roadmap_item_for_unported_flags(argv, rc, says, capsys,
+                                                   monkeypatch):
+    import torch
+    # one visible card: --mesh 2 asks for more devices than there are
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert cli.main(["-c", "-1", "a.fq", "-o", "x.fqz"] + argv) == rc
+    assert says in capsys.readouterr().err
 
 
 def test_cli_refuses_to_run_without_a_card(tmp_path, capsys, monkeypatch):

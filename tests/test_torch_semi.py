@@ -410,16 +410,20 @@ def test_api_refusals_name_their_roadmap_item(tmp_path):
     for call, item in (
             (lambda: api.merge(arc, [arc]), "Queue A item 4"),
             (lambda: api.extract(arc, 0, 1, arc), "Queue A item 4"),
-            (lambda: api.compress(fq, arc, lossy=2.0, device="cpu"),
-             "Queue A item 4"),
             (lambda: api.compress(fq, arc, part=(0, 2), device="cpu"),
              "Queue A item 4"),
             (lambda: api.compress([fq, fq, fq], arc, device="cpu"),
-             "Queue A item 4"),
-            (lambda: api.compress(fq, arc, mesh=2, device="cpu"),
-             "Queue A item 9")):
+             "Queue A item 4")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    with pytest.raises(ValueError, match=r"--mesh 2: only 1 device\(s\)"):
+        api.compress(fq, arc, mesh=2, device="cpu")
+    # lossy, once refused here, writes the JAX api's archive
+    with open(fq, "wb") as fh:
+        fh.write(_reads(np.random.default_rng(12), 300))
+    api.compress(fq, arc, lossy=2.0, device="cpu")
+    japi.compress(fq, str(tmp_path / "j.fqz"), lossy=2.0)
+    assert open(arc, "rb").read() == (tmp_path / "j.fqz").read_bytes()
 
 
 def test_cli_dump_config_equals_jax(tmp_path, monkeypatch):
