@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the fourteen CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the seventeen CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
      main paths' shapes, bit-equal, with times (CUDA events, warmed):
      frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
@@ -36,17 +36,26 @@ Phases (any failure raises and exits non-zero):
      of the slots they select); each kernel's bound
      (bytes over 3.35 TB/s or integer operations over 67 T/s) and, for
      K3, the time of torch.masked_select, the one PyTorch call that
-     computes the same function;
+     computes the same function; the transfer packs at the frozen shape:
+     K15 and K16 on the seq grid (mode 2), K15 on first-order Markov
+     qualities (40 values) in modes 6, 15 and 23 and binned to 14 values
+     in mode 4 (K16 in 6 and 4), K17 on the Markov and on a uniform
+     48-symbol grid (its sidecar overflows), with torch.bincount and
+     torch.masked_select timed as the library calls of K17's two parts;
+     K1 on the seq table as u8 and a qual table as u16 (== K1 on int32);
+     and one stream's host<->device copies, packed and unpacked;
   4. frozen end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads
      sampled from a random 100 Mbp genome) through the CLI's compress
-     and decompress, compared byte for byte; K1-K4 must have launched and
-     the native host coder must not have run;
+     and decompress, compared byte for byte; K1-K4 and the transfer
+     packs K15-K17 must have launched and the native host coder must not
+     have run;
   5. oracle: the same input compressed with FASTQUEEZE_FROZEN_EXEC=host
      (the native coder, bit-identical to the JAX package's device path)
      must give the same archive, and it decodes on the card;
   6. adaptive end to end: 50,000 reads of the same kind (~12.0 MB, under
      the usemodel gate) through the CLI, at defaults and with
-     --qlevel 3: byte-exact round trip, K5/K7/K3/K6 launched, no native
+     --qlevel 3: byte-exact round trip, K5/K7/K3/K6 and K15-K17
+     launched, no native
      coder call, and the archive equals the one written with
      FASTQUEEZE_ADAPT_EXEC=host (the native adaptive coder), which
      decodes on the card;
@@ -103,15 +112,27 @@ Phases (any failure raises and exits non-zero):
      archive equals the FASTQUEEZE_ADAPT_EXEC=host one, the -l decode
      equals the port's R-Block transform of the input, PARAM holds
      lossy_factor 1.15 and mesh_n 1, and --mesh 2 is refused with the
-     device count.
+     device count;
+ 16. the multi-host and random-access modes through the CLI on 100,000
+     reads (~24 MB, frozen, --block-mb 8: 3 blocks): --part 0:3, 1:3 and
+     2:3, then --merge, equal to the single-run archive (itself equal to
+     the FASTQUEEZE_FROZEN_EXEC=host one); -X slices across the block 0/1
+     boundary and of the tail, and one across phase 10's PE boundary,
+     equal to the inputs' records; -m over three ~8 MB files, each
+     decoded byte-exact.
 In each end-to-end run the launch counts are set to 0 just before it and
 read just after.  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
 
-    python3 chip_smoke.py --coder-loop PROCS ROUNDS
+    python3 chip_smoke.py --coder-loop PROCS ROUNDS [--async] [--own-build]
+        [--checked]
 
 runs phase 3's K1 -> K2 launches ROUNDS times in each of PROCS fresh
-processes under CUDA_LAUNCH_BLOCKING=1 and reports which, if any, fault.
+processes and reports which, if any, fault: under CUDA_LAUNCH_BLOCKING=1,
+or with --async synchronizing only where phase 3 does; loading this
+process's build, or with --own-build each building the library into its
+own empty directory first; with --checked the checked build (every
+FQK_CHECK bound live: csrc/check.cuh).
 """
 
 import json
@@ -185,6 +206,20 @@ def _time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _timed(fn):
+    """(fn(), the ms of that one call): the plain version's run that a
+    comparison reads is also its time (CUDA events around it)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def _max_err(got, want) -> int:
@@ -342,12 +377,12 @@ def check_kernels():
                            _time_ms(lambda: kernels.quant_pack_plain(c), 1))
         cum, packed = k1
         k2 = kernels.frozen_encode_lanes(g, cg, packed, m)
-        p2 = kernels.frozen_encode_lanes_plain(g, cg, packed, m)
+        p2, p2_ms = _timed(lambda: kernels.frozen_encode_lanes_plain(
+            g, cg, packed, m))
         r["frozen_encode_lanes"] = (
             max(_max_err(a, b) for a, b in zip(k2, p2)),
             _time_ms(lambda: kernels.frozen_encode_lanes(g, cg, packed, m), 3),
-            _time_ms(lambda: kernels.frozen_encode_lanes_plain(g, cg, packed,
-                                                               m), 1))
+            p2_ms)
         words, emit, states = k2
         k3 = kernels.compact_words(words, emit)
         p3 = kernels.compact_words_plain(words, emit)
@@ -358,13 +393,13 @@ def check_kernels():
             _time_ms(lambda: kernels.compact_words_plain(words, emit), 1))
         wpad = _wpad(k3[0], n)
         k4 = kernels.frozen_decode(states, wpad, cg, T_MAIN, cum, m)
-        p4 = kernels.frozen_decode_plain(states, wpad, cg, T_MAIN, cum, m)
+        p4, p4_ms = _timed(lambda: kernels.frozen_decode_plain(
+            states, wpad, cg, T_MAIN, cum, m))
         r["frozen_decode"] = (
             _max_err(k4, p4),
             _time_ms(lambda: kernels.frozen_decode(states, wpad, cg, T_MAIN,
                                                    cum, m), 2),
-            _time_ms(lambda: kernels.frozen_decode_plain(states, wpad, cg,
-                                                         T_MAIN, cum, m), 1))
+            p4_ms)
         if not torch.equal(k4.cpu(), torch.from_numpy(to_grid(lay, syms))):
             raise AssertionError(f"{tag}: decode does not invert encode")
         if tag == "seq_order10":
@@ -397,6 +432,175 @@ def check_kernels():
                 raise AssertionError(f"{tag} {name}: kernel differs from "
                                      f"its plain version ({err})")
         rows[tag] = r
+    return rows
+
+
+COPY = {}         # phase 3's host<->device copies of one stream (ms, bytes)
+_DENSE = {"seq": 2, "markov40": 6, "markov14": 4, "uniform48": 6}
+
+
+def _copy_ms(arr: np.ndarray, dev, reps: int = 5):
+    """(H2D ms, D2H ms) of ``arr`` as the engine copies it: from pageable
+    host memory (torch.from_numpy(...).to) and back (.cpu())."""
+    import torch
+    t = torch.from_numpy(arr).to(dev)
+    h2d = _time_ms(lambda: torch.from_numpy(arr).to(dev), reps)
+    d2h = _time_ms(lambda: t.cpu(), reps)
+    return h2d, d2h
+
+
+def _qual_grids(dev, lay):
+    """Phase 3's quality grids at the frozen shape: first-order Markov
+    qualities (_markov_quals, 40 values: the 6-bit packs, 15 and 23),
+    the same binned to 14 values (the 4-bit pack) and the uniform grid
+    of the qual_fqz_A48 table (flat: K17's sidecar overflows)."""
+    import torch
+    from fastqueeze_tpu_torch.ops.lanes import to_grid
+    q = (_markov_quals(np.random.default_rng(SEED + 11), R_MAIN)
+         - 35).reshape(-1)
+    uni = np.random.default_rng(SEED + 12).integers(0, 48, q.size)
+    return {name: torch.from_numpy(to_grid(lay, v.astype(np.uint8))).to(dev)
+            for name, v in (("markov40", q), ("markov14", q // 3),
+                            ("uniform48", uni))}
+
+
+def check_pack_kernels():
+    """K15, K16 and K17 at the frozen shape (L = 4096, T = 6144) against
+    their plain versions, bit-equal: the seq grid in mode 2, the Markov
+    quality grid in modes 6, 15 and 23 (the host's sentinel packs with its
+    top 15 and top 3), its 14-value binning in mode 4, K17 on the Markov
+    and the uniform grids; K1 on the seq table as u8 and the qual table as
+    u16; the copy of one stream each way, packed and unpacked."""
+    import torch
+    from fastqueeze_tpu_torch.ops import engine, kernels
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = list(_coder_cases(dev))
+    tag, m, lay, _, seq_g, seq_table, cg = cases[0]
+    qual_table = cases[1][5]
+    del cases
+    grids = dict(_qual_grids(dev, lay), seq=seq_g)
+    rows = {}
+
+    def row(key, name, got, want, run, plain, reps=10):
+        err = max(_max_err(a, b) for a, b in zip(got, want))
+        rows.setdefault(key, {})[name] = (err, _time_ms(run, reps),
+                                          _time_ms(plain, 1))
+        e, ms, pms = rows[key][name]
+        print(f"  {key:22s} {name:12s} max_abs_err {e}  kernel {ms:10.3f} "
+              f"ms  plain {pms:10.3f} ms")
+        if e:
+            raise AssertionError(f"{key} {name}: kernel differs from its "
+                                 f"plain version ({e})")
+
+    for gname, mode in (("seq", 2), ("markov40", 6), ("markov40", 15),
+                        ("markov40", 23), ("markov14", 4),
+                        ("uniform48", 6)):
+        g = grids[gname]
+        host = g.cpu().numpy()
+        if mode in (15, 23):
+            sent = 15 if mode == 15 else 3
+            cnt = np.bincount(host.reshape(-1), minlength=64)
+            top = np.argsort(-cnt, kind="stable")[:sent]
+            top = top[cnt[top] > 0].astype(np.uint8)
+            packed, side = engine._pack_sent_host(
+                host, top, sent,
+                engine._pack4_host if mode == 15 else engine._pack2_host)
+            side_d = torch.from_numpy(side).to(dev)
+        else:
+            packed, side, side_d = engine._pack_host(host, mode), None, None
+        pk = torch.from_numpy(packed).to(dev)
+        key = f"{gname}_mode{mode}"
+        k15 = kernels.unpack_grid(pk, mode, side_d)
+        if not torch.equal(k15, g):
+            raise AssertionError(f"{key}: K15 does not restore the grid")
+        row(key, "unpack_grid", [k15],
+            [kernels.unpack_grid_plain(pk, mode, side_d)],
+            lambda: kernels.unpack_grid(pk, mode, side_d),
+            lambda: kernels.unpack_grid_plain(pk, mode, side_d))
+        if gname == "seq":
+            BOUNDS["unpack_grid"] = (_nbytes(pk, k15), 3 * g.numel(), None)
+        if mode in (2, 4, 6):
+            k16 = kernels.pack_grid(g, mode)
+            if not np.array_equal(k16.cpu().numpy(), packed):
+                raise AssertionError(f"{key}: K16 != the host pack")
+            row(key, "pack_grid", [k16], [kernels.pack_grid_plain(g, mode)],
+                lambda: kernels.pack_grid(g, mode),
+                lambda: kernels.pack_grid_plain(g, mode))
+            if key == "markov40_mode6":
+                BOUNDS["pack_grid"] = (_nbytes(g, k16), 3 * g.numel(), None)
+        picks = engine._pack_for_upload(host, _DENSE[gname])[0]
+        print(f"  {key}: host pack {packed.nbytes} B"
+              + (f" + sidecar {side.nbytes} B" if side is not None else "")
+              + f" (grid {host.nbytes} B); the encode's upload picks mode "
+              f"{picks}")
+        if mode == 6:
+            k17 = kernels.pack15(g, cg)
+            n_exc = int(k17[2].item())
+            row(f"{gname}_pack15", "pack15", k17,
+                kernels.pack15_plain(g, cg),
+                lambda: kernels.pack15(g, cg),
+                lambda: kernels.pack15_plain(g, cg))
+            cap = g.numel() // 4
+            print(f"  {gname}_pack15: {n_exc} exceptions (cap {cap}); the "
+                  f"decode copies "
+                  f"{'the nibbles + sidecar' if n_exc <= cap else 'the 6-bit pack'}")
+            if gname == "markov40":
+                # the two library calls that compute parts of K17: the
+                # valid slots' histogram, and the exceptions in scan order
+                valid = (torch.arange(g.shape[0], device=dev)[:, None]
+                         < cg.long().sum(0)[None, :])
+                flat = g[valid].long()
+                exc = valid & ~torch.isin(g, k17[1][:15])
+
+                def hist():
+                    return torch.bincount(flat, minlength=64)
+
+                def select():
+                    return torch.masked_select(g, exc)
+
+                if not torch.equal(select()[:cap], k17[1][16:16 + min(
+                        n_exc, cap)]):
+                    raise AssertionError("masked_select != K17's exceptions")
+                BOUNDS["pack15"] = (
+                    _nbytes(g, cg, k17[0], k17[2]) + 16 + min(n_exc, cap),
+                    8 * g.numel(), None)
+                PAIR_MS["pack15_bincount"] = _time_ms(hist, 10)
+                PAIR_MS["pack15_masked_select"] = _time_ms(select, 10)
+                print(f"  pack15 library parts: torch.bincount "
+                      f"{PAIR_MS['pack15_bincount']:.3f} ms, "
+                      f"torch.masked_select "
+                      f"{PAIR_MS['pack15_masked_select']:.3f} ms")
+                del flat, valid, exc
+
+    # K1 on the tables as they travel (u8 seq, u16 qual)
+    for name, table, narrow in (
+            ("seq_u8", seq_table, seq_table.to(torch.uint8)),
+            ("qual_u16", qual_table, qual_table.to(torch.int16))):
+        want = kernels.quant_pack(table)
+        got = kernels.quant_pack(narrow)
+        row(f"quant_pack_{name}", "quant_pack", got,
+            kernels.quant_pack_plain(narrow),
+            lambda: kernels.quant_pack(narrow),
+            lambda: kernels.quant_pack_plain(narrow), 5)
+        if any(not torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K1 {name} != K1 on the int32 table")
+
+    # one stream's copies: unpacked, and packed as the engine ships it
+    for gname, modes in (("seq", (0, 2)), ("markov40", (0, 6, 15))):
+        host = grids[gname].cpu().numpy()
+        for mode in modes:
+            if mode == 15:
+                nib, side, n_exc = kernels.pack15(grids[gname], cg)
+                arrs = [nib.cpu().numpy(),
+                        side[:16 + int(n_exc.item())].cpu().numpy()]
+            else:
+                arrs = [engine._pack_host(host, mode)]
+            ms = [_copy_ms(a, dev) for a in arrs]
+            COPY[f"{gname}_mode{mode}"] = {
+                "bytes": sum(a.nbytes for a in arrs),
+                "h2d_ms": sum(h for h, _ in ms),
+                "d2h_ms": sum(d for _, d in ms)}
+            print(f"  copy {gname} mode {mode}: {COPY[f'{gname}_mode{mode}']}")
     return rows
 
 
@@ -440,30 +644,29 @@ def check_adaptive_kernels():
         nh = engine._n_halve(m, L)
         r = {}
         sf = kernels.adapt_encode_walk(g, cg, m, nh)
-        sf_p = kernels.adapt_encode_walk_plain(g, cg, m, nh)
+        sf_p, p5_ms = _timed(lambda: kernels.adapt_encode_walk_plain(
+            g, cg, m, nh))
         r["adapt_encode_walk"] = (
             _max_err(sf, sf_p),
             _time_ms(lambda: kernels.adapt_encode_walk(g, cg, m, nh), 2),
-            _time_ms(lambda: kernels.adapt_encode_walk_plain(g, cg, m, nh),
-                     1))
+            p5_ms)
         k7 = kernels.rans_encode_sf(sf, cg)
-        p7 = kernels.rans_encode_sf_plain(sf, cg)
+        p7, p7_ms = _timed(lambda: kernels.rans_encode_sf_plain(sf, cg))
         r["rans_encode_sf"] = (
             max(_max_err(a, b) for a, b in zip(k7, p7)),
-            _time_ms(lambda: kernels.rans_encode_sf(sf, cg), 3),
-            _time_ms(lambda: kernels.rans_encode_sf_plain(sf, cg), 1))
+            _time_ms(lambda: kernels.rans_encode_sf(sf, cg), 3), p7_ms)
         words, emit, states = k7
         out, cnt = kernels.compact_words(words, emit)
         k = int(cnt.item())
         wpad = _wpad(out, k)
         k6 = kernels.adapt_decode(states, wpad, cg, lay.T, m, nh)
-        p6 = kernels.adapt_decode_plain(states, wpad, cg, lay.T, m, nh)
+        p6, p6_ms = _timed(lambda: kernels.adapt_decode_plain(
+            states, wpad, cg, lay.T, m, nh))
         r["adapt_decode"] = (
             _max_err(k6, p6),
             _time_ms(lambda: kernels.adapt_decode(states, wpad, cg, lay.T,
                                                   m, nh), 2),
-            _time_ms(lambda: kernels.adapt_decode_plain(states, wpad, cg,
-                                                        lay.T, m, nh), 1))
+            p6_ms)
         if not torch.equal(k6, g):
             raise AssertionError(f"{tag}: adaptive decode does not invert "
                                  f"encode")
@@ -555,10 +758,10 @@ def check_semi_kernels():
                 return kernels.semi_encode_walk_plain(g, cg, m, nh,
                                                       SEMI_CHUNK, c0)
 
-            k11, p11 = enc(), enc_plain()
+            k11, (p11, p11_ms) = enc(), _timed(enc_plain)
             r["semi_encode_walk"] = (
                 max(_max_err(a, b) for a, b in zip(k11, p11)),
-                _time_ms(enc, 3), _time_ms(enc_plain, 1))
+                _time_ms(enc, 3), p11_ms)
             sf, cnt = k11
             k7 = kernels.rans_encode_sf(sf, cg)
             out, nw = kernels.compact_words(*k7[:2])
@@ -573,10 +776,10 @@ def check_semi_kernels():
                 return kernels.semi_decode_plain(k7[2], wpad, cg, T_ADAPT, m,
                                                  nh, SEMI_CHUNK, c0)
 
-            k12, p12 = dec(), dec_plain()
+            k12, (p12, p12_ms) = dec(), _timed(dec_plain)
             r["semi_decode"] = (
                 max(_max_err(a, b) for a, b in zip(k12, p12)),
-                _time_ms(dec, 2), _time_ms(dec_plain, 1))
+                _time_ms(dec, 2), p12_ms)
             if not torch.equal(k12[0], g) or not torch.equal(k12[1], cnt):
                 raise AssertionError(f"{tag} {start}: semi decode does not "
                                      f"invert encode")
@@ -1121,6 +1324,10 @@ _ADAPT_PATH = ("adapt_encode_walk", "rans_encode_sf", "compact_words",
                "adapt_decode")
 _SEMI_PATH = ("semi_encode_walk", "rans_encode_sf", "compact_words",
               "semi_decode")
+# the transfer packs: every fused encode unpacks its uploaded grid (K15),
+# every decode packs its grid (K16) and a 6-bit quality grid also as
+# nibbles + exceptions (K17)
+_PACKS = ("unpack_grid", "pack_grid", "pack15")
 
 
 def _input(tmp: str, name: str, R: int, ids: str = "sra") -> str:
@@ -1269,7 +1476,7 @@ def end_to_end(tmp: str):
     print("phase 4-5: frozen path")
     fq = _input(tmp, "in.fq", 300_000)      # the archive names its input
     arc = os.path.join(tmp, "frozen.fqz")
-    _drive(fq, 300_000, arc, [], _FROZEN_PATH, totals)
+    _drive(fq, 300_000, arc, [], _FROZEN_PATH + _PACKS, totals)
     _oracle(fq, arc, [], "FASTQUEEZE_FROZEN_EXEC")
     os.remove(fq)
 
@@ -1277,7 +1484,7 @@ def end_to_end(tmp: str):
     fq = _input(tmp, "adaptive.fq", R_ADAPT)
     for flags in ([], ["--qlevel", "3"]):
         arc = os.path.join(tmp, f"adaptive{len(flags)}.fqz")
-        _drive(fq, R_ADAPT, arc, flags, _ADAPT_PATH, totals)
+        _drive(fq, R_ADAPT, arc, flags, _ADAPT_PATH + _PACKS, totals)
         with ArcReader(arc) as r:
             if r.model_blob is not None:
                 raise AssertionError("adaptive input wrote a frozen model")
@@ -1390,8 +1597,24 @@ def aligned_end_to_end(tmp: str, genome, totals) -> str:
     return ref
 
 
-def pe_end_to_end(tmp: str, genome, ref: str, totals) -> None:
-    """Phases 10-11, adding their launches to ``totals``."""
+def _slice_want(arc: str, srcs, at: int, count: int):
+    """(start, count, the expected bytes of each source): ``count``
+    records (PE: pairs) from ``at`` records before the end of block 0."""
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    with ArcReader(arc) as r:
+        start = r.blocks[0].n_reads + at
+    wants = []
+    for src in srcs:
+        with open(src, "rb") as fh:
+            lines = fh.read().split(b"\n")
+        wants.append(b"\n".join(lines[4 * start:4 * (start + count)]) + b"\n")
+    return start, count, wants
+
+
+def pe_end_to_end(tmp: str, genome, ref: str, totals):
+    """Phases 10-11, adding their launches to ``totals``; returns phase
+    10's archive with a slice across its block 0/1 boundary, (archive,
+    start, count, expected mate-1 and mate-2 bytes), for phase 16."""
     from fastqueeze_tpu_torch.container.arcfile import FLAG_ALIGNED, ArcReader
     from fastqueeze_tpu_torch.container.encap import iter_tlv
     from fastqueeze_tpu_torch.pipeline.blockcodec import TAG_APDF
@@ -1410,6 +1633,7 @@ def pe_end_to_end(tmp: str, genome, ref: str, totals) -> None:
             raise AssertionError("expected a frozen PE archive of >= 2 "
                                  "blocks")
     _oracle(fq1, arc, [], "FASTQUEEZE_FROZEN_EXEC", fq2=fq2)
+    pe_slice = (arc,) + _slice_want(arc, (fq1, fq2), -10, 30)
 
     print("phase 11: paired-end against ref.fa with -I 500")
     t0 = time.time()
@@ -1439,6 +1663,7 @@ def pe_end_to_end(tmp: str, genome, ref: str, totals) -> None:
     _oracle(fq1, arc, flags, "FASTQUEEZE_ALIGN_EXEC", ref=ref, fq2=fq2)
     for f in (fq1, fq2):
         os.remove(f)
+    return pe_slice
 
 
 def semi_end_to_end(tmp: str, totals) -> None:
@@ -1701,6 +1926,104 @@ def lossy_mesh_end_to_end(tmp: str, totals) -> None:
     os.remove(fq)
 
 
+R_MODES = 100_000        # ~24 MB of 100 bp reads: 3 blocks of 8 MB
+MODES_BLOCK_MB = 8
+MULTI_READS = (33_000, 33_100, 33_200)     # three files of ~8 MB
+
+
+def modes_end_to_end(tmp: str, totals, pe_slice) -> None:
+    """Phase 16: --part 0:3, 1:3, 2:3 and --merge, -X and -m through the
+    CLI, each run's launches counted from 0 and read just after."""
+    from fastqueeze_tpu_torch import cli
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    print("phase 16: --part K:3 + --merge, -X and -m through the CLI")
+    fq = _input(tmp, "modes.fq", R_MODES)
+    flags = ["--block-mb", str(MODES_BLOCK_MB)]
+    single = os.path.join(tmp, "modes.fqz")
+    _drive(fq, R_MODES, single, flags, _FROZEN_PATH + _PACKS, totals)
+    _oracle(fq, single, flags, "FASTQUEEZE_FROZEN_EXEC")
+    with ArcReader(single) as r:
+        n_blocks = len(r.blocks)
+        if n_blocks != 3 or r.model_blob is None:
+            raise AssertionError(f"expected 3 frozen blocks, got {n_blocks}")
+
+    parts = [os.path.join(tmp, f"part{k}.fqz") for k in range(3)]
+    merged = os.path.join(tmp, "merged.fqz")
+    _reset_counts()
+    t0 = time.time()
+    for k, part in enumerate(parts):
+        if cli.main(["-c", "-1", fq, "-o", part, "-f", "--part", f"{k}:3"]
+                    + flags) != 0:
+            raise RuntimeError(f"--part {k}:3 failed")
+    t_parts = time.time() - t0
+    if cli.main(["--merge"] + parts + ["-o", merged, "-f"]) != 0:
+        raise RuntimeError("--merge failed")
+    # the frozen trainer's cache hands every part the single run's tables,
+    # already quantized (K1) on the card
+    _read_counts(("frozen_encode_lanes", "compact_words", "unpack_grid"),
+                 totals)
+    if not _same_file(merged, single):
+        raise AssertionError("merged parts != the single-run archive")
+    print(f"--part 0:3, 1:3, 2:3 ({t_parts:.3f} s) + --merge: equals the "
+          f"single-run archive (and so the FASTQUEEZE_FROZEN_EXEC=host one)")
+
+    with open(fq, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    R = (len(lines) - 1) // 4
+    start0 = _slice_want(single, [], -50, 100)[0]
+    pe_arc, pe_start, pe_count, pe_wants = pe_slice
+    for what, arc, start, count, wants in (
+            ("SE block 0/1 boundary", single, start0, 100, [
+                b"\n".join(lines[4 * start0:4 * (start0 + 100)]) + b"\n"]),
+            ("SE tail", single, R - 40, 40,
+             [b"\n".join(lines[4 * (R - 40):4 * R]) + b"\n"]),
+            ("PE (phase 10) block 0/1 boundary", pe_arc, pe_start, pe_count,
+             pe_wants)):
+        out = os.path.join(tmp, "x")
+        _reset_counts()
+        t0 = time.time()
+        if cli.main(["-d", arc, "-X", f"{start}:{count}", "-o", out,
+                     "-f"]) != 0:
+            raise RuntimeError(f"-X {what} failed")
+        dt = time.time() - t0
+        _read_counts(("frozen_decode",) + _PACKS[1:], totals)
+        got = ([out + ".fastq"] if len(wants) == 1
+               else [out + "_1.fastq", out + "_2.fastq"])
+        for g, w in zip(got, wants):
+            with open(g, "rb") as fh:
+                if fh.read() != w:
+                    raise AssertionError(f"-X {what}: != the input's lines")
+        print(f"-X {start}:{count} ({what}, {dt:.3f} s): equals the input's "
+              f"records")
+    del lines
+
+    ins = [_input(tmp, f"m{i}.fq", R_) for i, R_ in enumerate(MULTI_READS)]
+    marc = os.path.join(tmp, "multi.fqz")
+    back = os.path.join(tmp, "mback")
+    _reset_counts()
+    t0 = time.time()
+    if cli.main(["-c", "-m"] + [a for f in ins for a in ("-1", f)]
+                + ["-o", marc, "-f"]) != 0:
+        raise RuntimeError("-m compress failed")
+    t_enc = time.time() - t0
+    if cli.main(["-d", marc, "-o", back, "-f"]) != 0:
+        raise RuntimeError("-m decompress failed")
+    _read_counts(_FROZEN_PATH + _PACKS, totals)
+    for i, f in enumerate(ins):
+        if not _same_file(f, f"{back}{i}.fastq"):
+            raise AssertionError(f"-m file {i} differs after the round trip")
+    with ArcReader(marc) as r:
+        fids = sorted({b.file_id for b in r.blocks})
+        if r.params.multi != 1 or fids != [0, 1, 2] or r.model_blob is None:
+            raise AssertionError(f"-m archive: multi {r.params.multi}, file "
+                                 f"ids {fids}")
+    size = sum(os.path.getsize(f) for f in ins)
+    print(f"-m over 3 files ({size} bytes): encode {t_enc:.3f} s, ratio "
+          f"{size / os.path.getsize(marc):.4f}; each file byte-exact")
+    for f in ins + [fq]:
+        os.remove(f)
+
+
 _REPLACES = {
     "align_batch": ("fastqueeze_tpu_torch/csrc/align_batch.cu",
                     "fastqueeze_tpu/align/hash.py:414"),
@@ -1730,6 +2053,12 @@ _REPLACES = {
                      "fastqueeze_tpu/ops/engine.py:523"),
     "rescue_indel_fused": ("fastqueeze_tpu_torch/csrc/rescue_indel_fused.cu",
                            "fastqueeze_tpu/align/hash.py:472"),
+    "unpack_grid": ("fastqueeze_tpu_torch/csrc/transfer_pack.cu",
+                    "fastqueeze_tpu/ops/engine.py:216"),
+    "pack_grid": ("fastqueeze_tpu_torch/csrc/transfer_pack.cu",
+                  "fastqueeze_tpu/ops/engine.py:223"),
+    "pack15": ("fastqueeze_tpu_torch/csrc/transfer_pack.cu",
+               "fastqueeze_tpu/ops/engine.py:972"),
 }
 
 
@@ -1739,6 +2068,7 @@ def main() -> int:
     import torch
     build()
     rows = check_kernels()
+    rows.update(check_pack_kernels())
     rows.update(check_adaptive_kernels())
     rows.update(check_semi_kernels())
     genome = _genome()
@@ -1747,17 +2077,20 @@ def main() -> int:
     try:
         launches = end_to_end(tmp)
         ref = aligned_end_to_end(tmp, genome, launches)
-        pe_end_to_end(tmp, genome, ref, launches)
+        pe_slice = pe_end_to_end(tmp, genome, ref, launches)
         semi_end_to_end(tmp, launches)
         frozen_adapt_end_to_end(tmp, launches)
         longread_end_to_end(tmp, genome, ref, launches)
         lossy_mesh_end_to_end(tmp, launches)
+        modes_end_to_end(tmp, launches, pe_slice)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"],
                **rows["k14_fwd"], **rows["k22_indel_G3_ops2"],
                **rows["k14_window"], **rows["semi_seq_order10_fresh"],
-               **rows["train_seq_order10"], **rows["k22_fused"])
+               **rows["train_seq_order10"], **rows["k22_fused"],
+               **rows["seq_mode2"], **rows["markov40_pack15"])
+    seq["pack_grid"] = rows["markov40_mode6"]["pack_grid"]
     BOUNDS["rescue_indel_fused"] = BOUNDS["k22_fused"]
     for tag in ("k14_fused", "k22_fused", "lr1024"):
         print(f"rescue_indel_fused {tag}: {_bound_row(tag)}; K8 rescue + "
@@ -1767,9 +2100,10 @@ def main() -> int:
               "max_abs_err": max(r[k][0] for r in rows.values() if k in r),
               "ms": seq[k][1], "plain_ms": seq[k][2], **_bound_row(k)}
              for k, (src, rep) in _REPLACES.items()]
-    table[-1]["k8_rescue_plus_k9_ms"] = PAIR_MS["k22_fused"]
     # the long-read chunk tier's shape (Lp 1024) beside the Lp 128 rows
     by_name = {t["name"]: t for t in table}
+    by_name["rescue_indel_fused"]["k8_rescue_plus_k9_ms"] = PAIR_MS[
+        "k22_fused"]
     for key, name, tag in (("lp1024", "align_batch", "lr1024_tier1"),
                            ("lp1024_rescue", "align_batch", "lr1024_rescue"),
                            ("lp1024", "indel_batch", "lr1024_indel"),
@@ -1782,6 +2116,22 @@ def main() -> int:
         print(f"{name} {tag}: {by_name[name][key]}")
     by_name["rescue_indel_fused"]["lp1024"]["k8_rescue_plus_k9_ms"] = (
         PAIR_MS["lr1024"])
+    # the packs in every mode phase 3 ran, beside the rows' shapes (K15:
+    # the seq grid in mode 2; K16: the Markov qualities in mode 6; K17:
+    # the Markov qualities); no single PyTorch call computes K17, two
+    # compute its parts
+    for name in _PACKS:
+        by_name[name]["modes"] = {
+            key: {"ms": r[name][1], "plain_ms": r[name][2],
+                  "max_abs_err": r[name][0]}
+            for key, r in rows.items() if name in r}
+    by_name["pack15"]["library_parts_ms"] = {
+        "torch.bincount": PAIR_MS["pack15_bincount"],
+        "torch.masked_select": PAIR_MS["pack15_masked_select"]}
+    by_name["quant_pack"]["narrow_tables"] = {
+        key: {"ms": r["quant_pack"][1], "max_abs_err": r["quant_pack"][0]}
+        for key, r in rows.items() if key.startswith("quant_pack_")}
+    print(f"copies of one stream (phase 3): {json.dumps(COPY)}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1789,14 +2139,23 @@ def main() -> int:
     return 0
 
 
-def coder_loop(reps: int) -> None:
+def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
     """Phase 3's K1 -> K2 launches on its inputs, ``reps`` rounds, each
-    launch synchronized and announced before it starts, so that under
-    CUDA_LAUNCH_BLOCKING=1 the last line names a launch that faults.  The
-    first round is held against the plain versions, every later one
-    against the first."""
+    launch announced before it starts, so that under CUDA_LAUNCH_BLOCKING=1
+    the last line names a launch that faults.  ``blocking``: synchronize
+    after every launch; else only where phase 3 does (reading K1's result
+    before K2; K2 followed at once by the plain version's first op,
+    cgrid.long(), which reported the fault in phase 3).  ``build_dir``:
+    build the kernel library there first (this process's own build), else
+    load the parent's; ``checked``: the checked build (every FQK_CHECK
+    bound live).  The first round is held against the plain versions,
+    every later one against the first."""
     import torch
     from fastqueeze_tpu_torch.ops import kernels
+    t0 = time.time()
+    info = kernels.build(checked=checked, build_dir=build_dir)
+    print(f"library {info['path']} (checked {info['checked']}): "
+          f"{time.time() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
     cases = list(_coder_cases(dev))
     want = {}
@@ -1804,50 +2163,100 @@ def coder_loop(reps: int) -> None:
         for tag, m, _, _, g, c, cg in cases:
             print(f"launch quant_pack round {rep} {tag}", flush=True)
             k1 = kernels.quant_pack(c)
-            torch.cuda.synchronize()
+            if blocking:
+                torch.cuda.synchronize()
+            if tag not in want:
+                want[tag] = kernels.quant_pack_plain(c)
+            if not all(torch.equal(a, b) for a, b in zip(k1, want[tag])):
+                raise AssertionError(f"round {rep} {tag}: K1 differs")
             print(f"launch frozen_encode_lanes round {rep} {tag}", flush=True)
             k2 = kernels.frozen_encode_lanes(g, cg, k1[1], m)
-            torch.cuda.synchronize()
-            if tag not in want:
-                want[tag] = (*kernels.quant_pack_plain(c),
-                             *kernels.frozen_encode_lanes_plain(g, cg, k1[1],
-                                                                m))
-            if not all(torch.equal(a, b) for a, b in zip(k1 + k2, want[tag])):
-                raise AssertionError(f"round {rep} {tag}: K1/K2 differ")
+            if blocking:
+                torch.cuda.synchronize()
+            cg.long()
+            key = tag + "_k2"
+            if key not in want:
+                want[key] = kernels.frozen_encode_lanes_plain(g, cg, k1[1], m)
+            if not all(torch.equal(a, b) for a, b in zip(k2, want[key])):
+                raise AssertionError(f"round {rep} {tag}: K2 differs")
+    torch.cuda.synchronize()
 
 
-def coder_loop_procs(procs: int, reps: int) -> int:
-    """``--coder-loop PROCS REPS``: PROCS fresh processes, one after
-    another, each running coder_loop(REPS) with CUDA_LAUNCH_BLOCKING=1
-    (phase 3 once died on an illegal memory access right after K1/K2's
-    first launch).  Prints each process's exit code and last launch, then
-    the failure count; exits 1 if any process failed."""
+def coder_loop_procs(procs: int, reps: int, blocking: bool, own_build: bool,
+                     checked: bool) -> int:
+    """``--coder-loop PROCS ROUNDS [--async] [--own-build] [--checked]``:
+    PROCS fresh processes, one after another, each running
+    coder_loop(ROUNDS) (phase 3 once died on an illegal memory access
+    right after K1/K2's first launch): under CUDA_LAUNCH_BLOCKING=1 unless
+    --async; each loading the library this process builds, or with
+    --own-build each building its own into an empty directory first;
+    the checked build with --checked.  Prints each process's exit code and
+    last launch, then the failure count; exits 1 if any process failed."""
     card()
-    build()
-    env = dict(os.environ, CUDA_LAUNCH_BLOCKING="1")
-    failed = []
-    for i in range(procs):
+    if not own_build:             # the library the children load
+        from fastqueeze_tpu_torch.ops import kernels
         t0 = time.time()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--coder-child", str(reps)], env=env,
-                           capture_output=True, text=True, timeout=900)
-        launches = [ln for ln in r.stdout.splitlines()
-                    if ln.startswith("launch ")]
-        print(f"process {i}: exit {r.returncode} in {time.time() - t0:.1f} s"
-              f", {len(launches)} launches, last {launches[-1:]}")
-        if r.returncode:
-            failed.append(i)
-            print(r.stderr[-3000:])
+        info = kernels.build(checked=checked)
+        print(f"build: {time.time() - t0:.1f} s ({info['path']})")
+    env = dict(os.environ)
+    if blocking:
+        env["CUDA_LAUNCH_BLOCKING"] = "1"
+    else:
+        env.pop("CUDA_LAUNCH_BLOCKING", None)
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="coder_loop_")
+    try:
+        for i in range(procs):
+            argv = ["--coder-child", str(reps)]
+            if not blocking:
+                argv.append("--async")
+            if own_build:
+                argv += ["--build-dir", os.path.join(tmp, f"build{i}")]
+            if checked:
+                argv.append("--checked")
+            t0 = time.time()
+            r = subprocess.run([sys.executable, os.path.abspath(__file__)]
+                               + argv, env=env, capture_output=True,
+                               text=True, timeout=900)
+            launches = [ln for ln in r.stdout.splitlines()
+                        if ln.startswith("launch ")]
+            lib = [ln for ln in r.stdout.splitlines()
+                   if ln.startswith("library ")]
+            print(f"process {i}: exit {r.returncode} in "
+                  f"{time.time() - t0:.1f} s, {len(launches)} launches, "
+                  f"last {launches[-1:]}; {lib[:1]}")
+            if r.returncode:
+                failed.append(i)
+                print(r.stdout[-2000:])
+                print(r.stderr[-3000:])
+            if own_build:
+                shutil.rmtree(os.path.join(tmp, f"build{i}"),
+                              ignore_errors=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"coder_loop": {
         "processes": procs, "rounds": reps, "launches_per_process": 6 * reps,
+        "blocking": blocking, "own_build": own_build, "checked": checked,
         "failed_processes": failed}}))
     return 1 if failed else 0
 
 
+def _flag(name: str) -> bool:
+    return name in sys.argv[2:]
+
+
+def _opt(name: str):
+    return (sys.argv[sys.argv.index(name) + 1] if name in sys.argv[2:]
+            else None)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--coder-loop"]:
-        sys.exit(coder_loop_procs(int(sys.argv[2]), int(sys.argv[3])))
+        sys.exit(coder_loop_procs(int(sys.argv[2]), int(sys.argv[3]),
+                                  not _flag("--async"), _flag("--own-build"),
+                                  _flag("--checked")))
     if sys.argv[1:2] == ["--coder-child"]:
-        coder_loop(int(sys.argv[2]))
+        coder_loop(int(sys.argv[2]), not _flag("--async"),
+                   _opt("--build-dir"), _flag("--checked"))
         sys.exit(0)
     sys.exit(main())

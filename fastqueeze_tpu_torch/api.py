@@ -11,16 +11,18 @@ calls and archives of fastqueeze_tpu's api:
     stats = api.compress("reads.fq", "out.fqz", reference="ref.fa")
     paths = api.decompress("out.fqz", "restored")               # bit-exact
     info  = api.describe("out.fqz")
+    stats = api.compress(["a.fq", "b.fq", "c.fq"], "multi.fqz")  # -m
+    stats = api.compress("reads.fq", "p0.fqz", part=(0, 2))      # --part
+    stats = api.merge("out.fqz", ["p0.fqz", "p1.fqz"])          # --merge
+    paths = api.extract("out.fqz", 1000, 50, "slice")           # -X
 
 Parameters are the `CodecParams` the CLI builds from its flags; only here
 can a caller set the ones no flag sets, such as ``frozen_adapt`` (keep
 adapting from the trained tables).  The coder and the aligner run on
 ``device``, the CUDA card by default; ``device="cpu"`` runs the kernels'
 plain PyTorch versions and the native host coders.  ``lossy`` (-l) sets
-lossy_factor; ``mesh`` resolves against the visible devices.  Not ported
-yet, each raising NotImplementedError with its ROADMAP item: merge,
-extract, a ``part`` of 2 or more and 3+ inputs (Queue A item 4), ``mesh``
-over 2 or more devices (item 9).
+lossy_factor; ``mesh`` resolves against the visible devices (over 2 or
+more devices it is not ported: ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ from typing import Dict, List, Optional, Sequence, Union
 from fastqueeze_tpu_torch.config import CodecParams
 
 Inputs = Union[str, Sequence[str]]
-
-_ITEM4 = "ROADMAP Queue A item 4"
 
 
 def _params(params: Optional[CodecParams], **overrides) -> CodecParams:
@@ -54,19 +54,22 @@ def compress(inputs: Inputs, out_path: str, *,
              device="cuda") -> Dict:
     """Compress FASTQ file(s) into a .fqz archive.
 
-    inputs: one path (SE) or a (r1, r2) pair (PE).  reference: FASTA path
-    to align against (the index file is loaded or built).  self_ref:
+    inputs: one path (SE), a (r1, r2) pair (PE), or 3+ paths (a
+    multi-file archive, the CLI's `-m`).  reference: FASTA path to align
+    against (the index file is loaded or built).  self_ref:
     self-referential alignment (the CLI's `-S`; not with `reference`).
     lossy: the R-Block quality factor (the CLI's `-l`; above 1.0 the
     qualities are transformed).  mesh: block data-parallelism over N
-    devices, -1 = all (the CLI's `--mesh`).  Returns the driver's stats
-    dict (raw/compressed bytes, ratio, blocks, ...)."""
+    devices, -1 = all (the CLI's `--mesh`).  part: (k, n), this call owns
+    blocks k, k+n, ... and writes a partial archive (the CLI's `--part
+    K:N`; assemble with :func:`merge`).  Returns the driver's stats dict
+    (raw/compressed bytes, ratio, blocks, ...)."""
     if part is not None:
         if not (0 <= part[0] < part[1] <= 0xFFFFFFFF):
             raise ValueError(
                 f"part wants (k, n) with 0 <= k < n, got {part}")
-        if part[1] != 1:           # 1 part == a plain single-run archive
-            raise NotImplementedError(f"multi-host parts (part): {_ITEM4}")
+        if part[1] == 1:
+            part = None            # 1 part == a plain single-run archive
     p = _params(params, threads=threads, mesh_n=mesh)
     if lossy is not None:
         p.lossy_factor = lossy
@@ -76,28 +79,36 @@ def compress(inputs: Inputs, out_path: str, *,
                              "exclusive")
         p.self_align = 1
     paths = [inputs] if isinstance(inputs, str) else list(inputs)
-    if len(paths) not in (1, 2):
-        raise NotImplementedError(f"multi-file archives ({len(paths)} "
-                                  f"inputs): {_ITEM4}")
     if reference is not None:
         from fastqueeze_tpu_torch.pipeline.aligned import (
             compress_pe_aligned, compress_se_aligned)
         if len(paths) == 1:
             return compress_se_aligned(p, reference, paths[0], out_path,
-                                       device=device)
-        return compress_pe_aligned(p, reference, paths[0], paths[1],
-                                   out_path, device=device)
+                                       part=part, device=device)
+        if len(paths) == 2:
+            return compress_pe_aligned(p, reference, paths[0], paths[1],
+                                       out_path, part=part, device=device)
+        raise ValueError("aligned mode takes 1 (SE) or 2 (PE) inputs")
     if len(paths) == 1:
         from fastqueeze_tpu_torch.pipeline.driver import compress_se
-        return compress_se(p, paths[0], out_path, device=device)
-    from fastqueeze_tpu_torch.pipeline.pe import compress_pe
-    return compress_pe(p, paths[0], paths[1], out_path, device=device)
+        return compress_se(p, paths[0], out_path, part=part, device=device)
+    if len(paths) == 2:
+        from fastqueeze_tpu_torch.pipeline.pe import compress_pe
+        return compress_pe(p, paths[0], paths[1], out_path, part=part,
+                           device=device)
+    if part is not None:
+        raise ValueError("part is not supported with multi-file archives")
+    from fastqueeze_tpu_torch.pipeline.driver import compress_multi
+    return compress_multi(p, paths, out_path, device=device)
 
 
 def merge(out_path: str, parts: Sequence[str], *,
           force: bool = True) -> Dict:
-    """Assemble partial archives into one (the CLI's `--merge`)."""
-    raise NotImplementedError(f"merging partial archives: {_ITEM4}")
+    """Assemble partial archives (compress(part=(k, n))) into the final
+    archive, byte-identical to a single-run archive (the CLI's
+    `--merge`)."""
+    from fastqueeze_tpu_torch.container.arcfile import merge_archives
+    return merge_archives(out_path, list(parts), force=force)
 
 
 def decompress(archive: str, out_prefix: str, *,
@@ -114,11 +125,13 @@ def decompress(archive: str, out_prefix: str, *,
 
 
 def extract(archive: str, start: int, count: int, out_prefix: str, *,
-            reference: Optional[str] = None, force: bool = True
-            ) -> List[str]:
-    """Random-access extraction of reads [start, start+count) (the CLI's
-    `-X`)."""
-    raise NotImplementedError(f"random-access decode (extract): {_ITEM4}")
+            reference: Optional[str] = None, force: bool = True,
+            device="cuda") -> List[str]:
+    """Random-access extraction: decode only the blocks covering reads
+    (SE) or pairs (PE) [start, start+count) (the CLI's `-X`)."""
+    from fastqueeze_tpu_torch.pipeline.driver import extract as _x
+    return _x(archive, out_prefix, start, count, ref=reference,
+              force=force, device=device)
 
 
 def describe(archive: str) -> Dict:

@@ -3,21 +3,28 @@
     python -m fastqueeze_tpu_torch.cli -i ref.fa [-q]
     python -m fastqueeze_tpu_torch.cli -D
     python -m fastqueeze_tpu_torch.cli -c [ref.fa] -1 in.fq [-2 in_2.fq]
-        -o out.fqz [-f] [-t N] [--qlevel N] [-q] [-s] [-S] [-I N] [-l F]
-        [--mesh N]
+        -o out.fqz [-f] [-t N] [--qlevel N] [--slevel N] [--block-mb N]
+        [-q] [-s] [-S] [-I N] [-l F] [-p] [--part K:N] [--mesh N]
+    python -m fastqueeze_tpu_torch.cli -c -m -1 a.fq -1 b.fq -1 c.fq -o out.fqz
     python -m fastqueeze_tpu_torch.cli -d [ref.fa] out.fqz -o prefix [-f]
-        [-t N] [-P 1|2|3] [--mesh N]
+        [-t N] [-P 1|2|3] [-p] [-X START:COUNT] [--mesh N]
+    python -m fastqueeze_tpu_torch.cli --merge part0.fqz ... -o out.fqz
+    python -m fastqueeze_tpu_torch.cli -L out.fqz
 
 The flags and archives are those of fastqueeze_tpu's CLI.  The coder and
 the aligner run on the CUDA card; with no card the CLI stops with an
 error and never continues on the CPU (``-i`` builds the index on the
-host and needs no card; ``-D`` writes the developer config file
-./fastqueeze.config with the defaults, which every compress reads, e.g.
-``AdaptChunk:64`` for the semi-adaptive walk).  ``--mesh N`` resolves
-against the visible cards (-1 = all; more than are visible is refused);
-on one card it is a no-op written into PARAM.  Flags of modes the port
-lacks (-m, -X, --part, --mesh over 2 or more cards) exit with the ROADMAP
-item that ports them.
+host, ``--merge`` and ``-L`` only read archives, and ``-D`` writes the
+developer config file ./fastqueeze.config with the defaults, which every
+compress reads, e.g. ``AdaptChunk:64`` for the semi-adaptive walk; none
+of them needs a card).  ``--part K:N`` writes the partial archive of
+blocks K, K+N, ... (0 <= K < N <= 2^32-1), ``--merge`` assembles the N
+parts into the single-run archive, ``-X`` decodes only the covering
+blocks, ``-m`` puts several inputs into one archive.  ``--mesh N``
+resolves against the visible cards (-1 = all; more than are visible is
+refused); on one card it is a no-op written into PARAM, over 2 or more
+cards it exits with ROADMAP Queue A item 9.  ``-n`` is accepted and
+ignored, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,12 +38,6 @@ from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.utils.log import error, info
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
-_UNPORTED = (
-    ("multi", "multi-file archives (-m): ROADMAP Queue A item 4"),
-    ("extract", "random-access decode (-X): ROADMAP Queue A item 4"),
-    ("part", "multi-host parts (--part): ROADMAP Queue A item 4"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -48,11 +49,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-c", "--compress", action="store_true")
     ap.add_argument("-d", "--decompress", action="store_true")
     ap.add_argument("pos", nargs="*", default=[],
-                    help="[ref.fa] for -c; [ref.fa] archive for -d")
-    ap.add_argument("-1", dest="in1", action="append", help="input FASTQ")
+                    help="[ref.fa] for -c; [ref.fa] archive for -d; the "
+                    "parts for --merge")
+    ap.add_argument("-1", dest="in1", action="append",
+                    help="input FASTQ (SE or PE1); repeat with -m")
     ap.add_argument("-2", dest="in2", help="input FASTQ (PE2)")
     ap.add_argument("-m", dest="multi", action="store_true",
-                    help="multi-file archive (not ported)")
+                    help="multi-file archive: pass several -1 inputs")
+    ap.add_argument("-L", "--list", dest="list_arc", metavar="ARCHIVE",
+                    help="list archive contents (files, blocks, params)")
     ap.add_argument("-o", dest="out", help="output archive / prefix")
     ap.add_argument("-f", dest="force", action="store_true",
                     help="force overwrite")
@@ -64,20 +69,35 @@ def build_parser() -> argparse.ArgumentParser:
                     help="max insert size for PE alignment")
     ap.add_argument("-s", dest="shm", action="store_true",
                     help="share the index file across processes (mmap)")
+    ap.add_argument("-n", dest="no_orderbin", action="store_true",
+                    help="accepted for the reference's command lines; reads "
+                    "are never reordered, so it changes nothing")
     ap.add_argument("-q", dest="bwa", action="store_true",
                     help="long-seed aligner (22-mers) with the indel tier")
     ap.add_argument("-S", dest="self_align", action="store_true",
                     help="self-referential alignment: code each block's "
                     "reads against its own unmapped reads")
     ap.add_argument("-X", dest="extract", metavar="START:COUNT",
-                    help="random-access decode (not ported)")
+                    help="random-access decode: only reads (PE: pairs) "
+                    "[START, START+COUNT), from the covering blocks")
     ap.add_argument("-P", dest="pipeout", type=int, default=0,
                     choices=[0, 1, 2, 3], help="pipe decompressed reads to "
                     "stdout: 1=SE/PE1 2=PE2 3=interleaved")
+    ap.add_argument("-p", dest="indir", action="store_true",
+                    help="write the output next to the input")
     ap.add_argument("-D", dest="dump_config", action="store_true",
                     help="write ./fastqueeze.config with current defaults")
+    ap.add_argument("--block-mb", type=int, default=None,
+                    help="block size in MB (default 50)")
+    ap.add_argument("--slevel", type=int, default=None,
+                    help="sequence context level (default 3)")
     ap.add_argument("--part", metavar="K:N",
-                    help="multi-host compress (not ported)")
+                    help="multi-host compress: own blocks K, K+N, ... of the "
+                    "input and write a partial archive (--merge the N "
+                    "parts into the single-run archive)")
+    ap.add_argument("--merge", action="store_true",
+                    help="assemble partial archives (--part) into one: "
+                    "--merge part*.fqz -o out.fqz")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="block data-parallelism over N cards (-1 = all; "
                     "one card: a no-op; 2 or more: not ported)")
@@ -86,6 +106,48 @@ def build_parser() -> argparse.ArgumentParser:
                     "adaptively with position contexts)")
     ap.add_argument("--stats", action="store_true", help="print debug tables")
     return ap
+
+
+def _list_archive(path: str) -> None:
+    """An archive's contents: kind, blocks, files, params (the reference
+    CLI's -L)."""
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    with ArcReader(path) as r:
+        p = r.params
+        kind = ("PE" if p.is_pe else
+                ("multi" if getattr(p, "multi", 0) else "SE"))
+        if r.part is not None:
+            kind += f" PARTIAL (part {r.part[0]} of {r.part[1]})"
+        print(f"{path}: {kind} archive, {len(r.blocks)} block(s), "
+              f"{len(r.file_list)} file(s)")
+        print(f"  params: slevel={p.slevel} qlevel={p.qlevel} "
+              f"block={p.block_size_mb}MB lossy={p.lossy_factor} "
+              f"aligned={p.aligned}"
+              + (f" ref_md5={p.ref_md5}" if p.aligned else ""))
+        if r.model_blob is not None:
+            print(f"  frozen model: {len(r.model_blob):,} B")
+        for i, name in enumerate(r.file_list):
+            raw = sum((b.raw_len2 if (p.is_pe and i == 1) else b.raw_len1)
+                      for b in r.blocks
+                      if p.is_pe or b.file_id == i
+                      or not getattr(p, "multi", 0))
+            print(f"  [{i}] {name}  {raw:,} B plaintext")
+        total_payload = sum(b.payload_len for b in r.blocks)
+        total_raw = sum(b.raw_len1 + b.raw_len2 for b in r.blocks)
+        print(f"  blocks: {total_raw:,} B -> {total_payload:,} B "
+              f"({total_raw / max(total_payload, 1):.2f}x)")
+
+
+def _parse_part(spec: str):
+    """--part K:N -> (K, N), None for one part, or an error string."""
+    k, _, n = spec.partition(":")
+    try:
+        part = (int(k), int(n))
+    except ValueError:
+        return "--part wants K:N (e.g. --part 0:4)"
+    if not (0 <= part[0] < part[1] <= 0xFFFFFFFF):
+        return f"--part {spec}: need 0 <= K < N <= 2^32-1"
+    return part if part[1] > 1 else None   # 1 part == a single-run archive
 
 
 def main(argv=None) -> int:
@@ -108,13 +170,25 @@ def main(argv=None) -> int:
             return 1
         info(f"index written: {out}")
         return 0
+    try:
+        if args.list_arc:
+            _list_archive(args.list_arc)
+            return 0
+        if args.merge:
+            if not args.out or len(args.pos) < 1:
+                error("--merge needs part archives + -o out.fqz")
+                return 2
+            from fastqueeze_tpu_torch.container.arcfile import merge_archives
+            stats = merge_archives(args.out, args.pos, force=args.force)
+            info(f"merged {stats['parts']} parts -> {args.out} "
+                 f"({stats['blocks']} blocks, {stats['compressed']:,} B)")
+            return 0
+    except (ValueError, FileNotFoundError, EOFError) as e:
+        error(str(e))
+        return 1
     if not (args.compress or args.decompress):
         build_parser().print_help()
         return 1
-    for attr, why in _UNPORTED:
-        if getattr(args, attr):
-            error(f"not ported yet: {why}")
-            return 2
     if len(args.pos) > (1 if args.compress else 2):
         error("too many positional arguments")
         return 2
@@ -124,8 +198,8 @@ def main(argv=None) -> int:
               "never falls back to the CPU")
         return 2
     device = torch.device("cuda", torch.cuda.current_device())
+    from fastqueeze_tpu_torch.pipeline import driver
     from fastqueeze_tpu_torch.pipeline.aligned import compress_se_aligned
-    from fastqueeze_tpu_torch.pipeline.driver import compress_se, decompress
     from fastqueeze_tpu_torch.pipeline.pe import compress_pe
     try:
         if args.compress:
@@ -136,12 +210,18 @@ def main(argv=None) -> int:
             out = args.out or os.path.splitext(in1)[0]
             if not out.endswith(".fqz"):
                 out += ".fqz"
+            if args.indir:
+                out = os.path.join(os.path.dirname(os.path.abspath(in1)),
+                                   os.path.basename(out))
             if os.path.exists(out) and not args.force:
                 error(f"{out} exists (use -f to overwrite)")
                 return 2
+            ref = args.pos[0] if args.pos else None
             p = CodecParams(is_pe=1 if args.in2 else 0)
             p.apply_config_file()      # developer config (seqarc.config)
-            for attr, val in (("qlevel", args.qlevel),
+            for attr, val in (("block_size_mb", args.block_mb),
+                              ("slevel", args.slevel),
+                              ("qlevel", args.qlevel),
                               ("lossy_factor", args.lossy),
                               ("max_insr", args.max_insr),
                               ("threads", args.threads),
@@ -153,36 +233,62 @@ def main(argv=None) -> int:
                     p.seed_len = 22    # -q: long-seed aligner
                 if p.max_indel == 0:
                     p.max_indel = 3    # -q: with the indel tier
+            part = None
+            if args.part:
+                part = _parse_part(args.part)
+                if isinstance(part, str):
+                    error(part)
+                    return 2
             if args.shm:
                 p.shm_index = 1
-            ref = args.pos[0] if args.pos else None
             if args.self_align:
-                if ref:
-                    error("-S is reference-free (no ref.fa)")
+                if ref or args.multi:
+                    error("-S is reference-free (no ref.fa / -m)")
                     return 2
                 p.self_align = 1
-            if args.in2:
+            if args.multi:
+                if args.in2 or ref:
+                    error("-m supports plain SE inputs (no -2 / reference)")
+                    return 2
+                if part:
+                    error("--part is not supported with -m")
+                    return 2
+                stats = driver.compress_multi(p, args.in1, out, dbg=dbg,
+                                              device=device)
+            elif args.in2:
                 stats = compress_pe(p, in1, args.in2, out, ref=ref, dbg=dbg,
-                                    device=device)
+                                    part=part, device=device)
             elif ref:
                 stats = compress_se_aligned(p, ref, in1, out, dbg=dbg,
-                                            device=device)
+                                            part=part, device=device)
             else:
-                stats = compress_se(p, in1, out, dbg=dbg, device=device)
+                stats = driver.compress_se(p, in1, out, dbg=dbg, part=part,
+                                           device=device)
             if ref:
                 info(f"mapped {stats['mapped']:,} of {stats['reads']:,} "
                      f"reads")
             info(f"compressed {stats['raw']:,} -> {stats['compressed']:,} B "
                  f"(ratio {stats['ratio']:.2f}x) in {stats['blocks']} blocks")
         else:
+            if args.part:
+                error("--part applies to compression only")
+                return 2
             if not args.pos:
                 error("decompress needs an archive path")
                 return 2
             ref = args.pos[0] if len(args.pos) == 2 else None
-            outs = decompress(args.pos[-1], args.out, dbg=dbg,
-                              force=args.force, threads=args.threads or 0,
-                              device=device, ref=ref, pipeout=args.pipeout,
-                              mesh=args.mesh or 0)
+            if args.extract:
+                s, _, c = args.extract.partition(":")
+                outs = driver.extract(args.pos[-1], args.out, int(s),
+                                      int(c or 1), ref=ref,
+                                      force=args.force, dbg=dbg,
+                                      device=device)
+            else:
+                outs = driver.decompress(
+                    args.pos[-1], args.out, dbg=dbg, force=args.force,
+                    threads=args.threads or 0, device=device, ref=ref,
+                    pipeout=args.pipeout, indir=args.indir,
+                    mesh=args.mesh or 0)
             if outs:
                 info("wrote: " + ", ".join(outs))
     except NotImplementedError as e:

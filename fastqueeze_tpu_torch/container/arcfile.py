@@ -207,3 +207,79 @@ class ArcReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def merge_archives(out_path: str, part_paths: List[str],
+                   force: bool = False) -> Dict:
+    """Assemble one final archive from N partial archives (--part K:N).
+
+    Copied from fastqueeze_tpu/container/arcfile.py: each host compresses
+    its round-robin share of the blocks of the SAME input; this
+    concatenates the block tables and payloads in global block order.
+    Every part scans the whole input (whole-input MD5, block boundaries)
+    and trains the same frozen model, so the merged archive equals the
+    single-run archive byte for byte; the parts' PARAM, FILELIST,
+    INPUT_MD5 and MODEL sections must agree byte for byte.
+    """
+    import os
+    if os.path.exists(out_path) and not force:
+        raise ValueError(f"{out_path} exists (use -f to overwrite)")
+    readers = [ArcReader(p) for p in part_paths]
+    try:
+        by_k: Dict[int, ArcReader] = {}
+        for r in readers:
+            if r.part is None:
+                raise ValueError(
+                    f"{r.path}: not a partial archive (produced without "
+                    "--part); nothing to merge")
+            k, n = r.part
+            if n != readers[0].part[1]:
+                raise ValueError(f"{r.path}: part {k} of {n}, but "
+                                 f"{readers[0].path} says n={readers[0].part[1]}")
+            if k in by_k:
+                raise ValueError(f"duplicate part {k} "
+                                 f"({r.path} and {by_k[k].path})")
+            by_k[k] = r
+        n = readers[0].part[1]
+        if sorted(by_k) != list(range(n)):
+            missing = sorted(set(range(n)) - set(by_k))
+            raise ValueError(f"missing part(s) {missing} of {n}")
+        base = by_k[0]
+        base_sec = {t: p for t, p in base.raw_sections}
+        for k, r in sorted(by_k.items()):
+            sec = {t: p for t, p in r.raw_sections}
+            for tag, name in ((TAG_PARAM, "PARAM"), (TAG_FILELIST, "FILELIST"),
+                              (TAG_INPUT_MD5, "INPUT_MD5"), (TAG_MODEL, "MODEL")):
+                if sec.get(tag) != base_sec.get(tag):
+                    raise ValueError(
+                        f"part {k} ({r.path}): {name} section differs from "
+                        f"part 0 — parts must be produced from the same "
+                        f"input with identical settings")
+        total = sum(len(r.blocks) for r in readers)
+        for k, r in by_k.items():
+            want = (total - k + n - 1) // n
+            if len(r.blocks) != want:
+                raise ValueError(
+                    f"part {k}: {len(r.blocks)} blocks, expected {want} "
+                    f"of {total} — parts are inconsistent")
+        with open(out_path, "wb") as out:
+            out.write(MAGIC)
+            # replay part 0's header sections in file order, dropping the
+            # PART marker and the tables rebuilt below — the result is
+            # byte-identical to the single-run writer's output
+            for tag, payload in base.raw_sections:
+                if tag in (TAG_PART, TAG_BLOCKTABLE, TAG_BLOCKS):
+                    continue
+                out.write(write_tlv(tag, payload))
+            infos = [by_k[gi % n].blocks[gi // n] for gi in range(total)]
+            out.write(write_tlv(TAG_BLOCKTABLE,
+                                b"".join(bi.pack() for bi in infos)))
+            out.write(write_varint(TAG_BLOCKS))
+            out.write(write_varint(sum(bi.payload_len for bi in infos)))
+            for gi in range(total):
+                out.write(by_k[gi % n].read_block(gi // n))
+        return {"blocks": total, "parts": n,
+                "compressed": os.path.getsize(out_path)}
+    finally:
+        for r in readers:
+            r.close()

@@ -15,12 +15,15 @@
 // slots of one wave: every grid access is coalesced.  The table gather
 // is random (2^20 rows x 4 symbols for order-10 seq), which bounds the
 // forward pass; the reverse pass is bound by the 32-bit division and by
-// device-memory traffic (4 B sf read + 3 B written per slot).
+// device-memory traffic (4 B sf read + 3 B written per slot).  The
+// checked build (check.cuh) bounds the lane length by T and every read of
+// syms, cgrid and packed.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "check.cuh"
 #include "lane_walk.cuh"
 
 namespace {
@@ -34,7 +37,7 @@ __global__ void frozen_encode_lanes(const uint8_t* __restrict__ syms,
                                     const int32_t* __restrict__ cgrid,
                                     int32_t J, int32_t T, int32_t L,
                                     const uint32_t* __restrict__ packed,
-                                    int32_t A, ModelSpec m,
+                                    int64_t n_packed, int32_t A, ModelSpec m,
                                     uint32_t* __restrict__ sf,
                                     uint16_t* __restrict__ words,
                                     uint8_t* __restrict__ emit,
@@ -42,6 +45,7 @@ __global__ void frozen_encode_lanes(const uint8_t* __restrict__ syms,
     const int32_t l = blockIdx.x * blockDim.x + threadIdx.x;
     if (l >= L) return;
     const int32_t n = fqk::lane_length(cgrid, J, L, l);
+    FQK_BOUND("frozen_encode_lanes", "lane length", n, int64_t(T) + 1);
 
     ModelState s;
     fqk::model_reset<KIND>(m, s);
@@ -50,8 +54,10 @@ __global__ void frozen_encode_lanes(const uint8_t* __restrict__ syms,
         if (fqk::cursor_next(cur, cgrid, J, L, l))
             fqk::model_reset<KIND>(m, s);
         const int64_t idx = int64_t(t) * L + l;
+        FQK_BOUND("frozen_encode_lanes", "syms", idx, int64_t(T) * L);
         const int32_t sym = syms[idx];
         const int64_t ctx = fqk::model_ctx<KIND>(m, s, cur.pos);
+        FQK_BOUND("frozen_encode_lanes", "packed", ctx * A + sym, n_packed);
         sf[idx] = packed[ctx * A + sym];
         fqk::model_update<KIND>(m, s, sym);
         --cur.rem;
@@ -64,7 +70,8 @@ __global__ void frozen_encode_lanes(const uint8_t* __restrict__ syms,
 
 extern "C" int fq_frozen_encode_lanes(
         const uint8_t* syms, const int32_t* cgrid, int32_t J, int32_t T,
-        int32_t L, const uint32_t* packed, int32_t A, int32_t kind,
+        int32_t L, const uint32_t* packed, int64_t n_packed, int32_t A,
+        int32_t kind,
         int64_t a, int64_t b, int64_t c, int64_t d, int64_t e, int64_t f,
         int64_t g, uint32_t* sf, uint16_t* words, uint8_t* emit,
         uint32_t* states, void* stream) {
@@ -74,10 +81,12 @@ extern "C" int fq_frozen_encode_lanes(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (kind == 0)
         frozen_encode_lanes<0><<<blocks, threads, 0, st>>>(
-            syms, cgrid, J, T, L, packed, A, m, sf, words, emit, states);
+            syms, cgrid, J, T, L, packed, n_packed, A, m, sf, words, emit,
+            states);
     else if (kind == 1)
         frozen_encode_lanes<1><<<blocks, threads, 0, st>>>(
-            syms, cgrid, J, T, L, packed, A, m, sf, words, emit, states);
+            syms, cgrid, J, T, L, packed, n_packed, A, m, sf, words, emit,
+            states);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

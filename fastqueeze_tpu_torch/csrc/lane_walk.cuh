@@ -11,6 +11,8 @@
 
 #include <cstdint>
 
+#include "check.cuh"
+
 namespace fqk {
 
 constexpr uint32_t kRansL = 1u << 16;
@@ -133,7 +135,11 @@ __device__ __forceinline__ int32_t lane_length(const int32_t* cgrid,
                                                int32_t J, int32_t L,
                                                int32_t l) {
     int32_t n = 0;
-    for (int32_t j = 0; j < J; ++j) n += cgrid[int64_t(j) * L + l];
+    for (int32_t j = 0; j < J; ++j) {
+        FQK_BOUND("lane_length", "cgrid", int64_t(j) * L + l,
+                  int64_t(J) * L);
+        n += cgrid[int64_t(j) * L + l];
+    }
     return n;
 }
 
@@ -146,6 +152,9 @@ __device__ __forceinline__ bool cursor_next(ReadCursor& c,
     if (c.rem > 0) return false;
     do {
         ++c.j;
+        if (c.j < J)
+            FQK_BOUND("cursor_next", "cgrid", int64_t(c.j) * L + l,
+                      int64_t(J) * L);
         c.rem = c.j < J ? cgrid[int64_t(c.j) * L + l] : 1;
     } while (c.rem == 0);
     c.pos = 0;

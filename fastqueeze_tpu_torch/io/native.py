@@ -199,6 +199,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.rc_decode_names.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int64,
                                     ctypes.c_int64, _i32, _i32, _i32, _U8P,
                                     _i32p]
+    for name in ("fq_pack2", "fq_unpack2", "fq_pack6", "fq_unpack6"):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [_U8P, ctypes.c_int64, _U8P]
     _LIB = lib
     return _LIB
 
@@ -452,6 +456,35 @@ def qual_hist(q: np.ndarray, lengths: np.ndarray, qlevel: int,
                      drop_init, alphabet,
                      hist.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     return hist.reshape(n_ctx, alphabet)
+
+
+def pack_grid(grid: np.ndarray, bits: int) -> Optional[np.ndarray]:
+    """(T, L) u8 grid -> packed bytes, 4 symbols a group: bits=2 packs to
+    1 byte a group, bits=6 to 3 (the transfer packs of ops/engine.py).
+    None -> numpy fallback."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    T, L = grid.shape
+    n = T * (L // 4)
+    grid = np.ascontiguousarray(grid, np.uint8)
+    out = np.empty(n * (1 if bits == 2 else 3), np.uint8)
+    (lib.fq_pack2 if bits == 2 else lib.fq_pack6)(_u8p(grid), n, _u8p(out))
+    return out.reshape(T, (L // 4) * (1 if bits == 2 else 3))
+
+
+def unpack_grid(packed: np.ndarray, bits: int) -> Optional[np.ndarray]:
+    """Inverse of :func:`pack_grid`; None -> numpy fallback."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    T, W = packed.shape
+    groups = W if bits == 2 else W // 3       # 4-symbol groups a row
+    packed = np.ascontiguousarray(packed, np.uint8)
+    out = np.empty(T * groups * 4, np.uint8)
+    (lib.fq_unpack2 if bits == 2 else lib.fq_unpack6)(
+        _u8p(packed), T * groups, _u8p(out))
+    return out.reshape(T, groups * 4)
 
 
 def render_dec(vals: np.ndarray) -> Optional[bytes]:

@@ -33,6 +33,12 @@ K12 semi_decode        per chunk the same row pass, then one CTA decodes
 Trainer:
 K13 train_counts       lane walk + atomicAdd histogram, then the row
                        init and cap rescale (engine._train_counts)
+Transfer packs (the (T, L) symbol grids cross the host link packed):
+K15 unpack_grid        2/4/6-bit and sentinel (15, 23) packs -> grid
+                       (engine._unpack{2,4,6,15,23}_dev, _unpack_sent_dev)
+K16 pack_grid          grid -> 2/4/6-bit pack (engine._pack{2,4,6}_dev)
+K17 pack15             6-bit grid -> top-15 nibbles + exception list
+                       (engine._pack15_dev)
 Seed aligner:
 K8 align_batch         one thread per read: sampled-seed bucketed search,
                        candidates, probe prefilter, gapless verify, RC
@@ -66,7 +72,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,16 +84,22 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "adapt_decode": 0, "align_batch": 0,
                             "indel_batch": 0, "window_batch": 0,
                             "semi_encode_walk": 0, "semi_decode": 0,
-                            "train_counts": 0, "rescue_indel_fused": 0}
+                            "train_counts": 0, "rescue_indel_fused": 0,
+                            "unpack_grid": 0, "pack_grid": 0, "pack15": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the checked build (build(checked=True)): the same sources with every
+# FQK_CHECK bound live (csrc/check.cuh: print the kernel, index and bound,
+# then __trap()), in its own directory
+CHECK_FLAGS = ["-DFQK_CHECK", "-lineinfo"]
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+_LIB_FROM: Tuple[str, bool] = (BUILD_DIR, False)   # (directory, checked)
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -111,24 +123,25 @@ def _sources():
                   + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
-def _build() -> str:
-    """Compile csrc/ into _build/libfqkernels-<content hash>.so (once per
-    source content): one nvcc per .cu, all started together, then one
-    link.  Returns the library's path; ptxas register/spill lines land in
-    BUILD_INFO["ptxas"]."""
+def _build(build_dir: str, checked: bool) -> str:
+    """Compile csrc/ into <build_dir>/libfqkernels-<content hash>.so (once
+    per source content and flags): one nvcc per .cu, all started together,
+    then one link.  Returns the library's path; ptxas register/spill lines
+    land in BUILD_INFO["ptxas"]."""
+    flags = NVCC_FLAGS + (CHECK_FLAGS if checked else [])
     h = hashlib.sha256()
     for path in _sources():
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"libfqkernels-{h.hexdigest()[:16]}.so")
+    h.update(" ".join(flags).encode())
+    so = os.path.join(build_dir, f"libfqkernels-{h.hexdigest()[:16]}.so")
     log = so + ".log"
     if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(build_dir, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"    # concurrent builders: last wins
         cus = [p for p in _sources() if p.endswith(".cu")]
         objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cus]
-        procs = [subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-c", "-o", o, c],
+        procs = [subprocess.Popen([_nvcc()] + flags + ["-c", "-o", o, c],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
                  for c, o in zip(cus, objs)]
@@ -151,7 +164,7 @@ def _build() -> str:
     if os.path.exists(log):
         with open(log) as fh:
             ptxas = fh.read()
-    BUILD_INFO.update(path=so, ptxas=ptxas)
+    BUILD_INFO.update(path=so, ptxas=ptxas, checked=checked)
     return so
 
 
@@ -159,12 +172,17 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(_build())
+            lib = ctypes.CDLL(_build(*_LIB_FROM))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
             spec = [i32] + [i64] * 7
-            lib.fq_quant_pack.argtypes = [vp, i64, i32, vp, vp, vp]
+            lib.fq_quant_pack.argtypes = [vp, i64, i32, i32, vp, vp, vp]
             lib.fq_frozen_encode_lanes.argtypes = (
-                [vp, vp, i32, i32, i32, vp, i32] + spec + [vp] * 5)
+                [vp, vp, i32, i32, i32, vp, i64, i32] + spec + [vp] * 5)
+            lib.fq_unpack_grid.argtypes = (
+                [vp, i32, i32, i32, vp, i64, vp, i64, vp, vp])
+            lib.fq_pack_grid.argtypes = [vp, i32, i32, i32, vp, vp]
+            lib.fq_pack15.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 7
+                                      + [i64, vp])
             lib.fq_compact_words.argtypes = [vp, vp, i64, vp, vp, vp, vp]
             lib.fq_frozen_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i32] + spec + [vp] * 3)
@@ -213,14 +231,28 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_adapt_decode, lib.fq_align_batch_cuda,
                        lib.fq_indel_batch_cuda, lib.fq_window_batch_cuda,
                        lib.fq_semi_encode_walk, lib.fq_semi_decode,
-                       lib.fq_train_counts, lib.fq_rescue_indel_fused_cuda):
+                       lib.fq_train_counts, lib.fq_rescue_indel_fused_cuda,
+                       lib.fq_unpack_grid, lib.fq_pack_grid, lib.fq_pack15):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
 
 
-def build() -> Dict[str, object]:
-    """Build (or load) the kernel library now; returns BUILD_INFO."""
+def build(checked: bool = False, build_dir=None) -> Dict[str, object]:
+    """Build (or load) the kernel library now; returns BUILD_INFO.
+
+    checked: the checked build (CHECK_FLAGS), in <build_dir>/checked.
+    build_dir: where to build (default the package's _build/).  A process
+    loads one library: asking for another after the first launch
+    raises."""
+    global _LIB_FROM
+    base = build_dir or BUILD_DIR
+    want = (os.path.join(base, "checked") if checked else base, checked)
+    with _LIB_LOCK:
+        if _LIB is not None and want != _LIB_FROM:
+            raise RuntimeError(f"kernel library already loaded from "
+                               f"{_LIB_FROM}, not {want}")
+        _LIB_FROM = want
     _lib()
     return BUILD_INFO
 
@@ -284,10 +316,24 @@ def _to_i16(v: torch.Tensor) -> torch.Tensor:
 
 # --- K1 -----------------------------------------------------------------
 
+# count-table types K1 reads: u8, u16 (in int16, same bits) and i32
+_COUNT_WIDTH = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
+
+
+def _count_width(counts: torch.Tensor) -> int:
+    """Bytes a count of the table takes (K1's ``width``)."""
+    if counts.dtype not in _COUNT_WIDTH:
+        raise ValueError(f"counts: want uint8, int16 (u16) or int32, got "
+                         f"{counts.dtype}")
+    return _COUNT_WIDTH[counts.dtype]
+
+
 def quant_pack_plain(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(n_ctx, A) counts -> ((n_ctx, A+1) int16 cum, (n_ctx*A,) int32
-    packed F[s] | F[s+1] << 16)."""
+    """(n_ctx, A) counts (u8, u16 in int16, or i32) -> ((n_ctx, A+1) int16
+    cum, (n_ctx*A,) int32 packed F[s] | F[s+1] << 16)."""
     c = counts.long()
+    if _count_width(counts) == 2:
+        c = c & 0xFFFF
     cs = torch.cumsum(c, dim=1)
     C = torch.clamp(cs[:, -1:], min=1)
     F = torch.cat([torch.zeros_like(C), (cs * RANS_M) // C], dim=1)
@@ -296,13 +342,16 @@ def quant_pack_plain(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def quant_pack(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1; the table is read in the type it travels in (u8, u16 in an
+    int16 tensor, or i32)."""
     if not _on_card(counts):
         return quant_pack_plain(counts)
-    _check(counts, "counts", torch.int32, 2)
+    width = _count_width(counts)
+    _check(counts, "counts", counts.dtype, 2)
     n, A = counts.shape
     cum = torch.empty((n, A + 1), dtype=torch.int16, device=counts.device)
     packed = torch.empty((n * A,), dtype=torch.int32, device=counts.device)
-    _launch(_lib().fq_quant_pack, "quant_pack", _ptr(counts), n, A,
+    _launch(_lib().fq_quant_pack, "quant_pack", _ptr(counts), n, A, width,
             _ptr(cum), _ptr(packed))
     return cum, packed
 
@@ -385,7 +434,8 @@ def frozen_encode_lanes(syms: torch.Tensor, cgrid: torch.Tensor,
     emit = torch.empty((T, L), dtype=torch.uint8, device=dev)
     states = torch.empty((L,), dtype=torch.int32, device=dev)
     _launch(_lib().fq_frozen_encode_lanes, "frozen_encode_lanes",
-            _ptr(syms), _ptr(cgrid), J, T, L, _ptr(packed), model.alphabet,
+            _ptr(syms), _ptr(cgrid), J, T, L, _ptr(packed), packed.numel(),
+            model.alphabet,
             *_spec_args(model), _ptr(sf), _ptr(words), _ptr(emit),
             _ptr(states))
     return words, emit, states
@@ -493,6 +543,182 @@ def frozen_decode(states0: torch.Tensor, words: torch.Tensor,
             _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
             _ptr(cum), A, *_spec_args(model), _ptr(lanes), _ptr(out))
     return out
+
+
+# --- transfer packs: K15 unpack_grid, K16 pack_grid, K17 pack15 ------------
+#
+# Modes (engine._pack_mode, _pack_for_upload): 2, 4, 6 bits a symbol, four
+# symbols a group (L % 4 == 0); 15 = mode-4 nibbles and 23 = mode-2 codes
+# whose sentinel (15, 3) takes the next value of the exception list in a
+# sidecar [perm (16 B) | exceptions], every other code c the symbol
+# side[c].
+
+PACK_BITS = {2: 2, 4: 4, 6: 6, 15: 4, 23: 2}
+_SENT = {15: 15, 23: 3}
+_TILE = 4096                 # transfer_pack.cu kTile: slots a scan tile
+EXC_SYM = 15                 # K17's sentinel nibble
+
+
+def packed_width(mode: int, L: int) -> int:
+    """Bytes a packed row of L symbols takes in ``mode``."""
+    return L * PACK_BITS[mode] // 8
+
+
+def _unpack_dense(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    T, W = packed.shape
+    p = packed.long()
+    if bits == 2:
+        parts = [(p >> s) & 3 for s in (0, 2, 4, 6)]
+    elif bits == 4:
+        parts = [p & 15, p >> 4]
+    else:
+        p3 = p.reshape(T, W // 3, 3)
+        v = p3[:, :, 0] | (p3[:, :, 1] << 8) | (p3[:, :, 2] << 16)
+        parts = [(v >> s) & 63 for s in (0, 6, 12, 18)]
+    return torch.stack(parts, dim=2).reshape(T, W * 8 // bits).to(torch.uint8)
+
+
+def _unpack_sent_plain(flat: torch.Tensor, side: torch.Tensor,
+                       sent: int) -> torch.Tensor:
+    """engine._unpack_sent_dev: the k-th sentinel in scan order takes
+    side[16 + clip(k, 0, len(side) - 17)], any other code c side[c]."""
+    mask = flat == sent
+    idx = torch.cumsum(mask.long(), dim=0) - 1
+    vals = side[16 + torch.clamp(idx, 0, side.numel() - 17)]
+    top = side[torch.clamp(flat.long(), max=sent)]
+    return torch.where(mask, vals, top)
+
+
+def unpack_grid_plain(packed: torch.Tensor, mode: int,
+                      side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(T, packed_width) uint8 -> (T, L) uint8 symbols."""
+    grid = _unpack_dense(packed, PACK_BITS[mode])
+    if mode not in _SENT:
+        return grid
+    return _unpack_sent_plain(grid.reshape(-1), side, _SENT[mode]).reshape(
+        grid.shape)
+
+
+def unpack_grid(packed: torch.Tensor, mode: int,
+                side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K15: a packed (T, packed_width(mode, L)) uint8 grid (and, in modes
+    15 and 23, the (16 + n,) uint8 sidecar) -> the (T, L) uint8 symbol
+    grid."""
+    if mode not in PACK_BITS:
+        raise ValueError(f"unpack_grid: no pack mode {mode}")
+    if (side is None) != (mode not in _SENT):
+        raise ValueError(f"unpack_grid: mode {mode} takes "
+                         f"{'a' if mode in _SENT else 'no'} sidecar")
+    if not _on_card(packed, *([] if side is None else [side])):
+        return unpack_grid_plain(packed, mode, side)
+    _check(packed, "packed", torch.uint8, 2)
+    if side is not None:
+        _check(side, "side", torch.uint8, 1)
+        if side.numel() < 17:
+            raise ValueError("unpack_grid: the sidecar holds no exception "
+                             "slot")
+    T, W = packed.shape
+    L = W * 8 // PACK_BITS[mode]
+    if L % 4 or packed_width(mode, L) != W:
+        raise ValueError(f"unpack_grid: width {W} is no mode-{mode} row of "
+                         f"whole 4-symbol groups")
+    dev = packed.device
+    grid = torch.empty((T, L), dtype=torch.uint8, device=dev)
+    tiles = (T * L + _TILE - 1) // _TILE
+    scratch = torch.empty((2 * tiles + 1,), dtype=torch.int32, device=dev)
+    _launch(_lib().fq_unpack_grid, "unpack_grid", _ptr(packed), mode, T, L,
+            None if side is None else _ptr(side),
+            0 if side is None else side.numel(), _ptr(scratch),
+            packed.numel(), _ptr(grid))
+    return grid
+
+
+def pack_grid_plain(grid: torch.Tensor, mode: int) -> torch.Tensor:
+    T, L = grid.shape
+    g = grid.long()
+    if mode == 4:
+        g = g.reshape(T, L // 2, 2)
+        return (g[:, :, 0] | (g[:, :, 1] << 4)).to(torch.uint8)
+    g = g.reshape(T, L // 4, 4)
+    if mode == 2:
+        return (g[:, :, 0] | (g[:, :, 1] << 2) | (g[:, :, 2] << 4)
+                | (g[:, :, 3] << 6)).to(torch.uint8)
+    v = g[:, :, 0] | (g[:, :, 1] << 6) | (g[:, :, 2] << 12) | (g[:, :, 3] << 18)
+    out = torch.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF], dim=2)
+    return out.to(torch.uint8).reshape(T, (L // 4) * 3)
+
+
+def pack_grid(grid: torch.Tensor, mode: int) -> torch.Tensor:
+    """K16: (T, L) uint8 symbols (below 2^bits) -> (T, packed_width)
+    uint8, mode 2, 4 or 6."""
+    if not _on_card(grid):
+        return pack_grid_plain(grid, mode)
+    if mode not in (2, 4, 6):
+        raise ValueError(f"pack_grid: no dense pack mode {mode}")
+    _check(grid, "grid", torch.uint8, 2)
+    T, L = grid.shape
+    if L % 4:
+        raise ValueError(f"pack_grid: L = {L} is not a multiple of 4")
+    out = torch.empty((T, packed_width(mode, L)), dtype=torch.uint8,
+                      device=grid.device)
+    _launch(_lib().fq_pack_grid, "pack_grid", _ptr(grid), mode, T, L,
+            _ptr(out))
+    return out
+
+
+def pack15_plain(syms: torch.Tensor, cgrid: torch.Tensor):
+    """engine._pack15_dev, validity from the (J, L) read lengths."""
+    T, L = syms.shape
+    dev = syms.device
+    valid = (torch.arange(T, device=dev)[:, None]
+             < cgrid.long().sum(dim=0)[None, :])
+    keep = (valid & (syms < 64)).reshape(-1)
+    hist = torch.zeros(64, dtype=torch.int64, device=dev)
+    hist.index_add_(0, syms.reshape(-1).long()[keep],
+                    torch.ones_like(syms.reshape(-1)[keep], dtype=torch.int64))
+    # lax.top_k order: count descending, ties to the lower symbol
+    top = torch.sort(hist, descending=True, stable=True).indices[:EXC_SYM]
+    filled = torch.where(valid, syms, top[0].to(torch.uint8))
+    lut = torch.full((64,), EXC_SYM, dtype=torch.uint8, device=dev)
+    lut[top] = torch.arange(EXC_SYM, dtype=torch.uint8, device=dev)
+    nib = lut[torch.clamp(filled.long(), max=63)]
+    mask = nib.reshape(-1) == EXC_SYM
+    cap = syms.numel() // 4
+    exc = filled.reshape(-1)[mask][:cap]
+    side = torch.zeros(16 + cap, dtype=torch.uint8, device=dev)
+    side[:EXC_SYM] = top.to(torch.uint8)
+    side[16:16 + exc.numel()] = exc
+    return (pack_grid_plain(nib, 4), side,
+            mask.sum().to(torch.int32).reshape(1))
+
+
+def pack15(syms: torch.Tensor, cgrid: torch.Tensor):
+    """K17: a decoded (T, L) uint8 6-bit grid and its (J, L) int32 read
+    lengths -> ((T, L/2) uint8 nibbles, (16 + T*L/4,) uint8 sidecar
+    [top 15 | exceptions below the cap], (1,) int32 exception count,
+    those past the cap included)."""
+    if not _on_card(syms, cgrid):
+        return pack15_plain(syms, cgrid)
+    _check(syms, "syms", torch.uint8, 2)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    T, L = syms.shape
+    J = cgrid.shape[0]
+    if cgrid.shape[1] != L or L % 4:
+        raise ValueError("pack15: shape mismatch")
+    dev = syms.device
+    cap = T * L // 4
+    tiles = (T * L + _TILE - 1) // _TILE
+    lens = torch.empty((L,), dtype=torch.int32, device=dev)
+    hist = torch.empty((64,), dtype=torch.int32, device=dev)
+    lut = torch.empty((64,), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((2 * tiles,), dtype=torch.int32, device=dev)
+    nib = torch.empty((T, L // 2), dtype=torch.uint8, device=dev)
+    side = torch.zeros((16 + cap,), dtype=torch.uint8, device=dev)
+    n_exc = torch.empty((1,), dtype=torch.int32, device=dev)
+    _launch(_lib().fq_pack15, "pack15", _ptr(syms), _ptr(cgrid), J, T, L,
+            _ptr(lens), _ptr(hist), _ptr(lut), _ptr(scratch), _ptr(nib),
+            _ptr(side), _ptr(n_exc), cap)
+    return nib, side, n_exc
 
 
 # --- adaptive coder: K5, K7, K6 ---------------------------------------------

@@ -8,9 +8,10 @@ streams, or entropy-only when the block's mapped fraction is under
 ``min_map_ratio`` (the reference's per-block Align/Fqz decision).  PE
 blocks align their mates interleaved and, with -I (max_insr), rescue an
 unmapped mate inside its mapped mate's insert window (K10).  -l
-transforms each block's qualities before its MD5.  Not ported yet:
---part (ROADMAP Queue A item 4) and --mesh over 2 or more devices (item
-9).
+transforms each block's qualities before its MD5; ``part=(k, n)``
+(--part K:N) writes the partial archive of blocks k, k+n, ... (see
+driver.compress_se).  Not ported yet: --mesh over 2 or more devices
+(ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from fastqueeze_tpu_torch.container.arcfile import (
 from fastqueeze_tpu_torch.io.fastq import FastqBlock, parse_block, read_blocks
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
     _BASE_MAP, _intra_of, _lr_grid, dup_masks, encode_block)
+from fastqueeze_tpu_torch.pipeline.driver import (
+    owned_blocks, train_frozen_prefix)
 from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair, parse_lossy
 from fastqueeze_tpu_torch.pipeline.parallel_host import (
     block_devices, ordered_parallel)
@@ -184,32 +187,9 @@ def prepare_ref(p: CodecParams, ref_path: str):
     return aligner, ref
 
 
-def train_frozen_prefix(p: CodecParams, in_path: str, device,
-                        dbg: DebugInfo):
-    """usemodel preprocess of the aligned path (the JAX package's
-    driver.train_frozen_prefix): frozen tables trained on the input's
-    first model_train_mb MB as one block."""
-    from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
-    from fastqueeze_tpu_torch.pipeline.driver import _gate_bytes
-    from fastqueeze_tpu_torch.pipeline.frozen import (
-        serialize_frozen, stage_tables, train_frozen)
-    t0 = time.time()
-    _, block = parse_lossy(p, *next(iter(read_blocks(
-        in_path, p.model_train_mb << 20))))
-    est = int(_gate_bytes(in_path) * int(block.lengths.sum())
-              / max(block.raw_len, 1))
-    if p.dedup:
-        block, frac = dedup_training_block(block, p)
-        est = int(est * frac)
-    frozen = train_frozen(p, block, est_total_syms=est)
-    stage_tables(frozen, p, device)
-    dbg.add("train_s", time.time() - t0)
-    return frozen, serialize_frozen(frozen)
-
-
 def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
                         out_path: str, dbg: Optional[DebugInfo] = None,
-                        device="cuda") -> Dict:
+                        part: Optional[tuple] = None, device="cuda") -> Dict:
     block_devices(p.mesh_n, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     dbg = dbg or DebugInfo()
@@ -218,27 +198,41 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
     dbg.add("ref_s", time.time() - t0)
     block_size = p.block_bytes or p.block_size_mb * (1 << 20)
     whole_md5 = hashlib.md5()
-    writer = ArcWriter(out_path, p, [os.path.basename(in_path)], [])
+    writer = ArcWriter(out_path, p, [os.path.basename(in_path)], [],
+                       part=part)
     frozen = None
     if decide_use_model(p, os.path.getsize(in_path)):
         frozen, blob = train_frozen_prefix(p, in_path, device, dbg)
         writer.set_model(blob)
+    single = not part or part[1] == 1
 
-    def work(_i, item):
-        raw, block = parse_lossy(p, *item)
+    def scan(item):
+        raw, final_nl, block = item
+        if p.lossy_factor > 1.0:
+            raw, block = parse_lossy(p, raw, final_nl)
+        whole_md5.update(raw)
+        return raw, final_nl, block
+
+    def work(_i, gi_item):
+        gi, (raw, final_nl, block) = gi_item
+        if block is None:
+            raw, block = parse_lossy(p, raw, final_nl)
         align, n_mapped = _maybe_align(p, aligner, block, device, dbg)
         t0 = time.time()
         payload = encode_block(p, block, frozen, device, dbg, align,
                                ref.codes)
         dbg.add("encode_s", time.time() - t0)
-        return raw, payload, block.n_reads, n_mapped, align is not None
+        return gi, raw, payload, block.n_reads, n_mapped, align is not None
 
     n_blocks = total_raw = total_mapped = total_reads = 0
-    for i, (raw, payload, n_reads, n_mapped, was_aligned) in \
-            ordered_parallel(read_blocks(in_path, block_size), work,
+    items = ((raw, final_nl, None)
+             for raw, final_nl in read_blocks(in_path, block_size))
+    for _, (gi, raw, payload, n_reads, n_mapped, was_aligned) in \
+            ordered_parallel(owned_blocks(items, part, scan), work,
                              p.threads):
-        whole_md5.update(raw)
-        writer.add_block(i, payload, BlockInfo(
+        if single:                 # ordered: blocks arrive in file order
+            whole_md5.update(raw)
+        writer.add_block(gi, payload, BlockInfo(
             payload_len=len(payload), n_reads=n_reads, raw_len1=len(raw),
             flags=FLAG_ALIGNED if was_aligned else 0,
             md5=hashlib.md5(raw).digest()))
@@ -258,7 +252,7 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
 
 def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
                         out_path: str, dbg: Optional[DebugInfo] = None,
-                        device="cuda") -> Dict:
+                        part: Optional[tuple] = None, device="cuda") -> Dict:
     """PE against a reference: mates interleaved into one block and every
     read aligned; with max_insr > 0 an unmapped mate of a mapped one is
     re-verified inside the insert window (Aligner.rescue_mates); the pair
@@ -275,17 +269,29 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
     p.is_pe = 1
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
     writer = ArcWriter(out_path, p,
-                       [os.path.basename(in1), os.path.basename(in2)], [])
+                       [os.path.basename(in1), os.path.basename(in2)], [],
+                       part=part)
     frozen = None
     if decide_use_model(p, os.path.getsize(in1) + os.path.getsize(in2)):
         frozen, blob = train_frozen_pe_prefix(p, in1, in2, device, dbg)
         writer.set_model(blob)
     rr2 = _RecordReader(in2)
+    single = not part or part[1] == 1
 
-    def work(_i, item):
-        raw1, fnl1, raw2, fnl2 = item
-        raw1, b1, raw2, b2 = lossy_pair(p, raw1, parse_block(raw1, fnl1),
-                                        raw2, parse_block(raw2, fnl2))
+    def scan(item):
+        raw1, fnl1, raw2, fnl2, b1, b2 = item
+        if p.lossy_factor > 1.0:
+            raw1, b1, raw2, b2 = lossy_pair(p, raw1, parse_block(raw1, fnl1),
+                                            raw2, parse_block(raw2, fnl2))
+        md5_1.update(raw1)
+        md5_2.update(raw2)
+        return raw1, fnl1, raw2, fnl2, b1, b2
+
+    def work(_i, gi_item):
+        gi, (raw1, fnl1, raw2, fnl2, b1, b2) = gi_item
+        if b1 is None:
+            raw1, b1, raw2, b2 = lossy_pair(p, raw1, parse_block(raw1, fnl1),
+                                            raw2, parse_block(raw2, fnl2))
         merged = interleave_blocks(b1, b2)
         align, n_mapped = _maybe_align(p, aligner, merged, device, dbg)
         if align is not None and p.max_insr > 0:
@@ -302,16 +308,18 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
         t0 = time.time()
         body = encode_block(p, merged, frozen, device, dbg, align, ref.codes)
         dbg.add("encode_s", time.time() - t0)
-        return (raw1, raw2, pe_payload(b1, b2, body), b1.n_reads,
+        return (gi, raw1, raw2, pe_payload(b1, b2, body), b1.n_reads,
                 merged.n_reads, n_mapped, align is not None)
 
     n_blocks = total_raw = total_mapped = total_reads = 0
-    for i, (raw1, raw2, payload, n_pairs, n_merged, n_mapped,
-            was_aligned) in ordered_parallel(pe_block_items(p, in1, rr2),
+    items = (item + (None, None) for item in pe_block_items(p, in1, rr2))
+    for _, (gi, raw1, raw2, payload, n_pairs, n_merged, n_mapped,
+            was_aligned) in ordered_parallel(owned_blocks(items, part, scan),
                                              work, p.threads):
-        md5_1.update(raw1)
-        md5_2.update(raw2)
-        writer.add_block(i, payload, BlockInfo(
+        if single:                 # ordered: pairs arrive in file order
+            md5_1.update(raw1)
+            md5_2.update(raw2)
+        writer.add_block(gi, payload, BlockInfo(
             payload_len=len(payload), n_reads=n_pairs, raw_len1=len(raw1),
             raw_len2=len(raw2),
             flags=FLAG_PE | (FLAG_ALIGNED if was_aligned else 0),

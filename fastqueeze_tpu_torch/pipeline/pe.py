@@ -12,9 +12,9 @@ holds one whole-input MD5 per file.  Decode writes <prefix>_1.fastq and
 
 Compressing against a reference is pipeline/aligned.py
 (compress_pe_aligned).  With -l both mates' qualities take the R-Block
-transform before the block MD5.  Not ported yet, each raising
-NotImplementedError with its ROADMAP item: --part (Queue A item 4) and
---mesh over 2 or more devices (item 9).
+transform before the block MD5.  ``part=(k, n)`` (--part K:N) writes the
+partial archive of block pairs k, k+n, ... (driver.compress_se).  Not
+ported yet: --mesh over 2 or more devices (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from fastqueeze_tpu_torch.io.fastq import (
     read_blocks)
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
     decode_block, encode_block)
+from fastqueeze_tpu_torch.pipeline.driver import owned_blocks
 from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair
 from fastqueeze_tpu_torch.pipeline.parallel_host import (
     block_devices, ordered_parallel)
@@ -44,8 +45,6 @@ from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 TAG_PE_META = 40
 TAG_PE_BODY = 41
-
-PART_MSG = "multi-host parts (--part): ROADMAP Queue A item 4"
 
 
 def interleave_blocks(b1: FastqBlock, b2: FastqBlock) -> FastqBlock:
@@ -150,19 +149,18 @@ def pe_payload(b1: FastqBlock, b2: FastqBlock, body: bytes) -> bytes:
 def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
                 ref: Optional[str] = None, dbg: Optional[DebugInfo] = None,
                 part: Optional[tuple] = None, device="cuda") -> Dict:
-    if part:
-        raise NotImplementedError(PART_MSG)
     dbg = dbg or DebugInfo()
     if ref:
         from fastqueeze_tpu_torch.pipeline.aligned import compress_pe_aligned
         return compress_pe_aligned(p, ref, in1, in2, out_path, dbg=dbg,
-                                   device=device)
+                                   part=part, device=device)
     block_devices(p.mesh_n, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     p.is_pe = 1
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
     writer = ArcWriter(out_path, p,
-                       [os.path.basename(in1), os.path.basename(in2)], [])
+                       [os.path.basename(in1), os.path.basename(in2)], [],
+                       part=part)
     frozen = None
     # the usemodel gate counts both files as they are (no .gz x5)
     if decide_use_model(p, os.path.getsize(in1) + os.path.getsize(in2)):
@@ -190,13 +188,27 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         for item in it:
             yield item + (None, None)
 
-    def work(_i, item):
+    single = not part or part[1] == 1
+
+    def scan(item):
         raw1, fnl1, raw2, fnl2, b1, b2 = item
+        if p.lossy_factor > 1.0:
+            if b1 is None:
+                b1 = parse_block(raw1, fnl1)
+                b2 = parse_block(raw2, fnl2)
+            raw1, b1, raw2, b2 = lossy_pair(p, raw1, b1, raw2, b2)
+        md5_1.update(raw1)
+        md5_2.update(raw2)
+        return raw1, fnl1, raw2, fnl2, b1, b2
+
+    def work(_i, gi_item):
+        gi, (raw1, fnl1, raw2, fnl2, b1, b2) = gi_item
         if b1 is None:
             b1 = parse_block(raw1, fnl1)
             b2 = parse_block(raw2, fnl2)
-        # -l after the auto probe, which saw the first pair as read
-        raw1, b1, raw2, b2 = lossy_pair(p, raw1, b1, raw2, b2)
+        if single:
+            # -l after the auto probe, which saw the first pair as read
+            raw1, b1, raw2, b2 = lossy_pair(p, raw1, b1, raw2, b2)
         merged = interleave_blocks(b1, b2)
         align = rc = None
         if p.self_align:
@@ -206,14 +218,15 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         body = encode_block(p, merged, frozen, device, dbg, align, rc,
                             self_ref=align is not None)
         dbg.add("encode_s", time.time() - t0)
-        return raw1, raw2, pe_payload(b1, b2, body), b1.n_reads
+        return gi, raw1, raw2, pe_payload(b1, b2, body), b1.n_reads
 
     n_blocks = total_raw = 0
-    for i, (raw1, raw2, payload, n_pairs) in ordered_parallel(
-            items(), work, p.threads):
-        md5_1.update(raw1)
-        md5_2.update(raw2)
-        writer.add_block(i, payload, BlockInfo(
+    for _, (gi, raw1, raw2, payload, n_pairs) in ordered_parallel(
+            owned_blocks(items(), part, scan), work, p.threads):
+        if single:                 # ordered: pairs arrive in file order
+            md5_1.update(raw1)
+            md5_2.update(raw2)
+        writer.add_block(gi, payload, BlockInfo(
             payload_len=len(payload), n_reads=n_pairs, raw_len1=len(raw1),
             raw_len2=len(raw2), flags=FLAG_PE,
             md5=hashlib.md5(raw1 + raw2).digest()))

@@ -848,3 +848,141 @@ def test_pe_insert_pipeline_on_card_matches_host_route(cuda, tmp_path,
                              force=True, device=cuda, ref=str(fa))
     for out, f in zip(outs, ins):
         assert open(out, "rb").read() == f.read_bytes()
+
+
+# --- K15-K17: the transfer packs; K1 on narrow tables ----------------------
+
+def _skewed_grid(rng, A, T, L, p_top):
+    g = rng.integers(0, A, (T, L))
+    hot = rng.random((T, L)) < p_top
+    g[hot] = rng.permutation(A)[rng.integers(0, 3, int(hot.sum()))]
+    return g.astype(np.uint8)
+
+
+@pytest.mark.parametrize("T,L", [(37, 1028), (300, 4096), (0, 64)])
+@pytest.mark.parametrize("mode", [2, 4, 6, 15, 23])
+def test_unpack_grid_matches_plain(cuda, mode, T, L):
+    """K15 on ragged tiles (T * L not a multiple of 4096), a full-width
+    grid and an empty one; the sentinel modes on the host's own packs."""
+    rng = np.random.default_rng(mode)
+    A = {2: 4, 4: 16, 6: 48, 15: 48, 23: 16}[mode]
+    grid = _skewed_grid(rng, A, T, L, 0.99 if mode in (15, 23) else 0.3)
+    if mode in (15, 23):
+        sent = 15 if mode == 15 else 3
+        cnt = np.bincount(grid.reshape(-1), minlength=64)
+        top = np.argsort(-cnt, kind="stable")[:sent]
+        top = top[cnt[top] > 0].astype(np.uint8)
+        packed, side = engine._pack_sent_host(
+            grid, top, sent,
+            engine._pack4_host if mode == 15 else engine._pack2_host)
+        side = torch.from_numpy(side)
+    else:
+        packed, side = engine._pack_host(grid, mode), None
+    packed = torch.from_numpy(packed)
+    want = kernels.unpack_grid(packed, mode, side)
+    assert np.array_equal(want.numpy(), grid)
+    got = kernels.unpack_grid(packed.to(cuda), mode,
+                              None if side is None else side.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", [15, 23])
+def test_unpack_grid_clamps_a_short_sidecar(cuda, mode):
+    rng = np.random.default_rng(9)
+    packed = torch.from_numpy(rng.integers(0, 256, (64, 96)).astype(np.uint8))
+    side = torch.from_numpy(rng.integers(0, 64, 21).astype(np.uint8))
+    want = kernels.unpack_grid(packed, mode, side)
+    got = kernels.unpack_grid(packed.to(cuda), mode, side.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", [2, 4, 6])
+def test_pack_grid_matches_plain(cuda, mode):
+    grid = torch.from_numpy(np.random.default_rng(mode).integers(
+        0, 1 << mode, (75, 2052)).astype(np.uint8))
+    want = kernels.pack_grid(grid, mode)
+    assert torch.equal(kernels.pack_grid(grid.to(cuda), mode).cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["skewed", "flat", "short_lanes"])
+def test_pack15_matches_plain(cuda, case):
+    """K17: the top 15 of the valid slots (ties to the lower symbol),
+    invalid slots as top[0], the exceptions below the cap, the count of
+    all of them; the sidecar overflows on the flat grid."""
+    rng = np.random.default_rng(len(case))
+    T, L = 211, 1024
+    grid = _skewed_grid(rng, 48, T, L, 0.98 if case == "skewed" else 0.0)
+    J = 3
+    lens = rng.integers(0, T // J + 1, (J, L)).astype(np.int32)
+    if case == "short_lanes":
+        lens[:, ::5] = 0
+    g, cg = torch.from_numpy(grid), torch.from_numpy(lens)
+    want = kernels.pack15(g, cg)
+    got = kernels.pack15(g.to(cuda), cg.to(cuda))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert (int(want[2].item()) > T * L // 4) == (case != "skewed")
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
+def test_quant_pack_reads_narrow_tables(cuda, dtype):
+    rng = np.random.default_rng(5)
+    hi = {torch.uint8: 256, torch.int16: 65536, torch.int32: 1 << 22}[dtype]
+    wide = rng.integers(1, hi, (4097, 41)).astype(np.int64)
+    narrow = torch.from_numpy(wide.astype(
+        {torch.uint8: np.uint8, torch.int16: np.uint16,
+         torch.int32: np.int32}[dtype]).view(
+        {torch.uint8: np.uint8, torch.int16: np.int16,
+         torch.int32: np.int32}[dtype]))
+    want = kernels.quant_pack(torch.from_numpy(wide.astype(np.int32)))
+    got = kernels.quant_pack(narrow.to(cuda))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_pack_wrappers_raise_on_bad_input(cuda):
+    g = torch.zeros((8, 6), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.pack_grid(g, 2)                   # L % 4
+    with pytest.raises(ValueError):
+        kernels.pack_grid(g[:, :4].contiguous(), 15)   # no dense mode 15
+    p = torch.zeros((8, 4), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.unpack_grid(p, 15, torch.zeros(16, dtype=torch.uint8,
+                                               device=cuda))  # no slot
+    with pytest.raises(ValueError):
+        kernels.unpack_grid(p, 2, torch.zeros(20, dtype=torch.uint8,
+                                              device=cuda))   # no sidecar
+    with pytest.raises(ValueError):
+        kernels.pack15(g, torch.zeros((1, 6), dtype=torch.int32,
+                                      device=cuda))           # L % 4
+
+
+@pytest.mark.parametrize("name", ["seq", "qual6", "qual4"])
+def test_engine_packs_on_card_match_cpu(cuda, name):
+    """encode_stream / decode_stream / train_counts on the card (K15 on
+    upload, K16 / K17 before the copy back) == the CPU's plain run."""
+    model = {"seq": SeqModel(alphabet=4, order=6),
+             "qual6": QualModel(alphabet=40, qlevel=2),
+             "qual4": QualModel(alphabet=16, qlevel=2)}[name]
+    rng = np.random.default_rng(3)
+    counts = rng.integers(20, 160, 4000).astype(np.int64)
+    syms = rng.integers(0, model.alphabet, int(counts.sum())).astype(np.uint8)
+    syms[rng.random(syms.size) < 0.9] = 1            # skewed: mode 15/23
+    table = rng.integers(1, 250, (model.n_ctx, model.alphabet)).astype(
+        np.uint8)
+    p = CodecParams()
+    kernels.reset_launch_counts()
+    pay = engine.encode_stream(model, p, syms, counts, counts0=table,
+                               device=cuda)
+    assert pay == engine.encode_stream(model, p, syms, counts,
+                                       counts0=table, device="cpu")
+    back = engine.decode_stream(model, p, pay, counts, counts0=table,
+                                device=cuda)
+    assert np.array_equal(back, syms)
+    trained = engine.train_counts(model, p, syms, counts, device=cuda)
+    assert torch.equal(trained.cpu(), engine.train_counts(
+        model, p, syms, counts, device="cpu"))
+    assert kernels.LAUNCHES["unpack_grid"] == 2
+    assert kernels.LAUNCHES["pack_grid"] == 1
+    assert kernels.LAUNCHES["pack15"] == (1 if name == "qual6" else 0)

@@ -453,9 +453,13 @@ def test_pe_refusals(pe_archives, tmp_path):
         with pytest.raises(ValueError):
             tpe.compress_pe(CodecParams(), in1, str(f2),
                             str(tmp_path / "x.fqz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tpe.compress_pe(CodecParams(), in1, in2, str(tmp_path / "y.fqz"),
-                        part=(0, 2), device="cpu")
+    # --part, once refused here, writes the JAX package's partial archive
+    tpe.compress_pe(CodecParams(), in1, in2, str(tmp_path / "y.fqz"),
+                    part=(0, 2), device="cpu")
+    jpe.compress_pe(JParams(), in1, in2, str(tmp_path / "jy.fqz"),
+                    part=(0, 2))
+    assert (tmp_path / "y.fqz").read_bytes() == (
+        tmp_path / "jy.fqz").read_bytes()
     with pytest.raises(ValueError, match=r"--mesh 2: only 1 device\(s\)"):
         tpe.compress_pe(CodecParams(mesh_n=2), in1, in2,
                         str(tmp_path / "y.fqz"), device="cpu")

@@ -232,17 +232,24 @@ def test_unported_paths_raise(tmp_path, archives):
 
 @pytest.mark.parametrize("argv,rc,says", [
     (["--mesh", "2"], 1, "--mesh 2: only 1 device(s) visible"),
-    (["-m"], 2, "ROADMAP"), (["-2", "b.fq", "-m"], 2, "ROADMAP"),
-    (["--part", "0:2"], 2, "ROADMAP"), (["-X", "0:1"], 2, "ROADMAP")])
+    (["-m", "-S"], 2, "-S is reference-free (no ref.fa / -m)"),
+    (["-2", "b.fq", "-m"], 2, "-m supports plain SE inputs"),
+    (["--part", "0:2", "-m"], 2, "--part is not supported with -m"),
+    (["--part", "0:4294967296"], 2, "need 0 <= K < N <= 2^32-1")])
 def test_cli_names_roadmap_item_for_unported_flags(argv, rc, says, capsys,
                                                    monkeypatch):
+    """-m, -X and --part, once refused with ROADMAP Queue A item 4, are
+    ported: what stays refused is the JAX CLI's misuse of them, with its
+    messages, and a part count past 2^32-1; --mesh over the visible
+    devices is refused with the device count."""
     import torch
     # one visible card: --mesh 2 asks for more devices than there are
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert cli.main(["-c", "-1", "a.fq", "-o", "x.fqz"] + argv) == rc
-    assert says in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert says in err and "ROADMAP" not in err
 
 
 def test_cli_refuses_to_run_without_a_card(tmp_path, capsys, monkeypatch):

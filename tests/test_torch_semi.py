@@ -405,25 +405,46 @@ def test_api_matches_the_cli_archive(tmp_path, monkeypatch):
 
 
 def test_api_refusals_name_their_roadmap_item(tmp_path):
+    """merge, extract, part and 3+ inputs, once refused with Queue A item
+    4, now do what the JAX api does (same archives, same files); mesh 2
+    on one device is still refused, and lossy writes the JAX archive."""
     fq = str(tmp_path / "in.fq")
     arc = str(tmp_path / "x.fqz")
-    for call, item in (
-            (lambda: api.merge(arc, [arc]), "Queue A item 4"),
-            (lambda: api.extract(arc, 0, 1, arc), "Queue A item 4"),
-            (lambda: api.compress(fq, arc, part=(0, 2), device="cpu"),
-             "Queue A item 4"),
-            (lambda: api.compress([fq, fq, fq], arc, device="cpu"),
-             "Queue A item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
     with pytest.raises(ValueError, match=r"--mesh 2: only 1 device\(s\)"):
         api.compress(fq, arc, mesh=2, device="cpu")
-    # lossy, once refused here, writes the JAX api's archive
     with open(fq, "wb") as fh:
         fh.write(_reads(np.random.default_rng(12), 300))
     api.compress(fq, arc, lossy=2.0, device="cpu")
     japi.compress(fq, str(tmp_path / "j.fqz"), lossy=2.0)
     assert open(arc, "rb").read() == (tmp_path / "j.fqz").read_bytes()
+    p = dict(block_bytes=20_000)
+    for k in (0, 1):
+        api.compress(fq, str(tmp_path / f"t{k}.fqz"), part=(k, 2),
+                     params=CodecParams(**p), device="cpu")
+        japi.compress(fq, str(tmp_path / f"j{k}.fqz"), part=(k, 2),
+                      params=JParams(**p))
+    api.merge(str(tmp_path / "tm.fqz"), [str(tmp_path / "t0.fqz"),
+                                         str(tmp_path / "j1.fqz")])
+    japi.merge(str(tmp_path / "jm.fqz"), [str(tmp_path / "j0.fqz"),
+                                          str(tmp_path / "t1.fqz")])
+    single = str(tmp_path / "single.fqz")
+    japi.compress(fq, single, params=JParams(**p))
+    for m in ("tm", "jm"):
+        assert (tmp_path / f"{m}.fqz").read_bytes() == open(single,
+                                                            "rb").read()
+    outs = [api.extract(single, 10, 3, str(tmp_path / "xt"), device="cpu"),
+            japi.extract(single, 10, 3, str(tmp_path / "xj"))]
+    assert open(outs[0][0], "rb").read() == open(outs[1][0], "rb").read()
+    api.compress([fq, fq, fq], str(tmp_path / "mt.fqz"), device="cpu")
+    japi.compress([fq, fq, fq], str(tmp_path / "mj.fqz"))
+    assert ((tmp_path / "mt.fqz").read_bytes()
+            == (tmp_path / "mj.fqz").read_bytes())
+    for call in (lambda: api.compress([fq, fq, fq], arc, part=(0, 2),
+                                      device="cpu"),
+                 lambda: japi.compress([fq, fq, fq], arc, part=(0, 2))):
+        with pytest.raises(ValueError, match="part is not supported with "
+                           "multi-file archives"):
+            call()
 
 
 def test_cli_dump_config_equals_jax(tmp_path, monkeypatch):
