@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the seventeen CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the nineteen CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
      main paths' shapes, bit-equal, with times (CUDA events, warmed):
      frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
@@ -43,7 +43,13 @@ Phases (any failure raises and exits non-zero):
      48-symbol grid (its sidecar overflows), with torch.bincount and
      torch.masked_select timed as the library calls of K17's two parts;
      K1 on the seq table as u8 and a qual table as u16 (== K1 on int32);
-     and one stream's host<->device copies, packed and unpacked;
+     and one stream's host<->device copies, packed and unpacked; K13's
+     halves (train_hist, train_rows) == K13 at the frozen shape; K18 at
+     the frozen shape on a --qlevel 3 qual table (2^20 rows) with the
+     table in D = 2 and 4 row shards == K4 on the whole table (and every
+     lane back at the encoder's initial state), == its plain version on
+     the first 512 waves; K19 at B = 4096, Lp = 128 over the k = 14 index
+     in 4 key-range shards == its plain version, beside K8's tier 1;
   4. frozen end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads
      sampled from a random 100 Mbp genome) through the CLI's compress
      and decompress, compared byte for byte; K1-K4 and the transfer
@@ -119,7 +125,22 @@ Phases (any failure raises and exits non-zero):
      the FASTQUEEZE_FROZEN_EXEC=host one); -X slices across the block 0/1
      boundary and of the tail, and one across phase 10's PE boundary,
      equal to the inputs' records; -m over three ~8 MB files, each
-     decoded byte-exact.
+     decoded byte-exact;
+ 17. the mesh, visible_devices patched to 4 shards that all share the
+     one card (each on a CUDA stream of its own): the library calls
+     train_counts_sharded (B15, K13's halves) on a (2, 2) mesh,
+     encode_blocks_sharded (B19) and align_blocks_sharded (B16) on
+     (4, 1), each == the single-device kernels; api.compress(mesh=2) on
+     phase 16's input, the trainer's caches emptied: every block payload
+     and the model == phase 16's single run, PARAM mesh_n 2 and threads
+     2, decompress(mesh=2) byte-exact, K1-K4 launched; a --qlevel 3
+     frozen archive of 50,000 reads (use_model=1, a 2^20-row qual table
+     past CTX_SHARD_MIN_ENTRIES) decoded with mesh=4 (K18) and mesh=0
+     (K4), both byte-exact, timed; SHARD_MIN_POSITIONS = 1 and the
+     reference cache emptied: 50,000 reads against ref.fa through a
+     ShardedAligner over the 4 shards (K19; no K8/K9), byte-exact, the
+     mapped fraction printed, and a 5,000-read cut's archive == the
+     device="cpu" one.
 In each end-to-end run the launch counts are set to 0 just before it and
 read just after.  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
@@ -160,6 +181,11 @@ INT_OPS = 67e12                  # the card's non-tensor 32-bit rate (its
 # a small bacterial genome at 60x; at 1 Mbp (30x) the auto probe's
 # 1,536-read prefix maps fewer than the 10 reads it needs and says no
 SELFREF_GENOME = 500_000
+# phase 17 and its kernel checks: the mesh's shards share the one card
+MESH_SHARDS = 4
+MESH_DS = (2, 4)           # K18's row shard counts in phase 3
+R_CTX = 50_000             # phase 17's --qlevel 3 frozen input
+R_SHARD = 50_000           # phase 17's reads through the ShardedAligner
 
 
 def card() -> str:
@@ -731,7 +757,31 @@ def check_semi_kernels():
     print(f"  train_seq_order10 (L = {L_MAIN}, T = {T_MAIN}, "
           f"{R * READ_LEN} symbols): bincount {BOUNDS['train_counts'][2]:.3f}"
           f" ms")
-    del g, cg, flat, valid, aux
+    # K13's halves (the mesh trainer's): the histogram into a zeroed table,
+    # then the rows in place; together == K13, each == its plain version
+    hk = torch.zeros_like(k13)
+    kernels.train_hist(g, cg, seq, hk)
+    hp = kernels.train_hist_plain(g, cg, seq, torch.zeros_like(k13))
+    rk = kernels.train_rows(hk.clone(), seq)
+    rp = kernels.train_rows_plain(hk.clone(), seq)
+    if not torch.equal(rk, k13):
+        raise AssertionError("train_hist + train_rows != K13")
+    print("  train_hist + train_rows == train_counts (K13)")
+    work = torch.empty_like(k13)
+    rows["train_split_seq_order10"] = {
+        "train_hist": (_max_err(hk, hp), _time_ms(
+            lambda: kernels.train_hist(g, cg, seq, work.zero_()), 5),
+            _time_ms(lambda: kernels.train_hist_plain(
+                g, cg, seq, work.zero_()), 1)),
+        "train_rows": (_max_err(rk, rp), _time_ms(
+            lambda: kernels.train_rows(work.copy_(hk), seq), 5),
+            _time_ms(lambda: kernels.train_rows_plain(work.copy_(hk), seq),
+                     1))}
+    BOUNDS["train_hist"] = (_nbytes(g, cg, hk),
+                            _OPS["train_counts"] * R * READ_LEN,
+                            BOUNDS["train_counts"][2])
+    BOUNDS["train_rows"] = (2 * _nbytes(hk), 3 * hk.numel(), None)
+    del g, cg, flat, valid, aux, hk, hp, rk, rp, work
 
     reads = np.full(R_ADAPT, READ_LEN, np.int64)
     lay = make_layout(reads, L_ADAPT)
@@ -798,12 +848,84 @@ def check_semi_kernels():
                                          f"differs from its plain version "
                                          f"({err})")
             rows[f"{tag}_{start}"] = r
-    for name, (err, ms, pms) in rows["train_seq_order10"].items():
+    for name, (err, ms, pms) in dict(
+            rows["train_seq_order10"],
+            **rows["train_split_seq_order10"]).items():
         print(f"  {'train_seq_order10':30s} {name:17s} max_abs_err {err}  "
               f"kernel {ms:10.3f} ms  plain {pms:10.3f} ms")
         if err:
             raise AssertionError(f"train_counts: kernel differs from its "
                                  f"plain version ({err})")
+    return rows
+
+
+CTX_PLAIN_T = 512     # K18's plain version runs this many waves
+
+
+def check_ctx_shard_kernel():
+    """K18 at the frozen shape (L = 4096, T = 6144) on a --qlevel 3 qual
+    table (2^20 rows x 41, past CTX_SHARD_MIN_ENTRIES): a stream encoded
+    by K1 -> K2 -> K3, decoded by K4 on the whole table and by K18 with
+    the table cut into D = 2 and 4 row shards on the card: bit-equal
+    symbols, and every lane back at the encoder's initial state; K18
+    against its plain version on the first CTX_PLAIN_T waves."""
+    import torch
+    from fastqueeze_tpu_torch.config import RANS_L, CodecParams
+    from fastqueeze_tpu_torch.models.base import qual_model_for
+    from fastqueeze_tpu_torch.ops import engine, kernels
+    from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m = qual_model_for(CodecParams(qlevel=3), 41)
+    rng = np.random.default_rng(SEED + 9)
+    counts = np.full(R_MAIN, READ_LEN, np.int64)
+    lay = make_layout(counts, L_MAIN)
+    g = torch.from_numpy(to_grid(lay, rng.integers(
+        0, 41, R_MAIN * READ_LEN).astype(np.uint8))).to(dev)
+    cg = torch.from_numpy(engine._counts_grid(counts, L_MAIN)).to(dev)
+    table = torch.from_numpy(rng.integers(
+        1, 400, (m.n_ctx, 41)).astype(np.int32)).to(dev)
+    cum, packed = kernels.quant_pack(table)
+    words, emit, states = kernels.frozen_encode_lanes(g, cg, packed, m)
+    out, n = kernels.compact_words(words, emit)
+    n = int(n.item())
+    wpad = _wpad(out, n)
+    k4 = kernels.frozen_decode(states, wpad, cg, T_MAIN, cum, m)
+    if not torch.equal(k4, g):
+        raise AssertionError("K4 does not invert the q3 stream")
+    k4_ms = _time_ms(lambda: kernels.frozen_decode(states, wpad, cg, T_MAIN,
+                                                   cum, m), 2)
+    PAIR_MS["k4_q3"] = k4_ms
+    print(f"  qual_q3 (2^20 x 41 table, {cum.numel()} entries): K4 "
+          f"{k4_ms:.3f} ms on the whole table")
+    rows = {}
+    for D in MESH_DS:
+        nr = m.n_ctx // D
+        cums = [cum[i * nr:(i + 1) * nr] for i in range(D)]
+        k18, x = kernels.ctx_shard_decode(states, wpad, cg, T_MAIN, cums, m)
+        if not torch.equal(k18, k4):
+            raise AssertionError(f"K18 D = {D} != K4 on the whole table")
+        if not bool((x.long() & 0xFFFFFFFF == RANS_L).all()):
+            raise AssertionError(f"K18 D = {D}: final states != RANS_L")
+        kc, xc = kernels.ctx_shard_decode(states, wpad, cg, CTX_PLAIN_T,
+                                          cums, m)
+        (pc, px), pms = _timed(lambda: kernels.ctx_shard_decode_plain(
+            states, wpad, cg, CTX_PLAIN_T, cums, m))
+        err = max(_max_err(kc, pc), _max_err(xc, px))
+        ms = _time_ms(lambda: kernels.ctx_shard_decode(
+            states, wpad, cg, T_MAIN, cums, m), 2)
+        print(f"  qual_q3_D{D}              ctx_shard_decode == K4 (T = "
+              f"{T_MAIN}), final states == RANS_L; max_abs_err {err} vs "
+              f"the plain version at T = {CTX_PLAIN_T}  kernel {ms:10.3f} ms"
+              f"  plain (T = {CTX_PLAIN_T}) {pms:10.3f} ms  K4 "
+              f"{k4_ms:.3f} ms")
+        if err:
+            raise AssertionError(f"ctx_shard_decode D = {D}: kernel differs "
+                                 f"from its plain version ({err})")
+        rows[f"qual_q3_D{D}"] = {"ctx_shard_decode": (err, ms, pms)}
+    BOUNDS["ctx_shard_decode"] = (_nbytes(states, cg, cum, k4) + 2 * n,
+                                  _OPS["frozen_decode"] * R_MAIN * READ_LEN,
+                                  None)
+    del g, cg, table, cum, packed, words, emit, out
     return rows
 
 
@@ -1147,7 +1269,8 @@ def check_align_kernels(genome):
     for k in (14, 22):
         t0 = time.time()
         p = CodecParams(seed_len=k)
-        al = Aligner(build_from_ref(ref, p), p)
+        idx = build_from_ref(ref, p)
+        al = Aligner(idx, p)
         ix = al.dev_index(dev)
         torch.cuda.synchronize()
         mb = sum(t.numel() * t.element_size() for t in ix[:5]) / 1e6
@@ -1185,9 +1308,84 @@ def check_align_kernels(genome):
         if k == 14:
             _check_window_kernel(al, ix, genome, rows)
             _check_longread_kernels(ix, genome, rows)
+            _check_sharded_kernel(idx, ix, grids["tier1"], rows)
         _check_fused_kernel(ix, genome, k, rows)
-        del al, ix
+        del al, ix, idx
     return rows
+
+
+_K19 = ("sharded_lookup", "sharded_candidates", "sharded_verify",
+        "sharded_tail")
+
+
+def _check_sharded_kernel(idx, ix, grid, rows) -> None:
+    """K19 at B = 4096, Lp = 128 over the k = 14 index sharded D = 4
+    (shards sharing the card): the index-sharded aligner's call
+    (mesh.align_blocks_index_sharded at the ShardedAligner's settings:
+    6 seeds, +-7 bp, 64 candidates a seed) against the same call with
+    every phase's plain version, equal in mapped, pos, rev and mask;
+    its time beside K8's tier 1."""
+    import torch
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    dev = grid[0].device
+    D = MESH_SHARDS
+    t0 = time.time()
+    sh = tm.shard_ref_index(idx, D)
+    mesh = tm.Mesh([dev] * D, ctx_shards=D)
+    p = CodecParams()
+    c, d, ln = grid
+
+    def run():
+        return tm.align_blocks_index_sharded(
+            mesh, p, sh, c, d, ln, n_seeds=p.rescue_seeds,
+            excl_bp=p.seed_excl_bp, n_cand=p.seed_max_occ)
+
+    got = run()
+    torch.cuda.synchronize()
+    print(f"  k = 14 index in {D} key-range shards (kp {sh['kp']}), "
+          f"uploaded: {time.time() - t0:.1f} s")
+    saved = {n: getattr(kernels, n) for n in _K19}
+    for n in _K19:
+        setattr(kernels, n, getattr(kernels, n + "_plain"))
+    try:
+        want, pms = _timed(run)
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+    err = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+              for a, b in zip(got, want))
+    ms = _time_ms(run, 3)
+    k8 = rows["k14_fwd"]["align_batch"][1], rows["k14_rc"]["align_batch"][1]
+    print(f"  k14_sharded_D{D}      sharded_align B = {len(ln)}: "
+          f"{int(got[0].sum())} mapped, max_abs_err {err}  kernel {ms:10.3f}"
+          f" ms  plain {pms:10.3f} ms  (K8 tier 1 fwd {k8[0]:.3f} ms, RC "
+          f"{k8[1]:.3f} ms)")
+    if err:
+        raise AssertionError(f"sharded_align: kernel differs from its plain "
+                             f"version ({err})")
+    rows[f"k14_sharded_D{D}"] = {"sharded_align": (err, ms, pms)}
+    # bound: per strand and read, every shard's search of each valid
+    # seed (a (hi, lo) key pair a step), the positions listed and the
+    # W + 1 reference words of each listed candidate, plus the grids and
+    # the outputs
+    cfg = AlignConfig(k=14, stride=2, n_cand=p.seed_max_occ, max_mis=7,
+                      both_strands=0, lp=ALIGN_LP, n_seeds=p.rescue_seeds,
+                      excl_bp=p.seed_excl_bp, probe_k=1 << 30)
+    steps = max(1, int(np.ceil(np.log2(sh["kp"] + 1))))
+    W = ALIGN_LP // 16
+    byts = _nbytes(c, d, ln) + sum(a.nbytes for a in got)
+    ops = 0
+    for cc, dd in ((c, d), kernels._rc_grid(c, d, ln.long())):
+        n_seed, cands, _, _ = _seed_work(ix, cfg, cc, dd, ln)
+        byts += int(n_seed.sum()) * D * steps * 8 + int(cands.sum()) * (
+            4 + (W + 1) * 4)
+        ops += (int(n_seed.sum()) * D * steps * 6
+                + int(cands.sum()) * (W + 1) * _VERIFY_OPS)
+    BOUNDS["sharded_align"] = (byts, ops, None)
+    del sh, mesh
 
 
 def _genome_fastq(path: str, R: int = 300_000, ids: str = "sra",
@@ -2024,6 +2222,229 @@ def modes_end_to_end(tmp: str, totals, pe_slice) -> None:
         os.remove(f)
 
 
+def mesh_end_to_end(tmp: str, genome, ref: str, totals) -> None:
+    """Phase 17: the mesh with MESH_SHARDS shards sharing the one card
+    (visible_devices patched), each on a CUDA stream of its own: the
+    library calls B15, B19, B16; block data-parallelism (mesh=2) on
+    phase 16's input; the ctx-sharded decode (mesh=4) of a --qlevel 3
+    frozen archive; the index-sharded aligner (SHARD_MIN_POSITIONS = 1)
+    against ref.fa.  Each run's launches counted from 0."""
+    import torch
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    print("phase 17: the mesh (library calls, block-DP, ctx-sharded "
+          "decode, sharded aligner)")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    real = tm.visible_devices
+
+    def shards(kind="cuda"):
+        return [dev if torch.device(kind).type == "cuda"
+                else torch.device("cpu")] * MESH_SHARDS
+
+    tm.visible_devices = shards
+    print(f"visible_devices patched: {MESH_SHARDS} shards, every one on "
+          f"{dev} ({torch.cuda.get_device_name(0)}), each on a CUDA stream "
+          f"of its own; nothing here runs on two physical cards")
+    try:
+        _mesh_library(genome, ref, totals)
+        _mesh_block_dp(tmp, totals)
+        _mesh_ctx_decode(tmp, totals)
+        _mesh_sharded_aligner(tmp, ref, totals)
+    finally:
+        tm.visible_devices = real
+
+
+def _mesh_library(genome, ref: str, totals) -> None:
+    """B15 on a (2, 2) mesh, B19 and B16 on (4, 1), counted as one
+    library user's run; then each against the single-device kernels."""
+    import torch
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.models.base import QualModel
+    from fastqueeze_tpu_torch.ops import engine, kernels
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    from fastqueeze_tpu_torch.pipeline import aligned
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m = QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=2)
+    Bk, Tk, Lk = MESH_SHARDS, 1024, 1024
+    rng = np.random.default_rng(SEED + 17)
+    syms = rng.integers(0, 40, (Bk, Tk, Lk)).astype(np.uint8)
+    cgrid = np.full((Bk, Tk // 16, Lk), 16, np.int32)
+    nh = engine._n_halve(m, Lk)
+    al, _ = aligned.prepare_ref(CodecParams(), ref)      # phase 8's Aligner
+    c, d, ln = (a.reshape((Bk, -1) + a.shape[1:]) for a in _align_reads(
+        rng, genome, 1024 * Bk, "tier1"))
+    cfg = AlignConfig(k=al.k, stride=2, n_cand=64, max_mis=7,
+                      both_strands=0, lp=ALIGN_LP)
+    _reset_counts()
+    t0 = time.time()
+    parts = tm.train_counts_sharded(tm.make_mesh(MESH_SHARDS, ctx_shards=2),
+                                    m, syms, cgrid)
+    enc = tm.encode_blocks_sharded(tm.make_mesh(MESH_SHARDS), m, nh, None,
+                                   syms, cgrid)
+    aln = tm.align_blocks_sharded(tm.make_mesh(MESH_SHARDS), al, cfg, c, d,
+                                  ln)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    _read_counts(("train_hist", "train_rows", "adapt_encode_walk",
+                  "rans_encode_sf", "align_batch"), totals)
+    single = kernels.train_counts(
+        torch.from_numpy(syms.reshape(Bk * Tk, Lk)).to(dev),
+        torch.from_numpy(cgrid.reshape(-1, Lk)).to(dev), m)
+    if not torch.equal(torch.cat(parts), single):
+        raise AssertionError("B15: the mesh trainer != K13 on the blocks")
+    ix = al.dev_index(dev)
+    for b in range(Bk):
+        s, cg = (torch.from_numpy(x[b]).to(dev) for x in (syms, cgrid))
+        one = kernels.rans_encode_sf(kernels.adapt_encode_walk(s, cg, m, nh),
+                                     cg)
+        if not all(torch.equal(x, y) for x, y in zip(enc[b], one)):
+            raise AssertionError(f"B19 block {b} != K5 -> K7 on one stream")
+        one = kernels.align_batch(*(torch.from_numpy(x[b]).to(dev)
+                                    for x in (c, d, ln)), ix, cfg)
+        if not all(torch.equal(x, y) for x, y in zip(aln[b], one)):
+            raise AssertionError(f"B16 block {b} != K8 on one device")
+    print(f"library: train_counts_sharded (2 x 2) == K13, "
+          f"encode_blocks_sharded == K5 -> K7, align_blocks_sharded == K8 "
+          f"({Bk} blocks, {dt:.3f} s)")
+
+
+def _mesh_block_dp(tmp: str, totals) -> None:
+    """api.compress(mesh=2) on phase 16's input, the trainer's caches
+    emptied first: every block payload and the model equal the single
+    run's (phase 16's archive), PARAM carries mesh_n 2 and threads 2,
+    decompress(mesh=2) is byte-exact, K1-K4 launched."""
+    from fastqueeze_tpu_torch import api
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    from fastqueeze_tpu_torch.pipeline import driver
+    from fastqueeze_tpu_torch.pipeline import frozen
+    fq = _input(tmp, "modes.fq", R_MODES)
+    single = os.path.join(tmp, "modes.fqz")
+    arc = os.path.join(tmp, "mesh2.fqz")
+    # the trainer's caches emptied, so the run quantizes its tables (K1)
+    frozen._TRAIN_CACHE.clear()
+    frozen._DESER_CACHE.clear()
+    _reset_counts()
+    t0 = time.time()
+    api.compress(fq, arc, params=CodecParams(block_size_mb=MODES_BLOCK_MB),
+                 mesh=2)
+    t_enc = time.time() - t0
+    t0 = time.time()
+    out = driver.decompress(arc, arc + ".back", force=True, mesh=2)
+    t_dec = time.time() - t0
+    if not _same_file(fq, out[0]):
+        raise AssertionError("mesh=2 round trip differs from the input")
+    _read_counts(_FROZEN_PATH, totals)
+    with ArcReader(single) as r1, ArcReader(arc) as r2:
+        n = len(r1.blocks)
+        if len(r2.blocks) != n or r1.model_blob != r2.model_blob:
+            raise AssertionError("mesh=2: blocks or model differ")
+        for i in range(n):
+            if r1.read_block(i) != r2.read_block(i):
+                raise AssertionError(f"mesh=2 block {i} payload != the "
+                                     f"single run's")
+        got = (r2.params.mesh_n, r2.params.threads)
+    if got != (2, 2):
+        raise AssertionError(f"PARAM (mesh_n, threads) {got} != (2, 2)")
+    print(f"block-DP mesh=2 ({n} blocks over 2 shards): encode "
+          f"{t_enc:.3f} s = {R_MODES / t_enc:.0f} reads/s, decode "
+          f"{t_dec:.3f} s = {R_MODES / t_dec:.0f} reads/s; every block "
+          f"payload == the single run's, PARAM mesh_n 2 threads 2; "
+          f"byte-exact")
+    os.remove(fq)
+
+
+def _mesh_ctx_decode(tmp: str, totals) -> None:
+    """A frozen --qlevel 3 archive (use_model=1, the fqz context: a 2^20-row
+    qual table) decoded with mesh=4 (the real CTX_SHARD_MIN_ENTRIES gate:
+    K18) and with mesh=0 (K4)."""
+    from fastqueeze_tpu_torch import api
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    from fastqueeze_tpu_torch.pipeline import driver
+    fq = _input(tmp, "ctx.fq", R_CTX)
+    arc = os.path.join(tmp, "ctx_q3.fqz")
+    t0 = time.time()
+    # qctx_auto=0: the fqz context at qlevel 3 (2^20 rows), not a rank
+    # chain the trainer's selection might pick
+    api.compress(fq, arc, params=CodecParams(use_model=1, qlevel=3,
+                                             qctx_auto=0))
+    t_enc = time.time() - t0
+    with ArcReader(arc) as r:
+        from fastqueeze_tpu_torch.pipeline.frozen import deserialize_frozen
+        qmax = deserialize_frozen(r.model_blob)["qmax"]
+        entries = r.params.qual_nctx() * (qmax + 2)
+    if entries < driver.CTX_SHARD_MIN_ENTRIES:
+        raise AssertionError(f"q3 table {entries} entries: under the gate")
+    print(f"--qlevel 3 frozen archive: {entries} qual table entries (gate "
+          f"{driver.CTX_SHARD_MIN_ENTRIES}), encode {t_enc:.3f} s")
+    times = {}
+    for mesh, path in ((0, ("frozen_decode",)),
+                       (MESH_SHARDS, ("frozen_decode", "ctx_shard_decode"))):
+        _reset_counts()
+        t0 = time.time()
+        out = driver.decompress(arc, arc + f".m{mesh}", force=True,
+                                mesh=mesh)
+        times[mesh] = time.time() - t0
+        if not _same_file(fq, out[0]):
+            raise AssertionError(f"mesh={mesh} decode differs")
+        got = _read_counts(path, totals)
+        if mesh == 0 and got["ctx_shard_decode"]:
+            raise AssertionError("mesh=0 took the sharded decode")
+    print(f"ctx-sharded decode mesh={MESH_SHARDS}: {times[MESH_SHARDS]:.3f} s"
+          f" = {R_CTX / times[MESH_SHARDS]:.0f} reads/s; mesh=0 (K4, whole "
+          f"table): {times[0]:.3f} s = {R_CTX / times[0]:.0f} reads/s; "
+          f"byte-exact")
+    os.remove(fq)
+
+
+def _mesh_sharded_aligner(tmp: str, ref: str, totals) -> None:
+    """SHARD_MIN_POSITIONS = 1 and an empty reference cache: ref.fa's
+    index goes to a ShardedAligner over the MESH_SHARDS shards; R_SHARD
+    reads through the CLI (K19, no K8/K9), byte-exact; a 5,000-read cut's
+    archive == the device="cpu" one."""
+    from fastqueeze_tpu_torch import api
+    from fastqueeze_tpu_torch.align import sharded
+    from fastqueeze_tpu_torch.pipeline import aligned
+    fq = os.path.join(tmp, "sharded.fq")
+    _genome_fastq(fq, R_SHARD, rc_frac=0.3, indel_frac=0.05)
+    real = sharded.SHARD_MIN_POSITIONS
+    sharded.SHARD_MIN_POSITIONS = 1
+    aligned._REF_CACHE.clear()
+    try:
+        arc = os.path.join(tmp, "sharded.fqz")
+        got, _ = _drive(fq, R_SHARD, arc, [],
+                        ("sharded_align",) + _ADAPT_PATH, totals, ref=ref)
+        kinds = {type(a).__name__ for a, _ in aligned._REF_CACHE.values()}
+        if kinds != {"ShardedAligner"} or got["align_batch"] or got[
+                "indel_batch"]:
+            raise AssertionError(f"aligner {kinds}, K8 {got['align_batch']}"
+                                 f" K9 {got['indel_batch']} launches")
+        nm, n, _ = _mapped(arc)
+        print(f"ShardedAligner ({MESH_SHARDS} shards): mapped fraction "
+              f"{nm / n:.4f} ({nm} of {n} reads)")
+        cut = os.path.join(tmp, "sharded_cut.fq")
+        with open(fq, "rb") as src, open(cut, "wb") as dst:
+            dst.write(b"".join(src.readline() for _ in range(4 * 5_000)))
+        arcs = {}
+        for dev in ("cuda", "cpu"):
+            aligned._REF_CACHE.clear()
+            arcs[dev] = os.path.join(tmp, f"sharded_cut_{dev}.fqz")
+            t0 = time.time()
+            api.compress(cut, arcs[dev], reference=ref, device=dev)
+            print(f"sharded cut of 5,000 reads on {dev}: "
+                  f"{time.time() - t0:.3f} s")
+        if not _same_file(arcs["cuda"], arcs["cpu"]):
+            raise AssertionError("sharded cut: card archive != the plain "
+                                 "versions' (CPU) archive")
+        print("sharded cut: the card's archive equals the plain versions' "
+              "(CPU) archive")
+    finally:
+        sharded.SHARD_MIN_POSITIONS = real
+        aligned._REF_CACHE.clear()
+    os.remove(fq)
+
+
 _REPLACES = {
     "align_batch": ("fastqueeze_tpu_torch/csrc/align_batch.cu",
                     "fastqueeze_tpu/align/hash.py:414"),
@@ -2059,6 +2480,14 @@ _REPLACES = {
                   "fastqueeze_tpu/ops/engine.py:223"),
     "pack15": ("fastqueeze_tpu_torch/csrc/transfer_pack.cu",
                "fastqueeze_tpu/ops/engine.py:972"),
+    "train_hist": ("fastqueeze_tpu_torch/csrc/train_counts.cu",
+                   "fastqueeze_tpu/parallel/mesh.py:87"),
+    "train_rows": ("fastqueeze_tpu_torch/csrc/train_counts.cu",
+                   "fastqueeze_tpu/parallel/mesh.py:87"),
+    "ctx_shard_decode": ("fastqueeze_tpu_torch/csrc/ctx_shard_decode.cu",
+                         "fastqueeze_tpu/parallel/mesh.py:250"),
+    "sharded_align": ("fastqueeze_tpu_torch/csrc/sharded_align.cu",
+                      "fastqueeze_tpu/parallel/mesh.py:201"),
 }
 
 
@@ -2071,6 +2500,7 @@ def main() -> int:
     rows.update(check_pack_kernels())
     rows.update(check_adaptive_kernels())
     rows.update(check_semi_kernels())
+    rows.update(check_ctx_shard_kernel())
     genome = _genome()
     rows.update(check_align_kernels(genome))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2083,13 +2513,17 @@ def main() -> int:
         longread_end_to_end(tmp, genome, ref, launches)
         lossy_mesh_end_to_end(tmp, launches)
         modes_end_to_end(tmp, launches, pe_slice)
+        mesh_end_to_end(tmp, genome, ref, launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"],
                **rows["k14_fwd"], **rows["k22_indel_G3_ops2"],
                **rows["k14_window"], **rows["semi_seq_order10_fresh"],
                **rows["train_seq_order10"], **rows["k22_fused"],
-               **rows["seq_mode2"], **rows["markov40_pack15"])
+               **rows["seq_mode2"], **rows["markov40_pack15"],
+               **rows["train_split_seq_order10"],
+               **rows[f"qual_q3_D{MESH_SHARDS}"],
+               **rows[f"k14_sharded_D{MESH_SHARDS}"])
     seq["pack_grid"] = rows["markov40_mode6"]["pack_grid"]
     BOUNDS["rescue_indel_fused"] = BOUNDS["k22_fused"]
     for tag in ("k14_fused", "k22_fused", "lr1024"):
@@ -2131,6 +2565,17 @@ def main() -> int:
     by_name["quant_pack"]["narrow_tables"] = {
         key: {"ms": r["quant_pack"][1], "max_abs_err": r["quant_pack"][0]}
         for key, r in rows.items() if key.startswith("quant_pack_")}
+    # K18 at each row-shard count, beside K4 on the same stream and table
+    by_name["ctx_shard_decode"]["k4_same_stream_ms"] = PAIR_MS["k4_q3"]
+    by_name["ctx_shard_decode"]["plain_waves"] = CTX_PLAIN_T
+    by_name["ctx_shard_decode"]["by_shards"] = {
+        f"D{D}": {"ms": rows[f"qual_q3_D{D}"]["ctx_shard_decode"][1],
+                  "plain_ms": rows[f"qual_q3_D{D}"]["ctx_shard_decode"][2],
+                  "max_abs_err": rows[f"qual_q3_D{D}"]["ctx_shard_decode"][0]}
+        for D in MESH_DS}
+    by_name["sharded_align"]["k8_tier1_ms"] = {
+        "fwd": rows["k14_fwd"]["align_batch"][1],
+        "rc": rows["k14_rc"]["align_batch"][1]}
     print(f"copies of one stream (phase 3): {json.dumps(COPY)}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

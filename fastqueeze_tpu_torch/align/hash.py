@@ -92,13 +92,17 @@ def lp_bucket(max_len: int) -> int:
     return b
 
 
-def route_host(device) -> bool:
+def route_host(device, mesh_n: int = 0) -> bool:
     """True: the native host mirror aligns; False: K8/K9 (their plain
-    versions for a CPU device)."""
+    versions for a CPU device).  FASTQUEEZE_ALIGN_EXEC=host|device
+    decides; else the kernels on a CUDA device or with an explicit mesh
+    request (``mesh_n``), the mirror otherwise."""
     mode = os.environ.get("FASTQUEEZE_ALIGN_EXEC", "")
-    if torch.device(device).type == "cuda":
-        return mode == "host"
-    return mode != "device"
+    if mode == "host":
+        return True
+    if mode == "device":
+        return False
+    return not mesh_n and torch.device(device).type != "cuda"
 
 
 class Aligner:
@@ -279,7 +283,7 @@ class Aligner:
             return res
         C = min(4096, 2 * max_insr + 128)
         centers = res.pos[mate[todo]].astype(np.int32)
-        if route_host(device):
+        if route_host(device, self.params.mesh_n):
             roffs = (np.cumsum(lengths) - lengths).astype(np.int64)
             m, p_, r, mm = native.window_batch(
                 self._h_packed, self.ref_len, codes_flat, dege_flat,
@@ -323,7 +327,7 @@ class _Tiers:
         self.roffs = (np.cumsum(lengths) - lengths).astype(np.int64)
         self.lp = lp
         self.device = torch.device(device)
-        self.host = route_host(self.device)
+        self.host = route_host(self.device, al.params.mesh_n)
         self._grids = None
 
     def _native_args(self, cfg: AlignConfig, rows):

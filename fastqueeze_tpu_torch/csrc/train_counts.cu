@@ -13,6 +13,12 @@
 // Bound: device memory, per slot one symbol byte read and one int32
 // atomicAdd (4 bytes read and 4 written; the atomics resolve in L2), then
 // the table read and written once.
+//
+// The mesh trainer (parallel/mesh.py train_counts_sharded, replacing
+// fastqueeze_tpu/parallel/mesh.py train_counts_sharded, B15) launches the
+// two halves on their own: fq_train_hist on every 'block' shard (adding
+// into that shard's raw table), a psum over 'block', then fq_train_rows
+// on each 'ctx' shard's rows.  fq_train_counts is their composition.
 
 #include <cstdint>
 
@@ -58,21 +64,41 @@ __global__ void train_rows(int32_t* __restrict__ counts, int64_t n_ctx,
 }
 
 template <int KIND>
-int run(const uint8_t* syms, const int32_t* cgrid, int32_t J, int32_t L,
-        const int32_t* ctxg, int32_t A, const fqk::ModelSpec& m,
-        int64_t n_ctx, int32_t inc, int32_t init, int32_t cap,
-        int32_t* counts, cudaStream_t st) {
+int run_hist(const uint8_t* syms, const int32_t* cgrid, int32_t J,
+             int32_t L, const int32_t* ctxg, int32_t A,
+             const fqk::ModelSpec& m, int32_t inc, int32_t* counts,
+             cudaStream_t st) {
     const int lane_threads = 64;
     train_hist<KIND><<<(L + lane_threads - 1) / lane_threads, lane_threads,
                        0, st>>>(syms, cgrid, J, L, ctxg, A, m, inc, counts);
-    int rc = static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+}
+
+int run_rows(int32_t* counts, int64_t n_ctx, int32_t A, int32_t init,
+             int32_t cap, cudaStream_t st) {
     const int64_t blocks = (n_ctx + kRowThreads - 1) / kRowThreads;
-    if (rc == 0 && blocks > 0) {
-        train_rows<<<blocks, kRowThreads, 0, st>>>(counts, n_ctx, A, init,
-                                                   cap);
-        rc = static_cast<int>(cudaGetLastError());
+    if (blocks <= 0) return 0;
+    train_rows<<<blocks, kRowThreads, 0, st>>>(counts, n_ctx, A, init, cap);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int hist_dispatch(const uint8_t* syms, const int32_t* cgrid, int32_t J,
+                  int32_t L, const int32_t* ctxg, int32_t A,
+                  const fqk::ModelSpec& m, int32_t inc, int32_t* counts,
+                  cudaStream_t st) {
+    switch (m.kind) {
+        case 0: return run_hist<0>(syms, cgrid, J, L, ctxg, A, m, inc,
+                                   counts, st);
+        case 1: return run_hist<1>(syms, cgrid, J, L, ctxg, A, m, inc,
+                                   counts, st);
+        case 2: return run_hist<2>(syms, cgrid, J, L, ctxg, A, m, inc,
+                                   counts, st);
+        case 3: return run_hist<3>(syms, cgrid, J, L, ctxg, A, m, inc,
+                                   counts, st);
+        case 4: return run_hist<4>(syms, cgrid, J, L, ctxg, A, m, inc,
+                                   counts, st);
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    return rc;
 }
 
 }  // namespace
@@ -87,17 +113,28 @@ extern "C" int fq_train_counts(
         int32_t* counts, void* stream) {
     const fqk::ModelSpec m{kind, a, b, c, d, e, f, g};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (kind) {
-        case 0: return run<0>(syms, cgrid, J, L, ctxg, A, m, n_ctx, inc, init,
-                              cap, counts, st);
-        case 1: return run<1>(syms, cgrid, J, L, ctxg, A, m, n_ctx, inc, init,
-                              cap, counts, st);
-        case 2: return run<2>(syms, cgrid, J, L, ctxg, A, m, n_ctx, inc, init,
-                              cap, counts, st);
-        case 3: return run<3>(syms, cgrid, J, L, ctxg, A, m, n_ctx, inc, init,
-                              cap, counts, st);
-        case 4: return run<4>(syms, cgrid, J, L, ctxg, A, m, n_ctx, inc, init,
-                              cap, counts, st);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    const int rc = hist_dispatch(syms, cgrid, J, L, ctxg, A, m, inc, counts,
+                                 st);
+    return rc ? rc : run_rows(counts, n_ctx, A, init, cap, st);
+}
+
+// The histogram half: adds inc at (ctx, sym) of every valid slot into
+// counts ((n_ctx, A) int32, not zeroed here, so a shard adds its blocks
+// one after another).
+extern "C" int fq_train_hist(
+        const uint8_t* syms, const int32_t* cgrid, int32_t J, int32_t L,
+        const int32_t* ctxg, int32_t A, int32_t kind, int64_t a, int64_t b,
+        int64_t c, int64_t d, int64_t e, int64_t f, int64_t g, int32_t inc,
+        int32_t* counts, void* stream) {
+    const fqk::ModelSpec m{kind, a, b, c, d, e, f, g};
+    return hist_dispatch(syms, cgrid, J, L, ctxg, A, m, inc, counts,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The row finalize half, in place on n_rows rows of A counts: + init, then
+// up to 24 halvings while the row total is over cap.
+extern "C" int fq_train_rows(int32_t* counts, int64_t n_rows, int32_t A,
+                             int32_t init, int32_t cap, void* stream) {
+    return run_rows(counts, n_rows, A, init, cap,
+                    static_cast<cudaStream_t>(stream));
 }

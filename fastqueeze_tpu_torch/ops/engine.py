@@ -417,10 +417,15 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
                       counts_per_read: np.ndarray,
                       counts0: Union[FrozenTable, np.ndarray, None] = None,
                       adapt: bool = False, device="cuda",
-                      extra_aux: Optional[Dict[str, np.ndarray]] = None
-                      ) -> DecodeJob:
+                      extra_aux: Optional[Dict[str, np.ndarray]] = None,
+                      ctx_shard=None) -> DecodeJob:
     """Dispatch one stream's decode (frozen, or adaptive from a fresh
-    table or ``counts0``) to ``device``."""
+    table or ``counts0``) to ``device``.  ctx_shard: a device list; the
+    frozen decode then runs with the table split by rows over those
+    devices (``counts0`` one FrozenTable of rows a device,
+    pipeline/frozen.device_shard_tables) through K18
+    (parallel/mesh.decode_frozen_sharded_stream; the same symbols).  Its
+    grid comes back unpacked, as in the reference."""
     T, L, n_words, nsym = _HDR.unpack_from(payload, 0)
     off = _HDR.size
     states = np.frombuffer(payload, "<u4", L, off).copy()
@@ -435,18 +440,33 @@ def decode_stream_job(model, params: CodecParams, payload: bytes,
     if layout.T != T:
         raise ValueError(
             f"corrupt stream: layout T={layout.T} vs payload T={T}")
-    if adapt:
+    if ctx_shard is not None:
+        if (adapt or extra_aux or len(ctx_shard) < 2
+                or model.n_ctx % len(ctx_shard)
+                or len(counts0) != len(ctx_shard)):
+            raise ValueError("ctx-sharded decode: a frozen stream, 2 or more "
+                             "devices dividing the table's rows, one table "
+                             "shard a device")
+    elif adapt:
         c0 = _adapt_counts0(counts0, device)
     else:
         table = _as_table(counts0, device)
-    # K4/K6/K12 read words[min(off + rank, W - 1)] of this zero-padded buffer
-    # (power of two, >= 1024 — the reference's bucket), so renorm reads
-    # past the real words on a corrupt payload decode zeros
+    # K4/K6/K12/K18 read words[min(off + rank, W - 1)] of this zero-padded
+    # buffer (power of two, >= 1024 — the reference's bucket), so renorm
+    # reads past the real words on a corrupt payload decode zeros
     bucket = 1024
     while bucket < n_words + 8:
         bucket <<= 1
     words_pad = np.zeros(bucket, np.uint16)
     words_pad[:n_words] = words
+    if ctx_shard is not None:
+        from fastqueeze_tpu_torch.parallel.mesh import (
+            ctx_mesh, decode_frozen_sharded_stream)
+        syms, _ = decode_frozen_sharded_stream(
+            ctx_mesh(ctx_shard), 0, states.view(np.int32),
+            words_pad.view(np.int16), _counts_grid(counts_per_read, L), T,
+            [t.cum for t in counts0], model)
+        return DecodeJob(layout, syms)
     states_dev = torch.from_numpy(states.view(np.int32)).to(device)
     words_dev = torch.from_numpy(words_pad.view(np.int16)).to(device)
     cg = torch.from_numpy(_counts_grid(counts_per_read, L)).to(device)

@@ -31,8 +31,9 @@ NATIVE_CALLS: Dict[str, int] = {"encode": 0, "decode": 0}
 def route(p: CodecParams, model, device) -> bool:
     """True = code this adaptive stream with the native host coder.
     FASTQUEEZE_ADAPT_EXEC=host|device, then ``p.frozen_exec`` (1 host,
-    2 device), decide; auto takes the card whenever ``device`` is CUDA
-    and the native coder otherwise."""
+    2 device), decide; auto takes the engine whenever ``device`` is CUDA
+    or a mesh is requested (``p.mesh_n``), and the native coder
+    otherwise."""
     lib = native.get_lib()
     if lib is None or not hasattr(lib, "fq_adapt_encode"):
         return False
@@ -58,7 +59,9 @@ def route(p: CodecParams, model, device) -> bool:
         return True
     if p.frozen_exec == 2:
         return False
-    return torch.device(device).type != "cuda"
+    # auto: an explicit mesh request keeps the engine and its kernels
+    # (their plain versions on the CPU); else the card when there is one
+    return not p.mesh_n and torch.device(device).type != "cuda"
 
 
 def encode_job(model, p: CodecParams, flat_syms: np.ndarray,

@@ -69,8 +69,9 @@ def _spec_of(model):
 def route(p: CodecParams, model, device) -> bool:
     """True = code this frozen stream with the native host coder.
     FASTQUEEZE_FROZEN_EXEC=host|device, then ``p.frozen_exec`` (1 host,
-    2 device), decide; auto takes the card whenever ``device`` is CUDA
-    and the native coder otherwise."""
+    2 device), decide; auto takes the engine whenever ``device`` is CUDA
+    or a mesh is requested (``p.mesh_n``), and the native coder
+    otherwise."""
     if native.get_lib() is None:
         return False
     if model.cap > RANS_M:
@@ -88,7 +89,9 @@ def route(p: CodecParams, model, device) -> bool:
         return True
     if p.frozen_exec == 2:
         return False
-    return torch.device(device).type != "cuda"
+    # auto: an explicit mesh request keeps the engine and its kernels
+    # (their plain versions on the CPU); else the card when there is one
+    return not p.mesh_n and torch.device(device).type != "cuda"
 
 
 def quantize(counts: np.ndarray) -> np.ndarray:

@@ -32,7 +32,20 @@ K12 semi_decode        per chunk the same row pass, then one CTA decodes
                        (engine._decode_semi)
 Trainer:
 K13 train_counts       lane walk + atomicAdd histogram, then the row
-                       init and cap rescale (engine._train_counts)
+                       init and cap rescale (engine._train_counts); its
+                       halves train_hist and train_rows on their own for
+                       the mesh trainer (parallel/mesh.py
+                       train_counts_sharded)
+Mesh (parallel/mesh.py; the collectives between launches are its own):
+K18 ctx_shard_decode   frozen decode with the table sharded by context
+                       rows: one CTA a shard, one launch a wave, the
+                       (sym, start, freq) partials summed over the shards
+                       (mesh._build_frozen_sharded)
+K19 sharded_align      gapless multi-seed alignment over a key-range
+                       sharded index in u32 coordinates, one entry point
+                       a phase: lookup, candidates, verify, tail
+                       (align/hash.py _one_strand's shard_axis branch,
+                       _align_batch)
 Transfer packs (the (T, L) symbol grids cross the host link packed):
 K15 unpack_grid        2/4/6-bit and sentinel (15, 23) packs -> grid
                        (engine._unpack{2,4,6,15,23}_dev, _unpack_sent_dev)
@@ -85,7 +98,9 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "indel_batch": 0, "window_batch": 0,
                             "semi_encode_walk": 0, "semi_decode": 0,
                             "train_counts": 0, "rescue_indel_fused": 0,
-                            "unpack_grid": 0, "pack_grid": 0, "pack15": 0}
+                            "unpack_grid": 0, "pack_grid": 0, "pack15": 0,
+                            "train_hist": 0, "train_rows": 0,
+                            "ctx_shard_decode": 0, "sharded_align": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -201,7 +216,23 @@ def _lib() -> ctypes.CDLL:
             lib.fq_train_counts.argtypes = (
                 [vp, vp, i32, i32, vp, i32] + spec + [i64] + [i32] * 3
                 + [vp] * 2)
-            for fn in (lib.fq_decode_lane_bytes,
+            lib.fq_train_hist.argtypes = (
+                [vp, vp, i32, i32, vp, i32] + spec + [i32, vp, vp])
+            lib.fq_train_rows.argtypes = [vp, i64, i32, i32, i32, vp]
+            lib.fq_ctx_shard_decode.argtypes = (
+                [vp, vp, i64, vp, i32, i32, i32, vp, i64, i32] + spec
+                + [i32, i32, vp, vp, i32] + [vp] * 5 + [i32] * 3 + [vp])
+            lib.fq_sharded_lookup.argtypes = (
+                [vp] * 3 + [i32] * 7 + [vp] * 3 + [i64, i32] + [vp] * 4)
+            lib.fq_sharded_candidates.argtypes = (
+                [vp] + [i32] * 3 + [vp] * 4 + [i64] + [i32] * 3 + [vp] * 4)
+            lib.fq_sharded_verify.argtypes = (
+                [vp] * 2 + [i32] * 3 + [vp] * 3 + [i32, i32, ctypes.c_uint32,
+                                                   i64, i32, vp, i64]
+                + [vp] * 3)
+            lib.fq_sharded_tail.argtypes = (
+                [vp] * 3 + [i32] * 6 + [vp] * 5 + [i64] + [vp] * 5)
+            for fn in (lib.fq_decode_lane_bytes, lib.fq_ctx_shard_lane_bytes,
                        lib.fq_adapt_encode_lane_bytes,
                        lib.fq_adapt_decode_lane_bytes,
                        lib.fq_semi_decode_lane_bytes):
@@ -232,7 +263,11 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_indel_batch_cuda, lib.fq_window_batch_cuda,
                        lib.fq_semi_encode_walk, lib.fq_semi_decode,
                        lib.fq_train_counts, lib.fq_rescue_indel_fused_cuda,
-                       lib.fq_unpack_grid, lib.fq_pack_grid, lib.fq_pack15):
+                       lib.fq_unpack_grid, lib.fq_pack_grid, lib.fq_pack15,
+                       lib.fq_train_hist, lib.fq_train_rows,
+                       lib.fq_ctx_shard_decode, lib.fq_sharded_lookup,
+                       lib.fq_sharded_candidates, lib.fq_sharded_verify,
+                       lib.fq_sharded_tail):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -259,16 +294,16 @@ def build(checked: bool = False, build_dir=None) -> Dict[str, object]:
 
 def _on_card(*tensors: torch.Tensor) -> bool:
     """False: all on the CPU (plain version).  True: all on one CUDA
-    device (kernel).  Anything else raises."""
+    device (kernel; it launches on that device's current stream).
+    Anything else raises."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type == "cpu":
         return False
-    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
-        raise ValueError(f"kernels launch on the current CUDA device, not "
-                         f"{dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"kernels launch on CUDA devices, not {dev}")
     return True
 
 
@@ -279,12 +314,16 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
                          f"{t.is_contiguous()}")
 
 
-def _launch(fn, name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, ctypes.c_void_p(stream))
+def _launch(fn, name: str, dev: torch.device, *args, count: int = 1) -> None:
+    """Call the C entry ``fn`` on ``dev`` (the tensors' device) and its
+    current stream, so a block worker's launches stay on its card and its
+    shard's stream; ``count`` kernels launched by the call."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += count
 
 
 def _ptr(t: torch.Tensor):
@@ -351,8 +390,8 @@ def quant_pack(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     n, A = counts.shape
     cum = torch.empty((n, A + 1), dtype=torch.int16, device=counts.device)
     packed = torch.empty((n * A,), dtype=torch.int32, device=counts.device)
-    _launch(_lib().fq_quant_pack, "quant_pack", _ptr(counts), n, A, width,
-            _ptr(cum), _ptr(packed))
+    _launch(_lib().fq_quant_pack, "quant_pack", counts.device, _ptr(counts),
+            n, A, width, _ptr(cum), _ptr(packed))
     return cum, packed
 
 
@@ -433,7 +472,7 @@ def frozen_encode_lanes(syms: torch.Tensor, cgrid: torch.Tensor,
     words = torch.empty((T, L), dtype=torch.int16, device=dev)
     emit = torch.empty((T, L), dtype=torch.uint8, device=dev)
     states = torch.empty((L,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_frozen_encode_lanes, "frozen_encode_lanes",
+    _launch(_lib().fq_frozen_encode_lanes, "frozen_encode_lanes", dev,
             _ptr(syms), _ptr(cgrid), J, T, L, _ptr(packed), packed.numel(),
             model.alphabet,
             *_spec_args(model), _ptr(sf), _ptr(words), _ptr(emit),
@@ -467,7 +506,7 @@ def compact_words(words: torch.Tensor, emit: torch.Tensor):
     tiles = torch.empty(((n + 8191) // 8192,), dtype=torch.int64, device=dev)
     out = torch.empty((n,), dtype=torch.int16, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_compact_words, "compact_words", _ptr(words),
+    _launch(_lib().fq_compact_words, "compact_words", dev, _ptr(words),
             _ptr(emit), n, _ptr(tiles), _ptr(out), _ptr(count))
     return out, count
 
@@ -539,7 +578,7 @@ def frozen_decode(states0: torch.Tensor, words: torch.Tensor,
     lanes = torch.empty((L * lib.fq_decode_lane_bytes(),), dtype=torch.uint8,
                         device=dev)
     out = torch.empty((T, L), dtype=torch.uint8, device=dev)
-    _launch(lib.fq_frozen_decode, "frozen_decode", _ptr(states0),
+    _launch(lib.fq_frozen_decode, "frozen_decode", dev, _ptr(states0),
             _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
             _ptr(cum), A, *_spec_args(model), _ptr(lanes), _ptr(out))
     return out
@@ -626,7 +665,8 @@ def unpack_grid(packed: torch.Tensor, mode: int,
     grid = torch.empty((T, L), dtype=torch.uint8, device=dev)
     tiles = (T * L + _TILE - 1) // _TILE
     scratch = torch.empty((2 * tiles + 1,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_unpack_grid, "unpack_grid", _ptr(packed), mode, T, L,
+    _launch(_lib().fq_unpack_grid, "unpack_grid", dev, _ptr(packed), mode,
+            T, L,
             None if side is None else _ptr(side),
             0 if side is None else side.numel(), _ptr(scratch),
             packed.numel(), _ptr(grid))
@@ -661,8 +701,8 @@ def pack_grid(grid: torch.Tensor, mode: int) -> torch.Tensor:
         raise ValueError(f"pack_grid: L = {L} is not a multiple of 4")
     out = torch.empty((T, packed_width(mode, L)), dtype=torch.uint8,
                       device=grid.device)
-    _launch(_lib().fq_pack_grid, "pack_grid", _ptr(grid), mode, T, L,
-            _ptr(out))
+    _launch(_lib().fq_pack_grid, "pack_grid", grid.device, _ptr(grid), mode,
+            T, L, _ptr(out))
     return out
 
 
@@ -715,7 +755,7 @@ def pack15(syms: torch.Tensor, cgrid: torch.Tensor):
     nib = torch.empty((T, L // 2), dtype=torch.uint8, device=dev)
     side = torch.zeros((16 + cap,), dtype=torch.uint8, device=dev)
     n_exc = torch.empty((1,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_pack15, "pack15", _ptr(syms), _ptr(cgrid), J, T, L,
+    _launch(_lib().fq_pack15, "pack15", dev, _ptr(syms), _ptr(cgrid), J, T, L,
             _ptr(lens), _ptr(hist), _ptr(lut), _ptr(scratch), _ptr(nib),
             _ptr(side), _ptr(n_exc), cap)
     return nib, side, n_exc
@@ -851,7 +891,7 @@ def adapt_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
     lanes = torch.empty((L * lib.fq_adapt_encode_lane_bytes(),),
                         dtype=torch.uint8, device=dev)
     sf = torch.empty((T, L), dtype=torch.int32, device=dev)
-    _launch(lib.fq_adapt_encode_walk, "adapt_encode_walk", _ptr(syms),
+    _launch(lib.fq_adapt_encode_walk, "adapt_encode_walk", dev, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], T, L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,
             *_spec_args(model), model.inc, model.cap, n_halve,
@@ -881,7 +921,7 @@ def rans_encode_sf(sf: torch.Tensor, cgrid: torch.Tensor):
     words = torch.empty((T, L), dtype=torch.int16, device=dev)
     emit = torch.empty((T, L), dtype=torch.uint8, device=dev)
     states = torch.empty((L,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_rans_encode_sf, "rans_encode_sf", _ptr(sf),
+    _launch(_lib().fq_rans_encode_sf, "rans_encode_sf", dev, _ptr(sf),
             _ptr(cgrid), cgrid.shape[0], T, L, _ptr(words), _ptr(emit),
             _ptr(states))
     return words, emit, states
@@ -959,8 +999,8 @@ def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
     lanes = torch.empty((L * lib.fq_adapt_decode_lane_bytes(),),
                         dtype=torch.uint8, device=dev)
     out = torch.empty((T, L), dtype=torch.uint8, device=dev)
-    _launch(lib.fq_adapt_decode, "adapt_decode", _ptr(states0), _ptr(words),
-            words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
+    _launch(lib.fq_adapt_decode, "adapt_decode", dev, _ptr(states0),
+            _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,
             *_spec_args(model), model.inc, model.cap, n_halve,
             _ptr(counts), _ptr(tot), _ptr(stamp), _ptr(lanes), _ptr(out))
@@ -1071,7 +1111,7 @@ def semi_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
     snap = torch.empty((counts.numel(),), dtype=torch.int32, device=dev)
     ctxg = torch.empty((T, L), dtype=torch.int32, device=dev)
     sf = torch.empty((T, L), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_semi_encode_walk, "semi_encode_walk", _ptr(syms),
+    _launch(_lib().fq_semi_encode_walk, "semi_encode_walk", dev, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], T, L, model.alphabet,
             *_spec_args(model), model.n_ctx, model.inc, model.cap, n_halve,
             chunk, _ptr(counts), _ptr(snap), _ptr(ctxg), _ptr(sf))
@@ -1163,8 +1203,8 @@ def semi_decode(states0: torch.Tensor, words: torch.Tensor,
                         dtype=torch.uint8, device=dev)
     off = torch.zeros((1,), dtype=torch.int64, device=dev)
     out = torch.empty((T, L), dtype=torch.uint8, device=dev)
-    _launch(lib.fq_semi_decode, "semi_decode", _ptr(states0), _ptr(words),
-            words.numel(), _ptr(cgrid), cgrid.shape[0], T, L, A,
+    _launch(lib.fq_semi_decode, "semi_decode", dev, _ptr(states0),
+            _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L, A,
             _search_steps(A), *_spec_args(model), model.n_ctx, model.inc,
             model.cap, n_halve, chunk, _ptr(counts), _ptr(snap),
             _ptr(lanes), _ptr(off), _ptr(out))
@@ -1174,19 +1214,12 @@ def semi_decode(states0: torch.Tensor, words: torch.Tensor,
 def train_counts_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
                        ctxg=None) -> torch.Tensor:
     """engine._train_counts: the (ctx, sym) histogram of the valid slots
-    times inc, plus init, then up to 24 halvings of every row over cap."""
-    valid, aux = _walk_aux(syms.shape[0], cgrid, ctxg)
-    ctx = model.context_grids(syms, aux).long()
-    n, A = model.n_ctx, model.alphabet
-    flat = (ctx * A + syms.long())[valid]
-    counts = (torch.bincount(flat, minlength=n * A).reshape(n, A)
-              * model.inc + model.init)
-    for _ in range(24):
-        over = counts.sum(dim=1, keepdim=True) > model.cap
-        if not bool(over.any()):
-            break
-        counts = torch.where(over, (counts + 1) >> 1, counts)
-    return counts.to(torch.int32)
+    times inc, plus init, then up to 24 halvings of every row over cap
+    (K13's two halves, train_hist_plain then train_rows_plain)."""
+    counts = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32,
+                         device=syms.device)
+    return train_rows_plain(train_hist_plain(syms, cgrid, model, counts,
+                                             ctxg), model)
 
 
 def train_counts(syms: torch.Tensor, cgrid: torch.Tensor, model,
@@ -1211,11 +1244,231 @@ def train_counts(syms: torch.Tensor, cgrid: torch.Tensor, model,
             raise ValueError("train_counts: ctx grid shape mismatch")
     counts = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32,
                          device=syms.device)
-    _launch(_lib().fq_train_counts, "train_counts", _ptr(syms), _ptr(cgrid),
-            cgrid.shape[0], L, None if ctxg is None else _ptr(ctxg),
-            model.alphabet, *_spec_args(model), model.n_ctx, model.inc,
-            model.init, model.cap, _ptr(counts))
+    _launch(_lib().fq_train_counts, "train_counts", syms.device, _ptr(syms),
+            _ptr(cgrid), cgrid.shape[0], L,
+            None if ctxg is None else _ptr(ctxg), model.alphabet,
+            *_spec_args(model), model.n_ctx, model.inc, model.init,
+            model.cap, _ptr(counts))
     return counts
+
+
+# --- K13's halves, for the mesh trainer (parallel/mesh.train_counts_sharded)
+
+def train_hist_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
+                     counts: torch.Tensor, ctxg=None) -> torch.Tensor:
+    """counts += the (ctx, sym) histogram of the valid slots times inc."""
+    valid, aux = _walk_aux(syms.shape[0], cgrid, ctxg)
+    ctx = model.context_grids(syms, aux).long()
+    n, A = model.n_ctx, model.alphabet
+    flat = (ctx * A + syms.long())[valid]
+    counts += (torch.bincount(flat, minlength=n * A).reshape(n, A)
+               * model.inc).to(torch.int32)
+    return counts
+
+
+def train_hist(syms: torch.Tensor, cgrid: torch.Tensor, model,
+               counts: torch.Tensor, ctxg=None) -> torch.Tensor:
+    """K13's histogram half: adds inc at (ctx, sym) of every valid slot of
+    one (T, L) grid into ``counts`` ((n_ctx, A) int32, in place)."""
+    kind = model.spec()[0]
+    if (kind == 4) != (ctxg is not None):
+        raise ValueError("train_hist: a ctx grid goes with FlatModel "
+                         "(kind 4) only")
+    grids = (syms, cgrid, counts) + (() if ctxg is None else (ctxg,))
+    if not _on_card(*grids):
+        return train_hist_plain(syms, cgrid, model, counts, ctxg)
+    _check(syms, "syms", torch.uint8, 2)
+    _check(cgrid, "cgrid", torch.int32, 2)
+    _check(counts, "counts", torch.int32, 2)
+    T, L = syms.shape
+    if (cgrid.shape[1] != L
+            or tuple(counts.shape) != (model.n_ctx, model.alphabet)):
+        raise ValueError("train_hist: shape mismatch")
+    if ctxg is not None:
+        _check(ctxg, "ctxg", torch.int32, 2)
+        if ctxg.shape != syms.shape:
+            raise ValueError("train_hist: ctx grid shape mismatch")
+    _launch(_lib().fq_train_hist, "train_hist", syms.device, _ptr(syms),
+            _ptr(cgrid), cgrid.shape[0], L,
+            None if ctxg is None else _ptr(ctxg), model.alphabet,
+            *_spec_args(model), model.inc, _ptr(counts))
+    return counts
+
+
+def train_rows_plain(rows: torch.Tensor, model) -> torch.Tensor:
+    """+ init, then up to 24 halvings of every row over cap (in place)."""
+    c = rows.long() + model.init
+    for _ in range(24):
+        over = c.sum(dim=1, keepdim=True) > model.cap
+        if not bool(over.any()):
+            break
+        c = torch.where(over, (c + 1) >> 1, c)
+    rows.copy_(c.to(torch.int32))
+    return rows
+
+
+def train_rows(rows: torch.Tensor, model) -> torch.Tensor:
+    """K13's row half on a (n_rows, A) int32 block of raw counts, in
+    place: + init, then up to 24 halvings while the row total is over
+    cap."""
+    if not _on_card(rows):
+        return train_rows_plain(rows, model)
+    _check(rows, "rows", torch.int32, 2)
+    if rows.shape[1] != model.alphabet:
+        raise ValueError("train_rows: shape mismatch")
+    _launch(_lib().fq_train_rows, "train_rows", rows.device, _ptr(rows),
+            rows.shape[0], model.alphabet, model.init, model.cap)
+    return rows
+
+
+# --- K18 ctx_shard_decode: frozen decode with the table sharded by rows ---
+
+def ctx_shard_decode_plain(states0: torch.Tensor, words: torch.Tensor,
+                           cgrid: torch.Tensor, T: int, cums, model):
+    """The wave loop of mesh._build_frozen_sharded over D shards on one
+    device: shard d holds rows [d*n, (d+1)*n) of the u16 cum table
+    (``cums[d]``, (n, A+1) int16); per wave each shard searches the lanes
+    whose context it owns, the (sym, start, freq) partials are summed over
+    the shards, and the rANS step and the model update run once.  Returns
+    ((T, L) uint8 symbols, 0 at padding; (L,) int32 final states)."""
+    L = states0.shape[0]
+    A = model.alphabet
+    dev = states0.device
+    n = cums[0].shape[0]
+    valid, aux = device_aux_plain(T, cgrid)
+    Fs = [_u16(c).reshape(-1) for c in cums]
+    W = words.shape[0]
+    w16 = _u16(words)
+    st = model.lane_init(L, dev)
+    x = _u32(states0)
+    off = 0
+    steps = max(1, (A - 1).bit_length())
+    out = torch.zeros((T, L), dtype=torch.uint8, device=dev)
+    for t in range(T):
+        vld = valid[t]
+        aux_t = {"start": aux["start"][t], "pos": aux["pos"][t]}
+        ctx = model.context(st, aux_t)
+        low = x & (RANS_M - 1)
+        sym = torch.zeros_like(low)
+        start = torch.zeros_like(low)
+        f = torch.zeros_like(low)
+        for d, F in enumerate(Fs):
+            own = (ctx >= d * n) & (ctx < (d + 1) * n) & vld
+            base = torch.where(own, ctx - d * n, 0) * (A + 1)
+            lo = torch.zeros_like(low)
+            hi = torch.full_like(low, A - 1)
+            for _ in range(steps):
+                mid = (lo + hi + 1) >> 1
+                le = F[base + mid] <= low
+                lo = torch.where(le, mid, lo)
+                hi = torch.where(le, hi, mid - 1)
+            sym += torch.where(own, lo, 0)
+            start += torch.where(own, F[base + lo], 0)
+            f += torch.where(own, F[base + lo + 1] - F[base + lo], 0)
+        xn = (f * (x >> PROB_BITS) + low - start) & 0xFFFFFFFF
+        need = (xn < RANS_L) & vld
+        rank = torch.cumsum(need.long(), dim=0) - need.long()
+        wv = w16[torch.clamp(off + rank, max=W - 1)]
+        xn = torch.where(need, ((xn << 16) | wv) & 0xFFFFFFFF, xn)
+        x = torch.where(vld, xn, x)
+        off += int(need.sum())
+        out[t] = torch.where(vld, sym, 0).to(torch.uint8)
+        new = model.update(st, sym, aux_t)
+        st = {k: torch.where(vld, new[k], st[k]) for k in st}
+    return out, _to_i32(x)
+
+
+class ShardDecode:
+    """K18 over the shards of one stream that share one card: global
+    shards shard0 .. shard0 + len(cums) - 1, ``cums`` their (n_local, A+1)
+    int16 row blocks there; the stream's (L,) int32 states, (W,) int16
+    padded words and (J, L) int32 read lengths on the same card.  With
+    ``writer`` this card's first shard stores the (T, L) uint8 symbols
+    (``out``) and the (L,) int32 final states (``x``)."""
+
+    def __init__(self, states0: torch.Tensor, words: torch.Tensor,
+                 cgrid: torch.Tensor, T: int, cums, model, shard0: int = 0,
+                 writer: bool = True):
+        if not _on_card(states0, words, cgrid, *cums):
+            raise ValueError("ShardDecode runs on a CUDA card; the CPU "
+                             "takes ctx_shard_decode_plain")
+        _check(states0, "states0", torch.int32, 1)
+        _check(words, "words", torch.int16, 1)
+        _check(cgrid, "cgrid", torch.int32, 2)
+        L, A = states0.shape[0], model.alphabet
+        n = cums[0].shape[0]
+        for c in cums:
+            _check(c, "cum", torch.int16, 2)
+            if tuple(c.shape) != (n, A + 1):
+                raise ValueError("ShardDecode: cum shape mismatch")
+        if cgrid.shape[1] != L or words.numel() < 1 or model.spec()[0] > 1:
+            raise ValueError("ShardDecode: shape mismatch, or a model kind "
+                             "other than seq or qual")
+        dev = states0.device
+        lib = _lib()
+        self._args = (states0, words, cgrid, cums)
+        self.T, self.L, self.n = T, L, len(cums)
+        self._model, self._n_local, self._shard0 = model, n, shard0
+        self._writer = writer
+        self._ptrs = torch.tensor([c.data_ptr() for c in cums],
+                                  dtype=torch.int64, device=dev)
+        self._lanes = torch.empty(
+            (self.n * L * lib.fq_ctx_shard_lane_bytes(),), dtype=torch.uint8,
+            device=dev)
+        self._off = torch.empty((self.n,), dtype=torch.int64, device=dev)
+        self.xout = torch.empty((self.n, 3, L), dtype=torch.int32, device=dev)
+        self.out = torch.empty((T, L) if writer else (1,),
+                               dtype=torch.uint8, device=dev)
+        self.x = torch.empty((L,) if writer else (1,), dtype=torch.int32,
+                             device=dev)
+        self.dev = dev
+
+    def _call(self, t0: int, t1: int, xbuf=None, xin=None) -> None:
+        states0, words, cgrid, _ = self._args
+        m = self._model
+        _launch(_lib().fq_ctx_shard_decode, "ctx_shard_decode", self.dev,
+                _ptr(states0), _ptr(words), words.numel(), _ptr(cgrid),
+                cgrid.shape[0], self.T, self.L, _ptr(self._ptrs),
+                self._n_local, m.alphabet, *_spec_args(m), self._shard0,
+                self.n, None if xbuf is None else _ptr(xbuf),
+                None if xin is None else _ptr(xin),
+                0 if xin is None else xin.shape[0], _ptr(self.xout),
+                _ptr(self._lanes), _ptr(self._off), _ptr(self.out),
+                _ptr(self.x), int(self._writer), t0, t1, count=t1 - t0)
+
+    def run(self) -> None:
+        """Every wave of a stream whose shards all lie on this card: T + 1
+        launches from one host loop, the partials exchanged through the
+        (2, D, 3, L) parity buffers."""
+        xbuf = torch.empty((2, self.n, 3, self.L), dtype=torch.int32,
+                           device=self.dev)
+        self._call(0, self.T + 1, xbuf=xbuf)
+
+    def step(self, t: int, xin: Optional[torch.Tensor]) -> torch.Tensor:
+        """Wave step t (0 .. T) reading ``xin`` ((P, 3, L) int32 partials
+        of wave t - 1, summed over the cards; None at t = 0); returns this
+        card's partials of wave t (``xout``)."""
+        if t > 0:
+            _check(xin, "xin", torch.int32, 3)
+            if xin.device != self.dev or tuple(xin.shape[1:]) != (3, self.L):
+                raise ValueError("ShardDecode.step: xin shape or device")
+        self._call(t, t + 1, xin=xin)
+        return self.xout
+
+
+def ctx_shard_decode(states0: torch.Tensor, words: torch.Tensor,
+                     cgrid: torch.Tensor, T: int, cums, model):
+    """K18: one stream decoded against a u16 cum table split by rows into
+    ``cums`` (D (n, A+1) int16 blocks, shard order) that all lie with the
+    stream's (L,) int32 states, (W,) int16 padded words and (J, L) int32
+    read lengths on one device -> ((T, L) uint8 symbols, 0 at padding;
+    (L,) int32 final states).  Shards spread over several cards:
+    parallel/mesh.py steps a ShardDecode a card."""
+    if not _on_card(states0, words, cgrid, *cums):
+        return ctx_shard_decode_plain(states0, words, cgrid, T, cums, model)
+    run = ShardDecode(states0, words, cgrid, T, cums, model)
+    run.run()
+    return run.out, run.x
 
 
 # --- the seed aligner: K8 align_batch, K9 indel_batch ------------------------
@@ -1653,7 +1906,8 @@ def align_batch(codes: torch.Tensor, dege: torch.Tensor,
     per = lib.fq_align_scratch_bytes(*_align_cfg_args(cfg))
     scratch = torch.empty((B * per,), dtype=torch.uint8, device=dev)
     mode = {"fwd": 0, "rc": 1, "both": 2}[cfg.strand]
-    _launch(lib.fq_align_batch_cuda, "align_batch", *_index_ptrs(ix, wide),
+    _launch(lib.fq_align_batch_cuda, "align_batch", dev,
+            *_index_ptrs(ix, wide),
             *_align_cfg_args(cfg), _ptr(codes), _ptr(dege), _ptr(lengths),
             B, mode, int(cfg.both_strands), _ptr(scratch), per,
             _ptr(mapped), _ptr(pos), _ptr(rev), _ptr(mm))
@@ -1685,7 +1939,8 @@ def indel_batch(codes: torch.Tensor, dege: torch.Tensor,
     lib = _lib()
     per = lib.fq_indel_scratch_bytes(*_align_cfg_args(cfg), G)
     scratch = torch.empty((B * per,), dtype=torch.uint8, device=dev)
-    _launch(lib.fq_indel_batch_cuda, "indel_batch", *_index_ptrs(ix, wide),
+    _launch(lib.fq_indel_batch_cuda, "indel_batch", dev,
+            *_index_ptrs(ix, wide),
             *_align_cfg_args(cfg), _ptr(codes), _ptr(dege), _ptr(lengths),
             B, G, ops, _ptr(scratch), per, _ptr(found),
             *(_ptr(t) for t in ints), _ptr(rev), _ptr(mm))
@@ -1765,7 +2020,7 @@ def window_batch(packed: torch.Tensor, ref_len: int, codes: torch.Tensor,
     mm = torch.zeros((B, Lp), dtype=torch.bool, device=dev)
     if B == 0:
         return mapped, pos, rev, mm
-    _launch(_lib().fq_window_batch_cuda, "window_batch", _ptr(packed),
+    _launch(_lib().fq_window_batch_cuda, "window_batch", dev, _ptr(packed),
             packed.numel(), ref_len, _ptr(codes), _ptr(dege), _ptr(lengths),
             _ptr(centers), B, Lp, C, max_mis, _ptr(mapped), _ptr(pos),
             _ptr(rev), _ptr(mm))
@@ -1849,7 +2104,7 @@ def rescue_indel_fused(codes: torch.Tensor, dege: torch.Tensor,
               lib.fq_indel_scratch_bytes(*_align_cfg_args(cfg3), G)
               if ops else 0)
     scratch = torch.empty((cap * per,), dtype=torch.uint8, device=dev)
-    _launch(lib.fq_rescue_indel_fused_cuda, "rescue_indel_fused",
+    _launch(lib.fq_rescue_indel_fused_cuda, "rescue_indel_fused", dev,
             *_index_ptrs(ix, wide),
             *_align_cfg_args(cfg2 if cfg2 is not None else cfg3),
             int(cfg2 is not None), *_align_cfg_args(cfg3), G, ops,
@@ -1857,3 +2112,319 @@ def rescue_indel_fused(codes: torch.Tensor, dege: torch.Tensor,
             cap, int(cfg3.both_strands), _ptr(scratch), per,
             *(_ptr(t) for t in outs))
     return outs
+
+
+# --- K19 sharded_align: the key-range-sharded index, u32 coordinates --------
+#
+# One shard of parallel/mesh.shard_ref_index on its device: u32 keys (hi,
+# lo30 for k > 15; hi alone otherwise) padded with 0xFFFFFFFF to kp, the
+# shard's CSR offsets (kp + 1) and u32 positions, all as int32 tensors
+# holding the same bits, and the whole packed reference.  The phases'
+# collectives (pmin / pmax over the shards) are parallel/mesh.py's.
+
+class ShardIndex(NamedTuple):
+    keys_hi: torch.Tensor
+    keys_lo: torch.Tensor
+    offsets: torch.Tensor
+    positions: torch.Tensor
+    packed: torch.Tensor
+    ref_len: int
+    k: int
+    steps: int          # ceil(log2(kp + 1)) binary-search steps
+
+
+def n_seed_samples(Lp: int, k: int, stride: int) -> int:
+    return len(range(0, Lp - k + 1, stride))
+
+
+def _eff_grid(codes: torch.Tensor, dege: torch.Tensor,
+              lengths: torch.Tensor, rc: bool):
+    """The read's effective strand: (int64 codes, bool degenerate flags)."""
+    if rc:
+        return _rc_grid(codes, dege, lengths.long())
+    return codes.long(), dege
+
+
+def sharded_lookup_plain(codes: torch.Tensor, dege: torch.Tensor,
+                         lengths: torch.Tensor, sx: ShardIndex, stride: int,
+                         rc: bool):
+    """_one_strand's shard_axis lookup on one shard: ((B, S) int32 occ,
+    bool found, int32 key index)."""
+    B, Lp = codes.shape
+    k = sx.k
+    lens = lengths.long()
+    c, d = _eff_grid(codes, dege, lengths, rc)
+    ps = torch.arange(0, Lp - k + 1, stride, device=codes.device)
+    v = torch.zeros((B, ps.numel()), dtype=torch.int64, device=codes.device)
+    for j in range(k):
+        v = (v << 2) | c[:, ps + j]
+    cs = torch.nn.functional.pad(torch.cumsum(d.long(), 1), (1, 0))
+    ok = (ps[None, :] <= lens[:, None] - k) & (cs[:, ps + k] == cs[:, ps])
+    wide = k > 15
+    qh = v >> 30 if wide else v
+    ql = v & 0x3FFFFFFF
+    kh, kl = _u32(sx.keys_hi), _u32(sx.keys_lo)
+    nk = kh.numel()
+    lo = torch.zeros_like(v)
+    hi = torch.full_like(v, nk)
+    for _ in range(sx.steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        m = torch.clamp(mid, max=nk - 1)
+        less = kh[m] < qh
+        if wide:
+            less = less | ((kh[m] == qh) & (kl[m] < ql))
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    ii = torch.clamp(lo, max=nk - 1)
+    eq = kh[ii] == qh
+    if wide:
+        eq = eq & (kl[ii] == ql)
+    found = eq & (lo < nk) & ok
+    offs = sx.offsets.long()
+    occ = torch.where(found, offs[ii + 1] - offs[ii], ALIGN_BIG)
+    return occ.to(torch.int32), found, ii.to(torch.int32)
+
+
+def sharded_candidates_plain(occ: torch.Tensor, found: torch.Tensor,
+                             ii: torch.Tensor, sx: ShardIndex, stride: int,
+                             n_seeds: int, C: int, excl_bp: int):
+    """The n_seeds rounds of candidate listing on one shard (the owner
+    lists positions[offsets[ii] + j] - seed_off in u32, the others 0):
+    ((B, n_seeds * C) int32 u32 candidates, bool in range, (B, n_seeds)
+    bool owner)."""
+    B, S = occ.shape
+    dev = occ.device
+    occ = occ.long()
+    ps = torch.arange(S, device=dev) * stride
+    cj = torch.arange(C, device=dev)[None, :]
+    offs = sx.offsets.long()
+    posv = _u32(sx.positions)
+    cands, inr, owners = [], [], []
+    for _ in range(n_seeds):
+        jb = torch.argmin(occ, dim=1)[:, None]
+        best = occ.gather(1, jb)[:, 0]
+        pb = ps[jb[:, 0]]
+        if excl_bp > 0:
+            occ = torch.where((ps[None, :] - pb[:, None]).abs() <= excl_bp,
+                              ALIGN_BIG, occ)
+        else:
+            occ = occ.scatter(1, jb, ALIGN_BIG)
+        own = found.gather(1, jb)[:, 0]
+        base = offs[ii.long().gather(1, jb)[:, 0]]
+        ptr = torch.clamp(base[:, None] + cj, 0, posv.numel() - 1)
+        cands.append(torch.where(own[:, None],
+                                 (posv[ptr] - pb[:, None]) & _M32, 0))
+        inr.append(cj < torch.clamp(best, max=C)[:, None])
+        owners.append(own)
+    return (_to_i32(torch.cat(cands, 1)), torch.cat(inr, 1),
+            torch.stack(owners, 1))
+
+
+def _cand_ok(lengths: torch.Tensor, cand: torch.Tensor,
+             in_range: torch.Tensor, owner: torch.Tensor, C: int,
+             ref_len: int) -> torch.Tensor:
+    """cand_ok of the shard_axis branch: in range, a shard owns the
+    round's seed, the read fits and the u32 window ends inside the
+    reference."""
+    lens = lengths.long()
+    return (in_range & owner.repeat_interleave(C, dim=1)
+            & (lens <= ref_len)[:, None]
+            & (_u32(cand) <= ((ref_len - lens) & _M32)[:, None]))
+
+
+def sharded_verify_plain(codes: torch.Tensor, lengths: torch.Tensor,
+                         cand: torch.Tensor, in_range: torch.Tensor,
+                         owner: torch.Tensor, C: int, ref_len: int, c0: int,
+                         Cs: int, packed: torch.Tensor, rc: bool):
+    """One shard's verify over columns [c0, c0 + Cs) of the candidate list
+    padded with zeros: cand_ok, the full window mismatch count, the
+    first-index argmin -> ((B,) int32 mis, (B,) int32 u32 window start)."""
+    B, Lp = codes.shape
+    lens = lengths.long()
+    c = _rc_grid(codes, torch.zeros_like(codes, dtype=torch.bool),
+                 lens)[0] if rc else codes.long()
+    pos_i = torch.arange(Lp, device=codes.device)[None, :]
+    rw, mw = _pack_words(c, pos_i < lens[:, None])
+    pad = max(0, c0 + Cs - cand.shape[1])
+    ok = torch.nn.functional.pad(
+        _cand_ok(lengths, cand, in_range, owner, C, ref_len), (0, pad))
+    cs = torch.nn.functional.pad(_u32(cand), (0, pad))[:, c0:c0 + Cs]
+    mis = torch.where(ok[:, c0:c0 + Cs],
+                      _mis_aligned(_u32(packed), cs, rw, mw,
+                                   range(Lp // 16 + 1)), ALIGN_BIG)
+    cb = torch.argmin(mis, dim=1)[:, None]
+    return (mis.gather(1, cb)[:, 0].to(torch.int32),
+            _to_i32(cs.gather(1, cb)[:, 0]))
+
+
+_STRAND_MODE = {"fwd": 0, "rc": 1, "both": 2}
+
+
+def sharded_tail_plain(codes: torch.Tensor, dege: torch.Tensor,
+                       lengths: torch.Tensor, strand: str, both_strands: int,
+                       max_mis: int, k: int, fwd, rev, packed: torch.Tensor):
+    """_align_batch's strand choice and mismatch mask from each strand's
+    (mis, u32 pos) (None for a strand not run) -> ((B,) bool mapped,
+    int32 u32 pos, bool reverse, (B, Lp) bool mask)."""
+    B, Lp = codes.shape
+    lens = lengths.long()
+    pos_i = torch.arange(Lp, device=codes.device)[None, :]
+    valid = pos_i < lens[:, None]
+    has_dege = (dege & valid).any(1)
+    rc = _rc_grid(codes, dege, lens)[0]
+    if strand == "fwd":
+        use_rev = torch.zeros(B, dtype=torch.bool, device=codes.device)
+        mis, pos, eff = fwd[0].long(), _u32(fwd[1]), codes.long()
+    elif strand == "rc":
+        use_rev = rev[0] <= max_mis
+        mis, pos, eff = rev[0].long(), _u32(rev[1]), rc
+    else:
+        mf, mr = fwd[0].long(), rev[0].long()
+        use_rev = (mr < mf) if both_strands else (mf > max_mis)
+        mis = torch.where(use_rev, mr, mf)
+        pos = torch.where(use_rev, _u32(rev[1]), _u32(fwd[1]))
+        eff = torch.where(use_rev[:, None], rc, codes.long())
+    mapped = (mis <= max_mis) & ~has_dege & (lens >= k)
+    refc = _ref_base_at(_u32(packed), (pos[:, None] + pos_i) & _M32)
+    mask = (eff != refc) & valid & mapped[:, None]
+    return mapped, _to_i32(pos), use_rev & mapped, mask
+
+
+def _check_shard(sx: ShardIndex) -> None:
+    for t, n in ((sx.keys_hi, "keys_hi"), (sx.keys_lo, "keys_lo"),
+                 (sx.offsets, "offsets"), (sx.positions, "positions"),
+                 (sx.packed, "packed")):
+        _check(t, n, torch.int32, 1)
+    if (sx.keys_lo.numel() != sx.keys_hi.numel()
+            or sx.offsets.numel() != sx.keys_hi.numel() + 1
+            or not 1 <= sx.k <= 31):
+        raise ValueError("sharded index: shape mismatch")
+
+
+def _check_reads(codes, dege, lengths) -> int:
+    _check(codes, "codes", torch.uint8, 2)
+    _check(dege, "dege", torch.bool, 2)
+    _check(lengths, "lengths", torch.int32, 1)
+    B, Lp = codes.shape
+    if tuple(dege.shape) != (B, Lp) or lengths.numel() != B or Lp % 16:
+        raise ValueError("sharded_align: read grid shape mismatch")
+    return B
+
+
+def sharded_lookup(codes: torch.Tensor, dege: torch.Tensor,
+                   lengths: torch.Tensor, sx: ShardIndex, stride: int,
+                   rc: bool):
+    """K19 (a): (B, Lp) uint8 codes, bool degenerate flags, (B,) int32
+    lengths, one shard -> ((B, S) int32 occ, bool found, int32 key
+    index)."""
+    if not _on_card(codes, dege, lengths, *sx[:5]):
+        return sharded_lookup_plain(codes, dege, lengths, sx, stride, rc)
+    B = _check_reads(codes, dege, lengths)
+    _check_shard(sx)
+    S = n_seed_samples(codes.shape[1], sx.k, stride)
+    dev = codes.device
+    occ = torch.empty((B, S), dtype=torch.int32, device=dev)
+    found = torch.empty((B, S), dtype=torch.bool, device=dev)
+    ii = torch.empty((B, S), dtype=torch.int32, device=dev)
+    _launch(_lib().fq_sharded_lookup, "sharded_align", dev, _ptr(codes),
+            _ptr(dege), _ptr(lengths), B, codes.shape[1], sx.k, stride, S,
+            int(rc), int(sx.k > 15), _ptr(sx.keys_hi), _ptr(sx.keys_lo),
+            _ptr(sx.offsets), sx.keys_hi.numel(), sx.steps, _ptr(occ),
+            _ptr(found), _ptr(ii))
+    return occ, found, ii
+
+
+def sharded_candidates(occ: torch.Tensor, found: torch.Tensor,
+                       ii: torch.Tensor, sx: ShardIndex, stride: int,
+                       n_seeds: int, C: int, excl_bp: int):
+    """K19 (b): the global (B, S) int32 occ (after pmin) and this shard's
+    found / key index -> ((B, n_seeds * C) int32 u32 candidates, bool in
+    range, (B, n_seeds) bool owner)."""
+    if not _on_card(occ, found, ii, *sx[:5]):
+        return sharded_candidates_plain(occ, found, ii, sx, stride, n_seeds,
+                                        C, excl_bp)
+    _check(occ, "occ", torch.int32, 2)
+    _check(found, "found", torch.bool, 2)
+    _check(ii, "ii", torch.int32, 2)
+    _check_shard(sx)
+    B, S = occ.shape
+    if found.shape != occ.shape or ii.shape != occ.shape or C < 1:
+        raise ValueError("sharded_candidates: shape mismatch")
+    dev = occ.device
+    work = occ.clone()            # the rounds' exclusions overwrite it
+    cand = torch.empty((B, n_seeds * C), dtype=torch.int32, device=dev)
+    inr = torch.empty((B, n_seeds * C), dtype=torch.bool, device=dev)
+    owner = torch.empty((B, n_seeds), dtype=torch.bool, device=dev)
+    _launch(_lib().fq_sharded_candidates, "sharded_align", dev, _ptr(work),
+            B, S, stride, _ptr(found), _ptr(ii), _ptr(sx.offsets),
+            _ptr(sx.positions), sx.positions.numel(), n_seeds, C, excl_bp,
+            _ptr(cand), _ptr(inr), _ptr(owner))
+    return cand, inr, owner
+
+
+def sharded_verify(codes: torch.Tensor, lengths: torch.Tensor,
+                   cand: torch.Tensor, in_range: torch.Tensor,
+                   owner: torch.Tensor, C: int, ref_len: int, c0: int,
+                   Cs: int, packed: torch.Tensor, rc: bool):
+    """K19 (c): the global (B, n_seeds * C) int32 u32 candidates and bool
+    in-range flags, the (B, n_seeds) bool owner bits (after pmax); this
+    shard verifies columns [c0, c0 + Cs) of the list padded with zeros ->
+    ((B,) int32 mis, (B,) int32 u32 window start)."""
+    if not _on_card(codes, lengths, cand, in_range, owner, packed):
+        return sharded_verify_plain(codes, lengths, cand, in_range, owner,
+                                    C, ref_len, c0, Cs, packed, rc)
+    _check(codes, "codes", torch.uint8, 2)
+    _check(lengths, "lengths", torch.int32, 1)
+    _check(cand, "cand", torch.int32, 2)
+    _check(in_range, "in_range", torch.bool, 2)
+    _check(owner, "owner", torch.bool, 2)
+    _check(packed, "packed", torch.int32, 1)
+    B, Lp = codes.shape
+    if (cand.shape != in_range.shape or cand.shape[0] != B
+            or owner.shape[0] != B or cand.shape[1] != owner.shape[1] * C
+            or c0 < 0 or Cs < 1 or Lp % 16 or Lp > 1024
+            or not 0 <= ref_len < 1 << 32):
+        raise ValueError("sharded_verify: shape mismatch")
+    dev = codes.device
+    mis = torch.empty((B,), dtype=torch.int32, device=dev)
+    pos = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch(_lib().fq_sharded_verify, "sharded_align", dev, _ptr(codes),
+            _ptr(lengths), B, Lp, int(rc), _ptr(cand), _ptr(in_range),
+            _ptr(owner), owner.shape[1], C, ref_len, c0, Cs, _ptr(packed),
+            packed.numel(), _ptr(mis), _ptr(pos))
+    return mis, pos
+
+
+def sharded_tail(codes: torch.Tensor, dege: torch.Tensor,
+                 lengths: torch.Tensor, strand: str, both_strands: int,
+                 max_mis: int, k: int, fwd, rev, packed: torch.Tensor):
+    """K19 (d): each strand's global (mis, u32 pos) ((B,) int32 tensors;
+    None for a strand not run) -> ((B,) bool mapped, int32 u32 window
+    start, bool reverse strand, (B, Lp) bool mismatch mask)."""
+    used = [t for pair in (fwd, rev) if pair is not None for t in pair]
+    if not _on_card(codes, dege, lengths, packed, *used):
+        return sharded_tail_plain(codes, dege, lengths, strand,
+                                  both_strands, max_mis, k, fwd, rev, packed)
+    B = _check_reads(codes, dege, lengths)
+    _check(packed, "packed", torch.int32, 1)
+    mode = _STRAND_MODE[strand]
+    if (mode != 1 and fwd is None) or (mode != 0 and rev is None):
+        raise ValueError(f"sharded_tail: strand {strand} needs its results")
+    for t in used:
+        _check(t, "mis/pos", torch.int32, 1)
+        if t.numel() != B:
+            raise ValueError("sharded_tail: shape mismatch")
+    dev = codes.device
+    mapped = torch.empty((B,), dtype=torch.bool, device=dev)
+    pos = torch.empty((B,), dtype=torch.int32, device=dev)
+    is_rev = torch.empty((B,), dtype=torch.bool, device=dev)
+    mask = torch.empty(codes.shape, dtype=torch.bool, device=dev)
+    f = fwd if fwd is not None else rev
+    r = rev if rev is not None else fwd
+    _launch(_lib().fq_sharded_tail, "sharded_align", dev, _ptr(codes),
+            _ptr(dege), _ptr(lengths), B, codes.shape[1], mode,
+            int(both_strands), max_mis, k, _ptr(f[0]), _ptr(f[1]),
+            _ptr(r[0]), _ptr(r[1]), _ptr(packed), packed.numel(),
+            _ptr(mapped), _ptr(pos), _ptr(is_rev), _ptr(mask))
+    return mapped, pos, is_rev, mask

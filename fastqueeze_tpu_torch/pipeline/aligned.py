@@ -10,8 +10,10 @@ blocks align their mates interleaved and, with -I (max_insr), rescue an
 unmapped mate inside its mapped mate's insert window (K10).  -l
 transforms each block's qualities before its MD5; ``part=(k, n)``
 (--part K:N) writes the partial archive of blocks k, k+n, ... (see
-driver.compress_se).  Not ported yet: --mesh over 2 or more devices
-(ROADMAP Queue A item 9).
+driver.compress_se); --mesh N round-robins whole blocks over N devices,
+each aligning against its own copy of the index (Aligner.dev_index).  An
+index past SHARD_MIN_POSITIONS goes to the index-sharded aligner
+(align/sharded.py, K19).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from fastqueeze_tpu_torch.align.hash import Aligner, AlignResult
 from fastqueeze_tpu_torch.align.index import load_index
@@ -35,7 +38,7 @@ from fastqueeze_tpu_torch.pipeline.driver import (
     owned_blocks, train_frozen_prefix)
 from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair, parse_lossy
 from fastqueeze_tpu_torch.pipeline.parallel_host import (
-    block_devices, ordered_parallel)
+    block_dp_devices, device_parallel)
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 
@@ -160,9 +163,12 @@ _REF_CACHE: Dict = {}
 _REF_CACHE_MAX = 4
 
 
-def prepare_ref(p: CodecParams, ref_path: str):
+def prepare_ref(p: CodecParams, ref_path: str, device="cuda"):
     """Load (or build) the index and stamp the reference's identity
-    (aligned, ref_md5, ref_len, seed_len) into the params."""
+    (aligned, ref_md5, ref_len, seed_len) into the params.  An index at
+    or past sharded.SHARD_MIN_POSITIONS positions (or reference bases)
+    goes to the ShardedAligner over the visible devices of ``device``'s
+    kind."""
     try:
         st = os.stat(ref_path)
         key = (os.path.abspath(ref_path), st.st_mtime_ns, st.st_size,
@@ -172,7 +178,13 @@ def prepare_ref(p: CodecParams, ref_path: str):
     hit = _REF_CACHE.get(key) if key is not None else None
     if hit is None:
         idx, ref = load_index(ref_path, p)
-        aligner = Aligner(idx, p)
+        from fastqueeze_tpu_torch.align import sharded
+        if (idx.n_positions >= sharded.SHARD_MIN_POSITIONS
+                or idx.ref_len >= sharded.SHARD_MIN_POSITIONS):
+            aligner = sharded.ShardedAligner(
+                idx, p, kind=torch.device(device).type)
+        else:
+            aligner = Aligner(idx, p)
         if key is not None:
             if len(_REF_CACHE) >= _REF_CACHE_MAX:
                 _REF_CACHE.pop(next(iter(_REF_CACHE)))
@@ -190,11 +202,11 @@ def prepare_ref(p: CodecParams, ref_path: str):
 def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
                         out_path: str, dbg: Optional[DebugInfo] = None,
                         part: Optional[tuple] = None, device="cuda") -> Dict:
-    block_devices(p.mesh_n, device)
+    devices = block_dp_devices(p, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     dbg = dbg or DebugInfo()
     t0 = time.time()
-    aligner, ref = prepare_ref(p, ref_path)
+    aligner, ref = prepare_ref(p, ref_path, device)
     dbg.add("ref_s", time.time() - t0)
     block_size = p.block_bytes or p.block_size_mb * (1 << 20)
     whole_md5 = hashlib.md5()
@@ -213,7 +225,7 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
         whole_md5.update(raw)
         return raw, final_nl, block
 
-    def work(_i, gi_item):
+    def work(_i, gi_item, device):
         gi, (raw, final_nl, block) = gi_item
         if block is None:
             raw, block = parse_lossy(p, raw, final_nl)
@@ -228,8 +240,8 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
     items = ((raw, final_nl, None)
              for raw, final_nl in read_blocks(in_path, block_size))
     for _, (gi, raw, payload, n_reads, n_mapped, was_aligned) in \
-            ordered_parallel(owned_blocks(items, part, scan), work,
-                             p.threads):
+            device_parallel(owned_blocks(items, part, scan), work, devices,
+                            p.threads, device):
         if single:                 # ordered: blocks arrive in file order
             whole_md5.update(raw)
         writer.add_block(gi, payload, BlockInfo(
@@ -261,10 +273,10 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
     from fastqueeze_tpu_torch.pipeline.pe import (
         _RecordReader, interleave_blocks, pe_block_items, pe_payload,
         train_frozen_pe_prefix)
-    block_devices(p.mesh_n, device)
+    devices = block_dp_devices(p, device)
     dbg = dbg or DebugInfo()
     t0 = time.time()
-    aligner, ref = prepare_ref(p, ref_path)
+    aligner, ref = prepare_ref(p, ref_path, device)
     dbg.add("ref_s", time.time() - t0)
     p.is_pe = 1
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
@@ -287,7 +299,7 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
         md5_2.update(raw2)
         return raw1, fnl1, raw2, fnl2, b1, b2
 
-    def work(_i, gi_item):
+    def work(_i, gi_item, device):
         gi, (raw1, fnl1, raw2, fnl2, b1, b2) = gi_item
         if b1 is None:
             raw1, b1, raw2, b2 = lossy_pair(p, raw1, parse_block(raw1, fnl1),
@@ -314,8 +326,9 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
     n_blocks = total_raw = total_mapped = total_reads = 0
     items = (item + (None, None) for item in pe_block_items(p, in1, rr2))
     for _, (gi, raw1, raw2, payload, n_pairs, n_merged, n_mapped,
-            was_aligned) in ordered_parallel(owned_blocks(items, part, scan),
-                                             work, p.threads):
+            was_aligned) in device_parallel(owned_blocks(items, part, scan),
+                                            work, devices, p.threads,
+                                            device):
         if single:                 # ordered: pairs arrive in file order
             md5_1.update(raw1)
             md5_2.update(raw2)

@@ -39,7 +39,8 @@ from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, host_rans
 from fastqueeze_tpu_torch.ops.engine import (
     decode_stream, decode_stream_job, encode_stream, encode_stream_job)
 from fastqueeze_tpu_torch.pipeline.frozen import (
-    device_raw_tables, device_tables, frozen_host_cums, qual_lut, qual_vocab)
+    device_raw_tables, device_shard_tables, device_tables, frozen_host_cums,
+    qual_lut, qual_vocab)
 from fastqueeze_tpu_torch.pipeline.idproc import (
     IdBinSchema, analyze_ids, reconstruct_ids)
 
@@ -501,18 +502,21 @@ def _decode_le(p: CodecParams, blob: bytes, n: int, nbytes: int,
 
 
 def _stream_jobs(p: CodecParams, frozen: Optional[Dict], device, seq, qual,
-                 decode: bool = False):
+                 decode: bool = False, ctx_shard=None):
     """Dispatch the seq and qual streams, each (model, symbols or payload,
     per-read counts): frozen against ``frozen``'s tables, adaptive from a
     fresh table when it is None, or adaptive from its raw counts with
     frozen_adapt.  Frozen streams go to the native host coder where
     host_frozen.route says so and fresh adaptive ones where host_adapt.route
     does (bit-identical either way); frozen_adapt streams have no native
-    coder (as in the reference) and always take ``device``.  Returns the
-    two jobs."""
+    coder (as in the reference) and always take ``device``.  ctx_shard (a
+    decode's device list): the frozen qual stream decodes with its table
+    split by rows over those devices (K18) when the rows divide evenly.
+    Returns the two jobs."""
     jobs = [None, None]
     adapt = frozen is None or bool(p.frozen_adapt)
     tables = (None, None)
+    shard = False
     if not adapt:
         routed = [host_frozen.route(p, m, device) for m, _, _ in (seq, qual)]
         if any(routed):
@@ -523,9 +527,16 @@ def _stream_jobs(p: CodecParams, frozen: Optional[Dict], device, seq, qual,
                     job = (host_frozen.decode_job if decode
                            else host_frozen.encode_job)
                     jobs[i] = job(m, p, data, counts, cums[i])
+        shard = (decode and ctx_shard is not None and len(ctx_shard) >= 2
+                 and jobs[1] is None
+                 and qual[0].n_ctx % len(ctx_shard) == 0)
         if None in jobs:
             tables = device_tables(frozen, qual[0].alphabet,
-                                   p.qctx_eff_init(), device)
+                                   p.qctx_eff_init(), device,
+                                   qual=not shard)
+        if shard:
+            tables = (tables[0], device_shard_tables(
+                frozen, qual[0].alphabet, p.qctx_eff_init(), ctx_shard))
     elif frozen is None:
         for i, (m, data, counts) in enumerate((seq, qual)):
             if host_adapt.route(p, m, device):
@@ -537,9 +548,10 @@ def _stream_jobs(p: CodecParams, frozen: Optional[Dict], device, seq, qual,
                                    p.qctx_eff_init(), device)
     for i, (m, data, counts) in enumerate((seq, qual)):
         if jobs[i] is None:
+            kw = {"ctx_shard": ctx_shard} if shard and i == 1 else {}
             job = decode_stream_job if decode else encode_stream_job
             jobs[i] = job(m, p, data, counts, counts0=tables[i],
-                          adapt=adapt, device=device)
+                          adapt=adapt, device=device, **kw)
     return jobs
 
 
@@ -1044,15 +1056,19 @@ def _encode_lr_streams(p: CodecParams, block: FastqBlock, reads, offs,
 
 
 def decode_block(p: CodecParams, payload: bytes, frozen: Optional[Dict],
-                 device, ref_codes: Optional[np.ndarray] = None) -> FastqBlock:
+                 device, ref_codes: Optional[np.ndarray] = None,
+                 ctx_shard=None) -> FastqBlock:
     """Decode one block payload on ``device`` (ref_codes: the reference's
-    2-bit codes, for reference-aligned archives).  Any structural damage a
+    2-bit codes, for reference-aligned archives; ctx_shard: devices the
+    frozen qual table is sharded over, driver.decompress's big-table
+    mesh gate).  Any structural damage a
     corrupt payload can cause downstream (bad lengths -> out-of-range
     indexing, mangled meta JSON, impossible stream sizes) is converted to
     ValueError — the whole-block MD5 then reports it like every other
     corruption path."""
     try:
-        return _decode_block_impl(p, payload, frozen, device, ref_codes)
+        return _decode_block_impl(p, payload, frozen, device, ref_codes,
+                                  ctx_shard)
     except ValueError:
         raise
     except (IndexError, KeyError, OverflowError, TypeError,
@@ -1062,7 +1078,8 @@ def decode_block(p: CodecParams, payload: bytes, frozen: Optional[Dict],
 
 def _decode_block_impl(p: CodecParams, payload: bytes,
                        frozen: Optional[Dict], device,
-                       ref_codes: Optional[np.ndarray]) -> FastqBlock:
+                       ref_codes: Optional[np.ndarray],
+                       ctx_shard=None) -> FastqBlock:
     sections = dict(iter_tlv(payload))
     meta = json.loads(sections[TAG_META].decode())
     R = meta["R"]
@@ -1162,7 +1179,8 @@ def _decode_block_impl(p: CodecParams, payload: bytes,
     qmodel = qual_model_for(p, _qual_alphabet(qmax))
     seq_job, qual_job = _stream_jobs(
         p, frozen, device, (seq_model, sections[TAG_SEQ], seq_counts),
-        (qmodel, sections[TAG_QUAL], qlens), decode=True)
+        (qmodel, sections[TAG_QUAL], qlens), decode=True,
+        ctx_shard=ctx_shard)
 
     # --- sequence assembly (host) ---
     seq_flat = np.empty(int(lengths.sum()), np.uint8)

@@ -16,9 +16,11 @@ training prefix before training).  ``part=(k, n)`` (--part K:N) writes
 the partial archive of blocks k, k+n, ... (container/arcfile.py
 merge_archives assembles the parts); :func:`extract` (-X) decodes only
 the blocks covering a read range; :func:`compress_multi` (-m) puts
-several inputs into one archive.  --mesh resolves against the visible
-devices; block data-parallelism over 2 or more is not ported (ROADMAP
-Queue A item 9).
+several inputs into one archive.  --mesh N round-robins whole blocks
+over N devices (block data-parallelism, pipeline/parallel_host.py); on
+decode a mesh with a frozen quality table of at least
+CTX_SHARD_MIN_ENTRIES entries decodes that table sharded by rows over
+the mesh instead (parallel/mesh.py, K18).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.arcfile import (
@@ -38,10 +41,17 @@ from fastqueeze_tpu_torch.container.arcfile import (
 from fastqueeze_tpu_torch.io.fastq import assemble_block, read_blocks
 from fastqueeze_tpu_torch.pipeline.blockcodec import (
     decode_block, encode_block, encode_block_job)
+from fastqueeze_tpu_torch.parallel.mesh import block_devices
 from fastqueeze_tpu_torch.pipeline.lossy import parse_lossy
 from fastqueeze_tpu_torch.pipeline.parallel_host import (
-    block_devices, ordered_parallel)
+    block_dp_devices, device_parallel)
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+
+# Frozen qual tables with at least this many (rows x (A+1)) entries decode
+# ctx-sharded over an active mesh instead of copied to every device (the
+# 2^20-row deep-qctx tables with a 40-rank alphabet sit at ~44 M).  Tests
+# monkeypatch it to run the path at toy scale.
+CTX_SHARD_MIN_ENTRIES = 32 << 20
 
 
 def _reject_partial(reader: ArcReader, arc_path: str) -> None:
@@ -134,7 +144,7 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
 def compress_se(params: CodecParams, in_path: str, out_path: str,
                 dbg: Optional[DebugInfo] = None,
                 part: Optional[tuple] = None, device="cuda") -> Dict:
-    block_devices(params.mesh_n, device)
+    devices = block_dp_devices(params, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     dbg = dbg or DebugInfo()
     block_size = params.block_bytes or params.block_size_mb * (1 << 20)
@@ -177,7 +187,7 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
         whole_md5.update(raw)
         return raw, final_nl, block
 
-    def encode_job(block):
+    def encode_job(block, device):
         align = ref_codes = None
         if params.self_align:
             from fastqueeze_tpu_torch.pipeline.selfref import maybe_align_self
@@ -187,15 +197,16 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
 
     n_blocks = total_raw = 0
     if params.threads > 1:
-        def work(_i, gi_item):
+        def work(_i, gi_item, device):
             gi, (raw, final_nl, block) = gi_item
             if block is None:
                 raw, block = parse_lossy(params, raw, final_nl)
-            return gi, raw, encode_job(block)(), block.n_reads
+            return gi, raw, encode_job(block, device)(), block.n_reads
 
         t_all = time.time()
-        for _, (gi, raw, payload, n_reads) in ordered_parallel(
-                owned_blocks(items(), part, scan), work, params.threads):
+        for _, (gi, raw, payload, n_reads) in device_parallel(
+                owned_blocks(items(), part, scan), work, devices,
+                params.threads, device):
             if single:             # ordered: blocks arrive in file order
                 whole_md5.update(raw)
             writer.add_block(gi, payload, BlockInfo(
@@ -222,7 +233,7 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
                 whole_md5.update(raw)
             dbg.add("parse_s", time.time() - t0)
             t0 = time.time()
-            fin = encode_job(block)
+            fin = encode_job(block, device)
             dbg.add("dispatch_s", time.time() - t0)
             info = BlockInfo(payload_len=0, n_reads=block.n_reads,
                              raw_len1=len(raw),
@@ -253,7 +264,8 @@ def decompress(arc_path: str, out_prefix: Optional[str],
     (-P): write the reads to stdout instead of files; PE archives take 1
     (file 1), 2 (file 2) or 3 (pairs interleaved).  mesh (--mesh)
     overrides the encoder's mesh_n; either is clamped to the visible
-    devices.  indir (-p): an SE output goes next to the archive."""
+    devices of ``device``'s kind.  indir (-p): an SE output goes next to
+    the archive."""
     dbg = dbg or DebugInfo()
     with ArcReader(arc_path) as reader:
         _reject_partial(reader, arc_path)
@@ -262,17 +274,20 @@ def decompress(arc_path: str, out_prefix: Optional[str],
             params.threads = threads
         if mesh:
             params.mesh_n = mesh
-        block_devices(params.mesh_n, device, clamp=True)
+        devices = block_devices(params.mesh_n, clamp=True,
+                                kind=torch.device(device).type)
+        if devices and params.threads < len(devices):
+            params.threads = len(devices)
         ref_codes = _load_ref_for_decode(params, ref)
         if params.is_pe:
             from fastqueeze_tpu_torch.pipeline.pe import decompress_pe_blocks
             return decompress_pe_blocks(reader, out_prefix, dbg, device,
                                         pipeout=pipeout, force=force,
-                                        ref_codes=ref_codes)
+                                        ref_codes=ref_codes, devices=devices)
         if getattr(params, "multi", 0):
             return _decompress_multi(reader, out_prefix, dbg,
                                      _frozen_of(reader), ref_codes, force,
-                                     device)
+                                     device, devices)
         out_name = _se_out_name(arc_path, out_prefix, reader.file_list)
         if indir:
             out_name = os.path.join(os.path.dirname(os.path.abspath(arc_path)),
@@ -282,19 +297,30 @@ def decompress(arc_path: str, out_prefix: Optional[str],
         elif os.path.exists(out_name) and not force:
             raise ValueError(f"{out_name} exists (use -f to overwrite)")
         frozen = _frozen_of(reader)
+        # big-table gate: with a mesh and a frozen qual table past the
+        # copy threshold, blocks decode on ``device`` with that table
+        # sharded by rows over the mesh's devices (K18) instead of copied
+        # to each device for block round-robin
+        ctx_shard = None
+        if (devices and frozen is not None and not params.frozen_adapt
+                and params.qual_nctx() % len(devices) == 0
+                and params.qual_nctx() * (frozen["qmax"] + 2)
+                >= CTX_SHARD_MIN_ENTRIES):
+            ctx_shard, devices = devices, None
         whole_md5 = hashlib.md5()
 
-        def decode_one(i, payload):
+        def decode_one(i, payload, device):
             return _decode_checked(params, payload, frozen, device,
-                                   ref_codes, reader.blocks[i].md5, i)[1]
+                                   ref_codes, reader.blocks[i].md5, i,
+                                   ctx_shard)[1]
 
         with (open(out_name, "wb") if out_name
               else contextlib.nullcontext(sys.stdout.buffer)) as out:
             payloads = (reader.read_block(i)
                         for i in range(len(reader.blocks)))
             t0 = time.time()
-            for _, raw in ordered_parallel(payloads, decode_one,
-                                           params.threads):
+            for _, raw in device_parallel(payloads, decode_one, devices,
+                                          params.threads, device):
                 whole_md5.update(raw)
                 out.write(raw)
             dbg.add("decode_s", time.time() - t0)
@@ -311,9 +337,11 @@ def _frozen_of(reader: ArcReader):
 
 
 def _decode_checked(params: CodecParams, payload: bytes, frozen, device,
-                    ref_codes, md5: bytes, i: int):
-    """(block, plaintext) of SE block ``i``, its MD5 verified."""
-    block = decode_block(params, payload, frozen, device, ref_codes)
+                    ref_codes, md5: bytes, i: int, ctx_shard=None):
+    """(block, plaintext) of SE block ``i``, its MD5 verified; ctx_shard:
+    the devices the frozen qual table is sharded over."""
+    block = decode_block(params, payload, frozen, device, ref_codes,
+                         ctx_shard)
     raw = assemble_block(block)
     if hashlib.md5(raw).digest() != md5:
         raise ValueError(f"block {i}: MD5 mismatch (corrupt archive)")
@@ -402,7 +430,7 @@ def compress_multi(params: CodecParams, in_paths: List[str], out_path: str,
     the first file, self-alignment stays off, every block carries its
     input's file_id, and the archive holds one whole-input MD5 a file."""
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
-    block_devices(params.mesh_n, device)
+    devices = block_dp_devices(params, device)
     dbg = dbg or DebugInfo()
     params.multi = 1
     if params.self_align == -1:
@@ -421,15 +449,15 @@ def compress_multi(params: CodecParams, in_paths: List[str], out_path: str,
             for raw, final_nl in read_blocks(path, block_size):
                 yield fid, raw, final_nl
 
-    def work(_i, item):
+    def work(_i, item, device):
         fid, raw, final_nl = item
         raw, block = parse_lossy(params, raw, final_nl)
         payload = encode_block(params, block, frozen, device, dbg)
         return fid, raw, payload, block.n_reads
 
     n_blocks = total_raw = 0
-    for i, (fid, raw, payload, n_reads) in ordered_parallel(
-            items(), work, params.threads):
+    for i, (fid, raw, payload, n_reads) in device_parallel(
+            items(), work, devices, params.threads, device):
         md5s[fid].update(raw)       # blocks arrive in order, fids monotone
         writer.add_block(i, payload, BlockInfo(
             payload_len=len(payload), n_reads=n_reads, raw_len1=len(raw),
@@ -449,7 +477,7 @@ def compress_multi(params: CodecParams, in_paths: List[str], out_path: str,
 
 def _decompress_multi(reader: ArcReader, out_prefix: Optional[str],
                       dbg: DebugInfo, frozen, ref_codes, force: bool,
-                      device) -> List[str]:
+                      device, devices=None) -> List[str]:
     """A multi-file archive back into its files: <prefix>N.fastq, or the
     original names without a prefix; every file's whole-input MD5
     checked."""
@@ -460,7 +488,7 @@ def _decompress_multi(reader: ArcReader, out_prefix: Optional[str],
         if os.path.exists(n) and not force:
             raise ValueError(f"{n} exists (use -f to overwrite)")
 
-    def decode_one(i, payload):
+    def decode_one(i, payload, device):
         return _decode_checked(params, payload, frozen, device, ref_codes,
                                reader.blocks[i].md5, i)[1]
 
@@ -469,7 +497,8 @@ def _decompress_multi(reader: ArcReader, out_prefix: Optional[str],
     with contextlib.ExitStack() as stack:
         outs = [stack.enter_context(open(n, "wb")) for n in names]
         payloads = (reader.read_block(i) for i in range(len(reader.blocks)))
-        for i, raw in ordered_parallel(payloads, decode_one, params.threads):
+        for i, raw in device_parallel(payloads, decode_one, devices,
+                                      params.threads, device):
             fid = reader.blocks[i].file_id
             outs[fid].write(raw)
             md5s[fid].update(raw)

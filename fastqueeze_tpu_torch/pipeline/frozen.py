@@ -851,24 +851,58 @@ def _deserialize_frozen_impl(blob: bytes) -> Dict:
         raise ValueError(f"corrupt MODEL section: {e}") from e
 
 
-def device_tables(frozen: Dict, qual_alphabet: int, init: int, device):
+def device_tables(frozen: Dict, qual_alphabet: int, init: int, device,
+                  qual: bool = True):
     """(seq, qual) frozen tables quantized on ``device`` by K1
     (engine.FrozenTable), the qual table first padded to the block's
     alphabet with ``init`` columns.  Built once per table and device and
     cached inside the frozen dict (the tables are identical for every
-    block of an archive)."""
+    block of an archive).  qual=False: the seq table alone, None for qual
+    (the ctx-sharded decode keeps that one in row shards,
+    device_shard_tables)."""
     from fastqueeze_tpu_torch.ops.engine import frozen_table, resolve_device
     dev = str(resolve_device(device))
     cache = frozen.setdefault("_dev", {})
     skey = ("seq", dev)
     if skey not in cache:
-        cache[skey] = frozen_table(frozen["seq_counts"], dev)
+        cache[skey] = _settled(frozen_table(frozen["seq_counts"], dev), dev)
     qkey = ("qual", qual_alphabet, init, dev)
+    if not qual:
+        return cache[skey], None
     if qkey not in cache:
-        cache[qkey] = frozen_table(
+        cache[qkey] = _settled(frozen_table(
             fit_qual_alphabet(np.asarray(frozen["qual_counts"]),
-                              qual_alphabet, init), dev)
+                              qual_alphabet, init), dev), dev)
     return cache[skey], cache[qkey]
+
+
+def device_shard_tables(frozen: Dict, qual_alphabet: int, init: int,
+                        devices) -> list:
+    """The qual table (padded as device_tables pads it) split by rows over
+    ``devices`` (the ctx-sharded decode, parallel/mesh.py): shard s's
+    rows quantized by K1 on devices[s] (quantization is row-local), one
+    engine.FrozenTable a shard, cached in the frozen dict."""
+    from fastqueeze_tpu_torch.ops.engine import frozen_table, resolve_device
+    devs = [str(resolve_device(d)) for d in devices]
+    key = ("qual_shards", qual_alphabet, init, tuple(devs))
+    cache = frozen.setdefault("_dev", {})
+    if key not in cache:
+        full = fit_qual_alphabet(np.asarray(frozen["qual_counts"]),
+                                 qual_alphabet, init)
+        n = full.shape[0] // len(devs)
+        cache[key] = [_settled(frozen_table(full[s * n:(s + 1) * n], d), d)
+                      for s, d in enumerate(devs)]
+    return cache[key]
+
+
+def _settled(table, device):
+    """``table`` once the device has finished making it: the cached tables
+    are shared by every block, and block workers run on CUDA streams of
+    their own (parallel/mesh.device_cycled)."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(torch.device(device)).synchronize()
+    return table
 
 
 def device_raw_tables(frozen: Dict, qual_alphabet: int, init: int, device):
@@ -883,14 +917,15 @@ def device_raw_tables(frozen: Dict, qual_alphabet: int, init: int, device):
     cache = frozen.setdefault("_dev", {})
     skey = ("seq_raw", dev)
     if skey not in cache:
-        cache[skey] = torch.tensor(np.asarray(frozen["seq_counts"]),
-                                   dtype=torch.int32, device=dev)
+        cache[skey] = _settled(torch.tensor(
+            np.asarray(frozen["seq_counts"]), dtype=torch.int32,
+            device=dev), dev)
     qkey = ("qual_raw", qual_alphabet, init, dev)
     if qkey not in cache:
-        cache[qkey] = torch.tensor(
+        cache[qkey] = _settled(torch.tensor(
             fit_qual_alphabet(np.asarray(frozen["qual_counts"]),
                               qual_alphabet, init),
-            dtype=torch.int32, device=dev)
+            dtype=torch.int32, device=dev), dev)
     return cache[skey], cache[qkey]
 
 

@@ -2,11 +2,12 @@
 thread + ReadBufPool bounded queue + N encode/decode worker threads,
 srcfile:SeqArcRead.cpp/BufPool.cpp).
 
-One device stream, with the host stages (parse / MD5 / ID binning / host
-range coding / transfers) of several blocks overlapped: a thread pool runs
-the per-block stage function while the main thread consumes results
-strictly in block order.  In-flight blocks are bounded (reference:
-bufnum = 2*threads - 1)."""
+The host stages (parse / MD5 / ID binning / host range coding /
+transfers) of several blocks overlap: a thread pool runs the per-block
+stage function while the main thread consumes results strictly in block
+order.  In-flight blocks are bounded (reference: bufnum = 2*threads - 1).
+With --mesh N (block data-parallelism) block i runs on device i % N, on a
+CUDA stream of its own (parallel/mesh.device_cycled)."""
 
 from __future__ import annotations
 
@@ -15,33 +16,38 @@ from typing import Callable, Iterable, Iterator, Tuple, TypeVar
 
 import torch
 
+from fastqueeze_tpu_torch.parallel.mesh import block_devices, device_cycled
+
 T = TypeVar("T")
 R = TypeVar("R")
 
-MESH_MSG = ("--mesh block data-parallelism over 2 or more devices: ROADMAP "
-            "Queue A item 9")
+
+def block_dp_devices(params, device):
+    """Resolve the block-DP device set from ``params.mesh_n`` against the
+    devices of ``device``'s kind and widen the host pipeline so every
+    device has a feeding thread (before the archive's PARAM is written:
+    a --mesh 4 archive carries threads = 4).  Returns None when no mesh
+    is requested or it resolves to one device (plain host threading)."""
+    if not params.mesh_n:
+        return None
+    devices = block_devices(params.mesh_n, kind=torch.device(device).type)
+    if devices and params.threads < len(devices):
+        params.threads = len(devices)
+    return devices
 
 
-def block_devices(mesh_n: int, device, clamp: bool = False) -> None:
-    """Resolve CodecParams.mesh_n as fastqueeze_tpu's
-    parallel/mesh.block_devices does (0 = off, -1 = every visible device,
-    N = the first N) against the devices of ``device``'s kind
-    (torch.cuda.device_count(), 1 for the CPU).  N over the visible count
-    raises its ValueError, or with ``clamp`` (decode) takes them all.  One
-    resolved device makes block data-parallelism a no-op (nothing to
-    return, ``threads`` untouched, mesh_n still in PARAM); two or more
-    are not ported."""
-    if not mesh_n:
-        return
-    have = (torch.cuda.device_count()
-            if torch.device(device).type == "cuda" else 1)
-    n = have if mesh_n < 0 else mesh_n
-    if n > have:
-        if not clamp:
-            raise ValueError(f"--mesh {n}: only {have} device(s) visible")
-        n = have
-    if n > 1:
-        raise NotImplementedError(MESH_MSG)
+def device_parallel(items: Iterable[T], fn: Callable[..., R], devices,
+                    workers: int, device) -> Iterator[Tuple[int, R]]:
+    """``ordered_parallel`` of ``fn(idx, item, device)`` with the blocks
+    round-robined over ``devices`` (block-DP: whole blocks per device;
+    payloads stay byte-identical to the single-device run), or every
+    block on ``device`` when ``devices`` is None."""
+    if devices:
+        run = device_cycled(devices, fn)
+    else:
+        def run(i, item):
+            return fn(i, item, device=device)
+    return ordered_parallel(items, run, max(1, workers))
 
 
 def ordered_parallel(items: Iterable[T], fn: Callable[[int, T], R],

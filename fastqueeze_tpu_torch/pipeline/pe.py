@@ -40,7 +40,7 @@ from fastqueeze_tpu_torch.pipeline.blockcodec import (
 from fastqueeze_tpu_torch.pipeline.driver import owned_blocks
 from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair
 from fastqueeze_tpu_torch.pipeline.parallel_host import (
-    block_devices, ordered_parallel)
+    block_dp_devices, device_parallel)
 from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 TAG_PE_META = 40
@@ -154,7 +154,7 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         from fastqueeze_tpu_torch.pipeline.aligned import compress_pe_aligned
         return compress_pe_aligned(p, ref, in1, in2, out_path, dbg=dbg,
                                    part=part, device=device)
-    block_devices(p.mesh_n, device)
+    devices = block_dp_devices(p, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     p.is_pe = 1
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
@@ -201,7 +201,7 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         md5_2.update(raw2)
         return raw1, fnl1, raw2, fnl2, b1, b2
 
-    def work(_i, gi_item):
+    def work(_i, gi_item, device):
         gi, (raw1, fnl1, raw2, fnl2, b1, b2) = gi_item
         if b1 is None:
             b1 = parse_block(raw1, fnl1)
@@ -221,8 +221,9 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         return gi, raw1, raw2, pe_payload(b1, b2, body), b1.n_reads
 
     n_blocks = total_raw = 0
-    for _, (gi, raw1, raw2, payload, n_pairs) in ordered_parallel(
-            owned_blocks(items(), part, scan), work, p.threads):
+    for _, (gi, raw1, raw2, payload, n_pairs) in device_parallel(
+            owned_blocks(items(), part, scan), work, devices, p.threads,
+            device):
         if single:                 # ordered: pairs arrive in file order
             md5_1.update(raw1)
             md5_2.update(raw2)
@@ -329,7 +330,8 @@ def decode_pe_payload(p: CodecParams, payload: bytes, frozen, ref_codes,
 
 def decompress_pe_blocks(reader: ArcReader, out_prefix: Optional[str],
                          dbg: DebugInfo, device, pipeout: int = 0,
-                         force: bool = False, ref_codes=None) -> List[str]:
+                         force: bool = False, ref_codes=None,
+                         devices=None) -> List[str]:
     p = reader.params
     names = _pe_out_names(reader, out_prefix)
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
@@ -347,15 +349,15 @@ def decompress_pe_blocks(reader: ArcReader, out_prefix: Optional[str],
         from fastqueeze_tpu_torch.pipeline.frozen import deserialize_frozen
         frozen = deserialize_frozen(reader.model_blob)
 
-    def decode_one(i, payload):
+    def decode_one(i, payload, device):
         return decode_pe_payload(p, payload, frozen, ref_codes,
                                  reader.blocks[i].md5, i, device)
 
     try:
         payloads = (reader.read_block(i) for i in range(len(reader.blocks)))
         t0 = time.time()
-        for _, (b1, b2, raw1, raw2) in ordered_parallel(payloads, decode_one,
-                                                        p.threads):
+        for _, (b1, b2, raw1, raw2) in device_parallel(
+                payloads, decode_one, devices, p.threads, device):
             md5_1.update(raw1)
             md5_2.update(raw2)
             if pipeout == 3:

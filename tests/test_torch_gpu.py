@@ -986,3 +986,171 @@ def test_engine_packs_on_card_match_cpu(cuda, name):
     assert kernels.LAUNCHES["unpack_grid"] == 2
     assert kernels.LAUNCHES["pack_grid"] == 1
     assert kernels.LAUNCHES["pack15"] == (1 if name == "qual6" else 0)
+
+
+# --- the mesh: K13's halves, K18, K19, block workers' streams ---------------
+
+@pytest.mark.parametrize("name", sorted(_TRAIN))
+def test_train_split_matches_k13(cuda, name):
+    """train_hist over the grids of two halves of a stream into one table,
+    then train_rows == K13 over the whole stream, and each half == its
+    plain version."""
+    model = _TRAIN[name]
+    rng = np.random.default_rng(5)
+    L = 256
+    counts = rng.integers(1, 40, 8 * L).astype(np.int64)
+    syms = rng.integers(0, model.alphabet, int(counts.sum())).astype(
+        np.uint8)
+    ctx = rng.integers(0, 4, len(syms)).astype(np.int32)
+    cut = int(counts[:4 * L].sum())
+
+    def grids(cnt, lo, hi):
+        lay = make_layout(cnt, L)
+        cx = (torch.from_numpy(to_grid(lay, ctx[lo:hi]))
+              if isinstance(model, FlatModel) else None)
+        return (torch.from_numpy(to_grid(lay, syms[lo:hi])),
+                torch.from_numpy(engine._counts_grid(cnt, L)), cx)
+
+    halves = [grids(counts[:4 * L], 0, cut),
+              grids(counts[4 * L:], cut, len(syms))]
+    h = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32)
+    hc = h.to(cuda)
+    for g, cg, cx in halves:
+        kernels.train_hist(g, cg, model, h, cx)
+        kernels.train_hist(g.to(cuda), cg.to(cuda), model, hc,
+                           None if cx is None else cx.to(cuda))
+    assert torch.equal(hc.cpu(), h)
+    rows = kernels.train_rows(hc, model)
+    assert torch.equal(rows.cpu(), kernels.train_rows(h.clone(), model))
+    g, cg, cx = grids(counts, 0, len(syms))
+    whole = kernels.train_counts(g.to(cuda), cg.to(cuda), model,
+                                 None if cx is None else cx.to(cuda))
+    assert torch.equal(rows, whole)
+
+
+def _frozen_stream(cuda, model, seed=9, R=3000, L=256):
+    rng = np.random.default_rng(seed)
+    counts, lay, syms, table = _stream(rng, model, R=R, L=L, maxlen=90)
+    cum, packed = kernels.quant_pack(torch.from_numpy(table).to(cuda))
+    g = torch.from_numpy(to_grid(lay, syms)).to(cuda)
+    cg = torch.from_numpy(engine._counts_grid(counts, L)).to(cuda)
+    words, emit, states = kernels.frozen_encode_lanes(g, cg, packed, model)
+    out, n = kernels.compact_words(words, emit)
+    n = int(n.item())
+    W = 1024
+    while W < n + 8:
+        W <<= 1
+    wpad = torch.zeros(W, dtype=torch.int16, device=cuda)
+    wpad[:n] = out[:n]
+    return lay, g, cg, cum, states, wpad
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("model", _MODELS[:2], ids=lambda m: type(m).__name__)
+def test_ctx_shard_decode_matches_k4_and_plain(cuda, model, D):
+    """K18 with the table in D row shards == K4 on the whole table (the
+    stream's symbols) and == its plain version (symbols and final
+    states, every lane back at RANS_L)."""
+    from fastqueeze_tpu_torch.config import RANS_L
+    lay, g, cg, cum, states, wpad = _frozen_stream(cuda, model)
+    k4 = kernels.frozen_decode(states, wpad, cg, lay.T, cum, model)
+    n = model.n_ctx // D
+    cums = [cum[i * n:(i + 1) * n] for i in range(D)]
+    kernels.reset_launch_counts()
+    out, x = kernels.ctx_shard_decode(states, wpad, cg, lay.T, cums, model)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctx_shard_decode"] == lay.T + 1
+    assert torch.equal(out, k4) and torch.equal(out, g)
+    assert bool(((x.long() & 0xFFFFFFFF) == RANS_L).all())
+    po, px = kernels.ctx_shard_decode_plain(
+        states.cpu(), wpad.cpu(), cg.cpu(), lay.T, [c.cpu() for c in cums],
+        model)
+    assert torch.equal(out.cpu(), po) and torch.equal(x.cpu(), px)
+
+
+def test_ctx_shard_steps_match_one_call(cuda):
+    """The wave-at-a-time route that shards on several cards take (two
+    groups of two shards, their partials summed with mesh.psum between
+    the steps), run on one card, == the one-call route."""
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    model = _MODELS[1]
+    lay, g, cg, cum, states, wpad = _frozen_stream(cuda, model, seed=3)
+    n = model.n_ctx // 4
+    cums = [cum[i * n:(i + 1) * n] for i in range(4)]
+    want, wx = kernels.ctx_shard_decode(states, wpad, cg, lay.T, cums, model)
+    runs = [kernels.ShardDecode(states, wpad, cg, lay.T, cums[2 * i:2 * i + 2],
+                                model, shard0=2 * i, writer=i == 0)
+            for i in range(2)]
+    xin = [None, None]
+    for t in range(lay.T + 1):
+        outs = [r.step(t, x) for r, x in zip(runs, xin)]
+        xin = [s[None] for s in tm.psum([o.sum(0, dtype=torch.int32)
+                                         for o in outs])]
+    assert torch.equal(runs[0].out, want) and torch.equal(runs[0].x, wx)
+
+
+@pytest.mark.parametrize("case", [dict(k=14), dict(k=22),
+                                  dict(k=14, n_seeds=6, excl_bp=7,
+                                       n_cand=64)])
+def test_sharded_align_matches_plain(cuda, case):
+    """K19 through the index-sharded aligner on 4 shards sharing the card
+    == the same call on 4 CPU shards (every phase's plain version):
+    mapped, pos, rev and mask."""
+    from fastqueeze_tpu_torch.align.hash import _gridify
+    from fastqueeze_tpu_torch.align.index import build_from_ref
+    from fastqueeze_tpu_torch.align.ref import RefSeq
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    k = case["k"]
+    al, codes, dege, lengths = _align_fixture(k)
+    rng = np.random.default_rng(41)
+    ref = rng.integers(0, 4, 40_000).astype(np.uint8)
+    for j in range(40):
+        ref[9000 + j * 70:9000 + j * 70 + 60] = ref[:60]
+    p = CodecParams(seed_len=k)
+    idx = build_from_ref(RefSeq(ref, np.zeros(len(ref), bool), ["r"],
+                                np.array([0, len(ref)]), ""), p)
+    sh = tm.shard_ref_index(idx, 4)
+    c, d = _gridify(codes, dege, lengths, 128)
+    kw = {n: case[n] for n in ("n_seeds", "excl_bp", "n_cand") if n in case}
+    cpu = torch.device("cpu")
+    want = tm.align_blocks_index_sharded(
+        tm.Mesh([cpu] * 4, ctx_shards=4), p, sh, c, d, lengths, **kw)
+    kernels.reset_launch_counts()
+    got = tm.align_blocks_index_sharded(
+        tm.Mesh([cuda] * 4, ctx_shards=4), p, sh, c, d, lengths, **kw)
+    assert kernels.LAUNCHES["sharded_align"] == 2 * (3 * 4) + 1
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    assert want[0].sum() > len(lengths) // 4     # the fixture's mappable
+
+
+def test_block_worker_launches_on_its_shard_stream(cuda, monkeypatch):
+    """device_cycled runs block i under device i % N and a stream of its
+    own; a kernel the block launches goes to that stream (not the
+    default one), and two shards on one card get two streams."""
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    seen = []
+    real = kernels._launch
+
+    def spy(fn, name, dev, *args, **kw):
+        seen.append((name, torch.cuda.current_stream(dev).cuda_stream))
+        return real(fn, name, dev, *args, **kw)
+
+    monkeypatch.setattr(kernels, "_launch", spy)
+    table = torch.from_numpy(np.random.default_rng(1).integers(
+        1, 40, (256, 4)).astype(np.int32))
+
+    def work(i, item, device):
+        cum, _ = kernels.quant_pack(item.to(device))
+        return (torch.cuda.current_stream(device).cuda_stream,
+                cum.cpu())
+
+    run = tm.device_cycled([cuda, cuda], work)
+    outs = [run(i, table) for i in range(4)]
+    default = torch.cuda.default_stream(cuda).cuda_stream
+    streams = [s for s, _ in outs]
+    assert [s for _, s in seen] == streams
+    assert default not in streams
+    assert streams[0] == streams[2] != streams[1] == streams[3]
+    want = kernels.quant_pack(table)[0]
+    assert all(torch.equal(c, want) for _, c in outs)
