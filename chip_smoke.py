@@ -44,7 +44,10 @@ Phases (any failure raises and exits non-zero):
      torch.masked_select timed as the library calls of K17's two parts;
      K1 on the seq table as u8 and a qual table as u16 (== K1 on int32);
      and one stream's host<->device copies, packed and unpacked; K13's
-     halves (train_hist, train_rows) == K13 at the frozen shape; K18 at
+     halves (train_hist, train_rows) == K13 at the frozen shape, and
+     train_hist on Markov qualities beside torch.bincount of its keys;
+     K4's thread-block cluster (CTAs, threads, lanes a thread, how many
+     fit the card) and its time a wave on each table; K18 at
      the frozen shape on a --qlevel 3 qual table (2^20 rows) with the
      table in D = 2 and 4 row shards == K4 on the whole table (and every
      lane back at the encoder's initial state), == its plain version on
@@ -387,6 +390,26 @@ def _coder_cases(dev):
                torch.from_numpy(table).to(dev), cg)
 
 
+# K4's thread-block cluster at L_MAIN and its time a wave, by table
+K4_SHAPE = {}
+
+
+def _k4_shape(m, ms: float, tag: str) -> dict:
+    """The cluster K4 ran for L_MAIN lanes (kernels.frozen_decode_shape:
+    cudaOccupancyMaxActiveClusters says how many fit the card), printed
+    with the kernel's time a wave."""
+    from fastqueeze_tpu_torch.ops import kernels
+    shape = dict(kernels.frozen_decode_shape(L_MAIN, m),
+                 ms_per_wave=ms / T_MAIN, ms=ms)
+    if shape["max_active_clusters"] < 1:
+        raise AssertionError(f"K4's cluster {shape} does not fit the card")
+    print(f"  {tag:22s} frozen_decode cluster: {shape['ctas']} CTAs x "
+          f"{shape['threads']} threads, {shape['lanes_per_thread']} lane(s) "
+          f"a thread, {shape['max_active_clusters']} such clusters fit the "
+          f"card; {ms:.3f} ms = {shape['ms_per_wave'] * 1e3:.3f} us a wave")
+    return shape
+
+
 def check_kernels():
     """Each kernel vs its plain version, same inputs on the card."""
     import torch
@@ -428,6 +451,7 @@ def check_kernels():
             p4_ms)
         if not torch.equal(k4.cpu(), torch.from_numpy(to_grid(lay, syms))):
             raise AssertionError(f"{tag}: decode does not invert encode")
+        K4_SHAPE[tag] = _k4_shape(m, r["frozen_decode"][1], tag)
         if tag == "seq_order10":
             nsym = R_MAIN * READ_LEN
 
@@ -715,6 +739,37 @@ def check_adaptive_kernels():
     return rows
 
 
+def _train_qual(R: int, lay, cg) -> dict:
+    """K13's histogram half on phase 4's quality model over Markov
+    qualities (repeating contexts: same-address atomics) at the frozen
+    shape, against its plain version and torch.bincount of its keys."""
+    import torch
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.models.base import qual_model_for
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.ops.lanes import to_grid
+    m = qual_model_for(CodecParams(), 40)
+    rng = np.random.default_rng(SEED + 17)
+    q = (_markov_quals(rng, R) - 35).astype(np.uint8).reshape(-1)
+    g = torch.from_numpy(to_grid(lay, q)).to(cg.device)
+    h = torch.zeros((m.n_ctx, m.alphabet), dtype=torch.int32,
+                    device=cg.device)
+    kernels.train_hist(g, cg, m, h)
+    want = kernels.train_hist_plain(g, cg, m, torch.zeros_like(h))
+    if not torch.equal(h, want):
+        raise AssertionError("train_hist (qualities) != its plain version")
+    valid, aux = kernels.device_aux_plain(g.shape[0], cg)
+    flat = (m.context_grids(g, aux).long() * m.alphabet + g.long())[valid]
+    out = {"ms": _time_ms(lambda: kernels.train_hist(
+               g, cg, m, h.zero_()), 5),
+           "bincount_ms": _time_ms(lambda: torch.bincount(
+               flat, minlength=m.n_ctx * m.alphabet), 5)}
+    print(f"  train_qual_markov40 (n_ctx {m.n_ctx} x 40) train_hist "
+          f"{out['ms']:.3f} ms, torch.bincount {out['bincount_ms']:.3f} ms;"
+          f" == its plain version")
+    return out
+
+
 def check_semi_kernels():
     """K13 at the frozen shape, then K11 -> K7 -> K3 -> K12 at the
     adaptive shape with chunk 64, from a fresh table and from the table
@@ -781,6 +836,7 @@ def check_semi_kernels():
                             _OPS["train_counts"] * R * READ_LEN,
                             BOUNDS["train_counts"][2])
     BOUNDS["train_rows"] = (2 * _nbytes(hk), 3 * hk.numel(), None)
+    PAIR_MS["train_hist_qual"] = _train_qual(R, lay, cg)
     del g, cg, flat, valid, aux, hk, hp, rk, rp, work
 
     reads = np.full(R_ADAPT, READ_LEN, np.int64)
@@ -897,6 +953,7 @@ def check_ctx_shard_kernel():
     PAIR_MS["k4_q3"] = k4_ms
     print(f"  qual_q3 (2^20 x 41 table, {cum.numel()} entries): K4 "
           f"{k4_ms:.3f} ms on the whole table")
+    K4_SHAPE["qual_q3"] = _k4_shape(m, k4_ms, "qual_q3")
     rows = {}
     for D in MESH_DS:
         nr = m.n_ctx // D
@@ -2565,6 +2622,10 @@ def main() -> int:
     by_name["quant_pack"]["narrow_tables"] = {
         key: {"ms": r["quant_pack"][1], "max_abs_err": r["quant_pack"][0]}
         for key, r in rows.items() if key.startswith("quant_pack_")}
+    # K4's cluster and time a wave on each table; K13's histogram on
+    # qualities
+    by_name["frozen_decode"]["cluster_by_table"] = K4_SHAPE
+    by_name["train_hist"]["qual_markov40"] = PAIR_MS["train_hist_qual"]
     # K18 at each row-shard count, beside K4 on the same stream and table
     by_name["ctx_shard_decode"]["k4_same_stream_ms"] = PAIR_MS["k4_q3"]
     by_name["ctx_shard_decode"]["plain_waves"] = CTX_PLAIN_T

@@ -1,30 +1,61 @@
-// K4 frozen_decode: frozen-table rANS decode of one stream, one CTA.
+// K4 frozen_decode: frozen-table rANS decode of one stream, one thread
+// block cluster.
 //
 // Replaces fastqueeze_tpu/ops/engine.py _device_aux (B1) and
-// _decode_frozen (B6).  Every wave needs an exclusive scan across all
-// lanes (a lane that renormalizes reads the word at off + its rank among
-// the lanes that renormalize), so one CTA owns the whole stream and each
-// thread owns ceil(L / blockDim) consecutive lanes: lane order is thread
-// order, then order within the thread.  Per wave the CTA
-//   1. steps each lane's read cursor and model state and computes its
-//      context,
-//   2. binary-searches the u16 cumulative row for the largest s with
-//      F[s] <= low (rows are strictly increasing, so any search variant
-//      gives the reference's symbol),
-//   3. runs the rANS decode and a block-wide exclusive scan of `need`,
-//   4. reads words[min(off + rank, W - 1)] into the lanes that need one
-//      (the clamp keeps a corrupt payload inside the padded buffer, as
-//      the reference's clamp does), and advances off.
-// Lane state lives in a global scratch array (L2-resident: 64 B a lane),
-// so any L up to the 2^16 lanes the format allows fits.  One CTA per
-// stream leaves all other SMs idle: the wave loop is latency-bound on
-// the dependent table fetches and the two barriers of each wave's scan.
+// _decode_frozen (B6).  The wave loop is sequential: a lane that
+// renormalizes reads the word at off + its rank among the lanes that
+// renormalize in this wave, so wave t + 1's word offset depends on every
+// lane of every earlier wave.  Each wave is a dependent chain, and what
+// bounds the stream on an H100 is that chain's latency, T times over:
+// fetch the context's cumulative row (L2, or HBM for tables past the 50
+// MB L2), find the symbol, rank the lanes that renormalize, fetch their
+// words.  The first design ran one CTA of 1,024 threads per stream, 4
+// lanes a thread walked one after another with their state in global
+// scratch, a dependent binary search over the row (log2 A loads) and a
+// three-barrier block scan: ~35 us a wave on the order-10 seq table.
+//
+// This design spreads a wave over a cluster of up to 8 CTAs on 8 SMs and
+// shortens its chain:
+//   - lanes are split over the cluster's threads in lane order; up to
+//     8 x 512 lanes (the default lanes_max is 4096) each thread owns one
+//     lane and keeps its model state, read cursor and rANS state in
+//     registers (decode_one).  Above that a thread owns up to
+//     ceil(L / 8192) consecutive lanes whose state stays in an
+//     L2-resident scratch (decode_multi; the format allows 2^16 lanes);
+//   - the row is fetched in one go: the aligned 16-byte segments that
+//     hold its A + 1 u16 entries are loaded together, and the symbol is
+//     the count of entries F[s] <= low for s in 1..A-1, with start the
+//     largest such entry (or F[0]) and end the smallest entry above low
+//     (or F[A]).  Rows are non-decreasing, so this is the reference's
+//     "largest s with F[s] <= low" and its (start, freq);
+//   - in decode_one the next wave's context depends only on this wave's
+//     symbol, so its row is fetched before this wave's rank and word
+//     fetch, and arrives while they run;
+//   - the rank: each CTA scans its threads' need counts (one
+//     __syncthreads), then pushes its total, tagged with the wave, into
+//     a slot of every CTA's shared memory (one 64-bit remote store each
+//     through distributed shared memory), and each warp polls its own
+//     CTA's slots for the lower ranks' sum and the grand total.  The
+//     slots are double-buffered by wave parity, so no cluster barrier
+//     runs inside the wave loop (on an H100 the order-10 seq stream
+//     took 2.98 us a wave with one cluster barrier a wave, 2.60 us with
+//     this), and every CTA advances its own copy of off by the grand
+//     total (no global counter, no atomics);
+//   - the word read stays words[min(off + rank, W - 1)] (the clamp keeps
+//     a corrupt payload inside the padded buffer, as the reference's
+//     clamp does); the next wave's window of words is prefetched into L2
+//     once off is known.
+// Padding slots (t >= the lane's length) write 0.  The output is the
+// (T, L) u8 symbol grid, as before.
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "lane_walk.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -32,7 +63,10 @@ using fqk::ModelSpec;
 using fqk::ModelState;
 using fqk::ReadCursor;
 
-constexpr int kThreads = 1024;
+constexpr int kCtas = 8;            // CTAs a cluster (the portable maximum)
+constexpr int kOneThreads = 512;    // threads a CTA, one lane a thread
+constexpr int kMultiThreads = 1024; // threads a CTA, several lanes a thread
+constexpr uint32_t kFull = 0xFFFFFFFFu;
 
 struct Lane {
     ModelState s;
@@ -43,75 +77,386 @@ struct Lane {
     int32_t sym;      // this wave's symbol
 };
 
-template <int KIND>
-__global__ void __launch_bounds__(kThreads)
-frozen_decode(const uint32_t* __restrict__ states0,
-              const uint16_t* __restrict__ words, int64_t W,
-              const int32_t* __restrict__ cgrid, int32_t J, int32_t T,
-              int32_t L, const uint16_t* __restrict__ cum, int32_t A,
-              ModelSpec m, Lane* __restrict__ lanes,
-              uint8_t* __restrict__ out) {
-    const int32_t per = (L + kThreads - 1) / kThreads;
-    const int32_t l0 = threadIdx.x * per;
-    const int32_t l1 = min(l0 + per, L);
+struct Args {
+    const uint32_t* states0;
+    const uint16_t* words;
+    int64_t W;
+    const int32_t* cgrid;
+    int32_t J, T, L;
+    const uint16_t* cum;
+    int32_t A;
+    Lane* lanes;      // decode_multi's lane states
+    int32_t per;      // lanes a thread (decode_multi)
+    uint8_t* out;
+};
+
+struct Shape {
+    int ctas, threads, per;
+    bool one;         // one lane a thread, state in registers
+};
+
+Shape shape_for(int32_t L) {
+    Shape s;
+    int64_t need;
+    if (L <= kCtas * kOneThreads) {
+        s.one = true;
+        s.per = 1;
+        need = L;
+        s.ctas = static_cast<int>((need + kOneThreads - 1) / kOneThreads);
+    } else {
+        s.one = false;
+        s.per = static_cast<int>((int64_t(L) + kCtas * kMultiThreads - 1)
+                                 / (kCtas * kMultiThreads));
+        need = (int64_t(L) + s.per - 1) / s.per;
+        s.ctas = kCtas;
+    }
+    if (s.ctas < 1) s.ctas = 1;
+    const int64_t t = (need + s.ctas - 1) / s.ctas;
+    s.threads = static_cast<int>(((t + 31) / 32) * 32);
+    if (s.threads < 32) s.threads = 32;
+    return s;
+}
+
+// --- the row fetch and the search in registers ----------------------------
+
+// The aligned 16-byte segments holding one row's A + 1 u16 entries; NSEG
+// of them are loaded at once (a longer row loads the rest in batches of
+// NSEG when it is searched).
+template <int NSEG>
+struct Row {
+    uint4 seg[NSEG];
+    const uint4* base;   // first aligned segment
+    int32_t head;        // byte offset of F[0] in it
+    int32_t nseg;        // segments holding the row
+};
+
+template <int NSEG>
+__device__ __forceinline__ void load_batch(Row<NSEG>& r, int32_t i0) {
+#pragma unroll
+    for (int i = 0; i < NSEG; ++i)
+        r.seg[i] = i0 + i < r.nseg ? __ldg(r.base + i0 + i)
+                                   : make_uint4(0, 0, 0, 0);
+}
+
+template <int NSEG>
+__device__ __forceinline__ void row_fetch(Row<NSEG>& r,
+                                          const uint16_t* __restrict__ cum,
+                                          int64_t ctx, int32_t A) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(cum + ctx * (A + 1));
+    r.base = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+    r.head = static_cast<int32_t>(a & 15);
+    r.nseg = (r.head + 2 * (A + 1) + 15) >> 4;
+    load_batch(r, 0);
+}
+
+// Entries e and e + 1 (the low and high halves of w) into the search.
+__device__ __forceinline__ void search_pair(uint32_t w, int32_t e, int32_t A,
+                                            uint32_t low, int32_t& cnt,
+                                            uint32_t& start, uint32_t& end) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const uint32_t v = (w >> (16 * h)) & 0xFFFFu;
+        const int32_t k = e + h;
+        if (k == 0) {
+            start = max(start, v);
+        } else if (k >= 1 && k < A) {
+            if (v <= low) {
+                ++cnt;
+                start = max(start, v);
+            } else {
+                end = min(end, v);
+            }
+        } else if (k == A) {
+            end = min(end, v);
+        }
+    }
+}
+
+// sym = #{s in 1..A-1 : F[s] <= low} (the largest such s, rows being
+// non-decreasing), start = F[sym], f = F[sym + 1] - start.
+template <int NSEG>
+__device__ __forceinline__ void row_search(Row<NSEG>& r, int32_t A,
+                                           uint32_t low, int32_t& sym,
+                                           uint32_t& start, uint32_t& f) {
+    int32_t cnt = 0;
+    uint32_t st = 0, en = 0xFFFFu;
+    for (int32_t i0 = 0; i0 < r.nseg; i0 += NSEG) {
+        if (i0) load_batch(r, i0);
+#pragma unroll
+        for (int i = 0; i < NSEG; ++i) {
+            const int32_t e = (16 * (i0 + i) - r.head) >> 1;
+            search_pair(r.seg[i].x, e, A, low, cnt, st, en);
+            search_pair(r.seg[i].y, e + 2, A, low, cnt, st, en);
+            search_pair(r.seg[i].z, e + 4, A, low, cnt, st, en);
+            search_pair(r.seg[i].w, e + 6, A, low, cnt, st, en);
+        }
+    }
+    sym = cnt;
+    start = st;
+    f = en - st;
+}
+
+// --- the per-wave rank across the cluster ---------------------------------
+
+struct RankSmem {
+    int32_t wsum[2][32];          // per warp: inclusive sum of its needs
+    uint64_t slot[2][kCtas];      // per CTA r of the cluster: its total,
+                                  // pushed by r, tagged (wave << 32)
+};
+
+__device__ __forceinline__ int32_t warp_inclusive(int32_t v, int lane) {
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int32_t y = __shfl_up_sync(kFull, v, d);
+        if (lane >= d) v += y;
+    }
+    return v;
+}
+
+// Before the first wave: no slot holds a wave's tag, and no CTA pushes
+// into another's slots before that CTA has cleared them.
+__device__ __forceinline__ void rank_init(cg::cluster_group& cl,
+                                          RankSmem& sm) {
+    if (threadIdx.x < 2 * kCtas) (&sm.slot[0][0])[threadIdx.x] = ~0ull;
+    cl.sync();
+}
+
+// This thread's exclusive rank among the cluster's need counts of wave t,
+// and (*grand) their sum over the cluster.  The CTA scans its need counts
+// (one __syncthreads; each warp scans the warp sums itself), then warp 0
+// pushes the CTA's total, tagged with t, into slot [t & 1][its rank] of
+// every CTA's shared memory (a 64-bit remote store each, so the tag and
+// the total arrive together), and each warp polls its own CTA's slots
+// until all carry tag t.  A CTA can push wave t + 2 into a slot only
+// after every CTA pushed wave t + 1, which each does after all its warps
+// read wave t's slots, so the two parities never collide; and a CTA
+// finishes only after every push into it has arrived, so none needs to
+// wait for the others at the end.  A poll that never sees its tag traps
+// (a fault, not a hang).
+__device__ __forceinline__ int32_t cluster_rank(cg::cluster_group& cl,
+                                                RankSmem& sm, int32_t t,
+                                                int32_t need,
+                                                int32_t* grand) {
+    const int p = t & 1;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    const int nctas = static_cast<int>(cl.num_blocks());
+    const int rank = static_cast<int>(cl.block_rank());
+    const int32_t incl = warp_inclusive(need, lane);
+    if (lane == 31) sm.wsum[p][warp] = incl;
+    __syncthreads();
+    const int32_t v = lane < nw ? sm.wsum[p][lane] : 0;
+    const int32_t vi = warp_inclusive(v, lane);
+    const int32_t below = __shfl_sync(kFull, vi - v, warp);
+    const int32_t cta_total = __shfl_sync(kFull, vi, 31);
+    const uint32_t tag = static_cast<uint32_t>(t);
+    if (warp == 0 && lane < nctas)
+        *reinterpret_cast<volatile uint64_t*>(
+            cl.map_shared_rank(&sm.slot[p][rank], lane)) =
+            (uint64_t(tag) << 32) | static_cast<uint32_t>(cta_total);
+    int32_t tot = 0;
+    if (lane < nctas) {
+        const volatile uint64_t* s = &sm.slot[p][lane];
+        uint64_t x = *s;
+        for (uint32_t spins = 0; static_cast<uint32_t>(x >> 32) != tag;
+             x = *s)
+            if (++spins == (1u << 28)) __trap();
+        tot = static_cast<int32_t>(static_cast<uint32_t>(x));
+    }
+    *grand = __reduce_add_sync(kFull, tot);
+    const int32_t lower = __reduce_add_sync(kFull, lane < rank ? tot : 0);
+    return lower + below + incl - need;
+}
+
+// Once off is known, rank 0 asks L2 for the next wave's window of words
+// (at most L of them): 64 words a line.
+__device__ __forceinline__ void prefetch_words(cg::cluster_group& cl,
+                                               const Args& a, int64_t off) {
+    if (cl.block_rank() != 0) return;
+    const int64_t w = off + int64_t(threadIdx.x) * 64;
+    if (w < a.W && int64_t(threadIdx.x) * 64 < a.L)
+        asm volatile("prefetch.global.L2 [%0];" :: "l"(a.words + w));
+}
+
+__device__ __forceinline__ uint32_t renorm(const Args& a, uint32_t xn,
+                                           int64_t w) {
+    return (xn << 16) | __ldg(a.words + (w < a.W ? w : a.W - 1));
+}
+
+// --- one lane a thread: state in registers --------------------------------
+
+template <int KIND, int NSEG>
+__global__ void __launch_bounds__(kOneThreads)
+decode_one(Args a, ModelSpec m) {
+    cg::cluster_group cl = cg::this_cluster();
+    __shared__ RankSmem sm;
+    const int32_t L = a.L;
+    const int32_t l = static_cast<int32_t>(cl.block_rank()) * blockDim.x
+                      + threadIdx.x;
+    const bool has = l < L;
+    const int32_t n = has ? fqk::lane_length(a.cgrid, a.J, L, l) : 0;
+    uint32_t x = has ? a.states0[l] : 0u;
+    ModelState s;
+    fqk::model_reset<KIND>(m, s);
+    ReadCursor cur{-1, 0, 0};
+    Row<NSEG> row;
+    if (n > 0) {
+        fqk::cursor_next(cur, a.cgrid, a.J, L, l);
+        row_fetch(row, a.cum, fqk::model_ctx<KIND>(m, s, cur.pos), a.A);
+    }
+    rank_init(cl, sm);
+    int64_t off = 0;
+    for (int32_t t = 0; t < a.T; ++t) {
+        const int64_t idx = int64_t(t) * L + l;
+        uint32_t xn = 0;
+        int32_t need = 0;
+        if (t < n) {
+            const uint32_t low = x & fqk::kMaskM;
+            int32_t sym;
+            uint32_t start, f;
+            row_search(row, a.A, low, sym, start, f);
+            xn = f * (x >> fqk::kProbBits) + low - start;
+            need = xn < fqk::kRansL;
+            a.out[idx] = static_cast<uint8_t>(sym);
+            fqk::model_update<KIND>(m, s, sym);
+            --cur.rem;
+            ++cur.pos;
+            if (t + 1 < n) {       // the next wave's row, fetched now
+                if (fqk::cursor_next(cur, a.cgrid, a.J, L, l))
+                    fqk::model_reset<KIND>(m, s);
+                row_fetch(row, a.cum, fqk::model_ctx<KIND>(m, s, cur.pos),
+                          a.A);
+            }
+        } else if (has) {
+            a.out[idx] = 0;
+        }
+        int32_t grand;
+        const int32_t rank = cluster_rank(cl, sm, t, need, &grand);
+        if (t < n) x = need ? renorm(a, xn, off + rank) : xn;
+        off += grand;
+        prefetch_words(cl, a, off);
+    }
+}
+
+// --- several lanes a thread: state in scratch -----------------------------
+
+template <int KIND, int NSEG>
+__global__ void __launch_bounds__(kMultiThreads)
+decode_multi(Args a, ModelSpec m) {
+    cg::cluster_group cl = cg::this_cluster();
+    __shared__ RankSmem sm;
+    const int32_t L = a.L;
+    const int32_t g = static_cast<int32_t>(cl.block_rank()) * blockDim.x
+                      + threadIdx.x;
+    const int32_t l0 = min(g * a.per, L);
+    const int32_t l1 = min(l0 + a.per, L);
     for (int32_t l = l0; l < l1; ++l) {
-        Lane& ln = lanes[l];
+        Lane& ln = a.lanes[l];
         fqk::model_reset<KIND>(m, ln.s);
         ln.cur = ReadCursor{-1, 0, 0};
-        ln.x = states0[l];
-        ln.n = fqk::lane_length(cgrid, J, L, l);
+        ln.x = a.states0[l];
+        ln.n = fqk::lane_length(a.cgrid, a.J, L, l);
     }
+    rank_init(cl, sm);
     int64_t off = 0;
-    for (int32_t t = 0; t < T; ++t) {
+    for (int32_t t = 0; t < a.T; ++t) {
         int32_t need = 0;
         for (int32_t l = l0; l < l1; ++l) {
-            Lane& ln = lanes[l];
+            Lane& ln = a.lanes[l];
             if (t >= ln.n) continue;
-            if (fqk::cursor_next(ln.cur, cgrid, J, L, l))
+            if (fqk::cursor_next(ln.cur, a.cgrid, a.J, L, l))
                 fqk::model_reset<KIND>(m, ln.s);
-            const int64_t ctx = fqk::model_ctx<KIND>(m, ln.s, ln.cur.pos);
-            const uint16_t* row = cum + ctx * (A + 1);
+            Row<NSEG> row;
+            row_fetch(row, a.cum, fqk::model_ctx<KIND>(m, ln.s, ln.cur.pos),
+                      a.A);
             const uint32_t low = ln.x & fqk::kMaskM;
-            int32_t lo = 0, hi = A - 1;
-            while (lo < hi) {
-                const int32_t mid = (lo + hi + 1) >> 1;
-                if (row[mid] <= low) lo = mid;
-                else hi = mid - 1;
-            }
-            const uint32_t start = row[lo];
-            const uint32_t f = row[lo + 1] - start;
+            uint32_t start, f;
+            row_search(row, a.A, low, ln.sym, start, f);
             ln.xn = f * (ln.x >> fqk::kProbBits) + low - start;
-            ln.sym = lo;
             need += ln.xn < fqk::kRansL;
         }
-        int32_t total;
-        int64_t w = off + fqk::block_exclusive_scan<kThreads>(need, &total);
+        int32_t grand;
+        int64_t w = off + cluster_rank(cl, sm, t, need, &grand);
         for (int32_t l = l0; l < l1; ++l) {
-            Lane& ln = lanes[l];
+            Lane& ln = a.lanes[l];
             const int64_t idx = int64_t(t) * L + l;
             if (t >= ln.n) {
-                out[idx] = 0;
+                a.out[idx] = 0;
                 continue;
             }
             uint32_t xn = ln.xn;
-            if (xn < fqk::kRansL) {
-                xn = (xn << 16) | words[w < W ? w : W - 1];
-                ++w;
-            }
+            if (xn < fqk::kRansL) xn = renorm(a, xn, w++);
             ln.x = xn;
-            out[idx] = static_cast<uint8_t>(ln.sym);
+            a.out[idx] = static_cast<uint8_t>(ln.sym);
             fqk::model_update<KIND>(m, ln.s, ln.sym);
             --ln.cur.rem;
             ++ln.cur.pos;
         }
-        off += total;
+        off += grand;
+        prefetch_words(cl, a, off);
     }
+}
+
+// --- launch ---------------------------------------------------------------
+
+// Segments loaded at once: seq rows (A = 4) fit in 2, quality rows of up
+// to 56 symbols in 8.
+template <int KIND>
+constexpr int kSeg = KIND == 0 ? 2 : 8;
+
+using KernelFn = void (*)(Args, ModelSpec);
+
+KernelFn kernel_for(int32_t kind, bool one) {
+    if (kind == 0) return one ? &decode_one<0, kSeg<0>>
+                              : &decode_multi<0, kSeg<0>>;
+    if (kind == 1) return one ? &decode_one<1, kSeg<1>>
+                              : &decode_multi<1, kSeg<1>>;
+    return nullptr;
+}
+
+cudaLaunchConfig_t cluster_config(const Shape& sh, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(sh.ctas, 1, 1);
+    cfg.blockDim = dim3(sh.threads, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = sh.ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
 }
 
 }  // namespace
 
-// lanes: scratch of L * sizeof(Lane) bytes (fq_decode_lane_bytes()).
+// lanes: scratch of L * sizeof(Lane) bytes (fq_decode_lane_bytes()), used
+// when L > 4096 (several lanes a thread).
 extern "C" int64_t fq_decode_lane_bytes() { return sizeof(Lane); }
+
+// The cluster K4 launches for L lanes: out[0] CTAs (the cluster's size),
+// out[1] threads a CTA, out[2] lanes a thread, out[3] how many such
+// clusters the card can hold at once (cudaOccupancyMaxActiveClusters;
+// 0: the card cannot run it).
+extern "C" int fq_frozen_decode_shape(int32_t L, int32_t kind,
+                                      int32_t* out) {
+    const Shape sh = shape_for(L);
+    const KernelFn k = kernel_for(kind, sh.one);
+    if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(sh, nullptr, attr);
+    int clusters = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(k), &cfg);
+    out[0] = sh.ctas;
+    out[1] = sh.threads;
+    out[2] = sh.per;
+    out[3] = clusters;
+    return static_cast<int>(e);
+}
 
 extern "C" int fq_frozen_decode(
         const uint32_t* states0, const uint16_t* words, int64_t W,
@@ -120,15 +465,16 @@ extern "C" int fq_frozen_decode(
         int64_t c, int64_t d, int64_t e, int64_t f, int64_t g, void* lanes,
         uint8_t* out, void* stream) {
     const ModelSpec m{kind, a, b, c, d, e, f, g};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    Lane* ls = static_cast<Lane*>(lanes);
-    if (kind == 0)
-        frozen_decode<0><<<1, kThreads, 0, st>>>(
-            states0, words, W, cgrid, J, T, L, cum, A, m, ls, out);
-    else if (kind == 1)
-        frozen_decode<1><<<1, kThreads, 0, st>>>(
-            states0, words, W, cgrid, J, T, L, cum, A, m, ls, out);
-    else
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (L <= 0 || T <= 0) return 0;
+    const Shape sh = shape_for(L);
+    const KernelFn k = kernel_for(kind, sh.one);
+    if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const Args args{states0, words, W, cgrid, J, T, L, cum, A,
+                    static_cast<Lane*>(lanes), sh.per, out};
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(
+        sh, static_cast<cudaStream_t>(stream), attr);
+    const cudaError_t rc = cudaLaunchKernelEx(&cfg, k, args, m);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
     return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,11 @@ K2 frozen_encode_lanes per-lane walk + gather + reverse rANS
                        _pass2)
 K3 compact_words       emitted words -> dense prefix + count
                        (engine._compact_words)
-K4 frozen_decode       one CTA per stream, per-wave lane walk, search,
-                       rANS decode and renorm scan (engine._decode_frozen)
+K4 frozen_decode       one thread-block cluster (up to 8 CTAs) per
+                       stream, one lane a thread: per-wave lane walk, row
+                       fetch + search in registers, rANS decode and a
+                       renorm rank across the cluster
+                       (engine._decode_frozen)
 Adaptive coder:
 K5 adapt_encode_walk   one CTA per stream, per-wave lane walk, row quant
                        from the shared count table, scatter-add, halving
@@ -31,8 +34,10 @@ K12 semi_decode        per chunk the same row pass, then one CTA decodes
                        the chunk's waves against the snapshot
                        (engine._decode_semi)
 Trainer:
-K13 train_counts       lane walk + atomicAdd histogram, then the row
-                       init and cap rescale (engine._train_counts); its
+K13 train_counts       a thread per (chunk of waves, lane), the walk's
+                       state carried in at the chunk start, + atomicAdd
+                       histogram, then the row init and cap rescale
+                       (engine._train_counts); its
                        halves train_hist and train_rows on their own for
                        the mesh trainer (parallel/mesh.py
                        train_counts_sharded)
@@ -215,9 +220,12 @@ def _lib() -> ctypes.CDLL:
                 + [vp] * 4)
             lib.fq_train_counts.argtypes = (
                 [vp, vp, i32, i32, vp, i32] + spec + [i64] + [i32] * 3
-                + [vp] * 2)
+                + [vp, i32, vp, vp])
             lib.fq_train_hist.argtypes = (
-                [vp, vp, i32, i32, vp, i32] + spec + [i32, vp, vp])
+                [vp, vp, i32, i32, vp, i32] + spec + [i32, vp, i32, vp, vp])
+            lib.fq_train_scratch_bytes.argtypes = [i32, i32]
+            lib.fq_train_scratch_bytes.restype = i64
+            lib.fq_frozen_decode_shape.argtypes = [i32, i32, vp]
             lib.fq_train_rows.argtypes = [vp, i64, i32, i32, i32, vp]
             lib.fq_ctx_shard_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i64, i32] + spec
@@ -265,6 +273,7 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_train_counts, lib.fq_rescue_indel_fused_cuda,
                        lib.fq_unpack_grid, lib.fq_pack_grid, lib.fq_pack15,
                        lib.fq_train_hist, lib.fq_train_rows,
+                       lib.fq_frozen_decode_shape,
                        lib.fq_ctx_shard_decode, lib.fq_sharded_lookup,
                        lib.fq_sharded_candidates, lib.fq_sharded_verify,
                        lib.fq_sharded_tail):
@@ -582,6 +591,20 @@ def frozen_decode(states0: torch.Tensor, words: torch.Tensor,
             _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
             _ptr(cum), A, *_spec_args(model), _ptr(lanes), _ptr(out))
     return out
+
+
+def frozen_decode_shape(L: int, model, device=None) -> Dict[str, int]:
+    """The thread-block cluster K4 launches for L lanes on ``device`` (a
+    CUDA device; default the current one): CTAs in the cluster, threads a
+    CTA, lanes a thread, and how many such clusters the card holds at
+    once (cudaOccupancyMaxActiveClusters)."""
+    out = (ctypes.c_int32 * 4)()
+    with torch.cuda.device(device):
+        rc = _lib().fq_frozen_decode_shape(L, model.spec()[0], out)
+    if rc != 0:
+        raise RuntimeError(f"frozen_decode_shape: cudaError_t {rc}")
+    return {"ctas": out[0], "threads": out[1], "lanes_per_thread": out[2],
+            "max_active_clusters": out[3]}
 
 
 # --- transfer packs: K15 unpack_grid, K16 pack_grid, K17 pack15 ------------
@@ -1244,12 +1267,21 @@ def train_counts(syms: torch.Tensor, cgrid: torch.Tensor, model,
             raise ValueError("train_counts: ctx grid shape mismatch")
     counts = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32,
                          device=syms.device)
-    _launch(_lib().fq_train_counts, "train_counts", syms.device, _ptr(syms),
+    lib = _lib()
+    scratch = _train_scratch(lib, T, L, syms.device)
+    _launch(lib.fq_train_counts, "train_counts", syms.device, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,
             *_spec_args(model), model.n_ctx, model.inc, model.init,
-            model.cap, _ptr(counts))
+            model.cap, _ptr(counts), T, _ptr(scratch))
     return counts
+
+
+def _train_scratch(lib, T: int, L: int, dev) -> torch.Tensor:
+    """K13's scratch: the lanes' lengths and, per (chunk, lane), the read
+    cursor and quality drops at the chunk's start."""
+    return torch.empty((lib.fq_train_scratch_bytes(T, L),),
+                       dtype=torch.uint8, device=dev)
 
 
 # --- K13's halves, for the mesh trainer (parallel/mesh.train_counts_sharded)
@@ -1288,10 +1320,12 @@ def train_hist(syms: torch.Tensor, cgrid: torch.Tensor, model,
         _check(ctxg, "ctxg", torch.int32, 2)
         if ctxg.shape != syms.shape:
             raise ValueError("train_hist: ctx grid shape mismatch")
-    _launch(_lib().fq_train_hist, "train_hist", syms.device, _ptr(syms),
+    lib = _lib()
+    scratch = _train_scratch(lib, T, L, syms.device)
+    _launch(lib.fq_train_hist, "train_hist", syms.device, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,
-            *_spec_args(model), model.inc, _ptr(counts))
+            *_spec_args(model), model.inc, _ptr(counts), T, _ptr(scratch))
     return counts
 
 

@@ -1154,3 +1154,193 @@ def test_block_worker_launches_on_its_shard_stream(cuda, monkeypatch):
     assert streams[0] == streams[2] != streams[1] == streams[3]
     want = kernels.quant_pack(table)[0]
     assert all(torch.equal(c, want) for _, c in outs)
+
+
+# --- K13's chunked histogram and K4's cluster decode at their split cases --
+#
+# The same cases as tests/test_torch_chunk_edges.py (which holds the plain
+# versions to the JAX engine on the CPU), kernel against plain version.
+
+_EDGE = {
+    "seq_o10": SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10),
+    "fqz_q2": QualModel(alphabet=41, init=1, inc=8, cap=8192, qlevel=2),
+    "chain_k4_drop2": QualModel(alphabet=41, init=1, inc=16, cap=8192, k=4,
+                                ctx_base=41, hash_bits=12, pos_bits=3,
+                                drop_bits=2),
+    "order0": CtxModel(alphabet=256, init=1, inc=16, cap=8192),
+    "order1_byte": Order1ByteModel(alphabet=256, init=1, inc=16, cap=8192),
+    "flat_4": FlatModel(alphabet=2, init=1, inc=16, cap=8192, n_ctx=4),
+}
+
+
+def _edge_stream(model, L, seed, long_len=3000):
+    """(read counts, read-major symbols, flat contexts or None): lane 0
+    one read of long_len (23 chunks at C = 128), lanes 1-5 reads that
+    cross chunk boundaries at C = 32, 64, 128, end on them and are
+    followed by zero-length slots, the rest random with zeros; qualities
+    alternate highs and zeros (drops saturate within a chunk) or descend
+    slowly (drops carried across chunks)."""
+    rng = np.random.default_rng(seed)
+    lanes = [[long_len], [31, 2, 40, 63, 65, 1, 127, 129],
+             [64, 0, 64, 0, 0, 32, 0, 96, 128, 0, 16],
+             [32, 0, 96, 0, 1, 0, 255, 33], [0, 0, 130, 0, 257, 0, 70],
+             [5] * 40 + [0, 0, 300]][:L]
+    while len(lanes) < L:
+        n = int(rng.integers(2, 12))
+        lens = rng.integers(0, 150, n)
+        lens[rng.random(n) < 0.3] = 0
+        lanes.append(list(lens))
+    J = max(len(x) for x in lanes)
+    counts = np.zeros(J * L, np.int64)
+    for lane, lens in enumerate(lanes):
+        counts[lane:lane + len(lens) * L:L] = lens
+    n = int(counts.sum())
+    if isinstance(model, QualModel):
+        parts = []
+        for r, c in enumerate(counts[counts > 0]):
+            if r % 2:
+                parts.append(np.where(np.arange(c) % 2, 0, 40))
+            else:
+                parts.append(np.clip(40 - np.arange(c) // 9
+                                     + rng.integers(-1, 2, c), 0, 40))
+        syms = np.concatenate(parts).astype(np.uint8)
+    else:
+        syms = rng.integers(0, model.alphabet, n).astype(np.uint8)
+    ctx = (rng.integers(0, 4, n).astype(np.int32)
+           if isinstance(model, FlatModel) else None)
+    return counts, syms, ctx
+
+
+def _edge_grids(model, L, seed, long_len=3000):
+    counts, syms, ctx = _edge_stream(model, L, seed, long_len)
+    lay = make_layout(counts, L)
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    cx = None if ctx is None else torch.from_numpy(to_grid(lay, ctx))
+    return g, cg, cx
+
+
+@pytest.mark.parametrize("name", sorted(_EDGE))
+def test_train_chunk_edges_match_plain(cuda, name):
+    """K13 and its histogram half == their plain versions on reads that
+    cross the kernel's 64-wave chunks, zero-length and long reads (every
+    model kind; the raw histogram compared before the cap rescale could
+    hide a difference)."""
+    model = _EDGE[name]
+    g, cg, cx = _edge_grids(model, 256, 3)
+    dev = (g.to(cuda), cg.to(cuda), None if cx is None else cx.to(cuda))
+    zeros = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32)
+    want = kernels.train_hist(g, cg, model, zeros.clone(), cx)
+    kernels.reset_launch_counts()
+    got = kernels.train_hist(*dev[:2], model, zeros.to(cuda), dev[2])
+    assert torch.equal(got.cpu(), want)
+    assert int(want.sum()) == model.inc * int(cg.sum())
+    whole = kernels.train_counts(dev[0], dev[1], model, dev[2])
+    assert torch.equal(whole.cpu(), kernels.train_rows(want.clone(), model))
+    assert kernels.LAUNCHES["train_hist"] == 1
+    assert kernels.LAUNCHES["train_counts"] == 1
+
+
+@pytest.mark.parametrize("name", ["seq_o10", "fqz_q2", "flat_4"])
+def test_train_split_long_reads_two_grids(cuda, name):
+    """train_hist over two grids of long reads into one table ==
+    the plain version's table, then train_rows == the plain trainer."""
+    model = _EDGE[name]
+    h = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32)
+    hc = h.clone().to(cuda)
+    for seed in (4, 5):
+        g, cg, cx = _edge_grids(model, 64, seed, long_len=5000)
+        kernels.train_hist(g, cg, model, h, cx)
+        kernels.train_hist(g.to(cuda), cg.to(cuda), model, hc,
+                           None if cx is None else cx.to(cuda))
+    assert torch.equal(hc.cpu(), h)
+    assert torch.equal(kernels.train_rows(hc, model).cpu(),
+                       kernels.train_rows(h.clone(), model))
+
+
+@pytest.mark.parametrize("L", [1, 3, 64, 4097])
+@pytest.mark.parametrize("model", _MODELS[:2], ids=lambda m: type(m).__name__)
+def test_frozen_decode_edge_lanes_match_plain(cuda, model, L):
+    """K4 == its plain version at lane counts that are not a multiple of
+    a cluster's threads, lanes ending at different waves, zero-length
+    slots; and on the same payload with its word count cut (the W - 1
+    clamp)."""
+    rng = np.random.default_rng(L)
+    counts, lay, syms, table = _stream(rng, model, R=2 * L + 3, L=L,
+                                       maxlen=70)
+    p = CodecParams()
+    pay = engine.encode_stream(model, p, syms, counts, counts0=table,
+                               n_lanes=L, device="cpu")
+    kernels.reset_launch_counts()
+    back = engine.decode_stream(model, p, pay, counts, counts0=table,
+                                device=cuda)
+    assert np.array_equal(back, syms)
+    assert kernels.LAUNCHES["frozen_decode"] == 1
+    cut = bytearray(pay)
+    n_words = int.from_bytes(cut[8:12], "little")
+    cut[8:12] = (n_words // 3).to_bytes(4, "little")
+    cut = bytes(cut[:16 + 4 * L + 2 * (n_words // 3)])
+    want = engine.decode_stream(model, p, cut, counts, counts0=table,
+                                device="cpu")
+    got = engine.decode_stream(model, p, cut, counts, counts0=table,
+                               device=cuda)
+    torch.cuda.synchronize()
+    assert np.array_equal(got, want)
+
+
+def _decode_inputs(cuda, model, L, R, maxlen, seed, table=None):
+    """A stream encoded on the card (K1 -> K2 -> K3) and its padded words:
+    (layout, symbol grid, counts grid, cum table, states, words)."""
+    rng = np.random.default_rng(seed)
+    counts, lay, syms, t = _stream(rng, model, R=R, L=L, maxlen=maxlen)
+    if table is None:
+        table = torch.from_numpy(t).to(cuda)
+    cum, packed = kernels.quant_pack(table)
+    g = torch.from_numpy(to_grid(lay, syms)).to(cuda)
+    cg = torch.from_numpy(engine._counts_grid(counts, L)).to(cuda)
+    words, emit, states = kernels.frozen_encode_lanes(g, cg, packed, model)
+    out, n = kernels.compact_words(words, emit)
+    n = int(n.item())
+    W = 1024
+    while W < n + 8:
+        W <<= 1
+    wpad = torch.zeros(W, dtype=torch.int16, device=cuda)
+    wpad[:n] = out[:n]
+    return lay, g, cg, cum, states, wpad
+
+
+def test_frozen_decode_65536_lanes_match_plain(cuda):
+    """K4 at the format's 2^16 lanes (8 lanes a thread, their state in
+    scratch), small T: == its plain version and the encoded symbols."""
+    model = QualModel(alphabet=16, k=3, ctx_base=16, pos_bits=2,
+                      drop_bits=2)
+    lay, g, cg, cum, states, wpad = _decode_inputs(cuda, model, 1 << 16,
+                                                   3 << 16, 30, 12)
+    shape = kernels.frozen_decode_shape(1 << 16, model, cuda)
+    assert (shape["ctas"], shape["threads"], shape["lanes_per_thread"]) == (
+        8, 1024, 8)
+    assert shape["max_active_clusters"] >= 1
+    got = kernels.frozen_decode(states, wpad, cg, lay.T, cum, model)
+    want = kernels.frozen_decode_plain(states, wpad, cg, lay.T, cum, model)
+    assert torch.equal(got, want) and torch.equal(got, g)
+
+
+def test_frozen_decode_q3_table_matches_plain(cuda):
+    """K4 on a --qlevel 3 quality table (2^20 rows x 42 u16 cum entries,
+    88 MB, past the card's 50 MB L2): == its plain version and the
+    encoded symbols; the default lane count runs one lane a thread on a
+    cluster of 8 CTAs."""
+    from fastqueeze_tpu_torch.models.base import qual_model_for
+    model = qual_model_for(CodecParams(qlevel=3), 41)
+    rng = np.random.default_rng(13)
+    table = torch.from_numpy(rng.integers(
+        1, 400, (model.n_ctx, 41)).astype(np.int32)).to(cuda)
+    lay, g, cg, cum, states, wpad = _decode_inputs(cuda, model, 512, 3000,
+                                                   100, 14, table)
+    assert cum.numel() * 2 > 50 << 20
+    got = kernels.frozen_decode(states, wpad, cg, lay.T, cum, model)
+    want = kernels.frozen_decode_plain(states, wpad, cg, lay.T, cum, model)
+    assert torch.equal(got, want) and torch.equal(got, g)
+    shape = kernels.frozen_decode_shape(4096, model, cuda)
+    assert (shape["ctas"], shape["threads"], shape["lanes_per_thread"]) == (
+        8, 512, 1)
