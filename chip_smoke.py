@@ -47,7 +47,9 @@ Phases (any failure raises and exits non-zero):
      halves (train_hist, train_rows) == K13 at the frozen shape, and
      train_hist on Markov qualities beside torch.bincount of its keys;
      K4's thread-block cluster (CTAs, threads, lanes a thread, how many
-     fit the card) and its time a wave on each table; K18 at
+     fit the card) and its time a wave on each table; K6's cluster and
+     time a wave on each adaptive stream, beside K5's time and the wave
+     groups of its heaviest row (the longest chain of its row walk); K18 at
      the frozen shape on a --qlevel 3 qual table (2^20 rows) with the
      table in D = 2 and 4 row shards == K4 on the whole table (and every
      lane back at the encoder's initial state), == its plain version on
@@ -654,6 +656,43 @@ def check_pack_kernels():
     return rows
 
 
+# per adaptive stream of phase 3: K6's cluster and time a wave, K5's
+# heaviest row (the most wave groups of any row: its walk's chain)
+ADAPT_SHAPE = {}
+
+
+def _row_groups(g, cg, m):
+    """(wave groups of the row with the most, events of the row with the
+    most): what K5's row walk does in order on its longest chain."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    T = g.shape[0]
+    valid, aux = kernels._walk_aux(T, cg, None)
+    c = m.context_grids(g, aux)
+    keys = torch.unique(c[valid] * T + torch.nonzero(valid)[:, 0])
+    groups = torch.unique(keys // T, return_counts=True)[1]
+    events = torch.unique(c[valid], return_counts=True)[1]
+    return int(groups.max()), int(events.max())
+
+
+def _adapt_shape(tag, m, L, T, k5_ms, k6_ms, g, cg) -> dict:
+    from fastqueeze_tpu_torch.ops import kernels
+    shape = dict(kernels.adapt_decode_shape(L, m), k6_ms=k6_ms,
+                 k6_us_per_wave=k6_ms / T * 1e3, k5_ms=k5_ms)
+    if shape["max_active_clusters"] < 1:
+        raise AssertionError(f"K6's cluster {shape} does not fit the card")
+    shape["k5_heaviest_row_groups"], shape["k5_heaviest_row_events"] = (
+        _row_groups(g, cg, m))
+    print(f"  {tag:22s} adapt_decode cluster: {shape['ctas']} CTAs x "
+          f"{shape['threads']} threads, {shape['lanes_per_thread']} lane(s) "
+          f"a thread, {shape['max_active_clusters']} such clusters fit the "
+          f"card; {k6_ms:.3f} ms = {shape['k6_us_per_wave']:.3f} us a wave; "
+          f"adapt_encode_walk {k5_ms:.3f} ms, heaviest row "
+          f"{shape['k5_heaviest_row_groups']} wave groups of {T} "
+          f"({shape['k5_heaviest_row_events']} events on the busiest row)")
+    return shape
+
+
 def check_adaptive_kernels():
     """K5 -> K7 -> K3 -> K6 vs the plain versions, same inputs on the
     card; the decode must invert the encode."""
@@ -698,7 +737,7 @@ def check_adaptive_kernels():
             g, cg, m, nh))
         r["adapt_encode_walk"] = (
             _max_err(sf, sf_p),
-            _time_ms(lambda: kernels.adapt_encode_walk(g, cg, m, nh), 2),
+            _time_ms(lambda: kernels.adapt_encode_walk(g, cg, m, nh), 5),
             p5_ms)
         k7 = kernels.rans_encode_sf(sf, cg)
         p7, p7_ms = _timed(lambda: kernels.rans_encode_sf_plain(sf, cg))
@@ -715,7 +754,7 @@ def check_adaptive_kernels():
         r["adapt_decode"] = (
             _max_err(k6, p6),
             _time_ms(lambda: kernels.adapt_decode(states, wpad, cg, lay.T,
-                                                  m, nh), 2),
+                                                  m, nh), 5),
             p6_ms)
         if not torch.equal(k6, g):
             raise AssertionError(f"{tag}: adaptive decode does not invert "
@@ -735,6 +774,9 @@ def check_adaptive_kernels():
             if err:
                 raise AssertionError(f"{tag} {name}: kernel differs from "
                                      f"its plain version ({err})")
+        ADAPT_SHAPE[tag] = _adapt_shape(
+            tag, m, L, lay.T, r["adapt_encode_walk"][1],
+            r["adapt_decode"][1], g, cg)
         rows[tag] = r
     return rows
 
@@ -2625,6 +2667,14 @@ def main() -> int:
     # K4's cluster and time a wave on each table; K13's histogram on
     # qualities
     by_name["frozen_decode"]["cluster_by_table"] = K4_SHAPE
+    # K5 and K6 on each adaptive stream of phase 3, with K6's cluster and
+    # K5's heaviest row
+    for name in ("adapt_encode_walk", "adapt_decode"):
+        by_name[name]["by_stream"] = {
+            tag: {"ms": rows[tag][name][1], "plain_ms": rows[tag][name][2],
+                  "max_abs_err": rows[tag][name][0]}
+            for tag in ADAPT_SHAPE}
+    by_name["adapt_decode"]["cluster_by_stream"] = ADAPT_SHAPE
     by_name["train_hist"]["qual_markov40"] = PAIR_MS["train_hist_qual"]
     # K18 at each row-shard count, beside K4 on the same stream and table
     by_name["ctx_shard_decode"]["k4_same_stream_ms"] = PAIR_MS["k4_q3"]

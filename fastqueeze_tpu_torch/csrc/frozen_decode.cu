@@ -40,7 +40,8 @@
 //     runs inside the wave loop (on an H100 the order-10 seq stream
 //     took 2.98 us a wave with one cluster barrier a wave, 2.60 us with
 //     this), and every CTA advances its own copy of off by the grand
-//     total (no global counter, no atomics);
+//     total (no global counter, no atomics).  The cluster's shape and
+//     its exchanges live in cluster_xchg.cuh, shared with K6;
 //   - the word read stays words[min(off + rank, W - 1)] (the clamp keeps
 //     a corrupt payload inside the padded buffer, as the reference's
 //     clamp does); the next wave's window of words is prefetched into L2
@@ -53,6 +54,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_xchg.cuh"
 #include "lane_walk.cuh"
 
 namespace cg = cooperative_groups;
@@ -63,10 +65,10 @@ using fqk::ModelSpec;
 using fqk::ModelState;
 using fqk::ReadCursor;
 
-constexpr int kCtas = 8;            // CTAs a cluster (the portable maximum)
-constexpr int kOneThreads = 512;    // threads a CTA, one lane a thread
-constexpr int kMultiThreads = 1024; // threads a CTA, several lanes a thread
-constexpr uint32_t kFull = 0xFFFFFFFFu;
+using fqk::kMultiThreads;
+using fqk::kOneThreads;
+using fqk::RankSmem;
+using fqk::Shape;
 
 struct Lane {
     ModelState s;
@@ -89,33 +91,6 @@ struct Args {
     int32_t per;      // lanes a thread (decode_multi)
     uint8_t* out;
 };
-
-struct Shape {
-    int ctas, threads, per;
-    bool one;         // one lane a thread, state in registers
-};
-
-Shape shape_for(int32_t L) {
-    Shape s;
-    int64_t need;
-    if (L <= kCtas * kOneThreads) {
-        s.one = true;
-        s.per = 1;
-        need = L;
-        s.ctas = static_cast<int>((need + kOneThreads - 1) / kOneThreads);
-    } else {
-        s.one = false;
-        s.per = static_cast<int>((int64_t(L) + kCtas * kMultiThreads - 1)
-                                 / (kCtas * kMultiThreads));
-        need = (int64_t(L) + s.per - 1) / s.per;
-        s.ctas = kCtas;
-    }
-    if (s.ctas < 1) s.ctas = 1;
-    const int64_t t = (need + s.ctas - 1) / s.ctas;
-    s.threads = static_cast<int>(((t + 31) / 32) * 32);
-    if (s.threads < 32) s.threads = 32;
-    return s;
-}
 
 // --- the row fetch and the search in registers ----------------------------
 
@@ -196,79 +171,6 @@ __device__ __forceinline__ void row_search(Row<NSEG>& r, int32_t A,
     f = en - st;
 }
 
-// --- the per-wave rank across the cluster ---------------------------------
-
-struct RankSmem {
-    int32_t wsum[2][32];          // per warp: inclusive sum of its needs
-    uint64_t slot[2][kCtas];      // per CTA r of the cluster: its total,
-                                  // pushed by r, tagged (wave << 32)
-};
-
-__device__ __forceinline__ int32_t warp_inclusive(int32_t v, int lane) {
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int32_t y = __shfl_up_sync(kFull, v, d);
-        if (lane >= d) v += y;
-    }
-    return v;
-}
-
-// Before the first wave: no slot holds a wave's tag, and no CTA pushes
-// into another's slots before that CTA has cleared them.
-__device__ __forceinline__ void rank_init(cg::cluster_group& cl,
-                                          RankSmem& sm) {
-    if (threadIdx.x < 2 * kCtas) (&sm.slot[0][0])[threadIdx.x] = ~0ull;
-    cl.sync();
-}
-
-// This thread's exclusive rank among the cluster's need counts of wave t,
-// and (*grand) their sum over the cluster.  The CTA scans its need counts
-// (one __syncthreads; each warp scans the warp sums itself), then warp 0
-// pushes the CTA's total, tagged with t, into slot [t & 1][its rank] of
-// every CTA's shared memory (a 64-bit remote store each, so the tag and
-// the total arrive together), and each warp polls its own CTA's slots
-// until all carry tag t.  A CTA can push wave t + 2 into a slot only
-// after every CTA pushed wave t + 1, which each does after all its warps
-// read wave t's slots, so the two parities never collide; and a CTA
-// finishes only after every push into it has arrived, so none needs to
-// wait for the others at the end.  A poll that never sees its tag traps
-// (a fault, not a hang).
-__device__ __forceinline__ int32_t cluster_rank(cg::cluster_group& cl,
-                                                RankSmem& sm, int32_t t,
-                                                int32_t need,
-                                                int32_t* grand) {
-    const int p = t & 1;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    const int nctas = static_cast<int>(cl.num_blocks());
-    const int rank = static_cast<int>(cl.block_rank());
-    const int32_t incl = warp_inclusive(need, lane);
-    if (lane == 31) sm.wsum[p][warp] = incl;
-    __syncthreads();
-    const int32_t v = lane < nw ? sm.wsum[p][lane] : 0;
-    const int32_t vi = warp_inclusive(v, lane);
-    const int32_t below = __shfl_sync(kFull, vi - v, warp);
-    const int32_t cta_total = __shfl_sync(kFull, vi, 31);
-    const uint32_t tag = static_cast<uint32_t>(t);
-    if (warp == 0 && lane < nctas)
-        *reinterpret_cast<volatile uint64_t*>(
-            cl.map_shared_rank(&sm.slot[p][rank], lane)) =
-            (uint64_t(tag) << 32) | static_cast<uint32_t>(cta_total);
-    int32_t tot = 0;
-    if (lane < nctas) {
-        const volatile uint64_t* s = &sm.slot[p][lane];
-        uint64_t x = *s;
-        for (uint32_t spins = 0; static_cast<uint32_t>(x >> 32) != tag;
-             x = *s)
-            if (++spins == (1u << 28)) __trap();
-        tot = static_cast<int32_t>(static_cast<uint32_t>(x));
-    }
-    *grand = __reduce_add_sync(kFull, tot);
-    const int32_t lower = __reduce_add_sync(kFull, lane < rank ? tot : 0);
-    return lower + below + incl - need;
-}
-
 // Once off is known, rank 0 asks L2 for the next wave's window of words
 // (at most L of them): 64 words a line.
 __device__ __forceinline__ void prefetch_words(cg::cluster_group& cl,
@@ -305,7 +207,7 @@ decode_one(Args a, ModelSpec m) {
         fqk::cursor_next(cur, a.cgrid, a.J, L, l);
         row_fetch(row, a.cum, fqk::model_ctx<KIND>(m, s, cur.pos), a.A);
     }
-    rank_init(cl, sm);
+    fqk::rank_init(cl, sm);
     int64_t off = 0;
     for (int32_t t = 0; t < a.T; ++t) {
         const int64_t idx = int64_t(t) * L + l;
@@ -332,7 +234,7 @@ decode_one(Args a, ModelSpec m) {
             a.out[idx] = 0;
         }
         int32_t grand;
-        const int32_t rank = cluster_rank(cl, sm, t, need, &grand);
+        const int32_t rank = fqk::cluster_rank(cl, sm, t, need, &grand);
         if (t < n) x = need ? renorm(a, xn, off + rank) : xn;
         off += grand;
         prefetch_words(cl, a, off);
@@ -358,7 +260,7 @@ decode_multi(Args a, ModelSpec m) {
         ln.x = a.states0[l];
         ln.n = fqk::lane_length(a.cgrid, a.J, L, l);
     }
-    rank_init(cl, sm);
+    fqk::rank_init(cl, sm);
     int64_t off = 0;
     for (int32_t t = 0; t < a.T; ++t) {
         int32_t need = 0;
@@ -377,7 +279,7 @@ decode_multi(Args a, ModelSpec m) {
             need += ln.xn < fqk::kRansL;
         }
         int32_t grand;
-        int64_t w = off + cluster_rank(cl, sm, t, need, &grand);
+        int64_t w = off + fqk::cluster_rank(cl, sm, t, need, &grand);
         for (int32_t l = l0; l < l1; ++l) {
             Lane& ln = a.lanes[l];
             const int64_t idx = int64_t(t) * L + l;
@@ -415,22 +317,6 @@ KernelFn kernel_for(int32_t kind, bool one) {
     return nullptr;
 }
 
-cudaLaunchConfig_t cluster_config(const Shape& sh, cudaStream_t st,
-                                  cudaLaunchAttribute* attr) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(sh.ctas, 1, 1);
-    cfg.blockDim = dim3(sh.threads, 1, 1);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = st;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = sh.ctas;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cfg;
-}
-
 }  // namespace
 
 // lanes: scratch of L * sizeof(Lane) bytes (fq_decode_lane_bytes()), used
@@ -443,11 +329,11 @@ extern "C" int64_t fq_decode_lane_bytes() { return sizeof(Lane); }
 // 0: the card cannot run it).
 extern "C" int fq_frozen_decode_shape(int32_t L, int32_t kind,
                                       int32_t* out) {
-    const Shape sh = shape_for(L);
+    const Shape sh = fqk::shape_for(L);
     const KernelFn k = kernel_for(kind, sh.one);
     if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_config(sh, nullptr, attr);
+    const cudaLaunchConfig_t cfg = fqk::cluster_config(sh, nullptr, attr);
     int clusters = 0;
     const cudaError_t e = cudaOccupancyMaxActiveClusters(
         &clusters, reinterpret_cast<const void*>(k), &cfg);
@@ -466,13 +352,13 @@ extern "C" int fq_frozen_decode(
         uint8_t* out, void* stream) {
     const ModelSpec m{kind, a, b, c, d, e, f, g};
     if (L <= 0 || T <= 0) return 0;
-    const Shape sh = shape_for(L);
+    const Shape sh = fqk::shape_for(L);
     const KernelFn k = kernel_for(kind, sh.one);
     if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const Args args{states0, words, W, cgrid, J, T, L, cum, A,
                     static_cast<Lane*>(lanes), sh.per, out};
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_config(
+    const cudaLaunchConfig_t cfg = fqk::cluster_config(
         sh, static_cast<cudaStream_t>(stream), attr);
     const cudaError_t rc = cudaLaunchKernelEx(&cfg, k, args, m);
     if (rc != cudaSuccess) return static_cast<int>(rc);

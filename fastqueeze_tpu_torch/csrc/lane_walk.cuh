@@ -191,6 +191,16 @@ __device__ __forceinline__ void rans_encode_lane(
     states[l] = x;
 }
 
+// Inclusive scan of one int per lane across a full warp.
+__device__ __forceinline__ int32_t warp_inclusive(int32_t v, int lane) {
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int32_t y = __shfl_up_sync(0xFFFFFFFFu, v, d);
+        if (lane >= d) v += y;
+    }
+    return v;
+}
+
 // Exclusive block-wide scan of one int per thread; *total gets the sum.
 // Three barriers; THREADS is the block size (a multiple of 32, <= 1024).
 template <int THREADS>
@@ -225,53 +235,15 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
 }
 
 // --- adaptive count table (K5, K6) ------------------------------------
-//
-// counts (n_ctx, A) int32, tot (n_ctx,) int32 row totals, stamp (n_ctx,)
-// int32 last wave that touched each row.  Both kernels run one CTA per
-// stream; the table lives in global memory and is read through L2
-// (__ldcg) because the same wave's other lanes update it with atomics.
 
-// start | end << 16 of `sym` from the pre-update row (engine._quant:
-// F_s = floor(cum_s * 2^14 / C), C = the row total).
-__device__ __forceinline__ uint32_t quant_sf(const int32_t* row, int32_t C,
-                                             int32_t sym) {
-    int64_t cum = 0;
-    for (int32_t a = 0; a < sym; ++a) cum += __ldcg(row + a);
-    const int64_t nxt = cum + __ldcg(row + sym);
-    const uint32_t start = static_cast<uint32_t>((cum << kProbBits) / C);
-    const uint32_t end = static_cast<uint32_t>((nxt << kProbBits) / C);
-    return start | (end << 16);
-}
-
-// Add inc at (ctx, sym); returns true for exactly one lane per row
-// touched in wave t (the lane that rescales the row after the barrier).
-__device__ __forceinline__ bool table_add(int32_t* counts, int32_t* tot,
-                                          int32_t* stamp, int64_t ctx,
-                                          int32_t A, int32_t sym,
-                                          int32_t inc, int32_t t) {
-    atomicAdd(counts + ctx * A + sym, inc);
-    atomicAdd(tot + ctx, inc);
-    return atomicExch(stamp + ctx, t) != t;
-}
-
-// engine._wave_update_tot's rescale of one touched row: halve
-// ((c + 1) >> 1) while the total is over cap, at most n_halve times.
-__device__ __forceinline__ void table_rescale(int32_t* counts, int32_t* tot,
-                                              int64_t ctx, int32_t A,
-                                              int32_t cap,
-                                              int32_t n_halve) {
-    int32_t* row = counts + ctx * A;
-    int32_t total = __ldcg(tot + ctx);
-    if (total <= cap) return;
-    for (int32_t k = 0; k < n_halve && total > cap; ++k) {
-        total = 0;
-        for (int32_t a = 0; a < A; ++a) {
-            const int32_t c = (__ldcg(row + a) + 1) >> 1;
-            __stcg(row + a, c);
-            total += c;
-        }
-    }
-    __stcg(tot + ctx, total);
+// F_s = floor(cum_s * 2^14 / C) (engine._quant), in 32 bits while cum_s
+// << 14 fits (C < 2^18, which every row at or near a cap <= 2^14 meets).
+__device__ __forceinline__ uint32_t quant_cum(int32_t cum, int32_t C) {
+    if (C < (1 << 18))
+        return (static_cast<uint32_t>(cum) << kProbBits)
+               / static_cast<uint32_t>(C);
+    return static_cast<uint32_t>((static_cast<uint64_t>(cum) << kProbBits)
+                                 / static_cast<uint64_t>(C));
 }
 
 }  // namespace fqk

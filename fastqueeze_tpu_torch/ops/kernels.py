@@ -14,14 +14,23 @@ K4 frozen_decode       one thread-block cluster (up to 8 CTAs) per
                        renorm rank across the cluster
                        (engine._decode_frozen)
 Adaptive coder:
-K5 adapt_encode_walk   one CTA per stream, per-wave lane walk, row quant
-                       from the shared count table, scatter-add, halving
+K5 adapt_encode_walk   the table's rows walked in parallel: every slot's
+                       context (K13's chunk walk), a stable radix sort of
+                       the slots by context, then each row's events by
+                       wave groups (pre-update quant, adds, halving), a
+                       thread per light row and a warp per heavy one;
+                       bound by the heaviest row's chain of groups
                        (engine._device_aux, context_grids, _pass1,
                        _wave_update_tot)
 K7 rans_encode_sf      reverse rANS over K5's (start, end) grid
                        (engine._pass2); then K3
-K6 adapt_decode        one CTA per stream: K4's walk and renorm scan with
-                       K5's table update (engine._decode)
+K6 adapt_decode        K4's thread-block cluster with the table update:
+                       per wave the row fetch + count search in
+                       registers, the rank exchange, atomicAdd on the
+                       table, an exchange with cluster-scope release /
+                       acquire (and the halving, only on waves where a
+                       row crossed cap); bound by each wave's chain of
+                       L2 round trips and exchanges (engine._decode)
 K5 and K6 start from a fresh table (init everywhere) or from a caller's
 count table (counts0: a frozen table that keeps adapting).
 Semi-adaptive walk (adapt_chunk; the table is snapshotted every chunk
@@ -206,12 +215,18 @@ def _lib() -> ctypes.CDLL:
             lib.fq_compact_words.argtypes = [vp, vp, i64, vp, vp, vp, vp]
             lib.fq_frozen_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i32] + spec + [vp] * 3)
-            adapt = spec + [i32] * 3 + [vp] * 6
             lib.fq_adapt_encode_walk.argtypes = (
-                [vp, vp, i32, i32, i32, vp, i32] + adapt)
+                [vp, vp, i32, i32, i32, vp, i32] + spec + [i32] * 4
+                + [vp, i64, vp, vp, vp])
+            lib.fq_adapt_encode_scratch_bytes.argtypes = [i32, i32, i64]
+            lib.fq_adapt_encode_scratch_bytes.restype = i64
             lib.fq_rans_encode_sf.argtypes = [vp, vp, i32, i32, i32] + [vp] * 4
             lib.fq_adapt_decode.argtypes = (
-                [vp, vp, i64, vp, i32, i32, i32, vp, i32] + adapt)
+                [vp, vp, i64, vp, i32, i32, i32, vp, i32] + spec + [i32] * 3
+                + [vp, vp, i64, vp, vp, vp])
+            lib.fq_adapt_decode_scratch_bytes.argtypes = [i32, i64, i32]
+            lib.fq_adapt_decode_scratch_bytes.restype = i64
+            lib.fq_adapt_decode_shape.argtypes = [i32, i32, vp]
             semi = spec + [i64] + [i32] * 4 + [vp] * 2
             lib.fq_semi_encode_walk.argtypes = (
                 [vp, vp, i32, i32, i32, i32] + semi + [vp] * 3)
@@ -241,8 +256,6 @@ def _lib() -> ctypes.CDLL:
             lib.fq_sharded_tail.argtypes = (
                 [vp] * 3 + [i32] * 6 + [vp] * 5 + [i64] + [vp] * 5)
             for fn in (lib.fq_decode_lane_bytes, lib.fq_ctx_shard_lane_bytes,
-                       lib.fq_adapt_encode_lane_bytes,
-                       lib.fq_adapt_decode_lane_bytes,
                        lib.fq_semi_decode_lane_bytes):
                 fn.argtypes = []
                 fn.restype = i64
@@ -273,7 +286,7 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_train_counts, lib.fq_rescue_indel_fused_cuda,
                        lib.fq_unpack_grid, lib.fq_pack_grid, lib.fq_pack15,
                        lib.fq_train_hist, lib.fq_train_rows,
-                       lib.fq_frozen_decode_shape,
+                       lib.fq_frozen_decode_shape, lib.fq_adapt_decode_shape,
                        lib.fq_ctx_shard_decode, lib.fq_sharded_lookup,
                        lib.fq_sharded_candidates, lib.fq_sharded_verify,
                        lib.fq_sharded_tail):
@@ -826,11 +839,19 @@ def _start_counts(model, dev, counts0=None) -> torch.Tensor:
 
 
 def _adapt_table(model, dev, counts0=None):
-    """(counts, row totals, stamps) for the K5/K6 walk, from a fresh table
-    or from counts0."""
+    """(counts, row totals) for K6's walk, from a fresh table or from
+    counts0."""
     counts = _start_counts(model, dev, counts0)
-    return (counts, counts.sum(dim=1, dtype=torch.int32),
-            torch.full((model.n_ctx,), -1, dtype=torch.int32, device=dev))
+    return counts, counts.sum(dim=1, dtype=torch.int32)
+
+
+def _check_adapt_card(model, T: int, L: int, name: str) -> None:
+    """What K5 and K6 index in 32 bits: table rows, the (T, L) slots, and
+    symbols below 256."""
+    if model.n_ctx >= 1 << 32 or T * L >= 1 << 31 or model.alphabet > 256:
+        raise ValueError(f"{name}: the card's adaptive kernels take n_ctx < "
+                         f"2^32, T * L < 2^31 and alphabet <= 256 (got "
+                         f"{model.n_ctx}, {T} * {L}, {model.alphabet})")
 
 
 def _quant_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -908,17 +929,20 @@ def adapt_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
         _check(ctxg, "ctxg", torch.int32, 2)
         if ctxg.shape != syms.shape:
             raise ValueError("adapt_encode_walk: ctx grid shape mismatch")
+    _check_adapt_card(model, T, L, "adapt_encode_walk")
     lib = _lib()
     dev = syms.device
-    counts, tot, stamp = _adapt_table(model, dev, counts0)
-    lanes = torch.empty((L * lib.fq_adapt_encode_lane_bytes(),),
-                        dtype=torch.uint8, device=dev)
+    c0 = None if counts0 is None else counts0.contiguous()
+    scratch = torch.empty(
+        (lib.fq_adapt_encode_scratch_bytes(T, L, model.n_ctx),),
+        dtype=torch.uint8, device=dev)
     sf = torch.empty((T, L), dtype=torch.int32, device=dev)
     _launch(lib.fq_adapt_encode_walk, "adapt_encode_walk", dev, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], T, L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,
-            *_spec_args(model), model.inc, model.cap, n_halve,
-            _ptr(counts), _ptr(tot), _ptr(stamp), _ptr(lanes), _ptr(sf))
+            *_spec_args(model), model.inc, model.cap, n_halve, model.init,
+            None if c0 is None else _ptr(c0), model.n_ctx, _ptr(scratch),
+            _ptr(sf))
     return sf
 
 
@@ -1016,18 +1040,32 @@ def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
         _check(ctxg, "ctxg", torch.int32, 2)
         if tuple(ctxg.shape) != (T, L):
             raise ValueError("adapt_decode: ctx grid shape mismatch")
+    _check_adapt_card(model, T, L, "adapt_decode")
     lib = _lib()
     dev = states0.device
-    counts, tot, stamp = _adapt_table(model, dev, counts0)
-    lanes = torch.empty((L * lib.fq_adapt_decode_lane_bytes(),),
-                        dtype=torch.uint8, device=dev)
+    counts, tot = _adapt_table(model, dev, counts0)
+    scratch = torch.empty(
+        (lib.fq_adapt_decode_scratch_bytes(L, model.n_ctx, model.alphabet),),
+        dtype=torch.uint8, device=dev)
     out = torch.empty((T, L), dtype=torch.uint8, device=dev)
     _launch(lib.fq_adapt_decode, "adapt_decode", dev, _ptr(states0),
             _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,
             *_spec_args(model), model.inc, model.cap, n_halve,
-            _ptr(counts), _ptr(tot), _ptr(stamp), _ptr(lanes), _ptr(out))
+            _ptr(counts), _ptr(tot), model.n_ctx, _ptr(scratch), _ptr(out))
     return out
+
+
+def adapt_decode_shape(L: int, model, device=None) -> Dict[str, int]:
+    """The thread-block cluster K6 launches for L lanes on ``device`` (as
+    frozen_decode_shape reports K4's)."""
+    out = (ctypes.c_int32 * 4)()
+    with torch.cuda.device(device):
+        rc = _lib().fq_adapt_decode_shape(L, model.spec()[0], out)
+    if rc != 0:
+        raise RuntimeError(f"adapt_decode_shape: cudaError_t {rc}")
+    return {"ctas": out[0], "threads": out[1], "lanes_per_thread": out[2],
+            "max_active_clusters": out[3]}
 
 
 # --- semi-adaptive walk: K11, K12; trainer: K13 -----------------------------

@@ -212,18 +212,20 @@ _ADAPT = {
 }
 
 
-def _adapt_roundtrip(cuda, model, counts, syms, L, ctx=None):
+def _adapt_roundtrip(cuda, model, counts, syms, L, ctx=None, counts0=None):
     """K5 -> K7 -> K3 -> K6 on the card against the plain versions on the
-    same inputs; returns the card's decoded grid and the input grid."""
+    same inputs (from a fresh table or from counts0); returns the card's
+    decoded grid and the input grid."""
     lay = make_layout(counts, L)
     g = torch.from_numpy(to_grid(lay, syms))
     cg = torch.from_numpy(engine._counts_grid(counts, L))
     cx = (None if ctx is None
           else torch.from_numpy(to_grid(lay, ctx.astype(np.int32))))
+    c0 = None if counts0 is None else torch.from_numpy(counts0)
     on = (lambda t: None if t is None else t.to(cuda))
     nh = engine._n_halve(model, L)
-    sf_p = kernels.adapt_encode_walk(g, cg, model, nh, cx)
-    sf = kernels.adapt_encode_walk(on(g), on(cg), model, nh, on(cx))
+    sf_p = kernels.adapt_encode_walk(g, cg, model, nh, cx, c0)
+    sf = kernels.adapt_encode_walk(on(g), on(cg), model, nh, on(cx), on(c0))
     assert torch.equal(sf.cpu(), sf_p)
     enc_p = kernels.rans_encode_sf(sf_p, cg)
     enc = kernels.rans_encode_sf(sf, on(cg))
@@ -236,9 +238,10 @@ def _adapt_roundtrip(cuda, model, counts, syms, L, ctx=None):
         W <<= 1
     words = torch.zeros(W, dtype=torch.int16)
     words[:k] = out[:k].cpu()
-    dec_p = kernels.adapt_decode(enc_p[2], words, cg, lay.T, model, nh, cx)
+    dec_p = kernels.adapt_decode(enc_p[2], words, cg, lay.T, model, nh, cx,
+                                 c0)
     dec = kernels.adapt_decode(enc[2], on(words), on(cg), lay.T, model, nh,
-                               on(cx))
+                               on(cx), on(c0))
     torch.cuda.synchronize()
     assert torch.equal(dec.cpu(), dec_p)
     return dec.cpu(), g
@@ -271,6 +274,56 @@ def test_adaptive_duplicate_heavy_waves(cuda, L):
     syms[::7] = 2
     dec, g = _adapt_roundtrip(cuda, model, counts, syms, L)
     assert torch.equal(dec, g)
+
+
+@pytest.mark.parametrize("L", [1, 33, 255, 256, 257, 2048, 4096, 4097,
+                               8192])
+def test_adapt_decode_cluster_edges(cuda, L):
+    """K6 at lane counts on either side of a warp, a CTA of the one-lane
+    cluster (512), its whole (8 x 512) and the several-lanes variant, on a
+    byte model (A = 256: rows searched in batches) whose cap halves every
+    touched row, so every wave halves; K5 and K6 launch once each."""
+    model = Order1ByteModel(alphabet=256, init=1, inc=300, cap=512)
+    assert model.alphabet + model.inc > model.cap
+    rng = np.random.default_rng(L)
+    counts = rng.integers(0, 30, 2 * L + 1).astype(np.int64)
+    counts[::5] = 0
+    syms = rng.integers(0, 256, int(counts.sum())).astype(np.uint8)
+    syms[rng.random(len(syms)) < 0.5] = 65       # hot rows and symbols
+    kernels.reset_launch_counts()
+    dec, g = _adapt_roundtrip(cuda, model, counts, syms, L)
+    assert torch.equal(dec, g)
+    assert kernels.LAUNCHES["adapt_encode_walk"] == 1
+    assert kernels.LAUNCHES["adapt_decode"] == 1
+
+
+def _counts0(model, seed):
+    rng = np.random.default_rng(seed)
+    per = max(1, model.cap // model.alphabet)
+    return rng.integers(1, per + 1, (model.n_ctx, model.alphabet)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("from_table", [False, True])
+@pytest.mark.parametrize("name", ["order0_flag", "seq_o10", "fqz_q2"])
+def test_adapt_encode_heavy_row(cuda, name, from_table):
+    """K5's warp walk on rows with events in every wave: the order-0 model
+    (one row takes every event), seq reads of one repeated base (most
+    events of every wave on the all-zero history) and qualities stuck on
+    one value, from a fresh table and from counts0."""
+    model = _ADAPT[name]
+    rng = np.random.default_rng(3)
+    counts = rng.integers(20, 300, 3000).astype(np.int64)
+    syms = (rng.integers(0, model.alphabet, int(counts.sum())) if
+            name == "order0_flag" else np.zeros(int(counts.sum()), np.int64))
+    syms[::97] = model.alphabet - 1
+    c0 = _counts0(model, 4) if from_table else None
+    kernels.reset_launch_counts()
+    dec, g = _adapt_roundtrip(cuda, model, counts, syms.astype(np.uint8),
+                              1024, counts0=c0)
+    assert torch.equal(dec, g)
+    assert kernels.LAUNCHES["adapt_encode_walk"] == 1
+    assert kernels.LAUNCHES["adapt_decode"] == 1
 
 
 @pytest.mark.parametrize("shape", ["ragged", "empty_stream"])
