@@ -33,7 +33,9 @@ Phases (any failure raises and exits non-zero):
      and K8's rescue and K9 on K14's rows, each against its plain version
      (K8, K10: equal on mapped and the mapped reads' outputs; K9: on
      found and the found reads' outputs; K14: on m2 and f and the outputs
-     of the slots they select); each kernel's bound
+     of the slots they select; their times replay a captured CUDA graph
+     of the calls, since the warp kernels take less device time than the
+     wrapper's host work); each kernel's bound
      (bytes over 3.35 TB/s or integer operations over 67 T/s) and, for
      K3, the time of torch.masked_select, the one PyTorch call that
      computes the same function; the transfer packs at the frozen shape:
@@ -147,8 +149,20 @@ Phases (any failure raises and exits non-zero):
      mapped fraction printed, and a 5,000-read cut's archive == the
      device="cpu" one.
 In each end-to-end run the launch counts are set to 0 just before it and
-read just after.  The last line is {"ok": true, "device": {...}}; the
+read just after; a run that aligns prints its aligner kernels' launches
+and CUDA-event time by tier (K8 fwd / rc / both / rescue, K9, K14, by
+Lp) beside its align_s, and all of them come again as one JSON line
+("aligner_runs").  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
+
+    python3 chip_smoke.py --aligner
+
+runs phases 1-2, phase 3's aligner kernels (K8, K9, K10, K14, K19) with
+K8 and K9 also timed at batches of 512-16,384 reads, and phases 8, 11
+and 14, each phase 8 and 11 input also through the fused
+flow (FASTQUEEZE_FUSED_ALIGN=1, its archive == the classic chain's);
+it prints the aligner's kernel times, the batch sweep and the runs as
+JSON, then the last line above.
 
     python3 chip_smoke.py --coder-loop PROCS ROUNDS [--async] [--own-build]
         [--checked]
@@ -251,6 +265,30 @@ def _timed(fn):
     t1.record()
     torch.cuda.synchronize()
     return out, t0.elapsed_time(t1)
+
+
+def _graph_ms(fn, reps: int, rounds: int = 10) -> float:
+    """Mean device ms a call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed ``rounds`` times between two CUDA events, so the
+    wrapper's host work (checks, output fills, the ctypes call), which
+    exceeds the warp aligner kernels' device time, stays out; the caller
+    has already run ``fn`` once."""
+    import torch
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(rounds):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (rounds * reps)
 
 
 def _max_err(got, want) -> int:
@@ -1178,7 +1216,7 @@ def _vs_plain(tag: str, name: str, run, plain, rows, reps: int, note=""):
     for a, b in zip(got[1:], want[1:]):
         if a[m].numel():
             err = max(err, int((a[m].long() - b[m].long()).abs().max()))
-    ms, pms = _time_ms(run, reps), _time_ms(plain, 1)
+    ms, pms = _graph_ms(run, reps), _time_ms(plain, 1)
     print(f"  {tag:18s} {name:12s} B = {len(m)}{note}: {int(m.sum())} "
           f"mapped, max_abs_err {err}  kernel {ms:10.3f} ms  plain "
           f"{pms:10.3f} ms")
@@ -1254,7 +1292,7 @@ def _check_fused(ix, c, d, ln, k: int, G: int, ops: int, tag: str, rows,
         if ops:
             kernels.indel_batch(cb, db, lb, ix, deep, G, ops)
 
-    ms, pms, pair_ms = _time_ms(run, 3), _time_ms(plain, 1), _time_ms(pair, 3)
+    ms, pms, pair_ms = _graph_ms(run, 3), _time_ms(plain, 1), _graph_ms(pair, 3)
     print(f"  {tag:18s} {'rescue' if not ops else 'rescue+indel':12s} "
           f"rescue_indel_fused Lp {Lp} cap = {cap} ({len(todo)} tier-1 "
           f"failures of {len(ln)}): {int(m2.sum())} rescued, {int(f.sum())} "
@@ -1341,7 +1379,42 @@ def _check_longread_kernels(ix, genome, rows) -> None:
     _check_fused(ix, c, d, ln, 14, 3, 2, "lr1024", rows, tiers=True)
 
 
-def check_align_kernels(genome):
+# --aligner: K8's rescue and tier 1 and K9 over batches of these sizes,
+# ms a call, by kernel and batch (timed only; checked at phase 3's sizes)
+SWEEP = {}
+
+
+def _batch_sweep(ix, genome, k: int) -> None:
+    """Times K8 (tier 1 forward and the rescue tier; k = 14) or K9
+    (G = 3, two ops; k = 22) at several batch sizes, fresh reads a size."""
+    import torch
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    from fastqueeze_tpu_torch.ops import kernels
+    base = dict(k=k, stride=2, n_cand=64, max_mis=7, both_strands=0,
+                lp=ALIGN_LP)
+    deep = AlignConfig(**dict(base, n_cand=1024, n_seeds=6, excl_bp=7))
+    fwd = AlignConfig(**dict(base, strand="fwd", probe_k=16))
+    cases = ([("k8_fwd", "tier1", fwd, (4096, 16384)),
+              ("k8_rescue", "rescue", deep, (512, 1024, 2048, 4096))]
+             if k == 14 else
+             [("k9_G3_ops2", "indel", deep, (512, 1024, 2048, 4096))])
+    rng = np.random.default_rng(SEED + 11)
+    for name, kind, cfg, sizes in cases:
+        for B in sizes:
+            c, d, ln = (torch.from_numpy(a).to(ix.packed.device)
+                        for a in _align_reads(rng, genome, B, kind))
+            if name.startswith("k9"):
+                run = lambda: kernels.indel_batch(c, d, ln, ix, cfg, 3, 2)
+            else:
+                run = lambda: kernels.align_batch(c, d, ln, ix, cfg)
+            run()
+            ms = _graph_ms(run, 3)
+            SWEEP.setdefault(name, {})[B] = ms
+            print(f"  sweep {name:12s} B = {B:5d}: {ms:9.3f} ms, "
+                  f"{1e3 * ms / B:8.3f} us a read")
+
+
+def check_align_kernels(genome, sweep: bool = False):
     """K8, K9, K10 and K14 vs their plain versions on the card, at the
     main path's shapes: the seeded 100 Mbp genome's index (k = 14 for K8
     and K10, k = 22 for K9, both for K14), B = 4096 tier-1 reads and
@@ -1409,6 +1482,8 @@ def check_align_kernels(genome):
             _check_longread_kernels(ix, genome, rows)
             _check_sharded_kernel(idx, ix, grids["tier1"], rows)
         _check_fused_kernel(ix, genome, k, rows)
+        if sweep:
+            _batch_sweep(ix, genome, k)
         del al, ix, idx
     return rows
 
@@ -1655,14 +1730,103 @@ def _round_trip_ok(back: str, fq: str, fq2) -> bool:
     return _same_file(fq, back + ".fastq")
 
 
+# every main-path run with an aligner kernel: (run, aligner kernel
+# launches and CUDA-event ms by tier, align_s, encode s); printed as JSON
+ALIGN_RUNS = []
+
+
+class _AlignerTimes:
+    """K8, K9 and K14 launches by tier over one run, each C launch between
+    two CUDA events on its stream (the wrapper's host work, the output
+    fills and the other block workers' launches stay outside): K8 by tier
+    (fwd, rc, both: tier 1; rescue: the multi-seed tier) and Lp, K9 and
+    K14 by Lp.  Installed on ops.kernels' module attributes, which
+    align/hash.py and the wrappers call."""
+
+    NAMES = ("align_batch", "indel_batch", "rescue_indel_fused")
+
+    def __init__(self):
+        import threading
+        self.ev = []
+        self.local = threading.local()   # the tier of this thread's call
+
+    @staticmethod
+    def _tier(name, args) -> str:
+        if name == "align_batch":
+            cfg = args[4]
+            return (f"K8 {'rescue' if cfg.n_seeds > 1 else cfg.strand} "
+                    f"Lp{cfg.lp}")
+        return f"{'K9' if name == 'indel_batch' else 'K14'} Lp{args[0].shape[1]}"
+
+    def _wrap(self, name, fn):
+        def run(*args):
+            self.local.tier = self._tier(name, args)
+            return fn(*args)
+        return run
+
+    def _launch(self, fn, name, dev, *args, count=1):
+        import torch
+        if name not in self.NAMES:
+            return self._orig_launch(fn, name, dev, *args, count=count)
+        st = torch.cuda.current_stream(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record(st)
+        self._orig_launch(fn, name, dev, *args, count=count)
+        e1.record(st)
+        self.ev.append((getattr(self.local, "tier", name), e0, e1))
+
+    def __enter__(self):
+        from fastqueeze_tpu_torch.ops import kernels
+        self._orig = {n: getattr(kernels, n) for n in self.NAMES}
+        for n, fn in self._orig.items():
+            setattr(kernels, n, self._wrap(n, fn))
+        self._orig_launch = kernels._launch
+        kernels._launch = self._launch
+        return self
+
+    def __exit__(self, *exc):
+        from fastqueeze_tpu_torch.ops import kernels
+        for n, fn in self._orig.items():
+            setattr(kernels, n, fn)
+        kernels._launch = self._orig_launch
+
+    def summary(self) -> dict:
+        """{tier: {"launches", "ms"}}, sorted by tier."""
+        import torch
+        torch.cuda.synchronize()
+        by = {}
+        for tier, e0, e1 in self.ev:
+            d = by.setdefault(tier, {"launches": 0, "ms": 0.0})
+            d["launches"] += 1
+            d["ms"] += e0.elapsed_time(e1)
+        return dict(sorted(by.items()))
+
+
+def _report_aligner(tag: str, at: "_AlignerTimes", stats, t_enc: float):
+    """Prints and records one run's aligner kernel time beside its
+    align_s (the --stats stage timer; None without --stats)."""
+    by = at.summary()
+    if not by:
+        return
+    tot = sum(v["ms"] for v in by.values())
+    align_s = stats.get("align_s") if stats else None
+    print(f"aligner kernels {tag}: {json.dumps(by)}; total {tot:.3f} ms "
+          f"(CUDA events) beside align_s {align_s}, encode {t_enc:.3f} s")
+    ALIGN_RUNS.append({"run": tag, "kernels": by, "kernel_ms": tot,
+                       "align_s": align_s, "encode_s": t_enc})
+
+
 def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
-           ref=None, fq2=None, want=None):
+           ref=None, fq2=None, want=None, tag=None):
     """One main-path run through the CLI (against ``ref`` when given;
     paired with ``fq2`` when given): counts set to 0 just before, read
     just after; the decode equals the input (or ``want``, for -l) byte
     for byte; every kernel of the path launched; no native coder or
-    aligner call.  Adds the launches to ``totals``; returns (launches,
-    the compress call's stage metrics)."""
+    aligner call; the aligner kernels' launches and time by tier
+    (_AlignerTimes) printed beside align_s under ``tag``.  Adds the
+    launches to ``totals``; returns (launches, the compress call's stage
+    metrics)."""
     from fastqueeze_tpu_torch import cli
     from fastqueeze_tpu_torch.utils.metrics import DebugInfo
     runs = []
@@ -1678,13 +1842,15 @@ def _drive(fq: str, n_reads: int, arc: str, flags, path_kernels, totals,
     cli.DebugInfo = Recorded
     t0 = time.time()
     try:
-        rc = cli.main(["-c"] + refs + _inputs_argv(fq, fq2)
-                      + ["-o", arc, "-f"] + flags)
+        with _AlignerTimes() as at:
+            rc = cli.main(["-c"] + refs + _inputs_argv(fq, fq2)
+                          + ["-o", arc, "-f"] + flags)
     finally:
         cli.DebugInfo = DebugInfo
     if rc != 0:
         raise RuntimeError("compress failed")
     t_enc = time.time() - t0
+    _report_aligner(tag or _label(flags), at, runs[0].vals, t_enc)
     t0 = time.time()
     if cli.main(["-d"] + refs + [arc, "-o", back, "-f"]) != 0:
         raise RuntimeError("decompress failed")
@@ -1762,6 +1928,24 @@ def _oracle(fq: str, arc: str, flags, env: str, ref=None, fq2=None,
           f"byte for byte; decodes on the card")
 
 
+def _fused_too(fq: str, n_reads: int, arc: str, flags, path_kernels,
+               totals, ref: str, tag: str, fq2=None) -> None:
+    """A main-path run again with FASTQUEEZE_FUSED_ALIGN=1 (K8's tier 1 on
+    both strands, then one K14 a batch); its archive must equal ``arc``,
+    the classic chain's."""
+    arc_f = arc + ".fused.fqz"
+    os.environ["FASTQUEEZE_FUSED_ALIGN"] = "1"
+    try:
+        _drive(fq, n_reads, arc_f, flags, path_kernels, totals, ref=ref,
+               fq2=fq2, tag=tag)
+    finally:
+        del os.environ["FASTQUEEZE_FUSED_ALIGN"]
+    if not _same_file(arc, arc_f):
+        raise AssertionError(f"{tag}: fused archive != classic archive")
+    print(f"{tag}: archive equals the classic chain's byte for byte")
+    os.remove(arc_f)
+
+
 def end_to_end(tmp: str):
     """Phases 4-7; returns the launches summed over the main-path runs."""
     from fastqueeze_tpu_torch.container.arcfile import ArcReader
@@ -1829,9 +2013,11 @@ def _refuses(argv, what: str) -> None:
     print(f"decode {what}: refused with a message (see above)")
 
 
-def aligned_end_to_end(tmp: str, genome, totals) -> str:
+def aligned_end_to_end(tmp: str, genome, totals, fused: bool = False,
+                       selfref: bool = True) -> str:
     """Phases 8-9, adding their launches to ``totals``; returns the path
-    of ref.fa (its index file beside it)."""
+    of ref.fa (its index file beside it).  ``fused``: each phase 8 input
+    also through the fused aligner flow; ``selfref``: run phase 9."""
     from fastqueeze_tpu_torch import cli
     from fastqueeze_tpu_torch.container.arcfile import ArcReader
     print("phase 8: reference-aligned SE")
@@ -1859,7 +2045,11 @@ def aligned_end_to_end(tmp: str, genome, totals) -> str:
               f"reverse strand, 5% with a deletion ({time.time() - t0:.1f} "
               f"s to generate)")
         arc = fq[:-3] + ".fqz"
-        _drive(fq, R, arc, flags, path, totals, ref=ref)
+        tag = f"phase 8 {_label(flags)}"
+        _drive(fq, R, arc, flags, path, totals, ref=ref, tag=tag)
+        if fused:
+            _fused_too(fq, R, arc, flags, ("align_batch",), totals, ref,
+                       tag + " fused")
         nm, n, _ = _mapped(arc)
         print(f"mapped fraction {_label(flags)}: "
               f"{nm / n:.4f} ({nm} of {n} reads)")
@@ -1873,6 +2063,8 @@ def aligned_end_to_end(tmp: str, genome, totals) -> str:
             _refuses(["-d", wrong, arc, "-o", arc + ".x", "-f"],
                      "with a wrong reference")
         os.remove(fq)
+    if not selfref:
+        return ref
 
     print("phase 9: self-referential blocks (coverage input, CLI defaults)")
     fq = os.path.join(tmp, "coverage.fq")
@@ -1908,16 +2100,23 @@ def _slice_want(arc: str, srcs, at: int, count: int):
     return start, count, wants
 
 
-def pe_end_to_end(tmp: str, genome, ref: str, totals):
+def pe_end_to_end(tmp: str, genome, ref: str, totals, fused: bool = False,
+                  no_ref: bool = True):
     """Phases 10-11, adding their launches to ``totals``; returns phase
     10's archive with a slice across its block 0/1 boundary, (archive,
-    start, count, expected mate-1 and mate-2 bytes), for phase 16."""
-    from fastqueeze_tpu_torch.container.arcfile import FLAG_ALIGNED, ArcReader
-    from fastqueeze_tpu_torch.container.encap import iter_tlv
-    from fastqueeze_tpu_torch.pipeline.blockcodec import TAG_APDF
-    from fastqueeze_tpu_torch.pipeline.pe import TAG_PE_BODY
-    print("phase 10: paired-end, no reference (CLI defaults)")
+    start, count, expected mate-1 and mate-2 bytes), for phase 16.
+    ``fused``: phase 11's input also through the fused aligner flow;
+    ``no_ref``: run phase 10 (else return None)."""
     fq1, fq2 = (os.path.join(tmp, f"pairs_{k}.fq") for k in (1, 2))
+    pe_slice = _pe_no_ref(tmp, genome, fq1, fq2, totals) if no_ref else None
+    _pe_ref(tmp, genome, ref, fq1, fq2, totals, fused)
+    return pe_slice
+
+
+def _pe_no_ref(tmp: str, genome, fq1: str, fq2: str, totals):
+    """Phase 10; returns pe_end_to_end's slice."""
+    from fastqueeze_tpu_torch.container.arcfile import ArcReader
+    print("phase 10: paired-end, no reference (CLI defaults)")
     t0 = time.time()
     _pe_fastq(fq1, fq2, genome)
     size = os.path.getsize(fq1) + os.path.getsize(fq2)
@@ -1930,8 +2129,16 @@ def pe_end_to_end(tmp: str, genome, ref: str, totals):
             raise AssertionError("expected a frozen PE archive of >= 2 "
                                  "blocks")
     _oracle(fq1, arc, [], "FASTQUEEZE_FROZEN_EXEC", fq2=fq2)
-    pe_slice = (arc,) + _slice_want(arc, (fq1, fq2), -10, 30)
+    return (arc,) + _slice_want(arc, (fq1, fq2), -10, 30)
 
+
+def _pe_ref(tmp: str, genome, ref: str, fq1: str, fq2: str, totals,
+            fused: bool) -> None:
+    """Phase 11 (and its input again through the fused flow)."""
+    from fastqueeze_tpu_torch.container.arcfile import FLAG_ALIGNED, ArcReader
+    from fastqueeze_tpu_torch.container.encap import iter_tlv
+    from fastqueeze_tpu_torch.pipeline.blockcodec import TAG_APDF
+    from fastqueeze_tpu_torch.pipeline.pe import TAG_PE_BODY
     print("phase 11: paired-end against ref.fa with -I 500")
     t0 = time.time()
     n_seedless = _pe_fastq(fq1, fq2, genome, seedless_frac=0.05)
@@ -1941,7 +2148,11 @@ def pe_end_to_end(tmp: str, genome, ref: str, totals):
     flags = ["-I", "500", "--stats"]
     _, stats = _drive(fq1, 2 * R_PAIRS, arc, flags,
                       _FROZEN_PATH + ("align_batch", "window_batch"), totals,
-                      ref=ref, fq2=fq2)
+                      ref=ref, fq2=fq2, tag="phase 11 -I 500")
+    if fused:
+        _fused_too(fq1, 2 * R_PAIRS, arc, flags,
+                   ("align_batch", "window_batch"), totals, ref,
+                   "phase 11 -I 500 fused", fq2=fq2)
     rel = {k: stats.get(k, 0) for k in (
         "pe_rescued", "pe_both_map", "pe_1Y2N", "pe_1N2Y", "pe_none",
         "pe_insert_median", "mapped_reads")}
@@ -1960,7 +2171,6 @@ def pe_end_to_end(tmp: str, genome, ref: str, totals):
     _oracle(fq1, arc, flags, "FASTQUEEZE_ALIGN_EXEC", ref=ref, fq2=fq2)
     for f in (fq1, fq2):
         os.remove(f)
-    return pe_slice
 
 
 def semi_end_to_end(tmp: str, totals) -> None:
@@ -2169,7 +2379,7 @@ def longread_end_to_end(tmp: str, genome, ref: str, totals) -> None:
             os.environ["FASTQUEEZE_FUSED_ALIGN"] = "1"
         try:
             _, stats = _drive(fq, n, arcs[tag], flags, path, totals,
-                              ref=ref)
+                              ref=ref, tag=f"phase 14 {tag}")
         finally:
             os.environ.pop("FASTQUEEZE_FUSED_ALIGN", None)
         nm, nr, _ = _mapped(arcs[tag])
@@ -2590,10 +2800,46 @@ _REPLACES = {
 }
 
 
+def _ok_line() -> None:
+    import torch
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def aligner_main() -> int:
+    """--aligner: phases 1-2, phase 3's aligner kernels (K8, K9, K10, K14,
+    K19 against their plain versions; K8 and K9 also timed at several
+    batch sizes), and the aligned phases 8, 11 and 14, each phase 8 and
+    11 input also through the fused flow; the aligner kernels' launches
+    and time by tier beside align_s."""
+    card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fastqueeze_tpu_torch.ops import kernels
+    build()
+    genome = _genome()
+    rows = check_align_kernels(genome, sweep=True)
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ref = aligned_end_to_end(tmp, genome, totals, fused=True,
+                                 selfref=False)
+        pe_end_to_end(tmp, genome, ref, totals, fused=True, no_ref=False)
+        longread_end_to_end(tmp, genome, ref, totals)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"aligner_kernels": {
+        tag: {n: {"max_abs_err": e, "ms": ms, "plain_ms": pms}
+              for n, (e, ms, pms) in r.items()} for tag, r in rows.items()},
+        "pair_ms": PAIR_MS, "sweep_ms": SWEEP}))
+    print(json.dumps({"aligner_runs": ALIGN_RUNS}))
+    _ok_line()
+    return 0
+
+
 def main() -> int:
     card()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import torch
     build()
     rows = check_kernels()
     rows.update(check_pack_kernels())
@@ -2688,10 +2934,9 @@ def main() -> int:
         "fwd": rows["k14_fwd"]["align_batch"][1],
         "rc": rows["k14_rc"]["align_batch"][1]}
     print(f"copies of one stream (phase 3): {json.dumps(COPY)}")
+    print(json.dumps({"aligner_runs": ALIGN_RUNS}))
     print(json.dumps({"kernels": table}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    _ok_line()
     return 0
 
 
@@ -2811,6 +3056,8 @@ if __name__ == "__main__":
         sys.exit(coder_loop_procs(int(sys.argv[2]), int(sys.argv[3]),
                                   not _flag("--async"), _flag("--own-build"),
                                   _flag("--checked")))
+    if sys.argv[1:2] == ["--aligner"]:
+        sys.exit(aligner_main())
     if sys.argv[1:2] == ["--coder-child"]:
         coder_loop(int(sys.argv[2]), not _flag("--async"),
                    _opt("--build-dir"), _flag("--checked"))

@@ -109,8 +109,13 @@ class Aligner:
     """Holds the index arrays (host copies for the native mirror; device
     copies built once per device) and runs the tier chain."""
 
+    # reads a launch: tier 1 (and the fused flow's K8 + K14 batch), and
+    # the rescue and indel tiers.  Free choices (a read's result does not
+    # depend on its batch): on an H100 the warp kernels take 0.057 us a
+    # rescue read at 4,096 reads against 0.234 at 512, K9 0.267 against
+    # 0.832 (chip_smoke.py --aligner, its batch sweep)
     BATCH = 4096
-    RESCUE_BATCH = 512
+    RESCUE_BATCH = 4096
 
     def __init__(self, idx: RefIndex, params: CodecParams):
         if idx.n_positions >= (1 << 31) or idx.ref_len >= (1 << 31):

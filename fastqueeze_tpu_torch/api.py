@@ -21,8 +21,9 @@ can a caller set the ones no flag sets, such as ``frozen_adapt`` (keep
 adapting from the trained tables).  The coder and the aligner run on
 ``device``, the CUDA card by default; ``device="cpu"`` runs the kernels'
 plain PyTorch versions and the native host coders.  ``lossy`` (-l) sets
-lossy_factor; ``mesh`` resolves against the visible devices (over 2 or
-more devices it is not ported: ROADMAP Queue A item 9).
+lossy_factor; ``mesh`` runs the blocks data-parallel over that many
+visible devices (-1 = all), writing the single-device archive byte for
+byte.
 """
 
 from __future__ import annotations

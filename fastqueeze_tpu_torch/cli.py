@@ -21,10 +21,11 @@ of them needs a card).  ``--part K:N`` writes the partial archive of
 blocks K, K+N, ... (0 <= K < N <= 2^32-1), ``--merge`` assembles the N
 parts into the single-run archive, ``-X`` decodes only the covering
 blocks, ``-m`` puts several inputs into one archive.  ``--mesh N``
-resolves against the visible cards (-1 = all; more than are visible is
-refused); on one card it is a no-op written into PARAM, over 2 or more
-cards it exits with ROADMAP Queue A item 9.  ``-n`` is accepted and
-ignored, as in the reference.
+runs the blocks data-parallel over N cards (-1 = all; more than are
+visible is refused; one card: a no-op written into PARAM); the archive
+is byte-identical to a single-card run, and on decode 0 or unset takes
+the encoder's setting, clamped to the visible cards.  ``-n`` is
+accepted and ignored, as in the reference.
 """
 
 from __future__ import annotations
@@ -99,8 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="assemble partial archives (--part) into one: "
                     "--merge part*.fqz -o out.fqz")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="block data-parallelism over N cards (-1 = all; "
-                    "one card: a no-op; 2 or more: not ported)")
+                    help="block-data-parallel over N cards (-1 = all).  "
+                    "Archives are byte-identical to one card's; on decode, "
+                    "0/unset inherits the encoder's setting (clamped to "
+                    "visible cards)")
     ap.add_argument("--qlevel", type=int, default=None,
                     help="quality context level (default 2; 3 codes "
                     "adaptively with position contexts)")

@@ -1,4 +1,4 @@
-// K8 align_batch: the gapless seed aligner, one thread per read.
+// K8 align_batch: the gapless seed aligner, one warp a read.
 //
 // Replaces fastqueeze_tpu/align/hash.py _align_batch (B11), which runs
 // _one_strand (seed_search.cuh) on the forward grid, the
@@ -6,11 +6,13 @@
 // both-strand rule, and builds the mismatch mask of the mapped reads from
 // the packed reference (the per-read body is align_read.cuh's
 // gapless_read, which K14 shares).  The TPU version evaluates every
-// candidate of every read as one dense (B, C) gather; here a thread walks
-// its read's list and stops where the argmin can no longer change (the
-// native mirror's rules), so the deep rescue tier's 6,144 candidates cost
-// only what a read needs.  Bound by dependent random loads into the index
-// (~1 GB at 100 Mbp): 32-thread blocks spread the reads over every SM.
+// candidate of every read as one dense (B, C) gather; here a warp walks
+// its read's seeds and candidates 32 at a time and stops verifying where
+// the argmin can no longer change (the native mirror's rules), so the deep
+// rescue tier's 6,144 candidates cost only what a read needs.  Bound by
+// dependent random loads into the index (~1 GB at 100 Mbp): the warp keeps
+// 32 lookups, candidate loads or verifies in flight where one thread a
+// read kept one; blocks of kWarps warps, each with its own shared slice.
 
 #include <cstdint>
 
@@ -25,29 +27,33 @@ __global__ void align_batch(fqa::Index ix, fqa::Cfg cfg,
                             const uint8_t* __restrict__ dege,
                             const int32_t* __restrict__ lengths, int32_t B,
                             int32_t strand_mode, int32_t both_strands,
-                            uint8_t* scratch, int64_t per,
+                            uint8_t* scratch, int64_t per, int64_t smem_warp,
                             uint8_t* __restrict__ mapped,
                             int32_t* __restrict__ pos_out,
                             uint8_t* __restrict__ rev_out,
                             uint8_t* __restrict__ mis_mask) {
-    const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int w = threadIdx.x >> 5;
+    const int64_t b = (int64_t)blockIdx.x * fqa::kWarps + w;
     if (b >= B) return;
-    const int64_t off = (int64_t)b * cfg.lp;
-    fqa::gapless_read(ix, cfg, fqa::seed_scratch(cfg, scratch + b * per),
-                      codes + off, dege + off, lengths[b], strand_mode,
-                      both_strands, mapped + b, pos_out + b, rev_out + b,
-                      mis_mask + off);
+    const int64_t off = b * cfg.lp;
+    const fqa::Ws ws = fqa::warp_ws(cfg, 0, smem + w * smem_warp,
+                                    scratch + b * per);
+    fqa::gapless_read(ix, cfg, ws, codes + off, dege + off, lengths[b],
+                      strand_mode, both_strands, mapped + b, pos_out + b,
+                      rev_out + b, mis_mask + off);
 }
 
 }  // namespace
 
+// A warp's global slab (bytes) for K8's cfg.
 extern "C" int64_t fq_align_scratch_bytes(int32_t k, int32_t stride,
                                           int32_t n_cand, int32_t max_mis,
                                           int32_t n_seeds, int32_t excl_bp,
                                           int32_t probe_k, int32_t lp) {
     const fqa::Cfg cfg{k, stride, n_cand, max_mis, n_seeds, excl_bp, probe_k,
                        lp};
-    return fqa::seed_scratch_bytes(cfg);
+    return fqa::make_layout(cfg, 0).gmem;
 }
 
 extern "C" int fq_align_batch_cuda(
@@ -64,10 +70,11 @@ extern "C" int fq_align_batch_cuda(
                         l1, l1_shift, search_steps, ref_len};
     const fqa::Cfg cfg{k, stride, n_cand, max_mis, n_seeds, excl_bp, probe_k,
                        lp};
-    const int threads = 32;
-    const int blocks = (B + threads - 1) / threads;
-    align_batch<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int64_t sw = fqa::make_layout(cfg, 0).smem;
+    const int blocks = (B + fqa::kWarps - 1) / fqa::kWarps;
+    align_batch<<<blocks, 32 * fqa::kWarps, fqa::kWarps * sw,
+                  static_cast<cudaStream_t>(stream)>>>(
         ix, cfg, codes, dege, lengths, B, strand_mode, both_strands, scratch,
-        per, mapped, pos, rev, mis_mask);
+        per, sw, mapped, pos, rev, mis_mask);
     return static_cast<int>(cudaGetLastError());
 }

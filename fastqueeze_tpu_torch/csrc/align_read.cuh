@@ -1,20 +1,25 @@
-// Per-read bodies of the aligner's tiers, shared by K8 (align_batch.cu),
-// K9 (indel_batch.cu) and K14 (rescue_indel_fused.cu).
+// Per-read bodies of the aligner's tiers, one warp a read, shared by K8
+// (align_batch.cu), K9 (indel_batch.cu) and K14 (rescue_indel_fused.cu).
 //
 // gapless_read is one read of fastqueeze_tpu/align/hash.py _align_batch
 // (B11): the seed search of seed_search.cuh on the forward grid, the
 // reverse-complement grid or both, the strand rule, and the mismatch mask
-// of a mapped read.  indel_read is one read of _indel_batch (B12): per
-// strand K8's seed search for the anchor -- the best gapless candidate,
-// fallbacks included, since the reads here are the ones the gapless
-// tiers failed -- then the 2G+1 compare rows of the read against the
-// reference at shifts -G..+G with their exclusive prefix counts, every
-// split x gap over both anchorings (variants gap ascending, A before B,
-// strict-< chaining), the greedy TAIL and HEAD second op where one op
-// cannot reach max_mis (head wins only if strictly better), and the
-// spliced-window mask.  The decisions follow native/alignhost.cpp step
-// for step.  A thread owns one read; its rows live in a per-read global
-// scratch slab (7 x 129 int32 at G = 3, Lp = 128, one slab a strand).
+// of a mapped read, the lanes over its positions.  indel_read is one read
+// of _indel_batch (B12): per strand the seed search for the anchor -- the
+// best gapless candidate, fallbacks included, since the reads here are
+// the ones the gapless tiers failed -- then the 2G+1 compare rows of the
+// read against the reference at shifts -G..+G as exclusive prefix counts
+// (lanes over 32 columns at a time, a warp scan with a carry a chunk),
+// every split x gap over both anchorings (variants gap ascending, A
+// before B, strict-< chaining; each a warp argmin on (tot, split), first
+// occurrence), the greedy TAIL and HEAD second op where one op cannot
+// reach max_mis (head wins only if strictly better), and the
+// spliced-window mask, built by the lanes from the rows' differences.
+// The decisions follow native/alignhost.cpp step for step.  A strand's
+// rows (2G+2 rows of lp+1 int32: 4,128 bytes at G = 3, Lp = 128) sit in
+// the warp's shared slice when both strands' fit with the search's
+// arrays in seed_search.cuh's kWarpSmem (Lp 128, G <= 3), else in its
+// global slab (the chunk tier's Lp 1024).
 #pragma once
 
 #include <cstdint>
@@ -23,39 +28,28 @@
 
 namespace fqa {
 
-// Clamps a read's length to [0, lp] and says whether it has a degenerate
-// base.
-__device__ inline int32_t read_len(int32_t len, int lp, const uint8_t* drow,
-                                   bool* has_dege) {
-    if (len > lp) len = lp;
-    if (len < 0) len = 0;
-    bool hd = false;
-    for (int i = 0; i < len; i++) hd |= drow[i] != 0;
-    *has_dege = hd;
-    return len;
-}
-
-// One read of K8: strand_mode 0 forward, 1 reverse complement (the
-// fallback pass over reads forward failed), 2 both (RC as fallback unless
-// both_strands).  row/drow hold lp bytes, zero past len; mm gets lp mask
-// bytes.
+// One read of K8 on the warp: strand_mode 0 forward, 1 reverse complement
+// (the fallback pass over reads forward failed), 2 both (RC as fallback
+// unless both_strands).  row/drow hold lp bytes in global memory, zero
+// past len; mm gets lp mask bytes.
 __device__ inline void gapless_read(const Index& ix, const Cfg& cfg,
-                                    const Scratch& ws, const uint8_t* row,
+                                    const Ws& ws, const uint8_t* row,
                                     const uint8_t* drow, int32_t len_in,
                                     int32_t strand_mode, int32_t both_strands,
                                     uint8_t* mapped, int32_t* pos_out,
                                     uint8_t* rev_out, uint8_t* mm) {
-    const int lp = cfg.lp;
+    const int lp = cfg.lp, lane = lane_id();
+    stage_row(row, drow, lp, ws);
     bool has_dege;
-    const int32_t len = read_len(len_in, lp, drow, &has_dege);
+    const int32_t len = read_len(len_in, lp, ws.drow, &has_dege);
     int32_t mis_f = kBig, pos_f = 0, mis_r = kBig, pos_r = 0;
     if (strand_mode != 1)
-        one_strand(ix, cfg, ws, row, drow, len, &mis_f, &pos_f);
+        one_strand(ix, cfg, ws, ws.row, ws.drow, len, &mis_f, &pos_f);
     // RC as fallback: when forward mapped, its RC result is unused
     const bool need_rc = strand_mode != 0 &&
         !(strand_mode == 2 && !both_strands && mis_f <= cfg.max_mis);
     if (need_rc) {
-        reverse_complement(row, drow, len, lp, ws.rc, ws.rdege);
+        reverse_complement(ws, len, lp);
         one_strand(ix, cfg, ws, ws.rc, ws.rdege, len, &mis_r, &pos_r);
     }
     bool use_rev;
@@ -74,46 +68,16 @@ __device__ inline void gapless_read(const Index& ix, const Cfg& cfg,
         pos = use_rev ? pos_r : pos_f;
     }
     const bool is_mapped = mis <= cfg.max_mis && !has_dege && len >= cfg.k;
-    *mapped = is_mapped;
-    *pos_out = pos;
-    *rev_out = use_rev && is_mapped;
+    if (lane == 0) {
+        *mapped = is_mapped;
+        *pos_out = pos;
+        *rev_out = use_rev && is_mapped;
+    }
     const uint8_t* eff =
-        (strand_mode == 1 || (strand_mode == 2 && use_rev)) ? ws.rc : row;
-    for (int i = 0; i < lp; i++)
+        (strand_mode == 1 || (strand_mode == 2 && use_rev)) ? ws.rc : ws.row;
+    for (int i = lane; i < lp; i += 32)
         mm[i] = is_mapped && i < len &&
                 eff[i] != ref_base(ix, (int64_t)(uint32_t)pos + i);
-}
-
-struct StrandRows {   // one strand's compare rows and prefix counts
-    int32_t* E;       // (2G+1) x (lp+1)
-    int32_t* F;       // lp+1: literal-vs-filler prefix counts
-    uint8_t* cmp;     // (2G+1) x lp
-    uint8_t* lit;     // lp
-};
-
-__host__ __device__ inline int64_t rows_bytes(int lp, int G) {
-    const int64_t NG = 2 * G + 1;
-    return align16(4 * NG * (lp + 1)) + align16(4 * (lp + 1))
-           + align16(NG * lp) + align16(lp);
-}
-
-// Scratch of one indel_read: the seed search's, then a row slab a strand.
-__host__ __device__ inline int64_t indel_scratch_bytes(const Cfg& cfg,
-                                                       int G) {
-    return seed_scratch_bytes(cfg) + 2 * rows_bytes(cfg.lp, G);
-}
-
-__device__ inline StrandRows strand_rows(uint8_t* base, int lp, int G) {
-    const int64_t NG = 2 * G + 1;
-    StrandRows r;
-    r.E = reinterpret_cast<int32_t*>(base);
-    base += align16(4 * NG * (lp + 1));
-    r.F = reinterpret_cast<int32_t*>(base);
-    base += align16(4 * (lp + 1));
-    r.cmp = base;
-    base += align16(NG * lp);
-    r.lit = base;
-    return r;
 }
 
 // strand_eval's outputs, as the decode splice reads them: shift gA past
@@ -123,35 +87,65 @@ struct SRes {
     int32_t tot, sA, gA, sB, gB, po, jb, pg, sg;
 };
 
+// First-occurrence argmin of f(s) over s in [lo, hi] on the warp:
+// (kNone, kNone) when the range is empty.
+template <class Fn>
+__device__ __forceinline__ void range_argmin(int32_t lo, int32_t hi, Fn f,
+                                             int32_t* tb, int32_t* sb) {
+    int32_t v = kNone, at = kNone;
+    for (int32_t s = lo + lane_id(); s <= hi; s += 32) {
+        const int32_t t = f(s);
+        if (t < v) {
+            v = t;
+            at = s;
+        }
+    }
+    warp_argmin(v, at);
+    *tb = v;
+    *sb = at;
+}
+
+// One strand of indel_read: rows E (row j at E + j * (lp+1), j in
+// [0, 2G]) and F (at E + (2G+1) * (lp+1)) of the read c / d.
 __device__ inline SRes strand_eval(const Index& ix, const Cfg& cfg,
-                                   const Scratch& ws, const StrandRows& rw,
+                                   const Ws& ws, int32_t* E,
                                    const uint8_t* c, const uint8_t* d,
                                    int32_t len, int G, int ops) {
-    const int lp = cfg.lp, NG = 2 * G + 1;
+    const int lp = cfg.lp, NG = 2 * G + 1, lane = lane_id();
+    const int64_t R = lp + 1;
     int32_t mis_g, posi;
     one_strand(ix, cfg, ws, c, d, len, &mis_g, &posi);
     const bool ok_b = posi >= 2 * G &&
                       (int64_t)posi + len + 2 * G <= ix.ref_len;
-    for (int j = 0; j < NG; j++) {
-        const int g = j - G;
-        int32_t* Ej = rw.E + j * (lp + 1);
-        uint8_t* cj = rw.cmp + j * lp;
-        Ej[0] = 0;
-        for (int i = 0; i < len; i++) {
-            int64_t idx = (int64_t)posi + g + i;
-            if (idx < 0) idx = 0;
-            if (idx > ix.ref_len - 1) idx = ix.ref_len - 1;
-            cj[i] = c[i] != ref_base(ix, idx);
-            Ej[i + 1] = Ej[i] + cj[i];
+    // exclusive prefix counts of the compare rows and the filler row F,
+    // 32 columns at a time; constant past len (only columns <= len are
+    // read)
+    int32_t* F = E + NG * R;
+    __syncwarp();
+    for (int j = 0; j <= NG; j++) {
+        int32_t* Ej = E + j * R;
+        int32_t carry = 0;
+        if (lane == 0) Ej[0] = 0;
+        for (int i0 = 0; i0 < lp; i0 += 32) {
+            const int i = i0 + lane;
+            int32_t x = 0;
+            if (i < len) {
+                if (j < NG) {
+                    int64_t idx = (int64_t)posi + (j - G) + i;
+                    if (idx < 0) idx = 0;
+                    if (idx > ix.ref_len - 1) idx = ix.ref_len - 1;
+                    x = c[i] != ref_base(ix, idx);
+                } else {
+                    x = c[i] != 0;
+                }
+            }
+            const int32_t incl = warp_scan(x);
+            if (i < lp) Ej[i + 1] = carry + incl;
+            carry += __shfl_sync(kFull, incl, 31);
         }
     }
-    const int32_t* F = rw.F;
-    rw.F[0] = 0;
-    for (int i = 0; i < len; i++) {
-        rw.lit[i] = c[i] != 0;
-        rw.F[i + 1] = rw.F[i] + rw.lit[i];
-    }
-    const int32_t* E0 = rw.E + G * (lp + 1);
+    __syncwarp();
+    const int32_t* E0 = E + G * R;
     SRes b{kBig, 0, 0, 0, 0, posi, 0, 0, 0};
 
     // tot[s] = pref[s] + (F[s+h] - F[s]) + (suf[len] - suf[s+h]) over
@@ -159,15 +153,11 @@ __device__ inline SRes strand_eval(const Index& ix, const Cfg& cfg,
     auto consider = [&](const int32_t* pref, const int32_t* suf, int h,
                         int32_t g_out, int32_t d_pos, int32_t pg,
                         int32_t sg) {
-        int32_t tb = kBig, sb = 0;
-        for (int32_t s = 0; s <= len - h; s++) {
-            const int32_t tot = pref[s] + (F[s + h] - F[s])
-                                + (suf[len] - suf[s + h]);
-            if (tot < tb) {
-                tb = tot;
-                sb = s;
-            }
-        }
+        int32_t tb, sb;
+        const int32_t sl = suf[len];
+        range_argmin(0, len - h, [&](int32_t s) {
+            return pref[s] + (F[s + h] - F[s]) + (sl - suf[s + h]);
+        }, &tb, &sb);
         if (tb < b.tot) {
             b.tot = tb;
             b.sA = sb;
@@ -180,7 +170,7 @@ __device__ inline SRes strand_eval(const Index& ix, const Cfg& cfg,
     };
     for (int g = -G; g <= G; g++) {
         if (g == 0) continue;
-        const int32_t* Eg = rw.E + (g + G) * (lp + 1);
+        const int32_t* Eg = E + (g + G) * R;
         const int h = g > 0 ? g : -g;
         if (g > 0) {
             consider(E0, Eg, 0, g, 0, 0, g);    // A: the read deletes g
@@ -195,8 +185,8 @@ __device__ inline SRes strand_eval(const Index& ix, const Cfg& cfg,
     if (ops >= 2 && b.tot > cfg.max_mis && b.tot < kBig) {
         const int h1 = b.gA < 0 ? -b.gA : 0;
         const int32_t s1 = b.sA;
-        const int32_t* Epg = rw.E + b.pg * (lp + 1);
-        const int32_t* Esg = rw.E + b.sg * (lp + 1);
+        const int32_t* Epg = E + b.pg * R;
+        const int32_t* Esg = E + b.sg * R;
         const int32_t op1_lit = F[s1 + h1] - F[s1];
         // TAIL: a second op at s2 >= s1 + h1 moves the rest to row sg+g2
         const int32_t base_c = Epg[s1] + op1_lit - Esg[s1 + h1];
@@ -205,16 +195,18 @@ __device__ inline SRes strand_eval(const Index& ix, const Cfg& cfg,
             if (g2 == 0) continue;
             const int j2 = b.sg + g2;
             if (j2 < 0 || j2 > 2 * G) continue;
-            const int32_t* E2 = rw.E + j2 * (lp + 1);
+            const int32_t* E2 = E + j2 * R;
             const int h2 = g2 < 0 ? -g2 : 0;
-            for (int32_t s2 = s1 + h1; s2 <= len - h2; s2++) {
-                const int32_t tot = base_c + Esg[s2] + (F[s2 + h2] - F[s2])
-                                    + (E2[len] - E2[s2 + h2]);
-                if (tot < tt) {
-                    tt = tot;
-                    st = s2;
-                    gt = g2;
-                }
+            const int32_t e2l = E2[len];
+            int32_t tb, sb;
+            range_argmin(s1 + h1, len - h2, [&](int32_t s2) {
+                return base_c + Esg[s2] + (F[s2 + h2] - F[s2])
+                       + (e2l - E2[s2 + h2]);
+            }, &tb, &sb);
+            if (tb < tt) {
+                tt = tb;
+                st = sb;
+                gt = g2;
             }
         }
         // HEAD: a new first op at s0 <= s1 - hh re-bases the prefix
@@ -224,16 +216,17 @@ __device__ inline SRes strand_eval(const Index& ix, const Cfg& cfg,
             if (gh == 0) continue;
             const int j0 = b.pg + gh;
             if (j0 < 0 || j0 > 2 * G) continue;
-            const int32_t* Ej0 = rw.E + j0 * (lp + 1);
+            const int32_t* Ej0 = E + j0 * R;
             const int hh = gh > 0 ? gh : 0;
-            for (int32_t s0 = 0; s0 <= s1 - hh; s0++) {
-                const int32_t tot = tail_c + Ej0[s0] + (F[s0 + hh] - F[s0])
-                                    - Epg[s0 + hh];
-                if (tot < th) {
-                    th = tot;
-                    sh = s0;
-                    gh_sel = gh;
-                }
+            int32_t tb, sb;
+            range_argmin(0, s1 - hh, [&](int32_t s0) {
+                return tail_c + Ej0[s0] + (F[s0 + hh] - F[s0])
+                       - Epg[s0 + hh];
+            }, &tb, &sb);
+            if (tb < th) {
+                th = tb;
+                sh = sb;
+                gh_sel = gh;
             }
         }
         const bool use_head = th < tt;
@@ -256,59 +249,69 @@ __device__ inline SRes strand_eval(const Index& ix, const Cfg& cfg,
     return b;
 }
 
-// One read of K9 over ``scratch`` (indel_scratch_bytes(cfg, G) bytes):
-// found, pos, the two ops (s1, g1, s2, g2), strand, and lp mask bytes in
-// spliced-window coordinates.
+// One read of K9 on the warp (ws from warp_ws(cfg, G, ...)): found, pos,
+// the two ops (s1, g1, s2, g2), strand, and lp mask bytes in
+// spliced-window coordinates.  row/drow in global memory.
 __device__ inline void indel_read(const Index& ix, const Cfg& cfg,
-                                  uint8_t* scratch, const uint8_t* row,
+                                  const Ws& ws, const uint8_t* row,
                                   const uint8_t* drow, int32_t len_in, int G,
                                   int ops, uint8_t* found_out,
                                   int32_t* pos_out, int32_t* split_out,
                                   int32_t* gap_out, int32_t* split2_out,
                                   int32_t* gap2_out, uint8_t* rev_out,
                                   uint8_t* mm) {
-    const int lp = cfg.lp;
+    const int lp = cfg.lp, lane = lane_id();
+    stage_row(row, drow, lp, ws);
     bool has_dege;
-    const int32_t len = read_len(len_in, lp, drow, &has_dege);
-    const Scratch ws = seed_scratch(cfg, scratch);
-    uint8_t* base = scratch + seed_scratch_bytes(cfg);
-    const StrandRows rows_f = strand_rows(base, lp, G);
-    const StrandRows rows_r = strand_rows(base + rows_bytes(lp, G), lp, G);
+    const int32_t len = read_len(len_in, lp, ws.drow, &has_dege);
+    int32_t* rows_f = ws.rows;
+    int32_t* rows_r = ws.rows + ws.rows_stride;
 
-    const SRes f = strand_eval(ix, cfg, ws, rows_f, row, drow, len, G, ops);
+    const SRes f = strand_eval(ix, cfg, ws, rows_f, ws.row, ws.drow, len, G,
+                               ops);
     SRes rv{kBig, 0, 0, 0, 0, 0, 0, 0, 0};
     if (f.tot > 0) {       // tot_r < tot_f needs tot_f > 0
-        reverse_complement(row, drow, len, lp, ws.rc, ws.rdege);
+        reverse_complement(ws, len, lp);
         rv = strand_eval(ix, cfg, ws, rows_r, ws.rc, ws.rdege, len, G, ops);
     }
     const bool use_rev = rv.tot < f.tot;
     const SRes& r = use_rev ? rv : f;
-    const StrandRows& rr = use_rev ? rows_r : rows_f;
+    const int32_t* E = use_rev ? rows_r : rows_f;
     const bool found = r.tot <= cfg.max_mis && !has_dege && len >= cfg.k;
-    *found_out = found;
-    *pos_out = r.po;
-    *split_out = r.sA;
-    *gap_out = r.gA;
-    *split2_out = r.sB;
-    *gap2_out = r.gB;
-    *rev_out = use_rev && found;
-    // spliced-window mask: rows jb, jb+gA, jb+gA+gB, literal filler over
-    // the insertion ranges
+    if (lane == 0) {
+        *found_out = found;
+        *pos_out = r.po;
+        *split_out = r.sA;
+        *gap_out = r.gA;
+        *split2_out = r.sB;
+        *gap2_out = r.gB;
+        *rev_out = use_rev && found;
+    }
+    // spliced-window mask: rows jb, jb+gA, jb+gA+gB (compare bits as the
+    // prefix counts' steps), literal filler over the insertion ranges
+    const int64_t R = lp + 1;
     const int32_t hA = r.gA < 0 ? -r.gA : 0;
     const int32_t hB = r.gB < 0 ? -r.gB : 0;
-    const uint8_t* r0 = rr.cmp + r.jb * lp;
-    const uint8_t* r1 = rr.cmp + (r.jb + r.gA) * lp;
-    const uint8_t* r2 = rr.cmp + (r.jb + r.gA + r.gB) * lp;
-    for (int i = 0; i < lp; i++) {
-        uint8_t v = 0;
+    auto row_at = [&](int j) {
+        j = j < 0 ? 0 : (j > 2 * G ? 2 * G : j);
+        return E + j * R;
+    };
+    const int32_t* r0 = row_at(r.jb);
+    const int32_t* r1 = row_at(r.jb + r.gA);
+    const int32_t* r2 = row_at(r.jb + r.gA + r.gB);
+    const int32_t* F = E + (2 * G + 1) * R;
+    for (int i = lane; i < lp; i += 32) {
+        int32_t v = 0;
         if (found && i < len) {
-            if (i < r.sA) v = r0[i];
-            else if (i < r.sA + hA) v = hA > 0 ? rr.lit[i] : r1[i];
-            else if (i < r.sB) v = r1[i];
-            else if (i < r.sB + hB) v = hB > 0 ? rr.lit[i] : r2[i];
-            else v = r2[i];
+            const int32_t* rr;
+            if (i < r.sA) rr = r0;
+            else if (i < r.sA + hA) rr = hA > 0 ? F : r1;
+            else if (i < r.sB) rr = r1;
+            else if (i < r.sB + hB) rr = hB > 0 ? F : r2;
+            else rr = r2;
+            v = rr[i + 1] - rr[i];
         }
-        mm[i] = v;
+        mm[i] = (uint8_t)v;
     }
 }
 

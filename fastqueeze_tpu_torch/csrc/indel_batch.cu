@@ -1,5 +1,5 @@
-// K9 indel_batch: the indel tier (<= 2 gap operations a read), one thread
-// per read.
+// K9 indel_batch: the indel tier (<= 2 gap operations a read), one warp a
+// read.
 //
 // Replaces fastqueeze_tpu/align/hash.py _indel_batch (B12).  The per-read
 // body is align_read.cuh's indel_read (which K14 shares): per strand K8's
@@ -7,9 +7,11 @@
 // counts, the split x gap scan over both anchorings, the greedy second op
 // and the spliced-window mask, as native/alignhost.cpp fq_indel_batch
 // decides.  The TPU version scores all (B, Lp+1) splits as dense vector
-// ops; here each thread scans its read's splits in order, with the rows
-// in a per-read global scratch slab.  Bound by the anchor's seed search
-// (random loads); the scoring is ~10^4 integer adds a read, from L1/L2.
+// ops; here the warp's lanes fill the rows 32 columns at a time and each
+// split scan is a warp argmin, with the rows in the warp's shared slice
+// at Lp 128 and in its global slab at the chunk tier's Lp 1024.  Bound by
+// the anchor's seed search (random loads); the scoring is ~10^4 integer
+// adds a read.
 
 #include <cstdint>
 
@@ -24,7 +26,8 @@ __global__ void indel_batch(fqa::Index ix, fqa::Cfg cfg,
                             const uint8_t* __restrict__ dege,
                             const int32_t* __restrict__ lengths, int32_t B,
                             int32_t G, int32_t ops, uint8_t* scratch,
-                            int64_t per, uint8_t* __restrict__ found_out,
+                            int64_t per, int64_t smem_warp,
+                            uint8_t* __restrict__ found_out,
                             int32_t* __restrict__ pos_out,
                             int32_t* __restrict__ split_out,
                             int32_t* __restrict__ gap_out,
@@ -32,17 +35,22 @@ __global__ void indel_batch(fqa::Index ix, fqa::Cfg cfg,
                             int32_t* __restrict__ gap2_out,
                             uint8_t* __restrict__ rev_out,
                             uint8_t* __restrict__ mis_mask) {
-    const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int w = threadIdx.x >> 5;
+    const int64_t b = (int64_t)blockIdx.x * fqa::kWarps + w;
     if (b >= B) return;
-    const int64_t off = (int64_t)b * cfg.lp;
-    fqa::indel_read(ix, cfg, scratch + b * per, codes + off, dege + off,
-                    lengths[b], G, ops, found_out + b, pos_out + b,
-                    split_out + b, gap_out + b, split2_out + b, gap2_out + b,
-                    rev_out + b, mis_mask + off);
+    const int64_t off = b * cfg.lp;
+    const fqa::Ws ws = fqa::warp_ws(cfg, G, smem + w * smem_warp,
+                                    scratch + b * per);
+    fqa::indel_read(ix, cfg, ws, codes + off, dege + off, lengths[b], G, ops,
+                    found_out + b, pos_out + b, split_out + b, gap_out + b,
+                    split2_out + b, gap2_out + b, rev_out + b,
+                    mis_mask + off);
 }
 
 }  // namespace
 
+// A warp's global slab (bytes) for K9's cfg and G.
 extern "C" int64_t fq_indel_scratch_bytes(int32_t k, int32_t stride,
                                           int32_t n_cand, int32_t max_mis,
                                           int32_t n_seeds, int32_t excl_bp,
@@ -50,7 +58,7 @@ extern "C" int64_t fq_indel_scratch_bytes(int32_t k, int32_t stride,
                                           int32_t G) {
     const fqa::Cfg cfg{k, stride, n_cand, max_mis, n_seeds, excl_bp, probe_k,
                        lp};
-    return fqa::indel_scratch_bytes(cfg, G);
+    return fqa::make_layout(cfg, G).gmem;
 }
 
 extern "C" int fq_indel_batch_cuda(
@@ -68,10 +76,11 @@ extern "C" int fq_indel_batch_cuda(
                         l1, l1_shift, search_steps, ref_len};
     const fqa::Cfg cfg{k, stride, n_cand, max_mis, n_seeds, excl_bp, probe_k,
                        lp};
-    const int threads = 32;
-    const int blocks = (B + threads - 1) / threads;
-    indel_batch<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        ix, cfg, codes, dege, lengths, B, G, ops, scratch, per, found, pos,
-        split, gap, split2, gap2, rev, mis_mask);
+    const int64_t sw = fqa::make_layout(cfg, G).smem;
+    const int blocks = (B + fqa::kWarps - 1) / fqa::kWarps;
+    indel_batch<<<blocks, 32 * fqa::kWarps, fqa::kWarps * sw,
+                  static_cast<cudaStream_t>(stream)>>>(
+        ix, cfg, codes, dege, lengths, B, G, ops, scratch, per, sw, found,
+        pos, split, gap, split2, gap2, rev, mis_mask);
     return static_cast<int>(cudaGetLastError());
 }

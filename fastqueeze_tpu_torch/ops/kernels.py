@@ -67,16 +67,17 @@ K16 pack_grid          grid -> 2/4/6-bit pack (engine._pack{2,4,6}_dev)
 K17 pack15             6-bit grid -> top-15 nibbles + exception list
                        (engine._pack15_dev)
 Seed aligner:
-K8 align_batch         one thread per read: sampled-seed bucketed search,
-                       candidates, probe prefilter, gapless verify, RC
-                       (align/hash.py _one_strand, _align_batch)
-K9 indel_batch         one thread per read: K8's seed search for the
+K8 align_batch         one warp per read: sampled-seed bucketed search,
+                       candidates, probe prefilter, gapless verify, RC,
+                       32 lanes a step (align/hash.py _one_strand,
+                       _align_batch)
+K9 indel_batch         one warp per read: K8's seed search for the
                        anchor, then the <= 2-op split x gap scoring
                        (align/hash.py _indel_batch)
 K10 window_batch       one warp per read: every offset of the mate's
                        insert window on both strands, first-occurrence
                        argmin (align/hash.py _window_batch)
-K14 rescue_indel_fused one thread per todo slot of a tier-1 batch: K8's
+K14 rescue_indel_fused one warp per todo slot of a tier-1 batch: K8's
                        rescue, then K9 on the slots it did not map
                        (align/hash.py _rescue_indel_fused)
 

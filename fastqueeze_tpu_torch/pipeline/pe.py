@@ -13,8 +13,9 @@ holds one whole-input MD5 per file.  Decode writes <prefix>_1.fastq and
 Compressing against a reference is pipeline/aligned.py
 (compress_pe_aligned).  With -l both mates' qualities take the R-Block
 transform before the block MD5.  ``part=(k, n)`` (--part K:N) writes the
-partial archive of block pairs k, k+n, ... (driver.compress_se).  Not
-ported yet: --mesh over 2 or more devices (ROADMAP Queue A item 9).
+partial archive of block pairs k, k+n, ... (driver.compress_se);
+``--mesh N`` runs the block pairs data-parallel over N devices, as
+driver.compress_se does, with the same archive.
 """
 
 from __future__ import annotations

@@ -751,6 +751,202 @@ def test_aligned_pipeline_on_card_matches_host_route(cuda, tmp_path,
         assert open(out[0], "rb").read() == fq.read_bytes(), kw
 
 
+# --- the warp body of K8, K9, K14: the rules it splits over 32 lanes -------
+
+_UNIT, _REPEATS, _VAR_AT = 100, 80, 40
+
+
+def _warp_edge_fixture(k: int, lp: int = 128):
+    """A seeded 40 kbp reference with 80 copies of a 100 bp unit, each with
+    a non-A base at unit position 40 but copy 45 (an A there), an Aligner
+    over it, and reads that hit each rule the warp body splits (as
+    tests/test_torch_align_warp.py builds them): the unit with an N at
+    base 40 (every valid seed lists all 80 copies: ties in the verify
+    order past 32 entries, the K cut and best == 0 mid-round), random
+    reads (every candidate pruned), reads wrapping the reference's end
+    (no valid candidate), clean, substituted and indel reads on both
+    strands; at lp 1024, 700-1,000 bp reads (more samples than lanes)."""
+    from fastqueeze_tpu_torch.align.hash import Aligner
+    from fastqueeze_tpu_torch.align.index import build_from_ref
+    from fastqueeze_tpu_torch.align.ref import RefSeq
+    rng = np.random.default_rng(1102)
+    ref = rng.integers(0, 4, 40_000).astype(np.uint8)
+    unit = rng.integers(0, 4, _UNIT).astype(np.uint8)
+    for j in range(_REPEATS):
+        u = unit.copy()
+        u[_VAR_AT] = 0 if j == 45 else 1 + j % 3
+        at = 12_000 + j * (_UNIT + 37)
+        ref[at:at + _UNIT] = u
+    p = CodecParams(seed_len=k)
+    idx = build_from_ref(RefSeq(ref, np.zeros(len(ref), bool), ["r"],
+                                np.array([0, len(ref)]), ""), p)
+    reads, dege = [], []
+    n = 256 if lp == 128 else 48
+    for i in range(n):
+        kind = i % 6
+        L = int(rng.integers(70, 110) if lp == 128
+                else rng.integers(700, 1000))
+        s = int(rng.integers(100, len(ref) - L - 200))
+        r = ref[s:s + L + 6].copy()
+        if kind == 1:
+            at = rng.integers(0, L, 5 if lp > 128 else 9)
+            r[at] = (r[at] + rng.integers(1, 4, len(at))) % 4
+        elif kind == 2:
+            g, at = int(rng.integers(1, 4)), int(rng.integers(20, L - 20))
+            r = np.concatenate([r[:at], r[at + g:]])
+        elif kind == 3:
+            r = rng.integers(0, 4, L).astype(np.uint8)
+        elif kind == 4 and lp == 128:
+            r = np.concatenate([ref[-50:], ref[:60]])
+            L = len(r)
+        elif kind == 5 and lp == 128:
+            r, L = unit.copy(), _UNIT
+        r = r[:L]
+        d = np.zeros(L, bool)
+        d[_VAR_AT] = kind == 5 and lp == 128
+        if kind in (0, 1, 2) and rng.random() < 0.4:
+            r = (3 - r)[::-1].copy()
+        reads.append(r)
+        dege.append(d)
+    lengths = np.array([len(r) for r in reads], np.int64)
+    return (Aligner(idx, p), np.concatenate(reads), np.concatenate(dege),
+            lengths)
+
+
+_WARP_CFGS = {
+    "tier1_fwd": dict(strand="fwd", probe_k=16),
+    "no_prefilter": dict(strand="fwd", probe_k=32),
+    "tier1_fallback": dict(probe_k=16),
+    "both_strands": dict(both_strands=1, probe_k=16),
+    "rescue": dict(n_cand=1024, n_seeds=6, excl_bp=7),
+    "rescue_K40": dict(n_cand=1024, n_seeds=6, excl_bp=7, probe_k=40),
+    "wide_masks": dict(n_cand=256, n_seeds=4, excl_bp=20, probe_k=64),
+}
+
+
+def _native_align(al, codes, dege, lengths, lp, cfg):
+    from fastqueeze_tpu_torch.io import native
+    sm = {"fwd": 0, "rc": 1, "both": 2}[cfg.strand]
+    return native.align_batch(
+        al._h_keys, al._h_offsets, al._h_positions, al._h_packed, al._h_l1,
+        al._l1_shift, al._search_steps, al.ref_len, codes, dege,
+        np.cumsum(lengths) - lengths, lengths, lp, al.k, cfg.stride,
+        cfg.n_cand, cfg.max_mis, cfg.n_seeds, cfg.excl_bp, cfg.probe_k, sm,
+        cfg.both_strands)
+
+
+@pytest.mark.parametrize("lp", [128, 1024])
+@pytest.mark.parametrize("k", [14, 22])
+@pytest.mark.parametrize("name", sorted(_WARP_CFGS))
+def test_align_batch_warp_edges(cuda, lp, k, name):
+    """K8's warp body on the reads built for its rules: every output of
+    every read equal to the plain version's, and the native mirror's."""
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    al, codes, dege, lengths = _warp_edge_fixture(k, lp)
+    cfg = AlignConfig(k=k, stride=2, max_mis=7, lp=lp,
+                      **{"n_cand": 64, "both_strands": 0,
+                         **_WARP_CFGS[name]})
+    want = kernels.align_batch(*_grids(al, codes, dege, lengths, lp, "cpu"),
+                               al.dev_index("cpu"), cfg)
+    got = [t.cpu() for t in kernels.align_batch(
+        *_grids(al, codes, dege, lengths, lp, cuda), al.dev_index(cuda),
+        cfg)]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    nat = _native_align(al, codes, dege, lengths, lp, cfg)
+    assert np.array_equal(got[1].numpy(), nat[1])
+    assert np.array_equal(got[3].numpy(), nat[3])
+
+
+@pytest.mark.parametrize("lp", [128, 1024])
+@pytest.mark.parametrize("k", [14, 22])
+def test_indel_and_fused_warp_edges(cuda, lp, k):
+    """K9 (G = 3, two ops) and K14 (both halves, a shuffled todo list with
+    a fifth of the slots off) on the same reads: K9 equal to the native
+    mirror on every output and to the plain version on found and the
+    found reads' outputs; K14 to its plain version on m2, f and the
+    outputs of the slots they select."""
+    from fastqueeze_tpu_torch.align.hash import AlignConfig
+    from fastqueeze_tpu_torch.io import native
+    al, codes, dege, lengths = _warp_edge_fixture(k, lp)
+    cfg = AlignConfig(k=k, stride=2, n_cand=1024, max_mis=7, both_strands=0,
+                      lp=lp, n_seeds=6, excl_bp=7)
+    want = kernels.indel_batch(*_grids(al, codes, dege, lengths, lp, "cpu"),
+                               al.dev_index("cpu"), cfg, 3, 2)
+    got = [t.cpu() for t in kernels.indel_batch(
+        *_grids(al, codes, dege, lengths, lp, cuda), al.dev_index(cuda), cfg,
+        3, 2)]
+    f = want[0]
+    assert torch.equal(got[0], f) and int(f.sum()) > 5
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a[f], b[f])
+    nat = native.indel_batch(
+        al._h_keys, al._h_offsets, al._h_positions, al._h_packed, al._h_l1,
+        al._l1_shift, al._search_steps, al.ref_len, codes, dege,
+        np.cumsum(lengths) - lengths, lengths, lp, k, 2, 1024, 7, 6, 7, 1024,
+        3, 2)
+    for a, b in zip(got, nat):
+        assert np.array_equal(a.numpy(), b)
+    rng = np.random.default_rng(4)
+    cap = 256 if lp == 128 else 64
+    idx = rng.integers(0, len(lengths), cap).astype(np.int32)
+    do = rng.random(cap) < 0.8
+
+    def run(dev):
+        return kernels.rescue_indel_fused(
+            *_grids(al, codes, dege, lengths, lp, dev),
+            torch.from_numpy(idx).to(dev), torch.from_numpy(do).to(dev),
+            al.dev_index(dev), cfg, cfg, 3, 2)
+
+    want, got = run("cpu"), [t.cpu() for t in run(cuda)]
+    m2, f = want[0], want[4]
+    assert torch.equal(got[0], m2) and torch.equal(got[4], f)
+    for sel, lo, hi in ((m2, 1, 4), (f, 5, 12)):
+        for a, b in zip(got[lo:hi], want[lo:hi]):
+            assert torch.equal(a[sel], b[sel])
+
+
+@pytest.mark.parametrize("tier", ["rescue", "indel", "fused"])
+def test_aligner_kernels_at_the_default_batch(cuda, tier):
+    """K8's rescue, K9 and K14 over one batch of the sizes Aligner uses
+    (RESCUE_BATCH reads; K14 over BATCH slots), held to their plain
+    versions."""
+    from fastqueeze_tpu_torch.align.hash import AlignConfig, Aligner
+    n = Aligner.RESCUE_BATCH if tier != "fused" else Aligner.BATCH
+    al, codes, dege, lengths = _align_fixture(14, n_reads=n, seed=47)
+    cfg = AlignConfig(k=14, stride=2, n_cand=1024, max_mis=7, both_strands=0,
+                      lp=128, n_seeds=6, excl_bp=7)
+    grids = {d: _grids(al, codes, dege, lengths, 128, d)
+             for d in ("cpu", cuda)}
+    if tier == "rescue":
+        want = kernels.align_batch(*grids["cpu"], al.dev_index("cpu"), cfg)
+        got = [t.cpu() for t in kernels.align_batch(
+            *grids[cuda], al.dev_index(cuda), cfg)]
+        sel, lo, hi = [(want[0], 1, 4)], 0, 0
+    elif tier == "indel":
+        want = kernels.indel_batch(*grids["cpu"], al.dev_index("cpu"), cfg,
+                                   3, 2)
+        got = [t.cpu() for t in kernels.indel_batch(
+            *grids[cuda], al.dev_index(cuda), cfg, 3, 2)]
+        sel = [(want[0], 1, 8)]
+    else:
+        idx = np.random.default_rng(6).permutation(n).astype(np.int32)
+        do = np.arange(n) % 5 != 0
+
+        def run(dev):
+            return kernels.rescue_indel_fused(
+                *grids[dev], torch.from_numpy(idx).to(dev),
+                torch.from_numpy(do).to(dev), al.dev_index(dev), cfg, cfg,
+                3, 2)
+        want, got = run("cpu"), [t.cpu() for t in run(cuda)]
+        assert torch.equal(got[4], want[4])
+        sel = [(want[0], 1, 4), (want[4], 5, 12)]
+    assert torch.equal(got[0], want[0]) and int(sel[0][0].sum()) > 100
+    for m, lo, hi in sel:
+        for a, b in zip(got[lo:hi], want[lo:hi]):
+            assert torch.equal(a[m], b[m])
+
+
 # --- K10 window_batch: the PE mate-rescue window -----------------------------
 
 def _window_fixture(B: int = 1024, C: int = 1128, seed: int = 43):
