@@ -49,7 +49,11 @@ Phases (any failure raises and exits non-zero):
      halves (train_hist, train_rows) == K13 at the frozen shape, and
      train_hist on Markov qualities beside torch.bincount of its keys;
      K4's thread-block cluster (CTAs, threads, lanes a thread, how many
-     fit the card) and its time a wave on each table; K6's cluster and
+     fit the card) and its time a wave on each table; K2's device time by
+     kernel on each table (torch.profiler: the forward chunk walk's
+     passes, the reverse rANS pass); K12's cluster, time a wave and
+     device time by kernel (the chunk boundaries' table passes' share) on
+     each stream and start; K6's cluster and
      time a wave on each adaptive stream, beside K5's time and the wave
      groups of its heaviest row (the longest chain of its row walk); K18 at
      the frozen shape on a --qlevel 3 qual table (2^20 rows) with the
@@ -164,6 +168,13 @@ flow (FASTQUEEZE_FUSED_ALIGN=1, its archive == the classic chain's);
 it prints the aligner's kernel times, the batch sweep and the runs as
 JSON, then the last line above.
 
+    python3 chip_smoke.py --coders
+
+runs phases 1-2, phase 3's coder kernels (K1-K7, K11-K13), and phases
+4-5, 12 and 13, then prints their times as JSON and the last line above;
+copied into an older tree's checkout it runs that tree's kernels, so
+two trees compare in turns in one call.
+
     python3 chip_smoke.py --coder-loop PROCS ROUNDS [--async] [--own-build]
         [--checked]
 
@@ -221,6 +232,43 @@ def card() -> str:
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name (e.g. chunk_sf<0>)."""
+    import re
+    m = re.match(r"_ZN?(.*)", mangled)
+    rest, parts = (m.group(1) if m else mangled), []
+    while rest[:1].isdigit():
+        k = re.match(r"\d+", rest).group()
+        parts.append(rest[len(k):len(k) + int(k)])
+        rest = rest[len(k) + int(k):]
+    names = [x for x in parts if not x.startswith("_GLOBAL__N")]
+    name = names[-1] if names else mangled
+    targs = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    if targs:
+        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", targs.group(1))) + ">"
+    return name
+
+
+def _ptxas_summary(log: str) -> str:
+    """nvcc -Xptxas -v's lines as 'kernel: registers[, spill bytes]'."""
+    import re
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name, spill = _kernel_name(hit.group(1)), 0
+        hit = re.search(r"(\d+) bytes spill stores", line)
+        if hit:
+            spill = int(hit.group(1))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            out.append(f"{name}: {hit.group(1)}"
+                       + (f", spill {spill}" if spill else ""))
+            name = None
+    return "; ".join(out)
+
+
 def build():
     """The CUDA kernels, and the native host library (make -C native) the
     pipeline's host stages use, so phase 4 times no set-up."""
@@ -229,9 +277,8 @@ def build():
     t0 = time.time()
     info = kernels.build()
     print(f"build: {time.time() - t0:.1f} s wall ({info['path']})")
-    for line in str(info["ptxas"]).splitlines():
-        if "entry function" in line or "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    print(f"ptxas (kernel: registers[, spill bytes]): "
+          f"{_ptxas_summary(str(info['ptxas']))}")
     t0 = time.time()
     if native.get_lib() is None:
         raise RuntimeError("native host library unavailable (make -C native)")
@@ -289,6 +336,28 @@ def _graph_ms(fn, reps: int, rounds: int = 10) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / (rounds * reps)
+
+
+def _device_split(fn) -> dict:
+    """Device ms of each kernel one call of ``fn`` launches, summed by its
+    name (torch.profiler's CUDA activity; the caller has already run
+    ``fn`` once); {} where the profiler sees no device time."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "self_cuda_time_total", 0))
+        hit = re.search(r"(\w+)(<[^()]*>)?\(", ev.key)
+        name = hit.group(1) if hit else ev.key[:40]
+        if us:
+            out[name] = out.get(name, 0.0) + us / 1e3
+    return out
 
 
 def _max_err(got, want) -> int:
@@ -432,6 +501,12 @@ def _coder_cases(dev):
 
 # K4's thread-block cluster at L_MAIN and its time a wave, by table
 K4_SHAPE = {}
+# K2's time by table, with its kernels' device ms (forward: the chunk
+# walk's passes; reverse: the rANS chain)
+K2_SPLIT = {}
+# K12 by stream and start: its cluster, time a wave, kernels' device ms
+# and the boundary passes' share
+SEMI_SHAPE = {}
 
 
 def _k4_shape(m, ms: float, tag: str) -> dict:
@@ -472,6 +547,14 @@ def check_kernels():
             max(_max_err(a, b) for a, b in zip(k2, p2)),
             _time_ms(lambda: kernels.frozen_encode_lanes(g, cg, packed, m), 3),
             p2_ms)
+        split = _device_split(lambda: kernels.frozen_encode_lanes(
+            g, cg, packed, m))
+        rev = split.get("encode_reverse", 0.0)
+        K2_SPLIT[tag] = {"ms": r["frozen_encode_lanes"][1],
+                         "forward_ms": sum(split.values()) - rev,
+                         "reverse_ms": rev, "device_ms_by_kernel": split}
+        print(f"  {tag:22s} frozen_encode_lanes device ms by kernel "
+              f"(torch.profiler): {json.dumps(split)}")
         words, emit, states = k2
         k3 = kernels.compact_words(words, emit)
         p3 = kernels.compact_words_plain(words, emit)
@@ -850,6 +933,31 @@ def _train_qual(R: int, lay, cg) -> dict:
     return out
 
 
+def _semi_shape(tag, m, ms: float, dec) -> dict:
+    """K12's cluster at L_ADAPT (absent from trees before the cluster
+    design, which ``--coders`` also runs), its time a wave and its
+    kernels' device ms: the share of the chunk boundaries' table
+    passes."""
+    from fastqueeze_tpu_torch.ops import kernels
+    query = getattr(kernels, "semi_decode_shape", None)
+    split = _device_split(dec)
+    table = sum(v for k, v in split.items()      # the parent's: table pass
+                if k in ("boundary_rows", "semi_table_pass"))
+    out = dict(query(L_ADAPT, m) if query else {}, ms=ms,
+               us_per_wave=ms / T_ADAPT * 1e3,
+               boundary_share=table / sum(split.values()) if split else None,
+               device_ms_by_kernel=split)
+    cluster = (f"{out['ctas']} CTAs x {out['threads']} threads, "
+               f"{out['lanes_per_thread']} lane(s) a thread, "
+               f"{out['max_active_clusters']} such clusters fit the card"
+               if query else "not reported")
+    print(f"  {tag:30s} semi_decode cluster: {cluster}; {ms:.3f} ms = "
+          f"{out['us_per_wave']:.3f} us a wave; table passes' share "
+          f"{out['boundary_share']}; device ms by kernel (torch.profiler): "
+          f"{json.dumps(split)}")
+    return out
+
+
 def check_semi_kernels():
     """K13 at the frozen shape, then K11 -> K7 -> K3 -> K12 at the
     adaptive shape with chunk 64, from a fresh table and from the table
@@ -966,6 +1074,8 @@ def check_semi_kernels():
             r["semi_decode"] = (
                 max(_max_err(a, b) for a, b in zip(k12, p12)),
                 _time_ms(dec, 2), p12_ms)
+            SEMI_SHAPE[f"{tag}_{start}"] = _semi_shape(
+                f"{tag}_{start}", m, r["semi_decode"][1], dec)
             if not torch.equal(k12[0], g) or not torch.equal(k12[1], cnt):
                 raise AssertionError(f"{tag} {start}: semi decode does not "
                                      f"invert encode")
@@ -1946,6 +2056,17 @@ def _fused_too(fq: str, n_reads: int, arc: str, flags, path_kernels,
     os.remove(arc_f)
 
 
+def frozen_end_to_end(tmp: str, totals) -> None:
+    """Phases 4-5: the frozen path, and its archive == the native-host
+    one."""
+    print("phase 4-5: frozen path")
+    fq = _input(tmp, "in.fq", 300_000)      # the archive names its input
+    arc = os.path.join(tmp, "frozen.fqz")
+    _drive(fq, 300_000, arc, [], _FROZEN_PATH + _PACKS, totals)
+    _oracle(fq, arc, [], "FASTQUEEZE_FROZEN_EXEC")
+    os.remove(fq)
+
+
 def end_to_end(tmp: str):
     """Phases 4-7; returns the launches summed over the main-path runs."""
     from fastqueeze_tpu_torch.container.arcfile import ArcReader
@@ -1953,13 +2074,7 @@ def end_to_end(tmp: str):
     from fastqueeze_tpu_torch.ops import kernels
     from fastqueeze_tpu_torch.pipeline.blockcodec import TAG_IDVAR
     totals = {k: 0 for k in kernels.LAUNCHES}
-
-    print("phase 4-5: frozen path")
-    fq = _input(tmp, "in.fq", 300_000)      # the archive names its input
-    arc = os.path.join(tmp, "frozen.fqz")
-    _drive(fq, 300_000, arc, [], _FROZEN_PATH + _PACKS, totals)
-    _oracle(fq, arc, [], "FASTQUEEZE_FROZEN_EXEC")
-    os.remove(fq)
+    frozen_end_to_end(tmp, totals)
 
     print("phase 6: adaptive path (under the usemodel gate)")
     fq = _input(tmp, "adaptive.fq", R_ADAPT)
@@ -2837,6 +2952,37 @@ def aligner_main() -> int:
     return 0
 
 
+def coders_main() -> int:
+    """--coders: phases 1-2, phase 3's coder kernels (K1-K7, K11-K13
+    against their plain versions, with K2's forward / reverse split and
+    K12's cluster and boundary share), then phases 4-5 (frozen), 12
+    (semi-adaptive) and 13 (frozen_adapt).  It runs from an older tree's
+    copy too (copy this file into it), so two trees compare in turns in
+    one call."""
+    card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fastqueeze_tpu_torch.ops import kernels
+    build()
+    rows = check_kernels()
+    rows.update(check_adaptive_kernels())
+    rows.update(check_semi_kernels())
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        frozen_end_to_end(tmp, totals)
+        semi_end_to_end(tmp, totals)
+        frozen_adapt_end_to_end(tmp, totals)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"coder_kernels": {
+        tag: {n: {"max_abs_err": e, "ms": ms, "plain_ms": pms}
+              for n, (e, ms, pms) in r.items()} for tag, r in rows.items()},
+        "k2_by_table": K2_SPLIT, "k12_by_stream": SEMI_SHAPE,
+        "launches": totals}))
+    _ok_line()
+    return 0
+
+
 def main() -> int:
     card()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2921,6 +3067,14 @@ def main() -> int:
                   "max_abs_err": rows[tag][name][0]}
             for tag in ADAPT_SHAPE}
     by_name["adapt_decode"]["cluster_by_stream"] = ADAPT_SHAPE
+    by_name["rans_encode_sf"]["by_stream"] = {
+        tag: {"ms": rows[tag]["rans_encode_sf"][1],
+              "plain_ms": rows[tag]["rans_encode_sf"][2],
+              "max_abs_err": rows[tag]["rans_encode_sf"][0]}
+        for tag in ADAPT_SHAPE}
+    # K2 on each frozen table (forward / reverse); K12 on each stream
+    by_name["frozen_encode_lanes"]["by_table"] = K2_SPLIT
+    by_name["semi_decode"]["by_stream"] = SEMI_SHAPE
     by_name["train_hist"]["qual_markov40"] = PAIR_MS["train_hist_qual"]
     # K18 at each row-shard count, beside K4 on the same stream and table
     by_name["ctx_shard_decode"]["k4_same_stream_ms"] = PAIR_MS["k4_q3"]
@@ -3058,6 +3212,8 @@ if __name__ == "__main__":
                                   _flag("--checked")))
     if sys.argv[1:2] == ["--aligner"]:
         sys.exit(aligner_main())
+    if sys.argv[1:2] == ["--coders"]:
+        sys.exit(coders_main())
     if sys.argv[1:2] == ["--coder-child"]:
         coder_loop(int(sys.argv[2]), not _flag("--async"),
                    _opt("--build-dir"), _flag("--checked"))

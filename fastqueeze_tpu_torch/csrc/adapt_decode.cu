@@ -256,20 +256,6 @@ __device__ __forceinline__ void row_search(CountRow<NSEG>& r, const Args& a,
     f = fqk::quant_cum(en, C) - start;
 }
 
-// Once off is known, rank 0 asks L2 for the next wave's window of words
-// (at most L of them): 64 words a line.
-__device__ __forceinline__ void prefetch_words(cg::cluster_group& cl,
-                                               const Args& a, int64_t off) {
-    if (cl.block_rank() != 0) return;
-    const int64_t w = off + int64_t(threadIdx.x) * 64;
-    if (w < a.W && int64_t(threadIdx.x) * 64 < a.L)
-        asm volatile("prefetch.global.L2 [%0];" :: "l"(a.words + w));
-}
-
-__device__ __forceinline__ uint16_t word_at(const Args& a, int64_t w) {
-    return __ldg(a.words + (w < a.W ? w : a.W - 1));
-}
-
 // The table update of one lane: inc at (ctx, sym) and on tot[ctx];
 // returns whether the row is over cap after this add.  *halve: this lane
 // rescales the row after the wave, the one lane whose add took the total
@@ -382,7 +368,7 @@ adapt_one(Args a, ModelSpec m) {
         bool over = false, halve = false;
         uint16_t word = 0;
         if (t < n) {
-            if (need) word = word_at(a, off + rank);
+            if (need) word = fqk::word_at(a.words, a.W, off + rank);
             over = table_add(a, ctx, sym, row.C, &halve);
         }
         off += grand;
@@ -397,7 +383,7 @@ adapt_one(Args a, ModelSpec m) {
                 row_fetch(row, a, ctx);
             }
         }
-        prefetch_words(cl, a, off);
+        fqk::prefetch_words(cl, a.words, a.W, a.L, off);
     }
 }
 
@@ -452,7 +438,8 @@ adapt_multi(Args a, ModelSpec m) {
                 continue;
             }
             uint32_t xn = ln.xn;
-            if (xn < fqk::kRansL) xn = (xn << 16) | word_at(a, w++);
+            if (xn < fqk::kRansL)
+                xn = (xn << 16) | fqk::word_at(a.words, a.W, w++);
             ln.x = xn;
             a.out[idx] = static_cast<uint8_t>(ln.sym);
             bool halve;
@@ -473,7 +460,7 @@ adapt_multi(Args a, ModelSpec m) {
             }
             fqk::cluster_any(cl, sm, e++, false);
         }
-        prefetch_words(cl, a, off);
+        fqk::prefetch_words(cl, a.words, a.W, a.L, off);
     }
 }
 
@@ -547,16 +534,7 @@ extern "C" int fq_adapt_decode_shape(int32_t L, int32_t kind, int32_t* out) {
     const Shape sh = fqk::shape_for(L, true);
     const KernelFn k = kernel_for(kind, sh.one);
     if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = fqk::cluster_config(sh, nullptr, attr);
-    int clusters = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveClusters(
-        &clusters, reinterpret_cast<const void*>(k), &cfg);
-    out[0] = sh.ctas;
-    out[1] = sh.threads;
-    out[2] = sh.per;
-    out[3] = clusters;
-    return static_cast<int>(e);
+    return fqk::report_shape(sh, reinterpret_cast<const void*>(k), out);
 }
 
 // counts: the (n_ctx, A) int32 starting table, tot its (n_ctx,) row

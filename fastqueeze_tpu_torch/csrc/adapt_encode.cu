@@ -119,36 +119,17 @@ chunk_ctx(const uint8_t* __restrict__ syms,
           uint32_t* __restrict__ sf) {
     const int32_t l = blockIdx.x * blockDim.x + threadIdx.x;
     if (l >= L) return;
-    const int64_t c = blockIdx.y;
-    const int64_t t0 = c * C;
-    const int64_t tend = min(t0 + C, static_cast<int64_t>(T));
-    int64_t t = t0;
-    ReadCursor cur;
-    if (chunk_start(s, cgrid, L, c, l, cur)) {
-        const int64_t t1 = min(tend, static_cast<int64_t>(s.n[l]));
-        ModelState st;
-        state_at<KIND>(m, syms, L, l, t0, cur.pos, st);
-        if (KIND == 1 && cur.pos) st.drops = s.drops[c * L + l].x;
-        for (; t < t1; ++t) {
-            if (fqk::cursor_next(cur, cgrid, J, L, l))
-                fqk::model_reset<KIND>(m, st);
-            const int64_t idx = t * L + l;
-            const int32_t sym = syms[idx];
-            const int64_t ctx = fqk::lane_ctx<KIND>(m, st, cur.pos, ctxg,
-                                                    idx);
+    walk_chunk<KIND>(
+        syms, cgrid, J, L, T, C, ctxg, m, s, blockIdx.y, l,
+        [&](int64_t t, int64_t idx, int64_t ctx, int32_t) {
             rec[idx] = (static_cast<uint64_t>(ctx) << 32)
                        | (static_cast<uint32_t>(t) << lb) | l;
-            fqk::model_update<KIND>(m, st, sym);
-            --cur.rem;
-            ++cur.pos;
-        }
-    }
-    for (; t < tend; ++t) {
-        const int64_t idx = t * L + l;
-        rec[idx] = (static_cast<uint64_t>(kPadKey) << 32)
-                   | (static_cast<uint32_t>(t) << lb) | l;
-        sf[idx] = 0;
-    }
+        },
+        [&](int64_t t, int64_t idx) {
+            rec[idx] = (static_cast<uint64_t>(kPadKey) << 32)
+                       | (static_cast<uint32_t>(t) << lb) | l;
+            sf[idx] = 0;
+        });
 }
 
 // --- 2. the stable radix sort by ctx --------------------------------------

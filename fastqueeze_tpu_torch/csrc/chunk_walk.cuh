@@ -1,5 +1,6 @@
 // The lane walk's state at the start of every chunk of C waves, without
-// walking from wave 0 (K13 train_counts, K5 adapt_encode_walk).
+// walking from wave 0 (K13 train_counts, K5 adapt_encode_walk, K2
+// frozen_encode_lanes).
 //
 // Each lane's column of the (T, L) symbol grid is cut into chunks of C
 // waves, and one thread takes a (chunk, lane) pair, lanes adjacent across
@@ -20,7 +21,7 @@
 //     them into each chunk's drops at its start (drops_scan);
 //   - order-0 (kind 2) needs no state; flat (kind 4) reads the ctx grid.
 // chunk_prologue launches the passes a model kind needs; each user then
-// walks its chunks from chunk_start and state_at.
+// walks its chunks with walk_chunk.
 #pragma once
 
 #include <cstdint>
@@ -179,17 +180,56 @@ __global__ void drops_scan(int32_t L, int64_t nch, Scratch s) {
 }
 
 // The passes before a chunk walk: the cursors, and quality's drops at
-// every chunk start.  C = chunk_for(T); `grid` is (lane blocks, chunks).
+// every chunk start.  C = chunk_for(T); `grid` is (lane blocks, chunks);
+// with no chunks (T = 0) only the lanes' lengths are written.
 inline void chunk_prologue(const uint8_t* syms, const int32_t* cgrid,
                            int32_t J, int32_t L, int32_t T, int32_t C,
                            const ModelSpec& m, const Scratch& s, dim3 grid,
                            cudaStream_t st) {
     chunk_cursors<<<grid.x, kLaneThreads, 0, st>>>(cgrid, J, L, T, C, s);
-    if (m.kind == 1) {
+    if (m.kind == 1 && grid.y > 0) {
         chunk_drops<<<grid, kLaneThreads, 0, st>>>(syms, cgrid, J, L, C, m,
                                                    s);
         drops_scan<<<grid.x, kLaneThreads, 0, st>>>(L, grid.y, s);
     }
+}
+
+// Chunk c of lane l, from the state the prologue recovered at its start:
+// slot(t, idx, ctx, sym) for each of its waves t inside the lane (idx =
+// t * L + l; ctx from the model's walk, or from the (T, L) grid ctxg for
+// kind 4), then pad(t, idx) for its waves past the lane's end.
+template <int KIND, typename Slot, typename Pad>
+__device__ __forceinline__ void walk_chunk(const uint8_t* __restrict__ syms,
+                                           const int32_t* __restrict__ cgrid,
+                                           int32_t J, int32_t L, int32_t T,
+                                           int32_t C,
+                                           const int32_t* __restrict__ ctxg,
+                                           const ModelSpec& m,
+                                           const Scratch& s, int64_t c,
+                                           int32_t l, Slot slot, Pad pad) {
+    const int64_t t0 = c * C;
+    const int64_t tend = min(t0 + C, static_cast<int64_t>(T));
+    int64_t t = t0;
+    ReadCursor cur;
+    if (chunk_start(s, cgrid, L, c, l, cur)) {
+        const int64_t t1 = min(tend, static_cast<int64_t>(s.n[l]));
+        ModelState st;
+        state_at<KIND>(m, syms, L, l, t0, cur.pos, st);
+        if (KIND == 1 && cur.pos) st.drops = s.drops[c * L + l].x;
+        for (; t < t1; ++t) {
+            if (fqk::cursor_next(cur, cgrid, J, L, l))
+                fqk::model_reset<KIND>(m, st);
+            const int64_t idx = t * L + l;
+            FQK_BOUND("walk_chunk", "syms", idx, int64_t(T) * L);
+            const int32_t sym = syms[idx];
+            slot(t, idx, fqk::lane_ctx<KIND>(m, st, cur.pos, ctxg, idx),
+                 sym);
+            fqk::model_update<KIND>(m, st, sym);
+            --cur.rem;
+            ++cur.pos;
+        }
+    }
+    for (; t < tend; ++t) pad(t, t * L + l);
 }
 
 // Bytes of the scratch a chunk walk over a (T, L) grid takes.

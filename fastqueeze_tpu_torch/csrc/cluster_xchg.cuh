@@ -1,6 +1,7 @@
 // The thread-block cluster that decodes one stream (K4 frozen_decode, K6
-// adapt_decode): its shape for L lanes, and the exchanges between its
-// CTAs inside the wave loop.
+// adapt_decode, K12 semi_decode): its shape for L lanes, the exchanges
+// between its CTAs inside the wave loop, and the reads a wave makes (a
+// table row in aligned 16-byte segments, the renormalization words).
 //
 // Lanes are split over the cluster's threads in lane order: up to 8 x 512
 // lanes one lane a thread, above that up to 8 x 1024 threads owning
@@ -82,6 +83,21 @@ inline cudaLaunchConfig_t cluster_config(const Shape& sh, cudaStream_t st,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cfg;
+}
+
+// out[0] the cluster's CTAs, out[1] threads a CTA, out[2] lanes a thread,
+// out[3] how many such clusters of kernel k the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: the card cannot run it).
+inline int report_shape(const Shape& sh, const void* k, int32_t* out) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(sh, nullptr, attr);
+    int clusters = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, k, &cfg);
+    out[0] = sh.ctas;
+    out[1] = sh.threads;
+    out[2] = sh.per;
+    out[3] = clusters;
+    return static_cast<int>(e);
 }
 
 struct RankSmem {
@@ -177,6 +193,57 @@ __device__ __forceinline__ bool cluster_any(cg::cluster_group& cl,
     const bool r = __any_sync(kFull, got != 0);
     fence_cluster();
     return r;
+}
+
+// --- the reads of a wave ---------------------------------------------------
+
+// The aligned 16-byte segments holding one table row; NSEG of them are
+// loaded at once (a longer row loads the rest in batches of NSEG when it
+// is searched).
+template <int NSEG>
+struct Row {
+    uint4 seg[NSEG];
+    const uint4* base;   // first aligned segment
+    int32_t head;        // byte offset of the row in it
+    int32_t nseg;        // segments holding the row
+};
+
+template <int NSEG>
+__device__ __forceinline__ void load_batch(Row<NSEG>& r, int32_t i0) {
+#pragma unroll
+    for (int i = 0; i < NSEG; ++i)
+        r.seg[i] = i0 + i < r.nseg ? __ldg(r.base + i0 + i)
+                                   : make_uint4(0, 0, 0, 0);
+}
+
+// The row of `bytes` bytes at p; its first batch loaded.
+template <int NSEG>
+__device__ __forceinline__ void row_at(Row<NSEG>& r, const void* p,
+                                       int32_t bytes) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    r.base = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+    r.head = static_cast<int32_t>(a & 15);
+    r.nseg = (r.head + bytes + 15) >> 4;
+    load_batch(r, 0);
+}
+
+// Once off is known, rank 0 asks L2 for the next wave's window of words
+// (at most L of them): 64 words a line.
+__device__ __forceinline__ void prefetch_words(cg::cluster_group& cl,
+                                               const uint16_t* words,
+                                               int64_t W, int32_t L,
+                                               int64_t off) {
+    if (cl.block_rank() != 0) return;
+    const int64_t w = off + int64_t(threadIdx.x) * 64;
+    if (w < W && int64_t(threadIdx.x) * 64 < L)
+        asm volatile("prefetch.global.L2 [%0];" :: "l"(words + w));
+}
+
+// Renormalization word w, read as words[min(w, W - 1)]: the clamp keeps a
+// corrupt payload inside the padded buffer, as the reference's does.
+__device__ __forceinline__ uint16_t word_at(const uint16_t* words, int64_t W,
+                                            int64_t w) {
+    return __ldg(words + (w < W ? w : W - 1));
 }
 
 }  // namespace fqk

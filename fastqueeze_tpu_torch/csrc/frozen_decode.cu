@@ -94,34 +94,14 @@ struct Args {
 
 // --- the row fetch and the search in registers ----------------------------
 
-// The aligned 16-byte segments holding one row's A + 1 u16 entries; NSEG
-// of them are loaded at once (a longer row loads the rest in batches of
-// NSEG when it is searched).
-template <int NSEG>
-struct Row {
-    uint4 seg[NSEG];
-    const uint4* base;   // first aligned segment
-    int32_t head;        // byte offset of F[0] in it
-    int32_t nseg;        // segments holding the row
-};
+using fqk::Row;
 
-template <int NSEG>
-__device__ __forceinline__ void load_batch(Row<NSEG>& r, int32_t i0) {
-#pragma unroll
-    for (int i = 0; i < NSEG; ++i)
-        r.seg[i] = i0 + i < r.nseg ? __ldg(r.base + i0 + i)
-                                   : make_uint4(0, 0, 0, 0);
-}
-
+// The row of ctx: its A + 1 u16 entries.
 template <int NSEG>
 __device__ __forceinline__ void row_fetch(Row<NSEG>& r,
                                           const uint16_t* __restrict__ cum,
                                           int64_t ctx, int32_t A) {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(cum + ctx * (A + 1));
-    r.base = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
-    r.head = static_cast<int32_t>(a & 15);
-    r.nseg = (r.head + 2 * (A + 1) + 15) >> 4;
-    load_batch(r, 0);
+    fqk::row_at(r, cum + ctx * (A + 1), 2 * (A + 1));
 }
 
 // Entries e and e + 1 (the low and high halves of w) into the search.
@@ -156,7 +136,7 @@ __device__ __forceinline__ void row_search(Row<NSEG>& r, int32_t A,
     int32_t cnt = 0;
     uint32_t st = 0, en = 0xFFFFu;
     for (int32_t i0 = 0; i0 < r.nseg; i0 += NSEG) {
-        if (i0) load_batch(r, i0);
+        if (i0) fqk::load_batch(r, i0);
 #pragma unroll
         for (int i = 0; i < NSEG; ++i) {
             const int32_t e = (16 * (i0 + i) - r.head) >> 1;
@@ -171,19 +151,9 @@ __device__ __forceinline__ void row_search(Row<NSEG>& r, int32_t A,
     f = en - st;
 }
 
-// Once off is known, rank 0 asks L2 for the next wave's window of words
-// (at most L of them): 64 words a line.
-__device__ __forceinline__ void prefetch_words(cg::cluster_group& cl,
-                                               const Args& a, int64_t off) {
-    if (cl.block_rank() != 0) return;
-    const int64_t w = off + int64_t(threadIdx.x) * 64;
-    if (w < a.W && int64_t(threadIdx.x) * 64 < a.L)
-        asm volatile("prefetch.global.L2 [%0];" :: "l"(a.words + w));
-}
-
 __device__ __forceinline__ uint32_t renorm(const Args& a, uint32_t xn,
                                            int64_t w) {
-    return (xn << 16) | __ldg(a.words + (w < a.W ? w : a.W - 1));
+    return (xn << 16) | fqk::word_at(a.words, a.W, w);
 }
 
 // --- one lane a thread: state in registers --------------------------------
@@ -237,7 +207,7 @@ decode_one(Args a, ModelSpec m) {
         const int32_t rank = fqk::cluster_rank(cl, sm, t, need, &grand);
         if (t < n) x = need ? renorm(a, xn, off + rank) : xn;
         off += grand;
-        prefetch_words(cl, a, off);
+        fqk::prefetch_words(cl, a.words, a.W, L, off);
     }
 }
 
@@ -296,7 +266,7 @@ decode_multi(Args a, ModelSpec m) {
             ++ln.cur.pos;
         }
         off += grand;
-        prefetch_words(cl, a, off);
+        fqk::prefetch_words(cl, a.words, a.W, L, off);
     }
 }
 
@@ -332,16 +302,7 @@ extern "C" int fq_frozen_decode_shape(int32_t L, int32_t kind,
     const Shape sh = fqk::shape_for(L);
     const KernelFn k = kernel_for(kind, sh.one);
     if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = fqk::cluster_config(sh, nullptr, attr);
-    int clusters = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveClusters(
-        &clusters, reinterpret_cast<const void*>(k), &cfg);
-    out[0] = sh.ctas;
-    out[1] = sh.threads;
-    out[2] = sh.per;
-    out[3] = clusters;
-    return static_cast<int>(e);
+    return fqk::report_shape(sh, reinterpret_cast<const void*>(k), out);
 }
 
 extern "C" int fq_frozen_decode(

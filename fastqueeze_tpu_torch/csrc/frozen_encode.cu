@@ -1,93 +1,107 @@
-// K2 frozen_encode_lanes: frozen-table rANS encode of one stream, one
-// thread per lane.
+// K2 frozen_encode_lanes: frozen-table rANS encode of one stream.
 //
 // Replaces fastqueeze_tpu/ops/engine.py _device_aux (B1),
 // SeqModel/QualModel.context_grids (B2), the _pass1_frozen gather (B3)
-// and _pass2 (B4).  No lane depends on another before word compaction,
-// so each thread runs its lane alone, in two passes:
-//   1. forward over the lane's waves: read cursor, model context, one
-//      gather of the packed (F[s] | F[s+1] << 16) table word, stored as
-//      sf[t, l];
-//   2. reverse over all T waves: the rANS emit loop, writing words[t, l]
-//      and emit[t, l] (padding waves write 0 and 0), then the final state
-//      (fqk::rans_encode_lane, which K7 runs after the adaptive walk).
-// Grids are (T, L) row-major, so a warp's 32 lanes touch 32 neighbouring
-// slots of one wave: every grid access is coalesced.  The table gather
-// is random (2^20 rows x 4 symbols for order-10 seq), which bounds the
-// forward pass; the reverse pass is bound by the 32-bit division and by
-// device-memory traffic (4 B sf read + 3 B written per slot).  The
-// checked build (check.cuh) bounds the lane length by T and every read of
-// syms, cgrid and packed.
+// and _pass2 (B4).  Two passes:
+//   1. forward, one thread a (chunk of C waves, lane) (chunk_walk.cuh,
+//      as K13 and K5 walk): the read cursor, the model state and
+//      quality's drops are recovered at the chunk's start, then each of
+//      its waves inside the lane takes its context and one gather of the
+//      packed (F[s] | F[s+1] << 16) table word, stored as sf[t, l] with
+//      the reciprocal of its freq (recip32) beside it; padding slots get
+//      0.  A slot's context depends only on the symbols before it in its
+//      read, never on the coder, so the chunks run in parallel: at L =
+//      4096, T = 6144 and C = 64 that is 393,216 threads, whose random
+//      table gathers (2^20 rows x 4 symbols for order-10 seq) overlap
+//      across the card;
+//   2. reverse, one thread a lane (fqk::rans_encode_lane, shared with K7):
+//      the rANS emit loop from wave T - 1 down, writing words[t, l] and
+//      emit[t, l] (padding waves 0 and 0), then the final state.  Only
+//      this state chain is serial in a lane; its sf loads are staged in
+//      shared memory stages ahead of it, and with the reciprocal the
+//      division in it is a high multiply and one correction (div_by).
+// The first design walked each lane forward and back in one thread (64
+// threads a block: at L = 4096 one warp an SM, every step's load
+// latency exposed; 5.9 ms on an H100).  What bounds this one: the reverse
+// chain, T steps of a division a lane with one warp an SM at L = 4096,
+// then the forward pass's table gathers and the sf grid's round trip
+// through device memory (8 B written and read back a slot).  Grids are
+// (T, L) row-major, so a warp's 32 lanes touch 32 neighbouring slots of
+// one wave: every grid access is coalesced.  The checked build
+// (check.cuh) bounds the lane length by T and every read of syms, cgrid,
+// packed and sf.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "check.cuh"
+#include "chunk_walk.cuh"
 #include "lane_walk.cuh"
 
 namespace {
 
-using fqk::ModelSpec;
-using fqk::ModelState;
-using fqk::ReadCursor;
-
 template <int KIND>
-__global__ void frozen_encode_lanes(const uint8_t* __restrict__ syms,
-                                    const int32_t* __restrict__ cgrid,
-                                    int32_t J, int32_t T, int32_t L,
-                                    const uint32_t* __restrict__ packed,
-                                    int64_t n_packed, int32_t A, ModelSpec m,
-                                    uint32_t* __restrict__ sf,
-                                    uint16_t* __restrict__ words,
-                                    uint8_t* __restrict__ emit,
-                                    uint32_t* __restrict__ states) {
+__global__ void __launch_bounds__(kLaneThreads)
+chunk_sf(const uint8_t* __restrict__ syms, const int32_t* __restrict__ cgrid,
+         int32_t J, int32_t L, int32_t T, int32_t C,
+         const uint32_t* __restrict__ packed, int64_t n_packed, int32_t A,
+         ModelSpec m, Scratch s, uint2* __restrict__ sf) {
     const int32_t l = blockIdx.x * blockDim.x + threadIdx.x;
     if (l >= L) return;
-    const int32_t n = fqk::lane_length(cgrid, J, L, l);
-    FQK_BOUND("frozen_encode_lanes", "lane length", n, int64_t(T) + 1);
-
-    ModelState s;
-    fqk::model_reset<KIND>(m, s);
-    ReadCursor cur{-1, 0, 0};
-    for (int32_t t = 0; t < n; ++t) {
-        if (fqk::cursor_next(cur, cgrid, J, L, l))
-            fqk::model_reset<KIND>(m, s);
-        const int64_t idx = int64_t(t) * L + l;
-        FQK_BOUND("frozen_encode_lanes", "syms", idx, int64_t(T) * L);
-        const int32_t sym = syms[idx];
-        const int64_t ctx = fqk::model_ctx<KIND>(m, s, cur.pos);
-        FQK_BOUND("frozen_encode_lanes", "packed", ctx * A + sym, n_packed);
-        sf[idx] = packed[ctx * A + sym];
-        fqk::model_update<KIND>(m, s, sym);
-        --cur.rem;
-        ++cur.pos;
-    }
-    fqk::rans_encode_lane(sf, T, L, l, n, words, emit, states);
+    walk_chunk<KIND>(
+        syms, cgrid, J, L, T, C, nullptr, m, s, blockIdx.y, l,
+        [&](int64_t, int64_t idx, int64_t ctx, int32_t sym) {
+            FQK_BOUND("frozen_encode_lanes", "packed", ctx * A + sym,
+                      n_packed);
+            const uint32_t w = __ldg(packed + ctx * A + sym);
+            sf[idx] = make_uint2(w, fqk::recip32(fqk::sf_divisor(w)));
+        },
+        [&](int64_t, int64_t idx) { sf[idx] = make_uint2(0, 0); });
 }
+
+__global__ void __launch_bounds__(fqk::kRevThreads)
+encode_reverse(const uint2* __restrict__ sf, Scratch s, int32_t T,
+               int32_t L, uint16_t* __restrict__ words,
+               uint8_t* __restrict__ emit, uint32_t* __restrict__ states) {
+    __shared__ fqk::RevRing<uint2> ring;
+    const int32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+    if (l >= L) return;
+    fqk::rans_encode_lane(ring, sf, T, L, l, s.n[l], words, emit, states);
+}
+
+using SfFn = void (*)(const uint8_t*, const int32_t*, int32_t, int32_t,
+                      int32_t, int32_t, const uint32_t*, int64_t, int32_t,
+                      ModelSpec, Scratch, uint2*);
+const SfFn kSf[2] = {&chunk_sf<0>, &chunk_sf<1>};
 
 }  // namespace
 
+// scratch: fq_chunk_scratch_bytes(T, L) bytes; sf: (T, L) u64, the
+// forward pass's output (the sf word, its reciprocal).
 extern "C" int fq_frozen_encode_lanes(
         const uint8_t* syms, const int32_t* cgrid, int32_t J, int32_t T,
         int32_t L, const uint32_t* packed, int64_t n_packed, int32_t A,
         int32_t kind,
         int64_t a, int64_t b, int64_t c, int64_t d, int64_t e, int64_t f,
-        int64_t g, uint32_t* sf, uint16_t* words, uint8_t* emit,
-        uint32_t* states, void* stream) {
+        int64_t g, void* scratch, uint2* sf, uint16_t* words,
+        uint8_t* emit, uint32_t* states, void* stream) {
     const ModelSpec m{kind, a, b, c, d, e, f, g};
-    const int threads = 64;     // L = 4096 -> 64 blocks, spread over SMs
-    const int blocks = (L + threads - 1) / threads;
+    if (kind != 0 && kind != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (L <= 0 || T < 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (kind == 0)
-        frozen_encode_lanes<0><<<blocks, threads, 0, st>>>(
-            syms, cgrid, J, T, L, packed, n_packed, A, m, sf, words, emit,
-            states);
-    else if (kind == 1)
-        frozen_encode_lanes<1><<<blocks, threads, 0, st>>>(
-            syms, cgrid, J, T, L, packed, n_packed, A, m, sf, words, emit,
-            states);
-    else
-        return static_cast<int>(cudaErrorInvalidValue);
+    const int32_t C = chunk_for(T);
+    const int64_t nch = chunks_of(T, C);
+    const Scratch s = scratch_at(scratch, T, L, C);
+    const dim3 grid((L + kLaneThreads - 1) / kLaneThreads,
+                    static_cast<unsigned>(nch));
+    chunk_prologue(syms, cgrid, J, L, T, C, m, s, grid, st);
+    if (nch > 0)
+        kSf[kind]<<<grid, kLaneThreads, 0, st>>>(syms, cgrid, J, L, T, C,
+                                                 packed, n_packed, A, m, s,
+                                                 sf);
+    encode_reverse<<<(L + fqk::kRevThreads - 1) / fqk::kRevThreads,
+                     fqk::kRevThreads, 0, st>>>(sf, s, T, L, words, emit,
+                                                states);
     return static_cast<int>(cudaGetLastError());
 }

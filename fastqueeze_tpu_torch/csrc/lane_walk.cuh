@@ -161,32 +161,141 @@ __device__ __forceinline__ bool cursor_next(ReadCursor& c,
     return true;
 }
 
+// floor(2^32 / d) for d >= 2, 2^32 - 1 for d = 1 (1 <= d <= 2^16).
+__device__ __forceinline__ uint32_t recip32(uint32_t d) {
+    const uint32_t q = 0xFFFFFFFFu / d;
+    return d == 1 ? q : q + (0xFFFFFFFFu - q * d == d - 1);
+}
+
+// x / d and x % d (r) with rcp = recip32(d): x * rcp / 2^32 lies in
+// (x / d - 1, x / d], so its floor is the quotient or one less.
+__device__ __forceinline__ uint32_t div_by(uint32_t x, uint32_t d,
+                                           uint32_t rcp, uint32_t& r) {
+    uint32_t q = __umulhi(x, rcp);
+    r = x - q * d;
+    if (r >= d) {
+        ++q;
+        r -= d;
+    }
+    return q;
+}
+
+// A packed sf word's nonzero freq (the divisor of the reverse step).
+__device__ __forceinline__ uint32_t sf_divisor(uint32_t v) {
+    const uint32_t f = (v >> 16) - (v & 0xFFFFu);
+    return f ? f : 1u;
+}
+
 // Reverse rANS of one lane (fastqueeze_tpu/ops/engine.py _pass2) over its
-// column of the packed sf grid (sf[t, l] = start | end << 16): writes
+// column of a (T, L) grid of E: uint32_t sf words (start | end << 16,
+// K7), or uint2 (the sf word, recip32 of its divisor; K2's forward pass
+// writes both).  One thread a lane in blocks of kRevThreads: writes
 // words[t, l] and emit[t, l] for all T waves (padding waves t >= n write
-// 0 and 0) and the lane's final state.
-__device__ __forceinline__ void rans_encode_lane(
-        const uint32_t* __restrict__ sf, int32_t T, int32_t L, int32_t l,
-        int32_t n, uint16_t* __restrict__ words, uint8_t* __restrict__ emit,
-        uint32_t* __restrict__ states) {
-    uint32_t x = kRansL;
-    for (int32_t t = T - 1; t >= 0; --t) {
-        const int64_t idx = int64_t(t) * L + l;
-        if (t >= n) {
-            words[idx] = 0;
-            emit[idx] = 0;
-            continue;
+// 0 and 0) and the lane's final state.  The state chain is serial, but
+// nothing it reads depends on the state, so that runs ahead of it: each
+// thread copies its column with cp.async (a warp's 32 lanes are one row
+// of a wave) into its own column of a shared-memory ring of kRevStages
+// stages of kRevWaves waves, kRevStages - 1 stages ahead of the one it
+// consumes, from the top wave down, and loads each slot a wave before
+// its step; a thread reads back only what it copied, so no barrier runs.
+// The chain is then the emit test, the division (with E = uint2 a high
+// multiply and one correction, div_by) and a multiply-add.
+constexpr int kRevThreads = 64;
+constexpr int kRevWaves = 24;
+constexpr int kRevStages = 3;
+
+template <typename E>
+struct RevRing {
+    E v[kRevStages][kRevWaves][kRevThreads];    // 18 KB, or 36 KB of uint2
+};
+
+template <typename E>
+__device__ __forceinline__ void cp_async(E* smem, const E* g) {
+    static_assert(sizeof(E) == 4 || sizeof(E) == 8, "4- or 8-byte slots");
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+                 :: "r"(s), "l"(g), "n"(sizeof(E)) : "memory");
+}
+
+// Stage k: this thread's waves T - 1 - k * kRevWaves down to
+// T - (k + 1) * kRevWaves, those inside the lane, into ring slot
+// k % kRevStages; one commit group a stage, empty or not.
+template <typename E>
+__device__ __forceinline__ void rev_stage(RevRing<E>& r,
+                                          const E* __restrict__ sf,
+                                          int32_t T, int32_t L, int32_t l,
+                                          int32_t n, int64_t k, int64_t nst) {
+    if (k < nst) {
+        const int64_t top = int64_t(T) - 1 - k * kRevWaves;
+        E (*slot)[kRevThreads] = r.v[k % kRevStages];
+#pragma unroll
+        for (int i = 0; i < kRevWaves; ++i) {
+            const int64_t t = top - i;
+            if (t >= 0 && t < n) {
+                FQK_BOUND("rans_encode_lane", "sf", t * L + l,
+                          int64_t(T) * L);
+                cp_async(&slot[i][threadIdx.x], sf + t * L + l);
+            }
         }
-        const uint32_t v = sf[idx];
-        const uint32_t start = v & 0xFFFFu;
-        const uint32_t f = (v >> 16) - start;
-        const bool e = (x >> 18) >= f;
-        words[idx] = static_cast<uint16_t>(x & 0xFFFFu);
-        emit[idx] = e;
-        if (e) x >>= 16;
-        const uint32_t fs = f ? f : 1u;
-        const uint32_t q = x / fs;
-        x = (q << kProbBits) + (x - q * fs) + start;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t rev_word(uint32_t v) { return v; }
+__device__ __forceinline__ uint32_t rev_word(uint2 v) { return v.x; }
+
+__device__ __forceinline__ uint32_t rev_quot(uint32_t x, uint32_t d,
+                                             uint32_t, uint32_t& r) {
+    const uint32_t q = x / d;
+    r = x - q * d;
+    return q;
+}
+
+__device__ __forceinline__ uint32_t rev_quot(uint32_t x, uint32_t d,
+                                             uint2 v, uint32_t& r) {
+    return div_by(x, d, v.y, r);
+}
+
+template <typename E>
+__device__ __forceinline__ void rans_encode_lane(
+        RevRing<E>& ring, const E* __restrict__ sf, int32_t T, int32_t L,
+        int32_t l, int32_t n, uint16_t* __restrict__ words,
+        uint8_t* __restrict__ emit, uint32_t* __restrict__ states) {
+    FQK_BOUND("rans_encode_lane", "lane length", n, int64_t(T) + 1);
+    const int64_t nst = (int64_t(T) + kRevWaves - 1) / kRevWaves;
+    for (int k = 0; k < kRevStages - 1; ++k)
+        rev_stage(ring, sf, T, L, l, n, k, nst);
+    uint32_t x = kRansL;
+    for (int64_t k = 0; k < nst; ++k) {
+        rev_stage(ring, sf, T, L, l, n, k + kRevStages - 1, nst);
+        asm volatile("cp.async.wait_group %0;" :: "n"(kRevStages - 1)
+                     : "memory");
+        const E (*slot)[kRevThreads] = ring.v[k % kRevStages];
+        const int64_t top = int64_t(T) - 1 - k * kRevWaves;
+        const int waves = top + 1 < kRevWaves ? static_cast<int>(top + 1)
+                                              : kRevWaves;
+        E next = slot[0][threadIdx.x];
+#pragma unroll 4
+        for (int i = 0; i < waves; ++i) {
+            const E v = next;
+            if (i + 1 < waves) next = slot[i + 1][threadIdx.x];
+            const int64_t t = top - i;
+            const int64_t idx = t * L + l;
+            if (t >= n) {
+                words[idx] = 0;
+                emit[idx] = 0;
+                continue;
+            }
+            const uint32_t w = rev_word(v);
+            const uint32_t start = w & 0xFFFFu;
+            const bool e = (x >> 18) >= (w >> 16) - start;
+            words[idx] = static_cast<uint16_t>(x & 0xFFFFu);
+            emit[idx] = e;
+            if (e) x >>= 16;
+            uint32_t r;
+            const uint32_t q = rev_quot(x, sf_divisor(w), v, r);
+            x = (q << kProbBits) + r + start;
+        }
     }
     states[l] = x;
 }

@@ -25,19 +25,17 @@ namespace {
 
 constexpr int kRowThreads = 256;
 
-// One thread per row: halve ((c + 1) >> 1) while the row total is over
-// cap, at most n_halve times (n_halve = 0 before the first chunk), then,
-// when snap is given, write the row's packed snapshot with _quant's
-// floor F_s = floor(cum_s * 2^14 / C).  A row whose total is 0 packs
-// zeros (as K1 does; tables of init >= 1 and trained tables never have
-// one).  Bound: device-memory traffic, the row read and written (when
-// halved) and the snapshot written; one thread's row is A consecutive
-// int32, so a warp reads 32 * A * 4 contiguous bytes.
-__global__ void semi_table_pass(int32_t* __restrict__ counts, int64_t n_ctx,
-                                int32_t A, int32_t cap, int32_t n_halve,
-                                uint32_t* __restrict__ snap) {
-    const int64_t r = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (r >= n_ctx) return;
+// Row r: halve ((c + 1) >> 1) while the row total is over cap, at most
+// n_halve times, then, when snap is given, write the row's packed
+// snapshot with _quant's floor F_s = floor(cum_s * 2^14 / C).  A row
+// whose total is 0 packs zeros (as K1 does; tables of init >= 1 and
+// trained tables never have one).  Returns the row's total after the
+// halvings.  A row is A consecutive int32, so a warp's threads on
+// consecutive rows read 32 * A * 4 contiguous bytes.
+__device__ __forceinline__ int64_t row_pass(int32_t* __restrict__ counts,
+                                            int64_t r, int32_t A, int32_t cap,
+                                            int32_t n_halve,
+                                            uint32_t* __restrict__ snap) {
     int32_t* row = counts + r * A;
     int64_t C = 0;
     for (int32_t a = 0; a < A; ++a) C += row[a];
@@ -49,17 +47,28 @@ __global__ void semi_table_pass(int32_t* __restrict__ counts, int64_t n_ctx,
             C += c;
         }
     }
-    if (snap == nullptr) return;
-    if (C <= 0) C = 1;
+    if (snap == nullptr) return C;
+    const int64_t D = C > 0 ? C : 1;
     uint32_t* out = snap + r * A;
     int64_t acc = 0;
     uint32_t prev = 0;
     for (int32_t a = 0; a < A; ++a) {
         acc += row[a];
-        const uint32_t F = static_cast<uint32_t>((acc << fqk::kProbBits) / C);
+        const uint32_t F = static_cast<uint32_t>((acc << fqk::kProbBits) / D);
         out[a] = prev | (F << 16);
         prev = F;
     }
+    return C;
+}
+
+// One thread per row: row_pass over the whole table (n_halve = 0 before
+// the first chunk).  Bound: device-memory traffic, the row read and
+// written (when halved) and the snapshot written.
+__global__ void semi_table_pass(int32_t* __restrict__ counts, int64_t n_ctx,
+                                int32_t A, int32_t cap, int32_t n_halve,
+                                uint32_t* __restrict__ snap) {
+    const int64_t r = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (r < n_ctx) row_pass(counts, r, A, cap, n_halve, snap);
 }
 
 inline int table_pass(int32_t* counts, int64_t n_ctx, int32_t A,

@@ -45,29 +45,16 @@ template <int KIND>
 __global__ void __launch_bounds__(kLaneThreads)
 chunk_hist(const uint8_t* __restrict__ syms,
            const int32_t* __restrict__ cgrid, int32_t J, int32_t L,
-           int32_t C, const int32_t* __restrict__ ctxg, int32_t A,
+           int32_t T, int32_t C, const int32_t* __restrict__ ctxg, int32_t A,
            ModelSpec m, int32_t inc, Scratch s, int32_t* __restrict__ hist) {
     const int32_t l = blockIdx.x * blockDim.x + threadIdx.x;
     if (l >= L) return;
-    const int64_t c = blockIdx.y;
-    ReadCursor cur;
-    if (!chunk_start(s, cgrid, L, c, l, cur)) return;
-    const int64_t t0 = c * C;
-    const int64_t t1 = min(t0 + C, static_cast<int64_t>(s.n[l]));
-    ModelState st;
-    state_at<KIND>(m, syms, L, l, t0, cur.pos, st);
-    if (KIND == 1 && cur.pos) st.drops = s.drops[c * L + l].x;
-    for (int64_t t = t0; t < t1; ++t) {
-        if (fqk::cursor_next(cur, cgrid, J, L, l))
-            fqk::model_reset<KIND>(m, st);
-        const int64_t idx = t * L + l;
-        const int32_t sym = syms[idx];
-        const int64_t ctx = fqk::lane_ctx<KIND>(m, st, cur.pos, ctxg, idx);
-        atomicAdd(hist + ctx * A + sym, inc);
-        fqk::model_update<KIND>(m, st, sym);
-        --cur.rem;
-        ++cur.pos;
-    }
+    walk_chunk<KIND>(
+        syms, cgrid, J, L, T, C, ctxg, m, s, blockIdx.y, l,
+        [&](int64_t, int64_t, int64_t ctx, int32_t sym) {
+            atomicAdd(hist + ctx * A + sym, inc);
+        },
+        [](int64_t, int64_t) {});
 }
 
 __global__ void train_rows(int32_t* __restrict__ counts, int64_t n_ctx,
@@ -90,14 +77,11 @@ __global__ void train_rows(int32_t* __restrict__ counts, int64_t n_ctx,
     }
 }
 
-template <int KIND>
-void launch_hist(dim3 grid, const uint8_t* syms, const int32_t* cgrid,
-                 int32_t J, int32_t L, int32_t C, const int32_t* ctxg,
-                 int32_t A, const ModelSpec& m, int32_t inc,
-                 const Scratch& s, int32_t* counts, cudaStream_t st) {
-    chunk_hist<KIND><<<grid, kLaneThreads, 0, st>>>(
-        syms, cgrid, J, L, C, ctxg, A, m, inc, s, counts);
-}
+using HistFn = void (*)(const uint8_t*, const int32_t*, int32_t, int32_t,
+                       int32_t, int32_t, const int32_t*, int32_t, ModelSpec,
+                       int32_t, Scratch, int32_t*);
+const HistFn kHist[5] = {&chunk_hist<0>, &chunk_hist<1>, &chunk_hist<2>,
+                             &chunk_hist<3>, &chunk_hist<4>};
 
 int run_hist(const uint8_t* syms, const int32_t* cgrid, int32_t J,
              int32_t L, int32_t T, const int32_t* ctxg, int32_t A,
@@ -112,18 +96,8 @@ int run_hist(const uint8_t* syms, const int32_t* cgrid, int32_t J,
     const int lane_blocks = (L + kLaneThreads - 1) / kLaneThreads;
     const dim3 grid(lane_blocks, static_cast<unsigned>(nch));
     chunk_prologue(syms, cgrid, J, L, T, C, m, s, grid, st);
-    switch (m.kind) {
-        case 0: launch_hist<0>(grid, syms, cgrid, J, L, C, ctxg, A, m, inc,
-                               s, counts, st); break;
-        case 1: launch_hist<1>(grid, syms, cgrid, J, L, C, ctxg, A, m, inc,
-                               s, counts, st); break;
-        case 2: launch_hist<2>(grid, syms, cgrid, J, L, C, ctxg, A, m, inc,
-                               s, counts, st); break;
-        case 3: launch_hist<3>(grid, syms, cgrid, J, L, C, ctxg, A, m, inc,
-                               s, counts, st); break;
-        default: launch_hist<4>(grid, syms, cgrid, J, L, C, ctxg, A, m, inc,
-                                s, counts, st); break;
-    }
+    kHist[m.kind]<<<grid, kLaneThreads, 0, st>>>(
+        syms, cgrid, J, L, T, C, ctxg, A, m, inc, s, counts);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -137,15 +111,15 @@ int run_rows(int32_t* counts, int64_t n_ctx, int32_t A, int32_t init,
 
 }  // namespace
 
-// Bytes of the scratch fq_train_counts / fq_train_hist take for a (T, L)
-// grid.
-extern "C" int64_t fq_train_scratch_bytes(int32_t T, int32_t L) {
+// Bytes of the scratch a chunk walk over a (T, L) grid takes
+// (fq_train_counts, fq_train_hist, fq_frozen_encode_lanes).
+extern "C" int64_t fq_chunk_scratch_bytes(int32_t T, int32_t L) {
     return chunk_scratch_bytes(T, L);
 }
 
 // syms: (T, L) uint8; counts: (n_ctx, A) int32, zeroed by the caller;
 // becomes the trained table.  ctxg: (T, L) int32 contexts, read for kind
-// 4 only.  scratch: fq_train_scratch_bytes(T, L) bytes.
+// 4 only.  scratch: fq_chunk_scratch_bytes(T, L) bytes.
 extern "C" int fq_train_counts(
         const uint8_t* syms, const int32_t* cgrid, int32_t J, int32_t L,
         const int32_t* ctxg, int32_t A, int32_t kind, int64_t a, int64_t b,

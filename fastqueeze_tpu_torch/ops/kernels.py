@@ -3,7 +3,10 @@
 Frozen coder:
 K1 quant_pack          count table -> u16 cumulative table + u32 packed
                        (start, end) words              (engine._quant_full)
-K2 frozen_encode_lanes per-lane walk + gather + reverse rANS
+K2 frozen_encode_lanes a thread per (chunk of waves, lane): K13's chunk
+                       walk + the table gather + each freq's reciprocal;
+                       then a thread a lane: reverse rANS, its loads
+                       staged in shared memory ahead of the state chain
                        (engine._device_aux, context_grids, _pass1_frozen,
                        _pass2)
 K3 compact_words       emitted words -> dense prefix + count
@@ -39,8 +42,12 @@ K11 semi_encode_walk   lane contexts, then per chunk a row pass (halve,
                        snapshot) and a slot pass (gather, atomicAdd)
                        (engine._pass1_semi, _snapshot_sf, _rescale_full);
                        then K7 and K3
-K12 semi_decode        per chunk the same row pass, then one CTA decodes
-                       the chunk's waves against the snapshot
+K12 semi_decode        per chunk a pass over the rows that can have
+                       changed (the chunk's touched rows and the rows
+                       still over cap: halve, snapshot), then K4's
+                       thread-block cluster decodes the chunk's waves
+                       against the snapshot (count search, rank exchange)
+                       with fire-and-forget count adds
                        (engine._decode_semi)
 Trainer:
 K13 train_counts       a thread per (chunk of waves, lane), the walk's
@@ -207,7 +214,7 @@ def _lib() -> ctypes.CDLL:
             spec = [i32] + [i64] * 7
             lib.fq_quant_pack.argtypes = [vp, i64, i32, i32, vp, vp, vp]
             lib.fq_frozen_encode_lanes.argtypes = (
-                [vp, vp, i32, i32, i32, vp, i64, i32] + spec + [vp] * 5)
+                [vp, vp, i32, i32, i32, vp, i64, i32] + spec + [vp] * 6)
             lib.fq_unpack_grid.argtypes = (
                 [vp, i32, i32, i32, vp, i64, vp, i64, vp, vp])
             lib.fq_pack_grid.argtypes = [vp, i32, i32, i32, vp, vp]
@@ -232,15 +239,17 @@ def _lib() -> ctypes.CDLL:
             lib.fq_semi_encode_walk.argtypes = (
                 [vp, vp, i32, i32, i32, i32] + semi + [vp] * 3)
             lib.fq_semi_decode.argtypes = (
-                [vp, vp, i64, vp, i32, i32, i32, i32, i32] + semi
-                + [vp] * 4)
+                [vp, vp, i64, vp, i32, i32, i32, i32] + semi + [vp] * 3)
+            lib.fq_semi_decode_scratch_bytes.argtypes = [i32, i64, i32]
+            lib.fq_semi_decode_scratch_bytes.restype = i64
+            lib.fq_semi_decode_shape.argtypes = [i32, i32, vp]
             lib.fq_train_counts.argtypes = (
                 [vp, vp, i32, i32, vp, i32] + spec + [i64] + [i32] * 3
                 + [vp, i32, vp, vp])
             lib.fq_train_hist.argtypes = (
                 [vp, vp, i32, i32, vp, i32] + spec + [i32, vp, i32, vp, vp])
-            lib.fq_train_scratch_bytes.argtypes = [i32, i32]
-            lib.fq_train_scratch_bytes.restype = i64
+            lib.fq_chunk_scratch_bytes.argtypes = [i32, i32]
+            lib.fq_chunk_scratch_bytes.restype = i64
             lib.fq_frozen_decode_shape.argtypes = [i32, i32, vp]
             lib.fq_train_rows.argtypes = [vp, i64, i32, i32, i32, vp]
             lib.fq_ctx_shard_decode.argtypes = (
@@ -256,8 +265,7 @@ def _lib() -> ctypes.CDLL:
                 + [vp] * 3)
             lib.fq_sharded_tail.argtypes = (
                 [vp] * 3 + [i32] * 6 + [vp] * 5 + [i64] + [vp] * 5)
-            for fn in (lib.fq_decode_lane_bytes, lib.fq_ctx_shard_lane_bytes,
-                       lib.fq_semi_decode_lane_bytes):
+            for fn in (lib.fq_decode_lane_bytes, lib.fq_ctx_shard_lane_bytes):
                 fn.argtypes = []
                 fn.restype = i64
             index = [vp, i32, i64, vp, vp, i64, vp, i64, vp, i32, i32, i32]
@@ -288,6 +296,7 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_unpack_grid, lib.fq_pack_grid, lib.fq_pack15,
                        lib.fq_train_hist, lib.fq_train_rows,
                        lib.fq_frozen_decode_shape, lib.fq_adapt_decode_shape,
+                       lib.fq_semi_decode_shape,
                        lib.fq_ctx_shard_decode, lib.fq_sharded_lookup,
                        lib.fq_sharded_candidates, lib.fq_sharded_verify,
                        lib.fq_sharded_tail):
@@ -491,15 +500,16 @@ def frozen_encode_lanes(syms: torch.Tensor, cgrid: torch.Tensor,
     if cgrid.shape[1] != L or packed.numel() != model.n_ctx * model.alphabet:
         raise ValueError("frozen_encode_lanes: shape mismatch")
     dev = syms.device
-    sf = torch.empty((T, L), dtype=torch.int32, device=dev)
+    lib = _lib()
+    scratch = _chunk_scratch(lib, T, L, dev)
+    sf = torch.empty((T, L), dtype=torch.int64, device=dev)   # sf, recip
     words = torch.empty((T, L), dtype=torch.int16, device=dev)
     emit = torch.empty((T, L), dtype=torch.uint8, device=dev)
     states = torch.empty((L,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_frozen_encode_lanes, "frozen_encode_lanes", dev,
+    _launch(lib.fq_frozen_encode_lanes, "frozen_encode_lanes", dev,
             _ptr(syms), _ptr(cgrid), J, T, L, _ptr(packed), packed.numel(),
-            model.alphabet,
-            *_spec_args(model), _ptr(sf), _ptr(words), _ptr(emit),
-            _ptr(states))
+            model.alphabet, *_spec_args(model), _ptr(scratch), _ptr(sf),
+            _ptr(words), _ptr(emit), _ptr(states))
     return words, emit, states
 
 
@@ -607,18 +617,24 @@ def frozen_decode(states0: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def frozen_decode_shape(L: int, model, device=None) -> Dict[str, int]:
-    """The thread-block cluster K4 launches for L lanes on ``device`` (a
-    CUDA device; default the current one): CTAs in the cluster, threads a
-    CTA, lanes a thread, and how many such clusters the card holds at
-    once (cudaOccupancyMaxActiveClusters)."""
+def _cluster_shape(fn, name: str, L: int, model, device) -> Dict[str, int]:
+    """A decoder's thread-block cluster for L lanes on ``device`` (a CUDA
+    device; default the current one): CTAs in the cluster, threads a CTA,
+    lanes a thread, and how many such clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
     out = (ctypes.c_int32 * 4)()
     with torch.cuda.device(device):
-        rc = _lib().fq_frozen_decode_shape(L, model.spec()[0], out)
+        rc = fn(L, model.spec()[0], out)
     if rc != 0:
-        raise RuntimeError(f"frozen_decode_shape: cudaError_t {rc}")
+        raise RuntimeError(f"{name}: cudaError_t {rc}")
     return {"ctas": out[0], "threads": out[1], "lanes_per_thread": out[2],
             "max_active_clusters": out[3]}
+
+
+def frozen_decode_shape(L: int, model, device=None) -> Dict[str, int]:
+    """The thread-block cluster K4 launches for L lanes (_cluster_shape)."""
+    return _cluster_shape(_lib().fq_frozen_decode_shape,
+                          "frozen_decode_shape", L, model, device)
 
 
 # --- transfer packs: K15 unpack_grid, K16 pack_grid, K17 pack15 ------------
@@ -1058,15 +1074,9 @@ def adapt_decode(states0: torch.Tensor, words: torch.Tensor,
 
 
 def adapt_decode_shape(L: int, model, device=None) -> Dict[str, int]:
-    """The thread-block cluster K6 launches for L lanes on ``device`` (as
-    frozen_decode_shape reports K4's)."""
-    out = (ctypes.c_int32 * 4)()
-    with torch.cuda.device(device):
-        rc = _lib().fq_adapt_decode_shape(L, model.spec()[0], out)
-    if rc != 0:
-        raise RuntimeError(f"adapt_decode_shape: cudaError_t {rc}")
-    return {"ctas": out[0], "threads": out[1], "lanes_per_thread": out[2],
-            "max_active_clusters": out[3]}
+    """The thread-block cluster K6 launches for L lanes (_cluster_shape)."""
+    return _cluster_shape(_lib().fq_adapt_decode_shape, "adapt_decode_shape",
+                          L, model, device)
 
 
 # --- semi-adaptive walk: K11, K12; trainer: K13 -----------------------------
@@ -1261,16 +1271,22 @@ def semi_decode(states0: torch.Tensor, words: torch.Tensor,
     A = model.alphabet
     counts = _start_counts(model, dev, counts0)
     snap = torch.empty((counts.numel(),), dtype=torch.int32, device=dev)
-    lanes = torch.empty((L * lib.fq_semi_decode_lane_bytes(),),
-                        dtype=torch.uint8, device=dev)
-    off = torch.zeros((1,), dtype=torch.int64, device=dev)
+    scratch = torch.empty(
+        (lib.fq_semi_decode_scratch_bytes(L, model.n_ctx, chunk),),
+        dtype=torch.uint8, device=dev)
     out = torch.empty((T, L), dtype=torch.uint8, device=dev)
     _launch(lib.fq_semi_decode, "semi_decode", dev, _ptr(states0),
             _ptr(words), words.numel(), _ptr(cgrid), cgrid.shape[0], T, L, A,
-            _search_steps(A), *_spec_args(model), model.n_ctx, model.inc,
-            model.cap, n_halve, chunk, _ptr(counts), _ptr(snap),
-            _ptr(lanes), _ptr(off), _ptr(out))
+            *_spec_args(model), model.n_ctx, model.inc, model.cap, n_halve,
+            chunk, _ptr(counts), _ptr(snap), _ptr(scratch), _ptr(out))
     return out, counts
+
+
+def semi_decode_shape(L: int, model, device=None) -> Dict[str, int]:
+    """The thread-block cluster K12 launches for each chunk of a stream of
+    L lanes (_cluster_shape)."""
+    return _cluster_shape(_lib().fq_semi_decode_shape, "semi_decode_shape",
+                          L, model, device)
 
 
 def train_counts_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
@@ -1307,7 +1323,7 @@ def train_counts(syms: torch.Tensor, cgrid: torch.Tensor, model,
     counts = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32,
                          device=syms.device)
     lib = _lib()
-    scratch = _train_scratch(lib, T, L, syms.device)
+    scratch = _chunk_scratch(lib, T, L, syms.device)
     _launch(lib.fq_train_counts, "train_counts", syms.device, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,
@@ -1316,10 +1332,11 @@ def train_counts(syms: torch.Tensor, cgrid: torch.Tensor, model,
     return counts
 
 
-def _train_scratch(lib, T: int, L: int, dev) -> torch.Tensor:
-    """K13's scratch: the lanes' lengths and, per (chunk, lane), the read
-    cursor and quality drops at the chunk's start."""
-    return torch.empty((lib.fq_train_scratch_bytes(T, L),),
+def _chunk_scratch(lib, T: int, L: int, dev) -> torch.Tensor:
+    """The chunk walk's scratch (K13, K2): the lanes' lengths and, per
+    (chunk, lane), the read cursor and quality drops at the chunk's
+    start."""
+    return torch.empty((max(1, lib.fq_chunk_scratch_bytes(T, L)),),
                        dtype=torch.uint8, device=dev)
 
 
@@ -1360,7 +1377,7 @@ def train_hist(syms: torch.Tensor, cgrid: torch.Tensor, model,
         if ctxg.shape != syms.shape:
             raise ValueError("train_hist: ctx grid shape mismatch")
     lib = _lib()
-    scratch = _train_scratch(lib, T, L, syms.device)
+    scratch = _chunk_scratch(lib, T, L, syms.device)
     _launch(lib.fq_train_hist, "train_hist", syms.device, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], L,
             None if ctxg is None else _ptr(ctxg), model.alphabet,

@@ -1593,3 +1593,106 @@ def test_frozen_decode_q3_table_matches_plain(cuda):
     shape = kernels.frozen_decode_shape(4096, model, cuda)
     assert (shape["ctas"], shape["threads"], shape["lanes_per_thread"]) == (
         8, 512, 1)
+
+
+# --- K2's chunk-parallel forward pass, K12's cluster under each snapshot ---
+
+def _lanes_stream(model, L, seed, t_pad=8):
+    """(read counts, layout at t_pad, symbols): three reads a lane of
+    0-149 symbols (every seventh 0) and a first read of 721, so T is under
+    1,024; qualities drift, so contexts repeat and drops cross their
+    thresholds."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 150, 3 * L).astype(np.int64)
+    counts[::7] = 0
+    counts[0] = 721
+    lay = make_layout(counts, L, t_pad=t_pad)
+    assert lay.T < 1024
+    n = int(counts.sum())
+    if isinstance(model, QualModel):
+        syms = np.clip(np.cumsum(rng.integers(-3, 3, n)) % 60 - 10, 0,
+                       model.alphabet - 1)
+    else:
+        syms = rng.integers(0, model.alphabet, n)
+    return counts, lay, syms.astype(np.uint8)
+
+
+@pytest.mark.parametrize("L", [4096, 1000, 9000])
+@pytest.mark.parametrize("name", ["seq_o10", "fqz_q2", "chain_k4_drop2"])
+def test_frozen_encode_chunks_match_plain(cuda, name, L):
+    """K2 (the chunk walk's forward pass, the staged reverse pass) == its
+    plain version (words, emit, final states) at L = 4096, 1000 (not a
+    multiple of 32) and 9000, T not a multiple of 64, reads crossing the
+    64-wave chunks, zero-length slots; one launch a call."""
+    model = _EDGE[name]
+    counts, lay, syms = _lanes_stream(model, L, L)
+    assert lay.T % 64
+    rng = np.random.default_rng(L)
+    table = torch.from_numpy(rng.integers(
+        0, 300, (model.n_ctx, model.alphabet)).astype(np.int32))
+    packed = kernels.quant_pack_plain(table)[1]
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    want = kernels.frozen_encode_lanes(g, cg, packed, model)
+    kernels.reset_launch_counts()
+    got = kernels.frozen_encode_lanes(g.to(cuda), cg.to(cuda),
+                                      packed.to(cuda), model)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert kernels.LAUNCHES["frozen_encode_lanes"] == 1
+
+
+def _overcap(model, table):
+    """The table with its first and last rows of total 2^21 (over cap
+    after every boundary's halvings)."""
+    big = table.clone()
+    big[0] = (1 << 21) // model.alphabet
+    big[model.n_ctx - 1] = (1 << 21) // model.alphabet
+    return big
+
+
+@pytest.mark.parametrize("L", [4096, 1000, 9000])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("name", ["seq_o10", "fqz_q3"])
+def test_semi_decode_cluster_matches_plain(cuda, name, chunk, L):
+    """K12 (K4's cluster under each chunk's snapshot) == its plain version
+    (symbols, final counts) from init, from a table K13 trains and from
+    an over-cap counts0, at L = 4096 (one lane a thread), 1000 and 9000
+    (two lanes a thread), chunks 16 (T not a multiple of 64) and 64; also
+    on the payload cut to a third of its words in a buffer of that size
+    (reads clamp at W - 1); one launch a call; the cluster's shape."""
+    model = _SEMI[name]
+    counts, lay, syms = _lanes_stream(model, L, L + chunk, t_pad=chunk)
+    T = lay.T
+    assert T % chunk == 0 and (chunk == 64 or T % 64)
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    gc, cgc = g.to(cuda), cg.to(cuda)
+    nh = engine._n_halve_chunk(model, L, chunk)
+    trained = kernels.train_counts(gc.flip(0).contiguous(), cgc, model)
+    for c0 in (None, trained, _overcap(model, trained)):
+        c0_p = None if c0 is None else c0.cpu()
+        sf, _ = kernels.semi_encode_walk(gc, cgc, model, nh, chunk, c0)
+        words_e, emit, states = kernels.rans_encode_sf(sf, cgc)
+        out, n = kernels.compact_words(words_e, emit)
+        k = int(n.item())
+        W = 1024
+        while W < k + 8:
+            W <<= 1
+        full = torch.zeros(W, dtype=torch.int16)
+        full[:k] = out[:k].cpu()
+        for words in (full, full[:k // 3].clone()):
+            want = kernels.semi_decode(states.cpu(), words, cg, T, model, nh,
+                                       chunk, c0_p)
+            kernels.reset_launch_counts()
+            got = kernels.semi_decode(states, words.to(cuda), cgc, T, model,
+                                      nh, chunk, c0)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["semi_decode"] == 1
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+            assert torch.equal(want[0], g) == (words.numel() == W)
+    shape = kernels.semi_decode_shape(L, model, cuda)
+    assert shape["ctas"] == 8 and shape["max_active_clusters"] >= 1
+    assert shape["lanes_per_thread"] == (2 if L > 8 * 512 else 1)

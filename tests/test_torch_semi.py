@@ -197,8 +197,10 @@ def test_flat_model_streams_keep_the_per_wave_walk():
 
 def test_zero_count_table_decodes_as_jax():
     """A counts0 with zero counts (a table trained with init 0): zero
-    frequencies in the snapshot, which K12's binary search, copied step
-    for step from _decode_semi, resolves as the reference does."""
+    frequencies in the snapshot, which K12's plain version (the binary
+    search, step for step from _decode_semi) resolves as the reference
+    does; the kernel's count search is held to that search on such rows
+    in tests/test_torch_semi_cluster.py."""
     kw = dict(alphabet=4, init=0, inc=1, cap=253, order=4)
     jm, tm = jb.SeqModel(**kw), tb.SeqModel(**kw)
     rng = np.random.default_rng(5)
