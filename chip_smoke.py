@@ -51,7 +51,8 @@ Phases (any failure raises and exits non-zero):
      K4's thread-block cluster (CTAs, threads, lanes a thread, how many
      fit the card) and its time a wave on each table; K2's device time by
      kernel on each table (torch.profiler: the forward chunk walk's
-     passes, the reverse rANS pass); K12's cluster, time a wave and
+     passes, the reverse rANS pass); K11's on each stream and start and
+     K17's on each grid (its passes); K12's cluster, time a wave and
      device time by kernel (the chunk boundaries' table passes' share) on
      each stream and start; K6's cluster and
      time a wave on each adaptive stream, beside K5's time and the wave
@@ -170,16 +171,18 @@ JSON, then the last line above.
 
     python3 chip_smoke.py --coders
 
-runs phases 1-2, phase 3's coder kernels (K1-K7, K11-K13), and phases
-4-5, 12 and 13, then prints their times as JSON and the last line above;
+runs phases 1-2, phase 3's coder kernels (K1-K7, K11-K13) and transfer
+packs (K15-K17), and phases 4-5, 12 and 13, then prints their times as
+JSON and the last line above;
 copied into an older tree's checkout it runs that tree's kernels, so
 two trees compare in turns in one call.
 
     python3 chip_smoke.py --coder-loop PROCS ROUNDS [--async] [--own-build]
         [--checked]
 
-runs phase 3's K1 -> K2 launches ROUNDS times in each of PROCS fresh
-processes and reports which, if any, fault: under CUDA_LAUNCH_BLOCKING=1,
+runs phase 3's K1 -> K2 launches, then K17 and K11 on the same grids,
+ROUNDS times in each of PROCS fresh processes and reports which, if any,
+fault: under CUDA_LAUNCH_BLOCKING=1,
 or with --async synchronizing only where phase 3 does; loading this
 process's build, or with --own-build each building the library into its
 own empty directory first; with --checked the checked build (every
@@ -360,6 +363,15 @@ def _device_split(fn) -> dict:
     return out
 
 
+def _split_row(tag: str, ms: float, fn) -> dict:
+    """A kernel's time beside its launches' device ms by kernel name
+    (_device_split); printed."""
+    split = _device_split(fn)
+    print(f"  {tag:30s} {ms:.3f} ms; device ms by kernel (torch.profiler): "
+          f"{json.dumps(split)}")
+    return {"ms": ms, "device_ms_by_kernel": split}
+
+
 def _max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
@@ -507,6 +519,9 @@ K2_SPLIT = {}
 # K12 by stream and start: its cluster, time a wave, kernels' device ms
 # and the boundary passes' share
 SEMI_SHAPE = {}
+# K11 by stream and start, K17 by grid: time and kernels' device ms
+K11_SPLIT = {}
+K17_SPLIT = {}
 
 
 def _k4_shape(m, ms: float, tag: str) -> dict:
@@ -713,6 +728,9 @@ def check_pack_kernels():
                 kernels.pack15_plain(g, cg),
                 lambda: kernels.pack15(g, cg),
                 lambda: kernels.pack15_plain(g, cg))
+            K17_SPLIT[gname] = _split_row(
+                f"{gname}_pack15", rows[f"{gname}_pack15"]["pack15"][1],
+                lambda: kernels.pack15(g, cg))
             cap = g.numel() // 4
             print(f"  {gname}_pack15: {n_exc} exceptions (cap {cap}); the "
                   f"decode copies "
@@ -1056,6 +1074,8 @@ def check_semi_kernels():
             r["semi_encode_walk"] = (
                 max(_max_err(a, b) for a, b in zip(k11, p11)),
                 _time_ms(enc, 3), p11_ms)
+            K11_SPLIT[f"{tag}_{start}"] = _split_row(
+                f"{tag}_{start}", r["semi_encode_walk"][1], enc)
             sf, cnt = k11
             k7 = kernels.rans_encode_sf(sf, cg)
             out, nw = kernels.compact_words(*k7[:2])
@@ -2953,9 +2973,10 @@ def aligner_main() -> int:
 
 
 def coders_main() -> int:
-    """--coders: phases 1-2, phase 3's coder kernels (K1-K7, K11-K13
-    against their plain versions, with K2's forward / reverse split and
-    K12's cluster and boundary share), then phases 4-5 (frozen), 12
+    """--coders: phases 1-2, phase 3's coder kernels (K1-K7, K11-K13) and
+    packs (K15-K17) against their plain versions, with K2's forward /
+    reverse split, K11's and K17's device split and K12's cluster and
+    boundary share, then phases 4-5 (frozen), 12
     (semi-adaptive) and 13 (frozen_adapt).  It runs from an older tree's
     copy too (copy this file into it), so two trees compare in turns in
     one call."""
@@ -2964,6 +2985,7 @@ def coders_main() -> int:
     from fastqueeze_tpu_torch.ops import kernels
     build()
     rows = check_kernels()
+    rows.update(check_pack_kernels())
     rows.update(check_adaptive_kernels())
     rows.update(check_semi_kernels())
     totals = {k: 0 for k in kernels.LAUNCHES}
@@ -2978,6 +3000,7 @@ def coders_main() -> int:
         tag: {n: {"max_abs_err": e, "ms": ms, "plain_ms": pms}
               for n, (e, ms, pms) in r.items()} for tag, r in rows.items()},
         "k2_by_table": K2_SPLIT, "k12_by_stream": SEMI_SHAPE,
+        "k11_by_stream": K11_SPLIT, "k17_by_grid": K17_SPLIT,
         "launches": totals}))
     _ok_line()
     return 0
@@ -3075,6 +3098,8 @@ def main() -> int:
     # K2 on each frozen table (forward / reverse); K12 on each stream
     by_name["frozen_encode_lanes"]["by_table"] = K2_SPLIT
     by_name["semi_decode"]["by_stream"] = SEMI_SHAPE
+    by_name["semi_encode_walk"]["by_stream"] = K11_SPLIT
+    by_name["pack15"]["by_grid"] = K17_SPLIT
     by_name["train_hist"]["qual_markov40"] = PAIR_MS["train_hist_qual"]
     # K18 at each row-shard count, beside K4 on the same stream and table
     by_name["ctx_shard_decode"]["k4_same_stream_ms"] = PAIR_MS["k4_q3"]
@@ -3095,7 +3120,8 @@ def main() -> int:
 
 
 def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
-    """Phase 3's K1 -> K2 launches on its inputs, ``reps`` rounds, each
+    """Phase 3's K1 -> K2 launches on its inputs, then K17 and K11 (chunk
+    64, two halvings) on the same grids, ``reps`` rounds, each
     launch announced before it starts, so that under CUDA_LAUNCH_BLOCKING=1
     the last line names a launch that faults.  ``blocking``: synchronize
     after every launch; else only where phase 3 does (reading K1's result
@@ -3134,6 +3160,25 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
                 want[key] = kernels.frozen_encode_lanes_plain(g, cg, k1[1], m)
             if not all(torch.equal(a, b) for a, b in zip(k2, want[key])):
                 raise AssertionError(f"round {rep} {tag}: K2 differs")
+            for name, run, plain in (
+                    ("pack15", lambda: kernels.pack15(g, cg),
+                     lambda: kernels.pack15_plain(g, cg)),
+                    ("semi_encode_walk",
+                     lambda: kernels.semi_encode_walk(g, cg, m, 2,
+                                                      SEMI_CHUNK),
+                     lambda: kernels.semi_encode_walk_plain(g, cg, m, 2,
+                                                            SEMI_CHUNK))):
+                print(f"launch {name} round {rep} {tag}", flush=True)
+                got = run()
+                if blocking:
+                    torch.cuda.synchronize()
+                key = f"{tag}_{name}"
+                if key not in want:
+                    want[key] = plain()
+                if not all(torch.equal(a, b)
+                           for a, b in zip(got, want[key])):
+                    raise AssertionError(f"round {rep} {tag}: {name} "
+                                         f"differs")
     torch.cuda.synchronize()
 
 
@@ -3190,7 +3235,7 @@ def coder_loop_procs(procs: int, reps: int, blocking: bool, own_build: bool,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"coder_loop": {
-        "processes": procs, "rounds": reps, "launches_per_process": 6 * reps,
+        "processes": procs, "rounds": reps, "launches_per_process": 12 * reps,
         "blocking": blocking, "own_build": own_build, "checked": checked,
         "failed_processes": failed}}))
     return 1 if failed else 0

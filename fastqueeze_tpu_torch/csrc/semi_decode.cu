@@ -3,18 +3,12 @@
 // Replaces fastqueeze_tpu/ops/engine.py _decode_semi (B9, decode half)
 // with _snapshot_sf and _rescale_full, plus _device_aux (B1) and the
 // models' lane walk (B2, B2').  Per chunk of `chunk` waves, two launches:
-//   1. a boundary pass over the rows that can have changed (row_pass,
-//      semi_table.cuh: halve while over cap, up to n_halve times, not
-//      before the first chunk; write the packed snapshot).  Before the
-//      first chunk that is every row; at every later boundary the rows
-//      the last chunk's adds touched (each slot writes its row into a
-//      ring of chunk x L entries) and the rows the last boundary left
-//      over cap (a list it writes), each row once (the first thread to
-//      stamp the row's mark with the boundary's number takes it).  Every
-//      other row is at or under cap and unchanged, so _rescale_full
-//      leaves it alone and its snapshot stands: the set is exact.  The
-//      whole-table pass of the first version took 17-20% of K12 on an
-//      H100;
+//   1. a boundary pass over the rows that can have changed (semi_table.cuh,
+//      the one copy K11 runs too): before the first chunk every row; at
+//      every later boundary the rows the last chunk's adds touched (each
+//      slot writes its row into a ring of chunk x L entries) and the rows
+//      the last boundary left over cap, each once: halve while over cap,
+//      up to n_halve times, then write the packed snapshot;
 //   2. the chunk's waves on one thread-block cluster of up to 8 CTAs, as
 //      K4 (frozen_decode.cu) decodes a stream: inside a chunk the table
 //      every lane reads is the snapshot, which nothing writes until the
@@ -332,25 +326,22 @@ KernelFn kernel_for(int32_t kind, bool one) {
     return one ? kOne[kind] : kMulti[kind];
 }
 
-// --- the chunk boundaries ---------------------------------------------------
+// --- the scratch and the chunk schedule -------------------------------------
 
-// Scratch (scratch_bytes): the lanes' walks, the word offset, the two
-// over-cap lists' counts, each row's mark, the two over-cap lists, the
-// ring of the chunk's rows.
+// Scratch (scratch_bytes): the lanes' walks, the word offset, the
+// boundaries' scratch (semi_table.cuh), the ring of the chunk's rows.
 struct Scratch {
     Lane* lanes;
     int64_t* off;
-    int32_t* n_over;      // [2]
-    int32_t* mark;        // [n_ctx]
-    int32_t* over;        // [2][n_ctx]
+    void* bounds;
     int32_t* ring;        // [chunk][L]
 };
 
 int64_t align16(int64_t n) { return (n + 15) & ~int64_t(15); }
 
 int64_t scratch_bytes(int32_t L, int64_t n_ctx, int32_t chunk) {
-    return align16(int64_t(L) * sizeof(Lane)) + 16 + align16(12 * n_ctx)
-           + align16(4 * int64_t(chunk) * L);
+    return align16(int64_t(L) * sizeof(Lane)) + 16
+           + boundary_scratch_bytes(n_ctx) + align16(4 * int64_t(chunk) * L);
 }
 
 Scratch scratch_at(void* base, int32_t L, int64_t n_ctx) {
@@ -359,52 +350,15 @@ Scratch scratch_at(void* base, int32_t L, int64_t n_ctx) {
     s.lanes = reinterpret_cast<Lane*>(p);
     p += align16(int64_t(L) * sizeof(Lane));
     s.off = reinterpret_cast<int64_t*>(p);
-    s.n_over = reinterpret_cast<int32_t*>(p + 8);
     p += 16;
-    s.mark = reinterpret_cast<int32_t*>(p);
-    s.over = s.mark + n_ctx;
-    p += align16(12 * n_ctx);
+    s.bounds = p;
+    p += boundary_scratch_bytes(n_ctx);
     s.ring = reinterpret_cast<int32_t*>(p);
     return s;
 }
 
-// Boundary b's rows: at b = 0 every row; else the ring's rows and the
-// over-cap list boundary b - 1 wrote, each taken by the thread that
-// stamps its mark with b first.  A row still over cap after its
-// halvings goes to boundary b's list.
-struct Bound {
-    int32_t* counts;
-    uint32_t* snap;             // nullptr after the last chunk
-    int64_t n_ctx;
-    int32_t A, cap, n_halve, b;
-    const int32_t* ring;
-    int64_t n_ring;
-    const int32_t* over_in;
-    const int32_t* n_in;
-    int32_t* over_out;
-    int32_t* n_out;
-    int32_t* mark;
-};
-
-__global__ void __launch_bounds__(kRowThreads) boundary_rows(Bound p) {
-    const int64_t n = p.b ? p.n_ring + *p.n_in : p.n_ctx;
-    const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-    for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-         i += stride) {
-        int64_t r = i;
-        if (p.b) {
-            r = i < p.n_ring ? p.ring[i] : p.over_in[i - p.n_ring];
-            if (r < 0 || atomicExch(p.mark + r, p.b) == p.b) continue;
-        }
-        FQK_BOUND("semi_decode", "row", r, p.n_ctx);
-        if (row_pass(p.counts, r, p.A, p.cap, p.n_halve, p.snap) > p.cap)
-            p.over_out[atomicAdd(p.n_out, 1)] = static_cast<int32_t>(r);
-    }
-}
-
-// The boundary schedule of _decode_semi: before chunk 0 only the
-// snapshot, before every later chunk up to n_halve halvings and the
-// snapshot, after the last only the halvings.
+// The boundary schedule of _decode_semi (semi_table.cuh), a boundary
+// before each chunk's launch and one after the last.
 int run(Args a, uint32_t* snap, const ModelSpec& m, int32_t T, int64_t n_ctx,
         int32_t cap, int32_t n_halve, int32_t chunk, const Scratch& s,
         cudaStream_t st) {
@@ -414,29 +368,17 @@ int run(Args a, uint32_t* snap, const ModelSpec& m, int32_t T, int64_t n_ctx,
     a.per = sh.per;
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg = fqk::cluster_config(sh, st, attr);
-    int rc = static_cast<int>(cudaMemsetAsync(
-        s.n_over, 0, 2 * sizeof(int32_t), st));
-    if (rc == 0)
-        rc = static_cast<int>(cudaMemsetAsync(s.mark, 0, 4 * n_ctx, st));
-    Bound p{a.counts, snap, n_ctx, a.A, cap, 0, 0, s.ring,
-            int64_t(chunk) * a.L, nullptr, nullptr, nullptr, nullptr, s.mark};
     const int64_t n_chunks = T / chunk;
+    const Boundaries b = boundaries_at(s.bounds, a.counts, snap, n_ctx, a.A,
+                                       cap, n_halve, n_chunks,
+                                       int64_t(chunk) * a.L);
+    int rc = boundaries_start(b, st);
     for (int64_t c = 0; c <= n_chunks && rc == 0; ++c) {
-        p.b = static_cast<int32_t>(c);
-        p.n_halve = c ? n_halve : 0;
-        p.snap = c < n_chunks ? snap : nullptr;
-        p.over_in = s.over + ((c + 1) & 1) * n_ctx;
-        p.n_in = s.n_over + ((c + 1) & 1);
-        p.over_out = s.over + (c & 1) * n_ctx;
-        p.n_out = s.n_over + (c & 1);
-        const int64_t work = (c ? p.n_ring : n_ctx) / kRowThreads + 1;
-        const int64_t blocks = work < (1 << 16) ? work : (1 << 16);
-        boundary_rows<<<blocks, kRowThreads, 0, st>>>(p);
-        rc = static_cast<int>(cudaGetLastError());
+        rc = boundary(b, c, s.ring, st);
         if (rc || c == n_chunks) break;
         a.t0 = static_cast<int32_t>(c * chunk);
         a.t1 = a.t0 + chunk;
-        a.n_zero = s.n_over + ((c + 1) & 1);
+        a.n_zero = list_to_clear(b, c);
         rc = static_cast<int>(cudaLaunchKernelEx(&cfg, k, a, m));
         if (rc == 0) rc = static_cast<int>(cudaGetLastError());
     }

@@ -22,13 +22,20 @@
 // Bounds: all three move a few bytes a slot (K15 0.25-0.75 B in, 1 B out;
 // K16 1 B in, 0.25-0.75 B out; K17 1 B in twice, 0.5 B out), so they are
 // bound by device memory.  Dense modes are one thread per 4-slot group
-// (one 4-byte load or store of the grid).  The sentinel passes need each
+// (one 4-byte load or store of the grid).  K15's sentinel modes need each
 // sentinel's rank in scan order: tiles of kTile slots count their
 // sentinels, one block scans the tile counts, then every tile rescans its
-// own slots (a block scan) and writes; the grid is read twice, which keeps
-// the scan simple and deterministic.  K17's histogram counts in shared
-// memory per block, then 64 global atomics a block; validity comes from
-// the lanes' lengths (lane_walk.cuh), never a (T, L) mask.
+// own slots (a block scan) and writes.  K17 reads the grid twice: a
+// histogram pass (pack15_hist), then one write pass (pack15_write) whose
+// prologue ranks the 64 symbols and whose tiles take their exception
+// offsets from a decoupled look-back over per-tile descriptors, so no
+// pass counts the exceptions first.  Its validity comes from the lanes'
+// lengths (lane_walk.cuh) beside each slot's wave and lane, which the
+// passes step without a division a slot, never from a (T, L) mask.  The
+// first K17 (seven launches: the grid read three times, the top 15 on
+// one thread, validity by a 64-bit division and modulo a slot, 16
+// bytes a thread read one at a time) took 0.39-0.40 ms on an H100 at 25.2
+// M slots.
 
 #include <cstdint>
 
@@ -161,119 +168,296 @@ __global__ void pack_dense(const uint32_t* __restrict__ grid4, int32_t mode,
     }
 }
 
-// K17 step 1: lane lengths (validity: slot (t, l) is valid iff t < len[l]).
+// K17: lane lengths (validity: slot (t, l) is valid iff t < len[l]), and
+// the largest T - len[l] of any lane (gap, zeroed by the caller): every
+// slot of a wave t < T - gap is valid.
 __global__ void lane_lengths(const int32_t* __restrict__ cgrid, int32_t J,
-                             int32_t L, int32_t* __restrict__ lens) {
+                             int32_t T, int32_t L, int32_t* __restrict__ lens,
+                             int32_t* __restrict__ gap) {
     const int32_t l = blockIdx.x * blockDim.x + threadIdx.x;
-    if (l < L) lens[l] = fqk::lane_length(cgrid, J, L, l);
-}
-
-__device__ __forceinline__ bool slot_valid(const int32_t* __restrict__ lens,
-                                           int64_t s, int32_t L) {
-    return s / L < lens[s % L];
-}
-
-// K17 step 2: 64-bin histogram of the valid slots' symbols.
-__global__ void hist64(const uint8_t* __restrict__ syms, int64_t n,
-                       int32_t L, const int32_t* __restrict__ lens,
-                       int32_t* __restrict__ hist) {
-    __shared__ int32_t h[kAlpha];
-    if (threadIdx.x < kAlpha) h[threadIdx.x] = 0;
-    __syncthreads();
-    for (int64_t s = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; s < n;
-         s += int64_t(gridDim.x) * blockDim.x)
-        if (slot_valid(lens, s, L) && syms[s] < kAlpha)
-            atomicAdd(&h[syms[s]], 1);
-    __syncthreads();
-    if (threadIdx.x < kAlpha && h[threadIdx.x])
-        atomicAdd(hist + threadIdx.x, h[threadIdx.x]);
-}
-
-// K17 step 3 (one thread): the top 15 in lax.top_k order (count
-// descending, ties to the lower symbol) into side[0:15] (side[15] = 0) and
-// the symbol -> nibble table lut (15 = exception).
-__global__ void top15(const int32_t* __restrict__ hist,
-                      uint8_t* __restrict__ side, uint8_t* __restrict__ lut) {
-    bool used[kAlpha];
-    for (int a = 0; a < kAlpha; ++a) {
-        used[a] = false;
-        lut[a] = 15;
+    int32_t g = 0;
+    if (l < L) {
+        const int32_t n = fqk::lane_length(cgrid, J, L, l);
+        lens[l] = n;
+        g = T - n;
     }
-    for (int k = 0; k < 15; ++k) {
-        int best = -1;
-        for (int a = 0; a < kAlpha; ++a)
-            if (!used[a] && (best < 0 || hist[a] > hist[best])) best = a;
-        used[best] = true;
-        side[k] = static_cast<uint8_t>(best);
-        lut[best] = static_cast<uint8_t>(k);
-    }
-    side[15] = 0;
+    g = __reduce_max_sync(0xFFFFFFFFu, g);
+    if ((threadIdx.x & 31) == 0 && g > 0) atomicMax(gap, g);
 }
 
-// The nibble and the value a K17 slot ships: invalid slots are filled
-// with top[0] (side[0]); the lut gather clamps as the reference's does.
-__device__ __forceinline__ uint32_t nib_of(const uint8_t* __restrict__ syms,
-                                           const int32_t* __restrict__ lens,
-                                           const uint8_t* __restrict__ lut,
-                                           const uint8_t* __restrict__ side,
-                                           int64_t s, int32_t L,
-                                           uint8_t* filled) {
-    *filled = slot_valid(lens, s, L) ? syms[s] : side[0];
-    return lut[*filled < kAlpha ? *filled : kAlpha - 1];
-}
+// K17's histogram pass: a block takes a tile of kHistWaves waves x 32
+// lane quads (4 lanes, one 32-bit word of a wave); warp w walks waves
+// t0 + w, t0 + w + 8, ..., lane i the quad q = 32 blockIdx.x + i, whose
+// four lengths it loads once, so a slot's validity is t < len and needs
+// no division; its 16 loads are all in flight before it counts.  Each
+// warp counts into its own sub-histogram in shared memory with shared
+// atomic increments, which the card aggregates over a warp's lanes that
+// hit one bin, so a grid whose symbols crowd a few bins does not
+// serialize; the block sums its 8 sub-histograms and adds each bin to the
+// global count with one atomic.
+constexpr int kHistThreads = 256;
+constexpr int kHistWarps = kHistThreads / 32;
+constexpr int kHistWaves = 128;                  // waves a histogram tile
+constexpr int kHistPer = kHistWaves / kHistWarps;   // words a thread
 
-__global__ void pack15_count(const uint8_t* __restrict__ syms, int64_t n,
-                             int32_t L, const int32_t* __restrict__ lens,
-                             const uint8_t* __restrict__ lut,
-                             const uint8_t* __restrict__ side,
-                             int32_t* __restrict__ tile_counts) {
-    const int64_t s0 = blockIdx.x * kTile + int64_t(threadIdx.x) * kPer;
-    int32_t c = 0;
-    uint8_t f;
-    for (int k = 0; k < kPer; ++k)
-        if (s0 + k < n) c += nib_of(syms, lens, lut, side, s0 + k, L, &f) == 15;
-    int32_t total;
-    fqk::block_exclusive_scan<kThreads>(c, &total);
-    if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-// K17 step 5: the nibbles, two a byte, and the exceptions below cap at
-// side[16 + rank] (side arrives zeroed; later ones are dropped).
-__global__ void pack15_write(const uint8_t* __restrict__ syms, int64_t n,
-                             int32_t L, const int32_t* __restrict__ lens,
-                             const uint8_t* __restrict__ lut,
-                             const int32_t* __restrict__ tile_off,
-                             uint8_t* __restrict__ side, int64_t cap,
-                             uint8_t* __restrict__ nib) {
-    const int64_t s0 = blockIdx.x * kTile + int64_t(threadIdx.x) * kPer;
-    uint8_t code[kPer], fill[kPer];
-    int32_t c = 0;
+__global__ void __launch_bounds__(kHistThreads)
+pack15_hist(const uint32_t* __restrict__ syms4, int32_t T, int32_t L4,
+            const int4* __restrict__ lens4, int32_t* __restrict__ hist) {
+    __shared__ int32_t h[kHistWarps][kAlpha];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int32_t q = blockIdx.x * 32 + lane;
+    const int32_t t0 = blockIdx.y * kHistWaves + warp;
+    const int32_t t1 = min(T, int32_t(blockIdx.y + 1) * kHistWaves);
+    uint32_t w[kHistPer];
+    int4 n = make_int4(0, 0, 0, 0);
+    if (q < L4) {
+        n = lens4[q];
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        code[k] = 0;
-        fill[k] = 0;
-        if (s0 + k < n) {
-            code[k] = nib_of(syms, lens, lut, side, s0 + k, L, &fill[k]);
-            c += code[k] == 15;
+        for (int u = 0; u < kHistPer; ++u) {
+            const int32_t t = t0 + kHistWarps * u;
+            w[u] = t < t1 ? syms4[int64_t(t) * L4 + q] : 0u;
         }
     }
-    int32_t total;
-    int64_t rank = tile_off[blockIdx.x]
-                   + fqk::block_exclusive_scan<kThreads>(c, &total);
+    for (int i = threadIdx.x; i < kHistWarps * kAlpha; i += kHistThreads)
+        (&h[0][0])[i] = 0;
+    __syncthreads();
+    if (q < L4) {
+        const int32_t len[4] = {n.x, n.y, n.z, n.w};
 #pragma unroll
-    for (int k = 0; k < kPer; k += 2) {
-        if (s0 + k >= n) break;
-        nib[(s0 + k) >> 1] = static_cast<uint8_t>(code[k] | (code[k + 1] << 4));
-    }
+        for (int u = 0; u < kHistPer; ++u) {
+            const int32_t t = t0 + kHistWarps * u;
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        if (s0 + k < n && code[k] == 15) {
-            if (rank < cap) {
-                FQK_BOUND("pack15", "side", 16 + rank, 16 + cap);
-                side[16 + rank] = fill[k];
+            for (int b = 0; b < 4; ++b) {
+                const uint32_t sym = (w[u] >> (8 * b)) & 0xFFu;
+                if (t < len[b] && sym < kAlpha) atomicAdd(&h[warp][sym], 1);
             }
-            ++rank;
         }
+    }
+    __syncthreads();
+    if (threadIdx.x < kAlpha) {
+        int32_t sum = 0;
+#pragma unroll
+        for (int wv = 0; wv < kHistWarps; ++wv) sum += h[wv][threadIdx.x];
+        if (sum) atomicAdd(hist + threadIdx.x, sum);
+    }
+}
+
+// K17's write pass: kPackThreads threads a tile, each kPackGroups
+// consecutive 4-slot groups (64 slots, four 16-byte loads, two 16-byte
+// stores of nibbles), so a thread's slots are in scan order and a block
+// scan ranks its exceptions inside the tile.
+constexpr int kPackThreads = 256;
+constexpr int kPackGroups = 16;
+constexpr int64_t kPackTileGroups = int64_t(kPackThreads) * kPackGroups;
+constexpr int64_t kPackTile = 4 * kPackTileGroups;          // slots a tile
+
+// A tile's descriptor in one 64-bit word: the flag (bits 62-63), the
+// tile's exception count (bits 32-61) and, once the flag is kPrefix, its
+// inclusive prefix (bits 0-31).  Zero = not published yet.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+
+__device__ __forceinline__ void desc_store(unsigned long long* p,
+                                           unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned long long desc_load(
+        const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+    return v;
+}
+
+// Decoupled look-back, one warp: the exceptions of every tile before
+// tile `id`.  Lane i reads the descriptor of tile id - 1 - i (waiting
+// while it is unpublished; a tile publishes its count before it looks
+// back, and tiles before `id` took their tickets first, so they are
+// running); the nearest tile with its prefix ends the walk, the tiles
+// between add their counts; else the warp steps 32 tiles back.  A wider
+// window (8 descriptors a lane) was slower on an H100: a tile then waits
+// for the slowest of 256 predecessors to publish its count.
+__device__ __forceinline__ int64_t look_back(
+        const unsigned long long* __restrict__ desc, int64_t id,
+        int64_t tiles) {
+    const int lane = threadIdx.x & 31;
+    int64_t excl = 0;
+    for (int64_t base = id - 1;; base -= 32) {
+        const int64_t j = base - lane;
+        unsigned long long d = kPrefix;            // before tile 0: prefix 0
+        if (j >= 0) {
+            FQK_BOUND("pack15", "descriptor", j, tiles);
+            do {
+                d = desc_load(desc + j);
+            } while ((d >> 62) == 0);
+        }
+        const unsigned pre = __ballot_sync(0xFFFFFFFFu, (d >> 62) == 2);
+        const int stop = pre ? __ffs(pre) - 1 : 32;
+        long long v = 0;        // counts before the stop, then its prefix
+        if (lane < stop) v = (d >> 32) & 0x3FFFFFFFull;
+        else if (lane == stop) v = d & 0xFFFFFFFFull;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+        excl += v;
+        if (pre) return excl;
+    }
+}
+
+// Tiles in the order their blocks start (an atomic ticket, not
+// blockIdx), so a tile looks back only at tiles whose blocks run.
+// Prologue: the block ranks the 64 symbols from the histogram, rank(a) =
+// #{b : h[b] > h[a] or (h[b] = h[a] and b < a)} (lax.top_k's order:
+// count descending, ties to the lower symbol), so lut[a] is a's nibble
+// (15 = exception from rank 15 on) and tile 0 writes side[0:16].  Each
+// slot ships lut[filled], filled its symbol where valid, else top[0]; a
+// slot of a wave below T - gap is valid without a lookup, and only later
+// waves read the lanes' lengths (a thread's 64-slot run reads 64 of
+// them, so a warp's load touches 32 lines); exceptions (always valid
+// slots) are staged in shared memory in scan
+// order and, once the look-back gives the tile's offset, stored to
+// side[16 + rank] below cap by consecutive threads; the last tile writes
+// n_exc, every exception included.
+__global__ void __launch_bounds__(kPackThreads)
+pack15_write(const uint8_t* __restrict__ syms, int64_t n, int32_t T,
+             int32_t L4, const int4* __restrict__ lens4,
+             const int32_t* __restrict__ gap,
+             const int32_t* __restrict__ hist,
+             unsigned* __restrict__ ticket,
+             unsigned long long* __restrict__ desc, int64_t tiles,
+             uint8_t* __restrict__ nib, uint8_t* __restrict__ side,
+             int64_t cap, int32_t* __restrict__ n_exc) {
+    __shared__ int32_t hs[kAlpha];
+    __shared__ uint8_t lut[kAlpha];
+    __shared__ uint32_t top0;
+    __shared__ int64_t tile_sh, excl_sh;
+    __shared__ uint8_t stage[kPackTile];
+    if (threadIdx.x < kAlpha) hs[threadIdx.x] = hist[threadIdx.x];
+    if (threadIdx.x == 0) tile_sh = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const int64_t tile = tile_sh;
+    FQK_BOUND("pack15", "tile", tile, tiles);
+    // the tile's loads first, so they are in flight while the block
+    // ranks the symbols
+    const int64_t n4 = n >> 2;
+    const int64_t q0 = tile * kPackTileGroups
+                       + int64_t(threadIdx.x) * kPackGroups;
+    uint32_t w[kPackGroups];
+    const bool full = q0 + kPackGroups <= n4;
+    if (full) {
+        const uint4* p = reinterpret_cast<const uint4*>(syms) + q0 / 4;
+#pragma unroll
+        for (int i = 0; i < kPackGroups / 4; ++i) {
+            const uint4 v = p[i];
+            w[4 * i] = v.x;
+            w[4 * i + 1] = v.y;
+            w[4 * i + 2] = v.z;
+            w[4 * i + 3] = v.w;
+        }
+    } else {
+        const uint32_t* p = reinterpret_cast<const uint32_t*>(syms);
+#pragma unroll
+        for (int k = 0; k < kPackGroups; ++k)
+            w[k] = q0 + k < n4 ? p[q0 + k] : 0u;
+    }
+    if (threadIdx.x < kAlpha) {
+        const int32_t a = threadIdx.x, ha = hs[a];
+        int32_t r = 0;
+        for (int32_t b = 0; b < kAlpha; ++b)
+            r += hs[b] > ha || (hs[b] == ha && b < a);
+        lut[a] = static_cast<uint8_t>(r < 15 ? r : 15);
+        if (r == 0) top0 = a;
+        if (tile == 0 && r < 15) side[r] = static_cast<uint8_t>(a);
+        if (tile == 0 && a == 0) side[15] = 0;
+    }
+    __syncthreads();
+    // the first group's wave and quad, then a step of one quad a group
+    int32_t t = 0, q = 0;
+    if (q0 < n4) {
+        t = static_cast<int32_t>(q0 / L4);
+        q = static_cast<int32_t>(q0 - int64_t(t) * L4);
+    }
+    // a group's four slots at once: the valid bytes' mask, the filled
+    // bytes clamped to 63, four lut reads, the nibbles equal to 15
+    uint32_t code[kPackGroups / 2];
+    uint64_t exc = 0;                      // bit 4k + b: group k, slot b
+    const uint32_t fill4 = top0 * 0x01010101u;
+    const int32_t all_valid = T - *gap;    // waves below it: every slot valid
+#pragma unroll
+    for (int k = 0; k < kPackGroups; ++k) {
+        uint32_t c4 = 0;
+        if (q0 + k < n4) {
+            uint32_t vm = 0xFFFFFFFFu;
+            if (t >= all_valid) {
+                const int4 ln = __ldg(lens4 + q);
+                vm = (t < ln.x ? 0xFFu : 0u) | (t < ln.y ? 0xFF00u : 0u)
+                     | (t < ln.z ? 0xFF0000u : 0u)
+                     | (t < ln.w ? 0xFF000000u : 0u);
+            }
+            const uint32_t f = __vminu4((w[k] & vm) | (fill4 & ~vm),
+                                        0x3F3F3F3Fu);
+            c4 = uint32_t(lut[f & 0xFFu])
+                 | uint32_t(lut[(f >> 8) & 0xFFu]) << 4
+                 | uint32_t(lut[(f >> 16) & 0xFFu]) << 8
+                 | uint32_t(lut[f >> 24]) << 12;
+            uint32_t e = c4 & (c4 >> 1) & (c4 >> 2) & (c4 >> 3) & 0x1111u;
+            e = (e | (e >> 3) | (e >> 6) | (e >> 9)) & 0xFu;
+            exc |= uint64_t(e) << (4 * k);
+            if (++q == L4) {
+                q = 0;
+                ++t;
+            }
+        }
+        if (k & 1) code[k / 2] |= c4 << 16;
+        else code[k / 2] = c4;
+    }
+    if (full) {
+        uint4* o = reinterpret_cast<uint4*>(nib) + q0 / 8;
+        o[0] = make_uint4(code[0], code[1], code[2], code[3]);
+        o[1] = make_uint4(code[4], code[5], code[6], code[7]);
+    } else {
+        uint16_t* o = reinterpret_cast<uint16_t*>(nib);
+#pragma unroll
+        for (int k = 0; k < kPackGroups; ++k)
+            if (q0 + k < n4)
+                o[q0 + k] = static_cast<uint16_t>(code[k / 2]
+                                                  >> (16 * (k & 1)));
+    }
+    // the tile's count, published before anything else so that later
+    // tiles' look-backs wait least; then its exceptions in scan order,
+    // staged for coalesced stores, while warp 0 looks back
+    int32_t agg;
+    int32_t r = fqk::block_exclusive_scan<kPackThreads>(__popcll(exc), &agg);
+    if (threadIdx.x == 0)
+        desc_store(desc + tile, (tile ? kAggregate : kPrefix)
+                                | (uint64_t(agg) << 32)
+                                | (tile ? 0u : uint32_t(agg)));
+    if (exc) {
+#pragma unroll
+        for (int k = 0; k < kPackGroups; ++k)
+            for (uint32_t m = (exc >> (4 * k)) & 15u; m; m &= m - 1)
+                stage[r++] = static_cast<uint8_t>(
+                    w[k] >> (8 * (__ffs(m) - 1)));
+    }
+    if (threadIdx.x < 32) {
+        const int64_t before = tile ? look_back(desc, tile, tiles) : 0;
+        if (threadIdx.x == 0) {
+            if (tile)
+                desc_store(desc + tile, kPrefix | (uint64_t(agg) << 32)
+                                        | uint32_t(before + agg));
+            if (tile == tiles - 1)
+                *n_exc = static_cast<int32_t>(before + agg);
+            excl_sh = before;
+        }
+    }
+    __syncthreads();
+    const int64_t excl = excl_sh;
+    const int64_t lim = min(int64_t(agg), max(int64_t(0), cap - excl));
+    for (int64_t i = threadIdx.x; i < lim; i += kPackThreads) {
+        FQK_BOUND("pack15", "side", 16 + excl + i, 16 + cap);
+        side[16 + excl + i] = stage[i];
     }
 }
 
@@ -284,6 +468,17 @@ unsigned tiles_of(int64_t n) {
 unsigned blocks_of(int64_t n) {
     return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
+
+// K17's scratch: the lanes' lengths, then the histogram (64 int32), the
+// tile ticket and the lanes' largest gap below T, then a descriptor a
+// tile.
+constexpr int64_t kPackHead = 4 * kAlpha + 16;
+
+int64_t pack15_tiles(int64_t n) {
+    return n > 0 ? (n + kPackTile - 1) / kPackTile : 1;
+}
+
+int64_t align16(int64_t n) { return (n + 15) & ~int64_t(15); }
 
 }  // namespace
 
@@ -330,37 +525,46 @@ extern "C" int fq_pack_grid(const uint8_t* grid, int32_t mode, int32_t T,
     return static_cast<int>(cudaGetLastError());
 }
 
-// K17: syms (T, L) u8, cgrid (J, L) int32 read lengths.  Scratch: lens
-// (L int32), hist (64 int32), lut (64 u8), tile_scratch (2 tiles_of(T*L)
-// int32).  Outputs: nib (T*L/2 u8), side (16 + cap u8, zeroed by the
-// caller), n_exc (one int32: every exception, also those past cap).
+extern "C" int64_t fq_pack15_scratch_bytes(int32_t T, int32_t L) {
+    return align16(4 * int64_t(L)) + kPackHead
+           + 8 * pack15_tiles(int64_t(T) * L);
+}
+
+// K17: syms (T, L) u8 (16-byte aligned), cgrid (J, L) int32 read
+// lengths, L % 4 == 0.  scratch: fq_pack15_scratch_bytes(T, L) bytes.
+// Outputs: nib (T*L/2 u8), side (16 + cap u8, zeroed by the caller),
+// n_exc (one int32: every exception, also those past cap).  Three
+// launches and a memset: lane_lengths, pack15_hist (the grid's first
+// read), pack15_write (its second; the top 15, nibbles and exceptions).
 extern "C" int fq_pack15(const uint8_t* syms, const int32_t* cgrid, int32_t J,
-                         int32_t T, int32_t L, int32_t* lens, int32_t* hist,
-                         uint8_t* lut, int32_t* tile_scratch, uint8_t* nib,
+                         int32_t T, int32_t L, void* scratch, uint8_t* nib,
                          uint8_t* side, int32_t* n_exc, int64_t cap,
                          void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (L <= 0 || L % 4 || T < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     const int64_t n = int64_t(T) * L;
-    const unsigned tiles = tiles_of(n);
-    if (L > 0)
-        lane_lengths<<<blocks_of(L), kThreads, 0, st>>>(cgrid, J, L, lens);
-    cudaMemsetAsync(hist, 0, kAlpha * sizeof(int32_t), st);
+    const int64_t tiles = pack15_tiles(n);
+    char* p = static_cast<char*>(scratch);
+    int32_t* lens = reinterpret_cast<int32_t*>(p);
+    p += align16(4 * int64_t(L));
+    int32_t* hist = reinterpret_cast<int32_t*>(p);
+    unsigned* ticket = reinterpret_cast<unsigned*>(p + 4 * kAlpha);
+    auto* desc = reinterpret_cast<unsigned long long*>(p + kPackHead);
+    cudaError_t rc = cudaMemsetAsync(hist, 0, kPackHead + 8 * tiles, st);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    int32_t* gap = reinterpret_cast<int32_t*>(p + 4 * kAlpha + 4);
+    lane_lengths<<<blocks_of(L), kThreads, 0, st>>>(cgrid, J, T, L, lens,
+                                                    gap);
+    const int32_t L4 = L / 4;
+    const auto* lens4 = reinterpret_cast<const int4*>(lens);
     if (n) {
-        const unsigned want = blocks_of(n);
-        hist64<<<want < 4096u ? want : 4096u, kThreads, 0, st>>>(
-            syms, n, L, lens, hist);
+        const dim3 grid((L4 + 31) / 32, (T + kHistWaves - 1) / kHistWaves);
+        pack15_hist<<<grid, kHistThreads, 0, st>>>(
+            reinterpret_cast<const uint32_t*>(syms), T, L4, lens4, hist);
     }
-    top15<<<1, 1, 0, st>>>(hist, side, lut);
-    if (n == 0) {
-        cudaMemsetAsync(n_exc, 0, sizeof(int32_t), st);
-        return static_cast<int>(cudaGetLastError());
-    }
-    pack15_count<<<tiles, kThreads, 0, st>>>(syms, n, L, lens, lut, side,
-                                             tile_scratch);
-    scan_tiles<<<1, kScanThreads, 0, st>>>(tile_scratch, tiles,
-                                           tile_scratch + tiles, n_exc);
-    pack15_write<<<tiles, kThreads, 0, st>>>(syms, n, L, lens, lut,
-                                             tile_scratch + tiles, side, cap,
-                                             nib);
+    pack15_write<<<static_cast<unsigned>(tiles), kPackThreads, 0, st>>>(
+        syms, n, T, L4, lens4, gap, hist, ticket, desc, tiles, nib, side,
+        cap, n_exc);
     return static_cast<int>(cudaGetLastError());
 }

@@ -218,8 +218,10 @@ def _lib() -> ctypes.CDLL:
             lib.fq_unpack_grid.argtypes = (
                 [vp, i32, i32, i32, vp, i64, vp, i64, vp, vp])
             lib.fq_pack_grid.argtypes = [vp, i32, i32, i32, vp, vp]
-            lib.fq_pack15.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 7
+            lib.fq_pack15.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 4
                                       + [i64, vp])
+            lib.fq_pack15_scratch_bytes.argtypes = [i32, i32]
+            lib.fq_pack15_scratch_bytes.restype = i64
             lib.fq_compact_words.argtypes = [vp, vp, i64, vp, vp, vp, vp]
             lib.fq_frozen_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i32] + spec + [vp] * 3)
@@ -237,7 +239,9 @@ def _lib() -> ctypes.CDLL:
             lib.fq_adapt_decode_shape.argtypes = [i32, i32, vp]
             semi = spec + [i64] + [i32] * 4 + [vp] * 2
             lib.fq_semi_encode_walk.argtypes = (
-                [vp, vp, i32, i32, i32, i32] + semi + [vp] * 3)
+                [vp, vp, i32, i32, i32, i32] + semi + [vp] * 4)
+            lib.fq_semi_encode_scratch_bytes.argtypes = [i32, i32, i64]
+            lib.fq_semi_encode_scratch_bytes.restype = i64
             lib.fq_semi_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, i32] + semi + [vp] * 3)
             lib.fq_semi_decode_scratch_bytes.argtypes = [i32, i64, i32]
@@ -647,7 +651,7 @@ def frozen_decode_shape(L: int, model, device=None) -> Dict[str, int]:
 
 PACK_BITS = {2: 2, 4: 4, 6: 6, 15: 4, 23: 2}
 _SENT = {15: 15, 23: 3}
-_TILE = 4096                 # transfer_pack.cu kTile: slots a scan tile
+_TILE = 4096                 # transfer_pack.cu kTile: slots a K15 scan tile
 EXC_SYM = 15                 # K17's sentinel nibble
 
 
@@ -798,19 +802,18 @@ def pack15(syms: torch.Tensor, cgrid: torch.Tensor):
     J = cgrid.shape[0]
     if cgrid.shape[1] != L or L % 4:
         raise ValueError("pack15: shape mismatch")
+    if syms.data_ptr() % 16:
+        raise ValueError("pack15: the grid must start 16-byte aligned")
+    lib = _lib()
     dev = syms.device
     cap = T * L // 4
-    tiles = (T * L + _TILE - 1) // _TILE
-    lens = torch.empty((L,), dtype=torch.int32, device=dev)
-    hist = torch.empty((64,), dtype=torch.int32, device=dev)
-    lut = torch.empty((64,), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((2 * tiles,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((lib.fq_pack15_scratch_bytes(T, L),),
+                          dtype=torch.uint8, device=dev)
     nib = torch.empty((T, L // 2), dtype=torch.uint8, device=dev)
     side = torch.zeros((16 + cap,), dtype=torch.uint8, device=dev)
     n_exc = torch.empty((1,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_pack15, "pack15", dev, _ptr(syms), _ptr(cgrid), J, T, L,
-            _ptr(lens), _ptr(hist), _ptr(lut), _ptr(scratch), _ptr(nib),
-            _ptr(side), _ptr(n_exc), cap)
+    _launch(lib.fq_pack15, "pack15", dev, _ptr(syms), _ptr(cgrid), J, T, L,
+            _ptr(scratch), _ptr(nib), _ptr(side), _ptr(n_exc), cap)
     return nib, side, n_exc
 
 
@@ -1147,7 +1150,8 @@ def semi_encode_walk_plain(syms: torch.Tensor, cgrid: torch.Tensor, model,
         part[v] = tab.snap[cx, sx]
         sf[t0:t0 + chunk] = part
         tab.add(cx, sx)
-    tab.boundary(n_halve, snapshot=False)
+    if T:           # no chunk, no halving (the reference scans no chunks)
+        tab.boundary(n_halve, snapshot=False)
     return _to_i32(sf), tab.counts
 
 
@@ -1178,15 +1182,20 @@ def semi_encode_walk(syms: torch.Tensor, cgrid: torch.Tensor, model,
     _check(cgrid, "cgrid", torch.int32, 2)
     if cgrid.shape[1] != L:
         raise ValueError("semi_encode_walk: shape mismatch")
+    lib = _lib()
     dev = syms.device
     counts = _start_counts(model, dev, counts0)
     snap = torch.empty((counts.numel(),), dtype=torch.int32, device=dev)
     ctxg = torch.empty((T, L), dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        (lib.fq_semi_encode_scratch_bytes(T, L, model.n_ctx),),
+        dtype=torch.uint8, device=dev)
     sf = torch.empty((T, L), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_semi_encode_walk, "semi_encode_walk", dev, _ptr(syms),
+    _launch(lib.fq_semi_encode_walk, "semi_encode_walk", dev, _ptr(syms),
             _ptr(cgrid), cgrid.shape[0], T, L, model.alphabet,
             *_spec_args(model), model.n_ctx, model.inc, model.cap, n_halve,
-            chunk, _ptr(counts), _ptr(snap), _ptr(ctxg), _ptr(sf))
+            chunk, _ptr(counts), _ptr(snap), _ptr(ctxg), _ptr(scratch),
+            _ptr(sf))
     return sf, counts
 
 
@@ -1244,7 +1253,8 @@ def semi_decode_plain(states0: torch.Tensor, words: torch.Tensor,
         tab.add((base // A)[vld], lo[vld])
         new = model.update(st, lo, aux_t)
         st = {k: torch.where(vld, new[k], st[k]) for k in st}
-    tab.boundary(n_halve, snapshot=False)
+    if T:
+        tab.boundary(n_halve, snapshot=False)
     return out, tab.counts
 
 

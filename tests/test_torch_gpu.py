@@ -1173,6 +1173,59 @@ def test_pack15_matches_plain(cuda, case):
     assert (int(want[2].item()) > T * L // 4) == (case != "skewed")
 
 
+def _pack15_case(case, rng):
+    """(grid, read lengths) of a K17 case: L = 12 and 20 (L % 4 == 0, not %
+    16), a grid of 2.6 tiles (16,384 slots a tile), every lane empty,
+    40 symbols of exactly equal counts and a flat grid (both n_exc >
+    cap), and
+    the smoke's frozen shape (6,144 x 4,096: 1,536 tiles) with Markov-like
+    crowding."""
+    T, L = {"L12": (1001, 12), "L20": (733, 20), "tiles": (41, 1052),
+            "empty_lanes": (300, 512), "ties": (300, 512),
+            "over_cap": (97, 2048), "frozen_shape": (6144, 4096)}[case]
+    if case == "ties":
+        g = rng.permutation(np.repeat(np.arange(40), T * L // 40))
+        g = g.reshape(T, L)
+    elif case == "over_cap":
+        g = rng.integers(0, 48, (T, L))
+    else:
+        g = _skewed_grid(rng, 48, T, L, 0.9)
+    J = 4
+    lens = rng.integers(0, T // J + 1, (J, L))
+    if case == "empty_lanes":
+        lens[:] = 0
+    elif case == "ties":
+        lens[:] = 0
+        lens[0] = T
+    return (torch.from_numpy(g.astype(np.uint8)),
+            torch.from_numpy(lens.astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["L12", "L20", "tiles", "empty_lanes",
+                                  "ties", "over_cap", "frozen_shape"])
+def test_pack15_tiles_match_plain(cuda, case):
+    """K17 (a histogram pass, then the write pass with its look-back over
+    the tiles) == its plain version, nibbles, sidecar and count, in one
+    launch a call; the same outputs on a second call."""
+    g, cg = _pack15_case(case, np.random.default_rng(len(case)))
+    T, L = g.shape
+    want = kernels.pack15(g, cg)
+    kernels.reset_launch_counts()
+    gc, cgc = g.to(cuda), cg.to(cuda)
+    got = kernels.pack15(gc, cgc)
+    again = kernels.pack15(gc, cgc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pack15"] == 2
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a.cpu(), b) and torch.equal(c.cpu(), b)
+    n_exc, cap = int(want[2].item()), T * L // 4
+    assert (n_exc > cap) == (case in ("over_cap", "ties"))
+    if case == "empty_lanes":
+        assert n_exc == 0 and list(want[1][:15]) == list(range(15))
+    if case == "ties":
+        assert list(want[1][:15]) == list(range(15))
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
 def test_quant_pack_reads_narrow_tables(cuda, dtype):
     rng = np.random.default_rng(5)
@@ -1650,6 +1703,36 @@ def _overcap(model, table):
     big[0] = (1 << 21) // model.alphabet
     big[model.n_ctx - 1] = (1 << 21) // model.alphabet
     return big
+
+
+@pytest.mark.parametrize("chunk", [16, "T"])
+@pytest.mark.parametrize("name", ["seq_o10", "fqz_q3"])
+def test_semi_encode_boundaries_match_plain(cuda, name, chunk):
+    """K11 (the chunk walk's context grid, then per chunk a boundary over
+    the last chunk's rows and the over-cap rows, and the slots' pass) ==
+    its plain version (sf, final counts) on seq and quality (A = 40)
+    tables, at chunk 16 and chunk = T, from init, from a table K13 trains
+    and from that table with two rows over cap; one launch a call."""
+    model = _SEMI[name]
+    L = 1000
+    counts, lay, syms = _lanes_stream(model, L, 7 + len(name), t_pad=16)
+    T = lay.T
+    chunk = T if chunk == "T" else chunk
+    assert T % chunk == 0
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    gc, cgc = g.to(cuda), cg.to(cuda)
+    nh = engine._n_halve_chunk(model, L, chunk)
+    trained = kernels.train_counts(gc.flip(0).contiguous(), cgc, model)
+    for c0 in (None, trained, _overcap(model, trained)):
+        want = kernels.semi_encode_walk(g, cg, model, nh, chunk,
+                                        None if c0 is None else c0.cpu())
+        kernels.reset_launch_counts()
+        got = kernels.semi_encode_walk(gc, cgc, model, nh, chunk, c0)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["semi_encode_walk"] == 1
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.parametrize("L", [4096, 1000, 9000])
