@@ -51,7 +51,12 @@ Phases (any failure raises and exits non-zero):
      K4's thread-block cluster (CTAs, threads, lanes a thread, how many
      fit the card) and its time a wave on each table; K2's device time by
      kernel on each table (torch.profiler: the forward chunk walk's
-     passes, the reverse rANS pass); K11's on each stream and start and
+     passes, the reverse rANS pass); K3's (the memset and its one
+     kernel) on the seq table's words; the reverse chains' ns a step
+     (K7 on the first 1,024 and 2,048 waves of K5's seq grid, K2's
+     reverse pass on the first 2,048 and 4,096 of the frozen grid, every
+     lane live to the last wave: the slope) beside their chain bound and
+     the SASS loop's instructions and stall cycles a step; K11's on each stream and start and
      K17's on each grid (its passes); K12's cluster, time a wave and
      device time by kernel (the chunk boundaries' table passes' share) on
      each stream and start; K6's cluster and
@@ -177,10 +182,17 @@ JSON and the last line above;
 copied into an older tree's checkout it runs that tree's kernels, so
 two trees compare in turns in one call.
 
+    python3 chip_smoke.py --sass NAME [NAME...] [--out DIR]
+
+builds the kernels and writes the SASS of each kernel whose mangled name
+holds a NAME to DIR/sass_<NAME>.txt (cuobjdump -sass; DIR defaults to
+./sass).
+
     python3 chip_smoke.py --coder-loop PROCS ROUNDS [--async] [--own-build]
         [--checked]
 
-runs phase 3's K1 -> K2 launches, then K17 and K11 on the same grids,
+runs phase 3's K1 -> K2 -> K3 launches, then K17, K11 and K7 on K11's sf
+on the same grids,
 ROUNDS times in each of PROCS fresh processes and reports which, if any,
 fault: under CUDA_LAUNCH_BLOCKING=1,
 or with --async synchronizing only where phase 3 does; loading this
@@ -341,16 +353,18 @@ def _graph_ms(fn, reps: int, rounds: int = 10) -> float:
     return t0.elapsed_time(t1) / (rounds * reps)
 
 
-def _device_split(fn) -> dict:
-    """Device ms of each kernel one call of ``fn`` launches, summed by its
-    name (torch.profiler's CUDA activity; the caller has already run
-    ``fn`` once); {} where the profiler sees no device time."""
+def _device_split(fn, reps: int = 1) -> dict:
+    """Device ms of each kernel a call of ``fn`` launches, summed by its
+    name over ``reps`` calls and divided by them (torch.profiler's CUDA
+    activity; the caller has already run ``fn`` once); {} where the
+    profiler sees no device time."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
@@ -359,7 +373,7 @@ def _device_split(fn) -> dict:
         hit = re.search(r"(\w+)(<[^()]*>)?\(", ev.key)
         name = hit.group(1) if hit else ev.key[:40]
         if us:
-            out[name] = out.get(name, 0.0) + us / 1e3
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
     return out
 
 
@@ -519,9 +533,63 @@ K2_SPLIT = {}
 # K12 by stream and start: its cluster, time a wave, kernels' device ms
 # and the boundary passes' share
 SEMI_SHAPE = {}
-# K11 by stream and start, K17 by grid: time and kernels' device ms
+# K11 by stream and start, K17 by grid, K3 on the seq table's words:
+# time and kernels' device ms
 K11_SPLIT = {}
 K17_SPLIT = {}
+K3_SPLIT = {}
+# the reverse chains (K7; K2's reverse pass): ms at two depths of lanes
+# that are live to the last wave, ns a step (the slope), and the chain
+# bound at phase 3's shape
+CHAIN = {}
+# rev_step (csrc/lane_walk.cuh) from x to the next x in the SASS of
+# rans_encode_sf and encode_reverse: ISETP (the emit, taking the f < 2^14
+# predicate), @P SHF (x >> 16), IMAD.HI (q), IMAD (x - (q + 1) d; the
+# update x + start + (q + 1) (M - d) beside it), SHF (its sign), IMAD
+# (the update less M - d where q was exact)
+_CHAIN_OPS = 6
+_OP_CYCLES = 4    # the least stall count ptxas sets between two of them
+                  # (IMAD.HI before its dependent IMAD)
+
+
+def _sm_clock_mhz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()
+    return float(out[0])
+
+
+def _chain(name: str, steps: int, run, depths, ms_of) -> dict:
+    """A reverse chain's ns a step: ``run(T)`` (the kernel on the first T
+    waves of its grid, every lane live to the last; it checks the result
+    against the plain version) at the two ``depths``, ``ms_of(T)`` its
+    time there; the slope of ms against T, and the chain bound of
+    ``steps`` (the longest lane at phase 3's shape) steps of _CHAIN_OPS
+    dependent operations of _OP_CYCLES cycles at the top SM clock."""
+    import re
+    ms = {}
+    for T in depths:
+        run(T)
+        ms[T] = ms_of(T)
+    hi, lo = max(depths), min(depths)
+    clock = _sm_clock_mhz()
+    kernel = {"rans_encode_sf": "rans_encode_sf",
+              "frozen_encode_lanes": "encode_reverse"}[name]
+    try:
+        loop = [_chain_loop(f) for f in _sass_functions()
+                if re.match(rf"\s*Function : \S*{kernel}", f)]
+    except (OSError, subprocess.CalledProcessError) as exc:
+        loop = [f"not read ({exc})"]
+    out = {"ms_by_waves": ms,
+           "ns_per_step": (ms[hi] - ms[lo]) / (hi - lo) * 1e6,
+           "steps": steps, "sm_clock_max_mhz": clock,
+           "chain_bound_ms": steps * _CHAIN_OPS * _OP_CYCLES / (clock * 1e3),
+           "sass": loop}
+    print(f"  {name} chain: {json.dumps(out)}")
+    CHAIN[name] = out
+    return out
 
 
 def _k4_shape(m, ms: float, tag: str) -> dict:
@@ -538,6 +606,35 @@ def _k4_shape(m, ms: float, tag: str) -> dict:
           f"a thread, {shape['max_active_clusters']} such clusters fit the "
           f"card; {ms:.3f} ms = {shape['ms_per_wave'] * 1e3:.3f} us a wave")
     return shape
+
+
+def _k2_chain(g, packed, m, steps: int) -> None:
+    """K2's reverse pass (torch.profiler's device ms of encode_reverse) on
+    the first T = 4096 and 2048 waves of the frozen grid, each lane one
+    read of T symbols, against the plain version."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    cgs = {T: torch.full((1, g.shape[1]), T, dtype=torch.int32,
+                         device=g.device) for T in (4096, 2048)}
+
+    def run(T):
+        got = kernels.frozen_encode_lanes(g[:T], cgs[T], packed, m)
+        want = kernels.frozen_encode_lanes_plain(g[:T], cgs[T], packed, m)
+        if any(not torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K2 at T = {T} differs from its plain "
+                                 f"version")
+
+    def ms_of(T):
+        # the profiler has missed a session's kernels now and then: a
+        # session of 3 calls, taken again if it saw no reverse pass
+        for _ in range(3):
+            split = _device_split(lambda: kernels.frozen_encode_lanes(
+                g[:T], cgs[T], packed, m), reps=3)
+            if "encode_reverse" in split:
+                return split["encode_reverse"]
+        raise RuntimeError(f"torch.profiler saw no encode_reverse at T = {T}")
+
+    _chain("frozen_encode_lanes", steps, run, tuple(cgs), ms_of)
 
 
 def check_kernels():
@@ -578,6 +675,11 @@ def check_kernels():
             max(_max_err(k3[1], p3[1]), _max_err(k3[0][:n], p3[0][:n])),
             _time_ms(lambda: kernels.compact_words(words, emit), 5),
             _time_ms(lambda: kernels.compact_words_plain(words, emit), 1))
+        if tag == "seq_order10":
+            K3_SPLIT[tag] = _split_row(
+                f"{tag}_compact_words", r["compact_words"][1],
+                lambda: kernels.compact_words(words, emit))
+            _k2_chain(g, packed, m, int(cg.long().sum(0).max()))
         wpad = _wpad(k3[0], n)
         k4 = kernels.frozen_decode(states, wpad, cg, T_MAIN, cum, m)
         p4, p4_ms = _timed(lambda: kernels.frozen_decode_plain(
@@ -832,6 +934,26 @@ def _adapt_shape(tag, m, L, T, k5_ms, k6_ms, g, cg) -> dict:
     return shape
 
 
+def _k7_chain(sf, steps: int) -> None:
+    """K7 (CUDA events) on the first T = 2048 and 1024 waves of K5's seq
+    grid, every lane of its 2048 live there, against the plain version."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    cgs = {T: torch.full((1, sf.shape[1]), T, dtype=torch.int32,
+                         device=sf.device) for T in (2048, 1024)}
+
+    def run(T):
+        got = kernels.rans_encode_sf(sf[:T], cgs[T])
+        want = kernels.rans_encode_sf_plain(sf[:T], cgs[T])
+        if any(not torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K7 at T = {T} differs from its plain "
+                                 f"version")
+
+    _chain("rans_encode_sf", steps, run, tuple(cgs),
+           lambda T: _time_ms(lambda: kernels.rans_encode_sf(sf[:T], cgs[T]),
+                              5))
+
+
 def check_adaptive_kernels():
     """K5 -> K7 -> K3 -> K6 vs the plain versions, same inputs on the
     card; the decode must invert the encode."""
@@ -884,6 +1006,8 @@ def check_adaptive_kernels():
             max(_max_err(a, b) for a, b in zip(k7, p7)),
             _time_ms(lambda: kernels.rans_encode_sf(sf, cg), 3), p7_ms)
         words, emit, states = k7
+        if tag == "adapt_seq_order10":
+            _k7_chain(sf, int(cg.long().sum(0).max()))
         out, cnt = kernels.compact_words(words, emit)
         k = int(cnt.item())
         wpad = _wpad(out, k)
@@ -3001,7 +3125,7 @@ def coders_main() -> int:
               for n, (e, ms, pms) in r.items()} for tag, r in rows.items()},
         "k2_by_table": K2_SPLIT, "k12_by_stream": SEMI_SHAPE,
         "k11_by_stream": K11_SPLIT, "k17_by_grid": K17_SPLIT,
-        "launches": totals}))
+        "k3_by_table": K3_SPLIT, "chains": CHAIN, "launches": totals}))
     _ok_line()
     return 0
 
@@ -3097,6 +3221,10 @@ def main() -> int:
         for tag in ADAPT_SHAPE}
     # K2 on each frozen table (forward / reverse); K12 on each stream
     by_name["frozen_encode_lanes"]["by_table"] = K2_SPLIT
+    # the reverse chains' ns a step and chain bound; K3's device split
+    for name, chain in CHAIN.items():
+        by_name[name]["chain"] = chain
+    by_name["compact_words"]["by_table"] = K3_SPLIT
     by_name["semi_decode"]["by_stream"] = SEMI_SHAPE
     by_name["semi_encode_walk"]["by_stream"] = K11_SPLIT
     by_name["pack15"]["by_grid"] = K17_SPLIT
@@ -3120,8 +3248,9 @@ def main() -> int:
 
 
 def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
-    """Phase 3's K1 -> K2 launches on its inputs, then K17 and K11 (chunk
-    64, two halvings) on the same grids, ``reps`` rounds, each
+    """Phase 3's K1 -> K2 -> K3 launches on its inputs, then K17, K11
+    (chunk 64, two halvings) and K7 on K11's sf on the same grids,
+    ``reps`` rounds, each
     launch announced before it starts, so that under CUDA_LAUNCH_BLOCKING=1
     the last line names a launch that faults.  ``blocking``: synchronize
     after every launch; else only where phase 3 does (reading K1's result
@@ -3161,13 +3290,21 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
             if not all(torch.equal(a, b) for a, b in zip(k2, want[key])):
                 raise AssertionError(f"round {rep} {tag}: K2 differs")
             for name, run, plain in (
+                    ("compact_words",
+                     lambda: kernels.compact_words(*k2[:2]),
+                     lambda: kernels.compact_words_plain(*k2[:2])),
                     ("pack15", lambda: kernels.pack15(g, cg),
                      lambda: kernels.pack15_plain(g, cg)),
                     ("semi_encode_walk",
                      lambda: kernels.semi_encode_walk(g, cg, m, 2,
                                                       SEMI_CHUNK),
                      lambda: kernels.semi_encode_walk_plain(g, cg, m, 2,
-                                                            SEMI_CHUNK))):
+                                                            SEMI_CHUNK)),
+                    ("rans_encode_sf",        # on K11's sf (the plain's)
+                     lambda: kernels.rans_encode_sf(
+                         want[f"{tag}_semi_encode_walk"][0], cg),
+                     lambda: kernels.rans_encode_sf_plain(
+                         want[f"{tag}_semi_encode_walk"][0], cg))):
                 print(f"launch {name} round {rep} {tag}", flush=True)
                 got = run()
                 if blocking:
@@ -3175,6 +3312,9 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
                 key = f"{tag}_{name}"
                 if key not in want:
                     want[key] = plain()
+                if name == "compact_words":     # the dense prefix, count
+                    got, want[key] = ((o[:int(c.item())], c)
+                                      for o, c in (got, want[key]))
                 if not all(torch.equal(a, b)
                            for a, b in zip(got, want[key])):
                     raise AssertionError(f"round {rep} {tag}: {name} "
@@ -3235,10 +3375,72 @@ def coder_loop_procs(procs: int, reps: int, blocking: bool, own_build: bool,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"coder_loop": {
-        "processes": procs, "rounds": reps, "launches_per_process": 12 * reps,
+        "processes": procs, "rounds": reps, "launches_per_process": 18 * reps,
         "blocking": blocking, "own_build": own_build, "checked": checked,
         "failed_processes": failed}}))
     return 1 if failed else 0
+
+
+def _sass_functions() -> list:
+    """The built library's SASS (cuobjdump -sass), one string a kernel."""
+    import re
+    from fastqueeze_tpu_torch.ops import kernels
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "-sass", kernels.BUILD_INFO["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    return re.split(r"\n(?=\s*Function : )", dump)
+
+
+def sass_main(names, out_dir: str) -> int:
+    """--sass NAME... [--out DIR]: builds the kernels and writes the SASS
+    (cuobjdump -sass of the library) of each kernel whose mangled name
+    holds a NAME to DIR/sass_<NAME>.txt; prints each kernel's instruction
+    count and its reverse chain's loop (_chain_loop)."""
+    import re
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fastqueeze_tpu_torch.ops import kernels
+    kernels.build()
+    funcs = _sass_functions()
+    os.makedirs(out_dir, exist_ok=True)
+    for name in names:
+        hits = [f for f in funcs if re.match(rf"\s*Function : \S*{name}", f)]
+        path = os.path.join(out_dir, f"sass_{name}.txt")
+        with open(path, "w") as fh:
+            fh.write("\n".join(hits))
+        for f in hits:
+            fn = f.split()[2]
+            n = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", f, re.M))
+            print(f"{name}: {_kernel_name(fn)} {n} instructions -> {path}; "
+                  f"{_chain_loop(f)}")
+    return 0
+
+
+def _chain_loop(sass: str) -> str:
+    """The loop of a kernel's SASS with the most steps of the reverse chain
+    (an IMAD.HI.U32 of two registers, the quotient, each): its
+    instructions and the sum of their stall counts (bits 41-44 of each
+    instruction's control word: the cycles the scheduler waits before the
+    next issue), a step."""
+    import re
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);\s+/\* 0x[0-9a-f]{16} \*/"
+                     r"\s+/\* 0x([0-9a-f]{16}) \*/", sass)
+    rows = [(int(a, 16), op, int(hi, 16)) for a, op, hi in ins]
+    best = None
+    for addr, op, _ in rows:
+        hit = re.search(r"BRA (?:`?\()?0x([0-9a-f]+)", op)
+        if not hit or int(hit.group(1), 16) >= addr:
+            continue
+        body = [r for r in rows if int(hit.group(1), 16) <= r[0] <= addr]
+        steps = sum(bool(re.match(
+            r"IMAD\.HI\.U32 R\d+, R\d+(\.reuse)?, R\d+(\.reuse)?, RZ",
+            b[1].strip())) for b in body)
+        if steps and (best is None or steps > best[0]):
+            best = (steps, len(body), sum((b[2] >> 41) & 15 for b in body))
+    if best is None:
+        return "no loop with a quotient"
+    steps, n, stall = best
+    return (f"chain loop: {steps} steps, {n} instructions ({n / steps:.1f} "
+            f"a step), {stall} stall cycles ({stall / steps:.1f} a step)")
 
 
 def _flag(name: str) -> bool:
@@ -3259,6 +3461,12 @@ if __name__ == "__main__":
         sys.exit(aligner_main())
     if sys.argv[1:2] == ["--coders"]:
         sys.exit(coders_main())
+    if sys.argv[1:2] == ["--sass"]:
+        args = sys.argv[2:]
+        out = _opt("--out") or "sass"
+        if "--out" in args:
+            del args[args.index("--out"):args.index("--out") + 2]
+        sys.exit(sass_main(args, out))
     if sys.argv[1:2] == ["--coder-child"]:
         coder_loop(int(sys.argv[2]), not _flag("--async"),
                    _opt("--build-dir"), _flag("--checked"))

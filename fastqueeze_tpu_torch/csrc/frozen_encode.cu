@@ -15,17 +15,18 @@
 //      table gathers (2^20 rows x 4 symbols for order-10 seq) overlap
 //      across the card;
 //   2. reverse, one thread a lane (fqk::rans_encode_lane, shared with K7):
-//      the rANS emit loop from wave T - 1 down, writing words[t, l] and
-//      emit[t, l] (padding waves 0 and 0), then the final state.  Only
-//      this state chain is serial in a lane; its sf loads are staged in
-//      shared memory stages ahead of it, and with the reciprocal the
-//      division in it is a high multiply and one correction (div_by).
+//      the rANS emit loop from the warp's top wave down, writing words[t,
+//      l] and emit[t, l] (padding waves 0 and 0), then the final state.
+//      Only this state chain is serial in a lane; its sf loads are staged
+//      in shared memory stages ahead of it, and with the reciprocal the
+//      division in it is a high multiply, a multiply-add and one
+//      correction (rev_step).
 // The first design walked each lane forward and back in one thread (64
 // threads a block: at L = 4096 one warp an SM, every step's load
 // latency exposed; 5.9 ms on an H100).  What bounds this one: the reverse
-// chain, T steps of a division a lane with one warp an SM at L = 4096,
-// then the forward pass's table gathers and the sf grid's round trip
-// through device memory (8 B written and read back a slot).  Grids are
+// chain, T dependent steps a lane with one warp an SM at L = 4096, then
+// the forward pass's table gathers and the sf grid's round trip through
+// device memory (8 B written and read back a slot).  Grids are
 // (T, L) row-major, so a warp's 32 lanes touch 32 neighbouring slots of
 // one wave: every grid access is coalesced.  The checked build
 // (check.cuh) bounds the lane length by T and every read of syms, cgrid,
@@ -66,8 +67,10 @@ encode_reverse(const uint2* __restrict__ sf, Scratch s, int32_t T,
                uint8_t* __restrict__ emit, uint32_t* __restrict__ states) {
     __shared__ fqk::RevRing<uint2> ring;
     const int32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+    const unsigned lanes = __ballot_sync(0xFFFFFFFFu, l < L);
     if (l >= L) return;
-    fqk::rans_encode_lane(ring, sf, T, L, l, s.n[l], words, emit, states);
+    fqk::rans_encode_lane(ring, sf, nullptr, T, L, l, s.n[l], lanes, words,
+                          emit, states);
 }
 
 using SfFn = void (*)(const uint8_t*, const int32_t*, int32_t, int32_t,

@@ -167,19 +167,6 @@ __device__ __forceinline__ uint32_t recip32(uint32_t d) {
     return d == 1 ? q : q + (0xFFFFFFFFu - q * d == d - 1);
 }
 
-// x / d and x % d (r) with rcp = recip32(d): x * rcp / 2^32 lies in
-// (x / d - 1, x / d], so its floor is the quotient or one less.
-__device__ __forceinline__ uint32_t div_by(uint32_t x, uint32_t d,
-                                           uint32_t rcp, uint32_t& r) {
-    uint32_t q = __umulhi(x, rcp);
-    r = x - q * d;
-    if (r >= d) {
-        ++q;
-        r -= d;
-    }
-    return q;
-}
-
 // A packed sf word's nonzero freq (the divisor of the reverse step).
 __device__ __forceinline__ uint32_t sf_divisor(uint32_t v) {
     const uint32_t f = (v >> 16) - (v & 0xFFFFu);
@@ -191,112 +178,224 @@ __device__ __forceinline__ uint32_t sf_divisor(uint32_t v) {
 // K7), or uint2 (the sf word, recip32 of its divisor; K2's forward pass
 // writes both).  One thread a lane in blocks of kRevThreads: writes
 // words[t, l] and emit[t, l] for all T waves (padding waves t >= n write
-// 0 and 0) and the lane's final state.  The state chain is serial, but
-// nothing it reads depends on the state, so that runs ahead of it: each
-// thread copies its column with cp.async (a warp's 32 lanes are one row
-// of a wave) into its own column of a shared-memory ring of kRevStages
-// stages of kRevWaves waves, kRevStages - 1 stages ahead of the one it
-// consumes, from the top wave down, and loads each slot a wave before
-// its step; a thread reads back only what it copied, so no barrier runs.
-// The chain is then the emit test, the division (with E = uint2 a high
-// multiply and one correction, div_by) and a multiply-add.
+// 0 and 0) and the lane's final state.
+//
+// The state chain is serial in a lane; what bounds the kernel is the
+// time a step takes from x to the next x, as every warp runs alone on
+// its SM sub-partition.  So everything the step needs that does not
+// depend on x is taken ahead of it:
+//  - the warp's lanes run in lockstep from the top wave any of them
+//    fills; waves above it are zeroed by a loop of their own, and a lane
+//    shorter than the warp's longest steps on the identity word (start 0,
+//    freq 2^14: no emit, x unchanged, so x stays 2^16 and its word is 0
+//    until its first symbol), so the live loop has no branch;
+//  - the slots are copied with cp.async (a warp's 32 lanes are one row
+//    of a wave, no branch a wave) into this thread's column of a
+//    shared-memory ring of kRevStages stages of kRevWaves waves, two
+//    stages ahead; a thread reads back only what it wrote, so no barrier
+//    runs;
+//  - while the chain runs a stage, the next stage's slots are loaded into
+//    registers with their reciprocals (K7 reads them from a table of
+//    recip32 its launch fills, K2 from its slots), in the same basic
+//    block, so no division is left in the loop;
+//  - the step (rev_step) tests the emit against f << 18, and folds the
+//    update x' = q M + r + start, r = x - q d, into x + start + q (M - d)
+//    with one correction where the reciprocal's quotient is one short:
+//    from x, a compare, a guarded shift, a high multiply, a multiply-add,
+//    a shift and a multiply-add;
+//  - a stage's words and flags are kept in registers and stored while
+//    the chain runs the next stage, through pointers stepped by L: a
+//    store reads its register after it issues, and the chain used to
+//    wait for that read before it overwrote x (on an H100 a step took
+//    44-45 ns storing as it went, 37-38 ns so; 31-33 ns with the
+//    correction above in place of a compare and a guarded add).
 constexpr int kRevThreads = 64;
 constexpr int kRevWaves = 24;
 constexpr int kRevStages = 3;
+// the identity slot: start 0, end 2^14; recip32(2^14) = 2^18
+constexpr uint32_t kIdentWord = (1u << kProbBits) << 16;
+constexpr uint32_t kIdentRecip = 1u << (32 - kProbBits);
 
 template <typename E>
 struct RevRing {
     E v[kRevStages][kRevWaves][kRevThreads];    // 18 KB, or 36 KB of uint2
 };
 
+// A copy of one slot into shared memory; `bytes` 0 fills it with zeros
+// and reads nothing.
 template <typename E>
-__device__ __forceinline__ void cp_async(E* smem, const E* g) {
+__device__ __forceinline__ void cp_async(E* smem, const E* g,
+                                         uint32_t bytes) {
     static_assert(sizeof(E) == 4 || sizeof(E) == 8, "4- or 8-byte slots");
     const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
-                 :: "r"(s), "l"(g), "n"(sizeof(E)) : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                 :: "r"(s), "l"(g), "n"(sizeof(E)), "r"(bytes) : "memory");
 }
 
-// Stage k: this thread's waves T - 1 - k * kRevWaves down to
-// T - (k + 1) * kRevWaves, those inside the lane, into ring slot
-// k % kRevStages; one commit group a stage, empty or not.
+// A slot as the step takes it: (sf word, reciprocal of its divisor); the
+// identity slot past the lane's end.  K7's reciprocals come from
+// `recip`, recip32(d) for d = 0 .. 2^14 (recip[0] = recip32(1)), a
+// 64 KB table its launch fills first and the SMs' L1 holds; K2's are in
+// its slots.
+__device__ __forceinline__ uint2 rev_slot(uint32_t v, bool live,
+                                          const uint32_t* __restrict__ recip) {
+    const uint32_t w = live ? v : kIdentWord;
+    const uint32_t f = (w >> 16) - (w & 0xFFFFu);
+    return make_uint2(w, __ldg(recip + min(f, 1u << kProbBits)));
+}
+__device__ __forceinline__ uint2 rev_slot(uint2 v, bool live,
+                                          const uint32_t*) {
+    return live ? v : make_uint2(kIdentWord, kIdentRecip);
+}
+
+// Stage k of a chain from wave top - 1 down: waves top - 1 - k * kRevWaves
+// down to top - (k + 1) * kRevWaves into ring slot k % kRevStages, with
+// no branch a wave (waves below 0, in the last stage, are zero-filled
+// and read nothing); one commit group a stage, empty or not.
 template <typename E>
 __device__ __forceinline__ void rev_stage(RevRing<E>& r,
                                           const E* __restrict__ sf,
                                           int32_t T, int32_t L, int32_t l,
-                                          int32_t n, int64_t k, int64_t nst) {
+                                          int32_t top, int32_t k,
+                                          int32_t nst) {
     if (k < nst) {
-        const int64_t top = int64_t(T) - 1 - k * kRevWaves;
         E (*slot)[kRevThreads] = r.v[k % kRevStages];
+        const int32_t base = top - 1 - k * kRevWaves;
 #pragma unroll
         for (int i = 0; i < kRevWaves; ++i) {
-            const int64_t t = top - i;
-            if (t >= 0 && t < n) {
-                FQK_BOUND("rans_encode_lane", "sf", t * L + l,
-                          int64_t(T) * L);
-                cp_async(&slot[i][threadIdx.x], sf + t * L + l);
-            }
+            const int32_t t = max(base - i, 0);
+            FQK_BOUND("rans_encode_lane", "sf", int64_t(t) * L + l,
+                      int64_t(T) * L);
+            cp_async(&slot[i][threadIdx.x], sf + int64_t(t) * L + l,
+                     base - i >= 0 ? sizeof(E) : 0u);
         }
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t rev_word(uint32_t v) { return v; }
-__device__ __forceinline__ uint32_t rev_word(uint2 v) { return v.x; }
-
-__device__ __forceinline__ uint32_t rev_quot(uint32_t x, uint32_t d,
-                                             uint32_t, uint32_t& r) {
-    const uint32_t q = x / d;
-    r = x - q * d;
-    return q;
+// Stage k's slots from the ring into registers with their reciprocals,
+// the identity slot at waves t >= n.
+template <typename E>
+__device__ __forceinline__ void rev_load(const RevRing<E>& r, int32_t k,
+                                         int32_t top, int32_t n,
+                                         const uint32_t* __restrict__ recip,
+                                         uint2 (&s)[kRevWaves]) {
+    const E (*slot)[kRevThreads] = r.v[k % kRevStages];
+    const int32_t base = top - 1 - k * kRevWaves;
+#pragma unroll
+    for (int i = 0; i < kRevWaves; ++i)
+        s[i] = rev_slot(slot[i][threadIdx.x], base - i < n, recip);
 }
 
-__device__ __forceinline__ uint32_t rev_quot(uint32_t x, uint32_t d,
-                                             uint2 v, uint32_t& r) {
-    return div_by(x, d, v.y, r);
+// One reverse step from state x on slot s = (start | end << 16, recip32
+// of the divisor d = max(f, 1), f = end - start): emit the low word when
+// x >> 18 >= f (f = 2^14 never emits), then x' = (x / d) M + x % d +
+// start, exactly as _pass2 computes it.  q = umulhi(x, recip) is x / d or
+// one less, and x' = x + start + q (M - d) + (M - d) where it is less.
+// Written in PTX where the compiler would lengthen the chain: the emit
+// test is one compare against f << 18 that takes the predicate f < 2^14
+// computed off the chain, and the correction takes the remainder's sign
+// by a shift into a multiply-add, as ptxas waits 13 cycles between a
+// compare and an instruction its predicate guards.
+__device__ __forceinline__ uint32_t rev_step(uint32_t x, uint2 s,
+                                             uint32_t& e) {
+    const uint32_t start = s.x & 0xFFFFu;
+    const uint32_t f = (s.x >> 16) - start;
+    const uint32_t d = max(f, 1u);
+    const uint32_t md = (1u << kProbBits) - d;
+    uint32_t x1;
+    asm("{\n\t.reg .pred ok, p;\n\t.reg .u32 h;\n\t"
+        "setp.lt.u32 ok, %3, 16384;\n\t"
+        "setp.ge.and.u32 p, %2, %4, ok;\n\t"
+        "shr.u32 h, %2, 16;\n\t"
+        "selp.u32 %0, h, %2, p;\n\t"
+        "selp.u32 %1, 1, 0, p;\n\t}"
+        : "=r"(x1), "=r"(e) : "r"(x), "r"(f), "r"(f << 18));
+    const uint32_t q = __umulhi(x1, s.y);
+    // r - d = x1 - (q + 1) d lies in [-d, d): its sign says q is exact,
+    // and x' = x1 + start + (q + 1) (M - d) + sign (M - d)
+    uint32_t xn;
+    asm("{\n\t.reg .s32 sg;\n\t"
+        "shr.s32 sg, %1, 31;\n\t"
+        "mad.lo.u32 %0, sg, %2, %3;\n\t}"
+        : "=r"(xn) : "r"(x1 - d - q * d), "r"(md),
+          "r"(x1 + start + md + q * md));
+    return xn;
 }
 
+// `lanes`: the ballot of this warp's threads that hold a lane (all call);
+// `recip`: K7's table of reciprocals (K2: unused).
 template <typename E>
 __device__ __forceinline__ void rans_encode_lane(
-        RevRing<E>& ring, const E* __restrict__ sf, int32_t T, int32_t L,
-        int32_t l, int32_t n, uint16_t* __restrict__ words,
+        RevRing<E>& ring, const E* __restrict__ sf,
+        const uint32_t* __restrict__ recip, int32_t T, int32_t L,
+        int32_t l, int32_t n, unsigned lanes, uint16_t* __restrict__ words,
         uint8_t* __restrict__ emit, uint32_t* __restrict__ states) {
     FQK_BOUND("rans_encode_lane", "lane length", n, int64_t(T) + 1);
-    const int64_t nst = (int64_t(T) + kRevWaves - 1) / kRevWaves;
-    for (int k = 0; k < kRevStages - 1; ++k)
-        rev_stage(ring, sf, T, L, l, n, k, nst);
+    n = min(n, T);
+    const int32_t top = __reduce_max_sync(lanes, n);
+    uint16_t* wp = words + (int64_t(T) - 1) * L + l;
+    uint8_t* ep = emit + (int64_t(T) - 1) * L + l;
+    for (int32_t t = T - 1; t >= top; --t, wp -= L, ep -= L) {
+        *wp = 0;
+        *ep = 0;
+    }
+    const int32_t full = top / kRevWaves, rem = top % kRevWaves;
+    const int32_t nst = full + (rem > 0);
+    rev_stage(ring, sf, T, L, l, top, 0, nst);
+    rev_stage(ring, sf, T, L, l, top, 1, nst);
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    uint2 cur[kRevWaves], nxt[kRevWaves];
+    rev_load(ring, 0, top, n, recip, cur);
     uint32_t x = kRansL;
-    for (int64_t k = 0; k < nst; ++k) {
-        rev_stage(ring, sf, T, L, l, n, k + kRevStages - 1, nst);
-        asm volatile("cp.async.wait_group %0;" :: "n"(kRevStages - 1)
-                     : "memory");
-        const E (*slot)[kRevThreads] = ring.v[k % kRevStages];
-        const int64_t top = int64_t(T) - 1 - k * kRevWaves;
-        const int waves = top + 1 < kRevWaves ? static_cast<int>(top + 1)
-                                              : kRevWaves;
-        E next = slot[0][threadIdx.x];
-#pragma unroll 4
-        for (int i = 0; i < waves; ++i) {
-            const E v = next;
-            if (i + 1 < waves) next = slot[i + 1][threadIdx.x];
-            const int64_t t = top - i;
-            const int64_t idx = t * L + l;
-            if (t >= n) {
-                words[idx] = 0;
-                emit[idx] = 0;
-                continue;
-            }
-            const uint32_t w = rev_word(v);
-            const uint32_t start = w & 0xFFFFu;
-            const bool e = (x >> 18) >= (w >> 16) - start;
-            words[idx] = static_cast<uint16_t>(x & 0xFFFFu);
-            emit[idx] = e;
-            if (e) x >>= 16;
-            uint32_t r;
-            const uint32_t q = rev_quot(x, sf_divisor(w), v, r);
-            x = (q << kProbBits) + r + start;
+    // a stage's words and flags are stored while the chain runs the next
+    // stage (the first loop stores zeros where stage 0's go), so no store
+    // reads a register that the chain overwrites a few instructions later
+    uint32_t wb[kRevWaves], eb[kRevWaves];
+#pragma unroll
+    for (int i = 0; i < kRevWaves; ++i) wb[i] = eb[i] = 0;
+    uint16_t* wq = wp;
+    uint8_t* eq = ep;
+    for (int32_t k = 0; k < full; ++k) {
+        rev_stage(ring, sf, T, L, l, top, k + 2, nst);
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+        rev_load(ring, k + 1, top, n, recip, nxt);
+#pragma unroll
+        for (int i = 0; i < kRevWaves; ++i) {
+            wq[-int64_t(i) * L] = static_cast<uint16_t>(wb[i]);
+            eq[-int64_t(i) * L] = static_cast<uint8_t>(eb[i]);
+        }
+        wq = wp;
+        eq = ep;
+#pragma unroll
+        for (int i = 0; i < kRevWaves; ++i) {
+            wb[i] = x;
+            x = rev_step(x, cur[i], eb[i]);
+        }
+        wp -= kRevWaves * L;
+        ep -= kRevWaves * L;
+#pragma unroll
+        for (int i = 0; i < kRevWaves; ++i) cur[i] = nxt[i];
+    }
+    if (full > 0) {
+#pragma unroll
+        for (int i = 0; i < kRevWaves; ++i) {
+            wq[-int64_t(i) * L] = static_cast<uint16_t>(wb[i]);
+            eq[-int64_t(i) * L] = static_cast<uint8_t>(eb[i]);
         }
     }
+#pragma unroll
+    for (int i = 0; i < kRevWaves; ++i) {
+        if (i < rem) {
+            *wp = static_cast<uint16_t>(x);
+            uint32_t e;
+            x = rev_step(x, cur[i], e);
+            *ep = e;
+            wp -= L;
+            ep -= L;
+        }
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
     states[l] = x;
 }
 

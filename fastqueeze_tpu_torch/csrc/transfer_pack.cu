@@ -28,8 +28,9 @@
 // own slots (a block scan) and writes.  K17 reads the grid twice: a
 // histogram pass (pack15_hist), then one write pass (pack15_write) whose
 // prologue ranks the 64 symbols and whose tiles take their exception
-// offsets from a decoupled look-back over per-tile descriptors, so no
-// pass counts the exceptions first.  Its validity comes from the lanes'
+// offsets from a decoupled look-back over per-tile descriptors
+// (lookback.cuh, shared with K3), so no pass counts the exceptions
+// first.  Its validity comes from the lanes'
 // lengths (lane_walk.cuh) beside each slot's wave and lane, which the
 // passes step without a division a slot, never from a (T, L) mask.  The
 // first K17 (seven launches: the grid read three times, the top 15 on
@@ -43,6 +44,7 @@
 
 #include "check.cuh"
 #include "lane_walk.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -251,61 +253,6 @@ constexpr int kPackGroups = 16;
 constexpr int64_t kPackTileGroups = int64_t(kPackThreads) * kPackGroups;
 constexpr int64_t kPackTile = 4 * kPackTileGroups;          // slots a tile
 
-// A tile's descriptor in one 64-bit word: the flag (bits 62-63), the
-// tile's exception count (bits 32-61) and, once the flag is kPrefix, its
-// inclusive prefix (bits 0-31).  Zero = not published yet.
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kPrefix = 2ull << 62;
-
-__device__ __forceinline__ void desc_store(unsigned long long* p,
-                                           unsigned long long v) {
-    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v)
-                 : "memory");
-}
-
-__device__ __forceinline__ unsigned long long desc_load(
-        const unsigned long long* p) {
-    unsigned long long v;
-    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-                 : "memory");
-    return v;
-}
-
-// Decoupled look-back, one warp: the exceptions of every tile before
-// tile `id`.  Lane i reads the descriptor of tile id - 1 - i (waiting
-// while it is unpublished; a tile publishes its count before it looks
-// back, and tiles before `id` took their tickets first, so they are
-// running); the nearest tile with its prefix ends the walk, the tiles
-// between add their counts; else the warp steps 32 tiles back.  A wider
-// window (8 descriptors a lane) was slower on an H100: a tile then waits
-// for the slowest of 256 predecessors to publish its count.
-__device__ __forceinline__ int64_t look_back(
-        const unsigned long long* __restrict__ desc, int64_t id,
-        int64_t tiles) {
-    const int lane = threadIdx.x & 31;
-    int64_t excl = 0;
-    for (int64_t base = id - 1;; base -= 32) {
-        const int64_t j = base - lane;
-        unsigned long long d = kPrefix;            // before tile 0: prefix 0
-        if (j >= 0) {
-            FQK_BOUND("pack15", "descriptor", j, tiles);
-            do {
-                d = desc_load(desc + j);
-            } while ((d >> 62) == 0);
-        }
-        const unsigned pre = __ballot_sync(0xFFFFFFFFu, (d >> 62) == 2);
-        const int stop = pre ? __ffs(pre) - 1 : 32;
-        long long v = 0;        // counts before the stop, then its prefix
-        if (lane < stop) v = (d >> 32) & 0x3FFFFFFFull;
-        else if (lane == stop) v = d & 0xFFFFFFFFull;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-        excl += v;
-        if (pre) return excl;
-    }
-}
-
 // Tiles in the order their blocks start (an atomic ticket, not
 // blockIdx), so a tile looks back only at tiles whose blocks run.
 // Prologue: the block ranks the 64 symbols from the histogram, rank(a) =
@@ -431,9 +378,7 @@ pack15_write(const uint8_t* __restrict__ syms, int64_t n, int32_t T,
     int32_t agg;
     int32_t r = fqk::block_exclusive_scan<kPackThreads>(__popcll(exc), &agg);
     if (threadIdx.x == 0)
-        desc_store(desc + tile, (tile ? kAggregate : kPrefix)
-                                | (uint64_t(agg) << 32)
-                                | (tile ? 0u : uint32_t(agg)));
+        fqk::desc_store(desc + tile, fqk::desc_aggregate(tile, agg));
     if (exc) {
 #pragma unroll
         for (int k = 0; k < kPackGroups; ++k)
@@ -442,11 +387,10 @@ pack15_write(const uint8_t* __restrict__ syms, int64_t n, int32_t T,
                     w[k] >> (8 * (__ffs(m) - 1)));
     }
     if (threadIdx.x < 32) {
-        const int64_t before = tile ? look_back(desc, tile, tiles) : 0;
+        const int64_t before = tile ? fqk::look_back(desc, tile, tiles) : 0;
         if (threadIdx.x == 0) {
             if (tile)
-                desc_store(desc + tile, kPrefix | (uint64_t(agg) << 32)
-                                        | uint32_t(before + agg));
+                fqk::desc_store(desc + tile, fqk::desc_inclusive(agg, before));
             if (tile == tiles - 1)
                 *n_exc = static_cast<int32_t>(before + agg);
             excl_sh = before;

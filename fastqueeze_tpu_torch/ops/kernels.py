@@ -9,7 +9,9 @@ K2 frozen_encode_lanes a thread per (chunk of waves, lane): K13's chunk
                        staged in shared memory ahead of the state chain
                        (engine._device_aux, context_grids, _pass1_frozen,
                        _pass2)
-K3 compact_words       emitted words -> dense prefix + count
+K3 compact_words       emitted words -> dense prefix + count in one
+                       pass: tiles by atomic ticket, a block scan, the
+                       tile's offset by a decoupled look-back
                        (engine._compact_words)
 K4 frozen_decode       one thread-block cluster (up to 8 CTAs) per
                        stream, one lane a thread: per-wave lane walk, row
@@ -25,7 +27,9 @@ K5 adapt_encode_walk   the table's rows walked in parallel: every slot's
                        bound by the heaviest row's chain of groups
                        (engine._device_aux, context_grids, _pass1,
                        _wave_update_tot)
-K7 rans_encode_sf      reverse rANS over K5's (start, end) grid
+K7 rans_encode_sf      reverse rANS over K5's (start, end) grid, K2's
+                       reverse chain with each divisor's reciprocal read
+                       a stage ahead from a table the launch fills
                        (engine._pass2); then K3
 K6 adapt_decode        K4's thread-block cluster with the table update:
                        per wave the row fetch + count search in
@@ -223,6 +227,8 @@ def _lib() -> ctypes.CDLL:
             lib.fq_pack15_scratch_bytes.argtypes = [i32, i32]
             lib.fq_pack15_scratch_bytes.restype = i64
             lib.fq_compact_words.argtypes = [vp, vp, i64, vp, vp, vp, vp]
+            lib.fq_compact_words_scratch_bytes.argtypes = [i64]
+            lib.fq_compact_words_scratch_bytes.restype = i64
             lib.fq_frozen_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i32] + spec + [vp] * 3)
             lib.fq_adapt_encode_walk.argtypes = (
@@ -230,7 +236,9 @@ def _lib() -> ctypes.CDLL:
                 + [vp, i64, vp, vp, vp])
             lib.fq_adapt_encode_scratch_bytes.argtypes = [i32, i32, i64]
             lib.fq_adapt_encode_scratch_bytes.restype = i64
-            lib.fq_rans_encode_sf.argtypes = [vp, vp, i32, i32, i32] + [vp] * 4
+            lib.fq_rans_encode_sf.argtypes = [vp, vp, i32, i32, i32] + [vp] * 5
+            lib.fq_rans_encode_sf_scratch_bytes.argtypes = []
+            lib.fq_rans_encode_sf_scratch_bytes.restype = i64
             lib.fq_adapt_decode.argtypes = (
                 [vp, vp, i64, vp, i32, i32, i32, vp, i32] + spec + [i32] * 3
                 + [vp, vp, i64, vp, vp, vp])
@@ -539,12 +547,17 @@ def compact_words(words: torch.Tensor, emit: torch.Tensor):
     if words.shape != emit.shape:
         raise ValueError("compact_words: shape mismatch")
     n = words.numel()
+    if n >= 1 << 31:
+        raise ValueError(f"compact_words: {n} slots, the kernel takes fewer "
+                         f"than 2^31")
     dev = words.device
-    tiles = torch.empty(((n + 8191) // 8192,), dtype=torch.int64, device=dev)
+    lib = _lib()
+    nbytes = lib.fq_compact_words_scratch_bytes(n)
+    scratch = torch.empty(((nbytes + 7) // 8,), dtype=torch.int64, device=dev)
     out = torch.empty((n,), dtype=torch.int16, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_compact_words, "compact_words", dev, _ptr(words),
-            _ptr(emit), n, _ptr(tiles), _ptr(out), _ptr(count))
+    _launch(lib.fq_compact_words, "compact_words", dev, _ptr(words),
+            _ptr(emit), n, _ptr(scratch), _ptr(out), _ptr(count))
     return out, count
 
 
@@ -985,12 +998,15 @@ def rans_encode_sf(sf: torch.Tensor, cgrid: torch.Tensor):
     if cgrid.shape[1] != L:
         raise ValueError("rans_encode_sf: shape mismatch")
     dev = sf.device
+    lib = _lib()
+    recip = torch.empty((lib.fq_rans_encode_sf_scratch_bytes() // 4,),
+                        dtype=torch.int32, device=dev)
     words = torch.empty((T, L), dtype=torch.int16, device=dev)
     emit = torch.empty((T, L), dtype=torch.uint8, device=dev)
     states = torch.empty((L,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_rans_encode_sf, "rans_encode_sf", dev, _ptr(sf),
-            _ptr(cgrid), cgrid.shape[0], T, L, _ptr(words), _ptr(emit),
-            _ptr(states))
+    _launch(lib.fq_rans_encode_sf, "rans_encode_sf", dev, _ptr(sf),
+            _ptr(cgrid), cgrid.shape[0], T, L, _ptr(recip), _ptr(words),
+            _ptr(emit), _ptr(states))
     return words, emit, states
 
 

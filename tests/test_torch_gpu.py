@@ -1779,3 +1779,165 @@ def test_semi_decode_cluster_matches_plain(cuda, name, chunk, L):
     shape = kernels.semi_decode_shape(L, model, cuda)
     assert shape["ctas"] == 8 and shape["max_active_clusters"] >= 1
     assert shape["lanes_per_thread"] == (2 if L > 8 * 512 else 1)
+
+
+# --- K7's reverse chain (shared with K2's reverse pass), K3's one pass ------
+
+def _sf_edges(kind, T, L, seed):
+    """A (T, L) sf grid of valid words (start | end << 16, 0 at padding)
+    and its (1, L) lane lengths: "freq1" (f = 1 at 60% of slots),
+    "freq16384" (f = 2^14, start 0, at 60%), "freq0" (zero-frequency
+    symbols at 20%) or "mixed"; lanes of length 0, T, T - 1, 1, 23, 24,
+    25, random, and the last lanes T, 0, T."""
+    rng = np.random.default_rng(seed)
+    M = 1 << 14
+    f = rng.integers(1, 300, (T, L))
+    pick = rng.random((T, L))
+    if kind == "freq1":
+        f[pick < 0.6] = 1
+    elif kind == "freq16384":
+        f[pick < 0.6] = M
+    elif kind == "freq0":
+        f[pick < 0.2] = 0
+    else:
+        f[pick < 0.2] = 1
+        f[(pick >= 0.2) & (pick < 0.3)] = M
+        f[(pick >= 0.3) & (pick < 0.35)] = 0
+        f[pick > 0.9] = rng.integers(8000, M, int((pick > 0.9).sum()))
+    start = (rng.random((T, L)) * (M - f + 1)).astype(np.int64)
+    sf = start | ((start + f) << 16)
+    n = rng.integers(0, T + 1, L)
+    n[:7] = [0, T, T - 1, 1, 23, 24, 25]
+    n[-3:] = [T, 0, T]
+    n = np.minimum(n, T)
+    sf[np.arange(T)[:, None] >= n[None, :]] = 0
+    return (torch.from_numpy(sf.astype(np.uint32).view(np.int32)),
+            torch.from_numpy(n[None, :].astype(np.int32)))
+
+
+@pytest.mark.parametrize("L, T", [(37, 1), (37, 23), (37, 25), (37, 100),
+                                  (2048, 100), (2048, 3072)])
+@pytest.mark.parametrize("kind", ["freq1", "freq16384", "freq0", "mixed"])
+def test_rans_encode_sf_edges_match_plain(cuda, kind, L, T):
+    """K7 == its plain version (words, 0 at padding; emit; final states)
+    on grids of freq 1, 2^14 (the identity step) and 0, lanes of length
+    0 and T, a warp and a part (L = 37) and 2048 lanes, T below, around
+    and not a multiple of 24; one launch a call."""
+    sf, cg = _sf_edges(kind, T, L, seed=T + L)
+    want = kernels.rans_encode_sf(sf, cg)
+    kernels.reset_launch_counts()
+    got = kernels.rans_encode_sf(sf.to(cuda), cg.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rans_encode_sf"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("walk", ["adapt", "semi"])
+@pytest.mark.parametrize("name", ["seq_o10", "fqz_q3"])
+def test_rans_encode_sf_on_walk_sf_matches_plain(cuda, name, walk):
+    """K7 on the sf K5 (the adaptive walk) or K11 (the semi-adaptive walk,
+    chunk 16) writes on the card, at L = 1000 (not a multiple of 32) with
+    ragged reads, == its plain version on the same sf; K3 on its words ==
+    its plain version."""
+    model = _SEMI[name]
+    L = 1000
+    counts, lay, syms = _lanes_stream(model, L, 5 + len(name), t_pad=16)
+    gc = torch.from_numpy(to_grid(lay, syms)).to(cuda)
+    cgc = torch.from_numpy(engine._counts_grid(counts, L)).to(cuda)
+    if walk == "adapt":
+        sf = kernels.adapt_encode_walk(gc, cgc, model,
+                                       engine._n_halve(model, L))
+    else:
+        sf = kernels.semi_encode_walk(
+            gc, cgc, model, engine._n_halve_chunk(model, L, 16), 16)[0]
+    got = kernels.rans_encode_sf(sf, cgc)
+    want = kernels.rans_encode_sf_plain(sf, cgc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    out, n = kernels.compact_words(*got[:2])
+    out_p, n_p = kernels.compact_words_plain(*want[:2])
+    k = int(n_p.item())
+    assert int(n.item()) == k and torch.equal(out[:k], out_p[:k])
+
+
+@pytest.mark.parametrize("L", [37, 100])
+@pytest.mark.parametrize("name", ["seq_o10", "fqz_q2"])
+def test_frozen_encode_reverse_edges_match_plain(cuda, name, L):
+    """K2 (its reverse pass is K7's chain) == its plain version on a warp
+    and a part (L = 37) and on 100 lanes, a lane of no symbols, reads
+    crossing chunks, a table with zero counts (zero-frequency
+    symbols)."""
+    model = _EDGE[name]
+    counts, lay, syms = _lanes_stream(model, L, L + 3)
+    counts[L - 1::L] = 0                      # the last lane's reads: none
+    lay = make_layout(counts, L, t_pad=8)
+    syms = syms[:int(counts.sum())]
+    rng = np.random.default_rng(L)
+    table = torch.from_numpy(rng.integers(
+        0, 4, (model.n_ctx, model.alphabet)).astype(np.int32))
+    packed = kernels.quant_pack_plain(table)[1]
+    g = torch.from_numpy(to_grid(lay, syms))
+    cg = torch.from_numpy(engine._counts_grid(counts, L))
+    want = kernels.frozen_encode_lanes(g, cg, packed, model)
+    got = kernels.frozen_encode_lanes(g.to(cuda), cg.to(cuda),
+                                      packed.to(cuda), model)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def _flags(case, n, rng):
+    if case == "none":
+        return np.zeros(n, np.uint8)
+    if case == "all":
+        return np.ones(n, np.uint8)
+    if case == "any_byte":
+        e = rng.integers(0, 256, n).astype(np.uint8)
+        e[rng.random(n) < 0.5] = 0
+        return e
+    return (rng.random(n) < 0.5).astype(np.uint8)
+
+
+@pytest.mark.parametrize("n", [0, 1, 100, 4095, 4096, 4097, 12287, 12289,
+                               163_963])
+@pytest.mark.parametrize("case", ["none", "all", "half", "any_byte"])
+def test_compact_words_edges_match_plain(cuda, case, n):
+    """K3 (one pass, a decoupled look-back) == its plain version (the
+    dense prefix, the count) at n = 0, below a tile, tile multiples of
+    4096 and +- 1, 40 tiles + 123; flags from none to all and nonzero
+    bytes other than 1; also on views one slot in (not 16-byte aligned:
+    the scalar loads); one launch a call."""
+    rng = np.random.default_rng(n + len(case))
+    words = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, n + 1)
+                             .astype(np.int16))
+    emit = torch.from_numpy(_flags(case, n + 1, rng))
+    wc, ec = words.to(cuda), emit.to(cuda)
+    for at in (0, 1):
+        view = slice(at, at + n)
+        out_p, n_p = kernels.compact_words(words[view].reshape(1, n),
+                                           emit[view].reshape(1, n))
+        kernels.reset_launch_counts()
+        out, cnt = kernels.compact_words(wc[view].reshape(1, n),
+                                         ec[view].reshape(1, n))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["compact_words"] == 1
+        k = int(n_p.item())
+        assert int(cnt.item()) == k
+        assert torch.equal(out[:k].cpu(), out_p[:k])
+
+
+def test_compact_words_frozen_grid_matches_plain(cuda):
+    """K3 on a 25.2 M-slot grid (L = 4096, T = 6144, the frozen shape)
+    with 35% of flags set == its plain version and torch.masked_select,
+    twice (the ticket and descriptors start from zero each call)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    words = torch.randint(-(1 << 15), 1 << 15, (6144, 4096), device=cuda,
+                          dtype=torch.int16, generator=g)
+    emit = (torch.rand((6144, 4096), device=cuda, generator=g)
+            < 0.35).to(torch.uint8)
+    want, n_p = kernels.compact_words_plain(words, emit)
+    k = int(n_p.item())
+    assert torch.equal(torch.masked_select(words, emit.bool()), want[:k])
+    for _ in range(2):
+        out, cnt = kernels.compact_words(words, emit)
+        assert int(cnt.item()) == k and torch.equal(out[:k], want[:k])
