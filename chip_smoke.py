@@ -44,8 +44,13 @@ Phases (any failure raises and exits non-zero):
      in mode 4 (K16 in 6 and 4), K17 on the Markov and on a uniform
      48-symbol grid (its sidecar overflows), with torch.bincount and
      torch.masked_select timed as the library calls of K17's two parts;
-     K1 on the seq table as u8 and a qual table as u16 (== K1 on int32);
-     and one stream's host<->device copies, packed and unpacked; K13's
+     K15's device time (torch.profiler) and bound in every mode, beside
+     torch.cumsum of the flat sentinel mask (its ranks) in modes 15 and
+     23; K1 on the seq table as i32 and u8, a qual table as u16 and a
+     2^20 x 41 u16 table (phase 17's --qlevel 3 shape; each == K1 on
+     int32), each with its device time, bound and torch.cumsum(dim=1)
+     (its row scan); and one stream's host<->device copies, packed and
+     unpacked; K13's
      halves (train_hist, train_rows) == K13 at the frozen shape, and
      train_hist on Markov qualities beside torch.bincount of its keys;
      K4's thread-block cluster (CTAs, threads, lanes a thread, how many
@@ -162,7 +167,8 @@ In each end-to-end run the launch counts are set to 0 just before it and
 read just after; a run that aligns prints its aligner kernels' launches
 and CUDA-event time by tier (K8 fwd / rc / both / rescue, K9, K14, by
 Lp) beside its align_s, and all of them come again as one JSON line
-("aligner_runs").  The last line is {"ok": true, "device": {...}}; the
+("aligner_runs"); K15's launches by pack mode over phases 4-17 come on a
+line of their own.  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
 
     python3 chip_smoke.py --aligner
@@ -186,13 +192,14 @@ two trees compare in turns in one call.
 
 builds the kernels and writes the SASS of each kernel whose mangled name
 holds a NAME to DIR/sass_<NAME>.txt (cuobjdump -sass; DIR defaults to
-./sass).
+./sass) and prints each one's instruction count and CALL instructions
+(a 64-bit integer division is a call to a routine).
 
     python3 chip_smoke.py --coder-loop PROCS ROUNDS [--async] [--own-build]
         [--checked]
 
-runs phase 3's K1 -> K2 -> K3 launches, then K17, K11 and K7 on K11's sf
-on the same grids,
+runs phase 3's K1 -> K2 -> K3 launches, then K17, K11, K7 on K11's sf
+and K15 on the grids' mode 15 and 23 packs,
 ROUNDS times in each of PROCS fresh processes and reports which, if any,
 fault: under CUDA_LAUNCH_BLOCKING=1,
 or with --async synchronizing only where phase 3 does; loading this
@@ -353,34 +360,39 @@ def _graph_ms(fn, reps: int, rounds: int = 10) -> float:
     return t0.elapsed_time(t1) / (rounds * reps)
 
 
-def _device_split(fn, reps: int = 1) -> dict:
+def _device_split(fn, reps: int = 1, tries: int = 3) -> dict:
     """Device ms of each kernel a call of ``fn`` launches, summed by its
     name over ``reps`` calls and divided by them (torch.profiler's CUDA
-    activity; the caller has already run ``fn`` once); {} where the
-    profiler sees no device time."""
+    activity; the caller has already run ``fn`` once); a session that saw
+    no device time is taken again, up to ``tries`` sessions (late in a
+    long process the profiler has missed whole sessions); {} where none
+    saw any."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        us = (getattr(ev, "self_device_time_total", None)
-              or getattr(ev, "self_cuda_time_total", 0))
-        hit = re.search(r"(\w+)(<[^()]*>)?\(", ev.key)
-        name = hit.group(1) if hit else ev.key[:40]
-        if us:
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = (getattr(ev, "self_device_time_total", None)
+                  or getattr(ev, "self_cuda_time_total", 0))
+            hit = re.search(r"(\w+)(<[^()]*>)?\(", ev.key)
+            name = hit.group(1) if hit else ev.key[:40]
+            if us:
+                out[name] = out.get(name, 0.0) + us / 1e3 / reps
+        if out:
+            break
     return out
 
 
 def _split_row(tag: str, ms: float, fn) -> dict:
     """A kernel's time beside its launches' device ms by kernel name
-    (_device_split); printed."""
-    split = _device_split(fn)
+    (_device_split, over 3 calls); printed."""
+    split = _device_split(fn, reps=3)
     print(f"  {tag:30s} {ms:.3f} ms; device ms by kernel (torch.profiler): "
           f"{json.dumps(split)}")
     return {"ms": ms, "device_ms_by_kernel": split}
@@ -538,6 +550,11 @@ SEMI_SHAPE = {}
 K11_SPLIT = {}
 K17_SPLIT = {}
 K3_SPLIT = {}
+# K15 by grid and mode, K1 by table: time and kernels' device ms
+K15_SPLIT = {}
+K1_SPLIT = {}
+# K15's launches by pack mode over the main path's runs (_read_counts)
+UNPACK_BY_MODE = {}
 # the reverse chains (K7; K2's reverse pass): ms at two depths of lanes
 # that are live to the last wave, ns a step (the slope), and the chain
 # bound at phase 3's shape
@@ -754,13 +771,30 @@ def _qual_grids(dev, lay):
                             ("uniform48", uni))}
 
 
+def _sent_pack(host: np.ndarray, mode: int):
+    """The host's sentinel pack of a (T, L) grid in mode 15 (its top 15
+    symbols as nibbles) or 23 (its top 3 as 2-bit codes): (packed,
+    sidecar, top)."""
+    from fastqueeze_tpu_torch.ops import engine
+    sent = 15 if mode == 15 else 3
+    cnt = np.bincount(host.reshape(-1), minlength=64)
+    top = np.argsort(-cnt, kind="stable")[:sent]
+    top = top[cnt[top] > 0].astype(np.uint8)
+    packed, side = engine._pack_sent_host(
+        host, top, sent,
+        engine._pack4_host if mode == 15 else engine._pack2_host)
+    return packed, side, top
+
+
 def check_pack_kernels():
     """K15, K16 and K17 at the frozen shape (L = 4096, T = 6144) against
     their plain versions, bit-equal: the seq grid in mode 2, the Markov
     quality grid in modes 6, 15 and 23 (the host's sentinel packs with its
     top 15 and top 3), its 14-value binning in mode 4, K17 on the Markov
-    and the uniform grids; K1 on the seq table as u8 and the qual table as
-    u16; the copy of one stream each way, packed and unpacked."""
+    and the uniform grids; K1 on the seq table as i32 and u8, the qual
+    table as u16 and a 2^20 x 41 u16 table; K15's and K1's device time
+    by kernel, bound and library parts (torch.cumsum); the copy of one
+    stream each way, packed and unpacked."""
     import torch
     from fastqueeze_tpu_torch.ops import engine, kernels
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -788,13 +822,7 @@ def check_pack_kernels():
         g = grids[gname]
         host = g.cpu().numpy()
         if mode in (15, 23):
-            sent = 15 if mode == 15 else 3
-            cnt = np.bincount(host.reshape(-1), minlength=64)
-            top = np.argsort(-cnt, kind="stable")[:sent]
-            top = top[cnt[top] > 0].astype(np.uint8)
-            packed, side = engine._pack_sent_host(
-                host, top, sent,
-                engine._pack4_host if mode == 15 else engine._pack2_host)
+            packed, side, top = _sent_pack(host, mode)
             side_d = torch.from_numpy(side).to(dev)
         else:
             packed, side, side_d = engine._pack_host(host, mode), None, None
@@ -807,8 +835,26 @@ def check_pack_kernels():
             [kernels.unpack_grid_plain(pk, mode, side_d)],
             lambda: kernels.unpack_grid(pk, mode, side_d),
             lambda: kernels.unpack_grid_plain(pk, mode, side_d))
+        K15_SPLIT[key] = _split_row(
+            f"{key}_unpack_grid", rows[key]["unpack_grid"][1],
+            lambda: kernels.unpack_grid(pk, mode, side_d))
+        # the bytes K15 must move: the pack in, the grid out, and in the
+        # sentinel modes the top table and one sidecar byte a sentinel
+        n_sent = 0
+        if mode in (15, 23):
+            exc = torch.from_numpy(~np.isin(host, top)).to(dev).reshape(-1)
+            n_sent = int(exc.sum().item())
+            PAIR_MS[f"unpack_grid_cumsum_{key}"] = _time_ms(
+                lambda: torch.cumsum(exc, 0, dtype=torch.int32), 10)
+            print(f"  {key}: {n_sent} sentinels; library part: torch.cumsum "
+                  f"of the flat sentinel mask (the ranks) "
+                  f"{PAIR_MS[f'unpack_grid_cumsum_{key}']:.4f} ms")
+            del exc
+        BOUNDS[f"unpack_grid_{key}"] = (
+            _nbytes(pk, k15) + (16 + n_sent if side_d is not None else 0),
+            3 * g.numel(), None)
         if gname == "seq":
-            BOUNDS["unpack_grid"] = (_nbytes(pk, k15), 3 * g.numel(), None)
+            BOUNDS["unpack_grid"] = BOUNDS[f"unpack_grid_{key}"]
         if mode in (2, 4, 6):
             k16 = kernels.pack_grid(g, mode)
             if not np.array_equal(k16.cpu().numpy(), packed):
@@ -865,18 +911,36 @@ def check_pack_kernels():
                       f"{PAIR_MS['pack15_masked_select']:.3f} ms")
                 del flat, valid, exc
 
-    # K1 on the tables as they travel (u8 seq, u16 qual)
+    # K1 on the tables as they travel (i32 and u8 seq, u16 qual) and on
+    # phase 17's --qlevel 3 table shape (2^20 x 41, u16 counts up to
+    # 65,535); each beside torch.cumsum(dim=1), the row scan alone
+    q3 = torch.from_numpy(np.random.default_rng(SEED + 13).integers(
+        1, 65536, (1 << 20, 41)).astype(np.uint16).view(np.int16)).to(dev)
     for name, table, narrow in (
+            ("seq_i32", seq_table, seq_table),
             ("seq_u8", seq_table, seq_table.to(torch.uint8)),
-            ("qual_u16", qual_table, qual_table.to(torch.int16))):
+            ("qual_u16", qual_table, qual_table.to(torch.int16)),
+            ("q3_u16", q3.int() & 0xFFFF, q3)):
         want = kernels.quant_pack(table)
         got = kernels.quant_pack(narrow)
-        row(f"quant_pack_{name}", "quant_pack", got,
-            kernels.quant_pack_plain(narrow),
+        key = f"quant_pack_{name}"
+        row(key, "quant_pack", got, kernels.quant_pack_plain(narrow),
             lambda: kernels.quant_pack(narrow),
             lambda: kernels.quant_pack_plain(narrow), 5)
         if any(not torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"K1 {name} != K1 on the int32 table")
+        K1_SPLIT[name] = _split_row(key, rows[key]["quant_pack"][1],
+                                    lambda: kernels.quant_pack(narrow))
+        BOUNDS[key] = (_nbytes(narrow, *got),
+                       _OPS["quant_pack"] * narrow.numel(), None)
+        PAIR_MS[f"quant_pack_cumsum_{name}"] = _time_ms(
+            lambda: torch.cumsum(narrow, 1, dtype=torch.int32), 5)
+        print(f"  {key}: {tuple(narrow.shape)} {narrow.dtype}; library "
+              f"part: torch.cumsum(dim=1) (the row scan) "
+              f"{PAIR_MS[f'quant_pack_cumsum_{name}']:.4f} ms; "
+              f"{_bound_row(key)}")
+        del want, got
+    del q3
 
     # one stream's copies: unpacked, and packed as the engine ships it
     for gname, modes in (("seq", (0, 2)), ("markov40", (0, 6, 15))):
@@ -2137,6 +2201,10 @@ def _read_counts(path_kernels, totals):
     from fastqueeze_tpu_torch.io import native as nat
     from fastqueeze_tpu_torch.ops import host_adapt, host_frozen, kernels
     launches = dict(kernels.LAUNCHES)
+    # (an older tree's kernels, run by --coders in turns, have no count
+    # by mode)
+    for mode, v in getattr(kernels, "UNPACK_MODES", {}).items():
+        UNPACK_BY_MODE[mode] = UNPACK_BY_MODE.get(mode, 0) + v
     native = {"frozen": dict(host_frozen.NATIVE_CALLS),
               "adaptive": dict(host_adapt.NATIVE_CALLS),
               "aligner": dict(nat.ALIGN_CALLS)}
@@ -3125,7 +3193,14 @@ def coders_main() -> int:
               for n, (e, ms, pms) in r.items()} for tag, r in rows.items()},
         "k2_by_table": K2_SPLIT, "k12_by_stream": SEMI_SHAPE,
         "k11_by_stream": K11_SPLIT, "k17_by_grid": K17_SPLIT,
-        "k3_by_table": K3_SPLIT, "chains": CHAIN, "launches": totals}))
+        "k3_by_table": K3_SPLIT, "chains": CHAIN, "launches": totals,
+        "k15_by_mode": K15_SPLIT, "k1_by_table": K1_SPLIT,
+        "unpack_grid_launches_by_mode": UNPACK_BY_MODE,
+        "bounds_ms": {k: _bound_row(k)["bound_ms"] for k in BOUNDS
+                      if k.startswith(("unpack_grid", "quant_pack"))},
+        "library_parts_ms": {k: v for k, v in PAIR_MS.items()
+                             if k.startswith(("unpack_grid",
+                                              "quant_pack"))}}))
     _ok_line()
     return 0
 
@@ -3197,11 +3272,28 @@ def main() -> int:
             key: {"ms": r[name][1], "plain_ms": r[name][2],
                   "max_abs_err": r[name][0]}
             for key, r in rows.items() if name in r}
+    # K15 in every mode: device split, bound, the ranks' torch.cumsum;
+    # its launches by mode in phases 4-17
+    for key, m in by_name["unpack_grid"]["modes"].items():
+        b = _bound_row(f"unpack_grid_{key}")
+        m.update(device_ms_by_kernel=K15_SPLIT[key]["device_ms_by_kernel"],
+                 bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        if f"unpack_grid_cumsum_{key}" in PAIR_MS:
+            m["library_parts_ms"] = {
+                "torch.cumsum (sentinel ranks)":
+                    PAIR_MS[f"unpack_grid_cumsum_{key}"]}
+    by_name["unpack_grid"]["launches_by_mode"] = UNPACK_BY_MODE
     by_name["pack15"]["library_parts_ms"] = {
         "torch.bincount": PAIR_MS["pack15_bincount"],
         "torch.masked_select": PAIR_MS["pack15_masked_select"]}
-    by_name["quant_pack"]["narrow_tables"] = {
-        key: {"ms": r["quant_pack"][1], "max_abs_err": r["quant_pack"][0]}
+    by_name["quant_pack"]["by_table"] = {
+        key: {"ms": r["quant_pack"][1], "plain_ms": r["quant_pack"][2],
+              "max_abs_err": r["quant_pack"][0],
+              "device_ms_by_kernel": K1_SPLIT[key[len("quant_pack_"):]][
+                  "device_ms_by_kernel"],
+              "bound_ms": _bound_row(key)["bound_ms"],
+              "library_parts_ms": {"torch.cumsum(dim=1) (row scan)": PAIR_MS[
+                  f"quant_pack_cumsum_{key[len('quant_pack_'):]}"]}}
         for key, r in rows.items() if key.startswith("quant_pack_")}
     # K4's cluster and time a wave on each table; K13's histogram on
     # qualities
@@ -3242,6 +3334,8 @@ def main() -> int:
         "rc": rows["k14_rc"]["align_batch"][1]}
     print(f"copies of one stream (phase 3): {json.dumps(COPY)}")
     print(json.dumps({"aligner_runs": ALIGN_RUNS}))
+    print(f"unpack_grid launches by pack mode (phases 4-17): "
+          f"{json.dumps(UNPACK_BY_MODE)}")
     print(json.dumps({"kernels": table}))
     _ok_line()
     return 0
@@ -3249,8 +3343,8 @@ def main() -> int:
 
 def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
     """Phase 3's K1 -> K2 -> K3 launches on its inputs, then K17, K11
-    (chunk 64, two halvings) and K7 on K11's sf on the same grids,
-    ``reps`` rounds, each
+    (chunk 64, two halvings), K7 on K11's sf and K15 on the host's mode
+    15 and 23 packs of the same grids, ``reps`` rounds, each
     launch announced before it starts, so that under CUDA_LAUNCH_BLOCKING=1
     the last line names a launch that faults.  ``blocking``: synchronize
     after every launch; else only where phase 3 does (reading K1's result
@@ -3268,6 +3362,12 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
           f"{time.time() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
     cases = list(_coder_cases(dev))
+    sent = {}                    # (tag, mode) -> K15's pack and sidecar
+    for tag, _, _, _, g, _, _ in cases:
+        for mode in (15, 23):
+            packed, side, _ = _sent_pack(g.cpu().numpy(), mode)
+            sent[tag, mode] = (torch.from_numpy(packed).to(dev), mode,
+                               torch.from_numpy(side).to(dev))
     want = {}
     for rep in range(reps):
         for tag, m, _, _, g, c, cg in cases:
@@ -3304,7 +3404,13 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
                      lambda: kernels.rans_encode_sf(
                          want[f"{tag}_semi_encode_walk"][0], cg),
                      lambda: kernels.rans_encode_sf_plain(
-                         want[f"{tag}_semi_encode_walk"][0], cg))):
+                         want[f"{tag}_semi_encode_walk"][0], cg)),
+                    ("unpack_grid15",
+                     lambda: [kernels.unpack_grid(*sent[tag, 15])],
+                     lambda: [kernels.unpack_grid_plain(*sent[tag, 15])]),
+                    ("unpack_grid23",
+                     lambda: [kernels.unpack_grid(*sent[tag, 23])],
+                     lambda: [kernels.unpack_grid_plain(*sent[tag, 23])])):
                 print(f"launch {name} round {rep} {tag}", flush=True)
                 got = run()
                 if blocking:
@@ -3375,7 +3481,7 @@ def coder_loop_procs(procs: int, reps: int, blocking: bool, own_build: bool,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"coder_loop": {
-        "processes": procs, "rounds": reps, "launches_per_process": 18 * reps,
+        "processes": procs, "rounds": reps, "launches_per_process": 24 * reps,
         "blocking": blocking, "own_build": own_build, "checked": checked,
         "failed_processes": failed}}))
     return 1 if failed else 0
@@ -3410,8 +3516,9 @@ def sass_main(names, out_dir: str) -> int:
         for f in hits:
             fn = f.split()[2]
             n = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", f, re.M))
+            calls = [c.strip() for c in re.findall(r"(CALL\.[^;]*);", f)]
             print(f"{name}: {_kernel_name(fn)} {n} instructions -> {path}; "
-                  f"{_chain_loop(f)}")
+                  f"{_chain_loop(f)}; calls: {calls or 'none'}")
     return 0
 
 

@@ -1,6 +1,6 @@
 // Decoupled look-back over tiles taken by atomic ticket (K3
-// compact_words, K17 pack15_write): a one-pass exclusive scan of per-tile
-// counts across the blocks of one launch.
+// compact_words, K15 unpack_sent, K17 pack15_write): a one-pass exclusive
+// scan of per-tile counts across the blocks of one launch.
 //
 // A block takes its tile from an atomic ticket (not blockIdx), so every
 // tile before it belongs to a block that has started.  It publishes its

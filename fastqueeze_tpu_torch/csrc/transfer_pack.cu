@@ -21,22 +21,39 @@
 //
 // Bounds: all three move a few bytes a slot (K15 0.25-0.75 B in, 1 B out;
 // K16 1 B in, 0.25-0.75 B out; K17 1 B in twice, 0.5 B out), so they are
-// bound by device memory.  Dense modes are one thread per 4-slot group
-// (one 4-byte load or store of the grid).  K15's sentinel modes need each
-// sentinel's rank in scan order: tiles of kTile slots count their
-// sentinels, one block scans the tile counts, then every tile rescans its
-// own slots (a block scan) and writes.  K17 reads the grid twice: a
-// histogram pass (pack15_hist), then one write pass (pack15_write) whose
-// prologue ranks the 64 symbols and whose tiles take their exception
-// offsets from a decoupled look-back over per-tile descriptors
-// (lookback.cuh, shared with K3), so no pass counts the exceptions
-// first.  Its validity comes from the lanes'
-// lengths (lane_walk.cuh) beside each slot's wave and lane, which the
-// passes step without a division a slot, never from a (T, L) mask.  The
-// first K17 (seven launches: the grid read three times, the top 15 on
-// one thread, validity by a 64-bit division and modulo a slot, 16
-// bytes a thread read one at a time) took 0.39-0.40 ms on an H100 at 25.2
-// M slots.
+// bound by device memory.  K15 works in groups of 16 slots, a thread a
+// group: one 4-byte (modes 2, 23), 8-byte (4, 15) or three 4-byte (6)
+// load of the packed bytes, the codes spread into bytes by shifts and
+// masks, one 16-byte store of the grid; where a pointer is not aligned
+// for those, or the group passes the grid's end, the same kernel loads
+// and stores bytes.  Dense modes keep kDenseGroups groups a thread in
+// flight.  The sentinel modes need each sentinel's rank in scan order:
+// one launch after a memset of a tile ticket and per-tile descriptors;
+// a block takes a tile of 8,192 slots (two groups a thread) by atomic
+// ticket, counts its sentinels with bit operations on the loaded words
+// (a nibble is 15 where all four bits are set, a 2-bit code 3 where both
+// are), ranks them by a block scan, takes the tile's offset by the decoupled look-back of
+// lookback.cuh (K3's and K17's), stages the tile's run of exceptions
+// (clipped as the reference clips a short sidecar's index) and the
+// 16-entry top table in shared memory with coalesced loads, and maps its
+// slots there.  Tiles of 4,096 slots (a group a thread) took 0.051-0.056
+// ms on an H100 at 25.2 M slots, tiles of 8,192 0.040-0.044 (a tile's
+// ticket, scan, look-back and staged run are its fixed cost).  The first
+// K15 (a thread per 4-slot group, a byte load a
+// slot; the sentinel modes in three launches: tile counts, one block
+// scanning them, the tiles rescanned and written a byte at a time) took
+// 0.04-0.09 ms in mode 2 and 0.17-0.19 ms in modes 15 and 23 on an H100
+// at 25.2 M slots.  K16 is one thread per 4-slot group (one 4-byte load
+// of the grid).  K17 reads the grid twice: a histogram pass
+// (pack15_hist), then one write pass (pack15_write) whose prologue ranks
+// the 64 symbols and whose tiles take their exception offsets from the
+// same look-back, so no pass counts the exceptions first.  Its validity
+// comes from the lanes' lengths (lane_walk.cuh) beside each slot's wave
+// and lane, which the passes step without a division a slot, never from
+// a (T, L) mask.  The first K17 (seven launches: the grid read three
+// times, the top 15 on one thread, validity by a 64-bit division and
+// modulo a slot, 16 bytes a thread read one at a time) took 0.39-0.40 ms
+// on an H100 at 25.2 M slots.
 
 #include <cstdint>
 
@@ -49,104 +66,215 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPer = 16;                         // slots a thread (even)
-constexpr int64_t kTile = int64_t(kThreads) * kPer;
-constexpr int kScanThreads = 1024;
 constexpr int kAlpha = 64;                       // 6-bit symbols
 
-// Code of slot s in a packed grid of `mode` (2/23, 4/15 or 6).
-__device__ __forceinline__ uint32_t code_at(const uint8_t* __restrict__ p,
-                                            int32_t mode, int64_t s,
-                                            int64_t n_packed) {
-    if (mode == 2 || mode == 23) {
-        FQK_BOUND("unpack_grid", "packed", s >> 2, n_packed);
-        return (p[s >> 2] >> (2 * (s & 3))) & 3u;
-    }
-    if (mode == 4 || mode == 15) {
-        FQK_BOUND("unpack_grid", "packed", s >> 1, n_packed);
-        return (p[s >> 1] >> (4 * (s & 1))) & 15u;
-    }
-    const int64_t b = 3 * (s >> 2);
-    FQK_BOUND("unpack_grid", "packed", b + 2, n_packed);
-    const uint32_t v = uint32_t(p[b]) | (uint32_t(p[b + 1]) << 8)
-                       | (uint32_t(p[b + 2]) << 16);
-    return (v >> (6 * (s & 3))) & 63u;
+// --- K15 ------------------------------------------------------------------
+
+constexpr int kGroup = 16;                       // slots a group
+constexpr int kDenseGroups = 4;                  // groups a thread, dense
+constexpr int64_t kDenseBlock = int64_t(kThreads) * kDenseGroups * kGroup;
+constexpr int kSentGroups = 2;                   // groups a thread, sentinel
+constexpr int64_t kSentTile = int64_t(kThreads) * kSentGroups * kGroup;
+constexpr int64_t kSentHead = 16;                // the ticket, padded
+
+// Packed bytes of a 16-slot group.
+template <int kMode>
+__host__ __device__ constexpr int group_bytes() {
+    return kMode == 6 ? 12 : (kMode == 4 || kMode == 15) ? 8 : 4;
 }
 
-// K15, modes 2, 4, 6: one thread per 4-slot group.
-__global__ void unpack_dense(const uint8_t* __restrict__ packed,
-                             int32_t mode, int64_t n_groups,
-                             int64_t n_packed, uint32_t* __restrict__ grid4) {
-    const int64_t g = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (g >= n_groups) return;
-    uint32_t out = 0;
+// Group q's packed bytes as little-endian words w[0..2] (0 past them):
+// where ``whole`` one 8-byte or one to three 4-byte loads, else byte loads
+// of the bytes below n_packed (none past the grid's end).
+template <int kMode>
+__device__ __forceinline__ void load_group(const uint8_t* __restrict__ packed,
+                                           int64_t q, bool whole,
+                                           int64_t n_packed, uint32_t w[3]) {
+    constexpr int kB = group_bytes<kMode>();
+    const int64_t b0 = q * kB;
+    w[0] = w[1] = w[2] = 0;
+    if (whole) {
+        FQK_BOUND("unpack_grid", "packed", b0 + kB - 1, n_packed);
+        if (kB == 8) {
+            const uint2 v = *reinterpret_cast<const uint2*>(packed + b0);
+            w[0] = v.x;
+            w[1] = v.y;
+        } else {
+            const uint32_t* p = reinterpret_cast<const uint32_t*>(packed + b0);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-        out |= code_at(packed, mode, 4 * g + k, n_packed) << (8 * k);
-    grid4[g] = out;
-}
-
-// Sentinel count of each tile (K15 modes 15/23: the packed code equals
-// sent; K17: the nibble of the filled symbol is 15).
-__global__ void unpack_count(const uint8_t* __restrict__ packed,
-                             int32_t mode, uint32_t sent, int64_t n,
-                             int64_t n_packed,
-                             int32_t* __restrict__ tile_counts) {
-    const int64_t s0 = blockIdx.x * kTile + int64_t(threadIdx.x) * kPer;
-    int32_t c = 0;
-    for (int k = 0; k < kPer; ++k)
-        if (s0 + k < n) c += code_at(packed, mode, s0 + k, n_packed) == sent;
-    int32_t total;
-    fqk::block_exclusive_scan<kThreads>(c, &total);
-    if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-// Exclusive scan of the tile counts (one block); *total = their sum.
-__global__ void scan_tiles(const int32_t* __restrict__ tile_counts,
-                           int64_t n_tiles, int32_t* __restrict__ tile_off,
-                           int32_t* __restrict__ total) {
-    int32_t carry = 0;
-    for (int64_t b0 = 0; b0 < n_tiles; b0 += kScanThreads) {
-        const int64_t b = b0 + threadIdx.x;
-        const int32_t v = b < n_tiles ? tile_counts[b] : 0;
-        int32_t sum;
-        const int32_t ex = fqk::block_exclusive_scan<kScanThreads>(v, &sum);
-        if (b < n_tiles) tile_off[b] = carry + ex;
-        carry += sum;
-    }
-    if (threadIdx.x == 0) *total = carry;
-}
-
-// K15, modes 15/23: codes below sent map through side[0:16], the k-th
-// sentinel in scan order to side[16 + clip(k, 0, n_side - 17)].
-__global__ void unpack_sent(const uint8_t* __restrict__ packed, int32_t mode,
-                            uint32_t sent, int64_t n, int64_t n_packed,
-                            const int32_t* __restrict__ tile_off,
-                            const uint8_t* __restrict__ side, int64_t n_side,
-                            uint8_t* __restrict__ grid) {
-    const int64_t s0 = blockIdx.x * kTile + int64_t(threadIdx.x) * kPer;
-    uint32_t code[kPer];
-    int32_t c = 0;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        code[k] = s0 + k < n ? code_at(packed, mode, s0 + k, n_packed) : 0;
-        c += s0 + k < n && code[k] == sent;
-    }
-    int32_t total;
-    int64_t rank = tile_off[blockIdx.x]
-                   + fqk::block_exclusive_scan<kThreads>(c, &total);
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        if (s0 + k >= n) break;
-        int64_t at = code[k];
-        if (code[k] == sent) {
-            const int64_t hi = n_side - 17;
-            at = 16 + (rank < 0 ? 0 : (rank > hi ? hi : rank));
-            ++rank;
+            for (int i = 0; i < kB / 4; ++i) w[i] = p[i];
         }
-        FQK_BOUND("unpack_grid", "side", at, n_side);
-        grid[s0 + k] = side[at];
+        return;
     }
+#pragma unroll
+    for (int i = 0; i < kB; ++i)
+        if (b0 + i < n_packed)
+            w[i / 4] |= uint32_t(packed[b0 + i]) << (8 * (i % 4));
+}
+
+// Four 2-bit codes (a byte) -> four bytes.
+__device__ __forceinline__ uint32_t spread2(uint32_t b) {
+    return (b & 3u) | ((b & 0xCu) << 6) | ((b & 0x30u) << 12)
+           | ((b & 0xC0u) << 18);
+}
+
+// Four nibbles (16 bits) -> four bytes.
+__device__ __forceinline__ uint32_t spread4(uint32_t h) {
+    return (h & 0xFu) | ((h & 0xF0u) << 4) | ((h & 0xF00u) << 8)
+           | ((h & 0xF000u) << 12);
+}
+
+// Four 6-bit symbols (the low 24 bits) -> four bytes.
+__device__ __forceinline__ uint32_t spread6(uint32_t v) {
+    return (v & 63u) | ((v >> 6) & 63u) << 8 | ((v >> 12) & 63u) << 16
+           | ((v >> 18) & 63u) << 24;
+}
+
+// A group's 16 codes, one a byte, slot k in byte k % 4 of word k / 4.
+template <int kMode>
+__device__ __forceinline__ void decode_group(const uint32_t w[3],
+                                             uint32_t o[4]) {
+    if (kMode == 2 || kMode == 23) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = spread2((w[0] >> (8 * j)) & 0xFFu);
+    } else if (kMode == 4 || kMode == 15) {
+        o[0] = spread4(w[0] & 0xFFFFu);
+        o[1] = spread4(w[0] >> 16);
+        o[2] = spread4(w[1] & 0xFFFFu);
+        o[3] = spread4(w[1] >> 16);
+    } else {
+        o[0] = spread6(w[0]);
+        o[1] = spread6((w[0] >> 24) | (w[1] << 8));
+        o[2] = spread6((w[1] >> 16) | (w[2] << 16));
+        o[3] = spread6(w[2] >> 8);
+    }
+}
+
+// A group's 16 bytes at grid[s0 ..): one 16-byte store where ``whole``,
+// else the bytes below n.
+__device__ __forceinline__ void store_group(uint8_t* __restrict__ grid,
+                                            int64_t s0, int64_t n, bool whole,
+                                            const uint32_t o[4]) {
+    if (whole) {
+        FQK_BOUND("unpack_grid", "grid", s0 + kGroup - 1, n);
+        *reinterpret_cast<uint4*>(grid + s0) = make_uint4(o[0], o[1], o[2],
+                                                          o[3]);
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k)
+        if (s0 + k < n)
+            grid[s0 + k] = static_cast<uint8_t>(o[k / 4] >> (8 * (k % 4)));
+}
+
+// K15, modes 2, 4, 6: a thread takes kDenseGroups groups kThreads apart
+// (consecutive threads, consecutive groups), all loads before any store.
+// vec: the packed and grid pointers are aligned for the wide accesses.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+unpack_dense(const uint8_t* __restrict__ packed, int64_t n, int64_t n_packed,
+             bool vec, uint8_t* __restrict__ grid) {
+    const int64_t q0 = int64_t(blockIdx.x) * (kThreads * kDenseGroups)
+                       + threadIdx.x;
+    uint32_t w[kDenseGroups][3];
+#pragma unroll
+    for (int j = 0; j < kDenseGroups; ++j) {
+        const int64_t q = q0 + int64_t(j) * kThreads;
+        load_group<kMode>(packed, q, vec && (q + 1) * kGroup <= n, n_packed,
+                          w[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kDenseGroups; ++j) {
+        const int64_t q = q0 + int64_t(j) * kThreads;
+        if (q * kGroup >= n) break;
+        uint32_t o[4];
+        decode_group<kMode>(w[j], o);
+        store_group(grid, q * kGroup, n, vec && (q + 1) * kGroup <= n, o);
+    }
+}
+
+// K15, modes 15 and 23: a tile of kSentTile slots a block, by atomic
+// ticket; a thread kSentGroups consecutive groups.  Codes below the
+// sentinel map through side[0:16], the k-th sentinel of the grid in scan
+// order to side[16 + clip(k, 0, n_side - 17)].
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+unpack_sent(const uint8_t* __restrict__ packed, int64_t n, int64_t n_packed,
+            bool vec, const uint8_t* __restrict__ side, int64_t n_side,
+            unsigned* __restrict__ ticket,
+            unsigned long long* __restrict__ desc, int64_t tiles,
+            uint8_t* __restrict__ grid) {
+    __shared__ uint8_t top[16];
+    __shared__ uint8_t stage[kSentTile];
+    __shared__ int64_t tile_sh, excl_sh;
+    if (threadIdx.x == 0) tile_sh = atomicAdd(ticket, 1u);
+    if (threadIdx.x < 16) top[threadIdx.x] = side[threadIdx.x];
+    __syncthreads();
+    const int64_t tile = tile_sh;
+    FQK_BOUND("unpack_grid", "tile", tile, tiles);
+    const int64_t q0 = (tile * kThreads + threadIdx.x) * kSentGroups;
+    uint32_t w[kSentGroups][3];
+    // bit 4k (nibbles) or 2k (2-bit codes) of e[j] set where slot k of
+    // group j holds the sentinel; bytes past the grid's end load as 0, no
+    // sentinel
+    uint64_t e[kSentGroups];
+    int32_t c = 0;
+#pragma unroll
+    for (int j = 0; j < kSentGroups; ++j) {
+        const int64_t q = q0 + j;
+        load_group<kMode>(packed, q, vec && (q + 1) * kGroup <= n, n_packed,
+                          w[j]);
+        if (kMode == 15) {
+            const uint64_t v = uint64_t(w[j][0]) | uint64_t(w[j][1]) << 32;
+            e[j] = v & (v >> 1) & (v >> 2) & (v >> 3) & 0x1111111111111111ull;
+        } else {
+            e[j] = w[j][0] & (w[j][0] >> 1) & 0x55555555u;
+        }
+        c += __popcll(e[j]);
+    }
+    // the tile's count, published before its look-back so that later
+    // tiles wait least
+    int32_t agg;
+    int32_t r = fqk::block_exclusive_scan<kThreads>(c, &agg);
+    if (threadIdx.x == 0)
+        fqk::desc_store(desc + tile, fqk::desc_aggregate(tile, agg));
+    if (threadIdx.x < 32) {
+        const int64_t before = tile ? fqk::look_back(desc, tile, tiles) : 0;
+        if (threadIdx.x == 0) {
+            if (tile)
+                fqk::desc_store(desc + tile, fqk::desc_inclusive(agg, before));
+            excl_sh = before;
+        }
+    }
+    __syncthreads();
+    // the tile's run of exceptions, consecutive threads on consecutive
+    // bytes; an index past the sidecar takes its last byte
+    const int64_t excl = excl_sh, last = n_side - 17;
+    for (int32_t i = threadIdx.x; i < agg; i += kThreads) {
+        const int64_t k = min(excl + i, last);
+        FQK_BOUND("unpack_grid", "side", 16 + k, n_side);
+        stage[i] = side[16 + k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSentGroups; ++j) {
+        const int64_t q = q0 + j;
+        if (q * kGroup >= n) break;
+        uint32_t code4[4], o[4] = {0, 0, 0, 0};
+        decode_group<kMode>(w[j], code4);
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+            const uint32_t code = (code4[k / 4] >> (8 * (k % 4))) & 0xFFu;
+            uint32_t v = top[code];
+            if ((e[j] >> (kMode == 15 ? 4 * k : 2 * k)) & 1u) v = stage[r++];
+            o[k / 4] |= v << (8 * (k % 4));
+        }
+        store_group(grid, q * kGroup, n, vec && (q + 1) * kGroup <= n, o);
+    }
+}
+
+int64_t sent_tiles(int64_t n) {
+    return n > 0 ? (n + kSentTile - 1) / kSentTile : 1;
 }
 
 // K16: one thread per 4-slot group.
@@ -405,10 +533,6 @@ pack15_write(const uint8_t* __restrict__ syms, int64_t n, int32_t T,
     }
 }
 
-unsigned tiles_of(int64_t n) {
-    return static_cast<unsigned>((n + kTile - 1) / kTile);
-}
-
 unsigned blocks_of(int64_t n) {
     return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -426,33 +550,57 @@ int64_t align16(int64_t n) { return (n + 15) & ~int64_t(15); }
 
 }  // namespace
 
-// K15: mode 2/4/6 (side unused) or 15/23; T * L slots, L % 4 == 0.
-// Scratch: tile_counts and tile_off, tiles_of(T * L) int32 each, and
-// total (one int32).
+extern "C" int64_t fq_unpack_grid_scratch_bytes(int32_t mode, int64_t n) {
+    return mode == 15 || mode == 23 ? kSentHead + 8 * sent_tiles(n) : 0;
+}
+
+// K15: mode 2/4/6 (side unused) or 15/23; T * L slots, L % 4 == 0 (the
+// sentinel modes: T * L < 2^31, the look-back's prefixes are 32-bit;
+// n_side >= 17).  scratch: fq_unpack_grid_scratch_bytes(mode, T * L)
+// bytes, 8-byte aligned (none for the dense modes).  Dense modes: one
+// launch; sentinel modes: a memset of the ticket and descriptors, then
+// one launch.
 extern "C" int fq_unpack_grid(const uint8_t* packed, int32_t mode, int32_t T,
                               int32_t L, const uint8_t* side, int64_t n_side,
-                              int32_t* tile_scratch, int64_t n_packed,
-                              uint8_t* grid, void* stream) {
+                              void* scratch, int64_t n_packed, uint8_t* grid,
+                              void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (T < 0 || L < 0 || L % 4) return static_cast<int>(cudaErrorInvalidValue);
     const int64_t n = int64_t(T) * L;
-    if (n == 0) return 0;
+    const uintptr_t align = mode == 4 || mode == 15 ? 8 : 4;
+    const bool vec = (reinterpret_cast<uintptr_t>(grid) & 15) == 0
+                     && (reinterpret_cast<uintptr_t>(packed) % align) == 0;
     if (mode == 2 || mode == 4 || mode == 6) {
-        const int64_t groups = n / 4;
-        unpack_dense<<<blocks_of(groups), kThreads, 0, st>>>(
-            packed, mode, groups, n_packed, reinterpret_cast<uint32_t*>(grid));
+        if (n == 0) return 0;
+        const unsigned blocks =
+            static_cast<unsigned>((n + kDenseBlock - 1) / kDenseBlock);
+        if (mode == 2)
+            unpack_dense<2><<<blocks, kThreads, 0, st>>>(packed, n, n_packed,
+                                                         vec, grid);
+        else if (mode == 4)
+            unpack_dense<4><<<blocks, kThreads, 0, st>>>(packed, n, n_packed,
+                                                         vec, grid);
+        else
+            unpack_dense<6><<<blocks, kThreads, 0, st>>>(packed, n, n_packed,
+                                                         vec, grid);
         return static_cast<int>(cudaGetLastError());
     }
-    if (mode != 15 && mode != 23) return static_cast<int>(cudaErrorInvalidValue);
-    const uint32_t sent = mode == 15 ? 15u : 3u;
-    const unsigned tiles = tiles_of(n);
-    int32_t* counts = tile_scratch;
-    int32_t* off = tile_scratch + tiles;
-    int32_t* total = tile_scratch + 2 * tiles;
-    unpack_count<<<tiles, kThreads, 0, st>>>(packed, mode, sent, n, n_packed,
-                                             counts);
-    scan_tiles<<<1, kScanThreads, 0, st>>>(counts, tiles, off, total);
-    unpack_sent<<<tiles, kThreads, 0, st>>>(packed, mode, sent, n, n_packed,
-                                            off, side, n_side, grid);
+    if ((mode != 15 && mode != 23) || n >= (int64_t(1) << 31) || n_side < 17)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return 0;
+    const int64_t tiles = sent_tiles(n);
+    cudaError_t rc = cudaMemsetAsync(
+        scratch, 0, fq_unpack_grid_scratch_bytes(mode, n), st);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    auto* ticket = static_cast<unsigned*>(scratch);
+    auto* desc = reinterpret_cast<unsigned long long*>(
+        static_cast<char*>(scratch) + kSentHead);
+    if (mode == 15)
+        unpack_sent<15><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+            packed, n, n_packed, vec, side, n_side, ticket, desc, tiles, grid);
+    else
+        unpack_sent<23><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+            packed, n, n_packed, vec, side, n_side, ticket, desc, tiles, grid);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,10 @@
 
 Frozen coder:
 K1 quant_pack          count table -> u16 cumulative table + u32 packed
-                       (start, end) words              (engine._quant_full)
+                       (start, end) words: a tile of rows through
+                       shared memory, a row a thread (A <= 8) or a
+                       group of 8-32 lanes, no division a symbol
+                                                       (engine._quant_full)
 K2 frozen_encode_lanes a thread per (chunk of waves, lane): K13's chunk
                        walk + the table gather + each freq's reciprocal;
                        then a thread a lane: reverse rANS, its loads
@@ -72,7 +75,9 @@ K19 sharded_align      gapless multi-seed alignment over a key-range
                        (align/hash.py _one_strand's shard_axis branch,
                        _align_batch)
 Transfer packs (the (T, L) symbol grids cross the host link packed):
-K15 unpack_grid        2/4/6-bit and sentinel (15, 23) packs -> grid
+K15 unpack_grid        2/4/6-bit and sentinel (15, 23) packs -> grid,
+                       16 slots a thread; the sentinel modes in one pass
+                       with K3's look-back
                        (engine._unpack{2,4,6,15,23}_dev, _unpack_sent_dev)
 K16 pack_grid          grid -> 2/4/6-bit pack (engine._pack{2,4,6}_dev)
 K17 pack15             6-bit grid -> top-15 nibbles + exception list
@@ -127,6 +132,8 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "unpack_grid": 0, "pack_grid": 0, "pack15": 0,
                             "train_hist": 0, "train_rows": 0,
                             "ctx_shard_decode": 0, "sharded_align": 0}
+# K15's launches by pack mode (each also counts in LAUNCHES["unpack_grid"])
+UNPACK_MODES: Dict[int, int] = {2: 0, 4: 0, 6: 0, 15: 0, 23: 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -145,8 +152,9 @@ BUILD_INFO: Dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, UNPACK_MODES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -221,6 +229,8 @@ def _lib() -> ctypes.CDLL:
                 [vp, vp, i32, i32, i32, vp, i64, i32] + spec + [vp] * 6)
             lib.fq_unpack_grid.argtypes = (
                 [vp, i32, i32, i32, vp, i64, vp, i64, vp, vp])
+            lib.fq_unpack_grid_scratch_bytes.argtypes = [i32, i64]
+            lib.fq_unpack_grid_scratch_bytes.restype = i64
             lib.fq_pack_grid.argtypes = [vp, i32, i32, i32, vp, vp]
             lib.fq_pack15.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 4
                                       + [i64, vp])
@@ -664,7 +674,6 @@ def frozen_decode_shape(L: int, model, device=None) -> Dict[str, int]:
 
 PACK_BITS = {2: 2, 4: 4, 6: 6, 15: 4, 23: 2}
 _SENT = {15: 15, 23: 3}
-_TILE = 4096                 # transfer_pack.cu kTile: slots a K15 scan tile
 EXC_SYM = 15                 # K17's sentinel nibble
 
 
@@ -731,15 +740,21 @@ def unpack_grid(packed: torch.Tensor, mode: int,
     if L % 4 or packed_width(mode, L) != W:
         raise ValueError(f"unpack_grid: width {W} is no mode-{mode} row of "
                          f"whole 4-symbol groups")
+    if mode in _SENT and T * L >= 1 << 31:
+        raise ValueError(f"unpack_grid: {T * L} slots, the sentinel modes "
+                         f"take fewer than 2^31")
     dev = packed.device
+    lib = _lib()
     grid = torch.empty((T, L), dtype=torch.uint8, device=dev)
-    tiles = (T * L + _TILE - 1) // _TILE
-    scratch = torch.empty((2 * tiles + 1,), dtype=torch.int32, device=dev)
-    _launch(_lib().fq_unpack_grid, "unpack_grid", dev, _ptr(packed), mode,
-            T, L,
+    nbytes = lib.fq_unpack_grid_scratch_bytes(mode, T * L)
+    scratch = (torch.empty(((nbytes + 7) // 8,), dtype=torch.int64,
+                           device=dev) if nbytes else None)
+    _launch(lib.fq_unpack_grid, "unpack_grid", dev, _ptr(packed), mode, T, L,
             None if side is None else _ptr(side),
-            0 if side is None else side.numel(), _ptr(scratch),
-            packed.numel(), _ptr(grid))
+            0 if side is None else side.numel(),
+            None if scratch is None else _ptr(scratch), packed.numel(),
+            _ptr(grid))
+    UNPACK_MODES[mode] += 1
     return grid
 
 

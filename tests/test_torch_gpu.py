@@ -1145,6 +1145,159 @@ def test_unpack_grid_clamps_a_short_sidecar(cuda, mode):
     assert torch.equal(got.cpu(), want)
 
 
+def _packed_case(rng, mode, T, L):
+    """A (T, L) grid and its pack (with the host's sidecar in modes 15 and
+    23: ~5% of the slots outside the top symbols)."""
+    if mode in (15, 23):
+        grid = _skewed_grid(rng, 48, T, L, 0.95)
+        sent = 15 if mode == 15 else 3
+        cnt = np.bincount(grid.reshape(-1), minlength=64)
+        top = np.argsort(-cnt, kind="stable")[:sent]
+        top = top[cnt[top] > 0].astype(np.uint8)
+        packed, side = engine._pack_sent_host(
+            grid, top, sent,
+            engine._pack4_host if mode == 15 else engine._pack2_host)
+        return grid, packed, torch.from_numpy(side)
+    grid = rng.integers(0, 1 << mode, (T, L)).astype(np.uint8)
+    return grid, engine._pack_host(grid, mode), None
+
+
+# grid sizes (T, L = 4) around K15's 16-slot group, its 8,192-slot
+# sentinel tile and its 16,384-slot dense block (4 groups x 256 threads)
+_K15_N = [4, 12, 16, 20, 4092, 4096, 4100, 8188, 8192, 8196, 3 * 4096 + 12,
+          16384 - 4, 16384, 16384 + 4, 37 * 4096 + 4, 330 * 8192 + 36]
+
+
+@pytest.mark.parametrize("n", _K15_N)
+@pytest.mark.parametrize("mode", [2, 4, 6, 15, 23])
+def test_unpack_grid_around_groups_and_tiles(cuda, mode, n):
+    """K15 == its plain version at sizes around the group, the tile and
+    the dense block; one launch a call, counted under its mode."""
+    rng = np.random.default_rng(n * 5 + mode)
+    grid, packed, side = _packed_case(rng, mode, n // 4, 4)
+    want = kernels.unpack_grid(torch.from_numpy(packed), mode, side)
+    assert np.array_equal(want.numpy(), grid)
+    kernels.reset_launch_counts()
+    got = kernels.unpack_grid(torch.from_numpy(packed).to(cuda), mode,
+                              None if side is None else side.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert kernels.LAUNCHES["unpack_grid"] == 1
+    assert kernels.UNPACK_MODES == {m: int(m == mode)
+                                    for m in kernels.UNPACK_MODES}
+
+
+@pytest.mark.parametrize("mode", [2, 4, 6, 15, 23])
+def test_unpack_grid_on_an_unaligned_view(cuda, mode):
+    """A packed grid that starts one row into its buffer (a row of 257,
+    514 or 771 bytes: no 4- or 8-byte alignment) takes the byte path of
+    the same kernel, == the plain version."""
+    rng = np.random.default_rng(mode + 40)
+    T, L = 75, 1028
+    grid, packed, side = _packed_case(rng, mode, T, L)
+    buf = np.concatenate([rng.integers(0, 256, (1, packed.shape[1]))
+                          .astype(np.uint8), packed])
+    view = torch.from_numpy(buf).to(cuda)[1:]
+    assert view.is_contiguous() and view.data_ptr() % 4
+    sd = None if side is None else side.to(cuda)
+    got = kernels.unpack_grid(view, mode, sd)
+    assert np.array_equal(got.cpu().numpy(), grid)
+    assert torch.equal(got.cpu(), kernels.unpack_grid(
+        torch.from_numpy(packed), mode, side))
+
+
+@pytest.mark.parametrize("mode", [15, 23])
+def test_unpack_grid_refuses_2_31_slots(cuda, mode):
+    """The sentinel modes' look-back prefixes are 32-bit: T * L >= 2^31
+    is refused before any launch."""
+    L = 1 << 15
+    T = (1 << 31) // L
+    packed = torch.empty((T, kernels.packed_width(mode, L)),
+                         dtype=torch.uint8, device=cuda)
+    side = torch.zeros(17, dtype=torch.uint8, device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="2\\^31"):
+        kernels.unpack_grid(packed, mode, side)
+    assert kernels.LAUNCHES["unpack_grid"] == 0
+    del packed
+    torch.cuda.empty_cache()
+
+
+_K1_NP = {torch.uint8: np.uint8, torch.int16: np.uint16,
+          torch.int32: np.int32}
+_K1_HI = {torch.uint8: 255, torch.int16: 65535, torch.int32: 2**31 - 1}
+
+
+def _extreme_table(rng, dtype, A):
+    """Random rows, rows of the largest count, an all-zero row, and rows
+    whose totals are 1, powers of two, one below and 2^22 where the
+    count type reaches them."""
+    hi = _K1_HI[dtype]
+    rows = [rng.integers(0, hi + 1, (3000, A), dtype=np.int64),
+            np.full((2, A), hi, np.int64), np.zeros((1, A), np.int64)]
+    for tot in ([1, 2**22] + [2**k for k in (1, 8, 16, 30)]
+                + [2**k - 1 for k in (2, 8, 16, 30)]):
+        if tot <= A * hi:
+            base, extra = divmod(tot, A)
+            r = np.full(A, base, np.int64)
+            r[:extra] += 1
+            rows.append(rng.permutation(r)[None])
+    c = np.concatenate(rows).astype(_K1_NP[dtype])
+    return torch.from_numpy(c.view(np.int16) if dtype == torch.int16 else c)
+
+
+@pytest.mark.parametrize("A", [2, 4, 41, 48, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
+def test_quant_pack_extreme_tables(cuda, dtype, A):
+    """K1 (a thread a row through shared memory up to A = 8, a warp a row
+    above) == its plain version on rows of extreme totals, also on a
+    view that starts one row into its buffer (unaligned for A <= 8);
+    one launch a call."""
+    table = _extreme_table(np.random.default_rng(A + 3), dtype, A)
+    want = kernels.quant_pack(table)
+    kernels.reset_launch_counts()
+    got = kernels.quant_pack(table.to(cuda))
+    view = kernels.quant_pack(table.to(cuda)[1:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quant_pack"] == 2
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    vc, vp = kernels.quant_pack_plain(table[1:])
+    assert torch.equal(view[0].cpu(), vc) and torch.equal(view[1].cpu(), vp)
+
+
+@pytest.mark.parametrize("dtype,A", [(torch.uint8, 333), (torch.uint8, 1000),
+                                     (torch.int16, 2000),
+                                     (torch.int16, 8200),
+                                     (torch.int32, 1001),
+                                     (torch.int32, 4100)])
+def test_quant_pack_wide_rows(cuda, dtype, A):
+    """K1 on wide rows: tiles of 16 rows (333 u8 counts) and 4 rows
+    (1,001 i32), tiles whose runs are no multiple of 16 bytes, copied by
+    bytes (1,000 u8: 5 rows, 2,000 u16: 2), and rows too wide for a tile
+    in shared memory, read and written where they lie (8,200 u16, 4,100
+    i32)."""
+    rng = np.random.default_rng(A)
+    c = rng.integers(0, _K1_HI[dtype] + 1, (150, A)).astype(_K1_NP[dtype])
+    table = torch.from_numpy(c.view(np.int16) if dtype == torch.int16
+                             else c)
+    got = kernels.quant_pack(table.to(cuda))
+    for a, b in zip(got, kernels.quant_pack_plain(table)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_quant_pack_on_the_q3_table(cuda):
+    """K1 on the --qlevel 3 table's shape, 1,048,576 x 41 u16 counts up to
+    65,535 == its plain version."""
+    rng = np.random.default_rng(17)
+    t = torch.from_numpy(rng.integers(1, 65536, (1 << 20, 41))
+                         .astype(np.uint16).view(np.int16)).to(cuda)
+    got = kernels.quant_pack(t)
+    want = kernels.quant_pack_plain(t)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("mode", [2, 4, 6])
 def test_pack_grid_matches_plain(cuda, mode):
     grid = torch.from_numpy(np.random.default_rng(mode).integers(
