@@ -23,8 +23,10 @@ Phases (any failure raises and exits non-zero):
      B = 4096 (tier 1: forward, RC) and B = 512 (the rescue tier), and
      K9 over its k = 22 index at B = 512, G = 3, two ops, and K10 over
      the k = 14 packed reference at B = 4096 mates, C = 1128 (-I 500),
-     Lp = 128, and K14 over the tier-1 failures of one 4096-read batch
-     (padded to a power of two): rescue only over the k = 14 index (the
+     Lp = 128 (100 bp) and 256 (250 bp), with its device time and the
+     frame words these mates need (a bound) beside a full scan's, and
+     K14 over the tier-1 failures of one 4096-read batch (padded to a
+     power of two): rescue only over the k = 14 index (the
      CLI defaults), both halves (G = 3, two ops) over the k = 22 index,
      each beside K8's rescue and K9 launched separately on the same rows;
      and at the long-read chunk tier's shape, 4096 chunks of phase 14's
@@ -36,7 +38,8 @@ Phases (any failure raises and exits non-zero):
      of the slots they select; their times replay a captured CUDA graph
      of the calls, since the warp kernels take less device time than the
      wrapper's host work); each kernel's bound
-     (bytes over 3.35 TB/s or integer operations over 67 T/s) and, for
+     (bytes over 3.35 TB/s or integer operations over the 16.7 T/s of
+     the ALU, popcounts at a quarter of it) and, for
      K3, the time of torch.masked_select, the one PyTorch call that
      computes the same function; the transfer packs at the frozen shape:
      K15 and K16 on the seq grid (mode 2), K15 on first-order Markov
@@ -44,7 +47,8 @@ Phases (any failure raises and exits non-zero):
      in mode 4 (K16 in 6 and 4), K17 on the Markov and on a uniform
      48-symbol grid (its sidecar overflows), with torch.bincount and
      torch.masked_select timed as the library calls of K17's two parts;
-     K15's device time (torch.profiler) and bound in every mode, beside
+     K15's and K16's device time (torch.profiler) and bound in every
+     mode, K15's beside
      torch.cumsum of the flat sentinel mask (its ranks) in modes 15 and
      23; K1 on the seq table as i32 and u8, a qual table as u16 and a
      2^20 x 41 u16 table (phase 17's --qlevel 3 shape; each == K1 on
@@ -188,6 +192,14 @@ JSON and the last line above;
 copied into an older tree's checkout it runs that tree's kernels, so
 two trees compare in turns in one call.
 
+    python3 chip_smoke.py --pack-window
+
+runs phases 1-2 and phase 3's K16 (modes 2, 4 and 6) and K10 (Lp 128
+and 256 over the seeded genome's packed reference, no index) against
+their plain versions, with CUDA-event and device (torch.profiler) times
+and bounds, as JSON, then the last line above; copied into an older
+tree's checkout it times that tree's K16 and K10 in a fresh process.
+
     python3 chip_smoke.py --sass NAME [NAME...] [--out DIR]
 
 builds the kernels and writes the SASS of each kernel whose mangled name
@@ -198,8 +210,9 @@ holds a NAME to DIR/sass_<NAME>.txt (cuobjdump -sass; DIR defaults to
     python3 chip_smoke.py --coder-loop PROCS ROUNDS [--async] [--own-build]
         [--checked]
 
-runs phase 3's K1 -> K2 -> K3 launches, then K17, K11, K7 on K11's sf
-and K15 on the grids' mode 15 and 23 packs,
+runs phase 3's K1 -> K2 -> K3 launches, then K17, K11, K7 on K11's sf,
+K15 on the grids' mode 15 and 23 packs and K16 on the grids, and K10 on
+phase 3's mates (Lp 128 and 256) over a 4 Mbp cut of the genome,
 ROUNDS times in each of PROCS fresh processes and reports which, if any,
 fault: under CUDA_LAUNCH_BLOCKING=1,
 or with --async synchronizing only where phase 3 does; loading this
@@ -228,8 +241,11 @@ WINDOW_C = 1128                  # min(4096, 2 * 500 + 128): -I 500
 R_PAIRS = 150_000
 SEEDLESS_AT = np.arange(7, READ_LEN, 14)     # 7 substitutions, no 14-mer
 HBM_BPS = 3.35e12                # H100 SXM device memory rate
-INT_OPS = 67e12                  # the card's non-tensor 32-bit rate (its
-                                 # float32 peak; integer ALU ops run no faster)
+# the card's 32-bit integer ALU rate: 132 SMs x 64 INT32 lanes (Hopper
+# architecture whitepaper) x 1.98 GHz; the CUDA C++ Programming Guide's
+# throughput table (compute capability 9.0) gives 32-bit add, shift and
+# logical operations 64 results a clock an SM, population count 16
+INT_OPS = 132 * 64 * 1.98e9
 # a small bacterial genome at 60x; at 1 Mbp (30x) the auto probe's
 # 1,536-read prefix maps fewer than the 10 reads it needs and says no
 SELFREF_GENOME = 500_000
@@ -420,8 +436,12 @@ _OPS = {"quant_pack": 4, "frozen_encode_lanes": 30, "compact_words": 2,
         "adapt_decode": 40, "semi_encode_walk": 16, "semi_decode": 35,
         "train_counts": 12}
 SEMI_CHUNK = 64
-_VERIFY_OPS = 12     # a frame word: two funnel shifts, XOR, AND, the 2-bit
-                     # fold, popcount, add
+# a frame word of a gapless verify: what the comparison needs, whatever
+# implements it: XOR, the 2-bit fold (a shift and one LOP3 with the
+# folded mask) and the add on the ALU, and one popcount at a quarter of
+# the ALU's rate on a unit of its own; the larger of the two times, 4
+# ALU-rate operations (4 ALU ops, or 1 popcount x 4)
+_VERIFY_OPS = 4
 
 
 def _nbytes(*ts) -> int:
@@ -434,7 +454,7 @@ def _bound_row(name: str) -> dict:
     return {"bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
             "bound_peak": ("3.35 TB/s HBM" if tb >= to
-                           else "67 T int32 op/s (non-tensor)"),
+                           else f"{INT_OPS / 1e12:.1f} T int32 op/s (ALU)"),
             "library_ms": lib}
 
 
@@ -550,9 +570,12 @@ SEMI_SHAPE = {}
 K11_SPLIT = {}
 K17_SPLIT = {}
 K3_SPLIT = {}
-# K15 by grid and mode, K1 by table: time and kernels' device ms
+# K15 and K16 by grid and mode, K1 by table, K10 by Lp: time and
+# kernels' device ms
 K15_SPLIT = {}
+K16_SPLIT = {}
 K1_SPLIT = {}
+K10_SPLIT = {}
 # K15's launches by pack mode over the main path's runs (_read_counts)
 UNPACK_BY_MODE = {}
 # the reverse chains (K7; K2's reverse pass): ms at two depths of lanes
@@ -786,6 +809,39 @@ def _sent_pack(host: np.ndarray, mode: int):
     return packed, side, top
 
 
+def _pack_row(rows, key, name, got, want, run, plain, reps=10) -> None:
+    """A pack's outputs against its plain version's (raises on any
+    difference), and both times (CUDA events), into rows[key][name]."""
+    err = max(_max_err(a, b) for a, b in zip(got, want))
+    rows.setdefault(key, {})[name] = (err, _time_ms(run, reps),
+                                      _time_ms(plain, 1))
+    e, ms, pms = rows[key][name]
+    print(f"  {key:22s} {name:12s} max_abs_err {e}  kernel {ms:10.3f} "
+          f"ms  plain {pms:10.3f} ms")
+    if e:
+        raise AssertionError(f"{key} {name}: kernel differs from its "
+                             f"plain version ({e})")
+
+
+def _check_pack_grid(key, g, mode, packed, row, rows) -> None:
+    """K16 on a phase 3 grid in ``mode`` == the host pack and its plain
+    version; its time, device time (torch.profiler) and bound: the grid
+    in, the pack out."""
+    from fastqueeze_tpu_torch.ops import kernels
+    k16 = kernels.pack_grid(g, mode)
+    if not np.array_equal(k16.cpu().numpy(), packed):
+        raise AssertionError(f"{key}: K16 != the host pack")
+    row(key, "pack_grid", [k16], [kernels.pack_grid_plain(g, mode)],
+        lambda: kernels.pack_grid(g, mode),
+        lambda: kernels.pack_grid_plain(g, mode))
+    K16_SPLIT[key] = _split_row(f"{key}_pack_grid",
+                                rows[key]["pack_grid"][1],
+                                lambda: kernels.pack_grid(g, mode))
+    BOUNDS[f"pack_grid_{key}"] = (_nbytes(g, k16), 3 * g.numel(), None)
+    if key == "markov40_mode6":
+        BOUNDS["pack_grid"] = BOUNDS[f"pack_grid_{key}"]
+
+
 def check_pack_kernels():
     """K15, K16 and K17 at the frozen shape (L = 4096, T = 6144) against
     their plain versions, bit-equal: the seq grid in mode 2, the Markov
@@ -806,15 +862,7 @@ def check_pack_kernels():
     rows = {}
 
     def row(key, name, got, want, run, plain, reps=10):
-        err = max(_max_err(a, b) for a, b in zip(got, want))
-        rows.setdefault(key, {})[name] = (err, _time_ms(run, reps),
-                                          _time_ms(plain, 1))
-        e, ms, pms = rows[key][name]
-        print(f"  {key:22s} {name:12s} max_abs_err {e}  kernel {ms:10.3f} "
-              f"ms  plain {pms:10.3f} ms")
-        if e:
-            raise AssertionError(f"{key} {name}: kernel differs from its "
-                                 f"plain version ({e})")
+        _pack_row(rows, key, name, got, want, run, plain, reps)
 
     for gname, mode in (("seq", 2), ("markov40", 6), ("markov40", 15),
                         ("markov40", 23), ("markov14", 4),
@@ -856,14 +904,7 @@ def check_pack_kernels():
         if gname == "seq":
             BOUNDS["unpack_grid"] = BOUNDS[f"unpack_grid_{key}"]
         if mode in (2, 4, 6):
-            k16 = kernels.pack_grid(g, mode)
-            if not np.array_equal(k16.cpu().numpy(), packed):
-                raise AssertionError(f"{key}: K16 != the host pack")
-            row(key, "pack_grid", [k16], [kernels.pack_grid_plain(g, mode)],
-                lambda: kernels.pack_grid(g, mode),
-                lambda: kernels.pack_grid_plain(g, mode))
-            if key == "markov40_mode6":
-                BOUNDS["pack_grid"] = (_nbytes(g, k16), 3 * g.numel(), None)
+            _check_pack_grid(key, g, mode, packed, row, rows)
         picks = engine._pack_for_upload(host, _DENSE[gname])[0]
         print(f"  {key}: host pack {packed.nbytes} B"
               + (f" + sidecar {side.nbytes} B" if side is not None else "")
@@ -1422,15 +1463,15 @@ def _align_reads(rng, genome, n, kind):
     return grid, np.zeros((n, ALIGN_LP), bool), np.full(n, READ_LEN, np.int32)
 
 
-def _window_reads(rng, genome, n, C):
-    """n mates for the PE rescue window, each with its window center (the
-    mapped mate's position, within C/2 of the read): 25% seedless (the 7
-    substitutions at SEEDLESS_AT), 60% with ~1% substitutions, 10%
-    random, 5% whose true position lies outside the window; 30% reverse
-    strand; zero-padded (n, 128) grid."""
+def _window_reads(rng, genome, n, C, lp=ALIGN_LP, read_len=READ_LEN):
+    """n mates of read_len bases for the PE rescue window, each with its
+    window center (the mapped mate's position, within C/2 of the read):
+    25% seedless (the 7 substitutions at SEEDLESS_AT), 60% with ~1%
+    substitutions, 10% random, 5% whose true position lies outside the
+    window; 30% reverse strand; zero-padded (n, lp) grid."""
     G = len(genome)
-    s = rng.integers(C, G - C - 200, n)
-    codes = genome[s[:, None] + np.arange(READ_LEN)]
+    s = rng.integers(C, G - C - 2 * read_len, n)
+    codes = genome[s[:, None] + np.arange(read_len)]
     kind = rng.random(n)
     seedless = kind < 0.25
     codes[np.ix_(np.flatnonzero(seedless), SEEDLESS_AT)] = (
@@ -1439,63 +1480,128 @@ def _window_reads(rng, genome, n, C):
                                             & (kind < 0.85))[:, None]
     codes[e] = (codes[e] + 1) % 4
     junk = (kind >= 0.85) & (kind < 0.95)
-    codes[junk] = rng.integers(0, 4, (int(junk.sum()), READ_LEN))
+    codes[junk] = rng.integers(0, 4, (int(junk.sum()), read_len))
     rc = rng.random(n) < 0.3
     codes[rc] = 3 - codes[rc, ::-1]
-    centers = s + rng.integers(-(C // 2) + 2, C // 2 - READ_LEN, n)
+    centers = s + rng.integers(-(C // 2) + 2, C // 2 - read_len, n)
     centers[kind >= 0.95] += C
-    grid = np.zeros((n, ALIGN_LP), np.uint8)
-    grid[:, :READ_LEN] = codes
-    return (grid, np.zeros((n, ALIGN_LP), bool),
-            np.full(n, READ_LEN, np.int32), centers.astype(np.int32))
+    grid = np.zeros((n, lp), np.uint8)
+    grid[:, :read_len] = codes
+    return (grid, np.zeros((n, lp), bool),
+            np.full(n, read_len, np.int32), centers.astype(np.int32))
 
 
-def _check_window_kernel(al, ix, genome, rows) -> None:
-    """K10 vs its plain version on the card: B = 4096 mates over the
-    k = 14 index's packed reference, C = 1128 (-I 500), Lp = 128."""
+# K10's shapes in phase 3: (Lp, read length): 100 bp mates (the smoke's
+# reads) and 250 bp (2 x 250 runs) at Lp 256
+WINDOW_LPS = ((ALIGN_LP, READ_LEN), (256, 250))
+
+
+def _window_words(packed, ref_len, c, d, ln, ctr, C, out):
+    """The frame words K10's scan needs on these inputs, whatever
+    implements it: per strand, each candidate's words read until its
+    partial count rules it out against the strand's first-occurrence
+    best (a count at the best, or above it before the best's index),
+    every word of the best itself; the reverse strand bounded by the
+    forward best and skipped where that is 0; none for a read with a
+    degenerate base.  Also the full scans' words (every valid candidate
+    over all W + 1 words on the forward strand, and on the reverse unless
+    the forward best is 0: the count earlier bounds used)."""
     import torch
     from fastqueeze_tpu_torch.ops import kernels
-    dev = ix.packed.device
-    c, d, ln, ctr = (torch.from_numpy(a).to(dev) for a in _window_reads(
-        np.random.default_rng(SEED + 6), genome, 4096, WINDOW_C))
+    dev = c.device
+    B, Lp = c.shape
+    W = Lp // 16
+    lens = ln.long()
+    valid = torch.arange(Lp, device=dev)[None, :] < lens[:, None]
+    dg = (d & valid).any(1)
+    cj = torch.arange(C, device=dev)[None, :]
+    cand = ctr.long()[:, None] - C // 2 + cj
+    ok = (cand >= 0) & (cand + lens[:, None] <= ref_len) & ~dg[:, None]
+    pk = packed.long() & 0xFFFFFFFF
+    big = kernels.ALIGN_BIG
 
-    def run():
-        return kernels.window_batch(ix.packed, al.ref_len, c, d, ln, ctr,
-                                    WINDOW_C, 7)
+    def strand(codes, bound):
+        rw, mw = kernels._pack_words(codes, valid)
+        part = torch.zeros(cand.shape, dtype=torch.int64, device=dev)
+        pre = []
+        for j in range(W + 1):
+            pre.append(part)
+            part = part + kernels._mis_aligned(pk, cand & 0xFFFFFFFF, rw,
+                                               mw, [j])
+        tot = torch.where(ok, part, big)
+        best, at = tot.min(1)
+        thr = torch.minimum(best[:, None] + (cj < at[:, None]).long(),
+                            bound[:, None])
+        win = (cj == at[:, None]) & (best < bound)[:, None]
+        n = sum((p < thr).long() for p in pre)
+        n = torch.where(win, W + 1, n)
+        return int(torch.where(ok, n, 0).sum()), best
 
-    def plain():
-        return kernels.window_batch_plain(ix.packed, al.ref_len, c, d, ln,
-                                          ctr, WINDOW_C, 7)
+    need_f, mis_f = strand(c.long(), torch.full((B,), big, device=dev))
+    rc, _ = kernels._rc_grid(c, d, lens)
+    need_r, _ = strand(rc, torch.where(mis_f > 0, mis_f, 0))
+    zero_f = out[0] & ~out[2] & ~out[3].any(1)
+    full = int((ok.sum(1) * torch.where(zero_f, 1, 2)).sum()) * (W + 1)
+    return need_f + need_r, full
 
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    m = want[0]
-    err = int((got[0] != m).sum())
-    for a, b in zip(got[1:], want[1:]):
-        if a[m].numel():
-            err = max(err, int((a[m].long() - b[m].long()).abs().max()))
-    ms, pms = _time_ms(run, 5), _time_ms(plain, 1)
-    print(f"  k14 window C={WINDOW_C} window_batch B = {len(ln)}: "
-          f"{int(m.sum())} mapped ({int(got[2][m].sum())} reverse), "
-          f"max_abs_err {err}  kernel {ms:10.3f} ms  plain {pms:10.3f} ms")
-    if err:
-        raise AssertionError(f"window_batch: kernel differs from its plain "
-                             f"version ({err})")
-    rows["k14_window"] = {"window_batch": (err, ms, pms)}
-    # what the scan needs: every valid candidate over all W + 1 frame
-    # words on the forward strand, and on the reverse strand unless the
-    # forward best is 0 (a mapped forward read with an empty mask); the
-    # window's reference words once a read
-    W = ALIGN_LP // 16
-    cand = (ctr.long()[:, None] - WINDOW_C // 2
-            + torch.arange(WINDOW_C, device=dev)[None, :])
-    valid = ((cand >= 0) & (cand + ln.long()[:, None] <= al.ref_len)).sum(1)
-    zero_f = m & ~got[2] & ~got[3].any(1)
-    scans = valid * torch.where(zero_f, 1, 2)
-    ops = int(scans.sum()) * (W + 1) * _VERIFY_OPS
-    win = min(len(ln) * ((WINDOW_C + ALIGN_LP) // 16 + 2) * 4,
-              _nbytes(ix.packed))
-    BOUNDS["window_batch"] = (_nbytes(c, d, ln, ctr, *got) + win, ops, None)
+
+def _check_window_kernel(packed, ref_len, genome, rows) -> None:
+    """K10 vs its plain version on the card: B = 4096 mates over the
+    seeded genome's packed reference, C = 1128 (-I 500), at Lp 128
+    (100 bp) and Lp 256 (250 bp); its time, device time (torch.profiler)
+    and bound."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    dev = packed.device
+    for lp, read_len in WINDOW_LPS:
+        tag = "k14_window" if lp == ALIGN_LP else f"k14_window_lp{lp}"
+        c, d, ln, ctr = (torch.from_numpy(a).to(dev) for a in _window_reads(
+            np.random.default_rng(SEED + 6), genome, 4096, WINDOW_C, lp,
+            read_len))
+
+        def run():
+            return kernels.window_batch(packed, ref_len, c, d, ln, ctr,
+                                        WINDOW_C, 7)
+
+        def plain():
+            return kernels.window_batch_plain(packed, ref_len, c, d, ln,
+                                              ctr, WINDOW_C, 7)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        m = want[0]
+        err = int((got[0] != m).sum())
+        for a, b in zip(got[1:], want[1:]):
+            if a[m].numel():
+                err = max(err, int((a[m].long() - b[m].long()).abs().max()))
+        ms, pms = _time_ms(run, 5), _time_ms(plain, 1)
+        print(f"  {tag} C={WINDOW_C} Lp={lp} window_batch B = {len(ln)}: "
+              f"{int(m.sum())} mapped ({int(got[2][m].sum())} reverse), "
+              f"max_abs_err {err}  kernel {ms:10.3f} ms  plain {pms:10.3f} "
+              f"ms")
+        if err:
+            raise AssertionError(f"window_batch: kernel differs from its "
+                                 f"plain version ({err})")
+        rows[tag] = {"window_batch": (err, ms, pms)}
+        K10_SPLIT[f"lp{lp}"] = _split_row(f"{tag}_window_batch", ms, run)
+        # what the scan needs a frame word (_VERIFY_OPS) over the words
+        # these inputs need; the window's reference words once a read
+        need, full = _window_words(packed, ref_len, c, d, ln, ctr, WINDOW_C,
+                                   got)
+        win = min(len(ln) * ((WINDOW_C + lp) // 16 + 2) * 4,
+                  _nbytes(packed))
+        byts = _nbytes(c, d, ln, ctr, *got) + win
+        key = "window_batch" if lp == ALIGN_LP else f"window_batch_lp{lp}"
+        BOUNDS[key] = (byts, need * _VERIFY_OPS, None)
+        K10_SPLIT[f"lp{lp}"].update(
+            frame_words_needed=need, frame_words_full_scan=full,
+            full_scan_bound_ms=max(byts / HBM_BPS,
+                                   full * _VERIFY_OPS / INT_OPS) * 1e3,
+            **_bound_row(key))
+        print(f"  {tag}: frame words needed {need}, full scan {full}; "
+              f"{_bound_row(key)}; full-scan bound "
+              f"{K10_SPLIT[f'lp{lp}']['full_scan_bound_ms']:.4f} ms")
+        del c, d, ln, ctr, got, want
 
 
 def _indel_extra(G: int, Lp: int):
@@ -1796,7 +1902,7 @@ def check_align_kernels(genome, sweep: bool = False):
                     ix, cfg, c, d, ln, got, strands=2, extra_ops=xo,
                     extra_bytes=xb) + (None,)
         if k == 14:
-            _check_window_kernel(al, ix, genome, rows)
+            _check_window_kernel(ix.packed, al.ref_len, genome, rows)
             _check_longread_kernels(ix, genome, rows)
             _check_sharded_kernel(idx, ix, grids["tier1"], rows)
         _check_fused_kernel(ix, genome, k, rows)
@@ -3194,13 +3300,58 @@ def coders_main() -> int:
         "k2_by_table": K2_SPLIT, "k12_by_stream": SEMI_SHAPE,
         "k11_by_stream": K11_SPLIT, "k17_by_grid": K17_SPLIT,
         "k3_by_table": K3_SPLIT, "chains": CHAIN, "launches": totals,
-        "k15_by_mode": K15_SPLIT, "k1_by_table": K1_SPLIT,
+        "k15_by_mode": K15_SPLIT, "k16_by_mode": K16_SPLIT,
+        "k1_by_table": K1_SPLIT,
         "unpack_grid_launches_by_mode": UNPACK_BY_MODE,
         "bounds_ms": {k: _bound_row(k)["bound_ms"] for k in BOUNDS
-                      if k.startswith(("unpack_grid", "quant_pack"))},
+                      if k.startswith(("unpack_grid", "pack_grid",
+                                       "quant_pack"))},
         "library_parts_ms": {k: v for k, v in PAIR_MS.items()
                              if k.startswith(("unpack_grid",
                                               "quant_pack"))}}))
+    _ok_line()
+    return 0
+
+
+def pack_window_main() -> int:
+    """--pack-window: phases 1-2, then K16 in modes 2, 4 and 6 on phase
+    3's grids and K10 at Lp 128 and 256 on phase 3's mates over the
+    seeded genome's packed reference, each against its plain version,
+    with CUDA-event and device times (torch.profiler) and bounds; no
+    index and no end-to-end phase.  It runs from an older tree's copy too
+    (copy this file into it), so two trees' K16 and K10 compare in turns
+    in one call, each in a fresh process."""
+    card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    from fastqueeze_tpu_torch.align.ref import pack_2bit
+    from fastqueeze_tpu_torch.ops import engine
+    build()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = list(_coder_cases(dev))
+    lay, seq_g = cases[0][2], cases[0][4]
+    del cases
+    grids = dict(_qual_grids(dev, lay), seq=seq_g)
+    rows = {}
+
+    def row(key, name, got, want, run, plain, reps=10):
+        _pack_row(rows, key, name, got, want, run, plain, reps)
+
+    for gname, mode in (("seq", 2), ("markov40", 6), ("markov14", 4),
+                        ("uniform48", 6)):
+        key = f"{gname}_mode{mode}"
+        packed = engine._pack_host(grids[gname].cpu().numpy(), mode)
+        _check_pack_grid(key, grids[gname], mode, packed, row, rows)
+    del grids, seq_g
+    genome = _genome()
+    packed = torch.from_numpy(pack_2bit(genome).view(np.int32)).to(dev)
+    _check_window_kernel(packed, len(genome), genome, rows)
+    print(json.dumps({"pack_window": {
+        "rows": {tag: {n: {"max_abs_err": e, "ms": ms, "plain_ms": pms}
+                       for n, (e, ms, pms) in r.items()}
+                 for tag, r in rows.items()},
+        "k16_by_mode": K16_SPLIT, "k10_by_lp": K10_SPLIT,
+        "bounds": {k: _bound_row(k) for k in BOUNDS}}}))
     _ok_line()
     return 0
 
@@ -3283,6 +3434,12 @@ def main() -> int:
                 "torch.cumsum (sentinel ranks)":
                     PAIR_MS[f"unpack_grid_cumsum_{key}"]}
     by_name["unpack_grid"]["launches_by_mode"] = UNPACK_BY_MODE
+    # K16 in every mode: device split and bound; K10 at Lp 128 and 256
+    for key, m in by_name["pack_grid"]["modes"].items():
+        b = _bound_row(f"pack_grid_{key}")
+        m.update(device_ms_by_kernel=K16_SPLIT[key]["device_ms_by_kernel"],
+                 bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    by_name["window_batch"]["by_lp"] = K10_SPLIT
     by_name["pack15"]["library_parts_ms"] = {
         "torch.bincount": PAIR_MS["pack15_bincount"],
         "torch.masked_select": PAIR_MS["pack15_masked_select"]}
@@ -3343,8 +3500,10 @@ def main() -> int:
 
 def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
     """Phase 3's K1 -> K2 -> K3 launches on its inputs, then K17, K11
-    (chunk 64, two halvings), K7 on K11's sf and K15 on the host's mode
-    15 and 23 packs of the same grids, ``reps`` rounds, each
+    (chunk 64, two halvings), K7 on K11's sf, K15 on the host's mode
+    15 and 23 packs of the same grids and K16 on the grids (mode 2 for
+    seq, 6 for qualities), and K10 on phase 3's mates at Lp 128 and 256
+    over a 4 Mbp cut of the seeded genome, ``reps`` rounds, each
     launch announced before it starts, so that under CUDA_LAUNCH_BLOCKING=1
     the last line names a launch that faults.  ``blocking``: synchronize
     after every launch; else only where phase 3 does (reading K1's result
@@ -3360,6 +3519,7 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
     info = kernels.build(checked=checked, build_dir=build_dir)
     print(f"library {info['path']} (checked {info['checked']}): "
           f"{time.time() - t0:.1f} s", flush=True)
+    from fastqueeze_tpu_torch.align.ref import pack_2bit
     dev = torch.device("cuda", torch.cuda.current_device())
     cases = list(_coder_cases(dev))
     sent = {}                    # (tag, mode) -> K15's pack and sidecar
@@ -3368,6 +3528,13 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
             packed, side, _ = _sent_pack(g.cpu().numpy(), mode)
             sent[tag, mode] = (torch.from_numpy(packed).to(dev), mode,
                                torch.from_numpy(side).to(dev))
+    # K10's mates over a 4 Mbp cut of the seeded genome, at phase 3's Lps
+    genome = _genome(4_000_000)
+    ref = torch.from_numpy(pack_2bit(genome).view(np.int32)).to(dev)
+    mates = {lp: (ref, len(genome)) + tuple(
+        torch.from_numpy(a).to(dev) for a in _window_reads(
+            np.random.default_rng(SEED + 6), genome, 4096, WINDOW_C, lp, n))
+        + (WINDOW_C, 7) for lp, n in WINDOW_LPS}
     want = {}
     for rep in range(reps):
         for tag, m, _, _, g, c, cg in cases:
@@ -3410,7 +3577,12 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
                      lambda: [kernels.unpack_grid_plain(*sent[tag, 15])]),
                     ("unpack_grid23",
                      lambda: [kernels.unpack_grid(*sent[tag, 23])],
-                     lambda: [kernels.unpack_grid_plain(*sent[tag, 23])])):
+                     lambda: [kernels.unpack_grid_plain(*sent[tag, 23])]),
+                    ("pack_grid",             # the decoded grid's pack
+                     lambda: [kernels.pack_grid(g, 2 if m.alphabet == 4
+                                                else 6)],
+                     lambda: [kernels.pack_grid_plain(
+                         g, 2 if m.alphabet == 4 else 6)])):
                 print(f"launch {name} round {rep} {tag}", flush=True)
                 got = run()
                 if blocking:
@@ -3425,6 +3597,19 @@ def coder_loop(reps: int, blocking: bool, build_dir, checked: bool) -> None:
                            for a, b in zip(got, want[key])):
                     raise AssertionError(f"round {rep} {tag}: {name} "
                                          f"differs")
+        for lp, args in mates.items():
+            name = f"window_batch_lp{lp}"
+            print(f"launch {name} round {rep}", flush=True)
+            got = kernels.window_batch(*args)
+            if blocking:
+                torch.cuda.synchronize()
+            if name not in want:
+                want[name] = kernels.window_batch_plain(*args)
+            mw = want[name][0]
+            if not (torch.equal(got[0], mw) and all(
+                    torch.equal(a[mw], b[mw])
+                    for a, b in zip(got[1:], want[name][1:]))):
+                raise AssertionError(f"round {rep}: {name} differs")
     torch.cuda.synchronize()
 
 
@@ -3481,7 +3666,7 @@ def coder_loop_procs(procs: int, reps: int, blocking: bool, own_build: bool,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"coder_loop": {
-        "processes": procs, "rounds": reps, "launches_per_process": 24 * reps,
+        "processes": procs, "rounds": reps, "launches_per_process": 29 * reps,
         "blocking": blocking, "own_build": own_build, "checked": checked,
         "failed_processes": failed}}))
     return 1 if failed else 0
@@ -3568,6 +3753,8 @@ if __name__ == "__main__":
         sys.exit(aligner_main())
     if sys.argv[1:2] == ["--coders"]:
         sys.exit(coders_main())
+    if sys.argv[1:2] == ["--pack-window"]:
+        sys.exit(pack_window_main())
     if sys.argv[1:2] == ["--sass"]:
         args = sys.argv[2:]
         out = _opt("--out") or "sass"

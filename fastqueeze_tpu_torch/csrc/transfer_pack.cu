@@ -44,8 +44,12 @@
 // scanning them, the tiles rescanned and written a byte at a time) took
 // 0.04-0.09 ms in mode 2 and 0.17-0.19 ms in modes 15 and 23 on an H100
 // at 25.2 M slots.  K16 is one thread per 4-slot group (one 4-byte load
-// of the grid).  K17 reads the grid twice: a histogram pass
-// (pack15_hist), then one write pass (pack15_write) whose prologue ranks
+// of the grid, one to three byte stores): on an H100 at 25.2 M slots it
+// takes 0.018 / 0.020 / 0.023 ms in modes 2 / 4 / 6, 1.8-1.9x its bytes
+// bound (K15's dense shape turned round, 16 slots a thread with word
+// stores, took 0.009 / 0.010 / 0.014).  K17 reads the grid twice: a
+// histogram pass (pack15_hist), then one write pass (pack15_write) whose
+// prologue ranks
 // the 64 symbols and whose tiles take their exception offsets from the
 // same look-back, so no pass counts the exceptions first.  Its validity
 // comes from the lanes' lengths (lane_walk.cuh) beside each slot's wave

@@ -774,8 +774,9 @@ def pack_grid_plain(grid: torch.Tensor, mode: int) -> torch.Tensor:
 
 
 def pack_grid(grid: torch.Tensor, mode: int) -> torch.Tensor:
-    """K16: (T, L) uint8 symbols (below 2^bits) -> (T, packed_width)
-    uint8, mode 2, 4 or 6."""
+    """K16: (T, L) uint8 symbols -> (T, packed_width) uint8, mode 2, 4
+    or 6 (the reference's unmasked ORs: a symbol at or above 2^bits packs
+    as pack_grid_plain packs it)."""
     if not _on_card(grid):
         return pack_grid_plain(grid, mode)
     if mode not in (2, 4, 6):
@@ -2145,10 +2146,11 @@ def window_batch(packed: torch.Tensor, ref_len: int, codes: torch.Tensor,
         raise ValueError("window_batch: need Lp a positive multiple of 16, "
                          "C > 0 and a non-empty reference")
     dev = codes.device
-    mapped = torch.zeros((B,), dtype=torch.bool, device=dev)
-    pos = torch.zeros((B,), dtype=torch.int32, device=dev)
-    rev = torch.zeros((B,), dtype=torch.bool, device=dev)
-    mm = torch.zeros((B, Lp), dtype=torch.bool, device=dev)
+    # K10 writes every byte of all four, degenerate reads' rows too
+    mapped = torch.empty((B,), dtype=torch.bool, device=dev)
+    pos = torch.empty((B,), dtype=torch.int32, device=dev)
+    rev = torch.empty((B,), dtype=torch.bool, device=dev)
+    mm = torch.empty((B, Lp), dtype=torch.bool, device=dev)
     if B == 0:
         return mapped, pos, rev, mm
     _launch(_lib().fq_window_batch_cuda, "window_batch", dev, _ptr(packed),

@@ -1039,6 +1039,139 @@ def test_window_batch_refusals(cuda):
     assert kernels.LAUNCHES["window_batch"] == before
 
 
+_WINDOW_REF = {}
+
+
+def _window_ref():
+    """A seeded 2 Mbp reference and its Aligner, built once: a tandem
+    repeat (200 bases twice from 500,000: exact ties 200 apart), a
+    period-8 run at 600,000 (exact ties inside one round of 32
+    candidates) and a reverse-complement palindrome at 700,000."""
+    if not _WINDOW_REF:
+        from fastqueeze_tpu_torch.align.hash import Aligner
+        from fastqueeze_tpu_torch.align.index import build_from_ref
+        from fastqueeze_tpu_torch.align.ref import RefSeq
+        rng = np.random.default_rng(47)
+        ref = rng.integers(0, 4, 2_000_000).astype(np.uint8)
+        ref[500_200:500_400] = ref[500_000:500_200]
+        ref[600_000:600_400] = np.tile(ref[600_000:600_008], 50)
+        x = ref[700_000:700_400].copy()
+        ref[700_400:700_800] = (3 - x)[::-1]
+        p = CodecParams()
+        _WINDOW_REF.update(ref=ref, al=Aligner(build_from_ref(RefSeq(
+            ref, np.zeros(len(ref), bool), ["r"], np.array([0, len(ref)]),
+            ""), p), p))
+    return _WINDOW_REF["ref"], _WINDOW_REF["al"]
+
+
+def _window_case(lp: int, C: int, B: int = 1024, seed: int = 53):
+    """B reads of at most lp bases with window centers: mapped forward and
+    reverse (~3% substitutions), seedless-like (a substitution every 14
+    bases), random, outside the window, windows at both ends of the
+    reference, exact ties (the repeat, the period-8 run, the palindrome
+    with one substitution), lengths lp and 1, and reads with an N."""
+    ref, al = _window_ref()
+    G = len(ref)
+    rng = np.random.default_rng(seed + lp + C)
+    reads, centers = [], []
+    for i in range(B):
+        kind = i % 8
+        L = lp if i % 11 == 3 else (1 if i % 97 == 5 else
+                                     int(rng.integers(lp // 2, lp + 1)))
+        s = int(rng.integers(C + 5, G - C - L - 5))
+        d = int(rng.integers(0, C))          # the true start in the window
+        if kind == 3:
+            s = int(rng.integers(0, 12))
+        elif kind == 4:
+            s = G - L - int(rng.integers(0, 12))
+        elif kind == 6 and i % 16 == 6:
+            L = min(L, 200)
+            s = 500_000 + int(rng.integers(0, 201 - L))
+            d = min(d, max(C - 201, 0))
+        elif kind == 6:
+            L = min(L, 300)
+            s = 600_000 + int(rng.integers(0, 401 - L))
+            d = min(d, max(C - 33, 0))
+        elif kind == 7:
+            s = 700_400 - L // 2
+        r = ref[s:s + L].copy()
+        if kind == 0:
+            e = rng.random(L) < 0.03
+            r[e] = (r[e] + 1) % 4
+        elif kind == 1:
+            at = np.arange(7, L, 14)
+            r[at] = (r[at] + rng.integers(1, 4, len(at))) % 4
+        elif kind == 5:
+            r = rng.integers(0, 4, L).astype(np.uint8)
+        elif kind == 7:
+            r[L // 3] = (r[L // 3] + 1) % 4
+        if kind in (1, 4) or (kind == 0 and i % 16 == 8):
+            r = (3 - r)[::-1].copy()
+        if kind == 2:
+            d = C + 3
+        reads.append(r)
+        centers.append(s - d + C // 2)
+    lengths = np.array([len(r) for r in reads], np.int64)
+    codes = np.concatenate(reads)
+    dege = np.zeros(len(codes), bool)
+    dege[(np.cumsum(lengths) - lengths)[9::10]] = True
+    return al, codes, dege, lengths, np.array(centers, np.int32)
+
+
+@pytest.mark.parametrize("C", [188, 1128, 4096])
+@pytest.mark.parametrize("lp", [32, 128, 256, 384])
+def test_window_batch_residue_scan(cuda, lp, C):
+    """K10 (frame words in registers up to Lp 256, in shared memory at
+    384) == its plain version and the native mirror on mapped and on the
+    mapped reads' pos, strand and mask, with degenerate reads, windows at
+    both ends and exact ties; one launch."""
+    from fastqueeze_tpu_torch.io import native
+    al, codes, dege, lengths, centers = _window_case(lp, C)
+    c, d, ln = _grids(al, codes, dege, lengths, lp, cuda)
+    ctr = torch.from_numpy(centers).to(cuda)
+    packed = al.dev_index(cuda).packed
+    kernels.reset_launch_counts()
+    got = [t.cpu() for t in kernels.window_batch(packed, al.ref_len, c, d,
+                                                 ln, ctr, C, 7)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["window_batch"] == 1
+    want = kernels.window_batch_plain(packed, al.ref_len, c, d, ln, ctr, C,
+                                      7)
+    nat = native.window_batch(al._h_packed, al.ref_len, codes, dege,
+                              np.cumsum(lengths) - lengths, lengths, centers,
+                              lp, C, 7)
+    m = got[0].numpy()
+    assert m.sum() > len(m) // 3 and not m[9::10].any()
+    assert got[2].numpy()[m].any() and not got[2].numpy()[m].all()
+    assert np.array_equal(m, want[0].cpu().numpy())
+    assert np.array_equal(m, nat[0])
+    for a, b, n in zip(got[1:], want[1:], nat[1:]):
+        assert np.array_equal(a.numpy()[m], b.cpu().numpy()[m])
+        assert np.array_equal(a.numpy()[m], n[m])
+    # every row written: unmapped rows' masks are all False
+    assert not got[3].numpy()[~m].any()
+
+
+def test_window_batch_on_unaligned_rows(cuda):
+    """Codes and flags that start one byte into their buffers take K10's
+    byte loads: == the aligned call."""
+    lp, C = 128, 188
+    al, codes, dege, lengths, centers = _window_case(lp, C, B=256)
+    c, d, ln = _grids(al, codes, dege, lengths, lp, cuda)
+    cb = torch.zeros(c.numel() + 1, dtype=torch.uint8, device=cuda)
+    db = torch.zeros(d.numel() + 1, dtype=torch.bool, device=cuda)
+    cb[1:] = c.reshape(-1)
+    db[1:] = d.reshape(-1)
+    cu, du = cb[1:].view(c.shape), db[1:].view(d.shape)
+    assert cu.data_ptr() % 4 and cu.is_contiguous()
+    ctr = torch.from_numpy(centers).to(cuda)
+    packed = al.dev_index(cuda).packed
+    a = kernels.window_batch(packed, al.ref_len, c, d, ln, ctr, C, 7)
+    b = kernels.window_batch(packed, al.ref_len, cu, du, ln, ctr, C, 7)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def test_pe_insert_pipeline_on_card_matches_host_route(cuda, tmp_path,
                                                        monkeypatch):
     """compress_pe against a reference with max_insr = 500 on the card
@@ -1304,6 +1437,47 @@ def test_pack_grid_matches_plain(cuda, mode):
         0, 1 << mode, (75, 2052)).astype(np.uint8))
     want = kernels.pack_grid(grid, mode)
     assert torch.equal(kernels.pack_grid(grid.to(cuda), mode).cpu(), want)
+
+
+# grid sizes (T, L = 4) around K16's 256-thread block (1,024 slots, a
+# 4-slot group a thread) and past many: n % 16 in {0, 4, 8, 12}
+_K16_N = [4, 8, 12, 16, 20, 1024 - 4, 1024, 1024 + 8, 16384 + 12,
+          37 * 16384 + 4, 330 * 16384 + 12]
+
+
+@pytest.mark.parametrize("n", _K16_N)
+@pytest.mark.parametrize("mode", [2, 4, 6])
+def test_pack_grid_around_groups_and_blocks(cuda, mode, n):
+    """K16 == its plain version on bytes over the full 0-255 range (the
+    reference's unmasked ORs, truncated) around the block and at the
+    grid's end; one launch a call."""
+    g = torch.from_numpy(np.random.default_rng(n * 3 + mode).integers(
+        0, 256, (n // 4, 4)).astype(np.uint8))
+    want = kernels.pack_grid(g, mode)
+    kernels.reset_launch_counts()
+    got = kernels.pack_grid(g.to(cuda), mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pack_grid"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", [2, 4, 6])
+def test_pack_grid_on_an_unaligned_view(cuda, mode):
+    """A grid that starts one row into its buffer (rows of 1,028 bytes:
+    4-byte but no 16-byte alignment) == the plain version and the host
+    pack; one launch."""
+    rng = np.random.default_rng(mode + 70)
+    T, L = 75, 1028
+    buf = rng.integers(0, 1 << mode, (T + 1, L)).astype(np.uint8)
+    view = torch.from_numpy(buf).to(cuda)[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    kernels.reset_launch_counts()
+    got = kernels.pack_grid(view, mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pack_grid"] == 1
+    assert np.array_equal(got.cpu().numpy(), engine._pack_host(buf[1:], mode))
+    assert torch.equal(got.cpu(), kernels.pack_grid(
+        torch.from_numpy(buf[1:].copy()), mode))
 
 
 @pytest.mark.parametrize("case", ["skewed", "flat", "short_lanes"])
