@@ -72,10 +72,15 @@ Phases (any failure raises and exits non-zero):
      time a wave on each adaptive stream, beside K5's time and the wave
      groups of its heaviest row (the longest chain of its row walk); K18 at
      the frozen shape on a --qlevel 3 qual table (2^20 rows) with the
-     table in D = 2 and 4 row shards == K4 on the whole table (and every
-     lane back at the encoder's initial state), == its plain version on
+     table in D = 2 and 4 row shards sharing the card (route (a), one
+     launch a stream, its launch count printed) == K4 on the whole table
+     (and every lane back at the encoder's initial state), and the
+     several-card route (b), two groups of two shards stepped a wave at a
+     time with their partials summed on the card between the steps (its
+     us a wave printed) == route (a) and K4; both == the plain version on
      the first 512 waves; K19 at B = 4096, Lp = 128 over the k = 14 index
-     in 4 key-range shards == its plain version, beside K8's tier 1;
+     in 4 key-range shards == its plain version, beside K8's tier 1, with
+     its device ms by phase beside the collectives' kernels;
   4. frozen end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads
      sampled from a random 100 Mbp genome) through the CLI's compress
      and decompress, compared byte for byte; K1-K4 and the transfer
@@ -200,6 +205,17 @@ their plain versions, with CUDA-event and device (torch.profiler) times
 and bounds, as JSON, then the last line above; copied into an older
 tree's checkout it times that tree's K16 and K10 in a fresh process.
 
+    python3 chip_smoke.py --shards
+
+runs phases 1-2 and phase 3's K18 (K4, route (a) at D = 2 and 4, route
+(b) in two groups of two shards), K4 at 8192 lanes (several lanes a
+thread) and K19 (B = 4096, Lp 128, 4 shards)
+against their plain versions, with CUDA-event times and each one's
+device time by kernel (torch.profiler: K18's us a wave by route, K19's
+ms by phase beside the collectives' kernels and the idle share), as
+JSON, then the last line above; copied into an older tree's checkout it
+times that tree's K18 and K19 in a fresh process.
+
     python3 chip_smoke.py --sass NAME [NAME...] [--out DIR]
 
 builds the kernels and writes the SASS of each kernel whose mangled name
@@ -289,20 +305,25 @@ def _kernel_name(mangled: str) -> str:
 
 
 def _ptxas_summary(log: str) -> str:
-    """nvcc -Xptxas -v's lines as 'kernel: registers[, spill bytes]'."""
+    """nvcc -Xptxas -v's lines as 'kernel: registers[, spill bytes][,
+    stack bytes]' (a stack frame holds local-memory arrays and spills)."""
     import re
-    out, name, spill = [], None, 0
+    out, name, spill, stack = [], None, 0, 0
     for line in log.splitlines():
         hit = re.search(r"Compiling entry function '([^']+)'", line)
         if hit:
-            name, spill = _kernel_name(hit.group(1)), 0
+            name, spill, stack = _kernel_name(hit.group(1)), 0, 0
         hit = re.search(r"(\d+) bytes spill stores", line)
         if hit:
             spill = int(hit.group(1))
+        hit = re.search(r"(\d+) bytes stack frame", line)
+        if hit:
+            stack = int(hit.group(1))
         hit = re.search(r"Used (\d+) registers", line)
         if hit and name:
             out.append(f"{name}: {hit.group(1)}"
-                       + (f", spill {spill}" if spill else ""))
+                       + (f", spill {spill}" if spill else "")
+                       + (f", stack {stack}" if stack else ""))
             name = None
     return "; ".join(out)
 
@@ -315,7 +336,7 @@ def build():
     t0 = time.time()
     info = kernels.build()
     print(f"build: {time.time() - t0:.1f} s wall ({info['path']})")
-    print(f"ptxas (kernel: registers[, spill bytes]): "
+    print(f"ptxas (kernel: registers[, spill bytes][, stack bytes]): "
           f"{_ptxas_summary(str(info['ptxas']))}")
     t0 = time.time()
     if native.get_lib() is None:
@@ -1355,21 +1376,19 @@ def check_semi_kernels():
 
 
 CTX_PLAIN_T = 512     # K18's plain version runs this many waves
+CTX_GROUPS = 2        # K18's several-card route: groups of shards, one card
+K18_SPLIT = {}        # K18's device ms by route and kernel (torch.profiler)
 
 
-def check_ctx_shard_kernel():
-    """K18 at the frozen shape (L = 4096, T = 6144) on a --qlevel 3 qual
-    table (2^20 rows x 41, past CTX_SHARD_MIN_ENTRIES): a stream encoded
-    by K1 -> K2 -> K3, decoded by K4 on the whole table and by K18 with
-    the table cut into D = 2 and 4 row shards on the card: bit-equal
-    symbols, and every lane back at the encoder's initial state; K18
-    against its plain version on the first CTX_PLAIN_T waves."""
+def _k18_stream(dev):
+    """Phase 3's --qlevel 3 stream (L = 4096, T = 6144) on a 2^20 x 41
+    table, encoded by K1 -> K2 -> K3: (model, states, padded words, read
+    lengths, cum table, the symbols, words used)."""
     import torch
-    from fastqueeze_tpu_torch.config import RANS_L, CodecParams
+    from fastqueeze_tpu_torch.config import CodecParams
     from fastqueeze_tpu_torch.models.base import qual_model_for
     from fastqueeze_tpu_torch.ops import engine, kernels
     from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
-    dev = torch.device("cuda", torch.cuda.current_device())
     m = qual_model_for(CodecParams(qlevel=3), 41)
     rng = np.random.default_rng(SEED + 9)
     counts = np.full(R_MAIN, READ_LEN, np.int64)
@@ -1383,7 +1402,58 @@ def check_ctx_shard_kernel():
     words, emit, states = kernels.frozen_encode_lanes(g, cg, packed, m)
     out, n = kernels.compact_words(words, emit)
     n = int(n.item())
-    wpad = _wpad(out, n)
+    return m, states, _wpad(out, n), cg, cum, g, n
+
+
+def _k18_steps(states, wpad, cg, T: int, cums, m):
+    """K18's several-card route on one card: the shards in CTX_GROUPS
+    groups (a ShardDecode each, as parallel/mesh.py makes a card's), one
+    wave step a group at a time, each group's partial summed by
+    mesh.psum between the steps -> (symbols, final states)."""
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    per = len(cums) // CTX_GROUPS
+    runs = [kernels.ShardDecode(states, wpad, cg, T,
+                                cums[i * per:(i + 1) * per], m,
+                                shard0=i * per, writer=i == 0)
+            for i in range(CTX_GROUPS)]
+    xin = [None] * CTX_GROUPS
+    for t in range(T + 1):
+        outs = [r.step(t, x) for r, x in zip(runs, xin)]
+        if t < T:     # one (1, 3, L) partial a group (summed if it has more)
+            xin = tm.psum([o if o.shape[0] == 1
+                           else o.sum(0, dtype=o.dtype)[None]
+                           for o in outs])
+    return runs[0].out, runs[0].x
+
+
+def _k18_split(tag: str, fn, waves: int) -> dict:
+    """K18's (or K4's) device ms by kernel over one call of ``fn``
+    (torch.profiler), and the kernels' device us a wave."""
+    split = _device_split(fn)
+    row = {"device_ms_by_kernel": split,
+           "device_us_per_wave": sum(split.values()) * 1e3 / waves}
+    print(f"  {tag:24s} device ms by kernel (torch.profiler): "
+          f"{json.dumps(split)}; {row['device_us_per_wave']:.3f} us a wave")
+    K18_SPLIT[tag] = row
+    return row
+
+
+def check_ctx_shard_kernel(split: bool = False):
+    """K18 at the frozen shape (L = 4096, T = 6144) on a --qlevel 3 qual
+    table (2^20 rows x 41, past CTX_SHARD_MIN_ENTRIES): a stream encoded
+    by K1 -> K2 -> K3, decoded by K4 on the whole table and by K18 with
+    the table cut into D = 2 and 4 row shards on the card (route (a): one
+    launch a stream): bit-equal symbols, and every lane back at the
+    encoder's initial state; then the several-card route (b) with the
+    D = 4 shards in CTX_GROUPS groups, a launch a wave, == route (a) and
+    K4; both against the plain version on the first CTX_PLAIN_T waves.
+    With ``split`` each route's device time by kernel (torch.profiler)."""
+    import torch
+    from fastqueeze_tpu_torch.config import RANS_L
+    from fastqueeze_tpu_torch.ops import kernels
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m, states, wpad, cg, cum, g, n = _k18_stream(dev)
     k4 = kernels.frozen_decode(states, wpad, cg, T_MAIN, cum, m)
     if not torch.equal(k4, g):
         raise AssertionError("K4 does not invert the q3 stream")
@@ -1393,11 +1463,18 @@ def check_ctx_shard_kernel():
     print(f"  qual_q3 (2^20 x 41 table, {cum.numel()} entries): K4 "
           f"{k4_ms:.3f} ms on the whole table")
     K4_SHAPE["qual_q3"] = _k4_shape(m, k4_ms, "qual_q3")
+    if split:
+        _k18_split("k4_q3", lambda: kernels.frozen_decode(
+            states, wpad, cg, T_MAIN, cum, m), T_MAIN)
     rows = {}
     for D in MESH_DS:
         nr = m.n_ctx // D
-        cums = [cum[i * nr:(i + 1) * nr] for i in range(D)]
+        # separate row blocks, as mesh.shard_tables makes them
+        cums = [cum[i * nr:(i + 1) * nr].clone() for i in range(D)]
+        kernels.reset_launch_counts()
         k18, x = kernels.ctx_shard_decode(states, wpad, cg, T_MAIN, cums, m)
+        torch.cuda.synchronize()
+        launches = kernels.LAUNCHES["ctx_shard_decode"]
         if not torch.equal(k18, k4):
             raise AssertionError(f"K18 D = {D} != K4 on the whole table")
         if not bool((x.long() & 0xFFFFFFFF == RANS_L).all()):
@@ -1409,20 +1486,100 @@ def check_ctx_shard_kernel():
         err = max(_max_err(kc, pc), _max_err(xc, px))
         ms = _time_ms(lambda: kernels.ctx_shard_decode(
             states, wpad, cg, T_MAIN, cums, m), 2)
-        print(f"  qual_q3_D{D}              ctx_shard_decode == K4 (T = "
-              f"{T_MAIN}), final states == RANS_L; max_abs_err {err} vs "
-              f"the plain version at T = {CTX_PLAIN_T}  kernel {ms:10.3f} ms"
-              f"  plain (T = {CTX_PLAIN_T}) {pms:10.3f} ms  K4 "
-              f"{k4_ms:.3f} ms")
+        print(f"  qual_q3_D{D}              ctx_shard_decode (a) == K4 (T = "
+              f"{T_MAIN}, {launches} launch(es)), final states == RANS_L; "
+              f"max_abs_err {err} vs the plain version at T = "
+              f"{CTX_PLAIN_T}  kernel {ms:10.3f} ms  plain (T = "
+              f"{CTX_PLAIN_T}) {pms:10.3f} ms  K4 {k4_ms:.3f} ms "
+              f"({ms / k4_ms:.3f}x)")
         if err:
             raise AssertionError(f"ctx_shard_decode D = {D}: kernel differs "
                                  f"from its plain version ({err})")
         rows[f"qual_q3_D{D}"] = {"ctx_shard_decode": (err, ms, pms)}
+        K18_SPLIT[f"a_D{D}"] = {"ms": ms, "launches": launches,
+                                "vs_k4": ms / k4_ms}
+        if split:
+            _k18_split(f"route_a_D{D}", lambda: kernels.ctx_shard_decode(
+                states, wpad, cg, T_MAIN, cums, m), T_MAIN)
+    # route (b): the D = 4 shards of the last loop in CTX_GROUPS groups
+    kernels.reset_launch_counts()
+    (sb, xb), ms_b = _timed(lambda: _k18_steps(states, wpad, cg, T_MAIN,
+                                               cums, m))
+    launches_b = kernels.LAUNCHES["ctx_shard_decode"]
+    if launches_b != CTX_GROUPS * (T_MAIN + 1):
+        raise AssertionError(f"K18 route (b): {launches_b} launches, not a "
+                             f"group and wave")
+    if not (torch.equal(sb, k4) and torch.equal(xb, x)):
+        raise AssertionError("K18 route (b) != route (a) / K4")
+    kc, xc = _k18_steps(states, wpad, cg, CTX_PLAIN_T, cums, m)
+    err_b = max(_max_err(kc, pc), _max_err(xc, px))
+    if err_b:
+        raise AssertionError(f"K18 route (b) differs from the plain version "
+                             f"({err_b})")
+    us = ms_b * 1e3 / (T_MAIN + 1)
+    K18_SPLIT["b_D4"] = {"ms": ms_b, "groups": CTX_GROUPS,
+                         "launches": launches_b, "us_per_wave": us}
+    print(f"  qual_q3_D4_steps         ctx_shard_decode (b), {CTX_GROUPS} "
+          f"groups, {launches_b} launches == route (a) and "
+          f"K4; == the plain version at T = {CTX_PLAIN_T}: {ms_b:.3f} ms "
+          f"(CUDA events, the partials' psum included) = {us:.3f} us a wave")
+    if split:
+        _k18_split("route_b_D4", lambda: _k18_steps(states, wpad, cg, T_MAIN,
+                                                    cums, m), T_MAIN + 1)
     BOUNDS["ctx_shard_decode"] = (_nbytes(states, cg, cum, k4) + 2 * n,
                                   _OPS["frozen_decode"] * R_MAIN * READ_LEN,
                                   None)
-    del g, cg, table, cum, packed, words, emit, out
+    del g, cg, cum, cums
     return rows
+
+
+L_WIDE = 8192        # --shards: K4 past 4096 lanes, several lanes a thread
+K4_WIDE = {}         # its ms and device ms by table
+
+
+def check_k4_wide() -> None:
+    """--shards: K4 at L_WIDE lanes, where it runs several lanes a thread
+    (csrc/frozen_wave.cuh decode_multi), on the order-10 seq table and
+    the 2^20 x 41 --qlevel 3 qual table: R_MAIN x 100 bp random reads
+    encoded by K1 -> K2 -> K3, decoded == the symbols; its ms (CUDA
+    events) and device ms by kernel (torch.profiler)."""
+    import torch
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.models.base import SeqModel, qual_model_for
+    from fastqueeze_tpu_torch.ops import engine, kernels
+    from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 11)
+    counts = np.full(R_MAIN, READ_LEN, np.int64)
+    lay = make_layout(counts, L_WIDE)
+    cg = torch.from_numpy(engine._counts_grid(counts, L_WIDE)).to(dev)
+    for tag, m in (("seq_order10", SeqModel(alphabet=4, init=3, inc=1,
+                                            cap=253, order=10)),
+                   ("qual_q3", qual_model_for(CodecParams(qlevel=3), 41))):
+        g = torch.from_numpy(to_grid(lay, rng.integers(
+            0, m.alphabet, R_MAIN * READ_LEN).astype(np.uint8))).to(dev)
+        table = torch.from_numpy(rng.integers(
+            1, 254 if m.alphabet == 4 else 400,
+            (m.n_ctx, m.alphabet)).astype(np.int32)).to(dev)
+        cum, packed = kernels.quant_pack(table)
+        words, emit, states = kernels.frozen_encode_lanes(g, cg, packed, m)
+        out, n = kernels.compact_words(words, emit)
+        wpad = _wpad(out, int(n.item()))
+
+        def run():
+            return kernels.frozen_decode(states, wpad, cg, lay.T, cum, m)
+
+        if not torch.equal(run(), g):
+            raise AssertionError(f"K4 at L = {L_WIDE} ({tag}) does not "
+                                 f"invert the stream")
+        ms = _time_ms(run, 3)
+        split = _device_split(run)
+        K4_WIDE[tag] = {"L": L_WIDE, "T": lay.T, "ms": ms,
+                        "device_ms_by_kernel": split}
+        print(f"  {tag:22s} K4 at L = {L_WIDE}, T = {lay.T} == the "
+              f"symbols: {ms:.3f} ms, device ms by kernel (torch.profiler)"
+              f" {json.dumps(split)}")
+        del g, table, cum, packed, words, emit, states, out, wpad
 
 
 def _genome(G: int = GENOME_LEN) -> np.ndarray:
@@ -1916,6 +2073,42 @@ _K19 = ("sharded_lookup", "sharded_candidates", "sharded_verify",
         "sharded_tail")
 
 
+K19_PHASES = ("lookup", "candidates", "verify", "tail")
+K19_SPLIT = {}
+
+
+def _k19_split(run, ms: float) -> None:
+    """The index-sharded call's device ms by K19 phase (torch.profiler over
+    3 calls), the rest of its device time (the collectives' and the
+    wrappers' PyTorch kernels: fills, copies, min / max) and the idle
+    share of the call's CUDA-event ms."""
+    split = _device_split(run, reps=3)
+    phases = {p: split.get(p, 0.0) for p in K19_PHASES}
+    rest = {k: v for k, v in split.items() if k not in K19_PHASES}
+    busy = sum(split.values())
+    K19_SPLIT.update(call_ms=ms, device_ms_by_phase=phases,
+                     k19_device_ms=sum(phases.values()),
+                     other_device_ms=sum(rest.values()),
+                     other_by_kernel=rest, idle_ms=ms - busy)
+    print(f"  sharded_align device ms by phase (torch.profiler): "
+          f"{json.dumps(phases)}; K19 {K19_SPLIT['k19_device_ms']:.4f}, "
+          f"other kernels (collectives, fills, copies) "
+          f"{K19_SPLIT['other_device_ms']:.4f}, idle {ms - busy:.4f} of "
+          f"{ms:.4f} ms a call; other: {json.dumps(rest)}")
+
+
+def _k19_launches(run) -> None:
+    """The launches of one index-sharded call (the shards sharing the
+    card, one device group: a launch a phase and strand, and the tail)."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    K19_SPLIT.update(launches=kernels.LAUNCHES["sharded_align"])
+    print(f"  sharded_align launches a call: {K19_SPLIT['launches']}")
+
+
 def _check_sharded_kernel(idx, ix, grid, rows) -> None:
     """K19 at B = 4096, Lp = 128 over the k = 14 index sharded D = 4
     (shards sharing the card): the index-sharded aligner's call
@@ -1956,7 +2149,8 @@ def _check_sharded_kernel(idx, ix, grid, rows) -> None:
     err = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
               for a, b in zip(got, want))
     ms = _time_ms(run, 3)
-    k8 = rows["k14_fwd"]["align_batch"][1], rows["k14_rc"]["align_batch"][1]
+    k8 = (rows["k14_fwd"]["align_batch"][1], rows["k14_rc"]["align_batch"][1]
+          ) if "k14_fwd" in rows else (float("nan"),) * 2
     print(f"  k14_sharded_D{D}      sharded_align B = {len(ln)}: "
           f"{int(got[0].sum())} mapped, max_abs_err {err}  kernel {ms:10.3f}"
           f" ms  plain {pms:10.3f} ms  (K8 tier 1 fwd {k8[0]:.3f} ms, RC "
@@ -1965,6 +2159,8 @@ def _check_sharded_kernel(idx, ix, grid, rows) -> None:
         raise AssertionError(f"sharded_align: kernel differs from its plain "
                              f"version ({err})")
     rows[f"k14_sharded_D{D}"] = {"sharded_align": (err, ms, pms)}
+    _k19_split(run, ms)
+    _k19_launches(run)
     # bound: per strand and read, every shard's search of each valid
     # seed (a (hi, lo) key pair a step), the positions listed and the
     # W + 1 reference words of each listed candidate, plus the grids and
@@ -3356,6 +3552,46 @@ def pack_window_main() -> int:
     return 0
 
 
+def shards_main() -> int:
+    """--shards: phases 1-2, then phase 3's K18 (K4 and route (a) at D = 2
+    and 4, route (b) with the D = 4 shards in CTX_GROUPS groups), K4 at
+    L_WIDE lanes (its several-lanes-a-thread variant) and K19
+    (B = 4096 tier-1 reads, Lp 128, the k = 14 index in MESH_SHARDS
+    key-range shards) against their plain versions, each with its device
+    time by kernel (torch.profiler) and bound; no other kernel and no
+    end-to-end phase.  It runs from an older tree's copy too (copy this
+    file into it), so two trees' K18 and K19 compare in turns in one
+    call, each in a fresh process."""
+    card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    from fastqueeze_tpu_torch.align.hash import Aligner
+    from fastqueeze_tpu_torch.align.index import build_from_ref
+    from fastqueeze_tpu_torch.align.ref import RefSeq
+    from fastqueeze_tpu_torch.config import CodecParams
+    build()
+    check_ctx_shard_kernel(split=True)
+    check_k4_wide()
+    genome = _genome()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.time()
+    p = CodecParams(seed_len=14)
+    idx = build_from_ref(RefSeq(genome, np.zeros(len(genome), bool), ["g"],
+                                np.array([0, len(genome)]), ""), p)
+    ix = Aligner(idx, p).dev_index(dev)
+    grid = tuple(torch.from_numpy(a).to(dev) for a in _align_reads(
+        np.random.default_rng(SEED + 4), genome, 4096, "tier1"))
+    print(f"  index k = 14 built and uploaded in {time.time() - t0:.1f} s")
+    _check_sharded_kernel(idx, ix, grid, {})
+    print(json.dumps({"shards": {
+        "k18": K18_SPLIT, "k4_q3_ms": PAIR_MS["k4_q3"], "k4_wide": K4_WIDE,
+        "k19": K19_SPLIT,
+        "bounds": {k: _bound_row(k) for k in ("ctx_shard_decode",
+                                              "sharded_align")}}}))
+    _ok_line()
+    return 0
+
+
 def main() -> int:
     card()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3486,6 +3722,8 @@ def main() -> int:
                   "plain_ms": rows[f"qual_q3_D{D}"]["ctx_shard_decode"][2],
                   "max_abs_err": rows[f"qual_q3_D{D}"]["ctx_shard_decode"][0]}
         for D in MESH_DS}
+    by_name["ctx_shard_decode"]["routes"] = K18_SPLIT
+    by_name["sharded_align"]["device_split"] = K19_SPLIT
     by_name["sharded_align"]["k8_tier1_ms"] = {
         "fwd": rows["k14_fwd"]["align_batch"][1],
         "rc": rows["k14_rc"]["align_batch"][1]}
@@ -3755,6 +3993,8 @@ if __name__ == "__main__":
         sys.exit(coders_main())
     if sys.argv[1:2] == ["--pack-window"]:
         sys.exit(pack_window_main())
+    if sys.argv[1:2] == ["--shards"]:
+        sys.exit(shards_main())
     if sys.argv[1:2] == ["--sass"]:
         args = sys.argv[2:]
         out = _opt("--out") or "sass"

@@ -66,14 +66,16 @@ K13 train_counts       a thread per (chunk of waves, lane), the walk's
                        train_counts_sharded)
 Mesh (parallel/mesh.py; the collectives between launches are its own):
 K18 ctx_shard_decode   frozen decode with the table sharded by context
-                       rows: one CTA a shard, one launch a wave, the
-                       (sym, start, freq) partials summed over the shards
-                       (mesh._build_frozen_sharded)
+                       rows on K4's cluster: shards sharing a card in one
+                       launch, the row read through the shards' row
+                       pointers; shards on several cards one launch a
+                       wave, one (sym, start, freq) partial a card summed
+                       between the launches (mesh._build_frozen_sharded)
 K19 sharded_align      gapless multi-seed alignment over a key-range
-                       sharded index in u32 coordinates, one entry point
-                       a phase: lookup, candidates, verify, tail
-                       (align/hash.py _one_strand's shard_axis branch,
-                       _align_batch)
+                       sharded index in u32 coordinates, one warp a read,
+                       one entry point a phase: lookup, candidates,
+                       verify, tail (align/hash.py _one_strand's
+                       shard_axis branch, _align_batch)
 Transfer packs (the (T, L) symbol grids cross the host link packed):
 K15 unpack_grid        2/4/6-bit and sentinel (15, 23) packs -> grid,
                        16 slots a thread; the sentinel modes in one pass
@@ -274,20 +276,23 @@ def _lib() -> ctypes.CDLL:
             lib.fq_chunk_scratch_bytes.restype = i64
             lib.fq_frozen_decode_shape.argtypes = [i32, i32, vp]
             lib.fq_train_rows.argtypes = [vp, i64, i32, i32, i32, vp]
-            lib.fq_ctx_shard_decode.argtypes = (
-                [vp, vp, i64, vp, i32, i32, i32, vp, i64, i32] + spec
-                + [i32, i32, vp, vp, i32] + [vp] * 5 + [i32] * 3 + [vp])
+            shard = [vp, vp, i64, vp, i32, i32, i32, vp, i64, i32] + spec
+            lib.fq_ctx_shard_run.argtypes = shard + [i32] + [vp] * 4
+            lib.fq_ctx_shard_step.argtypes = (
+                shard + [i32, i32, vp, i32] + [vp] * 5 + [i32, vp])
             lib.fq_sharded_lookup.argtypes = (
-                [vp] * 3 + [i32] * 7 + [vp] * 3 + [i64, i32] + [vp] * 4)
+                [vp] * 3 + [i32] * 7 + [vp] * 3 + [i64, i32, i32]
+                + [vp] * 4)
             lib.fq_sharded_candidates.argtypes = (
-                [vp] + [i32] * 3 + [vp] * 4 + [i64] + [i32] * 3 + [vp] * 4)
+                [vp] + [i32] * 3 + [vp] * 3 + [i64, vp, i64] + [i32] * 4
+                + [vp] * 4)
             lib.fq_sharded_verify.argtypes = (
                 [vp] * 2 + [i32] * 3 + [vp] * 3 + [i32, i32, ctypes.c_uint32,
-                                                   i64, i32, vp, i64]
+                                                   i64, i32, vp, i64, i32]
                 + [vp] * 3)
             lib.fq_sharded_tail.argtypes = (
                 [vp] * 3 + [i32] * 6 + [vp] * 5 + [i64] + [vp] * 5)
-            for fn in (lib.fq_decode_lane_bytes, lib.fq_ctx_shard_lane_bytes):
+            for fn in (lib.fq_decode_lane_bytes, lib.fq_ctx_shard_state_words):
                 fn.argtypes = []
                 fn.restype = i64
             index = [vp, i32, i64, vp, vp, i64, vp, i64, vp, i32, i32, i32]
@@ -319,7 +324,8 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_train_hist, lib.fq_train_rows,
                        lib.fq_frozen_decode_shape, lib.fq_adapt_decode_shape,
                        lib.fq_semi_decode_shape,
-                       lib.fq_ctx_shard_decode, lib.fq_sharded_lookup,
+                       lib.fq_ctx_shard_run, lib.fq_ctx_shard_step,
+                       lib.fq_sharded_lookup,
                        lib.fq_sharded_candidates, lib.fq_sharded_verify,
                        lib.fq_sharded_tail):
                 fn.restype = ctypes.c_int
@@ -1455,6 +1461,44 @@ def train_rows(rows: torch.Tensor, model) -> torch.Tensor:
 
 # --- K18 ctx_shard_decode: frozen decode with the table sharded by rows ---
 
+def _shard_partial(Fs, d0: int, n: int, ctx, low, vld, A: int):
+    """The (sym, start, freq) partials of the shards d0, d0 + 1, ... whose
+    flat u16 rows are ``Fs`` (n rows each): the owner's search result
+    where a shard owns the lane's context, 0 elsewhere, summed."""
+    steps = max(1, (A - 1).bit_length())
+    sym = torch.zeros_like(low)
+    start = torch.zeros_like(low)
+    f = torch.zeros_like(low)
+    for i, F in enumerate(Fs):
+        d = d0 + i
+        own = (ctx >= d * n) & (ctx < (d + 1) * n) & vld
+        base = torch.where(own, ctx - d * n, 0) * (A + 1)
+        lo = torch.zeros_like(low)
+        hi = torch.full_like(low, A - 1)
+        for _ in range(steps):
+            mid = (lo + hi + 1) >> 1
+            le = F[base + mid] <= low
+            lo = torch.where(le, mid, lo)
+            hi = torch.where(le, hi, mid - 1)
+        sym += torch.where(own, lo, 0)
+        start += torch.where(own, F[base + lo], 0)
+        f += torch.where(own, F[base + lo + 1] - F[base + lo], 0)
+    return sym, start, f
+
+
+def _shard_rans(x, sym, start, f, vld, w16, off: int):
+    """The rANS step of one wave on the summed partials: (new states, the
+    word offset after the wave)."""
+    W = w16.shape[0]
+    low = x & (RANS_M - 1)
+    xn = (f * (x >> PROB_BITS) + low - start) & 0xFFFFFFFF
+    need = (xn < RANS_L) & vld
+    rank = torch.cumsum(need.long(), dim=0) - need.long()
+    wv = w16[torch.clamp(off + rank, max=W - 1)]
+    xn = torch.where(need, ((xn << 16) | wv) & 0xFFFFFFFF, xn)
+    return torch.where(vld, xn, x), off + int(need.sum())
+
+
 def ctx_shard_decode_plain(states0: torch.Tensor, words: torch.Tensor,
                            cgrid: torch.Tensor, T: int, cums, model):
     """The wave loop of mesh._build_frozen_sharded over D shards on one
@@ -1469,41 +1513,17 @@ def ctx_shard_decode_plain(states0: torch.Tensor, words: torch.Tensor,
     n = cums[0].shape[0]
     valid, aux = device_aux_plain(T, cgrid)
     Fs = [_u16(c).reshape(-1) for c in cums]
-    W = words.shape[0]
     w16 = _u16(words)
     st = model.lane_init(L, dev)
     x = _u32(states0)
     off = 0
-    steps = max(1, (A - 1).bit_length())
     out = torch.zeros((T, L), dtype=torch.uint8, device=dev)
     for t in range(T):
         vld = valid[t]
         aux_t = {"start": aux["start"][t], "pos": aux["pos"][t]}
-        ctx = model.context(st, aux_t)
-        low = x & (RANS_M - 1)
-        sym = torch.zeros_like(low)
-        start = torch.zeros_like(low)
-        f = torch.zeros_like(low)
-        for d, F in enumerate(Fs):
-            own = (ctx >= d * n) & (ctx < (d + 1) * n) & vld
-            base = torch.where(own, ctx - d * n, 0) * (A + 1)
-            lo = torch.zeros_like(low)
-            hi = torch.full_like(low, A - 1)
-            for _ in range(steps):
-                mid = (lo + hi + 1) >> 1
-                le = F[base + mid] <= low
-                lo = torch.where(le, mid, lo)
-                hi = torch.where(le, hi, mid - 1)
-            sym += torch.where(own, lo, 0)
-            start += torch.where(own, F[base + lo], 0)
-            f += torch.where(own, F[base + lo + 1] - F[base + lo], 0)
-        xn = (f * (x >> PROB_BITS) + low - start) & 0xFFFFFFFF
-        need = (xn < RANS_L) & vld
-        rank = torch.cumsum(need.long(), dim=0) - need.long()
-        wv = w16[torch.clamp(off + rank, max=W - 1)]
-        xn = torch.where(need, ((xn << 16) | wv) & 0xFFFFFFFF, xn)
-        x = torch.where(vld, xn, x)
-        off += int(need.sum())
+        sym, start, f = _shard_partial(Fs, 0, n, model.context(st, aux_t),
+                                       x & (RANS_M - 1), vld, A)
+        x, off = _shard_rans(x, sym, start, f, vld, w16, off)
         out[t] = torch.where(vld, sym, 0).to(torch.uint8)
         new = model.update(st, sym, aux_t)
         st = {k: torch.where(vld, new[k], st[k]) for k in st}
@@ -1511,12 +1531,16 @@ def ctx_shard_decode_plain(states0: torch.Tensor, words: torch.Tensor,
 
 
 class ShardDecode:
-    """K18 over the shards of one stream that share one card: global
+    """K18 over the shards of one stream that share one device: global
     shards shard0 .. shard0 + len(cums) - 1, ``cums`` their (n_local, A+1)
     int16 row blocks there; the stream's (L,) int32 states, (W,) int16
-    padded words and (J, L) int32 read lengths on the same card.  With
-    ``writer`` this card's first shard stores the (T, L) uint8 symbols
-    (``out``) and the (L,) int32 final states (``x``)."""
+    padded words and (J, L) int32 read lengths on the same device.  With
+    ``writer`` this device stores the (T, L) uint8 symbols (``out``) and
+    the (L,) int32 final states (``x``).
+
+    ``run`` decodes the stream when every shard of the row is here;
+    ``step`` is one wave of the several-card route, each card summing
+    its shards into one (1, 3, L) partial."""
 
     def __init__(self, states0: torch.Tensor, words: torch.Tensor,
                  cgrid: torch.Tensor, T: int, cums, model, shard0: int = 0,
@@ -1537,54 +1561,67 @@ class ShardDecode:
             raise ValueError("ShardDecode: shape mismatch, or a model kind "
                              "other than seq or qual")
         dev = states0.device
-        lib = _lib()
         self._args = (states0, words, cgrid, cums)
         self.T, self.L, self.n = T, L, len(cums)
         self._model, self._n_local, self._shard0 = model, n, shard0
         self._writer = writer
-        self._ptrs = torch.tensor([c.data_ptr() for c in cums],
-                                  dtype=torch.int64, device=dev)
-        self._lanes = torch.empty(
-            (self.n * L * lib.fq_ctx_shard_lane_bytes(),), dtype=torch.uint8,
-            device=dev)
-        self._off = torch.empty((self.n,), dtype=torch.int64, device=dev)
-        self.xout = torch.empty((self.n, 3, L), dtype=torch.int32, device=dev)
+        self.xout = torch.empty((1, 3, L), dtype=torch.int32, device=dev)
         self.out = torch.empty((T, L) if writer else (1,),
                                dtype=torch.uint8, device=dev)
-        self.x = torch.empty((L,) if writer else (1,), dtype=torch.int32,
-                             device=dev)
+        self.x = states0.clone() if writer else torch.zeros(
+            (1,), dtype=torch.int32, device=dev)
         self.dev = dev
+        self._ptrs = torch.tensor([c.data_ptr() for c in cums],
+                                  dtype=torch.int64, device=dev)
 
-    def _call(self, t0: int, t1: int, xbuf=None, xin=None) -> None:
+    def _shard_args(self):
         states0, words, cgrid, _ = self._args
         m = self._model
-        _launch(_lib().fq_ctx_shard_decode, "ctx_shard_decode", self.dev,
-                _ptr(states0), _ptr(words), words.numel(), _ptr(cgrid),
+        return [_ptr(states0), _ptr(words), words.numel(), _ptr(cgrid),
                 cgrid.shape[0], self.T, self.L, _ptr(self._ptrs),
-                self._n_local, m.alphabet, *_spec_args(m), self._shard0,
-                self.n, None if xbuf is None else _ptr(xbuf),
-                None if xin is None else _ptr(xin),
-                0 if xin is None else xin.shape[0], _ptr(self.xout),
-                _ptr(self._lanes), _ptr(self._off), _ptr(self.out),
-                _ptr(self.x), int(self._writer), t0, t1, count=t1 - t0)
+                self._n_local, m.alphabet, *_spec_args(m)]
 
     def run(self) -> None:
-        """Every wave of a stream whose shards all lie on this card: T + 1
-        launches from one host loop, the partials exchanged through the
-        (2, D, 3, L) parity buffers."""
-        xbuf = torch.empty((2, self.n, 3, self.L), dtype=torch.int32,
-                           device=self.dev)
-        self._call(0, self.T + 1, xbuf=xbuf)
+        """Every wave of a stream whose shards all lie on this device: one
+        launch on K4's cluster, each lane's row read from the shard that
+        owns it."""
+        if not self._writer:
+            raise ValueError("ShardDecode.run: the one-device route writes")
+        if self.T == 0 or self.L == 0:
+            return
+        lib = _lib()
+        lanes = torch.empty((self.L * lib.fq_decode_lane_bytes(),),
+                            dtype=torch.uint8, device=self.dev)
+        _launch(lib.fq_ctx_shard_run, "ctx_shard_decode", self.dev,
+                *self._shard_args(), self.n, _ptr(lanes), _ptr(self.out),
+                _ptr(self.x))
 
     def step(self, t: int, xin: Optional[torch.Tensor]) -> torch.Tensor:
         """Wave step t (0 .. T) reading ``xin`` ((P, 3, L) int32 partials
         of wave t - 1, summed over the cards; None at t = 0); returns this
-        card's partials of wave t (``xout``)."""
+        device's (1, 3, L) partial of wave t (``xout``, for t < T; step T
+        writes the final states)."""
         if t > 0:
             _check(xin, "xin", torch.int32, 3)
             if xin.device != self.dev or tuple(xin.shape[1:]) != (3, self.L):
                 raise ValueError("ShardDecode.step: xin shape or device")
-        self._call(t, t + 1, xin=xin)
+        if not 0 <= t <= self.T:
+            raise ValueError(f"ShardDecode.step: wave {t} outside 0..{self.T}")
+        lib = _lib()
+        if t == 0:
+            self._st = torch.empty((lib.fq_ctx_shard_state_words(), self.L),
+                                   dtype=torch.int32, device=self.dev)
+            self._off = torch.zeros((2,), dtype=torch.int64, device=self.dev)
+            w = self._writer
+            # the arguments that stay from step to step, built once
+            self._step_args = (
+                self._shard_args() + [self._shard0, self.n],
+                [_ptr(self.xout), _ptr(self._st), _ptr(self._off),
+                 _ptr(self.out) if w else None, _ptr(self.x) if w else None])
+        head, tail = self._step_args
+        _launch(lib.fq_ctx_shard_step, "ctx_shard_decode", self.dev, *head,
+                None if xin is None else _ptr(xin),
+                0 if xin is None else xin.shape[0], *tail, t)
         return self.xout
 
 
@@ -2252,8 +2289,11 @@ def rescue_indel_fused(codes: torch.Tensor, dege: torch.Tensor,
 # One shard of parallel/mesh.shard_ref_index on its device: u32 keys (hi,
 # lo30 for k > 15; hi alone otherwise) padded with 0xFFFFFFFF to kp, the
 # shard's CSR offsets (kp + 1) and u32 positions, all as int32 tensors
-# holding the same bits, and the whole packed reference.  The phases'
-# collectives (pmin / pmax over the shards) are parallel/mesh.py's.
+# holding the same bits, and the whole packed reference.  The shards that
+# share a device come stacked, (D, kp) keys, (D, kp + 1) offsets, (D, pp)
+# positions: each phase then runs them all in one launch and returns its
+# outputs stacked (D, B, ...).  The phases' collectives (pmin / pmax over
+# the shards) are parallel/mesh.py's.
 
 class ShardIndex(NamedTuple):
     keys_hi: torch.Tensor
@@ -2264,6 +2304,27 @@ class ShardIndex(NamedTuple):
     ref_len: int
     k: int
     steps: int          # ceil(log2(kp + 1)) binary-search steps
+
+
+def shard_count(sx: ShardIndex) -> Optional[int]:
+    """The number of stacked shards in ``sx``, None for one shard."""
+    return sx.keys_hi.shape[0] if sx.keys_hi.dim() == 2 else None
+
+
+def _shard_at(sx: ShardIndex, d: int) -> ShardIndex:
+    return sx._replace(keys_hi=sx.keys_hi[d], keys_lo=sx.keys_lo[d],
+                       offsets=sx.offsets[d], positions=sx.positions[d])
+
+
+def _stacked(sx: ShardIndex, fn, *per_shard):
+    """fn(one shard, its slices of per_shard) over the stacked shards of
+    ``sx``, each output stacked (D, ...); fn(sx, *per_shard) for one."""
+    D = shard_count(sx)
+    if D is None:
+        return fn(sx, *per_shard)
+    outs = [fn(_shard_at(sx, d), *(a[d] for a in per_shard))
+            for d in range(D)]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def n_seed_samples(Lp: int, k: int, stride: int) -> int:
@@ -2282,7 +2343,11 @@ def sharded_lookup_plain(codes: torch.Tensor, dege: torch.Tensor,
                          lengths: torch.Tensor, sx: ShardIndex, stride: int,
                          rc: bool):
     """_one_strand's shard_axis lookup on one shard: ((B, S) int32 occ,
-    bool found, int32 key index)."""
+    bool found, int32 key index where found, 0 elsewhere); (D, B, S) each
+    for D stacked shards."""
+    if shard_count(sx) is not None:
+        return _stacked(sx, lambda x: sharded_lookup_plain(
+            codes, dege, lengths, x, stride, rc))
     B, Lp = codes.shape
     k = sx.k
     lens = lengths.long()
@@ -2316,7 +2381,8 @@ def sharded_lookup_plain(codes: torch.Tensor, dege: torch.Tensor,
     found = eq & (lo < nk) & ok
     offs = sx.offsets.long()
     occ = torch.where(found, offs[ii + 1] - offs[ii], ALIGN_BIG)
-    return occ.to(torch.int32), found, ii.to(torch.int32)
+    return (occ.to(torch.int32), found,
+            torch.where(found, ii, 0).to(torch.int32))
 
 
 def sharded_candidates_plain(occ: torch.Tensor, found: torch.Tensor,
@@ -2325,7 +2391,11 @@ def sharded_candidates_plain(occ: torch.Tensor, found: torch.Tensor,
     """The n_seeds rounds of candidate listing on one shard (the owner
     lists positions[offsets[ii] + j] - seed_off in u32, the others 0):
     ((B, n_seeds * C) int32 u32 candidates, bool in range, (B, n_seeds)
-    bool owner)."""
+    bool owner); for D stacked shards found / ii (D, B, S) and each
+    output (D, B, ...)."""
+    if shard_count(sx) is not None:
+        return _stacked(sx, lambda x, f, i: sharded_candidates_plain(
+            occ, f, i, x, stride, n_seeds, C, excl_bp), found, ii)
     B, S = occ.shape
     dev = occ.device
     occ = occ.long()
@@ -2369,10 +2439,18 @@ def _cand_ok(lengths: torch.Tensor, cand: torch.Tensor,
 def sharded_verify_plain(codes: torch.Tensor, lengths: torch.Tensor,
                          cand: torch.Tensor, in_range: torch.Tensor,
                          owner: torch.Tensor, C: int, ref_len: int, c0: int,
-                         Cs: int, packed: torch.Tensor, rc: bool):
+                         Cs: int, packed: torch.Tensor, rc: bool,
+                         shards: Optional[int] = None):
     """One shard's verify over columns [c0, c0 + Cs) of the candidate list
     padded with zeros: cand_ok, the full window mismatch count, the
-    first-index argmin -> ((B,) int32 mis, (B,) int32 u32 window start)."""
+    first-index argmin -> ((B,) int32 mis, (B,) int32 u32 window start);
+    with ``shards`` = D, shard d on columns [c0 + d Cs, c0 + (d + 1) Cs),
+    each output (D, B)."""
+    if shards is not None:
+        outs = [sharded_verify_plain(codes, lengths, cand, in_range, owner,
+                                     C, ref_len, c0 + d * Cs, Cs, packed, rc)
+                for d in range(shards)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     B, Lp = codes.shape
     lens = lengths.long()
     c = _rc_grid(codes, torch.zeros_like(codes, dtype=torch.bool),
@@ -2424,15 +2502,21 @@ def sharded_tail_plain(codes: torch.Tensor, dege: torch.Tensor,
     return mapped, _to_i32(pos), use_rev & mapped, mask
 
 
-def _check_shard(sx: ShardIndex) -> None:
+def _check_shard(sx: ShardIndex) -> int:
+    """The shards in ``sx`` (1 where not stacked)."""
+    nd = sx.keys_hi.dim()
     for t, n in ((sx.keys_hi, "keys_hi"), (sx.keys_lo, "keys_lo"),
-                 (sx.offsets, "offsets"), (sx.positions, "positions"),
-                 (sx.packed, "packed")):
-        _check(t, n, torch.int32, 1)
-    if (sx.keys_lo.numel() != sx.keys_hi.numel()
-            or sx.offsets.numel() != sx.keys_hi.numel() + 1
+                 (sx.offsets, "offsets"), (sx.positions, "positions")):
+        _check(t, n, torch.int32, nd)
+    _check(sx.packed, "packed", torch.int32, 1)
+    D = sx.keys_hi.shape[0] if nd == 2 else 1
+    kp = sx.keys_hi.shape[-1]
+    if (nd not in (1, 2) or sx.keys_lo.shape != sx.keys_hi.shape
+            or tuple(sx.offsets.shape) != sx.keys_hi.shape[:-1] + (kp + 1,)
+            or (nd == 2 and sx.positions.shape[0] != D)
             or not 1 <= sx.k <= 31):
         raise ValueError("sharded index: shape mismatch")
+    return D
 
 
 def _check_reads(codes, dege, lengths) -> int:
@@ -2449,21 +2533,23 @@ def sharded_lookup(codes: torch.Tensor, dege: torch.Tensor,
                    lengths: torch.Tensor, sx: ShardIndex, stride: int,
                    rc: bool):
     """K19 (a): (B, Lp) uint8 codes, bool degenerate flags, (B,) int32
-    lengths, one shard -> ((B, S) int32 occ, bool found, int32 key
-    index)."""
+    lengths, one shard -> ((B, S) int32 occ, bool found, int32 key index
+    where found, 0 elsewhere); D stacked shards -> each (D, B, S), one
+    launch."""
     if not _on_card(codes, dege, lengths, *sx[:5]):
         return sharded_lookup_plain(codes, dege, lengths, sx, stride, rc)
     B = _check_reads(codes, dege, lengths)
-    _check_shard(sx)
+    D = _check_shard(sx)
     S = n_seed_samples(codes.shape[1], sx.k, stride)
     dev = codes.device
-    occ = torch.empty((B, S), dtype=torch.int32, device=dev)
-    found = torch.empty((B, S), dtype=torch.bool, device=dev)
-    ii = torch.empty((B, S), dtype=torch.int32, device=dev)
+    shape = (B, S) if shard_count(sx) is None else (D, B, S)
+    occ = torch.empty(shape, dtype=torch.int32, device=dev)
+    found = torch.empty(shape, dtype=torch.bool, device=dev)
+    ii = torch.empty(shape, dtype=torch.int32, device=dev)
     _launch(_lib().fq_sharded_lookup, "sharded_align", dev, _ptr(codes),
             _ptr(dege), _ptr(lengths), B, codes.shape[1], sx.k, stride, S,
             int(rc), int(sx.k > 15), _ptr(sx.keys_hi), _ptr(sx.keys_lo),
-            _ptr(sx.offsets), sx.keys_hi.numel(), sx.steps, _ptr(occ),
+            _ptr(sx.offsets), sx.keys_hi.shape[-1], sx.steps, D, _ptr(occ),
             _ptr(found), _ptr(ii))
     return occ, found, ii
 
@@ -2473,40 +2559,47 @@ def sharded_candidates(occ: torch.Tensor, found: torch.Tensor,
                        n_seeds: int, C: int, excl_bp: int):
     """K19 (b): the global (B, S) int32 occ (after pmin) and this shard's
     found / key index -> ((B, n_seeds * C) int32 u32 candidates, bool in
-    range, (B, n_seeds) bool owner)."""
+    range, (B, n_seeds) bool owner); D stacked shards: found / ii and
+    each output (D, B, ...), one launch."""
     if not _on_card(occ, found, ii, *sx[:5]):
         return sharded_candidates_plain(occ, found, ii, sx, stride, n_seeds,
                                         C, excl_bp)
+    D = _check_shard(sx)
+    lead = () if shard_count(sx) is None else (D,)
     _check(occ, "occ", torch.int32, 2)
-    _check(found, "found", torch.bool, 2)
-    _check(ii, "ii", torch.int32, 2)
-    _check_shard(sx)
+    _check(found, "found", torch.bool, 2 + len(lead))
+    _check(ii, "ii", torch.int32, 2 + len(lead))
     B, S = occ.shape
-    if found.shape != occ.shape or ii.shape != occ.shape or C < 1:
+    if (found.shape != lead + occ.shape or ii.shape != found.shape
+            or C < 1):
         raise ValueError("sharded_candidates: shape mismatch")
     dev = occ.device
-    work = occ.clone()            # the rounds' exclusions overwrite it
-    cand = torch.empty((B, n_seeds * C), dtype=torch.int32, device=dev)
-    inr = torch.empty((B, n_seeds * C), dtype=torch.bool, device=dev)
-    owner = torch.empty((B, n_seeds), dtype=torch.bool, device=dev)
-    _launch(_lib().fq_sharded_candidates, "sharded_align", dev, _ptr(work),
+    cand = torch.empty(lead + (B, n_seeds * C), dtype=torch.int32,
+                       device=dev)
+    inr = torch.empty(lead + (B, n_seeds * C), dtype=torch.bool, device=dev)
+    owner = torch.empty(lead + (B, n_seeds), dtype=torch.bool, device=dev)
+    _launch(_lib().fq_sharded_candidates, "sharded_align", dev, _ptr(occ),
             B, S, stride, _ptr(found), _ptr(ii), _ptr(sx.offsets),
-            _ptr(sx.positions), sx.positions.numel(), n_seeds, C, excl_bp,
-            _ptr(cand), _ptr(inr), _ptr(owner))
+            sx.keys_hi.shape[-1], _ptr(sx.positions),
+            sx.positions.shape[-1], n_seeds, C, excl_bp, D, _ptr(cand),
+            _ptr(inr), _ptr(owner))
     return cand, inr, owner
 
 
 def sharded_verify(codes: torch.Tensor, lengths: torch.Tensor,
                    cand: torch.Tensor, in_range: torch.Tensor,
                    owner: torch.Tensor, C: int, ref_len: int, c0: int,
-                   Cs: int, packed: torch.Tensor, rc: bool):
+                   Cs: int, packed: torch.Tensor, rc: bool,
+                   shards: Optional[int] = None):
     """K19 (c): the global (B, n_seeds * C) int32 u32 candidates and bool
     in-range flags, the (B, n_seeds) bool owner bits (after pmax); this
     shard verifies columns [c0, c0 + Cs) of the list padded with zeros ->
-    ((B,) int32 mis, (B,) int32 u32 window start)."""
+    ((B,) int32 mis, (B,) int32 u32 window start); with ``shards`` = D
+    the D shards of one device in one launch, shard d on columns
+    [c0 + d Cs, c0 + (d + 1) Cs), each output (D, B)."""
     if not _on_card(codes, lengths, cand, in_range, owner, packed):
         return sharded_verify_plain(codes, lengths, cand, in_range, owner,
-                                    C, ref_len, c0, Cs, packed, rc)
+                                    C, ref_len, c0, Cs, packed, rc, shards)
     _check(codes, "codes", torch.uint8, 2)
     _check(lengths, "lengths", torch.int32, 1)
     _check(cand, "cand", torch.int32, 2)
@@ -2517,15 +2610,17 @@ def sharded_verify(codes: torch.Tensor, lengths: torch.Tensor,
     if (cand.shape != in_range.shape or cand.shape[0] != B
             or owner.shape[0] != B or cand.shape[1] != owner.shape[1] * C
             or c0 < 0 or Cs < 1 or Lp % 16 or Lp > 1024
+            or (shards is not None and shards < 1)
             or not 0 <= ref_len < 1 << 32):
         raise ValueError("sharded_verify: shape mismatch")
     dev = codes.device
-    mis = torch.empty((B,), dtype=torch.int32, device=dev)
-    pos = torch.empty((B,), dtype=torch.int32, device=dev)
+    shape = (B,) if shards is None else (shards, B)
+    mis = torch.empty(shape, dtype=torch.int32, device=dev)
+    pos = torch.empty(shape, dtype=torch.int32, device=dev)
     _launch(_lib().fq_sharded_verify, "sharded_align", dev, _ptr(codes),
             _ptr(lengths), B, Lp, int(rc), _ptr(cand), _ptr(in_range),
             _ptr(owner), owner.shape[1], C, ref_len, c0, Cs, _ptr(packed),
-            packed.numel(), _ptr(mis), _ptr(pos))
+            packed.numel(), shards or 1, _ptr(mis), _ptr(pos))
     return mis, pos
 
 

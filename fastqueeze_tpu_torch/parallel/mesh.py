@@ -291,21 +291,9 @@ def align_blocks_sharded(mesh: Mesh, aligner, cfg, codes, dege, lengths):
 
 # --- B18: the ctx-sharded frozen decode (K18) --------------------------------
 
-def decode_frozen_sharded_stream(mesh: Mesh, b: int, states0, words, cgrid,
-                                 T: int, cums, model):
-    """One stream decoded by block row ``b`` of ``mesh``, whose ctx shard
-    c holds ``cums[c]`` (the (n_ctx / D, A + 1) int16 rows of the
-    quantized table on its device).  Returns ((T, L) uint8 symbols, (L,)
-    int32 final states) on the row's first device.  Shards on one card
-    (or all on the CPU): one K18 call; shards on several cards: one K18
-    wave step a card at a time, the partials summed over the cards
-    (psum) between the steps."""
-    devs = mesh.grid[b]
-    first = devs[0]
-    st, wd, cg = (_on(first, a) for a in (states0, words, cgrid))
-    if all(d == first for d in devs):
-        return mesh.run([(b, 0)], lambda _b, _c: kernels.ctx_shard_decode(
-            st, wd, cg, T, list(cums), model))[0]
+def _device_groups(devs: Sequence[torch.device]) -> List[List[int]]:
+    """The ctx shards of a block row grouped by device: each group the
+    adjacent shard indices on one device, in shard order."""
     groups: List[List[int]] = []
     for c, d in enumerate(devs):
         if groups and devs[groups[-1][0]] == d:
@@ -314,6 +302,23 @@ def decode_frozen_sharded_stream(mesh: Mesh, b: int, states0, words, cgrid,
             raise ValueError("a device's ctx shards must be adjacent")
         else:
             groups.append([c])
+    return groups
+
+def decode_frozen_sharded_stream(mesh: Mesh, b: int, states0, words, cgrid,
+                                 T: int, cums, model):
+    """One stream decoded by block row ``b`` of ``mesh``, whose ctx shard
+    c holds ``cums[c]`` (the (n_ctx / D, A + 1) int16 rows of the
+    quantized table on its device).  Returns ((T, L) uint8 symbols, (L,)
+    int32 final states) on the row's first device.  Shards on one card
+    (or all on the CPU): one K18 call; shards on several cards: one K18
+    wave step a card at a time, each card's one (1, 3, L) partial summed
+    over the cards (psum) between the steps."""
+    devs = mesh.grid[b]
+    st, wd, cg = (_on(devs[0], a) for a in (states0, words, cgrid))
+    groups = _device_groups(devs)
+    if len(groups) == 1:
+        return mesh.run([(b, 0)], lambda _b, _c: kernels.ctx_shard_decode(
+            st, wd, cg, T, list(cums), model))[0]
 
     def make(_b, c0):
         g = next(g for g in groups if g[0] == c0)
@@ -328,8 +333,7 @@ def decode_frozen_sharded_stream(mesh: Mesh, b: int, states0, words, cgrid,
     for t in range(T + 1):
         outs = mesh.run(heads, lambda _b, c0: runs[c0].step(t, xin[c0]))
         if t < T:
-            sums = psum([o.sum(0, dtype=torch.int32) for o in outs])
-            xin = {c0: s[None] for c0, s in zip(runs, sums)}
+            xin = dict(zip(runs, psum(outs)))
     return runs[0].out, runs[0].x
 
 
@@ -426,8 +430,10 @@ def shard_ref_index(idx, n_shards: int) -> Dict:
 
 
 def _shard_index(mesh: Mesh, sh: Dict) -> List[List[kernels.ShardIndex]]:
-    """Each (block, ctx) shard's index shard on its device, uploaded once
-    a mesh (cached in ``sh``)."""
+    """Each block row's index shards on their devices, uploaded once a
+    mesh (cached in ``sh``): a ShardIndex a device group of the row
+    (_device_groups), its shards stacked, so each K19 phase runs a
+    device's shards in one launch."""
     key = tuple(str(d) for d in mesh.devices)
     cache = sh.setdefault("_dev", {})
     if key not in cache:
@@ -435,46 +441,56 @@ def _shard_index(mesh: Mesh, sh: Dict) -> List[List[kernels.ShardIndex]]:
         i32 = lambda a: np.ascontiguousarray(a).view(np.int32)  # noqa: E731
         packed = {}
 
-        def put(b, c):
-            dev = mesh.grid[b][c]
+        def put(b, g):
+            dev = mesh.grid[b][g[0]]
             if dev not in packed:        # one reference copy a device
                 packed[dev] = _on(dev, i32(sh["packed"]))
+            rows = slice(g[0], g[-1] + 1)
             return kernels.ShardIndex(
-                _on(dev, i32(sh["keys_hi"][c])),
-                _on(dev, i32(sh["keys_lo"][c])),
-                _on(dev, i32(sh["offsets"][c])),
-                _on(dev, i32(sh["positions"][c])), packed[dev],
-                sh["ref_len"], sh["k"], steps)
+                *(_on(dev, i32(sh[n][rows])) for n in
+                  ("keys_hi", "keys_lo", "offsets", "positions")),
+                packed[dev], sh["ref_len"], sh["k"], steps)
 
-        cache[key] = [[put(b, c) for c in range(mesh.shape["ctx"])]
+        cache[key] = [[put(b, g) for g in _device_groups(mesh.grid[b])]
                       for b in range(mesh.shape["block"])]
     return cache[key]
 
 
 def _one_strand_sharded(mesh: Mesh, b: int, sxs, grids, stride: int,
                         n_seeds: int, C: int, excl_bp: int, rc: bool):
-    """_one_strand's shard_axis branch over block row b: the lookup on
-    every ctx shard, pmin; the candidates, pmax; the verify of each
-    shard's slice, pmin of mis then of pos among the mis minimizers.
-    Returns the global (mis, u32 pos) on each shard's device."""
+    """_one_strand's shard_axis branch over block row b, a launch a phase
+    and device (``sxs`` / ``grids``: a device group's stacked index and
+    its read grids): the lookup, pmin; the candidates, pmax; the verify
+    of each shard's slice, pmin of mis then of pos among the mis
+    minimizers; each collective a reduction over the device's stacked
+    shards, then across the devices.  Returns the global (mis, u32 pos)
+    on the row's first device."""
     D = mesh.shape["ctx"]
-    shards = [(b, c) for c in range(D)]
-    look = mesh.run(shards, lambda _b, c: kernels.sharded_lookup(
-        *grids[c], sxs[c], stride, rc))
-    occ = pmin([o[0] for o in look])
-    cands = mesh.run(shards, lambda _b, c: kernels.sharded_candidates(
-        occ[c], look[c][1], look[c][2], sxs[c], stride, n_seeds, C,
-        excl_bp))
-    cand = pmax([x[0] for x in cands], unsigned=True)
-    owner = [o > 0 for o in pmax([x[2].to(torch.int32) for x in cands])]
     Cs = -(-(n_seeds * C) // D)
-    ver = mesh.run(shards, lambda _b, c: kernels.sharded_verify(
-        grids[c][0], grids[c][2], cand[c], cands[c][1], owner[c], C,
-        sxs[c].ref_len, c * Cs, Cs, sxs[c].packed, rc))
-    mis = pmin([v[0] for v in ver])
-    pos = pmin([torch.where(v[0] == m, v[1], -1) for v, m in zip(ver, mis)],
-               unsigned=True)
-    return list(zip(mis, pos))
+    groups = _device_groups(mesh.grid[b])
+    heads = [(b, g[0]) for g in groups]
+    at = {g[0]: i for i, g in enumerate(groups)}
+    u32, i32 = kernels._u32, kernels._to_i32
+    look = mesh.run(heads, lambda _b, c: kernels.sharded_lookup(
+        *grids[at[c]], sxs[at[c]], stride, rc))
+    occ = pmin([o[0].amin(0) for o in look])
+    cands = mesh.run(heads, lambda _b, c: kernels.sharded_candidates(
+        occ[at[c]], look[at[c]][1], look[at[c]][2], sxs[at[c]], stride,
+        n_seeds, C, excl_bp))
+    cand = pmax([i32(u32(x[0]).amax(0)) for x in cands], unsigned=True)
+    owner = [o > 0 for o in pmax([x[2].any(0).to(torch.int32)
+                                  for x in cands])]
+    ver = mesh.run(heads, lambda _b, c: kernels.sharded_verify(
+        grids[at[c]][0], grids[at[c]][2], cand[at[c]], cands[at[c]][1][0],
+        owner[at[c]], C, sxs[at[c]].ref_len, c * Cs, Cs, sxs[at[c]].packed,
+        rc, shards=len(groups[at[c]])))
+    best = [v[0].amin(0) for v in ver]
+    first = [i32(torch.where(v[0] == m, u32(v[1]), 0xFFFFFFFF).amin(0))
+             for v, m in zip(ver, best)]
+    mis = pmin(best)
+    pos = pmin([torch.where(f == m, p, -1)
+                for f, m, p in zip(best, mis, first)], unsigned=True)
+    return mis[0], pos[0]
 
 
 def align_blocks_index_sharded(mesh: Mesh, params, sh: Dict, codes, dege,
@@ -494,16 +510,14 @@ def align_blocks_index_sharded(mesh: Mesh, params, sh: Dict, codes, dege,
     for b, rs in enumerate(rows):
         sl = slice(rs.start, rs.stop)
         sxs = sxs_all[b]
-        grids, by_dev = [], {}
-        for dev in mesh.grid[b]:
-            if dev not in by_dev:
-                by_dev[dev] = (_on(dev, codes[sl]).to(torch.uint8),
-                               _on(dev, dege[sl]).to(torch.bool),
-                               _on(dev, lengths[sl]).to(torch.int32))
-            grids.append(by_dev[dev])
+        grids = [(_on(dev, codes[sl]).to(torch.uint8),
+                  _on(dev, dege[sl]).to(torch.bool),
+                  _on(dev, lengths[sl]).to(torch.int32))
+                 for dev in (mesh.grid[b][g[0]]
+                             for g in _device_groups(mesh.grid[b]))]
         strands = [_one_strand_sharded(mesh, b, sxs, grids,
                                        params.seed_stride, n_seeds, C,
-                                       excl_bp, rc)[0]
+                                       excl_bp, rc)
                    for rc in (False, True)]
         res = mesh.run([(b, 0)], lambda _b, _c: kernels.sharded_tail(
             *grids[0], "both", params.both_strands, params.max_mis,

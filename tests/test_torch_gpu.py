@@ -1679,16 +1679,18 @@ def _frozen_stream(cuda, model, seed=9, R=3000, L=256):
 def test_ctx_shard_decode_matches_k4_and_plain(cuda, model, D):
     """K18 with the table in D row shards == K4 on the whole table (the
     stream's symbols) and == its plain version (symbols and final
-    states, every lane back at RANS_L)."""
+    states, every lane back at RANS_L); the shards share the card, so
+    the stream is one launch."""
     from fastqueeze_tpu_torch.config import RANS_L
     lay, g, cg, cum, states, wpad = _frozen_stream(cuda, model)
     k4 = kernels.frozen_decode(states, wpad, cg, lay.T, cum, model)
     n = model.n_ctx // D
-    cums = [cum[i * n:(i + 1) * n] for i in range(D)]
+    # separate row blocks, as mesh.shard_tables makes them
+    cums = [cum[i * n:(i + 1) * n].clone() for i in range(D)]
     kernels.reset_launch_counts()
     out, x = kernels.ctx_shard_decode(states, wpad, cg, lay.T, cums, model)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ctx_shard_decode"] == lay.T + 1
+    assert kernels.LAUNCHES["ctx_shard_decode"] == 1
     assert torch.equal(out, k4) and torch.equal(out, g)
     assert bool(((x.long() & 0xFFFFFFFF) == RANS_L).all())
     po, px = kernels.ctx_shard_decode_plain(
@@ -1697,40 +1699,56 @@ def test_ctx_shard_decode_matches_k4_and_plain(cuda, model, D):
     assert torch.equal(out.cpu(), po) and torch.equal(x.cpu(), px)
 
 
-def test_ctx_shard_steps_match_one_call(cuda):
+@pytest.mark.parametrize("L", [256, 4500])
+@pytest.mark.parametrize("model", _MODELS[:2], ids=lambda m: type(m).__name__)
+def test_ctx_shard_steps_match_one_call(cuda, model, L):
     """The wave-at-a-time route that shards on several cards take (two
-    groups of two shards, their partials summed with mesh.psum between
-    the steps), run on one card, == the one-call route."""
+    groups of two shards, each group's one (1, 3, L) partial summed with
+    mesh.psum between the steps), run on one card, == the one-call route
+    == K4 (L = 4500: several lanes a thread on both routes)."""
     from fastqueeze_tpu_torch.parallel import mesh as tm
-    model = _MODELS[1]
-    lay, g, cg, cum, states, wpad = _frozen_stream(cuda, model, seed=3)
+    lay, g, cg, cum, states, wpad = _frozen_stream(
+        cuda, model, seed=3, R=3000 if L == 256 else 2 * L, L=L)
     n = model.n_ctx // 4
-    cums = [cum[i * n:(i + 1) * n] for i in range(4)]
+    cums = [cum[i * n:(i + 1) * n].clone() for i in range(4)]
     want, wx = kernels.ctx_shard_decode(states, wpad, cg, lay.T, cums, model)
+    assert torch.equal(want, g)
     runs = [kernels.ShardDecode(states, wpad, cg, lay.T, cums[2 * i:2 * i + 2],
                                 model, shard0=2 * i, writer=i == 0)
             for i in range(2)]
     xin = [None, None]
+    kernels.reset_launch_counts()
     for t in range(lay.T + 1):
         outs = [r.step(t, x) for r, x in zip(runs, xin)]
-        xin = [s[None] for s in tm.psum([o.sum(0, dtype=torch.int32)
-                                         for o in outs])]
+        assert all(tuple(o.shape) == (1, 3, L) for o in outs)
+        xin = tm.psum(outs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctx_shard_decode"] == 2 * (lay.T + 1)
     assert torch.equal(runs[0].out, want) and torch.equal(runs[0].x, wx)
 
 
 @pytest.mark.parametrize("case", [dict(k=14), dict(k=22),
                                   dict(k=14, n_seeds=6, excl_bp=7,
-                                       n_cand=64)])
-def test_sharded_align_matches_plain(cuda, case):
-    """K19 through the index-sharded aligner on 4 shards sharing the card
+                                       n_cand=64),
+                                  dict(k=22, n_seeds=6, excl_bp=7,
+                                       n_cand=64, lp=1024)])
+@pytest.mark.parametrize("layout", [[[0, 1, 2, 3]], [[0, 1], [2, 3]]],
+                         ids=["one_group", "two_groups"])
+def test_sharded_align_matches_plain(cuda, case, layout, monkeypatch):
+    """K19 through the index-sharded aligner on 4 shards on the card
     == the same call on 4 CPU shards (every phase's plain version):
-    mapped, pos, rev and mask."""
+    mapped, pos, rev and mask; at Lp 128 (the frame words in registers)
+    and 1024 (in shared memory, wide keys); a launch a phase and device
+    group, the shards all in one group (2 x 3 + the tail) and in the two
+    groups that two cards would hold (2 x 3 x 2 + 1; the second group's
+    verify on columns from 2 Cs)."""
     from fastqueeze_tpu_torch.align.hash import _gridify
     from fastqueeze_tpu_torch.align.index import build_from_ref
     from fastqueeze_tpu_torch.align.ref import RefSeq
     from fastqueeze_tpu_torch.parallel import mesh as tm
-    k = case["k"]
-    al, codes, dege, lengths = _align_fixture(k)
+    k, lp = case["k"], case.get("lp", 128)
+    al, codes, dege, lengths = _align_fixture(
+        k, **({} if lp == 128 else dict(n_reads=200, lens=(300, 1000))))
     rng = np.random.default_rng(41)
     ref = rng.integers(0, 4, 40_000).astype(np.uint8)
     for j in range(40):
@@ -1739,15 +1757,16 @@ def test_sharded_align_matches_plain(cuda, case):
     idx = build_from_ref(RefSeq(ref, np.zeros(len(ref), bool), ["r"],
                                 np.array([0, len(ref)]), ""), p)
     sh = tm.shard_ref_index(idx, 4)
-    c, d = _gridify(codes, dege, lengths, 128)
+    c, d = _gridify(codes, dege, lengths, lp)
     kw = {n: case[n] for n in ("n_seeds", "excl_bp", "n_cand") if n in case}
     cpu = torch.device("cpu")
     want = tm.align_blocks_index_sharded(
         tm.Mesh([cpu] * 4, ctx_shards=4), p, sh, c, d, lengths, **kw)
+    monkeypatch.setattr(tm, "_device_groups", lambda devs: layout)
     kernels.reset_launch_counts()
     got = tm.align_blocks_index_sharded(
         tm.Mesh([cuda] * 4, ctx_shards=4), p, sh, c, d, lengths, **kw)
-    assert kernels.LAUNCHES["sharded_align"] == 2 * (3 * 4) + 1
+    assert kernels.LAUNCHES["sharded_align"] == 2 * 3 * len(layout) + 1
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
     assert want[0].sum() > len(lengths) // 4     # the fixture's mappable
