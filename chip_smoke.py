@@ -57,6 +57,15 @@ Phases (any failure raises and exits non-zero):
      unpacked; K13's
      halves (train_hist, train_rows) == K13 at the frozen shape, and
      train_hist on Markov qualities beside torch.bincount of its keys;
+     the row pass (train_rows in place, and train_rows_sum over 2 and 4
+     partials) on the raw histograms of the order-10 seq (2^20 x 4),
+     --qlevel 3 (2^20 x 41) and hashed (2^19 x 48) tables, each with
+     edge rows planted (zeros, a total at cap, one over, one that needs
+     all 24 halvings), == its plain version, timed with no copy in the
+     window (CUDA events over fresh copies; device ms by torch.profiler,
+     the copy left out) beside its bound; B15's call on (2, 2), (4, 1)
+     and (1, 4) meshes of shards sharing the card by device work
+     (histogram kernels, fills, copies, the row pass, adds) and idle;
      K4's thread-block cluster (CTAs, threads, lanes a thread, how many
      fit the card) and its time a wave on each table; K2's device time by
      kernel on each table (torch.profiler: the forward chunk walk's
@@ -161,7 +170,8 @@ Phases (any failure raises and exits non-zero):
      one card (each on a CUDA stream of its own): the library calls
      train_counts_sharded (B15, K13's halves) on a (2, 2) mesh,
      encode_blocks_sharded (B19) and align_blocks_sharded (B16) on
-     (4, 1), each == the single-device kernels; api.compress(mesh=2) on
+     (4, 1), each == the single-device kernels (B15 also on (4, 1) and
+     (1, 4), each call's launches and time printed); api.compress(mesh=2) on
      phase 16's input, the trainer's caches emptied: every block payload
      and the model == phase 16's single run, PARAM mesh_n 2 and threads
      2, decompress(mesh=2) byte-exact, K1-K4 launched; a --qlevel 3
@@ -171,13 +181,20 @@ Phases (any failure raises and exits non-zero):
      reference cache emptied: 50,000 reads against ref.fa through a
      ShardedAligner over the 4 shards (K19; no K8/K9), byte-exact, the
      mapped fraction printed, and a 5,000-read cut's archive == the
-     device="cpu" one.
+     device="cpu" one;
+ 18. --profile: 20,000 reads (adaptive path) compressed and decompressed
+     through the CLI, each traced with --profile in a fresh process (as
+     a user runs it; its launches are that process's): byte-exact, the
+     archive == the one written without it, and each trace's device busy
+     share (the union of its kernel, copy and memset records over the
+     command's span) and five longest kernels printed.
 In each end-to-end run the launch counts are set to 0 just before it and
 read just after; a run that aligns prints its aligner kernels' launches
 and CUDA-event time by tier (K8 fwd / rc / both / rescue, K9, K14, by
 Lp) beside its align_s, and all of them come again as one JSON line
-("aligner_runs"); K15's launches by pack mode over phases 4-17 come on a
-line of their own.  The last line is {"ok": true, "device": {...}}; the
+("aligner_runs"); K15's launches by pack mode over phases 4-18 come on a
+line of their own, and phase 18's trace summaries as one JSON line
+("profile_runs").  The last line is {"ok": true, "device": {...}}; the
 line before it holds the kernel table as JSON.
 
     python3 chip_smoke.py --aligner
@@ -215,6 +232,14 @@ device time by kernel (torch.profiler: K18's us a wave by route, K19's
 ms by phase beside the collectives' kernels and the idle share), as
 JSON, then the last line above; copied into an older tree's checkout it
 times that tree's K18 and K19 in a fresh process.
+
+    python3 chip_smoke.py --rows
+
+runs phases 1-2 and phase 3's row pass (train_rows, train_rows_sum on
+the three tables) against its plain version, with CUDA-event and device
+times and bounds, and B15's call split on the three meshes, as JSON, then
+the last line above; copied into an older tree's checkout it times that
+tree's row pass and B15 call in a fresh process.
 
     python3 chip_smoke.py --sass NAME [NAME...] [--out DIR]
 
@@ -1278,20 +1303,19 @@ def check_semi_kernels():
     if not torch.equal(rk, k13):
         raise AssertionError("train_hist + train_rows != K13")
     print("  train_hist + train_rows == train_counts (K13)")
+    if not torch.equal(rk, rp):
+        raise AssertionError("train_rows != its plain version")
     work = torch.empty_like(k13)
+    # (the row pass's times, without the copy that restores its input:
+    # check_row_pass)
     rows["train_split_seq_order10"] = {
         "train_hist": (_max_err(hk, hp), _time_ms(
             lambda: kernels.train_hist(g, cg, seq, work.zero_()), 5),
             _time_ms(lambda: kernels.train_hist_plain(
-                g, cg, seq, work.zero_()), 1)),
-        "train_rows": (_max_err(rk, rp), _time_ms(
-            lambda: kernels.train_rows(work.copy_(hk), seq), 5),
-            _time_ms(lambda: kernels.train_rows_plain(work.copy_(hk), seq),
-                     1))}
+                g, cg, seq, work.zero_()), 1))}
     BOUNDS["train_hist"] = (_nbytes(g, cg, hk),
                             _OPS["train_counts"] * R * READ_LEN,
                             BOUNDS["train_counts"][2])
-    BOUNDS["train_rows"] = (2 * _nbytes(hk), 3 * hk.numel(), None)
     PAIR_MS["train_hist_qual"] = _train_qual(R, lay, cg)
     del g, cg, flat, valid, aux, hk, hp, rk, rp, work
 
@@ -1373,6 +1397,320 @@ def check_semi_kernels():
             raise AssertionError(f"train_counts: kernel differs from its "
                                  f"plain version ({err})")
     return rows
+
+
+# The row pass (K13's row half; B15's train_rows, and its summing form
+# train_rows_sum): by table, its device time alone (torch.profiler; the
+# copy that restores its in-place input is a kernel of its own, left out),
+# CUDA-event times with no copy in the window, and the summing form at
+# ROW_NB partials; and phase 17's B15 call on the card by device work.
+ROWS = {}
+ROW_NB = (2, 4)
+ROW_KERNELS = ("train_rows", "rows_finalize")   # the parent's, this tree's
+B15_MESHES = ((2, 2), (4, 1), (1, 4))        # (block, ctx) shard counts
+B15_SPLIT = {}
+
+
+def _row_models() -> dict:
+    """The tables the row pass finalizes at phase 3's shapes: the order-10
+    seq table (2^20 x 4), the --qlevel 3 qual table (2^20 x 41) and the
+    hashed rank chain (2^19 x 48)."""
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.models.base import (QualModel, SeqModel,
+                                                  qual_model_for)
+    return {"seq_order10": SeqModel(alphabet=4, init=3, inc=1, cap=253,
+                                    order=10),
+            "qual_q3_A41": qual_model_for(CodecParams(qlevel=3), 41),
+            "qual_k4_hash16_pos3": QualModel(alphabet=48, k=4, ctx_base=40,
+                                             hash_bits=16, pos_bits=3)}
+
+
+def _edge_rows(m) -> np.ndarray:
+    """Raw rows the row pass must get right: zeros; a row whose total after
+    init is cap; one over cap; one that needs all 24 halvings (its total
+    after init over cap x 2^23; an entry stays under 2^31)."""
+    A = m.alphabet
+    at = np.zeros(A, np.int64)
+    at[0] = m.cap - A * m.init
+    deep = np.full(A, -(-(m.cap << 23) // A) + 1 - m.init, np.int64)
+    rows = np.stack([np.zeros(A, np.int64), at, at + np.eye(A)[0], deep])
+    assert rows.max() < (1 << 31) - 2 - m.init, rows.max()
+    return rows.astype(np.int32)
+
+
+def _edge_at(n: int) -> list:
+    """Where the edge rows go: the table's first and last four rows."""
+    return [0, 1, 2, 3, n - 4, n - 3, n - 2, n - 1]
+
+
+def _row_tables(dev):
+    """(tag, model, raw table) for each of _row_models: K13's histogram
+    half of a phase-3 stream (R_MAIN x 100 uniform symbols, L_MAIN lanes)
+    with the edge rows planted at _edge_at."""
+    import torch
+    from fastqueeze_tpu_torch.ops import engine, kernels
+    from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
+    rng = np.random.default_rng(SEED + 18)
+    counts = np.full(R_MAIN, READ_LEN, np.int64)
+    lay = make_layout(counts, L_MAIN)
+    cg = torch.from_numpy(engine._counts_grid(counts, L_MAIN)).to(dev)
+    for tag, m in _row_models().items():
+        g = torch.from_numpy(to_grid(lay, rng.integers(
+            0, m.alphabet, R_MAIN * READ_LEN).astype(np.uint8))).to(dev)
+        h = torch.zeros((m.n_ctx, m.alphabet), dtype=torch.int32,
+                        device=dev)
+        kernels.train_hist(g, cg, m, h)
+        h[_edge_at(m.n_ctx)] = torch.from_numpy(
+            np.tile(_edge_rows(m), (2, 1))).to(dev)
+        yield tag, m, h
+
+
+def _row_device_ms(split: dict) -> float:
+    return sum(v for k, v in split.items() if k in ROW_KERNELS)
+
+
+def _time_each(fn, srcs) -> float:
+    """Mean CUDA-event ms of fn(x) over the tensors ``srcs``, made before
+    the window (an in-place kernel on a fresh copy each call, and no copy
+    timed)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for x in srcs:
+        fn(x)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / len(srcs)
+
+
+def check_row_pass(rows=None) -> dict:
+    """The row pass on each _row_tables table: train_rows in place and,
+    where the tree has it, train_rows_sum over ROW_NB partials (the raw
+    table and rolled copies of it, the copies' edge rows zeroed) against
+    their plain versions on the card, with the edge rows' results printed;
+    CUDA-event ms (no copy in the window) and device ms by kernel
+    (torch.profiler over 3 calls); bounds by bytes: (nb + 1) x the
+    table.  Fills ROWS and, given ``rows``, the kernel table's rows."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    dev = torch.device("cuda", torch.cuda.current_device())
+    summing = getattr(kernels, "train_rows_sum", None)
+    for tag, m, h in _row_tables(dev):
+        nbytes = _nbytes(h)
+        got = kernels.train_rows(h.clone(), m)
+        want, pms = _timed(lambda: kernels.train_rows_plain(h.clone(), m))
+        err = _max_err(got, want)
+        at = _edge_at(m.n_ctx)
+        edges = {"raw": h[at[:4]].tolist(), "kernel": got[at[:4]].tolist()}
+        works = [h.clone() for _ in range(5)]
+        ms = _time_each(lambda x: kernels.train_rows(x, m), works)
+        work = torch.empty_like(h)
+        split = _device_split(
+            lambda: kernels.train_rows(work.copy_(h), m), reps=3)
+        r = {"shape": list(h.shape), "max_abs_err": err, "ms": ms,
+             "plain_ms": pms, "device_ms": _row_device_ms(split),
+             "device_ms_by_kernel": split,
+             "bound_ms": 2 * nbytes / HBM_BPS * 1e3, "edge_rows": edges}
+        print(f"  {tag:24s} train_rows {tuple(h.shape)}: max_abs_err {err}"
+              f", {ms:.4f} ms (events, no copy), device {r['device_ms']:.4f}"
+              f" ms, plain {pms:.3f} ms, bound {r['bound_ms']:.4f} ms; "
+              f"device ms by kernel {json.dumps(split)}; edge rows after "
+              f"the pass {edges['kernel']}")
+        if err:
+            raise AssertionError(f"train_rows {tag}: kernel differs from "
+                                 f"its plain version ({err})")
+        del works
+        if summing is not None:
+            r["sum"] = {}
+            for nb in ROW_NB:
+                parts = [h] + [torch.roll(h, 7919 * k, 0) for k in
+                               range(1, nb)]
+                for p in parts[1:]:
+                    p[at] = 0
+                got = summing(parts, m)
+                want, spms = _timed(
+                    lambda: kernels.train_rows_sum_plain(parts, m))
+                serr = _max_err(got, want)
+                if not torch.equal(got[at], want[at]) or serr:
+                    raise AssertionError(f"train_rows_sum {tag} nb {nb}: "
+                                         f"kernel differs from its plain "
+                                         f"version ({serr})")
+                sms = _time_ms(lambda: summing(parts, m), 5)
+                ssplit = _device_split(lambda: summing(parts, m), reps=3)
+                s = {"max_abs_err": serr, "ms": sms, "plain_ms": spms,
+                     "device_ms": _row_device_ms(ssplit),
+                     "device_ms_by_kernel": ssplit,
+                     "bound_ms": (nb + 1) * nbytes / HBM_BPS * 1e3}
+                r["sum"][f"nb{nb}"] = s
+                print(f"  {tag:24s} train_rows_sum nb {nb}: max_abs_err "
+                      f"{serr}, {sms:.4f} ms (events), device "
+                      f"{s['device_ms']:.4f} ms, plain {spms:.3f} ms, bound "
+                      f"{s['bound_ms']:.4f} ms")
+        ROWS[tag] = r
+        if rows is not None and tag == "seq_order10":
+            rows["rows_seq_order10"] = {"train_rows": (err, ms, pms)}
+            BOUNDS["train_rows"] = (2 * nbytes, 0, None)
+            if summing is not None:
+                s = r["sum"][f"nb{ROW_NB[0]}"]
+                rows["rows_seq_order10"]["train_rows_sum"] = (
+                    s["max_abs_err"], s["ms"], s["plain_ms"])
+                BOUNDS["train_rows_sum"] = ((ROW_NB[0] + 1) * nbytes, 0,
+                                            None)
+    return ROWS
+
+
+def _chrome_events(path: str) -> list:
+    with open(path) as fh:
+        tr = json.load(fh)
+    return tr["traceEvents"] if isinstance(tr, dict) else tr
+
+
+def _device_records(evs) -> list:
+    """(start us, end us, name, category) of each kernel, copy and memset
+    record of a Chrome trace's events."""
+    return [(e["ts"], e["ts"] + e.get("dur", 0), e.get("name", ""),
+             e.get("cat", "")) for e in evs
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e.get("ph") == "X"]
+
+
+def _trace_device(prof):
+    """A torch.profiler session's device records (_device_records) and
+    all its events, from its Chrome trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        evs = _chrome_events(path)
+    finally:
+        os.remove(path)
+    return _device_records(evs), evs
+
+
+def _busy_ms(ivs, lo: float, hi: float) -> float:
+    """The union of the intervals (us) clipped to [lo, hi), in ms."""
+    total, end = 0.0, lo
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in ivs
+                       if b > lo and a < hi):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _b15_kind(name: str, cat: str) -> str:
+    if cat == "gpu_memcpy":
+        return "copies"
+    if cat == "gpu_memset" or "Fill" in name:
+        return "fills"
+    if any(k in name for k in ("chunk_", "drops_scan")):
+        return "histogram"
+    if any(k in name for k in ROW_KERNELS):
+        return "rows"
+    if "add" in name.lower():
+        return "adds"
+    return "other"
+
+
+def _b15_inputs():
+    """Phase 17's B15 (and B19) inputs: the model, 4 blocks of (1024,
+    1024) uniform qualities (A = 40, qlevel 2), their 16-base reads'
+    length grid, and the generator they came from."""
+    from fastqueeze_tpu_torch.models.base import QualModel
+    m = QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=2)
+    Bk, Tk, Lk = MESH_SHARDS, 1024, 1024
+    rng = np.random.default_rng(SEED + 17)
+    syms = rng.integers(0, 40, (Bk, Tk, Lk)).astype(np.uint8)
+    cgrid = np.full((Bk, Tk // 16, Lk), 16, np.int32)
+    return m, syms, cgrid, rng
+
+
+def b15_split(reps: int = 3) -> dict:
+    """B15 (train_counts_sharded) on MESH_SHARDS shards sharing the card
+    (visible_devices patched) for each B15_MESHES shape: its launches, the
+    call's host-clock ms (ending in a synchronize), and the device time of
+    one call by kind (histogram kernels, fills, copies, the row pass, the
+    adds of a reduce, other) beside its idle ms (the call's window less
+    the union of its device records), over ``reps`` calls traced by
+    torch.profiler; each call == K13 on the stacked blocks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.parallel import mesh as tm
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m, syms, cgrid, _ = _b15_inputs()
+    Bk, Tk, Lk = syms.shape
+    single = kernels.train_counts(
+        torch.from_numpy(syms.reshape(Bk * Tk, Lk)).to(dev),
+        torch.from_numpy(cgrid.reshape(-1, Lk)).to(dev), m)
+    real = tm.visible_devices
+    tm.visible_devices = lambda kind="cuda": [dev] * MESH_SHARDS
+    try:
+        for nb, nc in B15_MESHES:
+            mesh = tm.make_mesh(MESH_SHARDS, ctx_shards=nc)
+
+            def run():
+                out = tm.train_counts_sharded(mesh, m, syms, cgrid)
+                torch.cuda.synchronize()
+                return out
+
+            if not torch.equal(torch.cat(run()), single):
+                raise AssertionError(f"B15 ({nb}, {nc}) != K13")
+            kernels.reset_launch_counts()
+            run()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(reps):
+                    with record_function(f"b15_call_{i}"):
+                        run()
+            dev_evs, evs = _trace_device(prof)
+            wins = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+                    if e.get("name", "").startswith("b15_call_")
+                    and e.get("cat") == "user_annotation"]
+            by, window, busy = {}, 0.0, 0.0
+            for lo, hi in wins:
+                inside = [d for d in dev_evs if d[0] >= lo and d[1] <= hi]
+                for a, b, name, cat in inside:
+                    k = _b15_kind(name, cat)
+                    by[k] = by.get(k, 0.0) + (b - a) / 1e3 / len(wins)
+                window += (hi - lo) / 1e3 / len(wins)
+                busy += _busy_ms([(a, b) for a, b, _, _ in inside],
+                                 lo, hi) / len(wins)
+            row = {"launches": launches, "call_ms": wall,
+                   "traced_call_ms": window, "device_ms_by_kind": by,
+                   "busy_ms": busy, "idle_ms": window - busy,
+                   "traced_calls": len(wins)}
+            B15_SPLIT[f"{nb}x{nc}"] = row
+            print(f"  B15 on a ({nb}, {nc}) mesh: {wall:.3f} ms a call "
+                  f"(host clock); traced {window:.3f} ms: device ms by kind"
+                  f" {json.dumps(by)}, busy {busy:.3f}, idle "
+                  f"{window - busy:.3f}; launches {json.dumps(launches)}")
+    finally:
+        tm.visible_devices = real
+    return B15_SPLIT
+
+
+def rows_main() -> int:
+    """--rows: phases 1-2, then the row pass (check_row_pass) on phase 3's
+    three tables and B15's call by device work on each B15_MESHES mesh
+    (b15_split); no other kernel and no end-to-end phase.  It runs from
+    an older tree's copy too (copy this file into it), so two trees' row
+    passes compare in turns in one call, each in a fresh process."""
+    card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    build()
+    check_row_pass()
+    b15_split()
+    print(json.dumps({"rows": ROWS, "b15": B15_SPLIT}))
+    _ok_line()
+    return 0
 
 
 CTX_PLAIN_T = 512     # K18's plain version runs this many waves
@@ -3160,6 +3498,96 @@ def modes_end_to_end(tmp: str, totals, pe_slice) -> None:
         os.remove(f)
 
 
+R_PROFILE = 20_000         # phase 18's reads (adaptive path, ~4.8 MB)
+PROFILE_RUNS = {}          # phase 18: each traced CLI call's summary
+
+
+def _kernel_short(name: str) -> str:
+    """A trace's kernel name without its namespace and arguments."""
+    import re
+    hit = re.search(r"(\w+)(<[^()]*>)?\(", name)
+    return hit.group(1) + (hit.group(2) or "") if hit else name[:60]
+
+
+def _trace_summary(path: str) -> dict:
+    """A --profile trace: its traced window (the command's span,
+    cli.RUN_SPAN), the device's busy ms and share in it (the union of the
+    kernel, copy and memset records over the window), and the five
+    kernels with the most device ms."""
+    from fastqueeze_tpu_torch import cli
+    evs = _chrome_events(path)
+    span = [e for e in evs if e.get("name") == cli.RUN_SPAN
+            and e.get("cat") == "user_annotation"]
+    if len(span) != 1:
+        raise AssertionError(f"{path}: {len(span)} command spans")
+    lo, hi = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    recs = [r for r in _device_records(evs) if r[1] > lo and r[0] < hi]
+    by = {}
+    for a, b, name, cat in recs:
+        if cat == "kernel":
+            k = _kernel_short(name)
+            by[k] = by.get(k, 0.0) + (b - a) / 1e3
+    busy, window = _busy_ms([(a, b) for a, b, _, _ in recs], lo, hi), \
+        (hi - lo) / 1e3
+    return {"window_ms": window, "busy_ms": busy, "busy_share": busy / window,
+            "device_records": len(recs),
+            "kernel_ms": sum(by.values()),
+            "top5_kernels_ms": dict(sorted(by.items(),
+                                           key=lambda kv: -kv[1])[:5])}
+
+
+def _cli_traced(argv, trace_dir: str) -> float:
+    """The CLI with --profile trace_dir in a fresh process, as a user runs
+    it (late in this long process torch.profiler has dropped a session's
+    device records); returns its wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "fastqueeze_tpu_torch.cli"]
+                       + argv + ["-f", "--profile", trace_dir], env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"{argv[0]} --profile failed ({r.returncode}):\n"
+                           f"{r.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def profile_end_to_end(tmp: str) -> None:
+    """Phase 18: R_PROFILE reads (adaptive path) compressed and
+    decompressed through the CLI with --profile, each in a fresh process
+    (_cli_traced) with a trace directory of its own: byte-exact, the
+    archive == the one written without --profile; each trace's busy share
+    and five longest kernels printed."""
+    from fastqueeze_tpu_torch import cli
+    print("phase 18: --profile (a torch.profiler trace of a CLI compress "
+          "and decompress, each in a fresh process)")
+    fq = _input(tmp, "profile.fq", R_PROFILE)
+    plain = os.path.join(tmp, "profile_plain.fqz")
+    if cli.main(["-c", "-1", fq, "-o", plain, "-f"]) != 0:
+        raise RuntimeError("compress failed")
+    arc, back = os.path.join(tmp, "profile.fqz"), os.path.join(tmp, "prof")
+    for tag, argv in (("compress", ["-c", "-1", fq, "-o", arc]),
+                      ("decompress", ["-d", arc, "-o", back])):
+        d = os.path.join(tmp, f"trace_{tag}")
+        wall = _cli_traced(argv, d)
+        PROFILE_RUNS[tag] = dict(
+            _trace_summary(os.path.join(d, cli.TRACE_NAME)), wall_s=wall)
+        r = PROFILE_RUNS[tag]
+        print(f"  --profile {tag}: {wall:.3f} s wall (the process); traced "
+              f"window {r['window_ms']:.3f} ms, device busy "
+              f"{r['busy_ms']:.3f} ms = {100 * r['busy_share']:.2f}% (the "
+              f"union of {r['device_records']} kernel / copy / memset "
+              f"records); kernels {r['kernel_ms']:.3f} ms; the five longest "
+              f"(device ms): {json.dumps(r['top5_kernels_ms'])}")
+    if not _same_file(arc, plain):
+        raise AssertionError("--profile changed the archive")
+    if not _round_trip_ok(back, fq, None):
+        raise AssertionError("--profile round trip differs from the input")
+    print("  --profile: archive == the one written without it; round trip "
+          "byte-exact")
+
+
 def mesh_end_to_end(tmp: str, genome, ref: str, totals) -> None:
     """Phase 17: the mesh with MESH_SHARDS shards sharing the one card
     (visible_devices patched), each on a CUDA stream of its own: the
@@ -3192,21 +3620,18 @@ def mesh_end_to_end(tmp: str, genome, ref: str, totals) -> None:
 
 
 def _mesh_library(genome, ref: str, totals) -> None:
-    """B15 on a (2, 2) mesh, B19 and B16 on (4, 1), counted as one
-    library user's run; then each against the single-device kernels."""
+    """B15 on each B15_MESHES mesh (its launches and time printed), B19
+    and B16 on (4, 1), counted as one library user's run; then each
+    against the single-device kernels."""
     import torch
     from fastqueeze_tpu_torch.align.hash import AlignConfig
     from fastqueeze_tpu_torch.config import CodecParams
-    from fastqueeze_tpu_torch.models.base import QualModel
     from fastqueeze_tpu_torch.ops import engine, kernels
     from fastqueeze_tpu_torch.parallel import mesh as tm
     from fastqueeze_tpu_torch.pipeline import aligned
     dev = torch.device("cuda", torch.cuda.current_device())
-    m = QualModel(alphabet=40, init=1, inc=8, cap=8192, qlevel=2)
-    Bk, Tk, Lk = MESH_SHARDS, 1024, 1024
-    rng = np.random.default_rng(SEED + 17)
-    syms = rng.integers(0, 40, (Bk, Tk, Lk)).astype(np.uint8)
-    cgrid = np.full((Bk, Tk // 16, Lk), 16, np.int32)
+    m, syms, cgrid, rng = _b15_inputs()
+    Bk, Tk, Lk = syms.shape
     nh = engine._n_halve(m, Lk)
     al, _ = aligned.prepare_ref(CodecParams(), ref)      # phase 8's Aligner
     c, d, ln = (a.reshape((Bk, -1) + a.shape[1:]) for a in _align_reads(
@@ -3215,21 +3640,34 @@ def _mesh_library(genome, ref: str, totals) -> None:
                       both_strands=0, lp=ALIGN_LP)
     _reset_counts()
     t0 = time.time()
-    parts = tm.train_counts_sharded(tm.make_mesh(MESH_SHARDS, ctx_shards=2),
-                                    m, syms, cgrid)
+    b15 = {}
+    for nb, nc in B15_MESHES:
+        before = dict(kernels.LAUNCHES)
+        t1 = time.perf_counter()
+        b15[nb, nc] = tm.train_counts_sharded(
+            tm.make_mesh(MESH_SHARDS, ctx_shards=nc), m, syms, cgrid)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+               if v != before[k]}
+        print(f"  B15 on a ({nb}, {nc}) mesh: {ms:.3f} ms (host clock, "
+              f"to a synchronize), launches {json.dumps(got)}")
     enc = tm.encode_blocks_sharded(tm.make_mesh(MESH_SHARDS), m, nh, None,
                                    syms, cgrid)
     aln = tm.align_blocks_sharded(tm.make_mesh(MESH_SHARDS), al, cfg, c, d,
                                   ln)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    _read_counts(("train_hist", "train_rows", "adapt_encode_walk",
-                  "rans_encode_sf", "align_batch"), totals)
+    _read_counts(("train_hist", "train_rows", "train_rows_sum",
+                  "adapt_encode_walk", "rans_encode_sf", "align_batch"),
+                 totals)
     single = kernels.train_counts(
         torch.from_numpy(syms.reshape(Bk * Tk, Lk)).to(dev),
         torch.from_numpy(cgrid.reshape(-1, Lk)).to(dev), m)
-    if not torch.equal(torch.cat(parts), single):
-        raise AssertionError("B15: the mesh trainer != K13 on the blocks")
+    for shape, parts in b15.items():
+        if not torch.equal(torch.cat(parts), single):
+            raise AssertionError(f"B15: the mesh trainer on {shape} != K13 "
+                                 f"on the blocks")
     ix = al.dev_index(dev)
     for b in range(Bk):
         s, cg = (torch.from_numpy(x[b]).to(dev) for x in (syms, cgrid))
@@ -3241,7 +3679,7 @@ def _mesh_library(genome, ref: str, totals) -> None:
                                     for x in (c, d, ln)), ix, cfg)
         if not all(torch.equal(x, y) for x, y in zip(aln[b], one)):
             raise AssertionError(f"B16 block {b} != K8 on one device")
-    print(f"library: train_counts_sharded (2 x 2) == K13, "
+    print(f"library: train_counts_sharded (2 x 2, 4 x 1, 1 x 4) == K13, "
           f"encode_blocks_sharded == K5 -> K7, align_blocks_sharded == K8 "
           f"({Bk} blocks, {dt:.3f} s)")
 
@@ -3422,6 +3860,8 @@ _REPLACES = {
                    "fastqueeze_tpu/parallel/mesh.py:87"),
     "train_rows": ("fastqueeze_tpu_torch/csrc/train_counts.cu",
                    "fastqueeze_tpu/parallel/mesh.py:87"),
+    "train_rows_sum": ("fastqueeze_tpu_torch/csrc/train_counts.cu",
+                       "fastqueeze_tpu/parallel/mesh.py:87"),
     "ctx_shard_decode": ("fastqueeze_tpu_torch/csrc/ctx_shard_decode.cu",
                          "fastqueeze_tpu/parallel/mesh.py:250"),
     "sharded_align": ("fastqueeze_tpu_torch/csrc/sharded_align.cu",
@@ -3600,6 +4040,8 @@ def main() -> int:
     rows.update(check_pack_kernels())
     rows.update(check_adaptive_kernels())
     rows.update(check_semi_kernels())
+    check_row_pass(rows)
+    b15_split()
     rows.update(check_ctx_shard_kernel())
     genome = _genome()
     rows.update(check_align_kernels(genome))
@@ -3614,6 +4056,7 @@ def main() -> int:
         lossy_mesh_end_to_end(tmp, launches)
         modes_end_to_end(tmp, launches, pe_slice)
         mesh_end_to_end(tmp, genome, ref, launches)
+        profile_end_to_end(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seq = dict(rows["adapt_seq_order10"], **rows["seq_order10"],
@@ -3622,6 +4065,7 @@ def main() -> int:
                **rows["train_seq_order10"], **rows["k22_fused"],
                **rows["seq_mode2"], **rows["markov40_pack15"],
                **rows["train_split_seq_order10"],
+               **rows["rows_seq_order10"],
                **rows[f"qual_q3_D{MESH_SHARDS}"],
                **rows[f"k14_sharded_D{MESH_SHARDS}"])
     seq["pack_grid"] = rows["markov40_mode6"]["pack_grid"]
@@ -3660,7 +4104,7 @@ def main() -> int:
                   "max_abs_err": r[name][0]}
             for key, r in rows.items() if name in r}
     # K15 in every mode: device split, bound, the ranks' torch.cumsum;
-    # its launches by mode in phases 4-17
+    # its launches by mode in phases 4-18
     for key, m in by_name["unpack_grid"]["modes"].items():
         b = _bound_row(f"unpack_grid_{key}")
         m.update(device_ms_by_kernel=K15_SPLIT[key]["device_ms_by_kernel"],
@@ -3714,6 +4158,9 @@ def main() -> int:
     by_name["semi_encode_walk"]["by_stream"] = K11_SPLIT
     by_name["pack15"]["by_grid"] = K17_SPLIT
     by_name["train_hist"]["qual_markov40"] = PAIR_MS["train_hist_qual"]
+    # the row pass on each table (in place and summing), B15's call split
+    by_name["train_rows"]["by_table"] = ROWS
+    by_name["train_rows_sum"]["b15_by_mesh"] = B15_SPLIT
     # K18 at each row-shard count, beside K4 on the same stream and table
     by_name["ctx_shard_decode"]["k4_same_stream_ms"] = PAIR_MS["k4_q3"]
     by_name["ctx_shard_decode"]["plain_waves"] = CTX_PLAIN_T
@@ -3729,8 +4176,9 @@ def main() -> int:
         "rc": rows["k14_rc"]["align_batch"][1]}
     print(f"copies of one stream (phase 3): {json.dumps(COPY)}")
     print(json.dumps({"aligner_runs": ALIGN_RUNS}))
-    print(f"unpack_grid launches by pack mode (phases 4-17): "
+    print(f"unpack_grid launches by pack mode (phases 4-18): "
           f"{json.dumps(UNPACK_BY_MODE)}")
+    print(json.dumps({"profile_runs": PROFILE_RUNS}))
     print(json.dumps({"kernels": table}))
     _ok_line()
     return 0
@@ -3995,6 +4443,8 @@ if __name__ == "__main__":
         sys.exit(pack_window_main())
     if sys.argv[1:2] == ["--shards"]:
         sys.exit(shards_main())
+    if sys.argv[1:2] == ["--rows"]:
+        sys.exit(rows_main())
     if sys.argv[1:2] == ["--sass"]:
         args = sys.argv[2:]
         out = _opt("--out") or "sass"

@@ -10,16 +10,26 @@
         [-t N] [-P 1|2|3] [-p] [-X START:COUNT] [--mesh N]
     python -m fastqueeze_tpu_torch.cli --merge part0.fqz ... -o out.fqz
     python -m fastqueeze_tpu_torch.cli -L out.fqz
+    (any of these) [--cpu] [--profile DIR] [--stats]
 
 The flags and archives are those of fastqueeze_tpu's CLI.  The coder and
 the aligner run on the CUDA card; with no card the CLI stops with an
-error and never continues on the CPU (``-i`` builds the index on the
-host, ``--merge`` and ``-L`` only read archives, and ``-D`` writes the
-developer config file ./fastqueeze.config with the defaults, which every
-compress reads, e.g. ``AdaptChunk:64`` for the semi-adaptive walk; none
-of them needs a card).  ``--part K:N`` writes the partial archive of
-blocks K, K+N, ... (0 <= K < N <= 2^32-1), ``--merge`` assembles the N
-parts into the single-run archive, ``-X`` decodes only the covering
+error and never continues on the CPU unless ``--cpu`` asks for the CPU:
+then the kernels' plain PyTorch versions and the native host coders run,
+as ``api`` does with ``device="cpu"``, and write the same archive.
+(``-i`` builds the index on the host, ``--merge`` and ``-L`` only read
+archives, and ``-D`` writes the developer config file ./fastqueeze.config
+with the defaults, which every compress reads, e.g. ``AdaptChunk:64``
+for the semi-adaptive walk; none of them needs a card.)  ``--profile
+DIR`` traces the whole run with torch.profiler (the host's activity, and
+the card's kernels and copies when the run is on the card; the command
+is the span named ``fastqueeze_cli``) and writes the trace, also when
+the run fails, to DIR/fastqueeze.pt.trace.json, a Chrome trace
+(chrome://tracing, Perfetto or TensorBoard's profiler); it changes no
+archive byte, and a profiler that cannot start stops the run.
+``--part K:N`` writes the partial archive of blocks K, K+N, ... (0 <= K
+< N <= 2^32-1), ``--merge`` assembles the N parts into the single-run
+archive, ``-X`` decodes only the covering
 blocks, ``-m`` puts several inputs into one archive.  ``--mesh N``
 runs the blocks data-parallel over N cards (-1 = all; more than are
 visible is refused; one card: a no-op written into PARAM); the archive
@@ -107,7 +117,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--qlevel", type=int, default=None,
                     help="quality context level (default 2; 3 codes "
                     "adaptively with position contexts)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU: the kernels' plain PyTorch "
+                    "versions and the native host coders (same archives; "
+                    "for validation runs or a machine with no card)")
     ap.add_argument("--stats", action="store_true", help="print debug tables")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler trace of the run to "
+                    "DIR/fastqueeze.pt.trace.json (Chrome trace: "
+                    "chrome://tracing, Perfetto, TensorBoard)")
     return ap
 
 
@@ -153,10 +171,57 @@ def _parse_part(spec: str):
     return part if part[1] > 1 else None   # 1 part == a single-run archive
 
 
+TRACE_NAME = "fastqueeze.pt.trace.json"
+RUN_SPAN = "fastqueeze_cli"     # the trace's span of the whole command
+
+
+def _start_profile(on_card: bool):
+    """A started torch.profiler session: the host's activity, and the
+    card's when the run is on it."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     t_start = time.time()
     dbg = DebugInfo()
+    prof = None
+    if args.profile:
+        import torch
+        try:
+            prof = _start_profile(not args.cpu and torch.cuda.is_available())
+        except Exception as e:     # any failure to start: the run stops
+            error(f"--profile: the profiler did not start: {e}")
+            return 2
+    try:
+        if prof is None:
+            rc = _run(args, dbg)
+        else:
+            from torch.profiler import record_function
+            with record_function(RUN_SPAN):
+                rc = _run(args, dbg)
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile, TRACE_NAME))
+            info(f"profiler trace written to {args.profile}")
+    if rc is not None:
+        return rc
+    if args.stats:
+        dbg.print()
+    info(f"total time {time.time() - t_start:.2f}s")
+    return 0
+
+
+def _run(args, dbg):
+    """The command; an exit code, or None when a compress or decompress
+    finished (main then prints --stats and the total time)."""
     if args.dump_config:
         info(f"wrote {CodecParams().dump_config_file()}")
         return 0
@@ -196,11 +261,14 @@ def main(argv=None) -> int:
         error("too many positional arguments")
         return 2
     import torch
-    if not torch.cuda.is_available():
+    if args.cpu:
+        device = torch.device("cpu")
+    elif not torch.cuda.is_available():
         error("no CUDA device: this CLI runs its coder on the card and "
-              "never falls back to the CPU")
+              "never falls back to the CPU (--cpu asks for the CPU)")
         return 2
-    device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device("cuda", torch.cuda.current_device())
     from fastqueeze_tpu_torch.pipeline import driver
     from fastqueeze_tpu_torch.pipeline.aligned import compress_se_aligned
     from fastqueeze_tpu_torch.pipeline.pe import compress_pe
@@ -300,10 +368,7 @@ def main(argv=None) -> int:
     except (ValueError, FileNotFoundError, EOFError) as e:
         error(str(e))
         return 1
-    if args.stats:
-        dbg.print()
-    info(f"total time {time.time() - t_start:.2f}s")
-    return 0
+    return None
 
 
 if __name__ == "__main__":

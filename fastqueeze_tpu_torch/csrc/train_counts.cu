@@ -22,14 +22,38 @@
 // with atomicAdd (chunk_hist).  Integer adds commute, so the table is the
 // same exact histogram in any order; padding slots add nothing.
 //
-// train_rows, one thread per row: add init, then halve ((c + 1) >> 1)
-// while the row total is over cap, at most 24 times, in place.
+// The row pass (rows_finalize) turns raw counts into the trained table:
+// the sum of nb partial tables of the same rows, + init, then (c + 1) >> 1
+// while the row total is over cap, at most 24 times (the rescale of
+// fastqueeze_tpu/ops/engine.py _train_counts, and the psum over 'block'
+// plus the rescale of fastqueeze_tpu/parallel/mesh.py
+// train_counts_sharded's local_train, B15).  It is bound by bytes: each
+// partial read once, the table written once, (nb + 1) x 4 B an entry;
+// the 24 rounds cost nothing once the row is in registers.  So a row's
+// counts go from one load to one store in registers, with A a template
+// parameter for the models' alphabets (4: order-k seq; 40, 41, 48:
+// quality) and a generic path for any other A up to 256 (the symbols are
+// bytes):
+//   A = 4       a thread a row, one 16-byte load a partial and one
+//               16-byte store, neighbouring threads on neighbouring rows;
+//   A = 40, 48  4 lanes a row, 16-byte pieces (rows are 16-byte aligned),
+//               3 a lane, so a warp's load covers 8 consecutive rows;
+//   A = 41      8 lanes a row, 4-byte pieces (164-byte rows), 6 a lane
+//               (a warp a row, 2 a lane, took 1.4x as long in place);
+//   other A     4-byte pieces: a thread a row up to 16, 8 lanes up to 64,
+//               a warp up to 256.
+// A group of lanes takes its row total from __shfl_xor_sync over the
+// group, each round.  The row total is int64; entries are int32, as the
+// JAX tables are.  The mesh trainer gives the block shards' partials of
+// one device's row block (its ctx shards stacked), so the reduce over
+// 'block' is this pass's loads; K13 (fq_train_counts) and the in-place
+// fq_train_rows run it with nb = 1, out = the partial.
 //
 // The mesh trainer (parallel/mesh.py train_counts_sharded, replacing
 // fastqueeze_tpu/parallel/mesh.py train_counts_sharded, B15) launches the
 // two halves on their own: fq_train_hist on every 'block' shard (adding
-// into that shard's raw table), a psum over 'block', then fq_train_rows
-// on each 'ctx' shard's rows.  fq_train_counts is their composition.
+// into that shard's raw table), then fq_train_rows on each device's rows
+// over the shards' partials.  fq_train_counts is their composition.
 
 #include <cstdint>
 
@@ -57,23 +81,86 @@ chunk_hist(const uint8_t* __restrict__ syms,
         [](int64_t, int64_t) {});
 }
 
-__global__ void train_rows(int32_t* __restrict__ counts, int64_t n_ctx,
-                           int32_t A, int32_t init, int32_t cap) {
-    const int64_t r = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (r >= n_ctx) return;
-    int32_t* row = counts + r * A;
-    int64_t C = 0;
-    for (int32_t a = 0; a < A; ++a) {
-        row[a] += init;
-        C += row[a];
-    }
-    for (int32_t k = 0; k < 24 && C > cap; ++k) {
-        C = 0;
-        for (int32_t a = 0; a < A; ++a) {
-            const int32_t c = (row[a] + 1) >> 1;
-            row[a] = c;
-            C += c;
+// The partial tables of one launch, by value (kernel parameter space).
+constexpr int kMaxParts = 64;
+struct RowParts {
+    const int32_t* p[kMaxParts];
+};
+
+// Row r of the G lanes j = t mod G: lane j holds the row's pieces
+// j, j + G, ..., each V int32 (V = 4: a 16-byte piece), at most P of them.
+// AC = 0: A is the run-time a_rt.  out may be parts.p[0] (in place): each
+// entry is read and written by one thread.
+template <int AC, int G, int V, int P>
+__global__ void __launch_bounds__(kRowThreads)
+rows_finalize(RowParts parts, int32_t nb, int32_t* out, int64_t n_rows,
+              int32_t a_rt, int32_t init, int32_t cap) {
+    const int32_t A = AC ? AC : a_rt;
+    const int32_t pieces = A / V;
+    const int64_t t = int64_t(blockIdx.x) * kRowThreads + threadIdx.x;
+    const int64_t r = t / G;
+    const int32_t j = static_cast<int32_t>(t % G);
+    if (r >= n_rows) return;            // the whole group: r is the group's
+    const unsigned lane = threadIdx.x % 32;
+    const unsigned mask =
+        G == 32 ? 0xffffffffu : ((1u << (G % 32)) - 1) << (lane / G * G);
+    int32_t v[P * V];
+#pragma unroll
+    for (int k = 0; k < P * V; ++k) v[k] = 0;
+#pragma unroll 4
+    for (int32_t b = 0; b < nb; ++b) {
+        const int32_t* row = parts.p[b] + r * A;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+            const int32_t q = j + k * G;
+            if (q >= pieces) continue;
+            if constexpr (V == 4) {
+                const int4 x = __ldcs(reinterpret_cast<const int4*>(row) + q);
+                v[4 * k] += x.x;
+                v[4 * k + 1] += x.y;
+                v[4 * k + 2] += x.z;
+                v[4 * k + 3] += x.w;
+            } else {
+                // a cached load: a 4-byte piece's 32-byte run of a row
+                // that is not sector aligned shares its sectors with the
+                // next piece's run, which L1 then serves (streaming
+                // loads, which evict first, took 1.4x as long over four
+                // partials on the 2^20 x 41 table)
+                v[k] += row[q];
+            }
         }
+    }
+    auto total = [&]() {
+        int64_t c = 0;
+#pragma unroll
+        for (int k = 0; k < P; ++k)
+            if (j + k * G < pieces) {
+#pragma unroll
+                for (int i = 0; i < V; ++i) c += v[k * V + i];
+            }
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1)
+            c += __shfl_xor_sync(mask, c, o, G);
+        return c;
+    };
+#pragma unroll
+    for (int k = 0; k < P * V; ++k) v[k] += init;
+    int64_t C = total();
+    for (int32_t h = 0; h < 24 && C > cap; ++h) {
+#pragma unroll
+        for (int k = 0; k < P * V; ++k) v[k] = (v[k] + 1) >> 1;
+        C = total();
+    }
+    int32_t* orow = out + r * A;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+        const int32_t q = j + k * G;
+        if (q >= pieces) continue;
+        if constexpr (V == 4)
+            reinterpret_cast<int4*>(orow)[q] =
+                make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+        else
+            orow[q] = v[k];
     }
 }
 
@@ -101,12 +188,51 @@ int run_hist(const uint8_t* syms, const int32_t* cgrid, int32_t J,
     return static_cast<int>(cudaGetLastError());
 }
 
-int run_rows(int32_t* counts, int64_t n_ctx, int32_t A, int32_t init,
-             int32_t cap, cudaStream_t st) {
-    const int64_t blocks = (n_ctx + kRowThreads - 1) / kRowThreads;
-    if (blocks <= 0) return 0;
-    train_rows<<<blocks, kRowThreads, 0, st>>>(counts, n_ctx, A, init, cap);
+template <int AC, int G, int V, int P>
+int launch_rows(const RowParts& rp, int32_t nb, int32_t* out, int64_t n_rows,
+                int32_t A, int32_t init, int32_t cap, cudaStream_t st) {
+    static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: 1..32, 2^k");
+    constexpr int64_t kRows = kRowThreads / G;       // rows a block
+    const int64_t blocks = (n_rows + kRows - 1) / kRows;
+    rows_finalize<AC, G, V, P><<<static_cast<unsigned>(blocks), kRowThreads,
+                                 0, st>>>(rp, nb, out, n_rows, A, init, cap);
     return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// out (n_rows, A) = the row pass over parts[0..nb) (each (n_rows, A)).
+int run_rows(const int32_t* const* parts, int32_t nb, int32_t* out,
+             int64_t n_rows, int32_t A, int32_t init, int32_t cap,
+             cudaStream_t st) {
+    if (nb < 1 || nb > kMaxParts || A < 1 || A > 256)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n_rows <= 0) return 0;
+    RowParts rp{};
+    bool vec = A % 4 == 0 && aligned16(out);
+    for (int32_t b = 0; b < nb; ++b) {
+        rp.p[b] = parts[b];
+        vec = vec && aligned16(parts[b]);
+    }
+    if (A == 4 && vec)
+        return launch_rows<4, 1, 4, 1>(rp, nb, out, n_rows, A, init, cap, st);
+    if (A == 40 && vec)
+        return launch_rows<40, 4, 4, 3>(rp, nb, out, n_rows, A, init, cap,
+                                        st);
+    if (A == 48 && vec)
+        return launch_rows<48, 4, 4, 3>(rp, nb, out, n_rows, A, init, cap,
+                                        st);
+    if (A == 41)
+        return launch_rows<41, 8, 1, 6>(rp, nb, out, n_rows, A, init, cap,
+                                        st);
+    if (A <= 16)
+        return launch_rows<0, 1, 1, 16>(rp, nb, out, n_rows, A, init, cap,
+                                        st);
+    if (A <= 64)
+        return launch_rows<0, 8, 1, 8>(rp, nb, out, n_rows, A, init, cap, st);
+    return launch_rows<0, 32, 1, 8>(rp, nb, out, n_rows, A, init, cap, st);
 }
 
 }  // namespace
@@ -130,7 +256,8 @@ extern "C" int fq_train_counts(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int rc = run_hist(syms, cgrid, J, L, T, ctxg, A, m, inc, counts,
                             scratch, st);
-    return rc ? rc : run_rows(counts, n_ctx, A, init, cap, st);
+    const int32_t* parts[1] = {counts};
+    return rc ? rc : run_rows(parts, 1, counts, n_ctx, A, init, cap, st);
 }
 
 // The histogram half: adds inc at (ctx, sym) of every valid slot into
@@ -146,10 +273,13 @@ extern "C" int fq_train_hist(
                     static_cast<cudaStream_t>(stream));
 }
 
-// The row finalize half, in place on n_rows rows of A counts: + init, then
-// up to 24 halvings while the row total is over cap.
-extern "C" int fq_train_rows(int32_t* counts, int64_t n_rows, int32_t A,
+// The row pass: out (n_rows, A) int32 = the sum of the nb partials
+// parts[0..nb) (device pointers to (n_rows, A) int32, 1 <= nb <= 64; out
+// may be parts[0], in place), + init, then up to 24 halvings while the
+// row total is over cap.  1 <= A <= 256.
+extern "C" int fq_train_rows(const int32_t* const* parts, int32_t nb,
+                             int32_t* out, int64_t n_rows, int32_t A,
                              int32_t init, int32_t cap, void* stream) {
-    return run_rows(counts, n_rows, A, init, cap,
+    return run_rows(parts, nb, out, n_rows, A, init, cap,
                     static_cast<cudaStream_t>(stream));
 }

@@ -61,9 +61,12 @@ K13 train_counts       a thread per (chunk of waves, lane), the walk's
                        state carried in at the chunk start, + atomicAdd
                        histogram, then the row init and cap rescale
                        (engine._train_counts); its
-                       halves train_hist and train_rows on their own for
-                       the mesh trainer (parallel/mesh.py
-                       train_counts_sharded)
+                       halves train_hist and the row pass on their own
+                       for the mesh trainer (parallel/mesh.py
+                       train_counts_sharded): the row pass sums a
+                       device's block partials, adds init and halves,
+                       a row's counts in registers (train_rows in place,
+                       train_rows_sum over partials)
 Mesh (parallel/mesh.py; the collectives between launches are its own):
 K18 ctx_shard_decode   frozen decode with the table sharded by context
                        rows on K4's cluster: shards sharing a card in one
@@ -133,6 +136,7 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "train_counts": 0, "rescue_indel_fused": 0,
                             "unpack_grid": 0, "pack_grid": 0, "pack15": 0,
                             "train_hist": 0, "train_rows": 0,
+                            "train_rows_sum": 0,
                             "ctx_shard_decode": 0, "sharded_align": 0}
 # K15's launches by pack mode (each also counts in LAUNCHES["unpack_grid"])
 UNPACK_MODES: Dict[int, int] = {2: 0, 4: 0, 6: 0, 15: 0, 23: 0}
@@ -275,7 +279,8 @@ def _lib() -> ctypes.CDLL:
             lib.fq_chunk_scratch_bytes.argtypes = [i32, i32]
             lib.fq_chunk_scratch_bytes.restype = i64
             lib.fq_frozen_decode_shape.argtypes = [i32, i32, vp]
-            lib.fq_train_rows.argtypes = [vp, i64, i32, i32, i32, vp]
+            lib.fq_train_rows.argtypes = [vp, i32, vp, i64, i32, i32, i32,
+                                          vp]
             shard = [vp, vp, i64, vp, i32, i32, i32, vp, i64, i32] + spec
             lib.fq_ctx_shard_run.argtypes = shard + [i32] + [vp] * 4
             lib.fq_ctx_shard_step.argtypes = (
@@ -1445,18 +1450,57 @@ def train_rows_plain(rows: torch.Tensor, model) -> torch.Tensor:
     return rows
 
 
+# the row pass takes at most this many partials a launch (its parameter
+# space) and alphabets up to 256 (K13's symbols are bytes)
+ROW_MAX_PARTS = 64
+
+
+def _rows_launch(name: str, parts, out: torch.Tensor, model) -> None:
+    for p in parts:
+        _check(p, name, torch.int32, 2)
+    if (any(p.shape != out.shape for p in parts)
+            or out.shape[1] != model.alphabet):
+        raise ValueError(f"{name}: shape mismatch")
+    if not 1 <= len(parts) <= ROW_MAX_PARTS or model.alphabet > 256:
+        raise ValueError(f"{name}: 1-{ROW_MAX_PARTS} partials of alphabets "
+                         f"up to 256, not {len(parts)} of {model.alphabet}")
+    ptrs = (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts])
+    _launch(_lib().fq_train_rows, name, out.device, ptrs, len(parts),
+            _ptr(out), out.shape[0], model.alphabet, model.init, model.cap)
+
+
 def train_rows(rows: torch.Tensor, model) -> torch.Tensor:
     """K13's row half on a (n_rows, A) int32 block of raw counts, in
     place: + init, then up to 24 halvings while the row total is over
-    cap."""
+    cap (the row pass with one partial)."""
     if not _on_card(rows):
         return train_rows_plain(rows, model)
-    _check(rows, "rows", torch.int32, 2)
-    if rows.shape[1] != model.alphabet:
-        raise ValueError("train_rows: shape mismatch")
-    _launch(_lib().fq_train_rows, "train_rows", rows.device, _ptr(rows),
-            rows.shape[0], model.alphabet, model.init, model.cap)
+    _rows_launch("train_rows", [rows], rows, model)
     return rows
+
+
+def train_rows_sum_plain(parts, model) -> torch.Tensor:
+    """The partials summed (int32, as a psum), then train_rows_plain."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc += p
+    return train_rows_plain(acc, model)
+
+
+def train_rows_sum(parts, model) -> torch.Tensor:
+    """The row pass over a device's block partials (the mesh trainer's
+    reduce over 'block' and row finalize in one launch): ``parts``, 1-64
+    (n_rows, A) int32 tables of the same rows on one device -> a new
+    (n_rows, A) int32 table, their sum + init, then up to 24 halvings
+    while the row total is over cap."""
+    parts = list(parts)
+    if not parts:
+        raise ValueError("train_rows_sum: no partials")
+    if not _on_card(*parts):
+        return train_rows_sum_plain(parts, model)
+    out = torch.empty_like(parts[0])
+    _rows_launch("train_rows_sum", parts, out, model)
+    return out
 
 
 # --- K18 ctx_shard_decode: frozen decode with the table sharded by rows ---

@@ -15,10 +15,11 @@ A :class:`Mesh` is a (block, ctx) grid of torch devices.  A device may
 appear more than once: its shards then share it, each on a CUDA stream of
 its own (the tests and the smoke build such meshes through the one seam
 :func:`visible_devices`).  The collectives (:func:`psum`, :func:`pmin`,
-:func:`pmax`, :func:`psum_scatter`) take one tensor a shard of one mesh
-axis: with N cards they gather to the axis's first device, reduce there
-and copy the result back (device-to-device copies, over NVLink where the
-cards have it); shards that share a card reduce on that card.
+:func:`pmax`) take one tensor a shard of one mesh axis: with N cards
+they gather to the axis's first device, reduce there and copy the result
+back (device-to-device copies, over NVLink where the cards have it);
+shards that share a card reduce on that card.  The mesh trainer's reduce
+over 'block' is the row pass's own (:func:`train_counts_sharded`).
 """
 
 from __future__ import annotations
@@ -178,21 +179,6 @@ def pmax(parts: Sequence[torch.Tensor],
     return _reduce(parts, torch.maximum, unsigned)
 
 
-def psum_scatter(parts: Sequence[torch.Tensor],
-                 devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """Reduce-scatter over dim 0: the sum of the shards' (N, ...) tensors
-    cut into len(devices) equal row blocks, block c on devices[c]."""
-    n = parts[0].shape[0] // len(devices)
-    out = []
-    for c, dev in enumerate(devices):
-        rows = slice(c * n, (c + 1) * n)
-        acc = parts[0][rows].to(dev)
-        for p in parts[1:]:
-            acc = acc + p[rows].to(dev)
-        out.append(acc)
-    return out
-
-
 # --- B15, B19, B16: block data-parallel library functions --------------------
 
 def _block_rows(mesh: Mesh, B: int) -> List[range]:
@@ -219,11 +205,14 @@ def train_counts_sharded(mesh: Mesh, model, syms, cgrid,
     train_counts_sharded, B15).  syms (B, T, L) uint8 and cgrid (B, J, L)
     int32 stacked block grids (ctxg (B, T, L) int32 for FlatModel), B
     split over the 'block' axis.  Each block shard adds the histogram x
-    inc of its blocks (K13's histogram half), the tables are
-    reduce-scattered over 'block' onto the 'ctx' shards of block row 0,
-    and each of those adds init to its rows and halves them (K13's row
-    half).  Returns the table's row blocks, ctx shard c's on its
-    device."""
+    inc of its blocks into a table of its own (K13's histogram half);
+    then the row pass reduces the tables over 'block' onto the 'ctx'
+    shards of block row 0 and adds init and halves (K13's row half): one
+    launch a device, over the row block of the ctx shards it holds (other
+    cards' partials of that block copied to it first), which sums the
+    partials in the pass (train_rows_sum; with one block shard in place
+    on its table, train_rows).  Returns the table's row blocks, ctx shard
+    c's on its device (the shards of one device views of one tensor)."""
     nc = mesh.shape["ctx"]
     if model.n_ctx % nc:
         raise ValueError(f"n_ctx={model.n_ctx} not divisible by ctx={nc}")
@@ -239,9 +228,20 @@ def train_counts_sharded(mesh: Mesh, model, syms, cgrid,
         return h
 
     hists = mesh.run([(b, 0) for b in range(len(rows))], hist)
-    parts = psum_scatter(hists, mesh.grid[0])
-    return mesh.run([(0, c) for c in range(nc)],
-                    lambda _b, c: kernels.train_rows(parts[c], model))
+    n = model.n_ctx // nc
+    devs = mesh.grid[0]
+    groups = _device_groups(devs)
+
+    def finalize(_b, c0):
+        g = next(g for g in groups if g[0] == c0)
+        parts = [h[c0 * n:(g[-1] + 1) * n].to(devs[c0]) for h in hists]
+        if len(parts) == 1:
+            return kernels.train_rows(parts[0], model)
+        return kernels.train_rows_sum(parts, model)
+
+    done = mesh.run([(0, g[0]) for g in groups], finalize)
+    return [t[i * n:(i + 1) * n] for g, t in zip(groups, done)
+            for i in range(len(g))]
 
 
 def encode_blocks_sharded(mesh: Mesh, model, n_halve: int, counts0, syms,

@@ -1906,6 +1906,114 @@ def test_train_split_long_reads_two_grids(cuda, name):
                        kernels.train_rows(h.clone(), model))
 
 
+_ROW_MODELS = {
+    4: SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10),
+    41: QualModel(alphabet=41, init=1, inc=8, cap=8192, qlevel=2),
+    48: QualModel(alphabet=48, init=1, inc=8, cap=8192, qlevel=2),
+}
+
+
+def _row_partials(model, nb: int, n: int, seed: int):
+    """nb raw (n, A) partials, the first with edge rows (zeros, a total
+    of cap after init, one over, one that needs all 24 halvings, its
+    int64 total past int32) at its first and last four rows and the
+    others zero there."""
+    A, init, cap = model.alphabet, model.init, model.cap
+    rng = np.random.default_rng(seed)
+    parts = [rng.integers(0, 300, (n, A)).astype(np.int32)
+             for _ in range(nb)]
+    at = np.zeros(A, np.int64)
+    at[0] = cap - A * init
+    deep = np.full(A, -(-(cap << 23) // A) + 1 - init, np.int64)
+    one = np.eye(A, dtype=np.int64)[0]
+    edges = np.stack([np.zeros(A, np.int64), at, at + one, deep])
+    for k, p in enumerate(parts):
+        p[:4] = p[-4:] = edges if k == 0 else 0
+    return [torch.from_numpy(p) for p in parts]
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4])
+@pytest.mark.parametrize("A", sorted(_ROW_MODELS))
+def test_row_pass_sum_matches_plain(cuda, A, nb):
+    """The row pass over nb partials (train_rows_sum) == its plain version
+    on the edge rows and on row counts around the lane groups' blocks, on
+    16-byte aligned tables and on tables that are not (4-byte pieces:
+    the generic path, and A = 41's); nb = 1 in place (train_rows) ==
+    the same."""
+    model = _ROW_MODELS[A]
+    for n in (8, 1027, 1 << 16):
+        parts = _row_partials(model, nb, n, seed=A * nb + n)
+        want = kernels.train_rows_sum(parts, model)
+        kernels.reset_launch_counts()
+        got = kernels.train_rows_sum([p.to(cuda) for p in parts], model)
+        assert kernels.LAUNCHES["train_rows_sum"] == 1
+        assert torch.equal(got.cpu(), want)
+        # the same partials one int32 past a 16-byte boundary: the
+        # generic path (4-byte pieces)
+        shifted = []
+        for p in parts:
+            buf = torch.zeros(p.numel() + 1, dtype=torch.int32, device=cuda)
+            shifted.append(buf[1:].view(p.shape))
+            shifted[-1].copy_(p)
+        assert torch.equal(kernels.train_rows_sum(shifted, model).cpu(),
+                           want)
+        if nb == 1:
+            inplace = parts[0].to(cuda)
+            assert kernels.train_rows(inplace, model) is inplace
+            assert torch.equal(inplace.cpu(), want)
+
+
+def test_row_pass_wrappers_raise_on_bad_input(cuda):
+    model = _ROW_MODELS[41]
+    part = torch.zeros((16, 41), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kernels.train_rows_sum([part, part[:8]], model)
+    with pytest.raises(ValueError, match="1-64 partials"):
+        kernels.train_rows_sum([part] * 65, model)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.train_rows(part[:, :1], model)
+
+
+def test_cli_profile_on_the_card_names_the_kernels(cuda, tmp_path):
+    """--profile on the card: the trace holds CUDA kernel records that
+    name the port's kernels (the __global__ functions of csrc/), inside
+    the command's span; the archive equals the one written without it."""
+    import json
+    import os
+    import re
+
+    from fastqueeze_tpu_torch import cli
+    rng = np.random.default_rng(18)
+    fq = str(tmp_path / "in.fq")
+    with open(fq, "wb") as fh:
+        for r in range(2000):
+            seq = bytes(b"ACGT"[c] for c in rng.integers(0, 4, 100))
+            qual = bytes((rng.integers(2, 40, 100) + 33).astype(np.uint8))
+            fh.write(b"@r.%d\n%s\n+\n%s\n" % (r, seq, qual))
+    prof = str(tmp_path / "prof")
+    for out, extra in (("a.fqz", []), ("b.fqz", ["--profile", prof])):
+        assert cli.main(["-c", "-1", fq, "-o", str(tmp_path / out)]
+                        + extra) == 0
+    assert ((tmp_path / "a.fqz").read_bytes()
+            == (tmp_path / "b.fqz").read_bytes())
+    csrc = os.path.join(os.path.dirname(kernels.__file__), "..", "csrc")
+    names = set()
+    for f in os.listdir(csrc):
+        with open(os.path.join(csrc, f)) as fh:
+            names |= set(re.findall(r"__global__ void (?:__launch_bounds__"
+                                    r"\([^)]*\)\s*)?(\w+)", fh.read()))
+    with open(os.path.join(prof, cli.TRACE_NAME)) as fh:
+        events = json.load(fh)["traceEvents"]
+    span = [e for e in events if e.get("name") == cli.RUN_SPAN
+            and e.get("cat") == "user_annotation"]
+    ours = [e for e in events if e.get("cat") == "kernel"
+            and any(re.search(rf"\b{n}\b", e.get("name", ""))
+                    for n in names)]
+    assert len(span) == 1 and ours
+    lo, hi = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    assert all(lo <= e["ts"] <= hi for e in ours)
+
+
 @pytest.mark.parametrize("L", [1, 3, 64, 4097])
 @pytest.mark.parametrize("model", _MODELS[:2], ids=lambda m: type(m).__name__)
 def test_frozen_decode_edge_lanes_match_plain(cuda, model, L):

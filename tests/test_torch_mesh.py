@@ -89,7 +89,7 @@ def _grids():
 
 # --- the library functions ---------------------------------------------------
 
-@pytest.mark.parametrize("ctx", [1, 2])
+@pytest.mark.parametrize("ctx", [1, 2, 4])
 def test_train_counts_sharded_equals_jax(ctx):
     """B15 on a (4 / ctx, ctx) mesh: the row blocks of the ctx shards,
     stacked, equal the JAX mesh trainer's table; and K13's halves equal
@@ -109,6 +109,41 @@ def test_train_counts_sharded_equals_jax(ctx):
         (tmod.n_ctx, tmod.alphabet), dtype=torch.int32))
     np.testing.assert_array_equal(kernels.train_rows(h, tmod).numpy(),
                                   kernels.train_counts(s0, c0, tmod).numpy())
+
+
+@pytest.mark.parametrize("nb,nc", [(4, 1), (2, 2), (1, 4)])
+def test_row_pass_sum_equals_jax(nb, nc, monkeypatch):
+    """The summing row pass's plain version, given the block shards'
+    partials (K13's histogram half over each shard's blocks), on each ctx
+    shard's row block == that block of the JAX mesh trainer's table; and
+    B15 on the same mesh with its ctx shards in two device groups
+    (mesh._device_groups patched: a row pass a group) == the same
+    table."""
+    tmod, jmod = _models()
+    syms, valid, pos, cgrid = _grids()
+    want = np.asarray(jm.train_counts_sharded(
+        jm.make_mesh(4, ctx_shards=nc), jmod, jnp.asarray(syms),
+        jnp.asarray(valid), {"pos": jnp.asarray(pos)}))
+    per = B // nb
+    hists = []
+    for b in range(nb):
+        h = torch.zeros((tmod.n_ctx, tmod.alphabet), dtype=torch.int32)
+        for i in range(b * per, (b + 1) * per):
+            kernels.train_hist(torch.from_numpy(syms[i]),
+                               torch.from_numpy(cgrid[i]), tmod, h)
+        hists.append(h)
+    n = tmod.n_ctx // nc
+    for c in range(nc):
+        got = kernels.train_rows_sum([h[c * n:(c + 1) * n] for h in hists],
+                                     tmod)
+        np.testing.assert_array_equal(got.numpy(), want[c * n:(c + 1) * n])
+    groups = ([[0]] if nc == 1 else
+              [list(range(i, i + nc // 2)) for i in (0, nc // 2)])
+    monkeypatch.setattr(tm, "_device_groups", lambda devs: groups)
+    parts = tm.train_counts_sharded(tm.Mesh([CPU] * 4, ctx_shards=nc), tmod,
+                                    syms, cgrid)
+    assert len(parts) == nc
+    np.testing.assert_array_equal(torch.cat(parts).numpy(), want)
 
 
 def test_encode_blocks_sharded_equals_jax():
@@ -270,9 +305,6 @@ def test_collectives_on_shared_device():
     # unsigned: -1 and -2 are 0xFFFFFFFF and 0xFFFFFFFE
     assert tm.pmin([a, b], unsigned=True)[0].tolist() == [1, 3, 5]
     assert tm.pmax([a, b], unsigned=True)[0].tolist() == [2, -1, -2]
-    parts = tm.psum_scatter([torch.arange(8).reshape(4, 2)] * 2, [CPU] * 2)
-    assert [p.tolist() for p in parts] == [[[0, 2], [4, 6]],
-                                           [[8, 10], [12, 14]]]
 
 
 # --- archives --------------------------------------------------------------
