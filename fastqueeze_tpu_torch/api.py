@@ -15,6 +15,9 @@ calls and archives of fastqueeze_tpu's api:
     stats = api.compress("reads.fq", "p0.fqz", part=(0, 2))      # --part
     stats = api.merge("out.fqz", ["p0.fqz", "p1.fqz"])          # --merge
     paths = api.extract("out.fqz", 1000, 50, "slice")           # -X
+    dbg = DebugInfo()                       # utils/metrics.py
+    stats = api.compress("reads.fq", "out.fqz", dbg=dbg)
+    dbg.print()                             # the table --stats prints
 
 Parameters are the `CodecParams` the CLI builds from its flags; only here
 can a caller set the ones no flag sets, such as ``frozen_adapt`` (keep
@@ -32,6 +35,7 @@ import os
 from typing import Dict, List, Optional, Sequence, Union
 
 from fastqueeze_tpu_torch.config import CodecParams
+from fastqueeze_tpu_torch.utils.metrics import DebugInfo
 
 Inputs = Union[str, Sequence[str]]
 
@@ -52,7 +56,7 @@ def compress(inputs: Inputs, out_path: str, *,
              mesh: Optional[int] = None,
              self_ref: Optional[bool] = None,
              part: Optional[tuple] = None,
-             device="cuda") -> Dict:
+             device="cuda", dbg: Optional[DebugInfo] = None) -> Dict:
     """Compress FASTQ file(s) into a .fqz archive.
 
     inputs: one path (SE), a (r1, r2) pair (PE), or 3+ paths (a
@@ -63,8 +67,10 @@ def compress(inputs: Inputs, out_path: str, *,
     qualities are transformed).  mesh: block data-parallelism over N
     devices, -1 = all (the CLI's `--mesh`).  part: (k, n), this call owns
     blocks k, k+n, ... and writes a partial archive (the CLI's `--part
-    K:N`; assemble with :func:`merge`).  Returns the driver's stats dict
-    (raw/compressed bytes, ratio, blocks, ...)."""
+    K:N`; assemble with :func:`merge`).  dbg: a DebugInfo that receives
+    the stage table the CLI's `--stats` prints (each stage's seconds and
+    count, stream sizes).  Returns the driver's stats dict (raw/compressed
+    bytes, ratio, blocks, ...)."""
     if part is not None:
         if not (0 <= part[0] < part[1] <= 0xFFFFFFFF):
             raise ValueError(
@@ -85,22 +91,24 @@ def compress(inputs: Inputs, out_path: str, *,
             compress_pe_aligned, compress_se_aligned)
         if len(paths) == 1:
             return compress_se_aligned(p, reference, paths[0], out_path,
-                                       part=part, device=device)
+                                       dbg=dbg, part=part, device=device)
         if len(paths) == 2:
             return compress_pe_aligned(p, reference, paths[0], paths[1],
-                                       out_path, part=part, device=device)
+                                       out_path, dbg=dbg, part=part,
+                                       device=device)
         raise ValueError("aligned mode takes 1 (SE) or 2 (PE) inputs")
     if len(paths) == 1:
         from fastqueeze_tpu_torch.pipeline.driver import compress_se
-        return compress_se(p, paths[0], out_path, part=part, device=device)
+        return compress_se(p, paths[0], out_path, dbg=dbg, part=part,
+                           device=device)
     if len(paths) == 2:
         from fastqueeze_tpu_torch.pipeline.pe import compress_pe
-        return compress_pe(p, paths[0], paths[1], out_path, part=part,
-                           device=device)
+        return compress_pe(p, paths[0], paths[1], out_path, dbg=dbg,
+                           part=part, device=device)
     if part is not None:
         raise ValueError("part is not supported with multi-file archives")
     from fastqueeze_tpu_torch.pipeline.driver import compress_multi
-    return compress_multi(p, paths, out_path, device=device)
+    return compress_multi(p, paths, out_path, dbg=dbg, device=device)
 
 
 def merge(out_path: str, parts: Sequence[str], *,
@@ -116,13 +124,14 @@ def decompress(archive: str, out_prefix: str, *,
                reference: Optional[str] = None,
                force: bool = True,
                threads: Optional[int] = None,
-               device="cuda") -> List[str]:
+               device="cuda", dbg: Optional[DebugInfo] = None) -> List[str]:
     """Restore the original FASTQ file(s) from an archive (bit-exact;
     verified against the stored MD5s).  Returns the written paths.
-    Aligned archives need the same reference FASTA (checked by MD5)."""
+    Aligned archives need the same reference FASTA (checked by MD5).
+    dbg: a DebugInfo that receives the stage table, as in compress."""
     from fastqueeze_tpu_torch.pipeline.driver import decompress as _d
-    return _d(archive, out_prefix, force=force, threads=threads or 0,
-              device=device, ref=reference)
+    return _d(archive, out_prefix, dbg=dbg, force=force,
+              threads=threads or 0, device=device, ref=reference)
 
 
 def extract(archive: str, start: int, count: int, out_prefix: str, *,

@@ -23,7 +23,8 @@ with the defaults, which every compress reads, e.g. ``AdaptChunk:64``
 for the semi-adaptive walk; none of them needs a card.)  ``--profile
 DIR`` traces the whole run with torch.profiler (the host's activity, and
 the card's kernels and copies when the run is on the card; the command
-is the span named ``fastqueeze_cli``) and writes the trace, also when
+is the span named ``fastqueeze_cli``, each stage of it a range
+``fq.<stage>``, as ``--stats`` names them) and writes the trace, also when
 the run fails, to DIR/fastqueeze.pt.trace.json, a Chrome trace
 (chrome://tracing, Perfetto or TensorBoard's profiler); it changes no
 archive byte, and a profiler that cannot start stops the run.

@@ -9,7 +9,8 @@ decided by ``host_stream_max`` and shapes the archive bytes.
 
 The native C++ implementation is used when available; this module holds the
 pure-Python mirror (used as fallback and as the oracle in the cross tests)
-plus the dispatch layer.
+plus the dispatch layer, whose every call is the stage ``native.<fn>`` of
+the DebugInfo whose span is open around it (utils/metrics.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 import numpy as np
 
 from fastqueeze_tpu_torch.io import native
+from fastqueeze_tpu_torch.utils.metrics import count, span
 
 _TOP = 1 << 24
 _M32 = 0xFFFFFFFF
@@ -340,59 +342,74 @@ def _py_decode_names(data, R, total_len, init, inc, cap):
 # Dispatch layer (native when available)
 # ---------------------------------------------------------------------------
 
+def _coded(name: str, n: int):
+    """The coder call ``name`` as the stage ``native.<name>`` of the open
+    DebugInfo, and its ``n`` symbols under ``native.<name>_bytes``."""
+    count(f"native.{name}_bytes", n)
+    return span("native." + name)
+
+
 def encode_ctx(syms: np.ndarray, ctx: Optional[np.ndarray], n_ctx: int,
                alphabet: int, init: int, inc: int, cap: int) -> bytes:
-    syms = np.ascontiguousarray(syms, np.uint8)
-    cx = (np.ascontiguousarray(ctx, np.uint32)
-          if ctx is not None else None)
-    blob = native.rc_encode_ctx(syms, cx, n_ctx, alphabet, init, inc, cap)
-    if blob is not None:
-        return blob
-    return _py_encode_ctx(syms, cx, n_ctx, alphabet, init, inc, cap)
+    with _coded("encode_ctx", len(syms)):
+        syms = np.ascontiguousarray(syms, np.uint8)
+        cx = (np.ascontiguousarray(ctx, np.uint32)
+              if ctx is not None else None)
+        blob = native.rc_encode_ctx(syms, cx, n_ctx, alphabet, init, inc,
+                                    cap)
+        if blob is not None:
+            return blob
+        return _py_encode_ctx(syms, cx, n_ctx, alphabet, init, inc, cap)
 
 
 def decode_ctx(data: bytes, n: int, ctx: Optional[np.ndarray], n_ctx: int,
                alphabet: int, init: int, inc: int, cap: int) -> np.ndarray:
-    cx = (np.ascontiguousarray(ctx, np.uint32)
-          if ctx is not None else None)
-    out = native.rc_decode_ctx(data, n, cx, n_ctx, alphabet, init, inc, cap)
-    if out is not None:
-        return out
-    return _py_decode_ctx(data, n, cx, n_ctx, alphabet, init, inc, cap)
+    with _coded("decode_ctx", n):
+        cx = (np.ascontiguousarray(ctx, np.uint32)
+              if ctx is not None else None)
+        out = native.rc_decode_ctx(data, n, cx, n_ctx, alphabet, init, inc,
+                                   cap)
+        if out is not None:
+            return out
+        return _py_decode_ctx(data, n, cx, n_ctx, alphabet, init, inc, cap)
 
 
 def encode_o1(syms: np.ndarray, alphabet: int, init: int, inc: int,
               cap: int) -> bytes:
-    syms = np.ascontiguousarray(syms, np.uint8)
-    blob = native.rc_encode_o1(syms, alphabet, init, inc, cap)
-    if blob is not None:
-        return blob
-    return _py_encode_o1(syms, alphabet, init, inc, cap)
+    with _coded("encode_o1", len(syms)):
+        syms = np.ascontiguousarray(syms, np.uint8)
+        blob = native.rc_encode_o1(syms, alphabet, init, inc, cap)
+        if blob is not None:
+            return blob
+        return _py_encode_o1(syms, alphabet, init, inc, cap)
 
 
 def decode_o1(data: bytes, n: int, alphabet: int, init: int, inc: int,
               cap: int) -> np.ndarray:
-    out = native.rc_decode_o1(data, n, alphabet, init, inc, cap)
-    if out is not None:
-        return out
-    return _py_decode_o1(data, n, alphabet, init, inc, cap)
+    with _coded("decode_o1", n):
+        out = native.rc_decode_o1(data, n, alphabet, init, inc, cap)
+        if out is not None:
+            return out
+        return _py_decode_o1(data, n, alphabet, init, inc, cap)
 
 
 def encode_names(cat: np.ndarray, lens: np.ndarray, init: int, inc: int,
                  cap: int) -> bytes:
     """Fallback name coder over concatenated name bytes + per-name lengths."""
-    cat = np.ascontiguousarray(cat, np.uint8)
-    lens = np.ascontiguousarray(lens, np.int32)
-    blob = native.rc_encode_names(cat, lens, init, inc, cap)
-    if blob is not None:
-        return blob
-    return _py_encode_names(cat, lens, init, inc, cap)
+    with _coded("encode_names", len(cat)):
+        cat = np.ascontiguousarray(cat, np.uint8)
+        lens = np.ascontiguousarray(lens, np.int32)
+        blob = native.rc_encode_names(cat, lens, init, inc, cap)
+        if blob is not None:
+            return blob
+        return _py_encode_names(cat, lens, init, inc, cap)
 
 
 def decode_names(data: bytes, R: int, total_len: int, init: int, inc: int,
                  cap: int):
     """-> (cat bytes (uint8), per-name lengths (int32))."""
-    out = native.rc_decode_names(data, R, total_len, init, inc, cap)
-    if out is not None:
-        return out
-    return _py_decode_names(data, R, total_len, init, inc, cap)
+    with _coded("decode_names", total_len):
+        out = native.rc_decode_names(data, R, total_len, init, inc, cap)
+        if out is not None:
+            return out
+        return _py_decode_names(data, R, total_len, init, inc, cap)

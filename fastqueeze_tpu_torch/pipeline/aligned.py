@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -134,12 +133,11 @@ def _maybe_align(p: CodecParams, aligner: Aligner, block: FastqBlock,
     min_map_ratio (coded entropy-only), else (AlignResult, n_mapped).  A
     block with mapped long-read chunks gates on the mapped share of its
     bases instead, when that is larger."""
-    t0 = time.time()
-    dup_src = None
-    if p.dedup and block.n_reads > 1:
-        dup_src, _ = dup_masks(block)
-    res = align_block(aligner, block, device, dup_src)
-    dbg.add("align_s", time.time() - t0)
+    with dbg.span("align"):
+        dup_src = None
+        if p.dedup and block.n_reads > 1:
+            dup_src, _ = dup_masks(block)
+        res = align_block(aligner, block, device, dup_src)
     n_mapped = int(res.mapped.sum())
     frac = n_mapped / block.n_reads if block.n_reads else 0.0
     if res.chunks is not None and res.chunks[3].mapped.any():
@@ -205,9 +203,8 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
     devices = block_dp_devices(p, device)
     from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     dbg = dbg or DebugInfo()
-    t0 = time.time()
-    aligner, ref = prepare_ref(p, ref_path, device)
-    dbg.add("ref_s", time.time() - t0)
+    with dbg.span("ref"):
+        aligner, ref = prepare_ref(p, ref_path, device)
     block_size = p.block_bytes or p.block_size_mb * (1 << 20)
     whole_md5 = hashlib.md5()
     writer = ArcWriter(out_path, p, [os.path.basename(in_path)], [],
@@ -230,10 +227,9 @@ def compress_se_aligned(p: CodecParams, ref_path: str, in_path: str,
         if block is None:
             raw, block = parse_lossy(p, raw, final_nl)
         align, n_mapped = _maybe_align(p, aligner, block, device, dbg)
-        t0 = time.time()
-        payload = encode_block(p, block, frozen, device, dbg, align,
-                               ref.codes)
-        dbg.add("encode_s", time.time() - t0)
+        with dbg.span("encode"):
+            payload = encode_block(p, block, frozen, device, dbg, align,
+                                   ref.codes)
         return gi, raw, payload, block.n_reads, n_mapped, align is not None
 
     n_blocks = total_raw = total_mapped = total_reads = 0
@@ -275,9 +271,8 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
         train_frozen_pe_prefix)
     devices = block_dp_devices(p, device)
     dbg = dbg or DebugInfo()
-    t0 = time.time()
-    aligner, ref = prepare_ref(p, ref_path, device)
-    dbg.add("ref_s", time.time() - t0)
+    with dbg.span("ref"):
+        aligner, ref = prepare_ref(p, ref_path, device)
     p.is_pe = 1
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
     writer = ArcWriter(out_path, p,
@@ -307,19 +302,18 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
         merged = interleave_blocks(b1, b2)
         align, n_mapped = _maybe_align(p, aligner, merged, device, dbg)
         if align is not None and p.max_insr > 0:
-            t0 = time.time()
-            codes, dege = _read_codes(merged)
-            before = n_mapped
-            align = aligner.rescue_mates(codes, dege, merged.lengths, align,
-                                         p.max_insr, device)
-            n_mapped = int(align.mapped.sum())
-            dbg.add("pe_rescued", n_mapped - before)
-            dbg.add("align_s", time.time() - t0)
+            with dbg.span("align"):
+                codes, dege = _read_codes(merged)
+                before = n_mapped
+                align = aligner.rescue_mates(codes, dege, merged.lengths,
+                                             align, p.max_insr, device)
+                n_mapped = int(align.mapped.sum())
+                dbg.add("pe_rescued", n_mapped - before)
         if align is not None:
             _tally_pe_relations(align, dbg)
-        t0 = time.time()
-        body = encode_block(p, merged, frozen, device, dbg, align, ref.codes)
-        dbg.add("encode_s", time.time() - t0)
+        with dbg.span("encode"):
+            body = encode_block(p, merged, frozen, device, dbg, align,
+                                ref.codes)
         return (gi, raw1, raw2, pe_payload(b1, b2, body), b1.n_reads,
                 merged.n_reads, n_mapped, align is not None)
 

@@ -43,6 +43,7 @@ from fastqueeze_tpu_torch.pipeline.frozen import (
     qual_lut, qual_vocab)
 from fastqueeze_tpu_torch.pipeline.idproc import (
     IdBinSchema, analyze_ids, reconstruct_ids)
+from fastqueeze_tpu_torch.utils.metrics import stage
 
 TAG_META = 1
 TAG_LEN = 2
@@ -575,204 +576,223 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
     codes this one.  align: AlignResult over the block's reads (None =
     entropy-only); ref_codes: the reference's 2-bit codes (required with
     align); self_ref: ref_codes is the block's own unmapped reads
-    (pipeline/selfref.py), which decode rebuilds."""
+    (pipeline/selfref.py), which decode rebuilds.  ``dbg`` times the
+    stages as spans: codec.dedup, codec.vocab (the degenerate mask, the
+    quality vocabulary, the streams' symbols), codec.streams (the
+    dispatch), codec.ids, codec.plus and codec.small (lengths, dup and
+    degenerate streams) here; codec.wait (the device's results) and
+    codec.tlv in the thunk."""
     R = block.n_reads
     lengths = block.lengths
     out = io.BytesIO()
 
-    # --- duplicate-read tier: seq/qual back-references to the first
-    #     identical earlier read in this block (CodecParams.dedup) ---
-    sdup = qdup = None
-    s_src = q_src = None
-    if p.dedup and R > 1:
-        s_src, q_src = dup_masks(block)
-    if s_src is not None:
-        sdup = s_src >= 0
-    if q_src is not None:
-        qdup = q_src >= 0
-    n_sd = int(sdup.sum()) if sdup is not None else 0
-    n_qd = int(qdup.sum()) if qdup is not None else 0
-    sdup_sym = np.repeat(sdup, lengths) if n_sd else None
+    with stage(dbg, "codec.dedup"):
+        # --- duplicate-read tier: seq/qual back-references to the first
+        #     identical earlier read in this block (CodecParams.dedup) ---
+        sdup = qdup = None
+        s_src = q_src = None
+        if p.dedup and R > 1:
+            s_src, q_src = dup_masks(block)
+        if s_src is not None:
+            sdup = s_src >= 0
+        if q_src is not None:
+            qdup = q_src >= 0
+        n_sd = int(sdup.sum()) if sdup is not None else 0
+        n_qd = int(qdup.sum()) if qdup is not None else 0
+        sdup_sym = np.repeat(sdup, lengths) if n_sd else None
 
-    # --- degenerate (non-ACGT) bases ---
-    codes = _BASE_MAP[block.seq_flat]
-    dege_mask = codes == 255
-    if n_sd:
-        # a seq-dup read is restored by copying its source read wholesale;
-        # its degenerate bases must not double-code
-        dege_mask &= ~sdup_sym
-    n_dege = int(dege_mask.sum())
-    dege_cnt = np.zeros(R, np.int64)
-    dege_pos = np.zeros(0, np.int64)       # in-read positions of dege bases
-    if n_dege:
-        read_starts = np.cumsum(lengths) - lengths
-        dege_idx = np.flatnonzero(dege_mask)
-        dege_read = np.searchsorted(read_starts, dege_idx, side="right") - 1
-        dege_pos = dege_idx - read_starts[dege_read]
-        dege_cnt = np.bincount(dege_read, minlength=R).astype(np.int64)
+    with stage(dbg, "codec.vocab"):
+        # --- degenerate (non-ACGT) bases ---
+        codes = _BASE_MAP[block.seq_flat]
+        dege_mask = codes == 255
+        if n_sd:
+            # a seq-dup read is restored by copying its source read wholesale;
+            # its degenerate bases must not double-code
+            dege_mask &= ~sdup_sym
+        n_dege = int(dege_mask.sum())
+        dege_cnt = np.zeros(R, np.int64)
+        dege_pos = np.zeros(0, np.int64)   # in-read positions of dege bases
+        if n_dege:
+            read_starts = np.cumsum(lengths) - lengths
+            dege_idx = np.flatnonzero(dege_mask)
+            dege_read = np.searchsorted(read_starts, dege_idx,
+                                        side="right") - 1
+            dege_pos = dege_idx - read_starts[dege_read]
+            dege_cnt = np.bincount(dege_read, minlength=R).astype(np.int64)
 
-    # --- quality vocabulary (dense rank coding): with trained tables the
-    #     rank space is theirs and values unseen in training get fresh
-    #     ranks appended (fit_qual_alphabet pads the frozen table with
-    #     init rows); otherwise the block's own values ---
-    block_qvals, _ = qual_vocab(block.qual_flat)   # validates char range
-    if frozen is not None:
-        base = np.asarray(frozen["qvals"], np.uint8)
-        extra = np.setdiff1d(block_qvals, base)
-        qvals = np.concatenate([base, extra]) if len(extra) else base
-    else:
-        qvals = block_qvals
-    qsyms = qual_lut(qvals)[block.qual_flat]
-    qmax = max(len(qvals) - 1, 0)
+        # --- quality vocabulary (dense rank coding): with trained tables the
+        #     rank space is theirs and values unseen in training get fresh
+        #     ranks appended (fit_qual_alphabet pads the frozen table with
+        #     init rows); otherwise the block's own values ---
+        block_qvals, _ = qual_vocab(block.qual_flat)   # validates char range
+        if frozen is not None:
+            base = np.asarray(frozen["qvals"], np.uint8)
+            extra = np.setdiff1d(block_qvals, base)
+            qvals = np.concatenate([base, extra]) if len(extra) else base
+        else:
+            qvals = block_qvals
+        qsyms = qual_lut(qvals)[block.qual_flat]
+        qmax = max(len(qvals) - 1, 0)
 
-    mapped = align.mapped if align is not None else np.zeros(R, bool)
-    if n_sd:
-        # dedup beats the aligned streams on cost (a back-distance vs
-        # pos+rev+mis streams); a read that is both stays a duplicate
-        mapped = mapped & ~sdup
-    n_mapped = int(mapped.sum())
+        mapped = align.mapped if align is not None else np.zeros(R, bool)
+        if n_sd:
+            # dedup beats the aligned streams on cost (a back-distance vs
+            # pos+rev+mis streams); a read that is both stays a duplicate
+            mapped = mapped & ~sdup
+        n_mapped = int(mapped.sum())
 
-    # --- long-read tier: mapped chunks of reads > align_max_len are
-    #     rebuilt from the reference, so their bases leave the residual
-    #     seq stream ---
-    lr = align.chunks if align is not None and not self_ref else None
-    lr_sub = np.zeros(R, np.int64)        # mapped-chunk bases per read
-    lr_excl = None
-    if lr is not None and len(lr[0]):
-        lr_reads, lr_offs, lr_clens, lr_res = lr
-        lr_keep = ~sdup[lr_reads] if n_sd else np.ones(len(lr_reads), bool)
-        lr_cm = lr_res.mapped & lr_keep
-        if lr_cm.any():
-            np.add.at(lr_sub, lr_reads[lr_cm], lr_clens[lr_cm])
-            cl = lr_clens[lr_cm]
-            lr_excl = (np.repeat((np.cumsum(lengths) - lengths)[
-                lr_reads[lr_cm]] + lr_offs[lr_cm], cl) + _intra_of(cl))
+        # --- long-read tier: mapped chunks of reads > align_max_len are
+        #     rebuilt from the reference, so their bases leave the residual
+        #     seq stream ---
+        lr = align.chunks if align is not None and not self_ref else None
+        lr_sub = np.zeros(R, np.int64)        # mapped-chunk bases per read
+        lr_excl = None
+        if lr is not None and len(lr[0]):
+            lr_reads, lr_offs, lr_clens, lr_res = lr
+            lr_keep = ~sdup[lr_reads] if n_sd else np.ones(len(lr_reads), bool)
+            lr_cm = lr_res.mapped & lr_keep
+            if lr_cm.any():
+                np.add.at(lr_sub, lr_reads[lr_cm], lr_clens[lr_cm])
+                cl = lr_clens[lr_cm]
+                lr_excl = (np.repeat((np.cumsum(lengths) - lengths)[
+                    lr_reads[lr_cm]] + lr_offs[lr_cm], cl) + _intra_of(cl))
+            else:
+                lr = None
         else:
             lr = None
-    else:
-        lr = None
 
-    const_len = int(lengths[0]) if R and (lengths == lengths[0]).all() else None
-    meta = {
-        "R": R,
-        "clen": const_len,
-        "fnl": block.final_newline,
-        "qmax": qmax,
-        "qv": qvals.tolist(),
-        "nd": n_dege,
-        "nm": n_mapped,
-    }
-    if self_ref and n_mapped:
-        meta["sref"] = 1
+        const_len = (int(lengths[0]) if R and (lengths == lengths[0]).all()
+                     else None)
+        meta = {
+            "R": R,
+            "clen": const_len,
+            "fnl": block.final_newline,
+            "qmax": qmax,
+            "qv": qvals.tolist(),
+            "nd": n_dege,
+            "nm": n_mapped,
+        }
+        if self_ref and n_mapped:
+            meta["sref"] = 1
 
-    # --- dispatch the big device streams first (seq + qual); host streams
-    #     are coded while the device crunches, then the jobs are finalized
-    seq_keep = ~mapped & ~sdup if n_sd else ~mapped
-    seq_counts = (lengths - dege_cnt - lr_sub)[seq_keep]
-    seq_sel = ~dege_mask
-    if n_mapped:
-        seq_sel &= ~np.repeat(mapped, lengths)
-    if n_sd:
-        seq_sel &= ~sdup_sym
-    if lr_excl is not None:
-        seq_sel[lr_excl] = False       # mapped chunks ride the reference
-    seq_syms = codes[seq_sel]
-    if n_qd:
-        qsyms = qsyms[np.repeat(~qdup, lengths)]
-        qlens = lengths[~qdup]
-    else:
-        qlens = lengths
-    seq_model = seq_model_from_params(p)
-    qmodel = qual_model_for(p, _qual_alphabet(qmax))
-    seq_job, qual_job = _stream_jobs(
-        p, frozen, device, (seq_model, seq_syms, seq_counts),
-        (qmodel, qsyms, qlens))
-
-    # --- lengths (reference: encode_len_short/encode_len_long, SURVEY.md
-    #     §2.1 — variable-width tiers; long reads (ONT/PacBio) take the
-    #     4-byte tier instead of hard-failing) ---
-    len_payload = None
-    if const_len is None and R:
-        lenb = _width_of(int(lengths.max()))
-        if lenb != 2:
-            meta["lenb"] = lenb
-        len_payload = _code_le(p, lengths, lenb, device)
-
-    # --- IDs (host binning) ---
-    schema, var_payload = analyze_ids(block.ids)
-    id_sections = []
-    if schema is not None:
-        id_sections.append((TAG_IDSCHEMA, schema.to_json()))
-        if var_payload:
-            id_sections.append((TAG_IDVAR,
-                                _code_bytes(p, var_payload, device)))
-    else:
-        id_sections.append((TAG_IDRAW, _code_lines(p, block.ids, R, device)))
-
-    # --- plus lines ---
-    from fastqueeze_tpu_torch.io.fastq import any_content
-    plus_sections = []
-    if any_content(block.plus):
-        pschema, pvar = analyze_ids(block.plus)
-        if pschema is not None:
-            plus_sections.append((TAG_PLUSSCHEMA, pschema.to_json()))
-            if pvar:
-                plus_sections.append((TAG_PLUSVAR,
-                                      _code_bytes(p, pvar, device)))
+        # --- dispatch the big device streams first (seq + qual); host streams
+        #     are coded while the device crunches, then the jobs are finalized
+        seq_keep = ~mapped & ~sdup if n_sd else ~mapped
+        seq_counts = (lengths - dege_cnt - lr_sub)[seq_keep]
+        seq_sel = ~dege_mask
+        if n_mapped:
+            seq_sel &= ~np.repeat(mapped, lengths)
+        if n_sd:
+            seq_sel &= ~sdup_sym
+        if lr_excl is not None:
+            seq_sel[lr_excl] = False       # mapped chunks ride the reference
+        seq_syms = codes[seq_sel]
+        if n_qd:
+            qsyms = qsyms[np.repeat(~qdup, lengths)]
+            qlens = lengths[~qdup]
         else:
-            plus_sections.append((TAG_PLUSRAW,
-                                  _code_lines(p, block.plus, R, device)))
+            qlens = lengths
+    with stage(dbg, "codec.streams"):
+        seq_model = seq_model_from_params(p)
+        qmodel = qual_model_for(p, _qual_alphabet(qmax))
+        seq_job, qual_job = _stream_jobs(
+            p, frozen, device, (seq_model, seq_syms, seq_counts),
+            (qmodel, qsyms, qlens))
 
-    # --- duplicate-tier streams ---
-    def _dup_dist(d):
-        """Distance payload: absolute or consecutive-delta (zigzag),
-        whichever codes smaller — replicated inputs give near-constant
-        distances whose deltas are ~all zero."""
-        w_abs = _width_of(int(d.max()))
-        pay_abs = _code_le(p, d, w_abs, device)
-        zz = _zigzag(np.diff(d, prepend=0))
-        w_dl = _width_of(int(zz.max()))
-        pay_dl = _code_le(p, zz, w_dl, device)
-        if len(pay_dl) < len(pay_abs):
-            return pay_dl, w_dl, 1
-        return pay_abs, w_abs, 0
+    with stage(dbg, "codec.small"):
+        # --- lengths (reference: encode_len_short/encode_len_long, SURVEY.md
+        #     §2.1 — variable-width tiers; long reads (ONT/PacBio) take the
+        #     4-byte tier instead of hard-failing) ---
+        len_payload = None
+        if const_len is None and R:
+            lenb = _width_of(int(lengths.max()))
+            if lenb != 2:
+                meta["lenb"] = lenb
+            len_payload = _code_le(p, lengths, lenb, device)
 
-    dup_sections = []
-    if n_sd:
-        pay, w, dl = _dup_dist((np.arange(R, dtype=np.int64) - s_src)[sdup])
-        meta["nsd"] = n_sd
-        meta["sdb"] = w
-        if dl:
-            meta["sdd"] = 1
-        dup_sections += [(TAG_SDUPF, _code_flags(p, sdup, device)),
-                         (TAG_SDUPD, pay)]
-    if n_qd:
-        pay, w, dl = _dup_dist((np.arange(R, dtype=np.int64) - q_src)[qdup])
-        meta["nqd"] = n_qd
-        meta["qdb"] = w
-        if dl:
-            meta["qdd"] = 1
-        dup_sections += [(TAG_QDUPF, _code_flags(p, qdup, device)),
-                         (TAG_QDUPD, pay)]
-
-    # --- degenerate streams ---
-    dege_sections = []
-    if n_dege:
-        if int(dege_cnt.max()) > 0xFF:
-            meta["degcb"] = _width_of(int(dege_cnt.max()))
-            cnt_payload = _code_le(p, dege_cnt, meta["degcb"], device)
+    with stage(dbg, "codec.ids"):
+        # --- IDs (host binning) ---
+        schema, var_payload = analyze_ids(block.ids)
+        id_sections = []
+        if schema is not None:
+            id_sections.append((TAG_IDSCHEMA, schema.to_json()))
+            if var_payload:
+                id_sections.append((TAG_IDVAR,
+                                    _code_bytes(p, var_payload, device)))
         else:
-            cnt_payload = _code_bytes(
-                p, dege_cnt.astype(np.uint8).tobytes(), device, order1=False)
-        degpb = _width_of(int(dege_pos.max()) if len(dege_pos) else 0)
-        degpb = max(degpb, 2)       # 2 is the historical default width
-        if degpb != 2:
-            meta["degpb"] = degpb
-        pos_payload = _code_le(p, dege_pos, degpb, device)
-        chr_payload = _code_bytes(
-            p, block.seq_flat[dege_mask].tobytes(), device, order1=False)
-        dege_sections = [(TAG_DEGCNT, cnt_payload), (TAG_DEGPOS, pos_payload),
-                         (TAG_DEGCHR, chr_payload)]
+            id_sections.append((TAG_IDRAW,
+                                _code_lines(p, block.ids, R, device)))
+
+    with stage(dbg, "codec.plus"):
+        # --- plus lines ---
+        from fastqueeze_tpu_torch.io.fastq import any_content
+        plus_sections = []
+        if any_content(block.plus):
+            pschema, pvar = analyze_ids(block.plus)
+            if pschema is not None:
+                plus_sections.append((TAG_PLUSSCHEMA, pschema.to_json()))
+                if pvar:
+                    plus_sections.append((TAG_PLUSVAR,
+                                          _code_bytes(p, pvar, device)))
+            else:
+                plus_sections.append((TAG_PLUSRAW,
+                                      _code_lines(p, block.plus, R, device)))
+
+    with stage(dbg, "codec.small"):
+        # --- duplicate-tier streams ---
+        def _dup_dist(d):
+            """Distance payload: absolute or consecutive-delta (zigzag),
+            whichever codes smaller — replicated inputs give near-constant
+            distances whose deltas are ~all zero."""
+            w_abs = _width_of(int(d.max()))
+            pay_abs = _code_le(p, d, w_abs, device)
+            zz = _zigzag(np.diff(d, prepend=0))
+            w_dl = _width_of(int(zz.max()))
+            pay_dl = _code_le(p, zz, w_dl, device)
+            if len(pay_dl) < len(pay_abs):
+                return pay_dl, w_dl, 1
+            return pay_abs, w_abs, 0
+
+        dup_sections = []
+        if n_sd:
+            pay, w, dl = _dup_dist(
+                (np.arange(R, dtype=np.int64) - s_src)[sdup])
+            meta["nsd"] = n_sd
+            meta["sdb"] = w
+            if dl:
+                meta["sdd"] = 1
+            dup_sections += [(TAG_SDUPF, _code_flags(p, sdup, device)),
+                             (TAG_SDUPD, pay)]
+        if n_qd:
+            pay, w, dl = _dup_dist(
+                (np.arange(R, dtype=np.int64) - q_src)[qdup])
+            meta["nqd"] = n_qd
+            meta["qdb"] = w
+            if dl:
+                meta["qdd"] = 1
+            dup_sections += [(TAG_QDUPF, _code_flags(p, qdup, device)),
+                             (TAG_QDUPD, pay)]
+
+        # --- degenerate streams ---
+        dege_sections = []
+        if n_dege:
+            if int(dege_cnt.max()) > 0xFF:
+                meta["degcb"] = _width_of(int(dege_cnt.max()))
+                cnt_payload = _code_le(p, dege_cnt, meta["degcb"], device)
+            else:
+                cnt_payload = _code_bytes(
+                    p, dege_cnt.astype(np.uint8).tobytes(), device,
+                    order1=False)
+            degpb = _width_of(int(dege_pos.max()) if len(dege_pos) else 0)
+            degpb = max(degpb, 2)       # 2 is the historical default width
+            if degpb != 2:
+                meta["degpb"] = degpb
+            pos_payload = _code_le(p, dege_pos, degpb, device)
+            chr_payload = _code_bytes(
+                p, block.seq_flat[dege_mask].tobytes(), device, order1=False)
+            dege_sections = [(TAG_DEGCNT, cnt_payload),
+                             (TAG_DEGPOS, pos_payload),
+                             (TAG_DEGCHR, chr_payload)]
 
     # --- alignment streams ---
     align_sections = []
@@ -792,32 +812,34 @@ def encode_block_job(p: CodecParams, block: FastqBlock,
 
     def finalize() -> bytes:
         # --- collect the device streams, assemble TLV ---
-        seq_payload = seq_job.finalize()
-        qual_payload = qual_job.finalize()
-        out.write(write_tlv(TAG_META, json.dumps(meta).encode()))
-        if len_payload is not None:
-            out.write(write_tlv(TAG_LEN, len_payload))
-        for tag, payload in (dup_sections + dege_sections + id_sections
-                             + plus_sections + align_sections):
-            out.write(write_tlv(tag, payload))
-        out.write(write_tlv(TAG_SEQ, seq_payload))
-        out.write(write_tlv(TAG_QUAL, qual_payload))
-        if dbg is not None:
-            # per-stream size table
-            nsym = int(lengths.sum())
-            dbg.add("sz_seq", len(seq_payload))
-            dbg.add("sz_qual", len(qual_payload))
-            dbg.add("sz_len", len(len_payload) if len_payload else 0)
-            dbg.add("sz_id", sum(len(x) for _, x in id_sections))
-            dbg.add("sz_plus", sum(len(x) for _, x in plus_sections))
-            dbg.add("sz_dege", sum(len(x) for _, x in dege_sections))
-            dbg.add("sz_align", sum(len(x) for _, x in align_sections))
-            dbg.add("sz_dup", sum(len(x) for _, x in dup_sections))
-            dbg.add("dup_seq_reads", n_sd)
-            dbg.add("dup_qual_reads", n_qd)
-            dbg.add("raw_seq", nsym)
-            dbg.add("raw_qual", nsym)
-        return out.getvalue()
+        with stage(dbg, "codec.wait"):
+            seq_payload = seq_job.finalize()
+            qual_payload = qual_job.finalize()
+        with stage(dbg, "codec.tlv"):
+            out.write(write_tlv(TAG_META, json.dumps(meta).encode()))
+            if len_payload is not None:
+                out.write(write_tlv(TAG_LEN, len_payload))
+            for tag, payload in (dup_sections + dege_sections + id_sections
+                                 + plus_sections + align_sections):
+                out.write(write_tlv(tag, payload))
+            out.write(write_tlv(TAG_SEQ, seq_payload))
+            out.write(write_tlv(TAG_QUAL, qual_payload))
+            if dbg is not None:
+                # per-stream size table
+                nsym = int(lengths.sum())
+                dbg.add("sz_seq", len(seq_payload))
+                dbg.add("sz_qual", len(qual_payload))
+                dbg.add("sz_len", len(len_payload) if len_payload else 0)
+                dbg.add("sz_id", sum(len(x) for _, x in id_sections))
+                dbg.add("sz_plus", sum(len(x) for _, x in plus_sections))
+                dbg.add("sz_dege", sum(len(x) for _, x in dege_sections))
+                dbg.add("sz_align", sum(len(x) for _, x in align_sections))
+                dbg.add("sz_dup", sum(len(x) for _, x in dup_sections))
+                dbg.add("dup_seq_reads", n_sd)
+                dbg.add("dup_qual_reads", n_qd)
+                dbg.add("raw_seq", nsym)
+                dbg.add("raw_qual", nsym)
+            return out.getvalue()
 
     return finalize
 
@@ -1057,18 +1079,18 @@ def _encode_lr_streams(p: CodecParams, block: FastqBlock, reads, offs,
 
 def decode_block(p: CodecParams, payload: bytes, frozen: Optional[Dict],
                  device, ref_codes: Optional[np.ndarray] = None,
-                 ctx_shard=None) -> FastqBlock:
+                 ctx_shard=None, dbg=None) -> FastqBlock:
     """Decode one block payload on ``device`` (ref_codes: the reference's
     2-bit codes, for reference-aligned archives; ctx_shard: devices the
     frozen qual table is sharded over, driver.decompress's big-table
-    mesh gate).  Any structural damage a
-    corrupt payload can cause downstream (bad lengths -> out-of-range
-    indexing, mangled meta JSON, impossible stream sizes) is converted to
-    ValueError — the whole-block MD5 then reports it like every other
-    corruption path."""
+    mesh gate; dbg: the DebugInfo that times its stages).  Any
+    structural damage a corrupt payload can cause downstream (bad lengths
+    -> out-of-range indexing, mangled meta JSON, impossible stream sizes)
+    is converted to ValueError — the whole-block MD5 then reports it like
+    every other corruption path."""
     try:
         return _decode_block_impl(p, payload, frozen, device, ref_codes,
-                                  ctx_shard)
+                                  ctx_shard, dbg)
     except ValueError:
         raise
     except (IndexError, KeyError, OverflowError, TypeError,
@@ -1079,200 +1101,208 @@ def decode_block(p: CodecParams, payload: bytes, frozen: Optional[Dict],
 def _decode_block_impl(p: CodecParams, payload: bytes,
                        frozen: Optional[Dict], device,
                        ref_codes: Optional[np.ndarray],
-                       ctx_shard=None) -> FastqBlock:
-    sections = dict(iter_tlv(payload))
-    meta = json.loads(sections[TAG_META].decode())
-    R = meta["R"]
-    n_dege = meta["nd"]
-    qmax = meta["qmax"]
-    n_mapped = meta.get("nm", 0)
-    self_ref = bool(meta.get("sref", 0))
-    if n_mapped and ref_codes is None and not self_ref:
-        raise ValueError("archive was reference-aligned: decode needs the "
-                         "reference FASTA")
-    if meta.get("lrm", 0) and ref_codes is None:
-        raise ValueError("archive has reference-mapped long-read chunks: "
-                         "decode needs the reference FASTA")
+                       ctx_shard=None, dbg=None) -> FastqBlock:
+    with stage(dbg, "codec.host"):
+        sections = dict(iter_tlv(payload))
+        meta = json.loads(sections[TAG_META].decode())
+        R = meta["R"]
+        n_dege = meta["nd"]
+        qmax = meta["qmax"]
+        n_mapped = meta.get("nm", 0)
+        self_ref = bool(meta.get("sref", 0))
+        if n_mapped and ref_codes is None and not self_ref:
+            raise ValueError("archive was reference-aligned: decode needs the "
+                             "reference FASTA")
+        if meta.get("lrm", 0) and ref_codes is None:
+            raise ValueError("archive has reference-mapped long-read chunks: "
+                             "decode needs the reference FASTA")
 
-    # --- lengths ---
-    if meta["clen"] is not None:
-        lengths = np.full(R, meta["clen"], np.int64)
-    elif R:
-        lengths = _decode_le(p, sections[TAG_LEN], R, meta.get("lenb", 2),
-                             device)
-    else:
-        lengths = np.zeros(0, np.int64)
-    if R and (lengths.min() < 0 or int(lengths.sum()) > (1 << 33)):
-        raise ValueError("corrupt block payload: implausible read lengths")
-
-    # --- degenerate streams ---
-    dege_cnt = np.zeros(R, np.int64)
-    if n_dege:
-        if "degcb" in meta:
-            dege_cnt = _decode_le(p, sections[TAG_DEGCNT], R, meta["degcb"],
-                                  device)
+        # --- lengths ---
+        if meta["clen"] is not None:
+            lengths = np.full(R, meta["clen"], np.int64)
+        elif R:
+            lengths = _decode_le(p, sections[TAG_LEN], R, meta.get("lenb", 2),
+                                 device)
         else:
-            cnt_raw = _decode_bytes(p, sections[TAG_DEGCNT], device,
-                                    order1=False)
-            dege_cnt = np.frombuffer(cnt_raw, np.uint8).astype(np.int64)
-        dpos = _decode_le(p, sections[TAG_DEGPOS], n_dege,
-                          meta.get("degpb", 2), device)
-        dchr = np.frombuffer(
-            _decode_bytes(p, sections[TAG_DEGCHR], device,
-                          order1=False), np.uint8)
+            lengths = np.zeros(0, np.int64)
+        if R and (lengths.min() < 0 or int(lengths.sum()) > (1 << 33)):
+            raise ValueError("corrupt block payload: implausible read lengths")
 
-    # --- map flags ---
-    mapped = np.zeros(R, bool)
-    if TAG_AMAP in sections:
-        mapped = _decode_flags(p, sections[TAG_AMAP], R, device)
-    if int(mapped.sum()) != n_mapped:
-        raise ValueError("corrupt block payload: mapped count")
+        # --- degenerate streams ---
+        dege_cnt = np.zeros(R, np.int64)
+        if n_dege:
+            if "degcb" in meta:
+                dege_cnt = _decode_le(p, sections[TAG_DEGCNT], R,
+                                      meta["degcb"], device)
+            else:
+                cnt_raw = _decode_bytes(p, sections[TAG_DEGCNT], device,
+                                        order1=False)
+                dege_cnt = np.frombuffer(cnt_raw, np.uint8).astype(np.int64)
+            dpos = _decode_le(p, sections[TAG_DEGPOS], n_dege,
+                              meta.get("degpb", 2), device)
+            dchr = np.frombuffer(
+                _decode_bytes(p, sections[TAG_DEGCHR], device,
+                              order1=False), np.uint8)
 
-    # --- duplicate-tier back-references ---
-    def _dup_refs(tag_f, tag_d, n_dup, width, delta):
-        flags = _decode_flags(p, sections[tag_f], R, device)
-        rows = np.flatnonzero(flags)
-        if len(rows) != n_dup:
-            raise ValueError("corrupt block payload: dup flag count")
-        d = _decode_le(p, sections[tag_d], n_dup, width, device)
-        if delta:
-            d = np.cumsum(_unzigzag(d))
-        src = rows - d
-        if ((d <= 0).any() or (src < 0).any() or flags[src].any()
-                or (lengths[src] != lengths[rows]).any()):
-            raise ValueError("corrupt block payload: bad dup back-refs")
-        return flags, rows, src
+        # --- map flags ---
+        mapped = np.zeros(R, bool)
+        if TAG_AMAP in sections:
+            mapped = _decode_flags(p, sections[TAG_AMAP], R, device)
+        if int(mapped.sum()) != n_mapped:
+            raise ValueError("corrupt block payload: mapped count")
 
-    n_sd = meta.get("nsd", 0)
-    n_qd = meta.get("nqd", 0)
-    sdup = np.zeros(R, bool)
-    if n_sd:
-        sdup, sd_rows, sd_src = _dup_refs(TAG_SDUPF, TAG_SDUPD, n_sd,
-                                          meta["sdb"], meta.get("sdd", 0))
-    qdup = np.zeros(R, bool)
-    if n_qd:
-        qdup, qd_rows, qd_src = _dup_refs(TAG_QDUPF, TAG_QDUPD, n_qd,
-                                          meta["qdb"], meta.get("qdd", 0))
+        # --- duplicate-tier back-references ---
+        def _dup_refs(tag_f, tag_d, n_dup, width, delta):
+            flags = _decode_flags(p, sections[tag_f], R, device)
+            rows = np.flatnonzero(flags)
+            if len(rows) != n_dup:
+                raise ValueError("corrupt block payload: dup flag count")
+            d = _decode_le(p, sections[tag_d], n_dup, width, device)
+            if delta:
+                d = np.cumsum(_unzigzag(d))
+            src = rows - d
+            if ((d <= 0).any() or (src < 0).any() or flags[src].any()
+                    or (lengths[src] != lengths[rows]).any()):
+                raise ValueError("corrupt block payload: bad dup back-refs")
+            return flags, rows, src
 
-    # --- long-read tier: chunk grid + mapped-chunk flags (needed before
-    #     the seq dispatch: mapped chunks' bases are not in the stream) ---
-    lr_reads = lr_offs = lr_clens = lr_cm = None
-    lr_sub = np.zeros(R, np.int64)
-    if TAG_LRF in sections and p.longread_chunk and R:
-        C = min(p.longread_chunk, p.align_max_len)
-        lr_reads, lr_offs, lr_clens = _lr_grid(lengths, p.align_max_len, C,
-                                               p.longread_tail_min)
-        gkeep = ~sdup[lr_reads] if n_sd else np.ones(len(lr_reads), bool)
-        nk = int(gkeep.sum())
-        if nk != meta.get("lrn", nk):
-            raise ValueError("corrupt block payload: LR chunk grid")
-        lr_cm = np.zeros(len(lr_reads), bool)
-        lr_cm[gkeep] = _decode_flags(p, sections[TAG_LRF], nk, device)
-        if int(lr_cm.sum()) != meta.get("lrm", -1):
-            raise ValueError("corrupt block payload: LR mapped count")
-        np.add.at(lr_sub, lr_reads[lr_cm], lr_clens[lr_cm])
+        n_sd = meta.get("nsd", 0)
+        n_qd = meta.get("nqd", 0)
+        sdup = np.zeros(R, bool)
+        if n_sd:
+            sdup, sd_rows, sd_src = _dup_refs(TAG_SDUPF, TAG_SDUPD, n_sd,
+                                              meta["sdb"], meta.get("sdd", 0))
+        qdup = np.zeros(R, bool)
+        if n_qd:
+            qdup, qd_rows, qd_src = _dup_refs(TAG_QDUPF, TAG_QDUPD, n_qd,
+                                              meta["qdb"], meta.get("qdd", 0))
 
-    # --- dispatch device streams (seq + qual), then do host work ---
-    seq_counts = (lengths - dege_cnt - lr_sub)[~mapped & ~sdup]
-    qlens = lengths[~qdup] if n_qd else lengths
-    seq_model = seq_model_from_params(p)
-    qmodel = qual_model_for(p, _qual_alphabet(qmax))
-    seq_job, qual_job = _stream_jobs(
-        p, frozen, device, (seq_model, sections[TAG_SEQ], seq_counts),
-        (qmodel, sections[TAG_QUAL], qlens), decode=True,
-        ctx_shard=ctx_shard)
+        # --- long-read tier: chunk grid + mapped-chunk flags (needed before
+        #     the seq dispatch: mapped chunks' bases are not in the stream) ---
+        lr_reads = lr_offs = lr_clens = lr_cm = None
+        lr_sub = np.zeros(R, np.int64)
+        if TAG_LRF in sections and p.longread_chunk and R:
+            C = min(p.longread_chunk, p.align_max_len)
+            lr_reads, lr_offs, lr_clens = _lr_grid(lengths, p.align_max_len, C,
+                                                   p.longread_tail_min)
+            gkeep = ~sdup[lr_reads] if n_sd else np.ones(len(lr_reads), bool)
+            nk = int(gkeep.sum())
+            if nk != meta.get("lrn", nk):
+                raise ValueError("corrupt block payload: LR chunk grid")
+            lr_cm = np.zeros(len(lr_reads), bool)
+            lr_cm[gkeep] = _decode_flags(p, sections[TAG_LRF], nk, device)
+            if int(lr_cm.sum()) != meta.get("lrm", -1):
+                raise ValueError("corrupt block payload: LR mapped count")
+            np.add.at(lr_sub, lr_reads[lr_cm], lr_clens[lr_cm])
 
-    # --- sequence assembly (host) ---
-    seq_flat = np.empty(int(lengths.sum()), np.uint8)
-    read_off = np.cumsum(lengths) - lengths
-    fill = np.zeros(len(seq_flat), bool)   # True where a byte is written
-    if n_dege:
-        dege_abs = np.repeat(read_off, dege_cnt) + dpos
-        seq_flat[dege_abs] = dchr
-        fill[dege_abs] = True
-    if n_mapped:
-        fill |= np.repeat(mapped, lengths)
-    if n_sd:
-        fill |= np.repeat(sdup, lengths)
-    if lr_cm is not None and lr_cm.any():
-        cl = lr_clens[lr_cm]
-        spans = read_off[lr_reads[lr_cm]] + lr_offs[lr_cm]
-        fill[np.repeat(spans, cl) + _intra_of(cl)] = True
-    acgt = seq_job.finalize()
-    seq_flat[~fill] = _BASE_INV[acgt]
-    if n_mapped:
-        if self_ref:
-            # rebuild the block's self-reference from the (now filled)
-            # unmapped reads, exactly as the encoder built it
-            from fastqueeze_tpu_torch.pipeline.selfref import ref_eligible
-            rows = np.flatnonzero(ref_eligible(mapped, sdup, dege_cnt,
-                                               lengths, p.seed_len))
-            lr = lengths[rows]
-            sel = np.repeat(read_off[rows], lr) + _intra_of(lr)
-            # clip: eligible reads are ACGT in valid archives; corrupt
-            # payloads must not drive out-of-range model contexts
-            ref_codes = np.minimum(_BASE_MAP[seq_flat[sel]], 3)
-        _decode_align_streams(p, sections, meta, mapped, lengths, read_off,
-                              ref_codes, seq_flat, device)
-    if lr_cm is not None and lr_cm.any():
-        _decode_lr_streams(p, sections, meta, lr_reads, lr_offs, lr_clens,
-                           lr_cm, read_off, ref_codes, seq_flat, device)
-    if n_sd:
-        # duplicate reads: one range copy from their (non-duplicate,
-        # already filled) first occurrences
-        _copy_read_ranges(seq_flat, read_off[sd_src], read_off[sd_rows],
-                          lengths[sd_rows])
+    with stage(dbg, "codec.streams"):
+        # --- dispatch device streams (seq + qual), then do host work ---
+        seq_counts = (lengths - dege_cnt - lr_sub)[~mapped & ~sdup]
+        qlens = lengths[~qdup] if n_qd else lengths
+        seq_model = seq_model_from_params(p)
+        qmodel = qual_model_for(p, _qual_alphabet(qmax))
+        seq_job, qual_job = _stream_jobs(
+            p, frozen, device, (seq_model, sections[TAG_SEQ], seq_counts),
+            (qmodel, sections[TAG_QUAL], qlens), decode=True,
+            ctx_shard=ctx_shard)
+
+    with stage(dbg, "codec.host"):
+        # --- sequence assembly (host) ---
+        seq_flat = np.empty(int(lengths.sum()), np.uint8)
+        read_off = np.cumsum(lengths) - lengths
+        fill = np.zeros(len(seq_flat), bool)   # True where a byte is written
+        if n_dege:
+            dege_abs = np.repeat(read_off, dege_cnt) + dpos
+            seq_flat[dege_abs] = dchr
+            fill[dege_abs] = True
+        if n_mapped:
+            fill |= np.repeat(mapped, lengths)
+        if n_sd:
+            fill |= np.repeat(sdup, lengths)
+        if lr_cm is not None and lr_cm.any():
+            cl = lr_clens[lr_cm]
+            spans = read_off[lr_reads[lr_cm]] + lr_offs[lr_cm]
+            fill[np.repeat(spans, cl) + _intra_of(cl)] = True
+    with stage(dbg, "codec.wait"):
+        acgt = seq_job.finalize()
+    with stage(dbg, "codec.host"):
+        seq_flat[~fill] = _BASE_INV[acgt]
+        if n_mapped:
+            if self_ref:
+                # rebuild the block's self-reference from the (now filled)
+                # unmapped reads, exactly as the encoder built it
+                from fastqueeze_tpu_torch.pipeline.selfref import ref_eligible
+                rows = np.flatnonzero(ref_eligible(mapped, sdup, dege_cnt,
+                                                   lengths, p.seed_len))
+                lr = lengths[rows]
+                sel = np.repeat(read_off[rows], lr) + _intra_of(lr)
+                # clip: eligible reads are ACGT in valid archives; corrupt
+                # payloads must not drive out-of-range model contexts
+                ref_codes = np.minimum(_BASE_MAP[seq_flat[sel]], 3)
+            _decode_align_streams(p, sections, meta, mapped, lengths, read_off,
+                                  ref_codes, seq_flat, device)
+        if lr_cm is not None and lr_cm.any():
+            _decode_lr_streams(p, sections, meta, lr_reads, lr_offs, lr_clens,
+                               lr_cm, read_off, ref_codes, seq_flat, device)
+        if n_sd:
+            # duplicate reads: one range copy from their (non-duplicate,
+            # already filled) first occurrences
+            _copy_read_ranges(seq_flat, read_off[sd_src], read_off[sd_rows],
+                              lengths[sd_rows])
 
     # --- quality (ranks -> phred values via the block's vocabulary) ---
-    qsyms = qual_job.finalize()
-    if "qv" in meta and len(meta["qv"]):
-        qv_chars = np.asarray(meta["qv"], np.uint8) + 33
-        # clamp: a corrupt stream can decode the alphabet's round-up
-        # padding ranks — garbage bytes here get caught by the block MD5
-        qvals_dec = qv_chars[np.minimum(qsyms, len(qv_chars) - 1)]
-    else:
-        qvals_dec = (qsyms.astype(np.uint8) + 33)
-    if n_qd:
-        from fastqueeze_tpu_torch.io import native
-        qual_flat = np.empty(len(seq_flat), np.uint8)
-        # unique reads' quals land at their read offsets (contiguous per
-        # read), then duplicates copy from their first occurrences
-        if not native.scatter(qvals_dec, read_off[~qdup], qlens, qual_flat):
-            qual_flat[~np.repeat(qdup, lengths)] = qvals_dec
-        _copy_read_ranges(qual_flat, read_off[qd_src], read_off[qd_rows],
-                          lengths[qd_rows])
-    else:
-        qual_flat = qvals_dec
+    with stage(dbg, "codec.wait"):
+        qsyms = qual_job.finalize()
+    with stage(dbg, "codec.host"):
+        if "qv" in meta and len(meta["qv"]):
+            qv_chars = np.asarray(meta["qv"], np.uint8) + 33
+            # clamp: a corrupt stream can decode the alphabet's round-up
+            # padding ranks — garbage bytes here get caught by the block MD5
+            qvals_dec = qv_chars[np.minimum(qsyms, len(qv_chars) - 1)]
+        else:
+            qvals_dec = (qsyms.astype(np.uint8) + 33)
+        if n_qd:
+            from fastqueeze_tpu_torch.io import native
+            qual_flat = np.empty(len(seq_flat), np.uint8)
+            # unique reads' quals land at their read offsets (contiguous per
+            # read), then duplicates copy from their first occurrences
+            if not native.scatter(qvals_dec, read_off[~qdup], qlens,
+                                  qual_flat):
+                qual_flat[~np.repeat(qdup, lengths)] = qvals_dec
+            _copy_read_ranges(qual_flat, read_off[qd_src], read_off[qd_rows],
+                              lengths[qd_rows])
+        else:
+            qual_flat = qvals_dec
 
-    # --- IDs ---
-    if TAG_IDSCHEMA in sections:
-        schema = IdBinSchema.from_json(sections[TAG_IDSCHEMA])
-        var = (_decode_bytes(p, sections[TAG_IDVAR], device)
-               if TAG_IDVAR in sections else b"")
-        ids = reconstruct_ids(schema, R, var)
-    else:
-        ids = _decode_lines(p, sections[TAG_IDRAW], R, device)
+        # --- IDs ---
+        if TAG_IDSCHEMA in sections:
+            schema = IdBinSchema.from_json(sections[TAG_IDSCHEMA])
+            var = (_decode_bytes(p, sections[TAG_IDVAR], device)
+                   if TAG_IDVAR in sections else b"")
+            ids = reconstruct_ids(schema, R, var)
+        else:
+            ids = _decode_lines(p, sections[TAG_IDRAW], R, device)
 
-    # --- plus lines ---
-    if TAG_PLUSSCHEMA in sections:
-        pschema = IdBinSchema.from_json(sections[TAG_PLUSSCHEMA])
-        pvar = (_decode_bytes(p, sections[TAG_PLUSVAR], device)
-                if TAG_PLUSVAR in sections else b"")
-        plus = reconstruct_ids(pschema, R, pvar)
-    elif TAG_PLUSRAW in sections:
-        plus = _decode_lines(p, sections[TAG_PLUSRAW], R, device)
-    else:
-        plus = [b""] * R
+        # --- plus lines ---
+        if TAG_PLUSSCHEMA in sections:
+            pschema = IdBinSchema.from_json(sections[TAG_PLUSSCHEMA])
+            pvar = (_decode_bytes(p, sections[TAG_PLUSVAR], device)
+                    if TAG_PLUSVAR in sections else b"")
+            plus = reconstruct_ids(pschema, R, pvar)
+        elif TAG_PLUSRAW in sections:
+            plus = _decode_lines(p, sections[TAG_PLUSRAW], R, device)
+        else:
+            plus = [b""] * R
 
-    def _tot(lines):
-        cat = getattr(lines, "cat", None)
-        return len(cat) if cat is not None else sum(len(x) for x in lines)
+        def _tot(lines):
+            cat = getattr(lines, "cat", None)
+            return len(cat) if cat is not None else sum(len(x) for x in lines)
 
-    raw_len = (int(lengths.sum()) * 2 + _tot(ids) + _tot(plus) + 6 * R
-               - (0 if meta["fnl"] else 1))
-    return FastqBlock(n_reads=R, ids=ids, plus=plus, seq_flat=seq_flat,
-                      qual_flat=qual_flat, lengths=lengths, raw_len=raw_len,
-                      final_newline=meta["fnl"])
+        raw_len = (int(lengths.sum()) * 2 + _tot(ids) + _tot(plus) + 6 * R
+                   - (0 if meta["fnl"] else 1))
+        return FastqBlock(n_reads=R, ids=ids, plus=plus, seq_flat=seq_flat,
+                          qual_flat=qual_flat, lengths=lengths,
+                          raw_len=raw_len, final_newline=meta["fnl"])
 
 
 def _decode_align_streams(p: CodecParams, sections: Dict, meta: Dict,

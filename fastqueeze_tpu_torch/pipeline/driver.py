@@ -29,7 +29,6 @@ import contextlib
 import hashlib
 import os
 import sys
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -45,7 +44,7 @@ from fastqueeze_tpu_torch.parallel.mesh import block_devices
 from fastqueeze_tpu_torch.pipeline.lossy import parse_lossy
 from fastqueeze_tpu_torch.pipeline.parallel_host import (
     block_dp_devices, device_parallel)
-from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+from fastqueeze_tpu_torch.utils.metrics import DebugInfo, stage
 
 # Frozen qual tables with at least this many (rows x (A+1)) entries decode
 # ctx-sharded over an active mesh instead of copied to every device (the
@@ -78,6 +77,21 @@ def owned_blocks(items, part: Optional[tuple], scan):
         yield gi, item
 
 
+_END = object()
+
+
+def _spanned(items, dbg: DebugInfo, name: str):
+    """``items`` with each pull timed as the stage ``name`` (the reads of
+    a lazy block reader)."""
+    it = iter(items)
+    while True:
+        with dbg.span(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+
+
 def _gate_bytes(in_path: str) -> int:
     """usemodel gate input-size estimate; gz inputs scale x5 (the
     reference's heuristic, doCheckSetEncodeOpt @0x408298)."""
@@ -94,27 +108,30 @@ def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
     from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
     from fastqueeze_tpu_torch.pipeline.frozen import (
         stage_tables, train_frozen_blocks)
-    t0 = time.time()
-    need = params.model_train_mb << 20
-    got = 0
-    for raw, final_nl in gen:
-        raw, block = parse_lossy(params, raw, final_nl)
-        prefix_items.append((raw, final_nl, block))
-        got += len(raw)
-        if got >= need:
-            break
-    syms = sum(int(b.lengths.sum()) for _, _, b in prefix_items)
-    est = int(_gate_bytes(in_path) * syms / max(got, 1))
-    tblocks = [b for _, _, b in prefix_items]
-    if params.dedup:
-        # train on the deduped sample (what the coder will emit) so the
-        # qctx cost model prices tables honestly
-        tblocks = [dedup_training_block(b, params)[0] for b in tblocks]
-        uq = sum(int(tb.lengths.sum()) for tb in tblocks)
-        est = int(est * uq / max(syms, 1))
-    frozen = train_frozen_blocks(params, tblocks, est_total_syms=est)
-    stage_tables(frozen, params, device)
-    dbg.add("train_s", time.time() - t0)
+    with dbg.span("train"):
+        need = params.model_train_mb << 20
+        got = 0
+        for raw, final_nl in gen:
+            with dbg.span("train.parse"):
+                raw, block = parse_lossy(params, raw, final_nl)
+            prefix_items.append((raw, final_nl, block))
+            got += len(raw)
+            if got >= need:
+                break
+        syms = sum(int(b.lengths.sum()) for _, _, b in prefix_items)
+        est = int(_gate_bytes(in_path) * syms / max(got, 1))
+        tblocks = [b for _, _, b in prefix_items]
+        if params.dedup:
+            # train on the deduped sample (what the coder will emit) so
+            # the qctx cost model prices tables honestly
+            with dbg.span("train.dedup"):
+                tblocks = [dedup_training_block(b, params)[0]
+                           for b in tblocks]
+            uq = sum(int(tb.lengths.sum()) for tb in tblocks)
+            est = int(est * uq / max(syms, 1))
+        frozen = train_frozen_blocks(params, tblocks, est_total_syms=est)
+        with dbg.span("train.stage"):
+            stage_tables(frozen, params, device)
     return frozen
 
 
@@ -127,17 +144,16 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
     from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
     from fastqueeze_tpu_torch.pipeline.frozen import (
         serialize_frozen, stage_tables, train_frozen)
-    t0 = time.time()
-    _, block = parse_lossy(p, *next(iter(read_blocks(
-        in_path, p.model_train_mb << 20))))
-    est = int(_gate_bytes(in_path) * int(block.lengths.sum())
-              / max(block.raw_len, 1))
-    if p.dedup:
-        block, frac = dedup_training_block(block, p)
-        est = int(est * frac)
-    frozen = train_frozen(p, block, est_total_syms=est)
-    stage_tables(frozen, p, device)
-    dbg.add("train_s", time.time() - t0)
+    with dbg.span("train"):
+        _, block = parse_lossy(p, *next(iter(read_blocks(
+            in_path, p.model_train_mb << 20))))
+        est = int(_gate_bytes(in_path) * int(block.lengths.sum())
+                  / max(block.raw_len, 1))
+        if p.dedup:
+            block, frac = dedup_training_block(block, p)
+            est = int(est * frac)
+        frozen = train_frozen(p, block, est_total_syms=est)
+        stage_tables(frozen, p, device)
     return frozen, serialize_frozen(frozen)
 
 
@@ -149,7 +165,7 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
     dbg = dbg or DebugInfo()
     block_size = params.block_bytes or params.block_size_mb * (1 << 20)
     whole_md5 = hashlib.md5()
-    gen = read_blocks(in_path, block_size)
+    gen = _spanned(read_blocks(in_path, block_size), dbg, "read")
     frozen = None
     prefix_items = []   # (raw, final_nl, FastqBlock): parsed once, reused
     if decide_use_model(params, _gate_bytes(in_path)):
@@ -162,15 +178,19 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
         if not prefix_items:
             first = next(gen, None)
             if first is not None:
-                raw0, blk0 = parse_lossy(params, *first)
+                # parsed once for the probe, reused by the encode loop
+                with dbg.span("first_block"):
+                    raw0, blk0 = parse_lossy(params, *first)
                 prefix_items.append((raw0, first[1], blk0))
-        params.self_align = 1 if (
-            prefix_items
-            and auto_self_align(params, prefix_items[0][2], dbg)) else 0
+        with dbg.span("probe"):
+            params.self_align = 1 if (
+                prefix_items
+                and auto_self_align(params, prefix_items[0][2], dbg)) else 0
     model_blob = None
     if frozen is not None:
         from fastqueeze_tpu_torch.pipeline.frozen import serialize_frozen
-        model_blob = serialize_frozen(frozen)
+        with dbg.span("serialize"):
+            model_blob = serialize_frozen(frozen)
     writer = ArcWriter(out_path, params, [os.path.basename(in_path)], [],
                        model_blob=model_blob, part=part)
     single = not part or part[1] == 1
@@ -203,41 +223,43 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
                 raw, block = parse_lossy(params, raw, final_nl)
             return gi, raw, encode_job(block, device)(), block.n_reads
 
-        t_all = time.time()
-        for _, (gi, raw, payload, n_reads) in device_parallel(
-                owned_blocks(items(), part, scan), work, devices,
-                params.threads, device):
-            if single:             # ordered: blocks arrive in file order
-                whole_md5.update(raw)
-            writer.add_block(gi, payload, BlockInfo(
-                payload_len=len(payload), n_reads=n_reads,
-                raw_len1=len(raw), md5=hashlib.md5(raw).digest()))
-            dbg.add("reads", n_reads)
-            total_raw += len(raw)
-            n_blocks += 1
-        dbg.add("encode_s", time.time() - t_all)
+        with dbg.span("encode"):
+            for _, (gi, raw, payload, n_reads) in device_parallel(
+                    owned_blocks(items(), part, scan), work, devices,
+                    params.threads, device):
+                with dbg.span("md5"):
+                    if single:     # ordered: blocks arrive in file order
+                        whole_md5.update(raw)
+                    md5 = hashlib.md5(raw).digest()
+                with dbg.span("write"):
+                    writer.add_block(gi, payload, BlockInfo(
+                        payload_len=len(payload), n_reads=n_reads,
+                        raw_len1=len(raw), md5=md5))
+                dbg.add("reads", n_reads)
+                total_raw += len(raw)
+                n_blocks += 1
     else:
         pending = None      # (idx, finalize, BlockInfo): device in flight
 
         def flush(pend):
-            t0 = time.time()
-            payload = pend[1]()
-            dbg.add("encode_s", time.time() - t0)
-            writer.add_block(pend[0], payload, pend[2])
+            with dbg.span("encode"):
+                payload = pend[1]()
+            with dbg.span("write"):
+                writer.add_block(pend[0], payload, pend[2])
 
         for gi, (raw, final_nl, block) in owned_blocks(items(), part, scan):
-            t0 = time.time()
-            if block is None:
-                raw, block = parse_lossy(params, raw, final_nl)
-            if single:
-                whole_md5.update(raw)
-            dbg.add("parse_s", time.time() - t0)
-            t0 = time.time()
-            fin = encode_job(block, device)
-            dbg.add("dispatch_s", time.time() - t0)
+            with dbg.span("parse"):
+                if block is None:
+                    raw, block = parse_lossy(params, raw, final_nl)
+                if single:
+                    with dbg.span("parse.md5"):
+                        whole_md5.update(raw)
+            with dbg.span("dispatch"):
+                fin = encode_job(block, device)
+            with dbg.span("md5"):
+                md5 = hashlib.md5(raw).digest()
             info = BlockInfo(payload_len=0, n_reads=block.n_reads,
-                             raw_len1=len(raw),
-                             md5=hashlib.md5(raw).digest())
+                             raw_len1=len(raw), md5=md5)
             if pending is not None:
                 flush(pending)
             pending = (gi, fin, info)
@@ -247,7 +269,8 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
         if pending is not None:
             flush(pending)
     writer.input_md5s = [whole_md5.digest()]
-    writer.finalize()
+    with dbg.span("write"):
+        writer.finalize()
     out_size = os.path.getsize(out_path)
     dbg.add("raw_bytes", total_raw)
     dbg.add("out_bytes", out_size)
@@ -286,8 +309,8 @@ def decompress(arc_path: str, out_prefix: Optional[str],
                                         ref_codes=ref_codes, devices=devices)
         if getattr(params, "multi", 0):
             return _decompress_multi(reader, out_prefix, dbg,
-                                     _frozen_of(reader), ref_codes, force,
-                                     device, devices)
+                                     _frozen_of(reader, dbg), ref_codes,
+                                     force, device, devices)
         out_name = _se_out_name(arc_path, out_prefix, reader.file_list)
         if indir:
             out_name = os.path.join(os.path.dirname(os.path.abspath(arc_path)),
@@ -296,7 +319,7 @@ def decompress(arc_path: str, out_prefix: Optional[str],
             out_name = None
         elif os.path.exists(out_name) and not force:
             raise ValueError(f"{out_name} exists (use -f to overwrite)")
-        frozen = _frozen_of(reader)
+        frozen = _frozen_of(reader, dbg)
         # big-table gate: with a mesh and a frozen qual table past the
         # copy threshold, blocks decode on ``device`` with that table
         # sharded by rows over the mesh's devices (K18) instead of copied
@@ -312,38 +335,45 @@ def decompress(arc_path: str, out_prefix: Optional[str],
         def decode_one(i, payload, device):
             return _decode_checked(params, payload, frozen, device,
                                    ref_codes, reader.blocks[i].md5, i,
-                                   ctx_shard)[1]
+                                   ctx_shard, dbg)[1]
 
         with (open(out_name, "wb") if out_name
               else contextlib.nullcontext(sys.stdout.buffer)) as out:
-            payloads = (reader.read_block(i)
-                        for i in range(len(reader.blocks)))
-            t0 = time.time()
-            for _, raw in device_parallel(payloads, decode_one, devices,
-                                          params.threads, device):
-                whole_md5.update(raw)
-                out.write(raw)
-            dbg.add("decode_s", time.time() - t0)
+            payloads = _spanned((reader.read_block(i)
+                                 for i in range(len(reader.blocks))),
+                                dbg, "read")
+            with dbg.span("decode"):
+                for _, raw in device_parallel(payloads, decode_one, devices,
+                                              params.threads, device):
+                    with dbg.span("md5"):
+                        whole_md5.update(raw)
+                    with dbg.span("write"):
+                        out.write(raw)
         if reader.input_md5s and whole_md5.digest() != reader.input_md5s[0]:
             raise ValueError("whole-input MD5 mismatch")
         return [out_name] if out_name else []
 
 
-def _frozen_of(reader: ArcReader):
+def _frozen_of(reader: ArcReader, dbg: Optional[DebugInfo] = None):
     if reader.model_blob is None:
         return None
     from fastqueeze_tpu_torch.pipeline.frozen import deserialize_frozen
-    return deserialize_frozen(reader.model_blob)
+    with stage(dbg, "deserialize"):
+        return deserialize_frozen(reader.model_blob)
 
 
 def _decode_checked(params: CodecParams, payload: bytes, frozen, device,
-                    ref_codes, md5: bytes, i: int, ctx_shard=None):
+                    ref_codes, md5: bytes, i: int, ctx_shard=None,
+                    dbg: Optional[DebugInfo] = None):
     """(block, plaintext) of SE block ``i``, its MD5 verified; ctx_shard:
     the devices the frozen qual table is sharded over."""
     block = decode_block(params, payload, frozen, device, ref_codes,
-                         ctx_shard)
-    raw = assemble_block(block)
-    if hashlib.md5(raw).digest() != md5:
+                         ctx_shard, dbg)
+    with stage(dbg, "assemble"):
+        raw = assemble_block(block)
+    with stage(dbg, "md5"):
+        ok = hashlib.md5(raw).digest() == md5
+    if not ok:
         raise ValueError(f"block {i}: MD5 mismatch (corrupt archive)")
     return block, raw
 
@@ -493,8 +523,7 @@ def _decompress_multi(reader: ArcReader, out_prefix: Optional[str],
                                reader.blocks[i].md5, i)[1]
 
     md5s = [hashlib.md5() for _ in names]
-    t0 = time.time()
-    with contextlib.ExitStack() as stack:
+    with dbg.span("decode"), contextlib.ExitStack() as stack:
         outs = [stack.enter_context(open(n, "wb")) for n in names]
         payloads = (reader.read_block(i) for i in range(len(reader.blocks)))
         for i, raw in device_parallel(payloads, decode_one, devices,
@@ -502,7 +531,6 @@ def _decompress_multi(reader: ArcReader, out_prefix: Optional[str],
             fid = reader.blocks[i].file_id
             outs[fid].write(raw)
             md5s[fid].update(raw)
-    dbg.add("decode_s", time.time() - t0)
     for i, m in enumerate(md5s):
         if i < len(reader.input_md5s) and m.digest() != reader.input_md5s[i]:
             raise ValueError(f"file {i}: whole-input MD5 mismatch")

@@ -29,6 +29,7 @@ from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.encap import iter_tlv, write_tlv
 from fastqueeze_tpu_torch.io.fastq import FastqBlock
 from fastqueeze_tpu_torch.models.base import QualModel, seq_model_from_params
+from fastqueeze_tpu_torch.utils.metrics import count, span
 _TAG_META = 1
 _TAG_SEQ = 2
 _TAG_QUAL = 3
@@ -342,16 +343,17 @@ def _bucket_ship(counts: np.ndarray, hist: np.ndarray,
 
 def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
                  est_total_syms: int, A_train: int,
-                 native_args=None) -> np.ndarray:
+                 native_args=None):
     """Train-time quality-context selection (no reference equivalent).
 
     Compares the fqzcomp-formula table (already trained, `qhist`) against a
     rank-chain candidate on the same sample: projected stream bits (static
     NLL scaled to the estimated total symbol count) + serialized table
     size.  Winner's scheme is written into CodecParams (serialized in
-    PARAM, like qmax) and its table returned.  `qsyms_fn` lazily yields the
-    sampled rank symbols (the fused native trainer never materializes
-    them; only pay when a candidate exists)."""
+    PARAM, like qmax) and its table returned as (counts, hist, scale) for
+    :func:`_ship_qual` (hist None: the table ships as it is).  `qsyms_fn`
+    lazily yields the sampled rank symbols (the fused native trainer never
+    materializes them; only pay when a candidate exists)."""
     from fastqueeze_tpu_torch.io import native
 
     # _cap_rescale mutates int32 hists in place (native fast path), and the
@@ -374,7 +376,7 @@ def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
     else:
         cands = []
     if not cands:
-        return base_counts
+        return base_counts, None, 1.0
     sample = int(qhist.sum())
     scale = max(est_total_syms, sample) / max(sample, 1)
     proj_syms = sample * scale
@@ -543,8 +545,15 @@ def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
         p.qctx_hash_bits = scheme[3]
     if not forced:
         p.qctx_init, p.qctx_inc = alpha
-    if whist.shape == counts.shape:
-        counts = _bucket_ship(counts, whist, scale)
+    return counts, whist, scale
+
+
+def _ship_qual(counts: np.ndarray, whist: Optional[np.ndarray],
+               scale: float) -> np.ndarray:
+    """The quality table _select_qctx chose, mantissa-bucketed where that
+    pays (_bucket_ship)."""
+    if whist is not None and whist.shape == counts.shape:
+        return _bucket_ship(counts, whist, scale)
     return counts
 
 
@@ -584,6 +593,7 @@ def train_frozen(p: CodecParams, block: FastqBlock,
     h.update(np.ascontiguousarray(block.lengths, np.int64).tobytes())
     key = (h.hexdigest(), _train_key_params(p), target_syms, est_total_syms)
     hit = _TRAIN_CACHE.pop(key, None)
+    count("train_cache_hit" if hit is not None else "train_cache_miss")
     if hit is not None:
         _TRAIN_CACHE[key] = hit                 # LRU touch
         frozen, chosen = hit
@@ -621,18 +631,19 @@ def _train_frozen_impl(p: CodecParams, block: FastqBlock,
     if total > target_syms and block.n_reads >= 4:
         stride = int(np.ceil(total / target_syms))
     seq_model = seq_model_from_params(p)
-    # dense quality-rank vocabulary over the whole prefix: coded symbols
-    # are ranks into qvals, not raw phred values ("qmax" below is the max
-    # RANK, so all downstream alphabet math is unchanged)
-    qvals, lut = qual_vocab(block.qual_flat)
-    qmax = max(len(qvals) - 1, 0)
-    qmodel = QualModel(alphabet=_qual_alphabet(qmax), init=p.qual_init,
-                       inc=p.qual_inc, cap=p.qual_cap, qlevel=p.qlevel,
-                       drop_init=p.q_drop_init)
-    fused = native.train_prefix(block.seq_flat, block.qual_flat,
-                                block.lengths, stride, seq_model.order,
-                                SEQ_CTX_START, p.qlevel, p.q_drop_init,
-                                lut, qmodel.alphabet)
+    with span("train.hist"):
+        # dense quality-rank vocabulary over the whole prefix: coded
+        # symbols are ranks into qvals, not raw phred values ("qmax" below
+        # is the max RANK, so all downstream alphabet math is unchanged)
+        qvals, lut = qual_vocab(block.qual_flat)
+        qmax = max(len(qvals) - 1, 0)
+        qmodel = QualModel(alphabet=_qual_alphabet(qmax), init=p.qual_init,
+                           inc=p.qual_inc, cap=p.qual_cap, qlevel=p.qlevel,
+                           drop_init=p.q_drop_init)
+        fused = native.train_prefix(block.seq_flat, block.qual_flat,
+                                    block.lengths, stride, seq_model.order,
+                                    SEQ_CTX_START, p.qlevel, p.q_drop_init,
+                                    lut, qmodel.alphabet)
     if fused is not None:
         shist, qhist = fused
 
@@ -644,62 +655,68 @@ def _train_frozen_impl(p: CodecParams, block: FastqBlock,
 
         lens_s = (block.lengths if stride == 1
                   else block.lengths[_sample_keep(block.n_reads, stride)])
-        qual_counts = _select_qctx(
-            p, qmodel, qhist, sampled_qsyms, lens_s, est_total_syms,
+        with span("train.qctx"):
+            qual = _select_qctx(
+                p, qmodel, qhist, sampled_qsyms, lens_s, est_total_syms,
+                len(qvals),
+                native_args=(block.qual_flat, block.lengths, stride, lut))
+        with span("train.ship"):
+            sscale = (max(est_total_syms, int(shist.sum()))
+                      / max(int(shist.sum()), 1))
+            return {"qmax": qmax, "qvals": qvals,
+                    "seq_counts": _bucket_ship(
+                        _narrow_np(_cap_rescale(seq_model, shist),
+                                   seq_model.cap), shist, sscale),
+                    "qual_counts": _ship_qual(*qual)}
+
+    with span("train.hist"):
+        block = _subsample(block, target_syms)
+        codes = _BASE_MAP[block.seq_flat]
+        dege = codes == 255
+        lengths = block.lengths
+        R = block.n_reads
+        dege_cnt = np.zeros(R, np.int64)
+        n_dege = int(dege.sum())
+        if n_dege:
+            read_of = np.repeat(np.arange(R), lengths)
+            dege_cnt = np.bincount(read_of[dege],
+                                   minlength=R).astype(np.int64)
+        seq_codes = codes[~dege]
+        seq_lens = lengths - dege_cnt
+        hist = native.seq_hist(seq_codes, seq_lens, seq_model.order,
+                               SEQ_CTX_START)
+        if hist is None:
+            n = seq_model.n_ctx * seq_model.alphabet
+            ctx = seq_ctx_flat(seq_model, seq_codes, seq_lens)
+            hist = np.bincount(
+                ctx * seq_model.alphabet + seq_codes.astype(np.int64),
+                minlength=n)[:n].reshape(seq_model.n_ctx,
+                                         seq_model.alphabet)
+        qsyms = lut[block.qual_flat]
+        qhist = native.qual_hist(qsyms, lengths, p.qlevel,
+                                 p.q_drop_init, qmodel.alphabet)
+        if qhist is None:
+            n = qmodel.n_ctx * qmodel.alphabet
+            ctx = qual_ctx_flat(qmodel, qsyms.astype(np.int32), lengths)
+            qhist = np.bincount(ctx * qmodel.alphabet + qsyms,
+                                minlength=n)[:n].reshape(qmodel.n_ctx,
+                                                         qmodel.alphabet)
+    with span("train.qctx"):
+        qual = _select_qctx(
+            p, qmodel, qhist, lambda: qsyms, lengths, est_total_syms,
             len(qvals),
-            native_args=(block.qual_flat, block.lengths, stride, lut))
-        sscale = (max(est_total_syms, int(shist.sum()))
-                  / max(int(shist.sum()), 1))
+            native_args=(qsyms, lengths, 1,
+                         np.arange(256, dtype=np.uint8)))
+    with span("train.ship"):
+        seq_counts = _cap_rescale(seq_model, hist)
+        # tables travel (host->archive->device) in the narrowest dtype the
+        # model cap allows; the engine widens to int32 on device
+        sscale = (max(est_total_syms, int(hist.sum()))
+                  / max(int(hist.sum()), 1))
         return {"qmax": qmax, "qvals": qvals,
                 "seq_counts": _bucket_ship(
-                    _narrow_np(_cap_rescale(seq_model, shist),
-                               seq_model.cap), shist, sscale),
-                "qual_counts": qual_counts}
-
-    block = _subsample(block, target_syms)
-    codes = _BASE_MAP[block.seq_flat]
-    dege = codes == 255
-    lengths = block.lengths
-    R = block.n_reads
-    dege_cnt = np.zeros(R, np.int64)
-    n_dege = int(dege.sum())
-    if n_dege:
-        read_of = np.repeat(np.arange(R), lengths)
-        dege_cnt = np.bincount(read_of[dege], minlength=R).astype(np.int64)
-    seq_codes = codes[~dege]
-    seq_lens = lengths - dege_cnt
-    hist = native.seq_hist(seq_codes, seq_lens, seq_model.order,
-                           SEQ_CTX_START)
-    if hist is None:
-        n = seq_model.n_ctx * seq_model.alphabet
-        ctx = seq_ctx_flat(seq_model, seq_codes, seq_lens)
-        hist = np.bincount(
-            ctx * seq_model.alphabet + seq_codes.astype(np.int64),
-            minlength=n)[:n].reshape(seq_model.n_ctx, seq_model.alphabet)
-    seq_counts = _cap_rescale(seq_model, hist)
-
-    qsyms = lut[block.qual_flat]
-    qhist = native.qual_hist(qsyms, lengths, p.qlevel,
-                             p.q_drop_init, qmodel.alphabet)
-    if qhist is None:
-        n = qmodel.n_ctx * qmodel.alphabet
-        ctx = qual_ctx_flat(qmodel, qsyms.astype(np.int32), lengths)
-        qhist = np.bincount(ctx * qmodel.alphabet + qsyms,
-                            minlength=n)[:n].reshape(qmodel.n_ctx,
-                                                     qmodel.alphabet)
-    qual_counts = _select_qctx(
-        p, qmodel, qhist, lambda: qsyms, lengths, est_total_syms,
-        len(qvals),
-        native_args=(qsyms, lengths, 1,
-                     np.arange(256, dtype=np.uint8)))
-    # tables travel (host->archive->device) in the narrowest dtype the
-    # model cap allows; the engine widens to int32 on device
-    sscale = (max(est_total_syms, int(hist.sum()))
-              / max(int(hist.sum()), 1))
-    return {"qmax": qmax, "qvals": qvals,
-            "seq_counts": _bucket_ship(
-                _narrow_np(seq_counts, seq_model.cap), hist, sscale),
-            "qual_counts": qual_counts}
+                    _narrow_np(seq_counts, seq_model.cap), hist, sscale),
+                "qual_counts": _ship_qual(*qual)}
 
 
 def train_frozen_blocks(p: CodecParams, blocks,
@@ -819,6 +836,7 @@ def deserialize_frozen(blob: bytes) -> Dict:
     import hashlib
     key = hashlib.md5(blob).hexdigest()
     hit = _DESER_CACHE.pop(key, None)
+    count("deser_cache_hit" if hit is not None else "deser_cache_miss")
     if hit is not None:
         _DESER_CACHE[key] = hit                 # LRU touch
         return hit

@@ -24,7 +24,6 @@ import hashlib
 import json
 import os
 import sys
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -215,10 +214,9 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         if p.self_align:
             from fastqueeze_tpu_torch.pipeline.selfref import maybe_align_self
             align, rc = maybe_align_self(p, merged, dbg)
-        t0 = time.time()
-        body = encode_block(p, merged, frozen, device, dbg, align, rc,
-                            self_ref=align is not None)
-        dbg.add("encode_s", time.time() - t0)
+        with dbg.span("encode"):
+            body = encode_block(p, merged, frozen, device, dbg, align, rc,
+                                self_ref=align is not None)
         return gi, raw1, raw2, pe_payload(b1, b2, body), b1.n_reads
 
     n_blocks = total_raw = 0
@@ -293,24 +291,23 @@ def train_frozen_pe_prefix(p: CodecParams, in1: str, in2: str, device,
     from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
     from fastqueeze_tpu_torch.pipeline.frozen import (
         serialize_frozen, stage_tables, train_frozen_blocks)
-    t0 = time.time()
-    half = (p.model_train_mb << 20) // 2
-    b1 = parse_block(*next(iter(read_blocks(in1, half))))
-    rr2 = _RecordReader(in2)
-    b2 = parse_block(*rr2.take(b1.n_reads))
-    rr2.take_rest()
-    _, b1, _, b2 = lossy_pair(p, b"", b1, b"", b2)
-    merged = interleave_blocks(b1, b2)
-    prefix_syms = int(merged.lengths.sum())
-    total = os.path.getsize(in1) + os.path.getsize(in2)
-    est = (int(total * prefix_syms / max(b1.raw_len + b2.raw_len, 1))
-           if (b1.raw_len and b2.raw_len) else prefix_syms)
-    if p.dedup:
-        merged, frac = dedup_training_block(merged, p)
-        est = int(est * frac)
-    frozen = train_frozen_blocks(p, [merged], est_total_syms=est)
-    stage_tables(frozen, p, device)
-    dbg.add("train_s", time.time() - t0)
+    with dbg.span("train"):
+        half = (p.model_train_mb << 20) // 2
+        b1 = parse_block(*next(iter(read_blocks(in1, half))))
+        rr2 = _RecordReader(in2)
+        b2 = parse_block(*rr2.take(b1.n_reads))
+        rr2.take_rest()
+        _, b1, _, b2 = lossy_pair(p, b"", b1, b"", b2)
+        merged = interleave_blocks(b1, b2)
+        prefix_syms = int(merged.lengths.sum())
+        total = os.path.getsize(in1) + os.path.getsize(in2)
+        est = (int(total * prefix_syms / max(b1.raw_len + b2.raw_len, 1))
+               if (b1.raw_len and b2.raw_len) else prefix_syms)
+        if p.dedup:
+            merged, frac = dedup_training_block(merged, p)
+            est = int(est * frac)
+        frozen = train_frozen_blocks(p, [merged], est_total_syms=est)
+        stage_tables(frozen, p, device)
     return frozen, serialize_frozen(frozen)
 
 
@@ -356,19 +353,18 @@ def decompress_pe_blocks(reader: ArcReader, out_prefix: Optional[str],
 
     try:
         payloads = (reader.read_block(i) for i in range(len(reader.blocks)))
-        t0 = time.time()
-        for _, (b1, b2, raw1, raw2) in device_parallel(
-                payloads, decode_one, devices, p.threads, device):
-            md5_1.update(raw1)
-            md5_2.update(raw2)
-            if pipeout == 3:
-                _write_interleaved(sys.stdout.buffer, b1, b2)
-            else:
-                if o1 is not None:
-                    o1.write(raw1)
-                if o2 is not None:
-                    o2.write(raw2)
-        dbg.add("decode_s", time.time() - t0)
+        with dbg.span("decode"):
+            for _, (b1, b2, raw1, raw2) in device_parallel(
+                    payloads, decode_one, devices, p.threads, device):
+                md5_1.update(raw1)
+                md5_2.update(raw2)
+                if pipeout == 3:
+                    _write_interleaved(sys.stdout.buffer, b1, b2)
+                else:
+                    if o1 is not None:
+                        o1.write(raw1)
+                    if o2 is not None:
+                        o2.write(raw2)
         if len(reader.input_md5s) == 2 and not pipeout:
             if (md5_1.digest() != reader.input_md5s[0]
                     or md5_2.digest() != reader.input_md5s[1]):

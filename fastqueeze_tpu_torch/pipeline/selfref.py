@@ -34,13 +34,13 @@ the cheaper duplicate tier and are neither aligned nor appended.
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 
 from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.io.fastq import FastqBlock
+from fastqueeze_tpu_torch.utils.metrics import stage
 
 # --- auto gate (self_align = -1, the default): a per-file probe on the
 # first block decides whether -S pays.  Two stages, cheap-first:
@@ -95,49 +95,47 @@ def _solve_density(m: float, n: int) -> float:
 def auto_self_align(p: CodecParams, block: FastqBlock, dbg=None) -> bool:
     import dataclasses
     import math
-    import time as _time
 
     from fastqueeze_tpu_torch.models.base import seq_model_from_params
     from fastqueeze_tpu_torch.pipeline.blockcodec import _BASE_MAP
     from fastqueeze_tpu_torch.pipeline.frozen import (
         _cap_rescale, _hist_nll_bits, _sample_keep, seq_ctx_flat)
-    t0 = _time.time()
     R = block.n_reads
     if R < 64:
         return False
 
     # --- stage 1: seq-model bits/base on a hash-sampled read subset,
     # hash-parity holdout NLL (in-sample NLL rewards big-table overfit) ---
-    stride = max(1, R // _AUTO_SAMPLE_READS)
-    keep = _sample_keep(R, stride)
-    if int(keep.sum()) < 64:
-        keep = np.ones(R, bool)
-    sym_keep = np.repeat(keep, block.lengths)
-    lengths = block.lengths[keep]
-    codes = _BASE_MAP[block.seq_flat[sym_keep]]
-    codes = np.where(codes == 255, 0, codes)
-    model = seq_model_from_params(
-        dataclasses.replace(p, slevel=min(p.slevel,
-                                          _AUTO_PROBE_ORDER - 7)))
-    ctx = seq_ctx_flat(model, codes, lengths)
-    ridx = np.arange(int(keep.sum()), dtype=np.uint32)
-    odd = (((ridx * np.uint32(2654435761)) >> np.uint32(16)) & 1).astype(bool)
-    hold = np.repeat(odd, lengths)
-    n = model.n_ctx * model.alphabet
-    key = ctx * model.alphabet + codes
-    h_train = np.bincount(key[~hold], minlength=n)[:n].reshape(
-        model.n_ctx, model.alphabet)
-    h_eval = np.bincount(key[hold], minlength=n)[:n].reshape(
-        model.n_ctx, model.alphabet)
-    counts = _cap_rescale(model, np.asarray(h_train, np.int32))
-    eval_syms = int(h_eval.sum())
-    if eval_syms == 0:
-        return False
-    bpb = _hist_nll_bits(counts, h_eval) / eval_syms
+    with stage(dbg, "selfref_probe"):
+        stride = max(1, R // _AUTO_SAMPLE_READS)
+        keep = _sample_keep(R, stride)
+        if int(keep.sum()) < 64:
+            keep = np.ones(R, bool)
+        sym_keep = np.repeat(keep, block.lengths)
+        lengths = block.lengths[keep]
+        codes = _BASE_MAP[block.seq_flat[sym_keep]]
+        codes = np.where(codes == 255, 0, codes)
+        model = seq_model_from_params(
+            dataclasses.replace(p, slevel=min(p.slevel,
+                                              _AUTO_PROBE_ORDER - 7)))
+        ctx = seq_ctx_flat(model, codes, lengths)
+        ridx = np.arange(int(keep.sum()), dtype=np.uint32)
+        odd = (((ridx * np.uint32(2654435761)) >> np.uint32(16))
+               & 1).astype(bool)
+        hold = np.repeat(odd, lengths)
+        n = model.n_ctx * model.alphabet
+        key = ctx * model.alphabet + codes
+        h_train = np.bincount(key[~hold], minlength=n)[:n].reshape(
+            model.n_ctx, model.alphabet)
+        h_eval = np.bincount(key[hold], minlength=n)[:n].reshape(
+            model.n_ctx, model.alphabet)
+        counts = _cap_rescale(model, np.asarray(h_train, np.int32))
+        eval_syms = int(h_eval.sum())
+        if eval_syms == 0:
+            return False
+        bpb = _hist_nll_bits(counts, h_eval) / eval_syms
     if dbg is not None:
-        dbg.add("selfref_probe_s", _time.time() - t0)
         dbg.vals["selfref_probe_bpb"] = round(bpb, 3)
-        t0 = _time.time()        # stage 2 adds only its own delta
     if bpb < _AUTO_MIN_MODEL_BPB:
         return False
 
@@ -145,17 +143,16 @@ def auto_self_align(p: CodecParams, block: FastqBlock, dbg=None) -> bool:
     # mapping probability grows with how many reads precede a read, so a
     # subsample maps far less than the block will: fit the density from
     # the prefix's mapped fraction and extrapolate the full-block one ---
-    n_pre = min(R, _AUTO_SAMPLE_READS)
-    pre_syms = int(block.lengths[:n_pre].sum())
-    prefix = FastqBlock(
-        n_reads=n_pre, ids=[], plus=[],
-        seq_flat=block.seq_flat[:pre_syms],
-        qual_flat=block.qual_flat[:pre_syms],
-        lengths=block.lengths[:n_pre], raw_len=0, final_newline=True)
-    res, rc = maybe_align_self(
-        dataclasses.replace(p, min_map_ratio=0.0), prefix, None)
-    if dbg is not None:
-        dbg.add("selfref_probe_s", _time.time() - t0)
+    with stage(dbg, "selfref_probe"):
+        n_pre = min(R, _AUTO_SAMPLE_READS)
+        pre_syms = int(block.lengths[:n_pre].sum())
+        prefix = FastqBlock(
+            n_reads=n_pre, ids=[], plus=[],
+            seq_flat=block.seq_flat[:pre_syms],
+            qual_flat=block.qual_flat[:pre_syms],
+            lengths=block.lengths[:n_pre], raw_len=0, final_newline=True)
+        res, rc = maybe_align_self(
+            dataclasses.replace(p, min_map_ratio=0.0), prefix, None)
     if res is None:
         return False
     n_map = int(res.mapped.sum())
@@ -218,53 +215,51 @@ def maybe_align_self(p: CodecParams, block: FastqBlock, dbg=None
     the identical reference from the mapped flags (ref_eligible)."""
     from fastqueeze_tpu_torch.align.hash import AlignResult, lp_bucket
     from fastqueeze_tpu_torch.pipeline.blockcodec import _BASE_MAP, dup_masks
-    t0 = time.time()
-    R = block.n_reads
-    lengths = block.lengths
-    k = p.seed_len
-    codes_flat = _BASE_MAP[block.seq_flat]
-    dege_flat = codes_flat == 255
-    codes_flat = np.where(dege_flat, 0, codes_flat)
-    read_off = np.cumsum(lengths) - lengths
+    with stage(dbg, "selfref"):
+        R = block.n_reads
+        lengths = block.lengths
+        k = p.seed_len
+        codes_flat = _BASE_MAP[block.seq_flat]
+        dege_flat = codes_flat == 255
+        codes_flat = np.where(dege_flat, 0, codes_flat)
+        read_off = np.cumsum(lengths) - lengths
 
-    sdup = np.zeros(R, bool)
-    if p.dedup and R > 1:
-        s_src, _ = dup_masks(block)
-        if s_src is not None:
-            sdup = s_src >= 0
-    dege_cnt = np.zeros(R, np.int64)
-    if dege_flat.any():
-        rows_d = np.searchsorted(read_off, np.flatnonzero(dege_flat),
-                                 side="right") - 1
-        dege_cnt = np.bincount(rows_d, minlength=R).astype(np.int64)
-    is_cand = ~sdup & (dege_cnt == 0) & (lengths >= k)
-    alignable = is_cand & (lengths <= p.align_max_len)
-    n_alignable = int(alignable.sum())
-    if n_alignable == 0:
-        if dbg is not None:
-            dbg.add("fqz_blocks", 1)
-        return None, None
-    lp = lp_bucket(int(lengths[alignable].max()))
+        sdup = np.zeros(R, bool)
+        if p.dedup and R > 1:
+            s_src, _ = dup_masks(block)
+            if s_src is not None:
+                sdup = s_src >= 0
+        dege_cnt = np.zeros(R, np.int64)
+        if dege_flat.any():
+            rows_d = np.searchsorted(read_off, np.flatnonzero(dege_flat),
+                                     side="right") - 1
+            dege_cnt = np.bincount(rows_d, minlength=R).astype(np.int64)
+        is_cand = ~sdup & (dege_cnt == 0) & (lengths >= k)
+        alignable = is_cand & (lengths <= p.align_max_len)
+        n_alignable = int(alignable.sum())
+        if n_alignable == 0:
+            if dbg is not None:
+                dbg.add("fqz_blocks", 1)
+            return None, None
+        lp = lp_bucket(int(lengths[alignable].max()))
 
-    # all-candidates reference (block order; final ref = kept subset)
-    sel = np.repeat(read_off[is_cand], lengths[is_cand]) \
-        + _intra(lengths[is_cand])
-    allref = codes_flat[sel]
-    aligner = _mk_aligner(p, allref)
-    args = (aligner._h_keys, aligner._h_offsets, aligner._h_positions,
-            aligner._h_packed, aligner._h_l1, aligner._l1_shift,
-            aligner._search_steps, len(allref), codes_flat, dege_flat,
-            read_off, lengths, lp, alignable, is_cand, k, p.seed_stride,
-            p.seed_max_occ, p.seed_big_occ, 1 + p.rescue_seeds,
-            p.seed_excl_bp, p.max_mis, p.both_strands)
-    from fastqueeze_tpu_torch.io import native
-    res = native.selfref_align(*args)
-    if res is None:
-        raise RuntimeError("the self-align probe needs the native library "
-                           "(make -C native)")
-    mapped, pos32, is_rev, mis_mask = res
-    if dbg is not None:
-        dbg.add("selfref_s", time.time() - t0)
+        # all-candidates reference (block order; final ref = kept subset)
+        sel = np.repeat(read_off[is_cand], lengths[is_cand]) \
+            + _intra(lengths[is_cand])
+        allref = codes_flat[sel]
+        aligner = _mk_aligner(p, allref)
+        args = (aligner._h_keys, aligner._h_offsets, aligner._h_positions,
+                aligner._h_packed, aligner._h_l1, aligner._l1_shift,
+                aligner._search_steps, len(allref), codes_flat, dege_flat,
+                read_off, lengths, lp, alignable, is_cand, k, p.seed_stride,
+                p.seed_max_occ, p.seed_big_occ, 1 + p.rescue_seeds,
+                p.seed_excl_bp, p.max_mis, p.both_strands)
+        from fastqueeze_tpu_torch.io import native
+        res = native.selfref_align(*args)
+        if res is None:
+            raise RuntimeError("the self-align probe needs the native library "
+                               "(make -C native)")
+        mapped, pos32, is_rev, mis_mask = res
     n_mapped = int(mapped.sum())
     if n_mapped / n_alignable < p.min_map_ratio:
         if dbg is not None:
