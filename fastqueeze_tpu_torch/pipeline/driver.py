@@ -161,7 +161,8 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
                 dbg: Optional[DebugInfo] = None,
                 part: Optional[tuple] = None, device="cuda") -> Dict:
     devices = block_dp_devices(params, device)
-    from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
+    from fastqueeze_tpu_torch.pipeline.frozen import (
+        decide_use_model, join_packing, serialize_frozen)
     dbg = dbg or DebugInfo()
     block_size = params.block_bytes or params.block_size_mb * (1 << 20)
     whole_md5 = hashlib.md5()
@@ -171,106 +172,110 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
     if decide_use_model(params, _gate_bytes(in_path)):
         frozen = _train(params, in_path, gen, prefix_items, device, dbg)
 
-    if params.self_align == -1:
-        # auto (-S default): decided once per file from the first block;
-        # the answer is written into PARAM
-        from fastqueeze_tpu_torch.pipeline.selfref import auto_self_align
-        if not prefix_items:
-            first = next(gen, None)
-            if first is not None:
-                # parsed once for the probe, reused by the encode loop
-                with dbg.span("first_block"):
-                    raw0, blk0 = parse_lossy(params, *first)
-                prefix_items.append((raw0, first[1], blk0))
-        with dbg.span("probe"):
-            params.self_align = 1 if (
-                prefix_items
-                and auto_self_align(params, prefix_items[0][2], dbg)) else 0
-    model_blob = None
-    if frozen is not None:
-        from fastqueeze_tpu_torch.pipeline.frozen import serialize_frozen
-        with dbg.span("serialize"):
-            model_blob = serialize_frozen(frozen)
-    writer = ArcWriter(out_path, params, [os.path.basename(in_path)], [],
-                       model_blob=model_blob, part=part)
-    single = not part or part[1] == 1
+    try:
+        if params.self_align == -1:
+            # auto (-S default): decided once per file from the first block;
+            # the answer is written into PARAM
+            from fastqueeze_tpu_torch.pipeline.selfref import auto_self_align
+            if not prefix_items:
+                first = next(gen, None)
+                if first is not None:
+                    # parsed once for the probe, reused by the encode loop
+                    with dbg.span("first_block"):
+                        raw0, blk0 = parse_lossy(params, *first)
+                    prefix_items.append((raw0, first[1], blk0))
+            with dbg.span("probe"):
+                params.self_align = 1 if (
+                    prefix_items and auto_self_align(
+                        params, prefix_items[0][2], dbg)) else 0
+        writer = ArcWriter(out_path, params, [os.path.basename(in_path)], [],
+                           part=part)
+        single = not part or part[1] == 1
 
-    def items():
-        yield from prefix_items
-        for raw, final_nl in gen:
-            yield raw, final_nl, None
+        def items():
+            yield from prefix_items
+            for raw, final_nl in gen:
+                yield raw, final_nl, None
 
-    def scan(item):
-        raw, final_nl, block = item
-        if block is None and params.lossy_factor > 1.0:
-            raw, block = parse_lossy(params, raw, final_nl)
-        whole_md5.update(raw)
-        return raw, final_nl, block
-
-    def encode_job(block, device):
-        align = ref_codes = None
-        if params.self_align:
-            from fastqueeze_tpu_torch.pipeline.selfref import maybe_align_self
-            align, ref_codes = maybe_align_self(params, block, dbg)
-        return encode_block_job(params, block, frozen, device, dbg, align,
-                                ref_codes, self_ref=align is not None)
-
-    n_blocks = total_raw = 0
-    if params.threads > 1:
-        def work(_i, gi_item, device):
-            gi, (raw, final_nl, block) = gi_item
-            if block is None:
+        def scan(item):
+            raw, final_nl, block = item
+            if block is None and params.lossy_factor > 1.0:
                 raw, block = parse_lossy(params, raw, final_nl)
-            return gi, raw, encode_job(block, device)(), block.n_reads
+            whole_md5.update(raw)
+            return raw, final_nl, block
 
-        with dbg.span("encode"):
-            for _, (gi, raw, payload, n_reads) in device_parallel(
-                    owned_blocks(items(), part, scan), work, devices,
-                    params.threads, device):
-                with dbg.span("md5"):
-                    if single:     # ordered: blocks arrive in file order
-                        whole_md5.update(raw)
-                    md5 = hashlib.md5(raw).digest()
-                with dbg.span("write"):
-                    writer.add_block(gi, payload, BlockInfo(
-                        payload_len=len(payload), n_reads=n_reads,
-                        raw_len1=len(raw), md5=md5))
-                dbg.add("reads", n_reads)
-                total_raw += len(raw)
-                n_blocks += 1
-    else:
-        pending = None      # (idx, finalize, BlockInfo): device in flight
+        def encode_job(block, device):
+            align = ref_codes = None
+            if params.self_align:
+                from fastqueeze_tpu_torch.pipeline.selfref import (
+                    maybe_align_self)
+                align, ref_codes = maybe_align_self(params, block, dbg)
+            return encode_block_job(params, block, frozen, device, dbg, align,
+                                    ref_codes, self_ref=align is not None)
 
-        def flush(pend):
-            with dbg.span("encode"):
-                payload = pend[1]()
-            with dbg.span("write"):
-                writer.add_block(pend[0], payload, pend[2])
-
-        for gi, (raw, final_nl, block) in owned_blocks(items(), part, scan):
-            with dbg.span("parse"):
+        n_blocks = total_raw = 0
+        if params.threads > 1:
+            def work(_i, gi_item, device):
+                gi, (raw, final_nl, block) = gi_item
                 if block is None:
                     raw, block = parse_lossy(params, raw, final_nl)
-                if single:
-                    with dbg.span("parse.md5"):
-                        whole_md5.update(raw)
-            with dbg.span("dispatch"):
-                fin = encode_job(block, device)
-            with dbg.span("md5"):
-                md5 = hashlib.md5(raw).digest()
-            info = BlockInfo(payload_len=0, n_reads=block.n_reads,
-                             raw_len1=len(raw), md5=md5)
+                return gi, raw, encode_job(block, device)(), block.n_reads
+
+            with dbg.span("encode"):
+                for _, (gi, raw, payload, n_reads) in device_parallel(
+                        owned_blocks(items(), part, scan), work, devices,
+                        params.threads, device):
+                    with dbg.span("md5"):
+                        if single:     # ordered: blocks arrive in file order
+                            whole_md5.update(raw)
+                        md5 = hashlib.md5(raw).digest()
+                    with dbg.span("write"):
+                        writer.add_block(gi, payload, BlockInfo(
+                            payload_len=len(payload), n_reads=n_reads,
+                            raw_len1=len(raw), md5=md5))
+                    dbg.add("reads", n_reads)
+                    total_raw += len(raw)
+                    n_blocks += 1
+        else:
+            pending = None      # (idx, finalize, BlockInfo): device in flight
+
+            def flush(pend):
+                with dbg.span("encode"):
+                    payload = pend[1]()
+                with dbg.span("write"):
+                    writer.add_block(pend[0], payload, pend[2])
+
+            for gi, (raw, final_nl, block) in owned_blocks(items(), part,
+                                                            scan):
+                with dbg.span("parse"):
+                    if block is None:
+                        raw, block = parse_lossy(params, raw, final_nl)
+                    if single:
+                        with dbg.span("parse.md5"):
+                            whole_md5.update(raw)
+                with dbg.span("dispatch"):
+                    fin = encode_job(block, device)
+                with dbg.span("md5"):
+                    md5 = hashlib.md5(raw).digest()
+                info = BlockInfo(payload_len=0, n_reads=block.n_reads,
+                                 raw_len1=len(raw), md5=md5)
+                if pending is not None:
+                    flush(pending)
+                pending = (gi, fin, info)
+                dbg.add("reads", block.n_reads)
+                total_raw += len(raw)
+                n_blocks += 1
             if pending is not None:
                 flush(pending)
-            pending = (gi, fin, info)
-            dbg.add("reads", block.n_reads)
-            total_raw += len(raw)
-            n_blocks += 1
-        if pending is not None:
-            flush(pending)
-    writer.input_md5s = [whole_md5.digest()]
-    with dbg.span("write"):
-        writer.finalize()
+        if frozen is not None:
+            # the tables' packs ran beside the training and the blocks
+            with dbg.span("serialize"):
+                writer.set_model(serialize_frozen(frozen))
+        writer.input_md5s = [whole_md5.digest()]
+        with dbg.span("write"):
+            writer.finalize()
+    finally:
+        join_packing(frozen)    # no packing thread outlives the call
     out_size = os.path.getsize(out_path)
     dbg.add("raw_bytes", total_raw)
     dbg.add("out_bytes", out_size)

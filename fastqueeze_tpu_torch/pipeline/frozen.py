@@ -20,7 +20,10 @@ from __future__ import annotations
 import bz2
 import io
 import json
+import queue
+import threading
 import zlib
+from concurrent.futures import Future
 from typing import Dict, Optional
 
 import numpy as np
@@ -29,7 +32,7 @@ from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.encap import iter_tlv, write_tlv
 from fastqueeze_tpu_torch.io.fastq import FastqBlock
 from fastqueeze_tpu_torch.models.base import QualModel, seq_model_from_params
-from fastqueeze_tpu_torch.utils.metrics import count, span
+from fastqueeze_tpu_torch.utils.metrics import count, current, span, stage
 _TAG_META = 1
 _TAG_SEQ = 2
 _TAG_QUAL = 3
@@ -283,7 +286,11 @@ def _hist_nll_bits(counts: np.ndarray, hist: np.ndarray) -> float:
     return float(bits.sum())
 
 
-_BL_LUT = None    # bit_length LUT for counts < 2^13 (cap <= 8192)
+# bit_length LUT for counts < 2^13 (cap <= 8192), built at import: the
+# packing thread and the calling thread both bucket tables.  float64 log2
+# is exact at/near these magnitudes
+_BL_LUT = np.zeros(1 << 13, np.uint8)
+_BL_LUT[1:] = np.floor(np.log2(np.arange(1, 1 << 13))).astype(np.uint8) + 1
 
 
 def _mant_bucket(c: np.ndarray, mbits: int) -> np.ndarray:
@@ -291,15 +298,8 @@ def _mant_bucket(c: np.ndarray, mbits: int) -> np.ndarray:
     floor preserves >= 1 for positive counts).  Table caps bound counts
     below 2^13, so bit_length is one u8 LUT gather — the generic shift
     loop cost 9 s per 2^21-row table in int64."""
-    global _BL_LUT
     hi = int(c.max()) if c.size else 0
     if hi < (1 << 13):
-        if _BL_LUT is None:
-            n = np.arange(1, 1 << 13)
-            lut = np.zeros(1 << 13, np.uint8)
-            # float64 log2 is exact at/near these magnitudes
-            lut[1:] = np.floor(np.log2(n)).astype(np.uint8) + 1
-            _BL_LUT = lut
         u = np.ascontiguousarray(c, np.uint16)
         sh = _BL_LUT[u].astype(np.uint16)     # bit_length per count
         sh = np.where(sh > mbits, sh - mbits, 0).astype(np.uint16)
@@ -315,30 +315,34 @@ def _mant_bucket(c: np.ndarray, mbits: int) -> np.ndarray:
     return np.maximum((c64 >> sh) << sh, 1)
 
 
-def _blob_est(ship: np.ndarray) -> int:
-    """bz2-9 blob size (every-8th-row extrapolation past _BIG_TABLE) —
-    the same pricing _select_qctx's score() uses."""
+def _priced(ship: np.ndarray):
+    """(bz2-9 blob size, the estimate pack it came from): every-8th-row
+    extrapolation past _BIG_TABLE (pack None), the same pricing
+    _select_qctx's score() uses.  The pack is the table's own bz2-9 blob,
+    which _pack_counts reuses when the table ships."""
     if ship.size > _BIG_TABLE:
-        return 8 * len(_pack_counts(ship[::8], estimate=True)["blob"])
-    return len(_pack_counts(ship, estimate=True)["blob"])
+        return 8 * len(_pack_counts(ship[::8], estimate=True)["blob"]), None
+    pack = _pack_counts(ship, estimate=True)
+    return len(pack["blob"]), pack
 
 
-def _bucket_ship(counts: np.ndarray, hist: np.ndarray,
-                 scale: float) -> np.ndarray:
+def _bucket_ship(counts: np.ndarray, hist: np.ndarray, scale: float):
     """Mantissa-bucket the winning table when the blob saving beats the
     projected stream penalty (encoder-only: the bucketed table is what
     ships, both coders walk it, so there is no format change).  Fewer
     distinct count values compress 5-15% better under bz2 at a bounded
-    relative-frequency error (<= 2^-mbits)."""
+    relative-frequency error (<= 2^-mbits).  Returns (table, its priced
+    pack or None: :func:`_priced`)."""
+    blob_len, best_pack = _priced(counts)
     best_c = counts
-    best_cost = (_hist_nll_bits(counts, hist) / 8.0 * scale
-                 + _blob_est(counts))
+    best_cost = _hist_nll_bits(counts, hist) / 8.0 * scale + blob_len
     for m in (3, 2):
         b = _mant_bucket(counts, m).astype(counts.dtype)
-        cost = _hist_nll_bits(b, hist) / 8.0 * scale + _blob_est(b)
+        blob_len, pack = _priced(b)
+        cost = _hist_nll_bits(b, hist) / 8.0 * scale + blob_len
         if cost < best_cost:
-            best_cost, best_c = cost, b
-    return best_c
+            best_cost, best_c, best_pack = cost, b, pack
+    return best_c, best_pack
 
 
 def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
@@ -549,12 +553,101 @@ def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
 
 
 def _ship_qual(counts: np.ndarray, whist: Optional[np.ndarray],
-               scale: float) -> np.ndarray:
+               scale: float):
     """The quality table _select_qctx chose, mantissa-bucketed where that
-    pays (_bucket_ship)."""
+    pays, and its priced pack (_bucket_ship; None where it was not
+    priced)."""
     if whist is not None and whist.shape == counts.shape:
         return _bucket_ship(counts, whist, scale)
-    return counts
+    return counts, None
+
+
+class _Packing:
+    """The frozen tables' ship-and-pack on one packing thread, each
+    table's from the moment it is final: the seq table's bucket choice
+    and pack run while the calling thread selects the quality contexts,
+    the quality table's pack after that, and both may finish while the
+    blocks are encoded (:func:`serialize_frozen` joins).  The calls and
+    their tables are those of packing on the calling thread, so are the
+    bytes.  Jobs run in the order they are queued, each as the stage
+    ``pack.<table>`` inside ``pack`` of the DebugInfo whose span was open
+    where the packing began (spans on this thread add to no call's
+    ``spanned_s``).  Leaving the ``with`` block queues no more jobs, and
+    the thread ends after those queued; where the block raised, it is
+    joined there."""
+
+    def __init__(self):
+        self._dbg = current()
+        self._jobs = queue.SimpleQueue()
+        self._packs: Dict[str, Dict] = {}
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, name="fq-pack",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        for name, job in iter(self._jobs.get, None):
+            if self._error is not None:
+                continue
+            try:
+                with stage(self._dbg, "pack"), \
+                        stage(self._dbg, "pack." + name):
+                    self._packs[name] = job()
+            except BaseException as e:
+                self._error = e
+
+    def ship_seq(self, counts: np.ndarray, hist: np.ndarray,
+                 scale: float) -> Future:
+        """Queue the seq table's bucket choice (:func:`_bucket_ship`) and
+        pack, as the first job; the Future holds the shipped table as
+        soon as it is chosen."""
+        table = Future()
+
+        def job():
+            try:
+                ship, priced = _bucket_ship(counts, hist, scale)
+            except BaseException as e:
+                table.set_exception(e)
+                raise
+            table.set_result(ship)
+            return _pack_counts(ship, priced=priced)
+
+        self._jobs.put(("seq", job))
+        return table
+
+    def pack_qual(self, counts: np.ndarray, priced: Optional[Dict]) -> None:
+        self._jobs.put(("qual", lambda: _pack_counts(counts, priced=priced)))
+
+    def __enter__(self) -> "_Packing":
+        return self
+
+    def __exit__(self, exc_type, *_) -> bool:
+        self._jobs.put(None)
+        if exc_type is not None:
+            self._thread.join()
+        return False
+
+    def wait(self) -> None:
+        self._thread.join()
+
+    def result(self):
+        """(seq pack, qual pack) once the thread has ended; its error is
+        raised here."""
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._packs["seq"], self._packs["qual"]
+
+
+def _shipped(packing: _Packing, seq_table: Future, qual, qmax: int,
+             qvals: np.ndarray) -> Dict:
+    """The frozen dict, once the quality table _select_qctx chose is
+    shipped (its pack queued behind the seq table's) and the seq table's
+    bucket is chosen; the packs may still run."""
+    qual_counts, priced = _ship_qual(*qual)
+    packing.pack_qual(qual_counts, priced)
+    return {"qmax": qmax, "qvals": qvals, "seq_counts": seq_table.result(),
+            "qual_counts": qual_counts, "_pack": packing}
 
 
 # Content-keyed training memo: training is a pure function of (prefix
@@ -655,19 +748,21 @@ def _train_frozen_impl(p: CodecParams, block: FastqBlock,
 
         lens_s = (block.lengths if stride == 1
                   else block.lengths[_sample_keep(block.n_reads, stride)])
-        with span("train.qctx"):
-            qual = _select_qctx(
-                p, qmodel, qhist, sampled_qsyms, lens_s, est_total_syms,
-                len(qvals),
-                native_args=(block.qual_flat, block.lengths, stride, lut))
-        with span("train.ship"):
-            sscale = (max(est_total_syms, int(shist.sum()))
-                      / max(int(shist.sum()), 1))
-            return {"qmax": qmax, "qvals": qvals,
-                    "seq_counts": _bucket_ship(
-                        _narrow_np(_cap_rescale(seq_model, shist),
-                                   seq_model.cap), shist, sscale),
-                    "qual_counts": _ship_qual(*qual)}
+        with _Packing() as packing:
+            with span("train.ship"):
+                sscale = (max(est_total_syms, int(shist.sum()))
+                          / max(int(shist.sum()), 1))
+                seq_table = packing.ship_seq(
+                    _narrow_np(_cap_rescale(seq_model, shist),
+                               seq_model.cap), shist, sscale)
+            with span("train.qctx"):
+                qual = _select_qctx(
+                    p, qmodel, qhist, sampled_qsyms, lens_s, est_total_syms,
+                    len(qvals),
+                    native_args=(block.qual_flat, block.lengths, stride,
+                                 lut))
+            with span("train.ship"):
+                return _shipped(packing, seq_table, qual, qmax, qvals)
 
     with span("train.hist"):
         block = _subsample(block, target_syms)
@@ -701,22 +796,23 @@ def _train_frozen_impl(p: CodecParams, block: FastqBlock,
             qhist = np.bincount(ctx * qmodel.alphabet + qsyms,
                                 minlength=n)[:n].reshape(qmodel.n_ctx,
                                                          qmodel.alphabet)
-    with span("train.qctx"):
-        qual = _select_qctx(
-            p, qmodel, qhist, lambda: qsyms, lengths, est_total_syms,
-            len(qvals),
-            native_args=(qsyms, lengths, 1,
-                         np.arange(256, dtype=np.uint8)))
-    with span("train.ship"):
-        seq_counts = _cap_rescale(seq_model, hist)
-        # tables travel (host->archive->device) in the narrowest dtype the
-        # model cap allows; the engine widens to int32 on device
-        sscale = (max(est_total_syms, int(hist.sum()))
-                  / max(int(hist.sum()), 1))
-        return {"qmax": qmax, "qvals": qvals,
-                "seq_counts": _bucket_ship(
-                    _narrow_np(seq_counts, seq_model.cap), hist, sscale),
-                "qual_counts": _ship_qual(*qual)}
+    with _Packing() as packing:
+        with span("train.ship"):
+            seq_counts = _cap_rescale(seq_model, hist)
+            # tables travel (host->archive->device) in the narrowest dtype
+            # the model cap allows; the engine widens to int32 on device
+            sscale = (max(est_total_syms, int(hist.sum()))
+                      / max(int(hist.sum()), 1))
+            seq_table = packing.ship_seq(
+                _narrow_np(seq_counts, seq_model.cap), hist, sscale)
+        with span("train.qctx"):
+            qual = _select_qctx(
+                p, qmodel, qhist, lambda: qsyms, lengths, est_total_syms,
+                len(qvals),
+                native_args=(qsyms, lengths, 1,
+                             np.arange(256, dtype=np.uint8)))
+        with span("train.ship"):
+            return _shipped(packing, seq_table, qual, qmax, qvals)
 
 
 def train_frozen_blocks(p: CodecParams, blocks,
@@ -744,7 +840,8 @@ def _narrow_np(counts: np.ndarray, cap: int) -> np.ndarray:
 
 
 def _pack_counts(a: np.ndarray, level: int = 9,
-                 estimate: bool = False) -> Dict:
+                 estimate: bool = False,
+                 priced: Optional[Dict] = None) -> Dict:
     """Minimal-width serialization: table caps bound every count, so u8/u16
     usually suffice.  u16 tables are split into low/high byte planes
     (counts are mostly small, so the high plane is near-constant) —
@@ -756,7 +853,9 @@ def _pack_counts(a: np.ndarray, level: int = 9,
     ``estimate=True`` is the train-time cost model's path: bz2-9 only
     (the same codec archives actually ship, so candidate blob pricing is
     exact — a zlib-1 estimate overpriced deep hashed tables ~2x and made
-    the ladder reject candidates that win at the shipped size)."""
+    the ladder reject candidates that win at the shipped size).
+    ``priced``: this table's ``estimate=True`` pack (:func:`_priced`),
+    whose bz2-9 blob is taken instead of compressing the table again."""
     hi = int(a.max()) if a.size else 0
     dt = np.uint8 if hi < 0x100 else (np.uint16 if hi < 0x10000 else np.int32)
     u = np.ascontiguousarray(a, dt)
@@ -767,7 +866,11 @@ def _pack_counts(a: np.ndarray, level: int = 9,
     if dt == np.uint16:
         lo_raw = (u & 0xFF).astype(np.uint8).tobytes()
         hb_raw = (u >> 8).astype(np.uint8).tobytes()
-        lo_b, hb_b = bz2.compress(lo_raw, 9), bz2.compress(hb_raw, 9)
+        if priced is not None:
+            n = int.from_bytes(priced["blob"][:4], "little")
+            lo_b, hb_b = priced["blob"][4:4 + n], priced["blob"][4 + n:]
+        else:
+            lo_b, hb_b = bz2.compress(lo_raw, 9), bz2.compress(hb_raw, 9)
         lo, hb, enc = lo_b, hb_b, "pb"
         if cross:
             lo_z = zlib.compress(lo_raw, level)
@@ -778,7 +881,7 @@ def _pack_counts(a: np.ndarray, level: int = 9,
                 "enc": enc,
                 "blob": len(lo).to_bytes(4, "little") + lo + hb}
     raw = u.tobytes()
-    b = bz2.compress(raw, 9)
+    b = priced["blob"] if priced is not None else bz2.compress(raw, 9)
     if cross:
         z = zlib.compress(raw, level)
         if len(z) < len(b):
@@ -801,15 +904,26 @@ def _unpack_counts(blob: bytes, dtype: str, enc: str) -> np.ndarray:
 
 
 def serialize_frozen(frozen: Dict) -> bytes:
-    # packing (bz2-9 + small-table zlib-9 cross-check) costs up to ~1 s
-    # for a deep qual table; the result is a pure function of the tables,
-    # so cache it on the frozen dict (which itself lives in the training
-    # memo) — repeat compressions of the same input pay it once.
+    """The MODEL section of ``frozen``.  A freshly trained dict's tables
+    are packed on its packing thread (:class:`_Packing`): this joins it,
+    and raises its error.  The result is a pure function of the tables, so
+    it is cached on the frozen dict (which itself lives in the training
+    memo): repeat compressions of the same input pay it once."""
     ser = frozen.get("_ser")
     if ser is not None:
         return ser
-    seq = _pack_counts(np.asarray(frozen["seq_counts"]))
-    qual = _pack_counts(np.asarray(frozen["qual_counts"]))
+    packing = frozen.get("_pack")
+    if packing is not None:
+        try:
+            seq, qual = packing.result()
+        except BaseException:
+            # a failed pack is not memoized: the next compress retrains
+            for k in [k for k, v in _TRAIN_CACHE.items() if v[0] is frozen]:
+                del _TRAIN_CACHE[k]
+            raise
+    else:
+        seq = _pack_counts(np.asarray(frozen["seq_counts"]))
+        qual = _pack_counts(np.asarray(frozen["qual_counts"]))
     meta = {"qmax": frozen["qmax"],
             "qvals": np.asarray(frozen["qvals"], np.uint8).tolist(),
             "seq_shape": seq["shape"], "seq_dtype": seq["dtype"],
@@ -822,6 +936,15 @@ def serialize_frozen(frozen: Dict) -> bytes:
     out.write(write_tlv(_TAG_QUAL, qual["blob"]))
     frozen["_ser"] = out.getvalue()
     return frozen["_ser"]
+
+
+def join_packing(frozen: Optional[Dict]) -> None:
+    """Wait until the packing thread of ``frozen`` (if any) has ended, so
+    that a compress call that fails leaves no thread behind; its error is
+    :func:`serialize_frozen`'s to raise."""
+    packing = frozen.get("_pack") if frozen is not None else None
+    if packing is not None:
+        packing.wait()
 
 
 # Content-keyed deserialization memo: repeated archive opens (benchmark
