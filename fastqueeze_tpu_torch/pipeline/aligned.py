@@ -265,7 +265,8 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
     read aligned; with max_insr > 0 an unmapped mate of a mapped one is
     re-verified inside the insert window (Aligner.rescue_mates); the pair
     relations and the modal insert go to ``dbg``."""
-    from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
+    from fastqueeze_tpu_torch.pipeline.frozen import (
+        decide_use_model, serialize_frozen)
     from fastqueeze_tpu_torch.pipeline.pe import (
         _RecordReader, interleave_blocks, pe_block_items, pe_payload,
         train_frozen_pe_prefix)
@@ -280,8 +281,8 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
                        part=part)
     frozen = None
     if decide_use_model(p, os.path.getsize(in1) + os.path.getsize(in2)):
-        frozen, blob = train_frozen_pe_prefix(p, in1, in2, device, dbg)
-        writer.set_model(blob)
+        frozen = train_frozen_pe_prefix(p, in1, in2, device, dbg)
+        writer.set_model(serialize_frozen(frozen))
     rr2 = _RecordReader(in2)
     single = not part or part[1] == 1
 
@@ -314,7 +315,9 @@ def compress_pe_aligned(p: CodecParams, ref_path: str, in1: str, in2: str,
         with dbg.span("encode"):
             body = encode_block(p, merged, frozen, device, dbg, align,
                                 ref.codes)
-        return (gi, raw1, raw2, pe_payload(b1, b2, body), b1.n_reads,
+        return (gi, raw1, raw2, pe_payload(b1.final_newline,
+                                           b2.final_newline, body),
+                b1.n_reads,
                 merged.n_reads, n_mapped, align is not None)
 
     n_blocks = total_raw = total_mapped = total_reads = 0

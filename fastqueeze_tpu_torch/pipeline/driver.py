@@ -8,8 +8,10 @@ decode, verify both and reassemble the plaintext.  Every stage takes the
 engine's ``device`` explicitly.
 
 Self-referential blocks (auto probe or -S) are coded here; compressing
-against a reference FASTA is pipeline/aligned.py, paired-end input is
-pipeline/pe.py, and decompress takes the FASTA (``ref``) and sends PE
+against a reference FASTA is pipeline/aligned.py.  :func:`compress_blocks`
+is the compress loop of single-end (:class:`SingleEnd`) and paired-end
+input (pipeline/pe.py PairedEnd: its blocks, their parse and training
+prefix, its payloads), and decompress takes the FASTA (``ref``) and sends PE
 archives to pe.decompress_pe_blocks.  With lossy_factor > 1 (-l) every
 block's qualities take the R-Block transform before its MD5 (and the
 training prefix before training).  ``part=(k, n)`` (--part K:N) writes
@@ -99,40 +101,98 @@ def _gate_bytes(in_path: str) -> int:
     return sz * 5 if in_path.endswith(".gz") else sz
 
 
-def _train(params: CodecParams, in_path: str, gen, prefix_items: List,
-           device, dbg: DebugInfo) -> Dict:
-    """usemodel preprocess (reference doPreProcess): pull blocks from
-    ``gen`` until the training prefix is covered, parse them once into
-    ``prefix_items`` (the encode loop reuses them), train the frozen
-    tables from the parsed arrays and upload them to ``device``."""
-    from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
-    from fastqueeze_tpu_torch.pipeline.frozen import (
-        stage_tables, train_frozen_blocks)
-    with dbg.span("train"):
-        need = params.model_train_mb << 20
-        got = 0
-        for raw, final_nl in gen:
-            with dbg.span("train.parse"):
-                raw, block = parse_lossy(params, raw, final_nl)
-            prefix_items.append((raw, final_nl, block))
-            got += len(raw)
-            if got >= need:
-                break
-        syms = sum(int(b.lengths.sum()) for _, _, b in prefix_items)
-        est = int(_gate_bytes(in_path) * syms / max(got, 1))
-        tblocks = [b for _, _, b in prefix_items]
-        if params.dedup:
-            # train on the deduped sample (what the coder will emit) so
-            # the qctx cost model prices tables honestly
-            with dbg.span("train.dedup"):
-                tblocks = [dedup_training_block(b, params)[0]
-                           for b in tblocks]
-            uq = sum(int(tb.lengths.sum()) for tb in tblocks)
-            est = int(est * uq / max(syms, 1))
-        frozen = train_frozen_blocks(params, tblocks, est_total_syms=est)
-        with dbg.span("train.stage"):
-            stage_tables(frozen, params, device)
-    return frozen
+def block_bytes(params: CodecParams) -> int:
+    return params.block_bytes or params.block_size_mb * (1 << 20)
+
+
+def _update_md5s(md5s, raws) -> None:
+    """Each input file's whole-input MD5 by the block's plaintext of that
+    file."""
+    for h, raw in zip(md5s, raws):
+        h.update(raw)
+
+
+class Block:
+    """One block of the input as the compress loop carries it: the
+    plaintext it holds of each input file (``raws``: one file SE, two PE)
+    and their final-newline flags; once parsed, each file's records
+    (``mates``) and the block the coder takes (``block``: SE the file's
+    records, PE the mates interleaved)."""
+    __slots__ = ("raws", "fnls", "mates", "block")
+
+    def __init__(self, raws: tuple, fnls: tuple):
+        self.raws, self.fnls = raws, fnls
+        self.mates = self.block = None
+
+
+class SingleEnd:
+    """compress_se's input: one FASTQ file cut into blocks of whole
+    records.  A block is parsed with -l's transform into the coder's
+    block; the frozen tables train on the whole blocks that cover the
+    first model_train_mb MB (reference doPreProcess)."""
+    flags = 0
+
+    def __init__(self, params: CodecParams, path: str, dbg: DebugInfo):
+        self.params, self.paths, self.dbg = params, [path], dbg
+
+    def gate_bytes(self) -> int:
+        return _gate_bytes(self.paths[0])
+
+    def blocks(self):
+        for raw, final_nl in read_blocks(self.paths[0],
+                                         block_bytes(self.params)):
+            yield Block((raw,), (final_nl,))
+
+    def parse(self, b: Block) -> None:
+        raw, block = parse_lossy(self.params, b.raws[0], b.fnls[0])
+        b.raws, b.mates, b.block = (raw,), (block,), block
+
+    parse_first = parse
+
+    def probe_block(self, b: Block):
+        return b.block
+
+    def payload(self, fnls: tuple, body: bytes) -> bytes:
+        return body
+
+    def train(self, blocks, prefix: List[Block], device) -> Dict:
+        """Pull blocks until the training prefix is covered, parse them
+        once into ``prefix`` (the encode loop reuses them), train the
+        frozen tables from the parsed arrays and upload them to
+        ``device``."""
+        from fastqueeze_tpu_torch.pipeline.blockcodec import (
+            dedup_training_block)
+        from fastqueeze_tpu_torch.pipeline.frozen import (
+            stage_tables, train_frozen_blocks)
+        params, dbg = self.params, self.dbg
+        with dbg.span("train"):
+            need = params.model_train_mb << 20
+            got = 0
+            for b in blocks:
+                with dbg.span("train.parse"):
+                    self.parse(b)
+                prefix.append(b)
+                got += len(b.raws[0])
+                if got >= need:
+                    break
+            tblocks = [b.block for b in prefix]
+            syms = sum(int(t.lengths.sum()) for t in tblocks)
+            est = int(self.gate_bytes() * syms / max(got, 1))
+            if params.dedup:
+                # train on the deduped sample (what the coder will emit) so
+                # the qctx cost model prices tables honestly
+                with dbg.span("train.dedup"):
+                    tblocks = [dedup_training_block(t, params)[0]
+                               for t in tblocks]
+                uq = sum(int(t.lengths.sum()) for t in tblocks)
+                est = int(est * uq / max(syms, 1))
+            frozen = train_frozen_blocks(params, tblocks, est_total_syms=est)
+            with dbg.span("train.stage"):
+                stage_tables(frozen, params, device)
+        return frozen
+
+    def end(self) -> None:
+        pass
 
 
 def train_frozen_prefix(p: CodecParams, in_path: str, device,
@@ -160,49 +220,63 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
 def compress_se(params: CodecParams, in_path: str, out_path: str,
                 dbg: Optional[DebugInfo] = None,
                 part: Optional[tuple] = None, device="cuda") -> Dict:
+    dbg = dbg or DebugInfo()
+    return compress_blocks(params, SingleEnd(params, in_path, dbg),
+                           out_path, dbg, part, device)
+
+
+def compress_blocks(params: CodecParams, src, out_path: str, dbg: DebugInfo,
+                    part: Optional[tuple] = None, device="cuda") -> Dict:
+    """The compress loop of every input kind (``src``: :class:`SingleEnd`
+    or pe.PairedEnd): the frozen tables trained when the usemodel gate
+    says so, the -S auto probe on the first block, then each block parsed,
+    dispatched and finalized into the archive with its MD5 over its
+    plaintext of every file, and one whole-input MD5 a file.  At -t 1 block
+    i+1 is read, parsed and dispatched before block i is finalized; with
+    more threads (or --mesh) whole blocks run on the host pipeline.  The
+    frozen tables' packing thread is joined just before the archive is
+    written."""
     devices = block_dp_devices(params, device)
     from fastqueeze_tpu_torch.pipeline.frozen import (
         decide_use_model, join_packing, serialize_frozen)
-    dbg = dbg or DebugInfo()
-    block_size = params.block_bytes or params.block_size_mb * (1 << 20)
-    whole_md5 = hashlib.md5()
-    gen = _spanned(read_blocks(in_path, block_size), dbg, "read")
+    md5s = [hashlib.md5() for _ in src.paths]
+    blocks = _spanned(src.blocks(), dbg, "read")
     frozen = None
-    prefix_items = []   # (raw, final_nl, FastqBlock): parsed once, reused
-    if decide_use_model(params, _gate_bytes(in_path)):
-        frozen = _train(params, in_path, gen, prefix_items, device, dbg)
+    prefix: List[Block] = []    # parsed once (training, probe), reused
+    if decide_use_model(params, src.gate_bytes()):
+        frozen = src.train(blocks, prefix, device)
 
     try:
         if params.self_align == -1:
             # auto (-S default): decided once per file from the first block;
             # the answer is written into PARAM
             from fastqueeze_tpu_torch.pipeline.selfref import auto_self_align
-            if not prefix_items:
-                first = next(gen, None)
+            if not prefix:
+                first = next(blocks, None)
                 if first is not None:
                     # parsed once for the probe, reused by the encode loop
                     with dbg.span("first_block"):
-                        raw0, blk0 = parse_lossy(params, *first)
-                    prefix_items.append((raw0, first[1], blk0))
+                        src.parse_first(first)
+                    prefix.append(first)
             with dbg.span("probe"):
                 params.self_align = 1 if (
-                    prefix_items and auto_self_align(
-                        params, prefix_items[0][2], dbg)) else 0
-        writer = ArcWriter(out_path, params, [os.path.basename(in_path)], [],
+                    prefix and auto_self_align(
+                        params, src.probe_block(prefix[0]), dbg)) else 0
+        writer = ArcWriter(out_path, params,
+                           [os.path.basename(x) for x in src.paths], [],
                            part=part)
         single = not part or part[1] == 1
 
         def items():
-            yield from prefix_items
-            for raw, final_nl in gen:
-                yield raw, final_nl, None
+            while prefix:
+                yield prefix.pop(0)
+            yield from blocks
 
-        def scan(item):
-            raw, final_nl, block = item
-            if block is None and params.lossy_factor > 1.0:
-                raw, block = parse_lossy(params, raw, final_nl)
-            whole_md5.update(raw)
-            return raw, final_nl, block
+        def scan(b):
+            if b.block is None and params.lossy_factor > 1.0:
+                src.parse(b)
+            _update_md5s(md5s, b.raws)
+            return b
 
         def encode_job(block, device):
             align = ref_codes = None
@@ -213,65 +287,77 @@ def compress_se(params: CodecParams, in_path: str, out_path: str,
             return encode_block_job(params, block, frozen, device, dbg, align,
                                     ref_codes, self_ref=align is not None)
 
+        def info(raws, n_reads):
+            md5 = hashlib.md5()
+            for raw in raws:
+                md5.update(raw)
+            return BlockInfo(payload_len=0, n_reads=n_reads,
+                             raw_len1=len(raws[0]),
+                             raw_len2=len(raws[1]) if len(raws) > 1 else 0,
+                             flags=src.flags, md5=md5.digest())
+
+        def tally(raws, n_reads):
+            dbg.add("reads", n_reads * len(raws))
+            if len(raws) > 1:
+                dbg.add("pairs", n_reads)
+            return sum(map(len, raws))
+
         n_blocks = total_raw = 0
         if params.threads > 1:
-            def work(_i, gi_item, device):
-                gi, (raw, final_nl, block) = gi_item
-                if block is None:
-                    raw, block = parse_lossy(params, raw, final_nl)
-                return gi, raw, encode_job(block, device)(), block.n_reads
+            def work(_i, gi_b, device):
+                gi, b = gi_b
+                if b.block is None:
+                    src.parse(b)
+                payload = src.payload(b.fnls, encode_job(b.block, device)())
+                return gi, b.raws, b.mates[0].n_reads, payload
 
             with dbg.span("encode"):
-                for _, (gi, raw, payload, n_reads) in device_parallel(
+                for _, (gi, raws, n_reads, payload) in device_parallel(
                         owned_blocks(items(), part, scan), work, devices,
                         params.threads, device):
                     with dbg.span("md5"):
                         if single:     # ordered: blocks arrive in file order
-                            whole_md5.update(raw)
-                        md5 = hashlib.md5(raw).digest()
+                            _update_md5s(md5s, raws)
+                        inf = info(raws, n_reads)
                     with dbg.span("write"):
-                        writer.add_block(gi, payload, BlockInfo(
-                            payload_len=len(payload), n_reads=n_reads,
-                            raw_len1=len(raw), md5=md5))
-                    dbg.add("reads", n_reads)
-                    total_raw += len(raw)
+                        writer.add_block(gi, payload, inf)
+                    total_raw += tally(raws, n_reads)
                     n_blocks += 1
         else:
-            pending = None      # (idx, finalize, BlockInfo): device in flight
+            pending = None      # (idx, finalize, fnls, BlockInfo): in flight
 
             def flush(pend):
+                gi, fin, fnls, inf = pend
                 with dbg.span("encode"):
-                    payload = pend[1]()
+                    payload = src.payload(fnls, fin())
                 with dbg.span("write"):
-                    writer.add_block(pend[0], payload, pend[2])
+                    writer.add_block(gi, payload, inf)
 
-            for gi, (raw, final_nl, block) in owned_blocks(items(), part,
-                                                            scan):
+            for gi, b in owned_blocks(items(), part, scan):
                 with dbg.span("parse"):
-                    if block is None:
-                        raw, block = parse_lossy(params, raw, final_nl)
+                    if b.block is None:
+                        src.parse(b)
                     if single:
                         with dbg.span("parse.md5"):
-                            whole_md5.update(raw)
+                            _update_md5s(md5s, b.raws)
                 with dbg.span("dispatch"):
-                    fin = encode_job(block, device)
+                    fin = encode_job(b.block, device)
+                n_reads = b.mates[0].n_reads
                 with dbg.span("md5"):
-                    md5 = hashlib.md5(raw).digest()
-                info = BlockInfo(payload_len=0, n_reads=block.n_reads,
-                                 raw_len1=len(raw), md5=md5)
+                    inf = info(b.raws, n_reads)
                 if pending is not None:
                     flush(pending)
-                pending = (gi, fin, info)
-                dbg.add("reads", block.n_reads)
-                total_raw += len(raw)
+                pending = (gi, fin, b.fnls, inf)
+                total_raw += tally(b.raws, n_reads)
                 n_blocks += 1
             if pending is not None:
                 flush(pending)
+        src.end()
         if frozen is not None:
             # the tables' packs ran beside the training and the blocks
             with dbg.span("serialize"):
                 writer.set_model(serialize_frozen(frozen))
-        writer.input_md5s = [whole_md5.digest()]
+        writer.input_md5s = [h.digest() for h in md5s]
         with dbg.span("write"):
             writer.finalize()
     finally:

@@ -71,13 +71,20 @@ def rblock_transform(qflat: np.ndarray, lengths: np.ndarray,
     return (repl[seg_flat] - 1).astype(qflat.dtype)  # back to 0-based Phred
 
 
+def lossy_quals(params: CodecParams, block) -> None:
+    """The R-Block transform of ``block``'s qualities (a new array; the
+    training prefixes take it without their plaintext)."""
+    if params.lossy_factor > 1.0:
+        q = block.qual_flat.astype(np.int32) - 33
+        q = rblock_transform(q, block.lengths, params.lossy_factor)
+        block.qual_flat = (q + 33).astype(np.uint8)
+
+
 def apply_lossy(params: CodecParams, block):
     """R-Block quality transform (encode side only); returns the new
     plaintext bytes and the block, so the MD5s cover what decode will
     reproduce."""
-    q = block.qual_flat.astype(np.int32) - 33
-    q = rblock_transform(q, block.lengths, params.lossy_factor)
-    block.qual_flat = (q + 33).astype(np.uint8)
+    lossy_quals(params, block)
     return assemble_block(block), block
 
 

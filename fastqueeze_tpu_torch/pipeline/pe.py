@@ -10,12 +10,16 @@ interleaved body (TAG 41); its MD5 covers raw1 + raw2, and the archive
 holds one whole-input MD5 per file.  Decode writes <prefix>_1.fastq and
 <prefix>_2.fastq, or pipes per -P 1/2/3.
 
-Compressing against a reference is pipeline/aligned.py
-(compress_pe_aligned).  With -l both mates' qualities take the R-Block
-transform before the block MD5.  ``part=(k, n)`` (--part K:N) writes the
-partial archive of block pairs k, k+n, ... (driver.compress_se);
-``--mesh N`` runs the block pairs data-parallel over N devices, as
-driver.compress_se does, with the same archive.
+compress_pe runs driver.compress_blocks, compress_se's loop, over
+:class:`PairedEnd`'s block pairs, so ``part=(k, n)`` (--part K:N: the
+partial archive of block pairs k, k+n, ...), ``--mesh N`` (block pairs
+data-parallel over N devices, the same archive), -t and the -S auto
+probe behave as for single-end input.  Compressing against a reference
+is pipeline/aligned.py (compress_pe_aligned).  With -l both mates'
+qualities take the R-Block transform before the block MD5.  Stages:
+``pe.mate2`` (file 2's records of a block pair, inside ``read``),
+``pe.interleave`` (the mates into the coder's block) and, on decode,
+``pe.deinterleave``; the counter ``pairs`` beside ``reads``.
 """
 
 from __future__ import annotations
@@ -29,19 +33,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from fastqueeze_tpu_torch.config import CodecParams
-from fastqueeze_tpu_torch.container.arcfile import (
-    FLAG_PE, ArcReader, ArcWriter, BlockInfo)
+from fastqueeze_tpu_torch.container.arcfile import FLAG_PE, ArcReader
 from fastqueeze_tpu_torch.container.encap import iter_tlv, write_tlv
+from fastqueeze_tpu_torch.io import native
 from fastqueeze_tpu_torch.io.fastq import (
-    FastqBlock, LazyLines, assemble_block, open_maybe_gz, parse_block,
-    read_blocks)
-from fastqueeze_tpu_torch.pipeline.blockcodec import (
-    decode_block, encode_block)
-from fastqueeze_tpu_torch.pipeline.driver import owned_blocks
-from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair
-from fastqueeze_tpu_torch.pipeline.parallel_host import (
-    block_dp_devices, device_parallel)
-from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+    FastqBlock, LazyLines, _line_lens, assemble_block, open_maybe_gz,
+    parse_block, read_blocks)
+from fastqueeze_tpu_torch.pipeline.blockcodec import decode_block
+from fastqueeze_tpu_torch.pipeline.driver import (
+    Block, block_bytes, compress_blocks)
+from fastqueeze_tpu_torch.pipeline.lossy import lossy_pair, lossy_quals
+from fastqueeze_tpu_torch.pipeline.parallel_host import device_parallel
+from fastqueeze_tpu_torch.utils.metrics import DebugInfo, stage
 
 TAG_PE_META = 40
 TAG_PE_BODY = 41
@@ -119,29 +122,36 @@ def _idx(starts, lens):
             + np.repeat(starts, lens))
 
 
+# the mates' bases and qualities move read by read through the native
+# library's copies (io/native.py, the parser's); NumPy indexes every byte
+# where it is missing
 def _place(out, starts, lens, flat):
-    if int(lens.sum()):
+    if int(lens.sum()) and not native.scatter(flat, starts, lens, out):
         out[_idx(starts, lens)] = flat
 
 
 def _gather(flat, starts, lens):
-    if not int(lens.sum()):
+    total = int(lens.sum())
+    if not total:
         return np.zeros(0, np.uint8)
-    return flat[_idx(starts, lens)]
+    flat = np.ascontiguousarray(flat, np.uint8)
+    out = native.gather(flat, starts, starts + lens, total)
+    return out if out is not None else flat[_idx(starts, lens)]
 
 
-def pe_block_items(p: CodecParams, in1: str, rr2: "_RecordReader"):
+def pe_block_items(p: CodecParams, in1: str, rr2: "_RecordReader",
+                   dbg: Optional[DebugInfo] = None):
     """(raw1, fnl1, raw2, fnl2) per block: file 1 cut at half the block
-    size, file 2 taken by file 1's record count."""
-    block_size = p.block_bytes or p.block_size_mb * (1 << 20)
-    for raw1, fnl1 in read_blocks(in1, block_size // 2):
+    size, file 2 taken by file 1's record count (the stage ``pe.mate2``)."""
+    for raw1, fnl1 in read_blocks(in1, block_bytes(p) // 2):
         n1 = (raw1.count(b"\n") + (0 if fnl1 else 1)) // 4
-        raw2, fnl2 = rr2.take(n1)
+        with stage(dbg, "pe.mate2"):
+            raw2, fnl2 = rr2.take(n1)
         yield raw1, fnl1, raw2, fnl2
 
 
-def pe_payload(b1: FastqBlock, b2: FastqBlock, body: bytes) -> bytes:
-    meta = {"fnl1": b1.final_newline, "fnl2": b2.final_newline}
+def pe_payload(fnl1: bool, fnl2: bool, body: bytes) -> bytes:
+    meta = {"fnl1": fnl1, "fnl2": fnl2}
     return (write_tlv(TAG_PE_META, json.dumps(meta).encode())
             + write_tlv(TAG_PE_BODY, body))
 
@@ -154,94 +164,139 @@ def compress_pe(p: CodecParams, in1: str, in2: str, out_path: str,
         from fastqueeze_tpu_torch.pipeline.aligned import compress_pe_aligned
         return compress_pe_aligned(p, ref, in1, in2, out_path, dbg=dbg,
                                    part=part, device=device)
-    devices = block_dp_devices(p, device)
-    from fastqueeze_tpu_torch.pipeline.frozen import decide_use_model
     p.is_pe = 1
-    md5_1, md5_2 = hashlib.md5(), hashlib.md5()
-    writer = ArcWriter(out_path, p,
-                       [os.path.basename(in1), os.path.basename(in2)], [],
-                       part=part)
-    frozen = None
-    # the usemodel gate counts both files as they are (no .gz x5)
-    if decide_use_model(p, os.path.getsize(in1) + os.path.getsize(in2)):
-        frozen, blob = train_frozen_pe_prefix(p, in1, in2, device, dbg)
-        writer.set_model(blob)
-    rr2 = _RecordReader(in2)
-    it = pe_block_items(p, in1, rr2)
-    first = None
-    if p.self_align == -1:
-        # auto (-S default): decided once per file from the first pair
-        from fastqueeze_tpu_torch.pipeline.selfref import auto_self_align
-        first = next(it, None)
-        sa = 0
-        if first is not None:
-            pb1 = parse_block(first[0], first[1])
-            pb2 = parse_block(first[2], first[3])
-            sa = 1 if auto_self_align(p, interleave_blocks(pb1, pb2),
-                                      dbg) else 0
-            first = first + (pb1, pb2)       # the encode reuses the parse
-        p.self_align = sa
+    return compress_blocks(p, PairedEnd(p, in1, in2, dbg), out_path, dbg,
+                           part, device)
 
-    def items():
-        if first is not None:
-            yield first
-        for item in it:
-            yield item + (None, None)
 
-    single = not part or part[1] == 1
+class PairedEnd:
+    """compress_pe's input for driver.compress_blocks: block pairs
+    (pe_block_items), each parsed mate by mate, then -l's transform on
+    both and the mates interleaved into the coder's block.  The -S auto
+    probe sees the first pair as read (before -l); the frozen tables
+    train on file 1's first model_train_mb / 2 MB and the same records
+    of file 2 (:func:`train_pairs`), taken from the block pairs that the
+    encode loop then reuses."""
+    flags = FLAG_PE
 
-    def scan(item):
-        raw1, fnl1, raw2, fnl2, b1, b2 = item
-        if p.lossy_factor > 1.0:
-            if b1 is None:
-                b1 = parse_block(raw1, fnl1)
-                b2 = parse_block(raw2, fnl2)
-            raw1, b1, raw2, b2 = lossy_pair(p, raw1, b1, raw2, b2)
-        md5_1.update(raw1)
-        md5_2.update(raw2)
-        return raw1, fnl1, raw2, fnl2, b1, b2
+    def __init__(self, p: CodecParams, in1: str, in2: str, dbg: DebugInfo):
+        self.params, self.paths, self.dbg = p, [in1, in2], dbg
+        self._rr2 = None
 
-    def work(_i, gi_item, device):
-        gi, (raw1, fnl1, raw2, fnl2, b1, b2) = gi_item
-        if b1 is None:
-            b1 = parse_block(raw1, fnl1)
-            b2 = parse_block(raw2, fnl2)
-        if single:
-            # -l after the auto probe, which saw the first pair as read
-            raw1, b1, raw2, b2 = lossy_pair(p, raw1, b1, raw2, b2)
-        merged = interleave_blocks(b1, b2)
-        align = rc = None
-        if p.self_align:
-            from fastqueeze_tpu_torch.pipeline.selfref import maybe_align_self
-            align, rc = maybe_align_self(p, merged, dbg)
-        with dbg.span("encode"):
-            body = encode_block(p, merged, frozen, device, dbg, align, rc,
-                                self_ref=align is not None)
-        return gi, raw1, raw2, pe_payload(b1, b2, body), b1.n_reads
+    def gate_bytes(self) -> int:
+        # the usemodel gate counts both files as they are (no .gz x5)
+        return sum(map(os.path.getsize, self.paths))
 
-    n_blocks = total_raw = 0
-    for _, (gi, raw1, raw2, payload, n_pairs) in device_parallel(
-            owned_blocks(items(), part, scan), work, devices, p.threads,
-            device):
-        if single:                 # ordered: pairs arrive in file order
-            md5_1.update(raw1)
-            md5_2.update(raw2)
-        writer.add_block(gi, payload, BlockInfo(
-            payload_len=len(payload), n_reads=n_pairs, raw_len1=len(raw1),
-            raw_len2=len(raw2), flags=FLAG_PE,
-            md5=hashlib.md5(raw1 + raw2).digest()))
-        dbg.add("reads", 2 * n_pairs)
-        total_raw += len(raw1) + len(raw2)
-        n_blocks += 1
-    if rr2.take_rest():
-        raise ValueError("PE inputs have different read counts")
-    writer.input_md5s = [md5_1.digest(), md5_2.digest()]
-    writer.finalize()
-    out_size = os.path.getsize(out_path)
-    dbg.add("raw_bytes", total_raw)
-    dbg.add("out_bytes", out_size)
-    return {"blocks": n_blocks, "raw": total_raw, "compressed": out_size,
-            "ratio": total_raw / out_size if out_size else 0.0}
+    def blocks(self):
+        self._rr2 = _RecordReader(self.paths[1])
+        for raw1, fnl1, raw2, fnl2 in pe_block_items(
+                self.params, self.paths[0], self._rr2, self.dbg):
+            yield Block((raw1, raw2), (fnl1, fnl2))
+
+    def parse_first(self, b: Block) -> None:
+        b.mates = (parse_block(b.raws[0], b.fnls[0]),
+                   parse_block(b.raws[1], b.fnls[1]))
+
+    def parse(self, b: Block) -> None:
+        if b.mates is None:
+            self.parse_first(b)
+        raw1, b1, raw2, b2 = lossy_pair(self.params, b.raws[0], b.mates[0],
+                                        b.raws[1], b.mates[1])
+        b.raws, b.mates = (raw1, raw2), (b1, b2)
+        b.block = self._interleave(b1, b2)
+
+    def _interleave(self, b1: FastqBlock, b2: FastqBlock) -> FastqBlock:
+        with self.dbg.span("pe.interleave"):
+            return interleave_blocks(b1, b2)
+
+    def probe_block(self, b: Block) -> FastqBlock:
+        merged = self._interleave(*b.mates)
+        if self.params.lossy_factor <= 1.0:
+            b.block = merged        # the coder's block as well
+        return merged
+
+    def payload(self, fnls: tuple, body: bytes) -> bytes:
+        return pe_payload(*fnls, body)
+
+    def train(self, blocks, prefix: List[Block], device) -> Dict:
+        """Pull block pairs into ``prefix`` until they hold the training
+        prefix, parse their mates once, and train on its records."""
+        dbg = self.dbg
+        with dbg.span("train"):
+            n = _prefix_records(self.params, blocks, prefix)
+            with dbg.span("train.parse"):
+                for b in prefix:
+                    self.parse_first(b)
+            b1 = _head([b.mates[0] for b in prefix], n)
+            b2 = _head([b.mates[1] for b in prefix], n)
+            return train_pairs(self.params, b1, b2, self.gate_bytes(), device,
+                               dbg)
+
+    def end(self) -> None:
+        if self._rr2 is not None and self._rr2.take_rest():
+            raise ValueError("PE inputs have different read counts")
+
+
+def _prefix_records(p: CodecParams, blocks, prefix: List[Block]) -> int:
+    """Pull block pairs from ``blocks`` into ``prefix`` until they hold
+    the records of file 1 that read_blocks(in1, model_train_mb / 2 MB)
+    gives as its first block (the records whole within its first chunk
+    that holds one; the whole file where none does), and return their
+    count."""
+    half = (p.model_train_mb << 20) // 2
+    if half <= 0:
+        raise ValueError(f"model_train_mb {p.model_train_mb}: no prefix")
+    got, chunk, end = 0, half, False
+    while True:
+        while got < chunk and not end:
+            b = next(blocks, None)
+            if b is None:
+                end = True
+            else:
+                prefix.append(b)
+                got += len(b.raws[0])
+        lines, left = 0, chunk
+        for b in prefix:
+            if left <= 0:
+                break
+            lines += b.raws[0].count(b"\n", 0, left)
+            left -= len(b.raws[0])
+        if lines >= 4:
+            return lines // 4
+        if end:
+            return sum((b.raws[0].count(b"\n") + (0 if b.fnls[0] else 1))
+                       // 4 for b in prefix)
+        chunk += half
+
+
+def _head(blocks: List[FastqBlock], n: int) -> FastqBlock:
+    """The first ``n`` records of ``blocks`` (in order) as a new block of
+    what training reads: bases, qualities, lengths and the plaintext
+    size (no IDs)."""
+    seq, qual, lens = [], [], []
+    raw_len, fnl = 0, True
+    for b in blocks:
+        k = min(n, b.n_reads)
+        if k <= 0:
+            break
+        n -= k
+        s = int(b.lengths[:k].sum())
+        seq.append(b.seq_flat[:s])
+        qual.append(b.qual_flat[:s])
+        lens.append(b.lengths[:k])
+        if k == b.n_reads:
+            raw_len += b.raw_len
+            fnl = b.final_newline
+        else:
+            raw_len += int((_line_lens(b.ids, b.n_reads)[:k]
+                            + _line_lens(b.plus, b.n_reads)[:k]
+                            + 2 * b.lengths[:k] + 6).sum())
+            fnl = True
+    lens = np.concatenate(lens)
+    return FastqBlock(n_reads=len(lens), ids=[], plus=[],
+                      seq_flat=np.concatenate(seq),
+                      qual_flat=np.concatenate(qual), lengths=lens,
+                      raw_len=raw_len, final_newline=fnl)
 
 
 class _RecordReader:
@@ -270,9 +325,8 @@ class _RecordReader:
                 self._carry = b""
                 return buf, False
             raise ValueError("PE file 2 ran out of records")
-        pos = -1
-        for _ in range(need):
-            pos = buf.index(b"\n", pos + 1)
+        pos = (int(np.flatnonzero(np.frombuffer(buf, np.uint8) == 10)
+                   [need - 1]) if need else -1)
         self._carry = buf[pos + 1:]
         return buf[:pos + 1], True
 
@@ -283,45 +337,65 @@ class _RecordReader:
 
 
 def train_frozen_pe_prefix(p: CodecParams, in1: str, in2: str, device,
-                           dbg: DebugInfo):
-    """usemodel preprocess over the pair: model_train_mb/2 from each file,
-    trained interleaved (the stream shape the block coder sees), the
-    symbol estimate scaled over both files; the tables are quantized on
-    ``device``.  Returns (frozen, serialized blob)."""
-    from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
-    from fastqueeze_tpu_torch.pipeline.frozen import (
-        serialize_frozen, stage_tables, train_frozen_blocks)
+                           dbg: DebugInfo) -> Dict:
+    """usemodel preprocess of the aligned PE path over the pair:
+    model_train_mb/2 from file 1 and the same records of file 2, read
+    and parsed here (:func:`train_pairs`)."""
     with dbg.span("train"):
         half = (p.model_train_mb << 20) // 2
-        b1 = parse_block(*next(iter(read_blocks(in1, half))))
-        rr2 = _RecordReader(in2)
-        b2 = parse_block(*rr2.take(b1.n_reads))
-        rr2.take_rest()
-        _, b1, _, b2 = lossy_pair(p, b"", b1, b"", b2)
+        with dbg.span("train.parse"):
+            b1 = parse_block(*next(iter(read_blocks(in1, half))))
+            rr2 = _RecordReader(in2)
+            b2 = parse_block(*rr2.take(b1.n_reads))
+            rr2.take_rest()
+        return train_pairs(p, b1, b2, os.path.getsize(in1)
+                           + os.path.getsize(in2), device, dbg)
+
+
+def train_pairs(p: CodecParams, b1: FastqBlock, b2: FastqBlock,
+                total: int, device, dbg: DebugInfo) -> Dict:
+    """The frozen tables trained on the prefix pair (b1, b2), which the
+    caller owns: -l's transform, the mates interleaved (the stream shape
+    the block coder sees), the symbol estimate scaled over both files'
+    ``total`` bytes; the tables are quantized on ``device``.  Their packs
+    run on the packing thread, which serialize_frozen joins."""
+    from fastqueeze_tpu_torch.pipeline.blockcodec import dedup_training_block
+    from fastqueeze_tpu_torch.pipeline.frozen import (
+        stage_tables, train_frozen_blocks)
+    lossy_quals(p, b1)
+    lossy_quals(p, b2)
+    with dbg.span("pe.interleave"):
         merged = interleave_blocks(b1, b2)
-        prefix_syms = int(merged.lengths.sum())
-        total = os.path.getsize(in1) + os.path.getsize(in2)
-        est = (int(total * prefix_syms / max(b1.raw_len + b2.raw_len, 1))
-               if (b1.raw_len and b2.raw_len) else prefix_syms)
-        if p.dedup:
+    prefix_syms = int(merged.lengths.sum())
+    est = (int(total * prefix_syms / max(b1.raw_len + b2.raw_len, 1))
+           if (b1.raw_len and b2.raw_len) else prefix_syms)
+    if p.dedup:
+        with dbg.span("train.dedup"):
             merged, frac = dedup_training_block(merged, p)
-            est = int(est * frac)
-        frozen = train_frozen_blocks(p, [merged], est_total_syms=est)
+        est = int(est * frac)
+    frozen = train_frozen_blocks(p, [merged], est_total_syms=est)
+    with dbg.span("train.stage"):
         stage_tables(frozen, p, device)
-    return frozen, serialize_frozen(frozen)
+    return frozen
 
 
 def decode_pe_payload(p: CodecParams, payload: bytes, frozen, ref_codes,
-                      expected_md5: bytes, block_idx: int, device):
+                      expected_md5: bytes, block_idx: int, device,
+                      dbg: Optional[DebugInfo] = None):
     """Decode and verify one PE block payload (PE_META wrapper,
     interleaved body, MD5 over raw1 + raw2)."""
     sections = dict(iter_tlv(payload))
     meta = json.loads(sections[TAG_PE_META].decode())
     merged = decode_block(p, sections[TAG_PE_BODY], frozen, device,
-                          ref_codes)
-    b1, b2 = deinterleave_block(merged, meta["fnl1"], meta["fnl2"])
-    raw1, raw2 = assemble_block(b1), assemble_block(b2)
-    if hashlib.md5(raw1 + raw2).digest() != expected_md5:
+                          ref_codes, dbg=dbg)
+    with stage(dbg, "pe.deinterleave"):
+        b1, b2 = deinterleave_block(merged, meta["fnl1"], meta["fnl2"])
+    with stage(dbg, "assemble"):
+        raw1, raw2 = assemble_block(b1), assemble_block(b2)
+    with stage(dbg, "md5"):
+        md5 = hashlib.md5(raw1)
+        md5.update(raw2)
+    if md5.digest() != expected_md5:
         raise ValueError(f"block {block_idx}: MD5 mismatch (corrupt archive)")
     return b1, b2, raw1, raw2
 
@@ -330,6 +404,7 @@ def decompress_pe_blocks(reader: ArcReader, out_prefix: Optional[str],
                          dbg: DebugInfo, device, pipeout: int = 0,
                          force: bool = False, ref_codes=None,
                          devices=None) -> List[str]:
+    from fastqueeze_tpu_torch.pipeline.driver import _frozen_of, _spanned
     p = reader.params
     names = _pe_out_names(reader, out_prefix)
     md5_1, md5_2 = hashlib.md5(), hashlib.md5()
@@ -342,29 +417,29 @@ def decompress_pe_blocks(reader: ArcReader, out_prefix: Optional[str],
                 raise ValueError(f"{n} exists (use -f to overwrite)")
         o1 = open(names[0], "wb")
         o2 = open(names[1], "wb")
-    frozen = None
-    if reader.model_blob is not None:
-        from fastqueeze_tpu_torch.pipeline.frozen import deserialize_frozen
-        frozen = deserialize_frozen(reader.model_blob)
-
-    def decode_one(i, payload, device):
-        return decode_pe_payload(p, payload, frozen, ref_codes,
-                                 reader.blocks[i].md5, i, device)
-
     try:
-        payloads = (reader.read_block(i) for i in range(len(reader.blocks)))
+        frozen = _frozen_of(reader, dbg)
+
+        def decode_one(i, payload, device):
+            return decode_pe_payload(p, payload, frozen, ref_codes,
+                                     reader.blocks[i].md5, i, device, dbg)
+
+        payloads = _spanned((reader.read_block(i)
+                             for i in range(len(reader.blocks))), dbg, "read")
         with dbg.span("decode"):
             for _, (b1, b2, raw1, raw2) in device_parallel(
                     payloads, decode_one, devices, p.threads, device):
-                md5_1.update(raw1)
-                md5_2.update(raw2)
-                if pipeout == 3:
-                    _write_interleaved(sys.stdout.buffer, b1, b2)
-                else:
-                    if o1 is not None:
-                        o1.write(raw1)
-                    if o2 is not None:
-                        o2.write(raw2)
+                with dbg.span("md5"):
+                    md5_1.update(raw1)
+                    md5_2.update(raw2)
+                with dbg.span("write"):
+                    if pipeout == 3:
+                        _write_interleaved(sys.stdout.buffer, b1, b2)
+                    else:
+                        if o1 is not None:
+                            o1.write(raw1)
+                        if o2 is not None:
+                            o2.write(raw2)
         if len(reader.input_md5s) == 2 and not pipeout:
             if (md5_1.digest() != reader.input_md5s[0]
                     or md5_2.digest() != reader.input_md5s[1]):

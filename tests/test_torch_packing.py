@@ -9,7 +9,10 @@ block while the pack still runs, and its archive equals the JAX package's;
 an error of the thread surfaces from compress_se and leaves no thread
 alive; a second compress of the same file takes the trained tables from
 the memo and starts no packing.  The thread's stages add to ``pack_s``,
-not to the call's ``spanned_s``.
+not to the call's ``spanned_s``.  compress_pe, on the same loop, holds
+the pack until its ``serialize``, after the last block pair is
+dispatched, writes the JAX package's archive, and raises the pack's
+error with no thread left.
 """
 
 import hashlib
@@ -24,12 +27,15 @@ from fastqueeze_tpu.config import CodecParams as JParams
 from fastqueeze_tpu.io.fastq import parse_block as jparse
 from fastqueeze_tpu.pipeline import driver as jd
 from fastqueeze_tpu.pipeline import frozen as jf
+from fastqueeze_tpu.pipeline import pe as jpe
 from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.arcfile import ArcWriter
 from fastqueeze_tpu_torch.container.encap import iter_tlv
 from fastqueeze_tpu_torch.io.fastq import parse_block
 from fastqueeze_tpu_torch.pipeline import driver as td
 from fastqueeze_tpu_torch.pipeline import frozen as tf
+from fastqueeze_tpu_torch.pipeline import pe as tpe
+from fastqueeze_tpu_torch.utils import metrics
 from fastqueeze_tpu_torch.utils.metrics import SPANNED, DebugInfo
 
 
@@ -225,3 +231,75 @@ def test_the_pack_spans_stay_off_the_call(fq, tmp_path, fresh_memos,
     assert len(threads) == 1 and threading.get_ident() not in threads
     assert v[SPANNED] <= wall < v[SPANNED] + v["pack_s"]
     assert v["serialize_s"] < v["pack_s"]
+
+
+@pytest.fixture(scope="module")
+def fq_pair(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_packing_pe")
+    paths = (str(d / "in_1.fq"), str(d / "in_2.fq"))
+    for path, seed in zip(paths, (9, 10)):
+        with open(path, "wb") as fh:
+            fh.write(_fastq(1500, seed=seed, qspread=8))
+    return paths
+
+
+def test_the_pe_pack_ends_after_the_pairs(fq_pair, tmp_path, fresh_memos,
+                                          monkeypatch):
+    """compress_pe: the pack is held until the call waits for it, which
+    it does once, inside its ``serialize``, after every block pair is
+    dispatched; the archive is the JAX package's and no thread is left."""
+    release = threading.Event()
+    ended, dispatched, waits = [], [], []
+    pack, result, job = tf._pack_counts, tf._Packing.result, \
+        td.encode_block_job
+
+    def slow_pack(a, level=9, estimate=False, priced=None):
+        out = pack(a, level, estimate, priced)
+        if not estimate:
+            release.wait(20)
+            ended.append(time.perf_counter())
+        return out
+
+    def joined(self):
+        waits.append([s.name for s in metrics._stack()])
+        release.set()
+        return result(self)
+
+    def dispatching(*a, **kw):
+        fin = job(*a, **kw)
+        dispatched.append(time.perf_counter())
+        return fin
+
+    monkeypatch.setattr(tf, "_pack_counts", slow_pack)
+    monkeypatch.setattr(tf._Packing, "result", joined)
+    monkeypatch.setattr(td, "encode_block_job", dispatching)
+    out, jout = str(tmp_path / "t.fqz"), str(tmp_path / "j.fqz")
+    dbg = DebugInfo()
+    r = tpe.compress_pe(CodecParams(**_params()), *fq_pair, out, dbg=dbg,
+                        device="cpu")
+    assert r["blocks"] > 3 and len(dispatched) == r["blocks"]
+    assert len(ended) == 2 and max(dispatched) < min(ended)
+    assert waits == [["serialize"]]
+    assert dbg.vals["serialize_n"] == 1 and dbg.vals["pack_n"] == 2
+    assert not _packing_threads()
+    jpe.compress_pe(JParams(**_params()), *fq_pair, jout)
+    with open(out, "rb") as a, open(jout, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_an_error_of_the_pe_pack_surfaces(fq_pair, tmp_path, fresh_memos,
+                                          monkeypatch):
+    """A pack that raises makes compress_pe raise it and leaves no
+    thread; nothing is memoized."""
+    pack = tf._pack_counts
+
+    def failing(a, level=9, estimate=False, priced=None):
+        if not estimate:
+            raise RuntimeError("pack failed")
+        return pack(a, level, estimate, priced)
+
+    monkeypatch.setattr(tf, "_pack_counts", failing)
+    with pytest.raises(RuntimeError, match="pack failed"):
+        tpe.compress_pe(CodecParams(**_params()), *fq_pair,
+                        str(tmp_path / "x.fqz"), device="cpu")
+    assert not _packing_threads() and not tf._TRAIN_CACHE

@@ -1,10 +1,10 @@
 """The port's stage spans (utils/metrics.py DebugInfo.span) on the CPU.
 
-A compress and a decompress of a small multi-block single-end file under
-torch.profiler give every stage of the SE path as an ``fq.<stage>`` range
-on the thread that ran it: each range lasts what its span added to the
-DebugInfo, and each child range lies inside its parent.  With the profiler
-off no range is entered.  Under ``-t 4`` every block's stages are counted
+A compress and a decompress of a small multi-block single-end file, and
+of a paired-end pair, under torch.profiler give every stage of the SE and
+the PE path as an ``fq.<stage>`` range on the thread that ran it: each
+range lasts what its span added to the DebugInfo, and each child range
+lies inside its parent.  With the profiler off no range is entered.  Under ``-t 4`` every block's stages are counted
 (no add is lost between the worker threads), and the frozen trainer's
 memos count one miss, then one hit.
 """
@@ -48,6 +48,17 @@ NESTED = {
                                            "assemble", "md5", "write")]
     + [("native.decode_o1", "codec.host"),
        ("native.decode_ctx", "codec.host")],
+}
+# the PE path: compress_pe on the SE loop, with file 2's records read
+# inside ``read`` and the mates interleaved for the trainer, the probe and
+# each block pair's parse; decode deinterleaves each block pair
+PE_COMPRESS = COMPRESS + ("pe.mate2", "pe.interleave")
+PE_DECOMPRESS = DECOMPRESS + ("pe.deinterleave",)
+PE_NESTED = {
+    "compress": NESTED["compress"] + [("pe.mate2", "read"),
+                                      ("pe.interleave",
+                                       ("train", "probe", "parse"))],
+    "decompress": NESTED["decompress"] + [("pe.deinterleave", "decode")],
 }
 
 
@@ -99,9 +110,9 @@ def _ranges(trace_path, closed):
 
 
 def _profiled(d, fq, arc, run):
-    """A compress and a decompress of ``fq`` under torch.profiler, the
-    trainer's memos empty: {phase: (ranges, DebugInfo values), "memos":
-    what they hold after}."""
+    """A compress and a decompress of ``fq`` (one path, or a PE pair)
+    under torch.profiler, the trainer's memos empty: {phase: (ranges,
+    DebugInfo values), "memos": what they hold after}."""
     closed = {}
     close = DebugInfo._close
 
@@ -140,16 +151,49 @@ def traced(tmp_path_factory):
     return d, fq, arc, [_profiled(d, fq, arc, k) for k in range(2)]
 
 
-@pytest.mark.parametrize("phase", ("compress", "decompress"))
-def test_every_stage_is_a_range(traced, phase):
+@pytest.fixture(scope="module")
+def traced_pe(tmp_path_factory):
+    """The same for a pair of mate files (equal IDs, their own lengths)."""
+    d = tmp_path_factory.mktemp("torch_trace_pe")
+    fq, arc = (str(d / "in_1.fq"), str(d / "in_2.fq")), str(d / "in.fqz")
+    for path, seed in zip(fq, (21, 22)):
+        _fastq(path, n=600, seed=seed)
+    return d, fq, arc, [_profiled(d, fq, arc, k) for k in range(2)]
+
+
+def _every_stage(traced, phase, want, restored):
     d, fq, _, runs = traced
     ranges, vals = runs[0][phase]
-    want = COMPRESS if phase == "compress" else DECOMPRESS
     assert set(want) <= set(ranges), sorted(set(want) - set(ranges))
     if phase == "decompress":
-        with open(fq, "rb") as a, open(str(d / "back.fastq"), "rb") as b:
-            assert a.read() == b.read()
+        for path, back in zip([fq] if isinstance(fq, str) else fq,
+                              restored):
+            with open(path, "rb") as a, open(str(d / "back") + back,
+                                             "rb") as b:
+                assert a.read() == b.read()
         assert vals["codec.streams_n"] == vals["assemble_n"] > 1
+
+
+@pytest.mark.parametrize("phase", ("compress", "decompress"))
+def test_every_stage_is_a_range(traced, phase):
+    _every_stage(traced, phase, COMPRESS if phase == "compress"
+                 else DECOMPRESS, (".fastq",))
+
+
+@pytest.mark.parametrize("phase", ("compress", "decompress"))
+def test_every_pe_stage_is_a_range(traced_pe, phase):
+    """The SE names, file 2's reads, the interleave and deinterleave, and
+    the codec's stages on PE decode."""
+    _every_stage(traced_pe, phase, PE_COMPRESS if phase == "compress"
+                 else PE_DECOMPRESS, ("_1.fastq", "_2.fastq"))
+    ranges, vals = traced_pe[3][0][phase]
+    if phase == "compress":
+        assert vals["pairs"] == 600 and vals["reads"] == 1200
+        pairs = len(ranges["parse"])
+        assert vals["pe.mate2_n"] == pairs > 2
+        # the trainer's, the probe's (the first pair's, reused: no -l),
+        # and each later pair's
+        assert vals["pe.interleave_n"] == pairs + 1
 
 
 @pytest.mark.parametrize("phase", ("compress", "decompress"))
@@ -160,6 +204,15 @@ def test_ranges_match_the_table(traced, phase):
     between the two clock reads of a busy machine hits one run at a
     time); a name's spans add up to its DebugInfo seconds and count; the
     outermost ranges on the calling thread are what spanned_s adds."""
+    _match_table(traced, phase)
+
+
+@pytest.mark.parametrize("phase", ("compress", "decompress"))
+def test_pe_ranges_match_the_table(traced_pe, phase):
+    _match_table(traced_pe, phase)
+
+
+def _match_table(traced, phase):
     (r0, vals), (r1, _) = (run[phase] for run in traced[3])
     assert {n: len(rs) for n, rs in r0.items()} == {
         n: len(rs) for n, rs in r1.items()}
@@ -179,13 +232,24 @@ def test_ranges_match_the_table(traced, phase):
     assert sum(r[3] for r in outer) == pytest.approx(vals[SPANNED])
 
 
+def _inside_parents(ranges, nested):
+    for child, parents in nested:
+        parents = (parents,) if isinstance(parents, str) else parents
+        for a, b, tid, _ in ranges[child]:
+            assert any(pa <= a and b <= pb and pt == tid
+                       for parent in parents
+                       for pa, pb, pt, _ in ranges[parent]), (child, parents)
+
+
+@pytest.mark.parametrize("phase", ("compress", "decompress"))
+def test_each_pe_child_lies_inside_its_parent(traced_pe, phase):
+    _inside_parents(traced_pe[3][0][phase][0], PE_NESTED[phase])
+
+
 @pytest.mark.parametrize("phase", ("compress", "decompress"))
 def test_each_child_lies_inside_its_parent(traced, phase):
     ranges = traced[3][0][phase][0]
-    for child, parent in NESTED[phase]:
-        for a, b, tid, _ in ranges[child]:
-            assert any(pa <= a and b <= pb and pt == tid
-                       for pa, pb, pt, _ in ranges[parent]), (child, parent)
+    _inside_parents(ranges, NESTED[phase])
     if phase == "compress":
         # the encode stages of the timers before spans stay disjoint
         legacy = sorted((a, b) for n in ("parse", "dispatch", "encode")
