@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero):
   1. card: name and power limit;
-  2. build: the nineteen CUDA kernels from fastqueeze_tpu_torch/csrc;
+  2. build: the twenty CUDA kernels from fastqueeze_tpu_torch/csrc;
   3. kernels: each against its plain PyTorch version on the card at the
      main paths' shapes, bit-equal, with times (CUDA events, warmed):
      frozen K1-K4 at L = 4096 lanes, T = 6144 waves (a 50 MB block of
@@ -89,12 +89,16 @@ Phases (any failure raises and exits non-zero):
      us a wave printed) == route (a) and K4; both == the plain version on
      the first 512 waves; K19 at B = 4096, Lp = 128 over the k = 14 index
      in 4 key-range shards == its plain version, beside K8's tier 1, with
-     its device ms by phase beside the collectives' kernels;
+     its device ms by phase beside the collectives' kernels; the frozen
+     trainer's card scorer as --nll runs it (below): K20 and narrow_rows
+     each against its plain version, with times and bounds;
   4. frozen end to end: a seeded ~72 MB FASTQ (300,000 x 100 bp reads
      sampled from a random 100 Mbp genome) through the CLI's compress
-     and decompress, compared byte for byte; K1-K4 and the transfer
-     packs K15-K17 must have launched and the native host coder must not
-     have run;
+     and decompress, compared byte for byte; K1-K4, the transfer
+     packs K15-K17 and the card scorer's kernels (K13's halves,
+     narrow_rows, K20) must have launched, the trainer must have scored
+     its tables on the card (qctx_card_scores, no qctx_host_scores) and
+     the native host coder must not have run;
   5. oracle: the same input compressed with FASTQUEEZE_FROZEN_EXEC=host
      (the native coder, bit-identical to the JAX package's device path)
      must give the same archive, and it decodes on the card;
@@ -124,7 +128,8 @@ Phases (any failure raises and exits non-zero):
  10. paired-end, no reference, CLI defaults: 150,000 pairs of 100 bp
      (~72 MB, frozen path, 2 blocks; mate 2 the reverse complement ending
      200-500 bp after mate 1's start; identical SRA IDs) through
-     -c -1 r1 -2 r2 and -d: _1/_2 byte-exact, K1-K4 launched, no native
+     -c -1 r1 -2 r2 and -d: _1/_2 byte-exact, K1-K4 and the card
+     scorer's kernels launched, its tables scored on the card, no native
      coder call, and the archive equals the FASTQUEEZE_FROZEN_EXEC=host
      one, which decodes on the card;
  11. paired-end against phase 8's ref.fa with -I 500: 150,000 such pairs,
@@ -240,6 +245,22 @@ the three tables) against its plain version, with CUDA-event and device
 times and bounds, and B15's call split on the three meshes, as JSON, then
 the last line above; copied into an older tree's checkout it times that
 tree's row pass and B15 call in a fresh process.
+
+    python3 chip_smoke.py --nll
+
+runs phases 1-2 and the frozen trainer's card scorer (pipeline/frozen.py
+_CardScorer) at a default compress's shapes: over R_MAIN reads of Markov
+qualities (40 values) split into the holdout's halves, the fqz formula's
+table (2^16 x 40), a rank chain (k = 3, 64,000 x 40) and a hashed one
+(k = 4, 2^18 x 40) trained on the even half by K13's row half with inc
+and narrowed (narrow_rows), and K20 (hist_nll) over the odd half's
+histogram, and the order-10 seq table (2^20 x 4, u8) over its weights
+mantissa-bucketed (mbits 0, 3, 2): each == its plain version bit for
+bit and np.sum of K20's terms == frozen._hist_nll_bits, with CUDA-event
+and device ms (torch.profiler) beside its bound; then _select_qctx on
+that sample with the host scorer and with the card scorer (the same
+choice, each one's seconds and its bz2-9 pricing's), as JSON, then the
+last line above.
 
     python3 chip_smoke.py --sass NAME [NAME...] [--out DIR]
 
@@ -1713,6 +1734,191 @@ def rows_main() -> int:
     return 0
 
 
+# --nll: the frozen trainer's card scorer (K20, narrow_rows, K13's row
+# half with inc) at a default compress's shapes, and _select_qctx with
+# each scorer
+NLL = {}
+
+
+def _nll_sample(rng):
+    """(rank symbols, read lengths) of R_MAIN reads of Markov qualities:
+    the sample the card scorer uploads."""
+    q = _markov_quals(rng, R_MAIN).reshape(-1) - 35
+    return q.astype(np.uint8), np.full(R_MAIN, READ_LEN, np.int64)
+
+
+def _nll_bytes(counts, hist, n_terms: int) -> int:
+    """K20's bound, the function's least traffic: the table and the
+    histogram read once, 8 B a term written (the kernel reads the row
+    totals and the table's counts at the nonzero cells again over it)."""
+    return _nbytes(counts, hist) + 8 * n_terms
+
+
+def _check_nll_one(tag: str, counts, hist, mbits: int) -> dict:
+    """K20 on (counts, hist) on the card against its plain version on
+    the CPU (terms and stat bit-equal; np.sum of the terms ==
+    frozen._hist_nll_bits), CUDA-event and device ms and its bound."""
+    import torch
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.pipeline import frozen
+    hc = hist.cpu()
+    n_terms = int((hc > 0).sum())
+    tab = frozen._log2_table(8192 * 64, counts.device)
+    got, gstat = kernels.hist_nll(counts, hist, tab, mbits, n_terms)
+    want, wstat = kernels.hist_nll(counts.cpu(), hc, tab.cpu(), mbits,
+                                   n_terms)
+    n = int(wstat[0])
+    if not (torch.equal(gstat.cpu(), wstat)
+            and torch.equal(got[:n].cpu(), want[:n])):
+        raise AssertionError(f"hist_nll {tag}: kernel differs from its "
+                             f"plain version")
+    host = frozen._host_table(counts)
+    if mbits:
+        host = frozen._mant_bucket(host, mbits).astype(host.dtype)
+    cost = float(np.sum(got[:n].cpu().numpy()))
+    if cost != frozen._hist_nll_bits(host, hc.numpy()):
+        raise AssertionError(f"hist_nll {tag}: cost differs from "
+                             f"_hist_nll_bits")
+    ms = _time_each(lambda _: kernels.hist_nll(counts, hist, tab, mbits,
+                                               n_terms), range(5))
+    plain_ms = _time_ms(lambda: kernels.hist_nll_plain(
+        counts, hist, tab, mbits, n_terms), 1)
+    split = _device_split(lambda: kernels.hist_nll(counts, hist, tab,
+                                                   mbits, n_terms), reps=3)
+    dev_ms = sum(v for k, v in split.items()
+                 if k in ("nll_rows", "nll_tile"))
+    bound = _nll_bytes(counts, hist, n) / HBM_BPS * 1e3
+    r = {"shape": list(hist.shape), "mbits": mbits, "terms": n,
+         "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+         "device_ms_by_kernel": split, "bound_ms": bound,
+         "bytes": _nll_bytes(counts, hist, n)}
+    print(f"  {tag:28s} hist_nll {tuple(hist.shape)} mbits {mbits}: "
+          f"{n} terms, == plain and _hist_nll_bits; {ms:.4f} ms (events), "
+          f"device {dev_ms:.4f} ms, bound {bound:.4f} ms; "
+          f"{json.dumps(split)}")
+    return r
+
+
+def check_nll() -> dict:
+    """The card scorer's kernels at _nll_sample's shapes (see --nll in
+    the module docstring); fills NLL and BOUNDS (hist_nll: the seq
+    table's, the largest; narrow_rows: the hashed chain's) and returns
+    the kernels table's rows: {tag: {kernel: (max_abs_err, ms,
+    plain_ms)}}."""
+    import dataclasses
+    import time
+    import torch
+    from fastqueeze_tpu_torch.config import CodecParams
+    from fastqueeze_tpu_torch.models.base import QualModel, SeqModel
+    from fastqueeze_tpu_torch.ops import kernels
+    from fastqueeze_tpu_torch.pipeline import frozen
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 24)
+    qs, lens = _nll_sample(rng)
+    A = 40
+    sc = frozen._CardScorer(CodecParams(), QualModel(alphabet=A),
+                            np.zeros((1, A), np.int32), lambda: qs, lens,
+                            True, 2.0, 2.0 * qs.size, dev)
+    models = {
+        "fqz_q2_A40": QualModel(alphabet=A, init=1, inc=16, qlevel=2),
+        "chain_k3_A40": QualModel(alphabet=A, init=1, inc=16, qlevel=2, k=3,
+                                  ctx_base=40),
+        "hash_k4_18_A40": QualModel(alphabet=A, init=1, inc=16, qlevel=2,
+                                    k=4, ctx_base=40, hash_bits=18)}
+    table = {}
+    for tag, m in models.items():
+        hists = sc.scheme(m)
+        t = kernels.train_rows_sum([hists.train], m, m.inc)
+        want = kernels.train_rows_sum([hists.train.cpu()], m, m.inc)
+        if not torch.equal(t.cpu(), want):
+            raise AssertionError(f"train_rows_sum inc {tag}")
+        if not np.array_equal(want.numpy(), frozen._cap_rescale(
+                m, hists.train.cpu().numpy().copy())):
+            raise AssertionError(f"train_rows_sum inc {tag} != _cap_rescale")
+        rows_ms = _time_each(lambda _: kernels.train_rows_sum(
+            [hists.train], m, m.inc), range(5))
+        tn = kernels.narrow_rows(t, 2)
+        if not torch.equal(tn.cpu(), kernels.narrow_rows(t.cpu(), 2)):
+            raise AssertionError(f"narrow_rows {tag}")
+        nar_ms = _time_each(lambda _: kernels.narrow_rows(t, 2), range(5))
+        nar_plain_ms = _time_ms(lambda: kernels.narrow_rows_plain(t, 2), 1)
+        r = _check_nll_one(tag, tn, hists.eval, 0)
+        r["rows_inc_ms"] = rows_ms
+        r["rows_bound_ms"] = 2 * _nbytes(t) / HBM_BPS * 1e3
+        r["narrow_ms"] = nar_ms
+        r["narrow_plain_ms"] = nar_plain_ms
+        r["narrow_bound_ms"] = _nbytes(t, tn) / HBM_BPS * 1e3
+        table[f"nll_{tag}"] = {
+            "hist_nll": (0, r["ms"], r["plain_ms"]),
+            "narrow_rows": (0, nar_ms, nar_plain_ms)}
+        BOUNDS["narrow_rows"] = (_nbytes(t, tn), 0, None)
+        t0 = time.perf_counter()
+        cost, _ = sc.score(m, hists)
+        r["score_s"] = time.perf_counter() - t0
+        print(f"  {tag:28s} row pass with inc {rows_ms:.4f} ms (bound "
+              f"{r['rows_bound_ms']:.4f}), narrow_rows {nar_ms:.4f} ms "
+              f"(bound {r['narrow_bound_ms']:.4f}); the whole score "
+              f"{r['score_s']:.3f} s (bz2-9 pricing on the host in it)")
+        NLL[tag] = r
+    seq = SeqModel(alphabet=4, init=3, inc=1, cap=253, order=10)
+    shist = rng.integers(0, 60, (seq.n_ctx, 4)).astype(np.int32)
+    counts = frozen._narrow_np(frozen._cap_rescale(seq, shist), seq.cap)
+    st = torch.from_numpy(counts).to(dev)
+    sh = torch.from_numpy(shist).to(dev)
+    for mbits in (0, 3, 2):
+        tag = f"seq_order10_m{mbits}"
+        r = NLL[tag] = _check_nll_one(tag, st, sh, mbits)
+        table[f"nll_{tag}"] = {"hist_nll": (0, r["ms"], r["plain_ms"])}
+    BOUNDS["hist_nll"] = (NLL["seq_order10_m0"]["bytes"], 0, None)
+    # _select_qctx on this sample: the host scorer (the parent's path),
+    # then the card scorer
+    from fastqueeze_tpu_torch.io import native
+    from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+    qraw = (qs + 33).astype(np.uint8)
+    lut = np.full(256, 255, np.uint8)
+    lut[33:33 + A] = np.arange(A, dtype=np.uint8)
+    qm = QualModel(alphabet=A, qlevel=2)
+    qhist = native.qual_hist(qs, lens, 2, qm.drop_init, A)
+    sel = {}
+    for name, device in (("host", "cpu"), ("card", dev)):
+        p = CodecParams()
+        dbg = DebugInfo()
+        t0 = time.perf_counter()
+        with dbg.span("train.qctx"):
+            counts, _, _ = frozen._select_qctx(
+                p, dataclasses.replace(qm, init=p.qual_init,
+                                       inc=p.qual_inc, cap=p.qual_cap),
+                qhist, lambda: qs, lens, 2 * qs.size, A,
+                native_args=(qraw, lens, 1, lut), device=device)
+        sel[name] = {"s": time.perf_counter() - t0,
+                     "price_s": dbg.vals["train.qctx.price_s"],
+                     "scores": dbg.vals.get(f"qctx_{name}_scores"),
+                     "qctx": [getattr(p, f) for f in frozen._QCTX_FIELDS],
+                     "table": counts}
+        print(f"  _select_qctx, {name} scorer: {sel[name]['s']:.3f} s, "
+              f"bz2-9 pricing {sel[name]['price_s']:.3f} s, "
+              f"{sel[name]['scores']} scores, qctx {sel[name]['qctx']}")
+    if (sel["host"]["qctx"] != sel["card"]["qctx"]
+            or not np.array_equal(sel["host"]["table"],
+                                  sel["card"]["table"])):
+        raise AssertionError("_select_qctx: the scorers chose differently")
+    NLL["select_qctx"] = {k: {kk: vv for kk, vv in v.items()
+                              if kk != "table"} for k, v in sel.items()}
+    return table
+
+
+def nll_main() -> int:
+    """--nll: phases 1-2, then check_nll; no other kernel and no
+    end-to-end phase."""
+    card()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    build()
+    check_nll()
+    print(json.dumps({"nll": NLL}))
+    _ok_line()
+    return 0
+
+
 CTX_PLAIN_T = 512     # K18's plain version runs this many waves
 CTX_GROUPS = 2        # K18's several-card route: groups of shards, one card
 K18_SPLIT = {}        # K18's device ms by route and kernel (torch.profiler)
@@ -2658,6 +2864,19 @@ _SEMI_PATH = ("semi_encode_walk", "rans_encode_sf", "compact_words",
 # every decode packs its grid (K16) and a 6-bit quality grid also as
 # nibbles + exceptions (K17)
 _PACKS = ("unpack_grid", "pack_grid", "pack15")
+# the frozen trainer's card scorer (pipeline/frozen.py _CardScorer): every
+# CLI-default frozen training on the card scores its tables by K13's
+# halves, narrow_rows and K20
+_TRAIN_PATH = ("train_hist", "train_rows_sum", "narrow_rows", "hist_nll")
+
+
+def _scored_on_card(stats, what: str) -> None:
+    """The trainer of a frozen compress scored its tables on the card."""
+    if stats.get("qctx_card_scores", 0) < 1 or "qctx_host_scores" in stats:
+        raise AssertionError(f"{what}: the trainer did not score on the "
+                             f"card: {stats.get('qctx_card_scores')} card, "
+                             f"{stats.get('qctx_host_scores')} host scores")
+    print(f"{what}: {stats['qctx_card_scores']} tables scored on the card")
 
 
 def _input(tmp: str, name: str, R: int, ids: str = "sra") -> str:
@@ -2914,7 +3133,9 @@ def frozen_end_to_end(tmp: str, totals) -> None:
     print("phase 4-5: frozen path")
     fq = _input(tmp, "in.fq", 300_000)      # the archive names its input
     arc = os.path.join(tmp, "frozen.fqz")
-    _drive(fq, 300_000, arc, [], _FROZEN_PATH + _PACKS, totals)
+    _, stats = _drive(fq, 300_000, arc, [],
+                      _FROZEN_PATH + _PACKS + _TRAIN_PATH, totals)
+    _scored_on_card(stats, "frozen path")
     _oracle(fq, arc, [], "FASTQUEEZE_FROZEN_EXEC")
     os.remove(fq)
 
@@ -3090,7 +3311,9 @@ def _pe_no_ref(tmp: str, genome, fq1: str, fq2: str, totals):
     print(f"input pairs_1.fq / pairs_2.fq: {R_PAIRS} pairs, {size} bytes "
           f"({time.time() - t0:.1f} s to generate)")
     arc = os.path.join(tmp, "pairs.fqz")
-    _drive(fq1, 2 * R_PAIRS, arc, [], _FROZEN_PATH, totals, fq2=fq2)
+    _, stats = _drive(fq1, 2 * R_PAIRS, arc, [], _FROZEN_PATH + _TRAIN_PATH,
+                      totals, fq2=fq2)
+    _scored_on_card(stats, "paired-end")
     with ArcReader(arc) as r:
         if len(r.blocks) < 2 or r.model_blob is None:
             raise AssertionError("expected a frozen PE archive of >= 2 "
@@ -3866,6 +4089,10 @@ _REPLACES = {
                          "fastqueeze_tpu/parallel/mesh.py:250"),
     "sharded_align": ("fastqueeze_tpu_torch/csrc/sharded_align.cu",
                       "fastqueeze_tpu/parallel/mesh.py:201"),
+    "hist_nll": ("fastqueeze_tpu_torch/csrc/hist_nll.cu",
+                 "fastqueeze_tpu/pipeline/frozen.py:278"),
+    "narrow_rows": ("fastqueeze_tpu_torch/csrc/hist_nll.cu",
+                    "fastqueeze_tpu/pipeline/frozen.py:734"),
 }
 
 
@@ -4043,6 +4270,7 @@ def main() -> int:
     check_row_pass(rows)
     b15_split()
     rows.update(check_ctx_shard_kernel())
+    rows.update(check_nll())
     genome = _genome()
     rows.update(check_align_kernels(genome))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -4067,7 +4295,8 @@ def main() -> int:
                **rows["train_split_seq_order10"],
                **rows["rows_seq_order10"],
                **rows[f"qual_q3_D{MESH_SHARDS}"],
-               **rows[f"k14_sharded_D{MESH_SHARDS}"])
+               **rows[f"k14_sharded_D{MESH_SHARDS}"],
+               **rows["nll_hash_k4_18_A40"], **rows["nll_seq_order10_m0"])
     seq["pack_grid"] = rows["markov40_mode6"]["pack_grid"]
     BOUNDS["rescue_indel_fused"] = BOUNDS["k22_fused"]
     for tag in ("k14_fused", "k22_fused", "lr1024"):
@@ -4174,6 +4403,9 @@ def main() -> int:
     by_name["sharded_align"]["k8_tier1_ms"] = {
         "fwd": rows["k14_fwd"]["align_batch"][1],
         "rc": rows["k14_rc"]["align_batch"][1]}
+    # K20 on every table (device ms and bound), narrow_rows and the row
+    # pass with inc on the quality tables, _select_qctx by scorer
+    by_name["hist_nll"]["by_table"] = NLL
     print(f"copies of one stream (phase 3): {json.dumps(COPY)}")
     print(json.dumps({"aligner_runs": ALIGN_RUNS}))
     print(f"unpack_grid launches by pack mode (phases 4-18): "
@@ -4445,6 +4677,8 @@ if __name__ == "__main__":
         sys.exit(shards_main())
     if sys.argv[1:2] == ["--rows"]:
         sys.exit(rows_main())
+    if sys.argv[1:2] == ["--nll"]:
+        sys.exit(nll_main())
     if sys.argv[1:2] == ["--sass"]:
         args = sys.argv[2:]
         out = _opt("--out") or "sass"

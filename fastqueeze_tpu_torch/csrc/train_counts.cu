@@ -23,11 +23,15 @@
 // same exact histogram in any order; padding slots add nothing.
 //
 // The row pass (rows_finalize) turns raw counts into the trained table:
-// the sum of nb partial tables of the same rows, + init, then (c + 1) >> 1
-// while the row total is over cap, at most 24 times (the rescale of
-// fastqueeze_tpu/ops/engine.py _train_counts, and the psum over 'block'
-// plus the rescale of fastqueeze_tpu/parallel/mesh.py
-// train_counts_sharded's local_train, B15).  It is bound by bytes: each
+// the sum of nb partial tables of the same rows, times inc, + init, then
+// (c + 1) >> 1 while the row total is over cap, at most 24 times (the
+// rescale of fastqueeze_tpu/ops/engine.py _train_counts, and the psum
+// over 'block' plus the rescale of fastqueeze_tpu/parallel/mesh.py
+// train_counts_sharded's local_train, B15).  The histograms above add inc
+// a slot, so their row passes take inc 1; the frozen trainer's card
+// scorer (pipeline/frozen.py _CardScorer) keeps raw histograms and weighs
+// them by each candidate's inc here (frozen._cap_rescale).  It is bound
+// by bytes: each
 // partial read once, the table written once, (nb + 1) x 4 B an entry;
 // the 24 rounds cost nothing once the row is in registers.  So a row's
 // counts go from one load to one store in registers, with A a template
@@ -94,7 +98,7 @@ struct RowParts {
 template <int AC, int G, int V, int P>
 __global__ void __launch_bounds__(kRowThreads)
 rows_finalize(RowParts parts, int32_t nb, int32_t* out, int64_t n_rows,
-              int32_t a_rt, int32_t init, int32_t cap) {
+              int32_t a_rt, int32_t inc, int32_t init, int32_t cap) {
     const int32_t A = AC ? AC : a_rt;
     const int32_t pieces = A / V;
     const int64_t t = int64_t(blockIdx.x) * kRowThreads + threadIdx.x;
@@ -144,7 +148,7 @@ rows_finalize(RowParts parts, int32_t nb, int32_t* out, int64_t n_rows,
         return c;
     };
 #pragma unroll
-    for (int k = 0; k < P * V; ++k) v[k] += init;
+    for (int k = 0; k < P * V; ++k) v[k] = v[k] * inc + init;
     int64_t C = total();
     for (int32_t h = 0; h < 24 && C > cap; ++h) {
 #pragma unroll
@@ -190,12 +194,14 @@ int run_hist(const uint8_t* syms, const int32_t* cgrid, int32_t J,
 
 template <int AC, int G, int V, int P>
 int launch_rows(const RowParts& rp, int32_t nb, int32_t* out, int64_t n_rows,
-                int32_t A, int32_t init, int32_t cap, cudaStream_t st) {
+                int32_t A, int32_t inc, int32_t init, int32_t cap,
+                cudaStream_t st) {
     static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: 1..32, 2^k");
     constexpr int64_t kRows = kRowThreads / G;       // rows a block
     const int64_t blocks = (n_rows + kRows - 1) / kRows;
     rows_finalize<AC, G, V, P><<<static_cast<unsigned>(blocks), kRowThreads,
-                                 0, st>>>(rp, nb, out, n_rows, A, init, cap);
+                                 0, st>>>(rp, nb, out, n_rows, A, inc, init,
+                                          cap);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -205,8 +211,8 @@ bool aligned16(const void* p) {
 
 // out (n_rows, A) = the row pass over parts[0..nb) (each (n_rows, A)).
 int run_rows(const int32_t* const* parts, int32_t nb, int32_t* out,
-             int64_t n_rows, int32_t A, int32_t init, int32_t cap,
-             cudaStream_t st) {
+             int64_t n_rows, int32_t A, int32_t inc, int32_t init,
+             int32_t cap, cudaStream_t st) {
     if (nb < 1 || nb > kMaxParts || A < 1 || A > 256)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_rows <= 0) return 0;
@@ -217,22 +223,25 @@ int run_rows(const int32_t* const* parts, int32_t nb, int32_t* out,
         vec = vec && aligned16(parts[b]);
     }
     if (A == 4 && vec)
-        return launch_rows<4, 1, 4, 1>(rp, nb, out, n_rows, A, init, cap, st);
+        return launch_rows<4, 1, 4, 1>(rp, nb, out, n_rows, A, inc, init,
+                                       cap, st);
     if (A == 40 && vec)
-        return launch_rows<40, 4, 4, 3>(rp, nb, out, n_rows, A, init, cap,
-                                        st);
+        return launch_rows<40, 4, 4, 3>(rp, nb, out, n_rows, A, inc, init,
+                                        cap, st);
     if (A == 48 && vec)
-        return launch_rows<48, 4, 4, 3>(rp, nb, out, n_rows, A, init, cap,
-                                        st);
+        return launch_rows<48, 4, 4, 3>(rp, nb, out, n_rows, A, inc, init,
+                                        cap, st);
     if (A == 41)
-        return launch_rows<41, 8, 1, 6>(rp, nb, out, n_rows, A, init, cap,
-                                        st);
+        return launch_rows<41, 8, 1, 6>(rp, nb, out, n_rows, A, inc, init,
+                                        cap, st);
     if (A <= 16)
-        return launch_rows<0, 1, 1, 16>(rp, nb, out, n_rows, A, init, cap,
-                                        st);
+        return launch_rows<0, 1, 1, 16>(rp, nb, out, n_rows, A, inc, init,
+                                        cap, st);
     if (A <= 64)
-        return launch_rows<0, 8, 1, 8>(rp, nb, out, n_rows, A, init, cap, st);
-    return launch_rows<0, 32, 1, 8>(rp, nb, out, n_rows, A, init, cap, st);
+        return launch_rows<0, 8, 1, 8>(rp, nb, out, n_rows, A, inc, init,
+                                       cap, st);
+    return launch_rows<0, 32, 1, 8>(rp, nb, out, n_rows, A, inc, init, cap,
+                                    st);
 }
 
 }  // namespace
@@ -257,7 +266,8 @@ extern "C" int fq_train_counts(
     const int rc = run_hist(syms, cgrid, J, L, T, ctxg, A, m, inc, counts,
                             scratch, st);
     const int32_t* parts[1] = {counts};
-    return rc ? rc : run_rows(parts, 1, counts, n_ctx, A, init, cap, st);
+    return rc ? rc : run_rows(parts, 1, counts, n_ctx, A, 1, init, cap,
+                              st);
 }
 
 // The histogram half: adds inc at (ctx, sym) of every valid slot into
@@ -275,11 +285,12 @@ extern "C" int fq_train_hist(
 
 // The row pass: out (n_rows, A) int32 = the sum of the nb partials
 // parts[0..nb) (device pointers to (n_rows, A) int32, 1 <= nb <= 64; out
-// may be parts[0], in place), + init, then up to 24 halvings while the
-// row total is over cap.  1 <= A <= 256.
+// may be parts[0], in place), times inc, + init, then up to 24 halvings
+// while the row total is over cap.  1 <= A <= 256.
 extern "C" int fq_train_rows(const int32_t* const* parts, int32_t nb,
                              int32_t* out, int64_t n_rows, int32_t A,
-                             int32_t init, int32_t cap, void* stream) {
-    return run_rows(parts, nb, out, n_rows, A, init, cap,
+                             int32_t inc, int32_t init, int32_t cap,
+                             void* stream) {
+    return run_rows(parts, nb, out, n_rows, A, inc, init, cap,
                     static_cast<cudaStream_t>(stream));
 }

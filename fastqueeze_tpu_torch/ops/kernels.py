@@ -66,7 +66,15 @@ K13 train_counts       a thread per (chunk of waves, lane), the walk's
                        train_counts_sharded): the row pass sums a
                        device's block partials, adds init and halves,
                        a row's counts in registers (train_rows in place,
-                       train_rows_sum over partials)
+                       train_rows_sum over partials), weighing each
+                       count by inc where the histogram is raw
+K20 hist_nll           the code length of an evaluation histogram under a
+                       table (frozen._hist_nll_bits, the cost model of
+                       the trainer's quality contexts): the row totals,
+                       then the nonzero cells' float64 terms compacted in
+                       row-major order by tiles and K3's look-back, for
+                       the host to sum; narrow_rows: a table in the type
+                       it ships in (frozen._narrow_np), every step-th row
 Mesh (parallel/mesh.py; the collectives between launches are its own):
 K18 ctx_shard_decode   frozen decode with the table sharded by context
                        rows on K4's cluster: shards sharing a card in one
@@ -137,7 +145,8 @@ LAUNCHES: Dict[str, int] = {"quant_pack": 0, "frozen_encode_lanes": 0,
                             "unpack_grid": 0, "pack_grid": 0, "pack15": 0,
                             "train_hist": 0, "train_rows": 0,
                             "train_rows_sum": 0,
-                            "ctx_shard_decode": 0, "sharded_align": 0}
+                            "ctx_shard_decode": 0, "sharded_align": 0,
+                            "hist_nll": 0, "narrow_rows": 0}
 # K15's launches by pack mode (each also counts in LAUNCHES["unpack_grid"])
 UNPACK_MODES: Dict[int, int] = {2: 0, 4: 0, 6: 0, 15: 0, 23: 0}
 
@@ -280,7 +289,12 @@ def _lib() -> ctypes.CDLL:
             lib.fq_chunk_scratch_bytes.restype = i64
             lib.fq_frozen_decode_shape.argtypes = [i32, i32, vp]
             lib.fq_train_rows.argtypes = [vp, i32, vp, i64, i32, i32, i32,
-                                          vp]
+                                          i32, vp]
+            lib.fq_hist_nll.argtypes = [vp, i32, vp, i64, i32, i32, vp, i64,
+                                        vp, i64, vp, vp, vp]
+            lib.fq_hist_nll_scratch_bytes.argtypes = [i64, i32]
+            lib.fq_hist_nll_scratch_bytes.restype = i64
+            lib.fq_narrow_rows.argtypes = [vp, i64, i32, i32, i32, vp, vp]
             shard = [vp, vp, i64, vp, i32, i32, i32, vp, i64, i32] + spec
             lib.fq_ctx_shard_run.argtypes = shard + [i32] + [vp] * 4
             lib.fq_ctx_shard_step.argtypes = (
@@ -327,6 +341,7 @@ def _lib() -> ctypes.CDLL:
                        lib.fq_train_counts, lib.fq_rescue_indel_fused_cuda,
                        lib.fq_unpack_grid, lib.fq_pack_grid, lib.fq_pack15,
                        lib.fq_train_hist, lib.fq_train_rows,
+                       lib.fq_hist_nll, lib.fq_narrow_rows,
                        lib.fq_frozen_decode_shape, lib.fq_adapt_decode_shape,
                        lib.fq_semi_decode_shape,
                        lib.fq_ctx_shard_run, lib.fq_ctx_shard_step,
@@ -1438,9 +1453,11 @@ def train_hist(syms: torch.Tensor, cgrid: torch.Tensor, model,
     return counts
 
 
-def train_rows_plain(rows: torch.Tensor, model) -> torch.Tensor:
-    """+ init, then up to 24 halvings of every row over cap (in place)."""
-    c = rows.long() + model.init
+def train_rows_plain(rows: torch.Tensor, model,
+                     inc: int = 1) -> torch.Tensor:
+    """x inc, + init, then up to 24 halvings of every row over cap (in
+    place)."""
+    c = rows.long() * inc + model.init
     for _ in range(24):
         over = c.sum(dim=1, keepdim=True) > model.cap
         if not bool(over.any()):
@@ -1455,7 +1472,8 @@ def train_rows_plain(rows: torch.Tensor, model) -> torch.Tensor:
 ROW_MAX_PARTS = 64
 
 
-def _rows_launch(name: str, parts, out: torch.Tensor, model) -> None:
+def _rows_launch(name: str, parts, out: torch.Tensor, model,
+                 inc: int) -> None:
     for p in parts:
         _check(p, name, torch.int32, 2)
     if (any(p.shape != out.shape for p in parts)
@@ -1466,40 +1484,165 @@ def _rows_launch(name: str, parts, out: torch.Tensor, model) -> None:
                          f"up to 256, not {len(parts)} of {model.alphabet}")
     ptrs = (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts])
     _launch(_lib().fq_train_rows, name, out.device, ptrs, len(parts),
-            _ptr(out), out.shape[0], model.alphabet, model.init, model.cap)
+            _ptr(out), out.shape[0], model.alphabet, inc, model.init,
+            model.cap)
 
 
-def train_rows(rows: torch.Tensor, model) -> torch.Tensor:
-    """K13's row half on a (n_rows, A) int32 block of raw counts, in
-    place: + init, then up to 24 halvings while the row total is over
-    cap (the row pass with one partial)."""
+def train_rows(rows: torch.Tensor, model, inc: int = 1) -> torch.Tensor:
+    """K13's row half on a (n_rows, A) int32 block of counts, in place:
+    x inc (1 where the histogram already added model.inc a slot), +
+    init, then up to 24 halvings while the row total is over cap (the
+    row pass with one partial)."""
     if not _on_card(rows):
-        return train_rows_plain(rows, model)
-    _rows_launch("train_rows", [rows], rows, model)
+        return train_rows_plain(rows, model, inc)
+    _rows_launch("train_rows", [rows], rows, model, inc)
     return rows
 
 
-def train_rows_sum_plain(parts, model) -> torch.Tensor:
+def train_rows_sum_plain(parts, model, inc: int = 1) -> torch.Tensor:
     """The partials summed (int32, as a psum), then train_rows_plain."""
     acc = parts[0].clone()
     for p in parts[1:]:
         acc += p
-    return train_rows_plain(acc, model)
+    return train_rows_plain(acc, model, inc)
 
 
-def train_rows_sum(parts, model) -> torch.Tensor:
+def train_rows_sum(parts, model, inc: int = 1) -> torch.Tensor:
     """The row pass over a device's block partials (the mesh trainer's
-    reduce over 'block' and row finalize in one launch): ``parts``, 1-64
+    reduce over 'block' and row finalize in one launch), or over the
+    raw histograms of the frozen trainer's card scorer: ``parts``, 1-64
     (n_rows, A) int32 tables of the same rows on one device -> a new
-    (n_rows, A) int32 table, their sum + init, then up to 24 halvings
-    while the row total is over cap."""
+    (n_rows, A) int32 table, their sum x inc + init, then up to 24
+    halvings while the row total is over cap."""
     parts = list(parts)
     if not parts:
         raise ValueError("train_rows_sum: no partials")
     if not _on_card(*parts):
-        return train_rows_sum_plain(parts, model)
+        return train_rows_sum_plain(parts, model, inc)
     out = torch.empty_like(parts[0])
-    _rows_launch("train_rows_sum", parts, out, model)
+    _rows_launch("train_rows_sum", parts, out, model, inc)
+    return out
+
+
+# --- K20 hist_nll: the trainer's cost model; narrow_rows --------------------
+
+def _table_u64(t: torch.Tensor) -> torch.Tensor:
+    """A count table's values as int64: u8, u16 (in int16) or int32."""
+    v = t.long()
+    return v & 0xFFFF if t.dtype == torch.int16 else v
+
+
+def mant_bucket_plain(c: torch.Tensor, mbits: int) -> torch.Tensor:
+    """frozen._mant_bucket on int64 counts: each rounded down to mbits
+    significant bits, at least 1."""
+    bl = torch.zeros_like(c)
+    x = c.clamp(min=0)
+    for shift in (32, 16, 8, 4, 2, 1):
+        m = x >= (1 << shift)
+        bl = torch.where(m, bl + shift, bl)
+        x = torch.where(m, x >> shift, x)
+    bl = torch.where(c > 0, bl + 1, 0)
+    sh = (bl - mbits).clamp(min=0)
+    return torch.clamp((c >> sh) << sh, min=1)
+
+
+def hist_nll_plain(counts: torch.Tensor, hist: torch.Tensor,
+                   log2: torch.Tensor, mbits: int = 0,
+                   cap_terms: Optional[int] = None):
+    """(terms, stat) as hist_nll gives them: terms[:stat[0]] the float64
+    h x (log2[tot] - log2[c]) of the cells with h > 0 in row-major order
+    (at most cap_terms of them written), stat[1] the largest row total."""
+    c = _table_u64(counts)
+    if mbits > 0:
+        c = mant_bucket_plain(c, mbits)
+    tot = c.sum(dim=1)
+    n_tab = log2.shape[0]
+    flat = hist.reshape(-1)
+    nz = torch.nonzero(flat > 0).reshape(-1)
+    A = hist.shape[1] if hist.dim() == 2 else 1
+    lt = log2[tot[nz // A].clamp(0, n_tab - 1)]
+    lc = log2[c.reshape(-1)[nz].clamp(0, n_tab - 1)]
+    vals = flat[nz].double() * (lt - lc)
+    cap = hist.numel() if cap_terms is None else cap_terms
+    terms = torch.zeros(cap, dtype=torch.float64, device=hist.device)
+    k = min(cap, vals.numel())
+    terms[:k] = vals[:k]
+    top = int(tot.max()) if tot.numel() else 0
+    stat = torch.tensor([vals.numel(), top], dtype=torch.int64,
+                        device=hist.device)
+    return terms, stat
+
+
+def hist_nll(counts: torch.Tensor, hist: torch.Tensor, log2: torch.Tensor,
+             mbits: int = 0, cap_terms: Optional[int] = None):
+    """K20: (n_rows, A) counts (uint8, int16 holding u16, or int32), the
+    (n_rows, A) int32 evaluation histogram and a float64 table log2[v] =
+    np.log2(v) -> (terms (cap_terms,) float64, stat (2,) int64): the
+    terms h x (log2[tot] - log2[c]) of the cells with h > 0 in row-major
+    order, tot the row's total of the (mbits > 0: mantissa-bucketed)
+    counts; stat[0] the terms' count (the first cap_terms of them are
+    written), stat[1] the largest row total (the terms read log2 past
+    its end where it is not below len(log2)).  np.sum of the terms is
+    frozen._hist_nll_bits bit for bit."""
+    if not _on_card(counts, hist, log2):
+        return hist_nll_plain(counts, hist, log2, mbits, cap_terms)
+    width = _count_width(counts)
+    if counts.dim() != 2 or not counts.is_contiguous():
+        raise ValueError("hist_nll: counts want a contiguous 2-d table")
+    _check(hist, "hist", torch.int32, 2)
+    _check(log2, "log2", torch.float64, 1)
+    if counts.shape != hist.shape or log2.shape[0] < 1:
+        raise ValueError("hist_nll: shape mismatch")
+    n_rows, A = hist.shape
+    if n_rows * A >= (1 << 31):
+        raise ValueError("hist_nll: tables below 2^31 cells")
+    cap = hist.numel() if cap_terms is None else int(cap_terms)
+    dev = hist.device
+    lib = _lib()
+    scratch = torch.empty((lib.fq_hist_nll_scratch_bytes(n_rows, A),),
+                          dtype=torch.uint8, device=dev)
+    terms = torch.empty((max(cap, 1),), dtype=torch.float64, device=dev)
+    stat = torch.empty((2,), dtype=torch.int64, device=dev)
+    _launch(lib.fq_hist_nll, "hist_nll", dev, _ptr(counts), width,
+            _ptr(hist), n_rows, A, mbits, _ptr(log2), log2.shape[0],
+            _ptr(terms), cap, _ptr(stat), _ptr(scratch), count=2)
+    return terms[:cap], stat
+
+
+_NARROW = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def narrow_rows_plain(counts: torch.Tensor, width: int,
+                      step: int = 1) -> torch.Tensor:
+    """Rows 0, step, 2 step, ... of an int32 table, each count's low
+    8 (width 1: uint8) or 16 (width 2: int16 holding u16) bits, or
+    itself (width 4)."""
+    c = counts[::step]
+    if width == 1:
+        return (c & 0xFF).to(torch.uint8)
+    if width == 2:
+        return (((c & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
+    return c.clone() if step > 1 else c
+
+
+def narrow_rows(counts: torch.Tensor, width: int,
+                step: int = 1) -> torch.Tensor:
+    """A (n_rows, A) int32 table in the type it ships in (frozen.
+    _narrow_np: width 1 u8, 2 u16 in int16, 4 int32 as it is), every
+    step-th row (the every-8th-row pricing of the big tables)."""
+    if width not in _NARROW or step < 1:
+        raise ValueError(f"narrow_rows: width 1, 2 or 4 and step >= 1, not "
+                         f"{width}, {step}")
+    if not _on_card(counts):
+        return narrow_rows_plain(counts, width, step)
+    _check(counts, "counts", torch.int32, 2)
+    if width == 4 and step == 1:
+        return counts
+    n_rows, A = counts.shape
+    out = torch.empty(((n_rows + step - 1) // step, A), dtype=_NARROW[width],
+                      device=counts.device)
+    _launch(_lib().fq_narrow_rows, "narrow_rows", counts.device,
+            _ptr(counts), n_rows, A, step, width, _ptr(out))
     return out
 
 

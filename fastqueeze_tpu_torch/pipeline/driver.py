@@ -158,8 +158,8 @@ class SingleEnd:
     def train(self, blocks, prefix: List[Block], device) -> Dict:
         """Pull blocks until the training prefix is covered, parse them
         once into ``prefix`` (the encode loop reuses them), train the
-        frozen tables from the parsed arrays and upload them to
-        ``device``."""
+        frozen tables from the parsed arrays (their candidates scored on
+        ``device`` where it is a card) and upload them to ``device``."""
         from fastqueeze_tpu_torch.pipeline.blockcodec import (
             dedup_training_block)
         from fastqueeze_tpu_torch.pipeline.frozen import (
@@ -186,7 +186,8 @@ class SingleEnd:
                                for t in tblocks]
                 uq = sum(int(t.lengths.sum()) for t in tblocks)
                 est = int(est * uq / max(syms, 1))
-            frozen = train_frozen_blocks(params, tblocks, est_total_syms=est)
+            frozen = train_frozen_blocks(params, tblocks, est_total_syms=est,
+                                         device=device)
             with dbg.span("train.stage"):
                 stage_tables(frozen, params, device)
         return frozen
@@ -212,7 +213,7 @@ def train_frozen_prefix(p: CodecParams, in_path: str, device,
         if p.dedup:
             block, frac = dedup_training_block(block, p)
             est = int(est * frac)
-        frozen = train_frozen(p, block, est_total_syms=est)
+        frozen = train_frozen(p, block, est_total_syms=est, device=device)
         stage_tables(frozen, p, device)
     return frozen, serialize_frozen(frozen)
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import bz2
 import io
 import json
+import math
 import queue
 import threading
 import zlib
@@ -32,6 +33,7 @@ from fastqueeze_tpu_torch.config import CodecParams
 from fastqueeze_tpu_torch.container.encap import iter_tlv, write_tlv
 from fastqueeze_tpu_torch.io.fastq import FastqBlock
 from fastqueeze_tpu_torch.models.base import QualModel, seq_model_from_params
+from fastqueeze_tpu_torch.ops.lanes import make_layout, to_grid
 from fastqueeze_tpu_torch.utils.metrics import count, current, span, stage
 _TAG_META = 1
 _TAG_SEQ = 2
@@ -315,55 +317,402 @@ def _mant_bucket(c: np.ndarray, mbits: int) -> np.ndarray:
     return np.maximum((c64 >> sh) << sh, 1)
 
 
-def _priced(ship: np.ndarray):
-    """(bz2-9 blob size, the estimate pack it came from): every-8th-row
-    extrapolation past _BIG_TABLE (pack None), the same pricing
-    _select_qctx's score() uses.  The pack is the table's own bz2-9 blob,
-    which _pack_counts reuses when the table ships."""
-    if ship.size > _BIG_TABLE:
-        return 8 * len(_pack_counts(ship[::8], estimate=True)["blob"]), None
-    pack = _pack_counts(ship, estimate=True)
+def _priced(ship, rows=None):
+    """(bz2-9 blob size, the estimate pack it came from): a table past
+    _BIG_TABLE entries is priced as 8 x its every 8th row's blob (pack
+    None), the pricing of every table _select_qctx scores and ships.
+    ``rows(step)`` gives the host the table's every step-th row where
+    ``ship`` is not on the host (the card scorer's tables: only those rows
+    are copied).  The pack is the table's own bz2-9 blob, which
+    _pack_counts reuses when the table ships."""
+    step = 8 if math.prod(ship.shape) > _BIG_TABLE else 1
+    pack = _pack_counts(ship[::step] if rows is None else rows(step),
+                        estimate=True)
+    if step > 1:
+        return step * len(pack["blob"]), None
     return len(pack["blob"]), pack
 
 
-def _bucket_ship(counts: np.ndarray, hist: np.ndarray, scale: float):
+def _bucket_ship(counts: np.ndarray, weights, scale: float):
     """Mantissa-bucket the winning table when the blob saving beats the
     projected stream penalty (encoder-only: the bucketed table is what
     ships, both coders walk it, so there is no format change).  Fewer
     distinct count values compress 5-15% better under bz2 at a bounded
-    relative-frequency error (<= 2^-mbits).  Returns (table, its priced
-    pack or None: :func:`_priced`)."""
+    relative-frequency error (<= 2^-mbits).  ``weights.nll(mbits)``: the
+    code length of the table bucketed to mbits (0: as it is) over the
+    sample (:class:`_HostEval`, :class:`_CardEval`).  Returns (table, its
+    priced pack or None: :func:`_priced`)."""
     blob_len, best_pack = _priced(counts)
     best_c = counts
-    best_cost = _hist_nll_bits(counts, hist) / 8.0 * scale + blob_len
+    best_cost = weights.nll(0) / 8.0 * scale + blob_len
     for m in (3, 2):
         b = _mant_bucket(counts, m).astype(counts.dtype)
         blob_len, pack = _priced(b)
-        cost = _hist_nll_bits(b, hist) / 8.0 * scale + blob_len
+        cost = weights.nll(m) / 8.0 * scale + blob_len
         if cost < best_cost:
             best_cost, best_c, best_pack = cost, b, pack
     return best_c, best_pack
 
 
+def _scores_on_card(device) -> bool:
+    """Whether the trainer scores its tables on the card: on a CUDA
+    device, as every kernel wrapper chooses (ops/kernels.py _on_card);
+    on the CPU, or with no device, the host scores them."""
+    if device is None:
+        return False
+    import torch
+    return torch.device(device).type == "cuda"
+
+
+def _odd_reads(n_reads: int) -> np.ndarray:
+    """The holdout half of _select_qctx: a hash parity of each sampled
+    read's index.  Plain index parity aliases with PE interleaving
+    (mate1/mate2 alternate) and any other period-2 structure; native
+    fq_qctx_hist3 splits by the same hash."""
+    ridx = np.arange(n_reads, dtype=np.uint32)
+    return (((ridx * np.uint32(2654435761)) >> np.uint32(16)) & 1).astype(
+        bool)
+
+
+def _narrow_width(cap: int) -> int:
+    """Bytes a count of a table capped at ``cap`` ships in (_narrow_np)."""
+    return 1 if cap < (1 << 8) else (2 if cap < (1 << 16) else 4)
+
+
+def _host_table(t) -> np.ndarray:
+    """A card table (kernels.narrow_rows) on the host, u16 as uint16."""
+    a = t.cpu().numpy()
+    return a.view(np.uint16) if a.dtype == np.int16 else a
+
+
+def _log2_table(n: int, device):
+    """float64 log2(v) for v < n (at least 1024) on ``device``, filled by
+    np.log2, so the card reads numpy's values."""
+    import torch
+    with np.errstate(divide="ignore"):
+        v = np.log2(np.arange(max(n, 1024), dtype=np.float64))
+    return torch.from_numpy(v).to(device)
+
+
+def _card_nll(table, hist, n_terms: int, mbits: int = 0,
+              tab_hint: int = 0) -> float:
+    """_hist_nll_bits of ``table`` (mantissa-bucketed where mbits > 0)
+    over ``hist``, both on one device (K20): the terms there, their sum
+    here by np.sum, so the float is numpy's bit for bit.  ``n_terms``
+    bounds the nonzero cells of ``hist`` (its symbols or cells)."""
+    from fastqueeze_tpu_torch.ops import kernels
+    tab = _log2_table(tab_hint, hist.device)
+    while True:
+        terms, stat = kernels.hist_nll(table, hist, tab, mbits, n_terms)
+        n, top = stat.tolist()
+        if top < tab.shape[0]:
+            break
+        tab = _log2_table(top + 1, hist.device)
+    if n > n_terms:
+        raise RuntimeError(f"hist_nll: {n} terms, room for {n_terms}")
+    return float(np.sum(terms[:n].cpu().numpy()))
+
+
+class _HostEval:
+    """The weights of a table's bucket choice (:func:`_bucket_ship`) on
+    the host: :meth:`nll` is the code length of the table, bucketed to
+    mbits, over the histogram (_hist_nll_bits), on the thread that asks."""
+
+    def __init__(self, table: np.ndarray, hist: np.ndarray):
+        self.table, self.hist, self.shape = table, hist, np.shape(hist)
+
+    def score(self) -> None:
+        """Nothing to launch."""
+
+    def nll(self, mbits: int) -> float:
+        t = self.table
+        if mbits:
+            t = _mant_bucket(t, mbits).astype(t.dtype)
+        return _hist_nll_bits(t, self.hist)
+
+
+class _CardEval:
+    """The weights of a table's bucket choice (:func:`_bucket_ship`) on
+    the card: :meth:`score`, on the thread that launches the trainer's
+    kernels, gives the code lengths of the table and of its 3- and 2-bit
+    mantissa buckets over the histogram (K20); :meth:`nll` reads them on
+    any thread (the packing thread waits for them)."""
+
+    def __init__(self, table, hist, n_terms: int, tab_hint: int = 0):
+        self.shape = tuple(hist.shape)
+        self._args = (table, hist, n_terms, tab_hint)
+        self._nlls = Future()
+
+    def score(self) -> None:
+        table, hist, n_terms, hint = self._args
+        self._args = None
+        try:
+            self._nlls.set_result({m: _card_nll(table, hist, n_terms, m, hint)
+                                   for m in (0, 3, 2)})
+        except BaseException as e:
+            self._nlls.set_exception(e)
+            raise
+
+    def nll(self, mbits: int) -> float:
+        return self._nlls.result()[mbits]
+
+
+def _seq_weights(counts: np.ndarray, hist: np.ndarray, device):
+    """The seq table's bucket weights: a :class:`_HostEval`, or on a CUDA
+    ``device`` a :class:`_CardEval` of the table and histogram copied to
+    the card (its :meth:`_CardEval.score` is the caller's)."""
+    if not _scores_on_card(device):
+        return _HostEval(counts, hist)
+    import torch
+    from fastqueeze_tpu_torch.ops.engine import resolve_device
+    dev = resolve_device(device)
+    t = np.ascontiguousarray(counts)
+    t = torch.from_numpy(t.view(np.int16) if t.dtype == np.uint16 else t)
+    return _CardEval(t.to(dev), torch.from_numpy(
+        np.ascontiguousarray(hist, np.int32)).to(dev),
+        min(hist.size, int(np.count_nonzero(hist))))
+
+
+class _HostScorer:
+    """_select_qctx's scoring on the host: each scheme's histograms by the
+    native pass (NumPy's where the library is missing), the table by
+    _cap_rescale and _narrow_np, its cost by _hist_nll_bits."""
+
+    def __init__(self, qhist, qsyms_fn, lengths, holdout: bool,
+                 scale: float, proj_syms: float, native_args):
+        self.qhist, self.qsyms_fn, self.lengths = qhist, qsyms_fn, lengths
+        self.holdout, self.scale, self.proj = holdout, scale, proj_syms
+        self.native_args = native_args
+        self._qs = self._mB = None
+
+    def sampled(self):
+        if self._qs is None:
+            self._qs = self.qsyms_fn().astype(np.int32)
+            self._mB = np.repeat(_odd_reads(len(self.lengths)),
+                                 self.lengths)
+        return self._qs, self._mB
+
+    def _native_pair(self, model):
+        """One native pass -> (full_hist, odd_half_hist), or None."""
+        from fastqueeze_tpu_torch.io import native
+        if self.native_args is None:
+            return None
+        qraw, lens_full, stride, lut = self.native_args
+        return native.qctx_hist(
+            qraw, lens_full, stride, lut, model.alphabet, model.k,
+            model.ctx_base or 1, model.drop_bits, model.pos_bits,
+            model.drop_init, hash_bits=model.hash_bits,
+            qlevel=model.qlevel, n_ctx=model.n_ctx, holdout=True)
+
+    def _hists(self, model, full_hist, hB=None):
+        """(train_hist, eval_hist, eval_scale, whole-sample hist):
+        full/full in-sample, A/B on holdout."""
+        if not self.holdout:
+            return full_hist, full_hist, self.scale, full_hist
+        if hB is None:
+            qs, mB = self.sampled()
+            ctx = qual_ctx_flat(model, qs, self.lengths)
+            n = model.n_ctx * model.alphabet
+            key = ctx * model.alphabet + qs
+            hB = np.bincount(key[mB], minlength=n)[:n].reshape(
+                model.n_ctx, model.alphabet)
+        # the host mirror and the native trainer walk identical
+        # contexts (cross-checked in tests); clip is belt-and-braces.
+        # In-place max: the deep-chain hists are 300+ MB arrays
+        hA = np.subtract(full_hist, hB)
+        np.maximum(hA, 0, out=hA)
+        nB = int(hB.sum())
+        return hA, hB, self.proj / max(nB, 1), full_hist
+
+    def probe(self, model):
+        pair = self._native_pair(model) if self.holdout else None
+        return self._hists(model, np.asarray(self.qhist),
+                           pair[1] if pair is not None else None)
+
+    def scheme(self, model):
+        from fastqueeze_tpu_torch.io import native
+        chist = chist_b = None
+        if self.native_args is not None:
+            if self.holdout:
+                pair = self._native_pair(model)
+                if pair is not None:
+                    chist, chist_b = pair
+            else:
+                qraw, lens_full, stride, lut = self.native_args
+                chist = native.qctx_hist(
+                    qraw, lens_full, stride, lut, model.alphabet, model.k,
+                    model.ctx_base, model.drop_bits, model.pos_bits,
+                    model.drop_init, hash_bits=model.hash_bits)
+        if chist is None:
+            qs, _ = self.sampled()
+            ctx = qual_ctx_flat(model, qs, self.lengths)
+            n = model.n_ctx * model.alphabet
+            chist = np.bincount(
+                ctx * model.alphabet + qs.astype(np.int64),
+                minlength=n)[:n].reshape(model.n_ctx, model.alphabet)
+        return self._hists(model, chist, chist_b)
+
+    def score(self, model, hists):
+        """(cost, the shipped table): the projected stream bits of the
+        table trained on the train half, over the eval half, in bytes,
+        plus the bz2-9 size of the table trained on the whole sample."""
+        train_hist, eval_hist, eval_scale, ship_hist = hists
+        count("qctx_host_scores")
+        counts = _narrow_np(
+            _cap_rescale(model, np.array(train_hist, np.int32)),
+            model.cap)
+        ship = counts if ship_hist is train_hist else _narrow_np(
+            _cap_rescale(model, np.array(ship_hist, np.int32)), model.cap)
+        with span("train.qctx.price"):
+            blob_len = _priced(ship)[0]
+        return (_hist_nll_bits(counts, eval_hist) / 8.0 * eval_scale
+                + blob_len, ship)
+
+    def result(self, ship, hists, scale: float):
+        return ship, _HostEval(ship, hists[3]), scale
+
+
+class _CardHists:
+    """A scheme's histograms on the card: the table is trained on
+    ``train``, scored over ``eval`` (its symbols projected by
+    ``eval_scale``), shipped from the sum of ``ship``; ``whole``: the
+    whole sample's histogram where it is on the card already."""
+
+    def __init__(self, model, train, eval_, eval_scale, ship, whole):
+        self.model, self.train, self.eval = model, train, eval_
+        self.eval_scale, self.ship, self.whole = eval_scale, ship, whole
+
+
+class _CardScorer:
+    """_select_qctx's scoring on the card (a CUDA device): the sampled
+    prefix's quality ranks uploaded once as K13 lane grids, the holdout's
+    even and odd reads in two; each scheme's histograms by K13's
+    histogram half at inc 1 (``train_hist``), each alpha's tables by its
+    row half weighing them by inc (``train_rows_sum``) and
+    ``narrow_rows``, each cost by K20 (``hist_nll``).  Only the table
+    bz2-9 prices (every 8th row past _BIG_TABLE) comes to the host; the
+    costs are the host scorer's floats, bit for bit."""
+
+    def __init__(self, p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
+                 holdout: bool, scale: float, proj_syms: float, device):
+        from fastqueeze_tpu_torch.ops.engine import resolve_device
+        self.dev = resolve_device(device)
+        self.qhist, self.holdout, self.scale = qhist, holdout, scale
+        self.sample = int(np.asarray(qhist).sum())
+        self._qhist_dev = None
+        qs = np.asarray(qsyms_fn(), np.uint8)
+        lens = np.asarray(lengths, np.int64)
+        if holdout:
+            odd = _odd_reads(len(lens))
+            mB = np.repeat(odd, lens)
+            self.grids = [self._grid(p, qs[~mB], lens[~odd]),
+                          self._grid(p, qs[mB], lens[odd])]
+            self.n_eval = int(lens[odd].sum())
+            self.eval_scale = proj_syms / max(self.n_eval, 1)
+        else:
+            self.grids = [self._grid(p, qs, lens)]
+            self.n_eval = self.sample
+            self.eval_scale = scale
+
+    def _grid(self, p: CodecParams, flat, lens):
+        """(symbols, read lengths) of a K13 grid on the card.  The symbols
+        go as bytes: packing them for the copy (engine._upload_grid)
+        takes the host ~70 ms a grid of 11 M symbols, the copy of the
+        bytes a few."""
+        import torch
+        from fastqueeze_tpu_torch.ops import engine
+        L = p.n_lanes(int(lens.sum()))
+        grid = to_grid(make_layout(lens, L), flat)
+        return (torch.from_numpy(grid).to(self.dev),
+                torch.from_numpy(engine._counts_grid(lens, L)).to(self.dev))
+
+    def _hist(self, model, grids):
+        """The raw (inc 1) histogram of the model's contexts over grids."""
+        import dataclasses
+        import torch
+        from fastqueeze_tpu_torch.ops import kernels
+        one = dataclasses.replace(model, inc=1)
+        h = torch.zeros((model.n_ctx, model.alphabet), dtype=torch.int32,
+                        device=self.dev)
+        for syms, cg in grids:
+            kernels.train_hist(syms, cg, one, h)
+        return h
+
+    def _qhist(self):
+        if self._qhist_dev is None:
+            import torch
+            self._qhist_dev = torch.from_numpy(
+                np.ascontiguousarray(self.qhist, np.int32)).to(self.dev)
+        return self._qhist_dev
+
+    def probe(self, model):
+        q = self._qhist()
+        if not self.holdout:
+            return _CardHists(model, q, q, self.eval_scale, [q], q)
+        return _CardHists(model, self._hist(model, self.grids[:1]),
+                          self._hist(model, self.grids[1:]),
+                          self.eval_scale, [q], q)
+
+    def scheme(self, model):
+        if not self.holdout:
+            h = self._hist(model, self.grids)
+            return _CardHists(model, h, h, self.eval_scale, [h], h)
+        hA = self._hist(model, self.grids[:1])
+        hB = self._hist(model, self.grids[1:])
+        return _CardHists(model, hA, hB, self.eval_scale, [hA, hB], None)
+
+    def score(self, model, hists):
+        from fastqueeze_tpu_torch.ops import kernels
+        count("qctx_card_scores")
+        width = _narrow_width(model.cap)
+        t = kernels.train_rows_sum([hists.train], model, model.inc)
+        counts = kernels.narrow_rows(t, width)
+        if len(hists.ship) == 1 and hists.ship[0] is hists.train:
+            s, ship = t, counts
+        else:
+            s = kernels.train_rows_sum(hists.ship, model, model.inc)
+            ship = kernels.narrow_rows(s, width)
+
+        def rows(step):
+            return _host_table(ship if step == 1
+                               else kernels.narrow_rows(s, width, step))
+
+        with span("train.qctx.price"):
+            blob_len = _priced(ship, rows)[0]
+        nll = _card_nll(counts, hists.eval,
+                        min(hists.eval.numel(), self.n_eval), 0,
+                        model.cap + model.alphabet + 1)
+        return nll / 8.0 * hists.eval_scale + blob_len, ship
+
+    def result(self, ship, hists, scale: float):
+        """(the winner's table on the host, its bucket weights: a
+        :class:`_CardEval` over the whole sample's histogram, scale)."""
+        whole = hists.whole
+        if whole is None:
+            whole = self._hist(hists.model, self.grids)
+        m = hists.model
+        return (_host_table(ship),
+                _CardEval(ship, whole, min(whole.numel(), self.sample),
+                          m.cap + m.alphabet + 1), scale)
+
+
 def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
                  est_total_syms: int, A_train: int,
-                 native_args=None):
+                 native_args=None, device=None):
     """Train-time quality-context selection (no reference equivalent).
 
     Compares the fqzcomp-formula table (already trained, `qhist`) against a
     rank-chain candidate on the same sample: projected stream bits (static
     NLL scaled to the estimated total symbol count) + serialized table
     size.  Winner's scheme is written into CodecParams (serialized in
-    PARAM, like qmax) and its table returned as (counts, hist, scale) for
-    :func:`_ship_qual` (hist None: the table ships as it is).  `qsyms_fn`
-    lazily yields the sampled rank symbols (the fused native trainer never
-    materializes them; only pay when a candidate exists)."""
-    from fastqueeze_tpu_torch.io import native
-
-    # _cap_rescale mutates int32 hists in place (native fast path), and the
-    # raw histograms are still needed below as NLL weights — rescale copies
-    base_counts = _narrow_np(
-        _cap_rescale(qmodel, np.array(qhist, np.int32)), qmodel.cap)
+    PARAM, like qmax) and its table returned as (counts, weights, scale)
+    for :func:`_ship_qual` (weights None: the table ships as it is; else
+    the scorer's :class:`_HostEval` or :class:`_CardEval`).  `qsyms_fn` lazily yields
+    the sampled rank symbols (the fused native trainer never materializes
+    them; only pay when a candidate exists).  On a CUDA ``device`` the
+    card scores the tables (:class:`_CardScorer`), else the host
+    (:class:`_HostScorer`); both give the same floats, so the same
+    choice."""
     forced = p.qctx_k >= 2
     if forced:
         cands = [(p.qctx_k, p.qctx_drop_bits, p.qctx_pos_bits,
@@ -380,7 +729,10 @@ def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
     else:
         cands = []
     if not cands:
-        return base_counts, None, 1.0
+        # _cap_rescale mutates int32 hists in place (native fast path):
+        # rescale a copy
+        return _narrow_np(_cap_rescale(qmodel, np.array(qhist, np.int32)),
+                          qmodel.cap), None, 1.0
     sample = int(qhist.sum())
     scale = max(est_total_syms, sample) / max(sample, 1)
     proj_syms = sample * scale
@@ -392,98 +744,33 @@ def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
     # projected to the full input.  In-sample is exact only when the
     # table was trained on essentially the whole input (scale ~1).
     holdout = proj_syms > 1.1 * sample
-    qsyms_cache = hold_mask = None
-
-    def sampled():
-        nonlocal qsyms_cache, hold_mask
-        if qsyms_cache is None:
-            qsyms_cache = qsyms_fn().astype(np.int32)
-            # hash-parity split: plain index parity aliases with PE
-            # interleaving (mate1/mate2 alternate) and any other
-            # period-2 structure
-            ridx = np.arange(len(lengths), dtype=np.uint32)
-            odd = ((ridx * np.uint32(2654435761)) >> np.uint32(16)) & 1
-            hold_mask = np.repeat(odd.astype(bool), lengths)
-        return qsyms_cache, hold_mask
-
-    def native_pair(model):
-        """One native pass -> (full_hist, odd_half_hist), or None."""
-        if native_args is None:
-            return None
-        qraw, lens_full, stride, lut = native_args
-        return native.qctx_hist(
-            qraw, lens_full, stride, lut, model.alphabet, model.k,
-            model.ctx_base or 1, model.drop_bits, model.pos_bits,
-            model.drop_init, hash_bits=model.hash_bits,
-            qlevel=model.qlevel, n_ctx=model.n_ctx, holdout=True)
-
-    def model_hists(model, full_hist, hB=None):
-        """(train_hist, eval_hist): full/full in-sample, A/B on holdout."""
-        if not holdout:
-            return full_hist, full_hist, 1.0
-        if hB is None:
-            qs, mB = sampled()
-            ctx = qual_ctx_flat(model, qs, lengths)
-            n = model.n_ctx * model.alphabet
-            key = ctx * model.alphabet + qs
-            hB = np.bincount(key[mB], minlength=n)[:n].reshape(
-                model.n_ctx, model.alphabet)
-            if full_hist is None:
-                hA = np.bincount(key[~mB], minlength=n)[:n].reshape(
-                    model.n_ctx, model.alphabet)
-                nB = int(hB.sum())
-                return hA, hB, proj_syms / max(nB, 1)
-        # the host mirror and the native trainer walk identical
-        # contexts (cross-checked in tests); clip is belt-and-braces.
-        # In-place max: the deep-chain hists are 300+ MB arrays
-        hA = np.subtract(full_hist, hB)
-        np.maximum(hA, 0, out=hA)
-        nB = int(hB.sum())
-        return hA, hB, proj_syms / max(nB, 1)
-
-    def score(model, train_hist, eval_hist, eval_scale, ship_hist):
-        counts = _narrow_np(
-            _cap_rescale(model, np.array(train_hist, np.int32)),
-            model.cap)
-        ship = counts if ship_hist is train_hist else _narrow_np(
-            _cap_rescale(model, np.array(ship_hist, np.int32)), model.cap)
-        if ship.size > _BIG_TABLE:
-            # compressing a multi-hundred-MB table costs seconds; rows
-            # are hash-distributed, so every-8th-row compression
-            # extrapolates the blob size (~15% high on bz2 — a
-            # deterministic, conservative bias against the very tables
-            # whose scoring pass is also the most expensive)
-            blob_len = 8 * len(_pack_counts(ship[::8],
-                                            estimate=True)["blob"])
-        else:
-            blob_len = len(_pack_counts(ship, estimate=True)["blob"])
-        return (_hist_nll_bits(counts, eval_hist) / 8.0 * eval_scale
-                + blob_len, ship)
+    if _scores_on_card(device):
+        scorer = _CardScorer(p, qmodel, qhist, qsyms_fn, lengths, holdout,
+                             scale, proj_syms, device)
+    else:
+        scorer = _HostScorer(qhist, qsyms_fn, lengths, holdout, scale,
+                             proj_syms, native_args)
 
     best = None
     if not forced:
         bprobe = QualModel(alphabet=qmodel.alphabet, qlevel=p.qlevel,
                            drop_init=p.q_drop_init)
-        bpair = native_pair(bprobe) if holdout else None
-        hA, hB, esc = model_hists(bprobe, np.asarray(qhist),
-                                  bpair[1] if bpair is not None else None)
+        hists = scorer.probe(bprobe)
         for a in alphas:
             bm = QualModel(alphabet=qmodel.alphabet,
                            init=a[0] or p.qual_init,
                            inc=a[1] or p.qual_inc, cap=qmodel.cap,
                            qlevel=p.qlevel, drop_init=p.q_drop_init)
-            cost, counts = score(bm, hA, hB, esc if holdout else scale,
-                                 np.asarray(qhist))
+            cost, table = scorer.score(bm, hists)
             if best is None or cost < best[0]:
-                best = (cost, None, a, counts,
-                        np.asarray(qhist))
+                best = (cost, None, a, table, hists)
     # Candidate ladder: the list is ordered shallow -> deep (and narrow ->
     # wide hash for equal depth).  Deep candidates (the k >= 5 hashed
     # chains) are scored with ONLY the best alpha found so far (their
     # table-vs-stream tradeoff is dominated by the conditioning depth,
     # not the pseudo-counts), and after `_LADDER_DRY` consecutive deep
     # candidates fail to improve the running best, the rest are skipped —
-    # each deep score costs a full pass + cap-rescale + zlib over a
+    # each deep score costs a full pass + cap-rescale + bz2 over a
     # multi-hundred-MB table pair, so an unbounded sweep would dominate
     # train time.
     dry = 0
@@ -504,25 +791,7 @@ def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
         if (not forced and entries > _BIG_TABLE
                 and proj_syms < entries // 2):
             continue
-        chist = chist_b = None
-        if native_args is not None:
-            if holdout:
-                pair = native_pair(probe)
-                if pair is not None:
-                    chist, chist_b = pair
-            else:
-                qraw, lens_full, stride, lut = native_args
-                chist = native.qctx_hist(qraw, lens_full, stride, lut,
-                                         probe.alphabet, k, base, db, pb,
-                                         probe.drop_init, hash_bits=hb)
-        if chist is None:
-            qs, _ = sampled()
-            ctx = qual_ctx_flat(probe, qs, lengths)
-            n = probe.n_ctx * probe.alphabet
-            chist = np.bincount(
-                ctx * probe.alphabet + qs.astype(np.int64),
-                minlength=n)[:n].reshape(probe.n_ctx, probe.alphabet)
-        hA, hB, esc = model_hists(probe, chist, chist_b)
+        hists = scorer.scheme(probe)
         cand_alphas = alphas
         if deep and best is not None:
             cand_alphas = [best[2]]
@@ -534,31 +803,29 @@ def _select_qctx(p: CodecParams, qmodel, qhist, qsyms_fn, lengths,
                              qlevel=p.qlevel, drop_init=p.q_drop_init,
                              k=k, ctx_base=base, drop_bits=db,
                              pos_bits=pb, hash_bits=hb)
-            cost, counts = score(cand, hA, hB, esc if holdout else scale,
-                                 chist)
+            cost, table = scorer.score(cand, hists)
             if best is None or cost < best[0]:
-                best = (cost, (k, db, pb, hb), a, counts,
-                        chist)
+                best = (cost, (k, db, pb, hb), a, table, hists)
                 improved = True
         if deep:
             dry = 0 if improved else dry + 1
-    _, scheme, alpha, counts, whist = best
+    _, scheme, alpha, table, hists = best
     if scheme is not None:
         p.qctx_k, p.qctx_base = scheme[0], base
         p.qctx_drop_bits, p.qctx_pos_bits = scheme[1], scheme[2]
         p.qctx_hash_bits = scheme[3]
     if not forced:
         p.qctx_init, p.qctx_inc = alpha
-    return counts, whist, scale
+    return scorer.result(table, hists, scale)
 
 
-def _ship_qual(counts: np.ndarray, whist: Optional[np.ndarray],
-               scale: float):
+def _ship_qual(counts: np.ndarray, weights, scale: float):
     """The quality table _select_qctx chose, mantissa-bucketed where that
     pays, and its priced pack (_bucket_ship; None where it was not
-    priced)."""
-    if whist is not None and whist.shape == counts.shape:
-        return _bucket_ship(counts, whist, scale)
+    priced).  The weights are scored here, on the calling thread."""
+    if weights is not None and tuple(weights.shape) == counts.shape:
+        weights.score()
+        return _bucket_ship(counts, weights, scale)
     return counts, None
 
 
@@ -596,16 +863,16 @@ class _Packing:
             except BaseException as e:
                 self._error = e
 
-    def ship_seq(self, counts: np.ndarray, hist: np.ndarray,
+    def ship_seq(self, counts: np.ndarray, weights,
                  scale: float) -> Future:
-        """Queue the seq table's bucket choice (:func:`_bucket_ship`) and
-        pack, as the first job; the Future holds the shipped table as
-        soon as it is chosen."""
+        """Queue the seq table's bucket choice (:func:`_bucket_ship`, by
+        ``weights``) and pack, as the first job; the Future holds the
+        shipped table as soon as it is chosen."""
         table = Future()
 
         def job():
             try:
-                ship, priced = _bucket_ship(counts, hist, scale)
+                ship, priced = _bucket_ship(counts, weights, scale)
             except BaseException as e:
                 table.set_exception(e)
                 raise
@@ -637,6 +904,17 @@ class _Packing:
         if self._error is not None:
             raise self._error
         return self._packs["seq"], self._packs["qual"]
+
+
+def _ship_seq(packing: _Packing, counts: np.ndarray, hist: np.ndarray,
+              scale: float, device) -> Future:
+    """Queue the seq table's bucket choice and pack on the packing
+    thread; on a CUDA ``device`` the code lengths it weighs are the card's,
+    launched here while the thread prices the tables."""
+    weights = _seq_weights(counts, hist, device)
+    table = packing.ship_seq(counts, weights, scale)
+    weights.score()
+    return table
 
 
 def _shipped(packing: _Packing, seq_table: Future, qual, qmax: int,
@@ -676,9 +954,11 @@ def _train_key_params(p: CodecParams) -> bytes:
 
 def train_frozen(p: CodecParams, block: FastqBlock,
                  target_syms: int = 16 << 20,
-                 est_total_syms: int = 0) -> Dict:
+                 est_total_syms: int = 0, device=None) -> Dict:
     """Train seq + qual frozen tables from a prefix block (host bincount).
-    Memoized on (block content, params, projection)."""
+    Memoized on (block content, params, projection); a CUDA ``device``
+    scores the candidate tables on the card (_select_qctx), which gives
+    the same tables, so the device is not in the memo's key."""
     import hashlib
     h = hashlib.md5()
     h.update(block.seq_flat.tobytes())
@@ -693,7 +973,8 @@ def train_frozen(p: CodecParams, block: FastqBlock,
         for f, v in chosen:
             setattr(p, f, v)
         return frozen
-    frozen = _train_frozen_impl(p, block, target_syms, est_total_syms)
+    frozen = _train_frozen_impl(p, block, target_syms, est_total_syms,
+                                device)
     chosen = [(f, getattr(p, f)) for f in _QCTX_FIELDS]
     _TRAIN_CACHE[key] = (frozen, chosen)
     # _select_qctx wrote the chosen qctx_* scheme into p, so the NEXT
@@ -711,7 +992,7 @@ def train_frozen(p: CodecParams, block: FastqBlock,
 
 def _train_frozen_impl(p: CodecParams, block: FastqBlock,
                        target_syms: int = 16 << 20,
-                       est_total_syms: int = 0) -> Dict:
+                       est_total_syms: int = 0, device=None) -> Dict:
     from fastqueeze_tpu_torch.config import SEQ_CTX_START
     from fastqueeze_tpu_torch.io import native
     from fastqueeze_tpu_torch.pipeline.blockcodec import _BASE_MAP
@@ -752,15 +1033,15 @@ def _train_frozen_impl(p: CodecParams, block: FastqBlock,
             with span("train.ship"):
                 sscale = (max(est_total_syms, int(shist.sum()))
                           / max(int(shist.sum()), 1))
-                seq_table = packing.ship_seq(
-                    _narrow_np(_cap_rescale(seq_model, shist),
-                               seq_model.cap), shist, sscale)
+                seq_table = _ship_seq(packing, _narrow_np(
+                    _cap_rescale(seq_model, shist), seq_model.cap), shist,
+                    sscale, device)
             with span("train.qctx"):
                 qual = _select_qctx(
                     p, qmodel, qhist, sampled_qsyms, lens_s, est_total_syms,
                     len(qvals),
                     native_args=(block.qual_flat, block.lengths, stride,
-                                 lut))
+                                 lut), device=device)
             with span("train.ship"):
                 return _shipped(packing, seq_table, qual, qmax, qvals)
 
@@ -803,32 +1084,34 @@ def _train_frozen_impl(p: CodecParams, block: FastqBlock,
             # the model cap allows; the engine widens to int32 on device
             sscale = (max(est_total_syms, int(hist.sum()))
                       / max(int(hist.sum()), 1))
-            seq_table = packing.ship_seq(
-                _narrow_np(seq_counts, seq_model.cap), hist, sscale)
+            seq_table = _ship_seq(packing, _narrow_np(
+                seq_counts, seq_model.cap), hist, sscale, device)
         with span("train.qctx"):
             qual = _select_qctx(
                 p, qmodel, qhist, lambda: qsyms, lengths, est_total_syms,
                 len(qvals),
                 native_args=(qsyms, lengths, 1,
-                             np.arange(256, dtype=np.uint8)))
+                             np.arange(256, dtype=np.uint8)),
+                device=device)
         with span("train.ship"):
             return _shipped(packing, seq_table, qual, qmax, qvals)
 
 
 def train_frozen_blocks(p: CodecParams, blocks,
                         target_syms: int = 16 << 20,
-                        est_total_syms: int = 0) -> Dict:
+                        est_total_syms: int = 0, device=None) -> Dict:
     """Train from already-parsed blocks (the driver reuses the prefix
     blocks for both training and encoding — no second read/parse pass)."""
     if len(blocks) == 1:
-        return train_frozen(p, blocks[0], target_syms, est_total_syms)
+        return train_frozen(p, blocks[0], target_syms, est_total_syms,
+                            device)
     combo = FastqBlock(
         n_reads=sum(b.n_reads for b in blocks), ids=[], plus=[],
         seq_flat=np.concatenate([b.seq_flat for b in blocks]),
         qual_flat=np.concatenate([b.qual_flat for b in blocks]),
         lengths=np.concatenate([b.lengths for b in blocks]),
         raw_len=0, final_newline=True)
-    return train_frozen(p, combo, target_syms, est_total_syms)
+    return train_frozen(p, combo, target_syms, est_total_syms, device)
 
 
 def _narrow_np(counts: np.ndarray, cap: int) -> np.ndarray:

@@ -373,7 +373,8 @@ def train_pairs(p: CodecParams, b1: FastqBlock, b2: FastqBlock,
         with dbg.span("train.dedup"):
             merged, frac = dedup_training_block(merged, p)
         est = int(est * frac)
-    frozen = train_frozen_blocks(p, [merged], est_total_syms=est)
+    frozen = train_frozen_blocks(p, [merged], est_total_syms=est,
+                                 device=device)
     with dbg.span("train.stage"):
         stage_tables(frozen, p, device)
     return frozen

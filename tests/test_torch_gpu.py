@@ -8,6 +8,8 @@ These run only on a machine with a CUDA card (they skip elsewhere):
 use.)  Integer kernels, so every comparison is bit-exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -2395,3 +2397,197 @@ def test_compact_words_frozen_grid_matches_plain(cuda):
     for _ in range(2):
         out, cnt = kernels.compact_words(words, emit)
         assert int(cnt.item()) == k and torch.equal(out[:k], want[:k])
+
+
+# --- the frozen trainer's card scorer: K20, narrow_rows, K13 with inc --------
+
+def _nll_case(rng, dtype, n_rows, A, hi):
+    c = rng.integers(0, hi, (n_rows, A)).astype(dtype)
+    c[:2, :3] = 0
+    h = rng.integers(0, 5, (n_rows, A)).astype(np.int32)
+    h[h < 3] = 0
+    h[5:40] = 0
+    t = torch.from_numpy(c.view(np.int16) if dtype == np.uint16 else c)
+    return c, t, torch.from_numpy(h)
+
+
+@pytest.mark.parametrize("mbits", [0, 3, 2])
+@pytest.mark.parametrize("dtype, n_rows, A, hi", [
+    (np.uint8, 1 << 20, 4, 254), (np.uint16, 65536, 40, 9000),
+    (np.uint16, 4099, 41, 9000), (np.int32, 1 << 18, 40, 1 << 17),
+    (np.uint16, 3, 8, 100), (np.uint16, 0, 40, 100)])
+def test_hist_nll_matches_plain(cuda, dtype, n_rows, A, hi, mbits):
+    """K20 == its plain version bit for bit (terms and stat), on tables of
+    every count type, row counts across tiles and an empty table; the
+    terms' np.sum == frozen._hist_nll_bits; a histogram one int32 past a
+    16-byte boundary (scalar loads) gives the same."""
+    from fastqueeze_tpu_torch.pipeline import frozen
+    rng = np.random.default_rng(n_rows + A + mbits)
+    c, t, h = _nll_case(rng, dtype, n_rows, A, hi)
+    tab = frozen._log2_table(int(kernels._table_u64(t).sum(1).max()) + 1
+                             if n_rows else 1, "cpu")
+    cap = max(1, int(np.count_nonzero(h.numpy())))
+    want, wstat = kernels.hist_nll(t, h, tab, mbits, cap)
+    kernels.reset_launch_counts()
+    got, gstat = kernels.hist_nll(t.to(cuda), h.to(cuda), tab.to(cuda),
+                                  mbits, cap)
+    assert kernels.LAUNCHES["hist_nll"] == 2
+    n = int(wstat[0])
+    assert torch.equal(gstat.cpu(), wstat)
+    assert torch.equal(got[:n].cpu(), want[:n])
+    b = c if mbits == 0 else frozen._mant_bucket(c, mbits).astype(c.dtype)
+    assert float(np.sum(got[:n].cpu().numpy())) == frozen._hist_nll_bits(
+        b, h.numpy())
+    buf = torch.zeros(h.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = buf[1:].view(h.shape)
+    shifted.copy_(h)
+    got2, gstat2 = kernels.hist_nll(t.to(cuda), shifted, tab.to(cuda),
+                                    mbits, cap)
+    assert torch.equal(gstat2, gstat) and torch.equal(got2[:n], got[:n])
+
+
+def test_hist_nll_keeps_to_its_room(cuda):
+    """Fewer terms' room than nonzero cells: the count is the whole
+    count, the first room terms are written and none past them."""
+    rng = np.random.default_rng(3)
+    _, t, h = _nll_case(rng, np.uint16, 5000, 40, 9000)
+    from fastqueeze_tpu_torch.pipeline import frozen
+    tab = frozen._log2_table(9000 * 40, cuda)
+    full, stat = kernels.hist_nll(t.to(cuda), h.to(cuda), tab, 0)
+    n = int(stat[0].item())
+    part, pstat = kernels.hist_nll(t.to(cuda), h.to(cuda), tab, 0, n // 2)
+    assert int(pstat[0].item()) == n and part.numel() == n // 2
+    assert torch.equal(part, full[:n // 2])
+
+
+@pytest.mark.parametrize("width, step", [(1, 1), (2, 1), (2, 8), (4, 1),
+                                         (4, 8), (1, 3)])
+def test_narrow_rows_matches_plain(cuda, width, step):
+    rng = np.random.default_rng(width * 10 + step)
+    c = torch.from_numpy(rng.integers(0, 1 << 18, (70001, 41)).astype(
+        np.int32))
+    want = kernels.narrow_rows(c, width, step)
+    got = kernels.narrow_rows(c.to(cuda), width, step)
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("inc", [8, 16, 24])
+@pytest.mark.parametrize("A", sorted(_ROW_MODELS))
+def test_row_pass_with_inc_matches_plain(cuda, A, inc):
+    """The row pass weighing raw counts by inc (the card scorer's alphas)
+    == its plain version and frozen._cap_rescale, in place and over two
+    partials."""
+    from fastqueeze_tpu_torch.pipeline import frozen
+    model = _ROW_MODELS[A]
+    parts = _row_partials(model, 2, 1027, seed=A + inc)
+    parts = [p // inc for p in parts]
+    want = kernels.train_rows_sum(parts, model, inc)
+    got = kernels.train_rows_sum([p.to(cuda) for p in parts], model, inc)
+    assert torch.equal(got.cpu(), want)
+    rescaled = frozen._cap_rescale(
+        dataclasses.replace(model, inc=inc), (parts[0] + parts[1]).numpy())
+    assert np.array_equal(want.numpy(), rescaled)
+    one = (parts[0] + parts[1]).to(cuda)
+    assert torch.equal(kernels.train_rows(one, model, inc).cpu(), want)
+
+
+def _bench_reads(seed, n, **kw):
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    from fqbench import gen
+    reads = dict(kind="se", length=100, genome_bp=10_000_000,
+                 sub_rate=0.01, n_rate=0.001, qual_states=40, ids="sra")
+    reads.update(kw)
+    return gen.make_files(seed, n, reads)
+
+
+def test_card_grids_give_the_native_histograms(cuda):
+    """The card scorer's K13 histograms over its even and odd lane grids
+    == native.qctx_hist's full and odd-half histograms (the host scorer's)
+    for the fqz formula and every rank-chain candidate of 40 quality
+    values, at a stride-sampled prefix of 100,000 reads."""
+    from fastqueeze_tpu_torch.io import native
+    from fastqueeze_tpu_torch.io.fastq import parse_block
+    from fastqueeze_tpu_torch.pipeline import frozen
+    b = parse_block(_bench_reads(4, 100_000)[0].tobytes(), True)
+    qvals, lut = frozen.qual_vocab(b.qual_flat)
+    A = frozen._qual_alphabet(len(qvals) - 1)
+    stride = 3
+    keep = frozen._sample_keep(b.n_reads, stride)
+    qs = lut[b.qual_flat[np.repeat(keep, b.lengths)]]
+    sc = frozen._CardScorer(CodecParams(), QualModel(alphabet=A),
+                            np.zeros((1, A), np.int32), lambda: qs,
+                            b.lengths[keep], True, 1.0, 2.0, cuda)
+    for k, db, pb, hb in [(0, 0, 0, 0)] + frozen._qctx_candidates(
+            len(qvals)):
+        m = QualModel(alphabet=A, qlevel=2, k=k, ctx_base=len(qvals),
+                      drop_bits=db, pos_bits=pb, hash_bits=hb)
+        full, odd = native.qctx_hist(
+            b.qual_flat, b.lengths, stride, lut, A, k, m.ctx_base or 1, db,
+            pb, m.drop_init, hash_bits=hb, qlevel=m.qlevel, n_ctx=m.n_ctx,
+            holdout=True)
+        hA = sc._hist(m, sc.grids[:1]).cpu().numpy()
+        hB = sc._hist(m, sc.grids[1:]).cpu().numpy()
+        assert np.array_equal(hB, odd), (k, db, pb, hb)
+        assert np.array_equal(hA + hB, full), (k, db, pb, hb)
+
+
+@pytest.mark.parametrize("kind", ["se", "pe"])
+def test_card_scorer_archive_is_the_host_ones(cuda, tmp_path, kind,
+                                              monkeypatch):
+    """A two-block compress on the card (its candidates scored there)
+    and with the host scorer: the same SHA-256, the same costs in the
+    same order, every score counted on its side; the archive decodes."""
+    import hashlib
+
+    from fastqueeze_tpu_torch.pipeline import driver, frozen, pe
+    from fastqueeze_tpu_torch.utils.metrics import DebugInfo
+    n = 30_000
+    files = (_bench_reads(8, n) if kind == "se" else _bench_reads(
+        8, n, kind="pe", insert_min=200, insert_max=500))
+    paths = []
+    for i, f in enumerate(files):
+        paths.append(str(tmp_path / f"in_{i}.fq"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(f.tobytes())
+    block = files[0].size // 2 + 1000
+    out, costs, dbgs = {}, {}, {}
+    for card in (True, False):
+        monkeypatch.setattr(frozen, "_TRAIN_CACHE", {})
+        monkeypatch.setattr(frozen, "_scores_on_card", lambda d, c=card: c)
+        cls = frozen._CardScorer if card else frozen._HostScorer
+        score = cls.score
+        costs[card] = []
+
+        def kept(self, model, hists, _s=score, _c=costs[card]):
+            r = _s(self, model, hists)
+            _c.append(r[0])
+            return r
+
+        monkeypatch.setattr(cls, "score", kept)
+        p = CodecParams(use_model=1, model_train_mb=3, block_bytes=block)
+        arc = str(tmp_path / f"{kind}_{card}.fqz")
+        dbgs[card] = DebugInfo()
+        if kind == "se":
+            r = driver.compress_se(p, paths[0], arc, dbg=dbgs[card],
+                                   device=cuda)
+        else:
+            r = pe.compress_pe(p, paths[0], paths[1], arc, dbg=dbgs[card],
+                               device=cuda)
+        assert r["blocks"] >= 2
+        monkeypatch.setattr(cls, "score", score)
+        with open(arc, "rb") as fh:
+            out[card] = hashlib.sha256(fh.read()).hexdigest()
+    assert out[True] == out[False]
+    assert costs[True] == costs[False] and costs[True]
+    assert dbgs[True].vals["qctx_card_scores"] == len(costs[True])
+    assert "qctx_host_scores" not in dbgs[True].vals
+    assert dbgs[False].vals["qctx_host_scores"] == len(costs[False])
+    assert "qctx_card_scores" not in dbgs[False].vals
+    back = driver.decompress(str(tmp_path / f"{kind}_True.fqz"),
+                             str(tmp_path / "back"), device=cuda)
+    for got, want in zip(back, paths):
+        with open(got, "rb") as a, open(want, "rb") as b:
+            assert a.read() == b.read()

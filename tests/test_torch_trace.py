@@ -6,7 +6,11 @@ the PE path as an ``fq.<stage>`` range on the thread that ran it: each
 range lasts what its span added to the DebugInfo, and each child range
 lies inside its parent.  With the profiler off no range is entered.  Under ``-t 4`` every block's stages are counted
 (no add is lost between the worker threads), and the frozen trainer's
-memos count one miss, then one hit.
+memos count one miss, then one hit.  Every table the trainer's
+quality-context selection scores counts once, as ``qctx_host_scores``
+under ``--cpu`` and as ``qctx_card_scores`` where the card scores them
+(here the card scorer forced on, its kernels' plain versions), each
+priced inside ``train.qctx.price``.
 """
 
 import json
@@ -25,7 +29,8 @@ from fastqueeze_tpu_torch.utils.metrics import SPANNED, DebugInfo
 BLOCK = 20_000      # ~12 blocks of the 1,000-read input
 
 COMPRESS = ("read", "train", "train.parse", "train.dedup", "train.hist",
-            "train.qctx", "train.ship", "train.stage", "probe",
+            "train.qctx", "train.qctx.price", "train.ship", "train.stage",
+            "probe",
             "selfref_probe", "serialize", "parse", "parse.md5", "dispatch",
             "encode", "md5", "write", "codec.dedup", "codec.vocab",
             "codec.streams", "codec.ids", "codec.plus", "codec.small",
@@ -37,7 +42,8 @@ DECOMPRESS = ("deserialize", "read", "decode", "codec.host",
 # (child, parent): the child range lies inside a parent range (-t 1)
 NESTED = {
     "compress": [(c, "train") for c in COMPRESS if c.startswith("train.")]
-    + [("parse.md5", "parse"), ("selfref_probe", "probe")]
+    + [("train.qctx.price", "train.qctx"), ("parse.md5", "parse"),
+       ("selfref_probe", "probe")]
     + [(c, "dispatch") for c in ("codec.dedup", "codec.vocab",
                                  "codec.streams", "codec.ids", "codec.plus",
                                  "codec.small")]
@@ -319,3 +325,25 @@ def test_no_add_is_lost_across_threads(traced):
     assert dd.vals["codec.wait_n"] == 2 * n       # seq, qual
     assert dd.vals["codec.host_n"] == 4 * n
     assert dd.vals["md5_n"] == 2 * n              # the block's, the file's
+
+
+def test_the_scores_are_counted_on_their_side(traced, monkeypatch):
+    """--cpu: each table _select_qctx scores is one qctx_host_scores and
+    one train.qctx.price, and no qctx_card_scores; the card scorer (on
+    the CPU, its kernels' plain versions) counts the same tables as
+    qctx_card_scores instead, and the archive is the same."""
+    d, fq, arc, runs = traced
+    vals = runs[0]["compress"][1]
+    n = vals["qctx_host_scores"]
+    assert n == vals["train.qctx.price_n"] > 1
+    assert "qctx_card_scores" not in vals
+    monkeypatch.setattr(frozen, "_TRAIN_CACHE", {})
+    monkeypatch.setattr(frozen, "_scores_on_card", lambda device: True)
+    dc = DebugInfo()
+    api.compress(fq, str(d / "card.fqz"), params=_params(), device="cpu",
+                 dbg=dc)
+    assert dc.vals["qctx_card_scores"] == n
+    assert dc.vals["train.qctx.price_n"] == n
+    assert "qctx_host_scores" not in dc.vals
+    with open(arc, "rb") as a, open(str(d / "card.fqz"), "rb") as b:
+        assert a.read() == b.read()
